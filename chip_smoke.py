@@ -1,16 +1,19 @@
 """GPU smoke run of the PyTorch port (``gaussianvi_tpu_torch``) on one card.
 
 Builds the CUDA kernels from ``gaussianvi_tpu_torch/csrc``, holds each of
-the four kernel entry points against its plain PyTorch version at the
-flagship's shapes (float64 and float32, plus the pivot-trust and
-nonneg-band guard cases), then drives the flagship NGD path
-(``examples.chain_estimation`` -> ``optimize``) at B=1024 problems, N=32
-states, dim_x=2, the 29-node degree-4 marginal rule, 10 iterations, and
-checks the result: every launch counter moved, every cost finite,
-non-increasing and positive, float32 close to float64 (see ``main``), and
-the kernel path equal to the plain path on a small batch.  Prints the timings
-with the card's name and power limit, one JSON line of per-kernel results,
-and, last, ``{"ok": true, "device": {...}}``.  Any failure raises.
+the six kernel entry points against its plain PyTorch version at the
+flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
+and negative-linear-cost guard cases), then drives the flagship NGD path
+(``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
+the 29-node degree-4 marginal rule, 10 iterations: the default
+configuration, which on the card runs the fused kernels (trials K5,
+gradient K6), at B=1024 problems, and the separate-kernel path (K1-K3) at
+B=256.  Each path's launch counters are zeroed just before it and read
+just after.  Checks the results: every cost finite, non-increasing and
+positive, float32 close to float64 (see ``main``), and the kernel paths
+equal to the plain paths on a small batch.  Prints the timings with the
+card's name and power limit, one JSON line of per-kernel results, and,
+last, ``{"ok": true, "device": {...}}``.  Any failure raises.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -23,6 +26,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
+B_SEPARATE = 256                # the separate-kernel path's batch
 TRIALS = 11                     # niters_backtrack + 1 line-search trials
 SEED = 0
 
@@ -167,7 +172,8 @@ def kernel_checks(graph_b, state_b, dev):
         errs = {"gbp_covariance_logdet": err1, "solve": err2,
                 "quad_phi": err3, "quad_moments": err4}
         for name, (ms, plain_ms) in times.items():
-            results[name] = dict(max_abs_err=errs[name], ms=ms,
+            results[name] = dict(max_abs_err=errs[name],
+                                 err_dtype="float32", ms=ms,
                                  plain_ms=plain_ms)
     return results
 
@@ -222,15 +228,223 @@ def build_batch(dtype, dev, num_problems=None):
     return stack_problems(graphs, states)
 
 
+def compare_conditioned(name, k64, p64, p32, reps=4.0):
+    """A float64 kernel output against its float64 plain version where the
+    output is ill-conditioned.  NaN patterns must be identical.  The bound
+    is 1e-10 plus ``reps`` times the float32 plain version's max error
+    against float64 scaled down to float64's epsilon: the float32 run
+    measures how far rounding moves this output.  Returns the max abs
+    error."""
+    check(torch.equal(torch.isnan(k64), torch.isnan(p64)),
+          f"{name}: NaN pattern differs")
+    fin = torch.isfinite(p64)
+    check(bool(torch.isfinite(k64[fin]).all()), f"{name}: non-finite output")
+    both = fin & torch.isfinite(p32)
+    sens = float((p32.double() - p64)[both].abs().max()) if both.any() else 0.0
+    atol = 1e-10 + reps * sens * (torch.finfo(torch.float64).eps
+                                  / torch.finfo(torch.float32).eps)
+    err = float((k64 - p64)[fin].abs().max()) if fin.any() else 0.0
+    check(err <= atol, f"{name}: max abs err {err:.3e} over {atol:.3e}")
+    return err
+
+
+def compare_vs_f64(name, k32, p32, p64, reps=4.0):
+    """A float32 kernel output held to the float64 plain version as well
+    as the float32 plain version is: it takes no more guard (NaN)
+    decisions that differ from float64's, and its max error against
+    float64 is at most ``reps`` times the plain version's (plus 1e-6 of
+    the output's range).  Returns its max abs difference from the float32
+    plain version."""
+    nan_r = torch.isnan(p64)
+    mis_k = int((torch.isnan(k32) != nan_r).sum())
+    mis_p = int((torch.isnan(p32) != nan_r).sum())
+    check(mis_k <= mis_p, f"{name}: {mis_k} NaN decisions differ from "
+          f"float64, the plain version's {mis_p}")
+    fin = torch.isfinite(k32) & torch.isfinite(p32) & torch.isfinite(p64)
+    if not fin.any():
+        return 0.0
+    k, p, r = k32.double()[fin], p32.double()[fin], p64[fin]
+    err_k = float((k - r).abs().max())
+    err_p = float((p - r).abs().max())
+    atol = 1e-6 * float(r.abs().max())
+    check(err_k <= reps * err_p + atol,
+          f"{name}: error against float64 {err_k:.3e}, the plain "
+          f"version's {err_p:.3e}")
+    return float((k - p).abs().max())
+
+
+def fused_checks(graph_b, state_b, dev):
+    """K5 and K6 against their plain versions at the flagship's shapes,
+    at the iterate five plain NGD iterations reach (Vddmu is still
+    indefinite on some problems there, so the main solve is NaN on those)
+    and in the direction the next iteration takes (dmu with its SPD
+    fallback, dprec, from K6's float64 plain version; both dtypes get the
+    same inputs).
+
+    The flagship's posterior is ill-conditioned here: the float32 plain
+    version is up to ~1% of an output's range off float64 for covariance
+    and solves, and the largest trial steps reach nearly singular
+    precisions whose E[phi] is off by more than its own size.  So float32
+    is held to float64 (:func:`compare_vs_f64`) and float64 to a bound
+    scaled by that measured sensitivity (:func:`compare_conditioned`);
+    the fixed tolerances hold in ``tests/test_torch_cuda.py`` on
+    well-conditioned inputs."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    f32, f64 = torch.float32, torch.float64
+    state, _ = optimize(graph_b[f64], state_b[f64],
+                        GVIConfig(niters=5, niters_lowtemp=5,
+                                  step_size_base=0.9, chain_impl="seq",
+                                  quad_impl="xla"))
+    iterate = (state.mu, state.precision.diag, state.precision.off)
+    ops = {dt: fused_operands(graph_b[dt]) for dt in (f32, f64)}
+    x6, x5 = {}, {}
+    for dt in (f64, f32):
+        mu, pd, po = (x.to(dt) for x in iterate)
+        x6[dt] = (mu, pd, po, torch.ones(B, dtype=dt, device=dev))
+    p6 = {f64: fg.gradient_plain(*x6[f64], *ops[f64])}
+    finite = torch.isfinite(p6[f64][5]).flatten(1).all(1)
+    check(bool(finite.any()) and not bool(finite.all()),
+          f"K6: no mix of indefinite and definite Vddmu "
+          f"({int((~finite).sum())}/{B} indefinite)")
+    direction = (torch.where(finite[:, None, None], p6[f64][5], p6[f64][6]),
+                 p6[f64][3], p6[f64][4])
+    for dt in (f64, f32):
+        mu, pd, po, _ = x6[dt]
+        dmu, dpd, dpo = (x.to(dt) for x in direction)
+        trials = 0.9 * 0.75 ** torch.arange(1, TRIALS + 1, dtype=dt,
+                                            device=dev)
+        x5[dt] = (mu, dmu, pd, po, dpd, dpo, trials)
+    p6[f32] = fg.gradient_plain(*x6[f32], *ops[f32])
+    p5 = {dt: ft.trial_costs_plain(*x5[dt], *ops[dt]) for dt in (f32, f64)}
+    k6 = {dt: fg.gradient_lanes(*x6[dt], *ops[dt]) for dt in (f32, f64)}
+    k5 = {dt: ft.trial_costs_lanes(*x5[dt], *ops[dt]) for dt in (f32, f64)}
+
+    def flat5(out):
+        return (out[0], *out[1])
+
+    names6 = ("cov_diag", "cov_off", "logdet", "dprec_diag", "dprec_off",
+              "dmu", "dmu_fallback")
+    names5 = ("logdet",) + tuple(f"costs[{i}]" for i in range(
+        len(p5[f64][1])))
+    errs = {}
+    for tag, names, k, p in (("K6", names6, k6, p6),
+                             ("K5", names5, {dt: flat5(k5[dt]) for dt in k5},
+                              {dt: flat5(p5[dt]) for dt in p5})):
+        errs[tag, f64] = max(
+            compare_conditioned(f"{tag} {nm} float64", a, b, c)
+            for nm, a, b, c in zip(names, k[f64], p[f64], p[f32]))
+        errs[tag, f32] = max(
+            compare_vs_f64(f"{tag} {nm} float32", a, b, c)
+            for nm, a, b, c in zip(names, k[f32], p[f32], p[f64]))
+    for dt in (f64, f32):
+        fused_guard_cases(dt, dev)
+        print(f"[fused kernels {str(dt)[6:]}] max abs err vs plain: "
+              f"K5 {errs['K5', dt]:.3e}  K6 {errs['K6', dt]:.3e}; "
+              f"indefinite Vddmu on {int((~finite).sum())}/{B} problems, "
+              f"{int(torch.isnan(p5[dt][0]).sum())}/{TRIALS * B} trial log "
+              f"dets poisoned", flush=True)
+    return {
+        "fused_trials": dict(
+            max_abs_err=errs["K5", f64], err_dtype="float64",
+            ms=cuda_ms(lambda: ft.trial_costs_lanes(*x5[f32], *ops[f32])),
+            plain_ms=cuda_ms(lambda: ft.trial_costs_plain(*x5[f32],
+                                                          *ops[f32]),
+                             reps=3)),
+        "fused_gradient": dict(
+            max_abs_err=errs["K6", f64], err_dtype="float64",
+            ms=cuda_ms(lambda: fg.gradient_lanes(*x6[f32], *ops[f32])),
+            plain_ms=cuda_ms(lambda: fg.gradient_plain(*x6[f32], *ops[f32]),
+                             reps=3)),
+    }
+
+
+def fused_guard_cases(dtype, dev):
+    """K5's guards agree between kernel and plain: the pivot-trust log
+    det, the nonneg band on E[phi] and a negative linear cost are each
+    poisoned in both."""
+    from gaussianvi_tpu_torch import stack_problems
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    eps = torch.finfo(dtype).eps
+    graph, state = stack_problems(*map(list, zip(*(
+        build_chain_estimation(num_states=2, dim_x=1, gh_degree=4, seed=i,
+                               dtype=dtype, device=dev)[:2]
+        for i in range(2)))))
+    nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
+    # nonneg band: every node at the mean, weights 1 and -1 - delta (inside
+    # the 4096-ulp band, above the 64-ulp cancellation threshold)
+    delta = 1e-4 if dtype == torch.float32 else 1e-13
+    start, nodes, weights, params = nl_arrays[0]
+    w = torch.zeros_like(weights)
+    w[0], w[1] = 1.0, -1.0 - delta
+    nl_arrays = ((start, torch.zeros_like(nodes), w, params),)
+    # negative linear cost: the anchor with its constant negated
+    st, a, lam, pm, pc = lin_arrays[0]
+    lin_arrays = ((st, -a, lam, pm, -pc),) + lin_arrays[1:]
+    # pivot trust: problem 0's Schur pivot D1 - B^T D0^-1 B cancels to ~1
+    # ulp; problem 1 is healthy
+    eye = torch.eye(2, dtype=dtype, device=dev)
+    pd = torch.stack([torch.stack([eye, (1 + 2 * eps) * eye]),
+                      torch.stack([eye, 2 * eye])])
+    po = torch.stack([eye[None], eye[None]])
+    trials = torch.tensor([0.5, 0.25], dtype=dtype, device=dev)
+    x = (state.mu, torch.zeros_like(state.mu), pd, po, torch.zeros_like(pd),
+         torch.zeros_like(po), trials)
+    k = ft.trial_costs_lanes(*x, nl_specs, lin_specs, nl_arrays, lin_arrays)
+    p = ft.trial_costs_plain(*x, nl_specs, lin_specs, nl_arrays, lin_arrays)
+    for ld in (k[0], p[0]):
+        check(bool(torch.isnan(ld[:, 0]).all())
+              and bool(torch.isfinite(ld[:, 1]).all()),
+              f"K5 pivot-trust case wrong ({dtype}): {ld}")
+    for fc in (k[1], p[1]):
+        check(bool(torch.isnan(fc[0]).all()),
+              f"K5 nonneg band case not poisoned ({dtype})")
+        check(bool(torch.isnan(fc[1]).all()),
+              f"K5 negative linear cost not poisoned ({dtype})")
+    check(torch.equal(torch.isnan(k[1][2]), torch.isnan(p[1][2]))
+          and bool(torch.isfinite(p[1][2][:, 1]).all()),
+          f"K5 edge costs of the guard case differ ({dtype})")
+
+
+def check_costs(name, hist, batch):
+    """Every recorded cost finite, non-increasing, the final one > 0."""
+    cost = hist.cost.double()
+    check(cost.shape == (batch, NITERS), f"{name}: history {cost.shape}")
+    check(bool(torch.isfinite(cost).all()), f"{name}: non-finite cost")
+    rises = int((cost[:, 1:] > cost[:, :-1]).sum())
+    check(rises == 0, f"{name}: {rises} recorded cost increases")
+    check(bool((cost[:, -1] > 0).all()),
+          f"{name}: {int((cost[:, -1] <= 0).sum())}/{batch} final costs <= 0"
+          f" (min {float(cost[:, -1].min()):.3e})")
+
+
+def counted(optimize_fn, *args):
+    """Run one path with every launch counter zeroed just before it and
+    read just after: ``(result, launches)``."""
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = optimize_fn(*args)
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
               "the GPU", file=sys.stderr)
         return 1
     from gaussianvi_tpu_torch import GVIConfig, optimize
-    from gaussianvi_tpu_torch.kernels import (
-        WRAPPERS, _build, launch_counts, reset_launch_counts,
-    )
+    from gaussianvi_tpu_torch.kernels import WRAPPERS, _build
     from gaussianvi_tpu_torch.ops.precision import set_precision_policy
 
     card = card_line()
@@ -249,38 +463,33 @@ def main() -> int:
     graph_b, state_b = {}, {}
     for dtype in (torch.float32, torch.float64):
         graph_b[dtype], state_b[dtype] = build_batch(dtype, dev)
-    print(f"[setup] {B} problems built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    graph_s, state_s = build_batch(torch.float32, dev, B_SEPARATE)
+    print(f"[setup] {B} + {B_SEPARATE} problems built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     kern = kernel_checks(graph_b, state_b, dev)
+    kern.update(fused_checks(graph_b, state_b, dev))
 
+    # the default configuration: on the card, the fused kernels
     cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
-    cfg_plain = GVIConfig(niters=NITERS, niters_lowtemp=NITERS,
-                          step_size_base=0.9, chain_impl="seq",
-                          quad_impl="xla")
+    cfg_sep = replace(cfg, fused_trials="off", fused_gradient="off")
+    cfg_plain = replace(cfg, chain_impl="seq", quad_impl="xla")
 
-    # ---- the main path, counted ----
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    state32, hist32 = optimize(graph_b[torch.float32], state_b[torch.float32],
-                               cfg)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    print(f"[main path] launches {launches}", flush=True)
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path was never launched: {launches}")
-
-    cost32 = hist32.cost.double()
-    check(cost32.shape == (B, NITERS), f"history shape {cost32.shape}")
-    check(bool(torch.isfinite(cost32).all()), "non-finite cost recorded")
+    # ---- the main path (fused), counted ----
+    (state32, hist32), fused_counts = counted(
+        optimize, graph_b[torch.float32], state_b[torch.float32], cfg)
+    print(f"[fused path] launches {fused_counts}", flush=True)
+    check(fused_counts["fused_trials"] == NITERS
+          and fused_counts["fused_gradient"] == NITERS,
+          f"the fused kernels did not run once per iteration: {fused_counts}")
+    check(fused_counts["gbp_covariance_logdet"] > 0
+          and fused_counts["quad_phi"] > 0,
+          f"the initial covariance / costs skipped their kernels: "
+          f"{fused_counts}")
+    check_costs("fused path", hist32, B)
     check(bool(torch.isfinite(state32.mu).all())
           and bool(torch.isfinite(state32.precision.diag).all()),
           "non-finite final state")
-    rises = int((cost32[:, 1:] > cost32[:, :-1]).sum())
-    check(rises == 0, f"{rises} recorded cost increases")
-    check(bool((cost32[:, -1] > 0).all()),
-          f"{int((cost32[:, -1] <= 0).sum())}/{B} final costs <= 0 "
-          f"(min {float(cost32[:, -1].min()):.3e})")
 
     # float32 against float64 on the card.  The line search makes discrete
     # accept / fallback decisions that float32 rounding can flip on some
@@ -290,11 +499,12 @@ def main() -> int:
     # whole history of seed 0 (the JAX package's float32-vs-float64 device
     # gate), and the batch median of the final-cost differences.
     _, hist64 = optimize(graph_b[torch.float64], state_b[torch.float64], cfg)
+    cost32 = hist32.cost.double()
     rel = (cost32 - hist64.cost).abs() / hist64.cost.abs().clamp_min(1e-12)
     rel_first = rel[:, 0].max().item()
     rel_seed0 = rel[0].max().item()
     rel_final_median = rel[:, -1].median().item()
-    print(f"[main path] f32 vs f64 relative cost difference: first record "
+    print(f"[fused path] f32 vs f64 relative cost difference: first record "
           f"max {rel_first:.3e}, seed-0 history max {rel_seed0:.3e}, final "
           f"median {rel_final_median:.3e} (final max "
           f"{rel[:, -1].max().item():.3e}, history max {rel.max().item():.3e})",
@@ -304,18 +514,36 @@ def main() -> int:
     check(rel_final_median < 1e-3,
           f"median final f32 vs f64 {rel_final_median:.3e} >= 1e-3")
 
-    # kernel path vs plain path on a small batch, float64
-    g8, s8 = build_batch(torch.float64, dev, num_problems=8)
-    _, hk = optimize(g8, s8, cfg)
-    _, hp = optimize(g8, s8, cfg_plain)
-    rel_kp = ((hk.cost - hp.cost).abs() / hp.cost.abs()).max().item()
-    print(f"[main path] kernels vs plain (f64, 8 problems) max relative cost "
-          f"difference {rel_kp:.3e}", flush=True)
-    check(rel_kp < 1e-9, f"kernel path vs plain path differ: {rel_kp:.3e}")
-    check(torch.equal(hk.accepted_step, hp.accepted_step),
-          "kernel and plain paths accepted different steps")
+    # ---- the separate-kernel path, counted ----
+    (_, hist_s), sep_counts = counted(optimize, graph_s, state_s, cfg_sep)
+    print(f"[separate path] launches {sep_counts}", flush=True)
+    sep_names = ("gbp_covariance_logdet", "solve", "quad_phi", "quad_moments")
+    check(all(sep_counts[k] > 0 for k in sep_names)
+          and sep_counts["fused_trials"] == sep_counts["fused_gradient"] == 0,
+          f"the separate path skipped a kernel: {sep_counts}")
+    check_costs("separate path", hist_s, B_SEPARATE)
 
-    # ---- throughput, kernel path vs plain path (float32) ----
+    # ---- kernels against plain versions, end to end (float64) ----
+    g8, s8 = build_batch(torch.float64, dev, num_problems=8)
+    g8c, s8c = build_batch(torch.float64, torch.device("cpu"), num_problems=8)
+    _, hk = optimize(g8, s8, cfg)
+    _, hc = optimize(g8c, s8c, replace(cfg, fused_trials="on",
+                                       fused_gradient="on"))
+    _, hs = optimize(g8, s8, cfg_sep)
+    _, hp = optimize(g8, s8, cfg_plain)
+    for name, got, want in (
+            ("fused kernels vs fused plain versions (CPU)", hk, hc),
+            ("fused kernels vs plain path", hk, hp),
+            ("separate kernels vs plain path", hs, hp)):
+        want_cost = want.cost.to(dev)
+        rel_kp = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
+        print(f"[end to end] {name} (f64, 8 problems): max relative cost "
+              f"difference {rel_kp:.3e}", flush=True)
+        check(rel_kp < 1e-9, f"{name} differ: {rel_kp:.3e}")
+        check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
+              f"{name}: different accepted steps")
+
+    # ---- throughput: fused, separate and plain paths (float32) ----
     def rate(config):
         times = []
         for _ in range(3):
@@ -326,28 +554,32 @@ def main() -> int:
             times.append(time.perf_counter() - t)
         return B * NITERS / statistics.median(times)
 
-    rate_kernel = rate(cfg)
-    rate_plain = rate(cfg_plain)
-    print(f"[throughput] {card}: kernels {rate_kernel:.1f} prob-iters/s, "
-          f"plain PyTorch {rate_plain:.1f} prob-iters/s "
-          f"(B={B}, N={N}, {NITERS} iters, f32, median of 3)", flush=True)
+    rates = {"fused": rate(cfg), "separate": rate(cfg_sep),
+             "plain": rate(cfg_plain)}
+    print(f"[throughput] {card}: fused kernels {rates['fused']:.1f}, "
+          f"separate kernels {rates['separate']:.1f}, plain PyTorch "
+          f"{rates['plain']:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, "
+          f"f32, median of 3)", flush=True)
     for name, r in kern.items():
         print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms (f32, slice shapes)", flush=True)
 
+    csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
-        "gbp_covariance_logdet": ("gaussianvi_tpu_torch/csrc/chain.cu",
-                                  "gaussianvi_tpu/kernels/chain_lanes.py:131"),
-        "solve": ("gaussianvi_tpu_torch/csrc/chain.cu",
-                  "gaussianvi_tpu/kernels/chain_lanes.py:418"),
-        "quad_phi": ("gaussianvi_tpu_torch/csrc/quad.cu",
-                     "gaussianvi_tpu/kernels/quad_lanes.py:99"),
-        "quad_moments": ("gaussianvi_tpu_torch/csrc/quad.cu",
-                         "gaussianvi_tpu/kernels/quad_lanes.py:99"),
+        "gbp_covariance_logdet": ("chain.cu", "chain_lanes.py:131", "fused"),
+        "solve": ("chain.cu", "chain_lanes.py:418", "separate"),
+        "quad_phi": ("quad.cu", "quad_lanes.py:99", "fused"),
+        "quad_moments": ("quad.cu", "quad_lanes.py:99", "separate"),
+        "fused_trials": ("fused_trials.cu", "fused_trials.py:269", "fused"),
+        "fused_gradient": ("fused_gradient.cu", "fused_gradient.py:185",
+                           "fused"),
     }
-    rows = [dict(name=name, route="cuda", source=sources[name][0],
-                 replaces=sources[name][1], launches=launches[name],
-                 max_abs_err=kern[name]["max_abs_err"], ms=kern[name]["ms"],
+    counts = {"fused": fused_counts, "separate": sep_counts}
+    rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
+                 replaces=jk + sources[name][1], path=sources[name][2],
+                 launches=counts[sources[name][2]][name],
+                 max_abs_err=kern[name]["max_abs_err"],
+                 err_dtype=kern[name]["err_dtype"], ms=kern[name]["ms"],
                  plain_ms=kern[name]["plain_ms"]) for name in WRAPPERS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

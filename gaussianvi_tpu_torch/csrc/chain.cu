@@ -24,67 +24,6 @@
 namespace gvi {
 
 template <typename T, int S>
-__device__ __forceinline__ void add_mat(const T (&a)[S][S], const T (&b)[S][S],
-                                        T (&c)[S][S]) {
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int q = 0; q < S; ++q) c[r][q] = a[r][q] + b[r][q];
-}
-
-// m = -(B^T P^{-1} B) given the Cholesky factor l of P (forward message).
-template <typename T, int S>
-__device__ __forceinline__ void fwd_message(const T (&l)[S][S],
-                                            const T (&bo)[S][S],
-                                            T (&m)[S][S]) {
-  T x[S][S];
-#pragma unroll
-  for (int col = 0; col < S; ++col) {
-    T rhs[S], sol[S];
-#pragma unroll
-    for (int r = 0; r < S; ++r) rhs[r] = bo[r][col];
-    chol_solve_vec(l, rhs, sol);
-#pragma unroll
-    for (int r = 0; r < S; ++r) x[r][col] = sol[r];
-  }
-#pragma unroll
-  for (int a = 0; a < S; ++a)
-#pragma unroll
-    for (int c = 0; c < S; ++c) {
-      T acc = bo[0][a] * x[0][c];
-#pragma unroll
-      for (int k = 1; k < S; ++k) acc = acc + bo[k][a] * x[k][c];
-      m[a][c] = -acc;
-    }
-}
-
-// m = -(B P^{-1} B^T) given the Cholesky factor l of P (backward message).
-template <typename T, int S>
-__device__ __forceinline__ void bwd_message(const T (&l)[S][S],
-                                            const T (&bo)[S][S],
-                                            T (&m)[S][S]) {
-  T x[S][S];
-#pragma unroll
-  for (int col = 0; col < S; ++col) {
-    T rhs[S], sol[S];
-#pragma unroll
-    for (int r = 0; r < S; ++r) rhs[r] = bo[col][r];
-    chol_solve_vec(l, rhs, sol);
-#pragma unroll
-    for (int r = 0; r < S; ++r) x[r][col] = sol[r];
-  }
-#pragma unroll
-  for (int a = 0; a < S; ++a)
-#pragma unroll
-    for (int c = 0; c < S; ++c) {
-      T acc = bo[a][0] * x[0][c];
-#pragma unroll
-      for (int k = 1; k < S; ++k) acc = acc + bo[a][k] * x[k][c];
-      m[a][c] = -acc;
-    }
-}
-
-template <typename T, int S>
 __global__ void __launch_bounds__(64)
 gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
            T* __restrict__ covd, T* __restrict__ covo, T* __restrict__ ld_out,
@@ -136,59 +75,24 @@ gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
   }
 
   if (n == 1) {
-    T d[S][S], l[S][S];
+    T d[S][S], l[S][S], inv[S][S];
     load_mat(diag, nb, d);
     chol(d, l);
-#pragma unroll
-    for (int col = 0; col < S; ++col) {
-      T e[S], x[S];
-#pragma unroll
-      for (int r = 0; r < S; ++r) e[r] = r == col ? T(1) : T(0);
-      chol_solve_vec(l, e, x);
-#pragma unroll
-      for (int a = 0; a < S; ++a) covd[(int64_t)(a * S + col) * nb] = x[a];
-    }
+    inv_from_chol(l, inv);
+    store_mat(covd, nb, inv);
     return;
   }
 
-  // edges: invert [[F_i, B_i], [B_i^T, G_{i+1}]] column by column
-  constexpr int S2 = 2 * S;
+  // edges: invert [[F_i, B_i], [B_i^T, G_{i+1}]]
   for (int i = 0; i < n - 1; ++i) {
-    T f[S][S], g[S][S], bo[S][S];
+    T f[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
     load_mat(fpiv + i * blk, nb, f);
     load_mat(gpiv + (i + 1) * blk, nb, g);
     load_mat(off + i * blk, nb, bo);
-    T joint[S2][S2], l[S2][S2];
-#pragma unroll
-    for (int a = 0; a < S; ++a)
-#pragma unroll
-      for (int c = 0; c < S; ++c) {
-        joint[a][c] = f[a][c];
-        joint[a][S + c] = bo[a][c];
-        joint[S + a][c] = bo[c][a];
-        joint[S + a][S + c] = g[a][c];
-      }
-    chol(joint, l);
-    T* cd = covd + i * blk;
-    T* co = covo + i * blk;
-    T* cd_last = covd + (int64_t)(n - 1) * blk;
-    const bool last = i == n - 2;
-#pragma unroll
-    for (int col = 0; col < S2; ++col) {
-      T e[S2], x[S2];
-#pragma unroll
-      for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
-      chol_solve_vec(l, e, x);
-#pragma unroll
-      for (int a = 0; a < S; ++a) {
-        if (col < S) {
-          cd[(int64_t)(a * S + col) * nb] = x[a];
-        } else {
-          co[(int64_t)(a * S + col - S) * nb] = x[a];
-          if (last) cd_last[(int64_t)(a * S + col - S) * nb] = x[S + a];
-        }
-      }
-    }
+    edge_covariance(f, g, bo, cii, cjj, cij);
+    store_mat(covd + i * blk, nb, cii);
+    store_mat(covo + i * blk, nb, cij);
+    if (i == n - 2) store_mat(covd + (int64_t)(n - 1) * blk, nb, cjj);
   }
 }
 

@@ -22,7 +22,7 @@
 // card; the moments call at B = 1024 has 32,768 pairs, 256 blocks for 132
 // SMs, so occupancy is low there.  Later work can split the node loop of
 // a pair across a warp, or fuse this into the gradient kernel.
-#include "costs.cuh"
+#include "sigma.cuh"
 
 namespace gvi {
 
@@ -55,48 +55,11 @@ quad_kernel(const T* __restrict__ mu, const T* __restrict__ cov,
 #pragma unroll
   for (int j = 0; j < Cost::kParams; ++j) p[j] = params[j * nc + idx];
 
-  constexpr int NT = D * (D + 1) / 2;
-  T acc = T(0), absum = T(0), acc_x[D], acc_xx[NT];
-#pragma unroll
-  for (int i = 0; i < D; ++i) acc_x[i] = T(0);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) acc_xx[t] = T(0);
-
-  for (int mi = 0; mi < m; ++mi) {
-    const T* nd = s_nodes + mi * D;
-    T diff[D], pts[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T t = nd[0] * l[i][0];
-#pragma unroll
-      for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
-      diff[i] = t;
-      pts[i] = t + mu_k[i];
-    }
-    const T wphi = Cost::template eval<T, D>(pts, p) * s_w[mi];
-    acc = acc + wphi;
-    if (WithMoments) {
-      int t = 0;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const T wd = wphi * diff[i];
-        acc_x[i] = acc_x[i] + wd;
-#pragma unroll
-        for (int j = 0; j <= i; ++j) {
-          acc_xx[t] = acc_xx[t] + wd * diff[j];
-          ++t;
-        }
-      }
-    } else {
-      absum = absum + dabs(wphi);
-    }
-  }
-
+  T acc, absum, acc_x[D], acc_xx[Tri<D>::value];
+  sigma_sums<T, D, Cost, WithMoments>(l, mu_k, p, s_nodes, s_w, m, acc, absum,
+                                      acc_x, acc_xx);
   if (!WithMoments) {
-    const T eps = Eps<T>::value;
-    bool bad = dabs(acc) < T(64) * eps * absum;
-    if (nonneg) bad = bad || (acc < T(0) && acc > -T(4096) * eps * absum);
-    e_phi[idx] = bad ? quiet_nan<T>() : acc;
+    e_phi[idx] = guard_phi(acc, absum, nonneg);
     return;
   }
   e_phi[idx] = acc;
@@ -107,21 +70,7 @@ quad_kernel(const T* __restrict__ mu, const T* __restrict__ cov,
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
-      T val = acc_xx[t++];
-      if (j >= rdim) {
-        // marginal-rule lift: corr_ij = sum_{tt = rdim..j} L_i,tt L_j,tt
-        T corr = T(0);
-        bool first = true;
-#pragma unroll
-        for (int tt = 0; tt <= j; ++tt) {
-          if (tt >= rdim) {
-            const T term = l[i][tt] * l[j][tt];
-            corr = first ? term : corr + term;
-            first = false;
-          }
-        }
-        val = val + corr * acc;
-      }
+      const T val = lifted_moment(acc_xx[t++], l, i, j, rdim, acc);
       e_xxt[(i * D + j) * nc + idx] = val;
       if (j != i) e_xxt[(j * D + i) * nc + idx] = val;
     }

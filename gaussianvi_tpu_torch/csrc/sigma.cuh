@@ -1,0 +1,98 @@
+// Sigma-point sums of one factor for one thread: the quadrature core shared
+// by the quadrature kernel (quad.cu) and the fused kernels
+// (fused_trials.cu, fused_gradient.cu).
+//
+// For a factor with marginal N(mu, L L^T) and a rule (nodes, weights) in
+// shared memory, each node gives the offset d = L node (summed in the order
+// of gaussianvi_tpu/kernels/quad_lanes.py) and the point x = mu + d, where
+// the cost functor is evaluated once.  The sums kept in registers are
+// sum w phi and either sum |w phi| (the cost path's guards) or the central
+// moments sum w phi d and sum w phi d d^T (lower triangle, row-major).
+#pragma once
+
+#include "costs.cuh"
+
+namespace gvi {
+
+template <int D>
+struct Tri {
+  static constexpr int value = D * (D + 1) / 2;
+};
+
+template <typename T, int D, typename Cost, bool WithMoments>
+__device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
+                                           const T (&mu)[D],
+                                           const T (&p)[Cost::kParams],
+                                           const T* s_nodes, const T* s_w,
+                                           int m, T& acc, T& absum,
+                                           T (&acc_x)[D],
+                                           T (&acc_xx)[Tri<D>::value]) {
+  acc = T(0);
+  absum = T(0);
+#pragma unroll
+  for (int i = 0; i < D; ++i) acc_x[i] = T(0);
+#pragma unroll
+  for (int t = 0; t < Tri<D>::value; ++t) acc_xx[t] = T(0);
+  for (int mi = 0; mi < m; ++mi) {
+    const T* nd = s_nodes + mi * D;
+    T diff[D], pts[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      T t = nd[0] * l[i][0];
+#pragma unroll
+      for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
+      diff[i] = t;
+      pts[i] = t + mu[i];
+    }
+    const T wphi = Cost::template eval<T, D>(pts, p) * s_w[mi];
+    acc = acc + wphi;
+    if (WithMoments) {
+      int t = 0;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const T wd = wphi * diff[i];
+        acc_x[i] = acc_x[i] + wd;
+#pragma unroll
+        for (int j = 0; j <= i; ++j) {
+          acc_xx[t] = acc_xx[t] + wd * diff[j];
+          ++t;
+        }
+      }
+    } else {
+      absum = absum + dabs(wphi);
+    }
+  }
+}
+
+// E[phi] poisoned to NaN when its sign cannot be trusted: |sum| below 64
+// ulps of sum |w phi| (cancellation), or, for a nonnegative cost, a
+// negative sum inside the 4096-ulp rounding band (factors/moments.py).
+template <typename T>
+__device__ __forceinline__ T guard_phi(T acc, T absum, int nonneg) {
+  const T eps = Eps<T>::value;
+  bool bad = dabs(acc) < T(64) * eps * absum;
+  if (nonneg) bad = bad || (acc < T(0) && acc > -T(4096) * eps * absum);
+  return bad ? quiet_nan<T>() : acc;
+}
+
+// Entry (i, j), j <= i, of E[(x-mu)(x-mu)^T phi] with the closed-form
+// marginal-rule lift: a rule over the leading rdim dims zero-padded to D
+// misses L[:, rdim:] L[:, rdim:]^T E[phi], added here where j >= rdim.
+template <typename T, int D>
+__device__ __forceinline__ T lifted_moment(T val, const T (&l)[D][D], int i,
+                                           int j, int rdim, T e_phi) {
+  if (j < rdim) return val;
+  T corr = T(0);
+  bool first = true;
+#pragma unroll
+  for (int tt = 0; tt < D; ++tt) {
+    if (tt >= rdim && tt <= j) {
+      const T term = l[i][tt] * l[j][tt];
+      corr = first ? term : corr + term;
+      first = false;
+    }
+  }
+  return val + corr * e_phi;
+}
+
+}  // namespace gvi

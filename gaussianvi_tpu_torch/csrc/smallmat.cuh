@@ -1,5 +1,5 @@
 // Small-matrix SPD algebra for one thread: the shared device library of
-// the chain and quadrature kernels (and of the fused kernels to come).
+// the chain, quadrature and fused kernels.
 //
 // Every matrix is a register array indexed by compile-time constants
 // (loops over S are unrolled), so nothing touches local memory as long as
@@ -126,6 +126,139 @@ __device__ __forceinline__ void kahan_add(T& sum, T& comp, T term) {
   const T s = sum + t;
   comp = (s - sum) - t;
   sum = s;
+}
+
+template <typename T, int R, int C>
+__device__ __forceinline__ void add_mat(const T (&a)[R][C], const T (&b)[R][C],
+                                        T (&c)[R][C]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < C; ++q) c[r][q] = a[r][q] + b[r][q];
+}
+
+// c = a b, each entry summed in index order (chain_lanes._matmul).
+template <typename T, int R, int K, int C>
+__device__ __forceinline__ void matmul(const T (&a)[R][K], const T (&b)[K][C],
+                                       T (&c)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      T acc = a[i][0] * b[0][j];
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc = acc + a[i][k] * b[k][j];
+      c[i][j] = acc;
+    }
+}
+
+// Full inverse of an SPD matrix from its Cholesky factor, column by column
+// (fused_trials._inv_from_chol).
+template <typename T, int S>
+__device__ __forceinline__ void inv_from_chol(const T (&l)[S][S],
+                                              T (&inv)[S][S]) {
+#pragma unroll
+  for (int col = 0; col < S; ++col) {
+    T e[S], x[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) e[r] = r == col ? T(1) : T(0);
+    chol_solve_vec(l, e, x);
+#pragma unroll
+    for (int r = 0; r < S; ++r) inv[r][col] = x[r];
+  }
+}
+
+// m = -(B^T P^{-1} B) given the Cholesky factor l of P (forward message).
+template <typename T, int S>
+__device__ __forceinline__ void fwd_message(const T (&l)[S][S],
+                                            const T (&bo)[S][S],
+                                            T (&m)[S][S]) {
+  T x[S][S];
+#pragma unroll
+  for (int col = 0; col < S; ++col) {
+    T rhs[S], sol[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) rhs[r] = bo[r][col];
+    chol_solve_vec(l, rhs, sol);
+#pragma unroll
+    for (int r = 0; r < S; ++r) x[r][col] = sol[r];
+  }
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      T acc = bo[0][a] * x[0][c];
+#pragma unroll
+      for (int k = 1; k < S; ++k) acc = acc + bo[k][a] * x[k][c];
+      m[a][c] = -acc;
+    }
+}
+
+// m = -(B P^{-1} B^T) given the Cholesky factor l of P (backward message).
+template <typename T, int S>
+__device__ __forceinline__ void bwd_message(const T (&l)[S][S],
+                                            const T (&bo)[S][S],
+                                            T (&m)[S][S]) {
+  T x[S][S];
+#pragma unroll
+  for (int col = 0; col < S; ++col) {
+    T rhs[S], sol[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) rhs[r] = bo[col][r];
+    chol_solve_vec(l, rhs, sol);
+#pragma unroll
+    for (int r = 0; r < S; ++r) x[r][col] = sol[r];
+  }
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      T acc = bo[a][0] * x[0][c];
+#pragma unroll
+      for (int k = 1; k < S; ++k) acc = acc + bo[a][k] * x[k][c];
+      m[a][c] = -acc;
+    }
+}
+
+// Covariance blocks of one chain edge: the inverse of the 2s x 2s joint
+// [[F, B], [B^T, G]] (forward pivot F_i, backward pivot G_{i+1}, coupling
+// B_i), solved column by column from its Cholesky factor.  Returns the
+// blocks cii = Sig_ii, cjj = Sig_{i+1,i+1} and cij = Sig_{i,i+1}; nothing
+// of the joint inverse outlives the call.
+template <typename T, int S>
+__device__ __forceinline__ void edge_covariance(const T (&f)[S][S],
+                                                const T (&g)[S][S],
+                                                const T (&bo)[S][S],
+                                                T (&cii)[S][S], T (&cjj)[S][S],
+                                                T (&cij)[S][S]) {
+  constexpr int S2 = 2 * S;
+  T joint[S2][S2], l[S2][S2];
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      joint[a][c] = f[a][c];
+      joint[a][S + c] = bo[a][c];
+      joint[S + a][c] = bo[c][a];
+      joint[S + a][S + c] = g[a][c];
+    }
+  chol(joint, l);
+#pragma unroll
+  for (int col = 0; col < S2; ++col) {
+    T e[S2], x[S2];
+#pragma unroll
+    for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
+    chol_solve_vec(l, e, x);
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      if (col < S) {
+        cii[a][col] = x[a];
+      } else {
+        cij[a][col - S] = x[a];
+        cjj[a][col - S] = x[S + a];
+      }
+    }
+  }
 }
 
 // Batch-last ("lanes") addressing: element e of problem b in an array of

@@ -9,9 +9,17 @@ What the implementation switches mean in the port:
   raises for CPU tensors; ``"seq"`` (chain) / ``"xla"`` (quadrature) force
   the plain PyTorch versions on any device.  ``chain_impl="assoc"`` is not
   ported.
-* ``fused_trials`` / ``fused_gradient``: the fused kernels are not ported
-  yet, so ``"auto"`` and ``"off"`` both run the separate kernels and
-  ``"on"`` raises ``NotImplementedError``.
+* ``fused_trials`` / ``fused_gradient``: the fused line-search trial
+  kernel (``kernels/fused_trials.py``, K5) and the fused gradient kernel
+  (``kernels/fused_gradient.py``, K6).  ``"auto"`` takes them when the
+  graph is eligible (N >= 2; every nonlinear batch nb == 1 with a
+  ``kernel_cost``; every linear batch nb <= 2; starts a slice or shared by
+  all problems; for the trials, ``linesearch="batched"``) and the chain
+  and quadrature run the kernels, i.e. for GPU tensors: the JAX package's
+  static choice, so CPU tensors stay on the separate path.  ``"on"``
+  asserts eligibility and raises ``ValueError`` where the JAX package does,
+  ``chain_impl="seq"`` / ``quad_impl="xla"`` included; on CPU tensors it
+  runs the kernels' plain versions.  ``"off"`` forces the separate path.
 * ``linesearch="seq"``, ``ema_alpha != 1``, ``moments_eval_dtype`` and
   ``use_pallas`` raise ``NotImplementedError`` (ROADMAP.md, Queue A).
 """

@@ -55,7 +55,9 @@ def _per_problem_index(start, shift, lead, rest_shape):
     return idx.expand(*lead, idx.shape[-1 - len(rest_shape)], *rest_shape)
 
 
-def _take(arr, start, slice_offset, rest, shift=0):
+def take_states(arr, start, slice_offset, rest, shift=0):
+    """``arr[..., start + shift, *rest]`` along the state axis (the axis
+    before the ``rest`` trailing axes): ``[..., K, *rest]``."""
     dim = _state_axis(arr, rest)
     k = start.shape[-1]
     if slice_offset is not None:
@@ -88,16 +90,16 @@ def gather_marginals(start, nb, mu, cov_diag, cov_off, slice_offset=None):
     nb == 1: one diagonal block.  nb == 2: the 2x2 block
     [[Sig_ii, Sig_i,i+1], [., Sig_i+1,i+1]]."""
     if nb == 1:
-        return (_take(mu, start, slice_offset, 1),
-                _take(cov_diag, start, slice_offset, 2))
+        return (take_states(mu, start, slice_offset, 1),
+                take_states(cov_diag, start, slice_offset, 2))
     if nb == 2:
-        mu_k = torch.cat([_take(mu, start, slice_offset, 1),
-                          _take(mu, start, slice_offset, 1, 1)], dim=-1)
-        off_k = _take(cov_off, start, slice_offset, 2)
-        top = torch.cat([_take(cov_diag, start, slice_offset, 2), off_k],
+        mu_k = torch.cat([take_states(mu, start, slice_offset, 1),
+                          take_states(mu, start, slice_offset, 1, 1)], dim=-1)
+        off_k = take_states(cov_off, start, slice_offset, 2)
+        top = torch.cat([take_states(cov_diag, start, slice_offset, 2), off_k],
                         dim=-1)
         bot = torch.cat([off_k.transpose(-1, -2),
-                         _take(cov_diag, start, slice_offset, 2, 1)], dim=-1)
+                         take_states(cov_diag, start, slice_offset, 2, 1)], dim=-1)
         return mu_k, torch.cat([top, bot], dim=-2)
     raise NotImplementedError(f"factor span nb={nb} not supported (use 1 or 2)")
 
@@ -106,11 +108,11 @@ def gather_chain_edges(start, mu, cov_diag, cov_off, slice_offset=None):
     """``(mu_i, mu_ip1, cd_i, cd_ip1, co_i)`` for nb == 2 supports, left
     unassembled for blockwise consumers (``moments.linear_cost_chain``)."""
     return (
-        _take(mu, start, slice_offset, 1),
-        _take(mu, start, slice_offset, 1, 1),
-        _take(cov_diag, start, slice_offset, 2),
-        _take(cov_diag, start, slice_offset, 2, 1),
-        _take(cov_off, start, slice_offset, 2),
+        take_states(mu, start, slice_offset, 1),
+        take_states(mu, start, slice_offset, 1, 1),
+        take_states(cov_diag, start, slice_offset, 2),
+        take_states(cov_diag, start, slice_offset, 2, 1),
+        take_states(cov_off, start, slice_offset, 2),
     )
 
 

@@ -1,8 +1,8 @@
 """The GVI optimization loop, NGD with the batched backtracking line search.
 
 Counterpart of ``gaussianvi_tpu/inference/optimize.py`` (NGD,
-``linesearch="batched"``, separate-kernel path).  Loop semantics follow the
-JAX package exactly:
+``linesearch="batched"``; separate-kernel and fused paths).  Loop semantics
+follow the JAX package exactly:
 
 * record (mu, Sigma, Lambda, cost, per-factor costs) at the TOP of each
   iteration;
@@ -20,6 +20,14 @@ convergence) is taken per problem.  The line-search trials add one more
 leading axis, ``[T, B, ...]``, so the chain and quadrature run once over
 all T x B trial iterates.  The iterations are a Python loop (``lax.scan``
 in JAX).
+
+Where the engine takes the fused kernels, the fused gradient kernel (K6)
+replaces the gradient quadrature, assembly and solves and recomputes the
+iterate's covariance itself, and the fused trial kernel (K5) replaces the
+trial chain and cost evaluation, returning no covariance: with K5 alone
+the accepted iterate's covariance is recomputed by one width-B chain call.
+With K6 the carried covariance blocks are never read again after an
+accepted step (the kernel's own blocks are recorded), so they lag.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ class GVIHistory(NamedTuple):
 class _Carry:
     state: GaussianState
     # covariance, logdet and untempered per-factor costs of state, carried
-    # so the accepted trial's values are reused, not recomputed
+    # so the accepted trial's values are reused, not recomputed (the
+    # covariance lags one update on the fused-gradient path, see above)
     cov_diag: torch.Tensor
     cov_off: torch.Tensor
     logdet: torch.Tensor
@@ -121,20 +130,30 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
             config.step_decay ** torch.arange(1, n_trials + 1, dtype=dtype,
                                               device=device)
         )
-        vdmu, vddmu = engine.ngd_gradients(mu, carry.cov_diag, carry.cov_off,
-                                           temperature)
-        dprec = vddmu - prec
+        cov_diag, cov_off = carry.cov_diag, carry.cov_off
+        if engine.fused_gradient_ready:
+            # one kernel: the iterate's covariance (recorded in place of the
+            # carried blocks), gradients, dprec and both solves
+            cov_diag, cov_off, _, dprec, dmu, fallback = engine.fused_gradient(
+                state, temperature)
+        else:
+            vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
+                                               temperature)
+            dprec = vddmu - prec
+            dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
         # an indefinite Vddmu NaNs the Cholesky-based solve: fall back to the
         # current precision (SPD) as the metric, per problem
-        dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
         dmu = _where(engine.all_finite(dmu), dmu, fallback)
 
         # ---- batched backtracking line search: all trials at once ----
-        steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
-        t_mu = mu + steps[..., None, None] * dmu
-        t_prec = (prec + dprec.scale(steps)).symmetrize()
-        t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
-        t_fc = engine.factor_costs_raw(t_mu, t_cd, t_co)
+        if engine.fused_trials_ready:
+            t_ld, t_fc = engine.fused_trial_costs(state, dmu, dprec, trials)
+        else:
+            steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
+            t_mu = mu + steps[..., None, None] * dmu
+            t_prec = (prec + dprec.scale(steps)).symmetrize()
+            t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
+            t_fc = engine.factor_costs_raw(t_mu, t_cd, t_co)
         trial_costs = (engine.reduce_fc(_temper(t_fc, temperature), t_ld)
                        + 0.5 * t_ld)                          # [T, B]
         ok = trial_costs < cost_iter
@@ -164,19 +183,27 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
             BlockTridiag(_where(keep, acc_prec.diag, prec.diag),
                          _where(keep, acc_prec.off, prec.off)),
         )
-        # carry the accepted trial's covariance + factor costs forward
+        # carry the accepted trial's log det + factor costs forward, and its
+        # covariance: the separate path's trial blocks, one chain call at the
+        # updated state after the fused trial kernel (which returns none),
+        # or nothing on the fused-gradient path (recomputed next iteration)
         upd = keep & take
+        if not engine.fused_trials_ready:
+            new_cd = _where(upd, _pick(t_cd, sel), cov_diag)
+            new_co = _where(upd, _pick(t_co, sel), cov_off)
+        elif engine.fused_gradient_ready:
+            new_cd, new_co = cov_diag, cov_off
+        else:
+            new_cd, new_co, _ = engine.cov_logdet(new_state.precision)
         new_carry = _Carry(
-            new_state,
-            _where(upd, _pick(t_cd, sel), carry.cov_diag),
-            _where(upd, _pick(t_co, sel), carry.cov_off),
+            new_state, new_cd, new_co,
             _where(upd, _pick(t_ld, sel), carry.logdet),
             tuple(_where(upd, _pick(f, sel), f0)
                   for f, f0 in zip(t_fc, carry.fc_raw)),
             new_temperature, new_is_lowtemp, new_converged,
         )
         record = (
-            mu, carry.cov_diag, carry.cov_off, prec.diag, prec.off,
+            mu, cov_diag, cov_off, prec.diag, prec.off,
             cost_iter, torch.cat(fc_iter, dim=-1),
             torch.where(accepted, step_f, torch.zeros_like(step_f)),
         )
@@ -203,7 +230,8 @@ def optimize(graph: FactorGraph, init_state: GaussianState,
              config: GVIConfig = GVIConfig(), method: str = "ngd"):
     """Run the full GVI loop on a (problem-batched) graph; returns the final
     state and iteration history.  Raises ``NotImplementedError`` for the
-    options the port does not cover yet (see :mod:`.config`)."""
+    options the port does not cover yet and ``ValueError`` for a fused
+    kernel forced on where it is not eligible (see :mod:`.config`)."""
     check_config(config, method)
     set_precision_policy()
     with torch.no_grad():

@@ -2,9 +2,11 @@
 
 ``nvcc`` compiles the sources into ``gaussianvi_tpu_torch/_build/`` at first
 use, under a name keyed on a hash of the sources and flags, so a fresh
-checkout builds once and an edited source rebuilds.  The library has a
-plain C interface and is loaded with ``ctypes`` (no PyTorch headers: the
-build takes seconds, not minutes).  Nothing here runs at import.
+checkout builds once and an edited source rebuilds.  Each ``.cu`` file is
+compiled by its own ``nvcc`` process, all started together, and one more
+call links the objects.  The library has a plain C interface and is loaded
+with ``ctypes`` (no PyTorch headers: the build takes seconds, not
+minutes).  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -18,13 +20,18 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+
+# the entry points' dtype codes
+DTYPES = {torch.float32: 0, torch.float64: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +44,15 @@ SIGNATURES = {
     # e_phi, e_xmu, e_xxt, count, m, np, nonneg, rdim, stream
     "gvi_quad": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _P),
+    # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, fpiv,
+    # nb, n, nt, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, stream
+    "gvi_fused_trials": (_I, _I, _I, _I, *(_P,) * 9, _I, _I, _I,
+                         _I, _P, _P, _I, _P, _P, _P),
+    # dtype, s, cost, np, mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu,
+    # dfb, fpiv, vdd, vdo, vdmu, nb, n, n_nl, nl_ptrs, nl_ints, n_lin,
+    # lin_ptrs, lin_ints, stream
+    "gvi_fused_grad": (_I, _I, _I, _I, *(_P,) * 15, _I, _I,
+                       _I, _P, _P, _I, _P, _P, _P),
 }
 
 
@@ -65,29 +81,44 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen)``; raise with the output of the first
+    that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, code, out = failed
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the library if it is not built yet; return its path.
 
-    Compiles into a temporary file and renames it into place, so processes
-    building at once never load a half-written library."""
+    Builds in a temporary directory and renames the library into place, so
+    processes building at once never load a half-written library."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))])
+        os.replace(lib, out)
     return out
 
 

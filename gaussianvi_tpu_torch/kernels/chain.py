@@ -22,7 +22,6 @@ from ..ops.blocktridiag import solve as _solve_plain
 from . import _build
 
 BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def gbp_covariance_logdet_plain(diag, off):
@@ -35,17 +34,17 @@ def solve_plain(diag, off, b):
     return _solve_plain(BlockTridiag(diag, off), b)
 
 
-def _lanes(x: torch.Tensor, nb: int) -> torch.Tensor:
+def lanes(x: torch.Tensor, nb: int) -> torch.Tensor:
     """[*lead, ...] -> batch-last contiguous [elements, nb]."""
     return x.reshape(nb, -1).t().contiguous()
 
 
-def _unlanes(x: torch.Tensor, shape) -> torch.Tensor:
+def unlanes(x: torch.Tensor, shape) -> torch.Tensor:
     return x.t().reshape(shape)
 
 
 def _check(name, diag, off, *others):
-    if diag.dtype not in _DTYPES:
+    if diag.dtype not in _build.DTYPES:
         raise ValueError(f"{name}: dtype {diag.dtype} not supported "
                          "(float32 or float64)")
     s = diag.shape[-1]
@@ -70,8 +69,8 @@ def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
         return gbp_covariance_logdet_plain(diag, off)
     lead, n, s = _check("gbp_covariance_logdet_lanes", diag, off)
     nb = math.prod(lead)
-    d_l = _lanes(diag, nb)
-    o_l = _lanes(off, nb) if n > 1 else d_l
+    d_l = lanes(diag, nb)
+    o_l = lanes(off, nb) if n > 1 else d_l
     covd = torch.empty_like(d_l)
     covo = torch.empty(((n - 1) * s * s, nb), dtype=diag.dtype,
                        device=diag.device)
@@ -79,14 +78,14 @@ def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
     fpiv = torch.empty_like(d_l)
     gpiv = torch.empty_like(d_l)
     err = _build.load().gvi_gbp(
-        _DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
+        _build.DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
         covd.data_ptr(), covo.data_ptr(), ld.data_ptr(), fpiv.data_ptr(),
         gpiv.data_ptr(), nb, n,
         torch.cuda.current_stream(diag.device).cuda_stream,
     )
     _build.check(err, "gvi_gbp")
     gbp_covariance_logdet_lanes.launches += 1
-    return (_unlanes(covd, diag.shape), _unlanes(covo, off.shape),
+    return (unlanes(covd, diag.shape), unlanes(covo, off.shape),
             ld.reshape(lead))
 
 
@@ -99,19 +98,19 @@ def solve_lanes(diag: torch.Tensor, off: torch.Tensor, b: torch.Tensor):
         raise ValueError(f"solve_lanes: rhs shape {tuple(b.shape)} does not "
                          f"match diag {tuple(diag.shape)}")
     nb = math.prod(lead)
-    d_l = _lanes(diag, nb)
-    o_l = _lanes(off, nb) if n > 1 else d_l
-    b_l = _lanes(b, nb)
+    d_l = lanes(diag, nb)
+    o_l = lanes(off, nb) if n > 1 else d_l
+    b_l = lanes(b, nb)
     x = torch.empty_like(b_l)
     lfac = torch.empty_like(d_l)
     err = _build.load().gvi_solve(
-        _DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
+        _build.DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
         b_l.data_ptr(), x.data_ptr(), lfac.data_ptr(), nb, n,
         torch.cuda.current_stream(diag.device).cuda_stream,
     )
     _build.check(err, "gvi_solve")
     solve_lanes.launches += 1
-    return _unlanes(x, b.shape)
+    return unlanes(x, b.shape)
 
 
 gbp_covariance_logdet_lanes.launches = 0

@@ -21,7 +21,6 @@ import torch
 from ..factors.moments import expectation_phi, gh_moments
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def _range_cost_packed(x, p):
@@ -71,7 +70,7 @@ def _launch(name, mu, cov, nodes, weights, cost, params, with_moments,
     if dims.get(d) != p:
         raise ValueError(f"{name}: cost {cost!r} not instantiated for d={d}, "
                          f"P={p} (have {dims})")
-    if mu.dtype not in _DTYPES:
+    if mu.dtype not in _build.DTYPES:
         raise ValueError(f"{name}: dtype {mu.dtype} not supported")
     for t in (cov, nodes, weights, params):
         if t.device != mu.device or t.dtype != mu.dtype:
@@ -93,8 +92,8 @@ def _launch(name, mu, cov, nodes, weights, cost, params, with_moments,
         e_xmu = torch.empty((d, count), dtype=mu.dtype, device=mu.device)
         e_xxt = torch.empty((d * d, count), dtype=mu.dtype, device=mu.device)
     err = _build.load().gvi_quad(
-        _DTYPES[mu.dtype], d, cost_id, int(with_moments), mu_l.data_ptr(),
-        cov_l.data_ptr(), nodes_c.data_ptr(), weights_c.data_ptr(),
+        _build.DTYPES[mu.dtype], d, cost_id, int(with_moments),
+        mu_l.data_ptr(), cov_l.data_ptr(), nodes_c.data_ptr(), weights_c.data_ptr(),
         par_l.data_ptr(), e_phi.data_ptr(),
         e_xmu.data_ptr(), e_xxt.data_ptr(), count, m, p, int(nonneg),
         d if rdim is None else rdim,

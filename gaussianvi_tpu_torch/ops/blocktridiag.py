@@ -147,39 +147,41 @@ def _guarded_logdet(pivots, diag, msgs):
     return torch.where(trust >= tol, ld, torch.full_like(ld, float("nan")))
 
 
-def _edge_covariance(pivots, bwd_diag, off):
-    """Covariance blocks from the per-edge joint precisions
-    ``[[F_i, B_i], [B_i^T, G_{i+1}]]`` (one 2s x 2s inverse per edge)."""
-    s = off.shape[-1]
+def gbp_edge_covariance(A: BlockTridiag):
+    """The GBP sweeps for N >= 2: ``(joint_cov [..., N-1, 2s, 2s],
+    logdet [...])``.
+
+    ``joint_cov[..., i, :, :]`` is the covariance of states (i, i+1),
+    ``[[Sig_ii, Sig_i,i+1], [., Sig_i+1,i+1]]``: the inverse of the edge's
+    joint precision ``[[F_i, B_i], [B_i^T, G_{i+1}]]`` (forward pivot,
+    coupling, backward pivot).  The forward pivots ``D_i + f_i`` are the
+    block-Cholesky pivots, so log det = sum log det(D_i + f_i),
+    NaN-poisoned for noise-level pivots."""
+    fwd = _messages(A.diag, A.off, forward=True)
+    pivots = A.diag + fwd
+    ld = _guarded_logdet(pivots, A.diag, fwd)
+    bwd_diag = A.diag + _messages(A.diag, A.off, forward=False)
     joint = torch.cat(
-        [torch.cat([pivots[..., :-1, :, :], off], dim=-1),
-         torch.cat([_t(off), bwd_diag[..., 1:, :, :]], dim=-1)],
+        [torch.cat([pivots[..., :-1, :, :], A.off], dim=-1),
+         torch.cat([_t(A.off), bwd_diag[..., 1:, :, :]], dim=-1)],
         dim=-2,
     )
-    joint_cov = spd_inv(joint)
-    cov_diag = torch.cat(
-        [joint_cov[..., :, :s, :s], joint_cov[..., -1:, s:, s:]], dim=-3
-    )
-    return cov_diag, joint_cov[..., :, :s, s:]
+    return spd_inv(joint), ld
 
 
 def gbp_covariance_logdet(A: BlockTridiag):
     """GBP covariance blocks AND log det in one pass:
-    ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``.
-
-    The forward GBP pivots ``D_i + f_i`` are the block-Cholesky pivots, so
-    log det = sum log det(D_i + f_i), NaN-poisoned for noise-level pivots.
-    """
-    n = A.num_states
-    if n == 1:
+    ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``
+    (see :func:`gbp_edge_covariance`)."""
+    if A.num_states == 1:
         ld = _guarded_logdet(A.diag, A.diag, torch.zeros_like(A.diag))
         return spd_inv(A.diag), A.off, ld
-    fwd = _messages(A.diag, A.off, forward=True)
-    pivots = A.diag + fwd
-    ld = _guarded_logdet(pivots, A.diag, fwd)
-    bwd = _messages(A.diag, A.off, forward=False)
-    cov_diag, cov_off = _edge_covariance(pivots, A.diag + bwd, A.off)
-    return cov_diag, cov_off, ld
+    s = A.block_dim
+    joint_cov, ld = gbp_edge_covariance(A)
+    cov_diag = torch.cat(
+        [joint_cov[..., :, :s, :s], joint_cov[..., -1:, s:, s:]], dim=-3
+    )
+    return cov_diag, joint_cov[..., :, :s, s:], ld
 
 
 def block_cholesky(A: BlockTridiag):

@@ -1,7 +1,7 @@
 """PyTorch port on the GPU: each CUDA kernel against its plain PyTorch
-version on the card, and the NGD loop on the kernels against the plain
-loop (float64).  Skipped without a CUDA device.  On a GPU machine (no JAX
-needed):
+version on the card, and the NGD loop on the kernels (separate and fused
+paths) against the plain loop (float64).  Skipped without a CUDA device.
+On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
@@ -75,6 +75,121 @@ def test_quad_kernel_matches_plain(dev, with_moments):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
 
 
+def _flagship(n, dim_x, dtype, dev, count=4):
+    from gaussianvi_tpu_torch import stack_problems
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+
+    problems = [build_chain_estimation(num_states=n, dim_x=dim_x,
+                                       gh_degree=4, seed=seed, dtype=dtype,
+                                       device=dev)[:2]
+                for seed in range(count)]
+    return stack_problems(*map(list, zip(*problems)))
+
+
+def _assert_close(got, want, dtype, scaled=False):
+    """float64: atol 1e-10.  float32: rtol 1e-4 with an absolute floor of
+    1e-6, scaled to the output's range for the moments-derived outputs
+    (their entries pass through zero)."""
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL,
+                                   equal_nan=True)
+        return
+    fin = torch.isfinite(want)
+    floor = 1e-6 * (float(want[fin].abs().max()) if scaled and fin.any()
+                    else 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=floor,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1)])
+def test_fused_trials_kernel_matches_plain(dev, n, dim_x, dtype):
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    graph, state = _flagship(n, dim_x, dtype, dev)
+    ops = fused_operands(graph)
+    s, b = 2 * dim_x, state.mu.shape[0]
+    rng = np.random.default_rng(n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    q = rng.standard_normal((b, n, s, s))
+    dq = rng.standard_normal((b, n, s, s))
+    x = (state.mu + t(0.1 * rng.standard_normal((b, n, s))),
+         t(0.5 * rng.standard_normal((b, n, s))),
+         t(10.0 * np.eye(s) + 0.5 * q @ np.swapaxes(q, -1, -2)),
+         t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+         t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+         t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+         t(0.9 * 0.75 ** np.arange(1, 12)))
+    before = ft.trial_costs_lanes.launches
+    ld, fc = ft.trial_costs_lanes(*x, *ops)
+    assert ft.trial_costs_lanes.launches == before + 1
+    ld_p, fc_p = ft.trial_costs_plain(*x, *ops)
+    if dtype == torch.float64:
+        _assert_close(ld, ld_p, dtype)
+    else:
+        torch.testing.assert_close(ld, ld_p, rtol=1e-5, atol=0)
+    for got, want in zip(fc, fc_p):
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1)])
+def test_fused_gradient_kernel_matches_plain(dev, n, dim_x, dtype):
+    """At the initial iterate (Vddmu indefinite on the flagship: the main
+    solve is NaN there in both) and at a perturbed one."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+
+    graph, state = _flagship(n, dim_x, dtype, dev)
+    ops = fused_operands(graph)
+    b = state.mu.shape[0]
+    rng = np.random.default_rng(n)
+    mu = state.mu.clone()
+    mu[1:] += torch.tensor(0.05 * rng.standard_normal(mu[1:].shape),
+                           dtype=dtype, device=dev)
+    temp = torch.linspace(1.0, 10.0, b, dtype=dtype, device=dev)
+    x = (mu, state.precision.diag, state.precision.off, temp)
+    before = fg.gradient_lanes.launches
+    got = fg.gradient_lanes(*x, *ops)
+    assert fg.gradient_lanes.launches == before + 1
+    want = fg.gradient_plain(*x, *ops)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if dtype == torch.float64 or i < 2:
+            _assert_close(g, w, dtype)
+        elif i == 2:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        elif i < 5:
+            _assert_close(g, w, dtype, scaled=True)
+    if dtype == torch.float32:
+        # float32 solves of nearly indefinite systems differ by the
+        # condition number times eps: the NaN patterns agree, and the
+        # kernel is no further from the float64 plain version than 4x the
+        # float32 plain version is
+        ref = fg.gradient_plain(*(t.double() for t in x), *_as_f64(ops))
+        for g, w, r in zip(got[5:], want[5:], ref[5:]):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            fin = torch.isfinite(g) & torch.isfinite(r)
+            err_k = (g.double() - r)[fin].abs().max()
+            err_p = (w.double() - r)[fin].abs().max()
+            assert err_k <= 4 * err_p + 1e-6, (err_k, err_p)
+
+
+def _as_f64(ops):
+    nl_specs, lin_specs, nl_arrays, lin_arrays = ops
+
+    def cast(arrays):
+        return tuple(tuple(x.double() if x.is_floating_point() else x
+                           for x in arr) for arr in arrays)
+
+    return nl_specs, lin_specs, cast(nl_arrays), cast(lin_arrays)
+
+
 def test_optimize_on_kernels_matches_plain(dev):
     from gaussianvi_tpu_torch import GVIConfig, optimize, stack_problems
     from gaussianvi_tpu_torch.examples.chain_estimation import (
@@ -88,8 +203,30 @@ def test_optimize_on_kernels_matches_plain(dev):
     graph, state = stack_problems(*map(list, zip(*problems)))
     cfg = dict(niters=5, niters_lowtemp=5, step_size_base=0.9)
     reset_launch_counts()
+    _, hk = optimize(graph, state, GVIConfig(fused_trials="off",
+                                             fused_gradient="off", **cfg))
+    counts = launch_counts()
+    assert counts.pop("fused_trials") == counts.pop("fused_gradient") == 0
+    assert all(n > 0 for n in counts.values())
+    _, hp = optimize(graph, state,
+                     GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
+    torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+    assert torch.equal(hk.accepted_step, hp.accepted_step)
+
+
+def test_fused_optimize_on_kernels_matches_plain(dev):
+    """The default configuration on the card runs the fused kernels once
+    per iteration each; against the plain path, 8 problems, float64."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, state = _flagship(8, 2, torch.float64, dev, count=8)
+    cfg = dict(niters=5, niters_lowtemp=3, step_size_base=0.9)
+    reset_launch_counts()
     _, hk = optimize(graph, state, GVIConfig(**cfg))
-    assert all(n > 0 for n in launch_counts().values())
+    counts = launch_counts()
+    assert counts["fused_trials"] == counts["fused_gradient"] == 5
+    assert counts["gbp_covariance_logdet"] > 0 and counts["quad_phi"] > 0
     _, hp = optimize(graph, state,
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
     torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)

@@ -99,7 +99,6 @@ def test_slice_matches_jax(problems, name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fused_trials", "on"), ("fused_gradient", "on"),
     ("linesearch", "seq"), ("ema_alpha", 0.5),
     ("moments_eval_dtype", "bfloat16"), ("use_pallas", True),
     ("chain_impl", "assoc"),
