@@ -1,19 +1,28 @@
 """GPU smoke run of the PyTorch port (``gaussianvi_tpu_torch``) on one card.
 
 Builds the CUDA kernels from ``gaussianvi_tpu_torch/csrc``, holds each of
-the six kernel entry points against its plain PyTorch version at the
+the seven kernel entry points against its plain PyTorch version at the
 flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
-and negative-linear-cost guard cases), then drives the flagship NGD path
+and negative-linear-cost guard cases; the block-form moments kernel K4 also
+against the quadrature kernel K3), then drives the flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
-the 29-node degree-4 marginal rule, 10 iterations: the default
-configuration, which on the card runs the fused kernels (trials K5,
-gradient K6), at B=1024 problems, and the separate-kernel path (K1-K3) at
-B=256.  Each path's launch counters are zeroed just before it and read
-just after.  Checks the results: every cost finite, non-increasing and
-positive, float32 close to float64 (see ``main``), and the kernel paths
-equal to the plain paths on a small batch.  Prints the timings with the
-card's name and power limit, one JSON line of per-kernel results, and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises.
+the 29-node degree-4 marginal rule, 10 iterations, along four paths:
+
+* the default configuration, which on the card runs the fused kernels
+  (trials K5, gradient K6), at B=1024 problems;
+* the separate-kernel path (K1-K3) at B=256;
+* the block-form moments path (``use_pallas=True``, fused gradient off:
+  K4 once per iteration, K2 solves, K5 trials) at B=1024;
+* the proximal optimizer (``method="prox"``: K3 moments, K5 trials, K1)
+  at B=1024.
+
+Each path's launch counters are zeroed just before it and read just after.
+Checks the results: NGD costs finite, non-increasing and positive, prox
+costs finite, float32 close to float64 (see ``main``), and the kernel
+paths equal to the plain paths on a small batch.  Prints the timings with
+the card's name and power limit (both ``sqrtm_product`` methods included),
+one JSON line of per-kernel results with each kernel's roofline bound,
+and, last, ``{"ok": true, "device": {...}}``.  Any failure raises.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -37,6 +46,10 @@ B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
 B_SEPARATE = 256                # the separate-kernel path's batch
 TRIALS = 11                     # niters_backtrack + 1 line-search trials
 SEED = 0
+# one H100 SXM, published peaks: device memory rate and float32 rate
+# outside the tensor cores (the kernels' arithmetic is plain float32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -70,6 +83,47 @@ def cuda_ms(fn, reps=10):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every floating-point tensor in a (nested) tuple."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size() if obj.is_floating_point() else 0
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(x) for x in obj)
+    return 0
+
+
+def bound(inputs, outputs, flops):
+    """The least time the card could take for a call: its inputs read once
+    and its outputs written once at the memory rate, or ``flops`` at the
+    float32 rate, whichever is larger: ``(ms, "bytes" | "operations")``."""
+    t_bytes = (tensor_bytes(inputs) + tensor_bytes(outputs)) / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# Operation counts, leading terms, per unit of work (s = block size, d =
+# factor dim, m = rule nodes, dx = position dim): a Cholesky is s^3/3, a
+# pair of triangular solves against s columns 2 s^3, a product 2 s^3.
+def chain_flops(s):
+    """Per state of a covariance sweep: forward and backward message (a
+    Cholesky, a solve pair, a product each) and the edge's 2s x 2s inverse."""
+    return 2 * (s**3 / 3 + 4 * s**3) + (2 * s) ** 3 / 3 + 2 * (2 * s) ** 3
+
+
+def solve_flops(s):
+    """Per state of a block-Thomas solve: a Cholesky, a solve pair, a
+    product and the vector updates."""
+    return s**3 / 3 + 4 * s**3 + 6 * s**2
+
+
+def quad_flops(d, m, dx, moments):
+    """Per factor: its Cholesky, then per node the placement, the range
+    cost (~3 dx + 8) and the weighted sums."""
+    sums = 2 + 2 * d + d * (d + 1) if moments else 4
+    return d**3 / 3 + m * (d * (d + 1) + 3 * dx + 8 + sums)
 
 
 def compare(name, got, want, rtol, atol):
@@ -171,10 +225,20 @@ def kernel_checks(graph_b, state_b, dev):
         }
         errs = {"gbp_covariance_logdet": err1, "solve": err2,
                 "quad_phi": err3, "quad_moments": err4}
+        m = fb.nodes.shape[0]
+        bounds = {
+            "gbp_covariance_logdet": bound(
+                (diag, off), k1, TRIALS * B * N * chain_flops(4)),
+            "solve": bound((d2, o2, rhs), rhs, 2 * B * N * solve_flops(4)),
+            "quad_phi": bound(args3[:4] + args3[5:], mu[..., 0],
+                              TRIALS * B * N * quad_flops(4, m, DIM_X, False)),
+            "quad_moments": bound(args4[:4] + args4[5:], km,
+                                  B * N * quad_flops(4, m, DIM_X, True)),
+        }
         for name, (ms, plain_ms) in times.items():
             results[name] = dict(max_abs_err=errs[name],
                                  err_dtype="float32", ms=ms,
-                                 plain_ms=plain_ms)
+                                 plain_ms=plain_ms, **bounds[name])
     return results
 
 
@@ -273,7 +337,131 @@ def compare_vs_f64(name, k32, p32, p64, reps=4.0):
     return float((k - p).abs().max())
 
 
-def fused_checks(graph_b, state_b, dev):
+def flagship_iterate(graph_b, state_b):
+    """The float64 iterate five plain NGD iterations reach at B=1024:
+    ``(mu, prec_diag, prec_off)``."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+
+    state, _ = optimize(graph_b[torch.float64], state_b[torch.float64],
+                        GVIConfig(niters=5, niters_lowtemp=5,
+                                  step_size_base=0.9, chain_impl="seq",
+                                  quad_impl="xla"))
+    return state.mu, state.precision.diag, state.precision.off
+
+
+def moments_checks(graph_b, iterate, dev):
+    """K4 at the flagship's iterate (32,768 factors, d = 4) against its
+    plain version and against K3 moments, the other hand-written kernel of
+    the same function: float64 and float32, on the full rule (137 nodes)
+    and on the marginal rule (29 nodes, lift on).  float64: 1e-10 of each
+    output's range.  float32: at this iterate E[(x-mu) phi] cancels from
+    terms ~1e3 times its size, so, as for K5/K6, the kernel is held to the
+    float64 plain version as well as the float32 plain version (and K3) is
+    (:func:`compare_vs_f64`); the fixed float32 tolerance holds in
+    ``tests/test_torch_cuda.py`` on well-conditioned inputs.  Times K4,
+    its plain version and K3 moments on the marginal rule, float32."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import quad
+    from gaussianvi_tpu_torch.kernels.chain import (
+        gbp_covariance_logdet_lanes,
+    )
+    from gaussianvi_tpu_torch.ops.smallmat import chol_small
+
+    mu64, pd64, po64 = iterate
+    cov64 = gbp_covariance_logdet_lanes(pd64, po64)[0]
+    out, ref = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        fb = graph_b[dtype].nonlinear[0]
+        full = build_chain_estimation(
+            num_states=N, dim_x=DIM_X, gh_degree=DEGREE, marginal_quad=False,
+            dtype=dtype, device=dev)[0].nonlinear[0]
+        mu, cov = mu64.to(dtype), cov64.to(dtype)
+        flat = (mu.reshape(-1, 4), cov.reshape(-1, 4, 4),
+                fb.kernel_params.reshape(-1, fb.kernel_params.shape[-1]))
+        errs = []
+        for rule, rdim in ((fb, fb.quad_rdim), (full, None)):
+            args = (rule.nodes, rule.weights, mu, cov, "range",
+                    fb.kernel_params)
+            k4 = fm.fused_moments(*args, rdim=rdim)
+            p4 = fm.fused_moments_plain(
+                rule.nodes, rule.weights, flat[0], flat[1],
+                quad.KERNEL_COSTS["range"][1], (flat[2],), rdim)
+            k3 = quad.quad_lanes_moments(mu, cov, rule.nodes, rule.weights,
+                                         "range", fb.kernel_params, rdim=rdim)
+            m = rule.nodes.shape[0]
+            p4 = tuple(b_.reshape(a.shape) for a, b_ in zip(k4, p4))
+            if f64:
+                ref[m] = p4
+            for i, (a, b_, c) in enumerate(zip(k4, p4, k3)):
+                names = (f"K4[{i}] vs plain, {m} nodes, {dtype}",
+                         f"K4[{i}] vs K3 moments, {m} nodes, {dtype}")
+                if f64:
+                    tol = (0.0, 1e-10 * float(b_.abs().max()))
+                    errs.append((compare(names[0], a, b_, *tol),
+                                 compare(names[1], a, c, *tol)))
+                else:
+                    errs.append((compare_vs_f64(names[0], a, b_, ref[m][i]),
+                                 compare_vs_f64(names[1], a, c, ref[m][i])))
+        err_plain, err_k3 = (max(e[i] for e in errs) for i in (0, 1))
+        print(f"[K4 {str(dtype)[6:]}] max abs err: vs plain {err_plain:.3e}, "
+              f"vs K3 moments {err_k3:.3e} (both rules)", flush=True)
+        if f64:
+            continue
+        args = (fb.nodes, fb.weights, mu, cov, "range", fb.kernel_params)
+        k3_ms = cuda_ms(lambda: quad.quad_lanes_moments(
+            mu, cov, fb.nodes, fb.weights, "range", fb.kernel_params, rdim=2))
+        out["fused_moments"] = dict(
+            max_abs_err=err_plain, err_dtype="float32",
+            ms=cuda_ms(lambda: fm.fused_moments(*args, rdim=2)),
+            plain_ms=cuda_ms(lambda: fm.fused_moments_plain(
+                fb.nodes, fb.weights, *flat[:2],
+                quad.KERNEL_COSTS["range"][1], (flat[2],), 2)),
+            k3_moments_ms=k3_ms,
+            # the kernel alone, its Cholesky factor (PyTorch ops in the
+            # wrapper) taken beforehand
+            kernel_only_ms=cuda_ms(lambda chol=chol_small(flat[1]): fm._launch(
+                fb.nodes, fb.weights, flat[0].contiguous(), chol,
+                "range", flat[2].contiguous(), 2)),
+            **bound(args[:4] + args[5:], fm.fused_moments(*args, rdim=2),
+                    B * N * quad_flops(4, fb.nodes.shape[0], DIM_X, True)))
+    return out
+
+
+def sqrtm_times(iterate, dev):
+    """Milliseconds of ``sqrtm_product`` by each method at the shapes the
+    proximal step gives it on the flagship, float32: the 32 x 1024 state
+    marginals (4 x 4) and the 31 x 1024 edge marginals (8 x 8) of the
+    iterate."""
+    from gaussianvi_tpu_torch.inference.graph import gather_marginals
+    from gaussianvi_tpu_torch.kernels.chain import (
+        gbp_covariance_logdet_lanes,
+    )
+    from gaussianvi_tpu_torch.ops.psd import sqrtm_product
+
+    mu64, pd64, po64 = iterate
+    cd, co, _ = gbp_covariance_logdet_lanes(pd64, po64)
+    start = torch.arange(N - 1, device=dev)
+    edges = gather_marginals(start, 2, mu64, cd, co, 0)[1]
+    times = {}
+    for name, a in (("4x4", cd.float()), ("8x8", edges.float())):
+        for method in ("eigh", "newton"):
+            times[name, method] = cuda_ms(
+                lambda: sqrtm_product(a, 0.1, method=method), reps=3)
+        rel = ((sqrtm_product(a, 0.1, "newton")
+                - sqrtm_product(a, 0.1, "eigh")).abs().amax((-2, -1))
+               / sqrtm_product(a, 0.1, "eigh").abs().amax((-2, -1)))
+        print(f"[sqrtm_product {name}] eigh {times[name, 'eigh']:.3f} ms, "
+              f"newton {times[name, 'newton']:.3f} ms on "
+              f"{a.shape[0] * a.shape[1]} blocks (f32); newton vs eigh max "
+              f"relative difference {float(rel.max()):.3e}", flush=True)
+    return times
+
+
+def fused_checks(graph_b, state_b, dev, iterate):
     """K5 and K6 against their plain versions at the flagship's shapes,
     at the iterate five plain NGD iterations reach (Vddmu is still
     indefinite on some problems there, so the main solve is NaN on those)
@@ -289,17 +477,11 @@ def fused_checks(graph_b, state_b, dev):
     scaled by that measured sensitivity (:func:`compare_conditioned`);
     the fixed tolerances hold in ``tests/test_torch_cuda.py`` on
     well-conditioned inputs."""
-    from gaussianvi_tpu_torch import GVIConfig, optimize
     from gaussianvi_tpu_torch.inference.engine import fused_operands
     from gaussianvi_tpu_torch.kernels import fused_gradient as fg
     from gaussianvi_tpu_torch.kernels import fused_trials as ft
 
     f32, f64 = torch.float32, torch.float64
-    state, _ = optimize(graph_b[f64], state_b[f64],
-                        GVIConfig(niters=5, niters_lowtemp=5,
-                                  step_size_base=0.9, chain_impl="seq",
-                                  quad_impl="xla"))
-    iterate = (state.mu, state.precision.diag, state.precision.off)
     ops = {dt: fused_operands(graph_b[dt]) for dt in (f32, f64)}
     x6, x5 = {}, {}
     for dt in (f64, f32):
@@ -347,14 +529,25 @@ def fused_checks(graph_b, state_b, dev):
               f"indefinite Vddmu on {int((~finite).sum())}/{B} problems, "
               f"{int(torch.isnan(p5[dt][0]).sum())}/{TRIALS * B} trial log "
               f"dets poisoned", flush=True)
+    m = graph_b[f32].nonlinear[0].nodes.shape[0]
+    arrays = ops[f32][2:]
+    # K5: per (trial, problem) a covariance sweep, E[phi] per state and the
+    # linear costs; K6: per problem a sweep, the moments, the assembly
+    # (six products per state) and both solves
+    flops5 = TRIALS * B * N * (chain_flops(4) + quad_flops(4, m, DIM_X, False)
+                               + 16 * 4**2)
+    flops6 = B * N * (chain_flops(4) + quad_flops(4, m, DIM_X, True)
+                      + 12 * 4**3 + 2 * solve_flops(4))
     return {
         "fused_trials": dict(
+            **bound((x5[f32], arrays), k5[f32], flops5),
             max_abs_err=errs["K5", f64], err_dtype="float64",
             ms=cuda_ms(lambda: ft.trial_costs_lanes(*x5[f32], *ops[f32])),
             plain_ms=cuda_ms(lambda: ft.trial_costs_plain(*x5[f32],
                                                           *ops[f32]),
                              reps=3)),
         "fused_gradient": dict(
+            **bound((x6[f32], arrays), k6[f32], flops6),
             max_abs_err=errs["K6", f64], err_dtype="float64",
             ms=cuda_ms(lambda: fg.gradient_lanes(*x6[f32], *ops[f32])),
             plain_ms=cuda_ms(lambda: fg.gradient_plain(*x6[f32], *ops[f32]),
@@ -468,12 +661,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     kern = kernel_checks(graph_b, state_b, dev)
-    kern.update(fused_checks(graph_b, state_b, dev))
+    iterate = flagship_iterate(graph_b, state_b)
+    kern.update(fused_checks(graph_b, state_b, dev, iterate))
+    kern.update(moments_checks(graph_b, iterate, dev))
+    sqrtm_ms = sqrtm_times(iterate, dev)
 
     # the default configuration: on the card, the fused kernels
     cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
     cfg_sep = replace(cfg, fused_trials="off", fused_gradient="off")
     cfg_plain = replace(cfg, chain_impl="seq", quad_impl="xla")
+    # block-form moments: K4 takes the gradient moments where K6 is off
+    cfg_block = replace(cfg, use_pallas=True, fused_gradient="off")
+    # the proximal optimizer at a step it accepts: at step_size_base=0.9
+    # every trial of the JKO step is rejected on the flagship (in the JAX
+    # package too) and the iterate never moves
+    cfg_prox = replace(cfg, step_size_base=0.1)
 
     # ---- the main path (fused), counted ----
     (state32, hist32), fused_counts = counted(
@@ -523,6 +725,40 @@ def main() -> int:
           f"the separate path skipped a kernel: {sep_counts}")
     check_costs("separate path", hist_s, B_SEPARATE)
 
+    # ---- block-form moments path (K4), counted ----
+    (_, hist_a), block_counts = counted(
+        optimize, graph_b[torch.float32], state_b[torch.float32], cfg_block)
+    print(f"[block-moments path] launches {block_counts}", flush=True)
+    check(block_counts["fused_moments"] == NITERS
+          and block_counts["solve"] == NITERS
+          and block_counts["fused_trials"] == NITERS
+          and block_counts["fused_gradient"] == 0
+          and block_counts["quad_moments"] == 0,
+          f"the block-form moments path took other kernels: {block_counts}")
+    check_costs("block-moments path", hist_a, B)
+
+    # ---- proximal optimizer, counted ----
+    (state_p, hist_p), prox_counts = counted(
+        optimize, graph_b[torch.float32], state_b[torch.float32], cfg_prox,
+        "prox")
+    print(f"[prox path] launches {prox_counts}", flush=True)
+    check(prox_counts["quad_moments"] == NITERS
+          and prox_counts["fused_trials"] == NITERS
+          and prox_counts["gbp_covariance_logdet"] == NITERS + 1
+          and prox_counts["fused_gradient"] == prox_counts["solve"]
+          == prox_counts["fused_moments"] == 0,
+          f"the prox path took other kernels: {prox_counts}")
+    check(hist_p.cost.shape == (B, NITERS)
+          and bool(torch.isfinite(hist_p.cost).all())
+          and bool(torch.isfinite(state_p.mu).all())
+          and bool(torch.isfinite(state_p.precision.diag).all()),
+          "prox path: non-finite cost or state")
+    moved = int((hist_p.accepted_step > 0).any(1).sum())
+    falls = int((hist_p.cost[:, -1] < hist_p.cost[:, 0]).sum())
+    print(f"[prox path] {moved}/{B} problems accepted a step, {falls}/{B} "
+          f"ended below their first cost", flush=True)
+    check(moved > B // 2, f"prox path: only {moved}/{B} problems moved")
+
     # ---- kernels against plain versions, end to end (float64) ----
     g8, s8 = build_batch(torch.float64, dev, num_problems=8)
     g8c, s8c = build_batch(torch.float64, torch.device("cpu"), num_problems=8)
@@ -531,38 +767,78 @@ def main() -> int:
                                        fused_gradient="on"))
     _, hs = optimize(g8, s8, cfg_sep)
     _, hp = optimize(g8, s8, cfg_plain)
-    for name, got, want in (
-            ("fused kernels vs fused plain versions (CPU)", hk, hc),
-            ("fused kernels vs plain path", hk, hp),
-            ("separate kernels vs plain path", hs, hp)):
+    _, ha = optimize(g8, s8, cfg_block)
+    pairs = [("fused kernels vs fused plain versions (CPU)", hk, hc, 1e-9),
+             ("fused kernels vs plain path", hk, hp, 1e-9),
+             ("separate kernels vs plain path", hs, hp, 1e-9),
+             ("block-form moments vs separate kernels", ha, hs, 1e-9)]
+    # prox: kernels against the plain path with the root pinned to each
+    # method, then the two methods against each other
+    from gaussianvi_tpu_torch.ops import psd
+
+    auto, prox_final = psd.AUTO_METHOD["cuda"], {}
+    for method in ("eigh", "newton"):
+        psd.AUTO_METHOD["cuda"] = method
+        _, hpk = optimize(g8, s8, cfg_prox, "prox")
+        _, hpp = optimize(g8, s8, replace(cfg_prox, chain_impl="seq",
+                                          quad_impl="xla"), "prox")
+        # Denman-Beavers works on B = A (A + 4 s I), kappa(B) ~ kappa(A)^2,
+        # and the GP prior's edge marginals are stiff: the root amplifies
+        # the kernels' 1e-13 differences to its conditioning floor (the JAX
+        # package measured 1.9e-8 at kappa(A) = 1e8), hence 1e-6 for newton
+        pairs.append((f"prox ({method}) kernels vs plain path", hpk, hpp,
+                      1e-9 if method == "eigh" else 1e-6))
+        prox_final[method] = hpk.cost[:, -1]
+    psd.AUTO_METHOD["cuda"] = auto
+    rel_root = ((prox_final["eigh"] - prox_final["newton"]).abs()
+                / prox_final["eigh"].abs()).max().item()
+    print(f"[end to end] prox final cost, eigh vs newton root (f64, 8 "
+          f"problems): max relative difference {rel_root:.3e}", flush=True)
+    # the same conditioning floor sets this gate
+    check(rel_root < 1e-6, f"prox eigh vs newton differ: {rel_root:.3e}")
+    for name, got, want, rtol in pairs:
         want_cost = want.cost.to(dev)
         rel_kp = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
         print(f"[end to end] {name} (f64, 8 problems): max relative cost "
               f"difference {rel_kp:.3e}", flush=True)
-        check(rel_kp < 1e-9, f"{name} differ: {rel_kp:.3e}")
+        check(rel_kp < rtol, f"{name} differ: {rel_kp:.3e}")
         check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
               f"{name}: different accepted steps")
 
     # ---- throughput: fused, separate and plain paths (float32) ----
-    def rate(config):
+    def rate(config, method="ngd"):
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            optimize(graph_b[torch.float32], state_b[torch.float32], config)
+            optimize(graph_b[torch.float32], state_b[torch.float32], config,
+                     method)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         return B * NITERS / statistics.median(times)
 
     rates = {"fused": rate(cfg), "separate": rate(cfg_sep),
-             "plain": rate(cfg_plain)}
+             "plain": rate(cfg_plain), "block": rate(cfg_block),
+             "block_sep": rate(replace(cfg_block, fused_trials="off")),
+             "prox": rate(cfg_prox, "prox")}
     print(f"[throughput] {card}: fused kernels {rates['fused']:.1f}, "
           f"separate kernels {rates['separate']:.1f}, plain PyTorch "
-          f"{rates['plain']:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, "
+          f"{rates['plain']:.1f}, block-form moments {rates['block']:.1f} "
+          f"(with separate trials {rates['block_sep']:.1f}), prox "
+          f"{rates['prox']:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, "
           f"f32, median of 3)", flush=True)
     for name, r in kern.items():
         print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms (f32, slice shapes)", flush=True)
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} (f32, slice shapes)", flush=True)
+    k4 = kern["fused_moments"]
+    print(f"[kernel time] {card}: K4 {k4['ms']:.4f} ms (kernel alone, "
+          f"Cholesky factor given: {k4['kernel_only_ms']:.4f} ms) vs K3 "
+          f"moments {k4['k3_moments_ms']:.4f} ms on the same {B * N} factors "
+          f"(f32, 29 nodes)", flush=True)
+    print(f"[sqrtm_product] {card}: " + ", ".join(
+        f"{shape} {method} {ms:.3f} ms"
+        for (shape, method), ms in sqrtm_ms.items()) + " (f32)", flush=True)
 
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
@@ -570,17 +846,28 @@ def main() -> int:
         "solve": ("chain.cu", "chain_lanes.py:418", "separate"),
         "quad_phi": ("quad.cu", "quad_lanes.py:99", "fused"),
         "quad_moments": ("quad.cu", "quad_lanes.py:99", "separate"),
+        "fused_moments": ("fused_moments.cu", "fused_moments.py:35",
+                          "block_moments"),
         "fused_trials": ("fused_trials.cu", "fused_trials.py:269", "fused"),
         "fused_gradient": ("fused_gradient.cu", "fused_gradient.py:185",
                            "fused"),
     }
-    counts = {"fused": fused_counts, "separate": sep_counts}
+    counts = {"fused": fused_counts, "separate": sep_counts,
+              "block_moments": block_counts}
+    # library_ms: no single PyTorch call computes any of these functions
+    # (block-tridiagonal selected inversion, block-Thomas solve,
+    # sigma-point moments of a cost given as code)
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
                  max_abs_err=kern[name]["max_abs_err"],
                  err_dtype=kern[name]["err_dtype"], ms=kern[name]["ms"],
-                 plain_ms=kern[name]["plain_ms"]) for name in WRAPPERS]
+                 plain_ms=kern[name]["plain_ms"],
+                 bound_ms=kern[name]["bound_ms"],
+                 bound_by=kern[name]["bound_by"], library_ms=None)
+            for name in WRAPPERS]
+    check(all(r["launches"] > 0 for r in rows),
+          f"a kernel was launched on no path: {rows}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

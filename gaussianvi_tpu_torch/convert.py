@@ -6,7 +6,8 @@ The description of one problem is a dict::
     {"num_states": N, "state_dim": s,
      "nonlinear": [{"start", "nodes", "weights", "params": {name: array},
                     "nb", "slice_offset", "nonneg_cost", "quad_rdim",
-                    "shared_start", "cost": <name in COSTS>}, ...],
+                    "shared_start", "cost": <name in COSTS>,
+                    "block_cost": bool (optional)}, ...],
      "linear": [{"start", "lam", "psi", "target_mu", "target_prec",
                  "constant", "nb", "slice_offset", "uniform",
                  "shared_start"}, ...]}
@@ -21,13 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .examples.chain_estimation import range_cost
+from .examples.chain_estimation import range_cost, range_cost_block
 from .factors.base import LinearFactorBatch, NonlinearFactorBatch, pack_params
 from .inference.graph import FactorGraph, GaussianState
 from .ops.blocktridiag import BlockTridiag
 
-# cost name -> (PyTorch cost_fn, CUDA functor name for the kernel path)
-COSTS = {"range": (range_cost, "range")}
+# cost name -> (PyTorch cost_fn, CUDA functor name for the kernel path,
+# PyTorch block form); a description's "block_cost" flag says whether the
+# JAX batch carried a block form (``block_cost is not None``)
+COSTS = {"range": (range_cost, "range", range_cost_block)}
 
 
 def _t(a, dtype, device):
@@ -43,7 +46,7 @@ def graph_from_arrays(desc: dict, dtype=torch.float64,
     """The port's :class:`FactorGraph` for one problem's description."""
     nonlinear = []
     for fb in desc["nonlinear"]:
-        cost_fn, kernel_cost = COSTS[fb["cost"]]
+        cost_fn, kernel_cost, block_cost = COSTS[fb["cost"]]
         params = {k: _t(v, dtype, device) for k, v in fb["params"].items()}
         nonlinear.append(NonlinearFactorBatch(
             start=_start(fb["start"], device),
@@ -54,6 +57,7 @@ def graph_from_arrays(desc: dict, dtype=torch.float64,
             nb=int(fb["nb"]),
             kernel_cost=kernel_cost,
             kernel_params=pack_params(params),
+            block_cost=block_cost if fb.get("block_cost") else None,
             slice_offset=fb["slice_offset"],
             shared_start=bool(fb["shared_start"]),
             nonneg_cost=bool(fb["nonneg_cost"]),

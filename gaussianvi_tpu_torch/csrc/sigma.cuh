@@ -1,6 +1,7 @@
 // Sigma-point sums of one factor for one thread: the quadrature core shared
-// by the quadrature kernel (quad.cu) and the fused kernels
-// (fused_trials.cu, fused_gradient.cu).
+// by the quadrature kernel (quad.cu), the fused kernels (fused_trials.cu,
+// fused_gradient.cu) and the block-form moments kernel (fused_moments.cu),
+// whose threads each take the nodes first, first + step, ... of one factor.
 //
 // For a factor with marginal N(mu, L L^T) and a rule (nodes, weights) in
 // shared memory, each node gives the offset d = L node (summed in the order
@@ -26,14 +27,15 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
                                            const T* s_nodes, const T* s_w,
                                            int m, T& acc, T& absum,
                                            T (&acc_x)[D],
-                                           T (&acc_xx)[Tri<D>::value]) {
+                                           T (&acc_xx)[Tri<D>::value],
+                                           int first = 0, int step = 1) {
   acc = T(0);
   absum = T(0);
 #pragma unroll
   for (int i = 0; i < D; ++i) acc_x[i] = T(0);
 #pragma unroll
   for (int t = 0; t < Tri<D>::value; ++t) acc_xx[t] = T(0);
-  for (int mi = 0; mi < m; ++mi) {
+  for (int mi = first; mi < m; mi += step) {
     const T* nd = s_nodes + mi * D;
     T diff[D], pts[D];
 #pragma unroll

@@ -5,7 +5,8 @@ Counterpart of ``gaussianvi_tpu/examples/chain_estimation.py``: N states
 GP priors between consecutive states, and a nonlinear range measurement per
 state.  The arrays are built exactly as the JAX package builds them (same
 numpy RNG stream, same float64 construction), and the measurement batch
-names the ``"range"`` CUDA cost functor for the quadrature kernel.
+names the ``"range"`` CUDA cost functor for the kernels and carries the
+block form of its cost.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ def range_cost(x, params):
     pos = x[..., :dim_x]
     dist = torch.sqrt(torch.sum((pos - beacon) ** 2, dim=-1) + 1e-12)
     return (params["r"] - dist) ** 2 / (2.0 * params["sig_r_sq"])
+
+
+def range_cost_block(pts, beacon, r, sig_r_sq):
+    """Block form of :func:`range_cost` (``pts [..., d]``, batch-dim
+    agnostic; the leaves arrive in sorted-key order: beacon, r, sig_r_sq),
+    the cost the block-form moments kernel's plain version evaluates."""
+    dim_x = beacon.shape[-1]
+    pos = pts[..., :dim_x]
+    dist = torch.sqrt(torch.sum((pos - beacon) ** 2, dim=-1) + 1e-12)
+    return (r - dist) ** 2 / (2.0 * sig_r_sq)
 
 
 def simulate_trajectory(num_states, dim_x, dt, seed=0):
@@ -88,6 +99,7 @@ def build_chain_estimation(
         },
         gh_degree=gh_degree,
         kernel_cost="range",
+        block_cost=range_cost_block,
         nonneg_cost=True,   # squared residual: E[phi] >= 0 by construction
         quad_rdim=dim_x if marginal_quad else None,
         dtype=dtype,

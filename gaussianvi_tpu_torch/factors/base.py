@@ -33,6 +33,13 @@ class NonlinearFactorBatch:
     ``kernel_params [B, K, P]`` are the leaves packed for it in sorted-key
     order (:func:`pack_params`).  The kernel path raises for a batch that
     names no functor.
+
+    ``block_cost`` says the batch has a block form, which the block-form
+    moments kernel (``kernels/fused_moments.py``, ``GVIConfig.use_pallas``)
+    integrates: on the card that is the functor ``kernel_cost`` names; the
+    field itself is the same cost in PyTorch,
+    ``block_cost(pts [..., d], *leaves [..., *leaf]) -> [...]`` with the
+    leaves in sorted-key order, which the kernel's plain version evaluates.
     """
 
     start: torch.Tensor          # [K] (shared) or [B, K] int64
@@ -43,6 +50,7 @@ class NonlinearFactorBatch:
     nb: int = 1
     kernel_cost: str | None = None
     kernel_params: torch.Tensor | None = None   # [B, K, P]
+    block_cost: Callable | None = None
     # start == slice_offset + arange(K): gathers/scatters become slices
     slice_offset: int | None = None
     # start indices identical across the stacked problems
@@ -89,14 +97,17 @@ class LinearFactorBatch:
         return self.lam.shape[-1]
 
 
+def param_leaves(params: dict | None) -> tuple:
+    """The param leaves in sorted-key order (``jax.tree.leaves`` order)."""
+    return tuple(params[k] for k in sorted(params)) if params else ()
+
+
 def pack_params(params: dict) -> torch.Tensor:
     """One problem's leaves ``[K, *leaf]`` in sorted-key order (the
     ``jax.tree.leaves`` order the JAX kernels take them in), flattened and
     concatenated into ``[K, P]``."""
     return torch.cat(
-        [params[k].reshape(params[k].shape[0], -1) for k in sorted(params)],
-        dim=-1,
-    )
+        [p.reshape(p.shape[0], -1) for p in param_leaves(params)], dim=-1)
 
 
 def make_nonlinear_batch(
@@ -108,6 +119,7 @@ def make_nonlinear_batch(
     gh_degree: int = 10,
     kind: str = "sparse",
     kernel_cost: str | None = None,
+    block_cost: Callable | None = None,
     nonneg_cost: bool = False,
     quad_rdim: int | None = None,
     dtype=torch.float64,
@@ -133,6 +145,7 @@ def make_nonlinear_batch(
         kernel_cost=kernel_cost,
         kernel_params=(pack_params(params)
                        if kernel_cost is not None and params else None),
+        block_cost=block_cost,
         nonneg_cost=nonneg_cost,
         quad_rdim=quad_rdim,
         slice_offset=detect_slice_offset(start_np),

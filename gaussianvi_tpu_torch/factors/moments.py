@@ -5,7 +5,9 @@ factors with marginals ``(mu [..., K, d], cov [..., K, d, d])`` and an
 M-point rule, ``phi`` is evaluated once per sigma point and the three
 weighted reductions E[phi], E[(x-mu) phi], E[(x-mu)(x-mu)^T phi] follow.
 
-:func:`batch_phi` / :func:`batch_moments` dispatch: the quadrature kernel
+:func:`batch_phi` / :func:`batch_moments` dispatch in the JAX package's
+order: the block-form moments kernel (``kernels/fused_moments.py``) for
+``use_pallas`` on a batch with a block form, the quadrature kernel
 (``kernels/quad.py``) when ``quad_impl`` selects it, else the plain
 functions here.
 """
@@ -88,7 +90,7 @@ def expectation_phi(nodes, weights, mu, cov, cost_fn, params,
 def _kernel_cost(fb):
     if fb.kernel_cost is None or fb.kernel_params is None:
         raise ValueError(
-            "the quadrature kernel needs a factor batch with kernel_cost and "
+            "the quadrature kernels need a factor batch with kernel_cost and "
             "kernel_params set (a CUDA cost functor in csrc/costs.cuh)"
         )
     return fb.kernel_cost, fb.kernel_params
@@ -106,9 +108,18 @@ def batch_phi(fb, mu_k, cov_k, use_kernel: bool):
                            fb.params, nonneg=fb.nonneg_cost)
 
 
-def batch_moments(fb, mu_k, cov_k, use_kernel: bool):
-    """The three moments for a NonlinearFactorBatch: the quadrature kernel
-    (``kernels.quad.quad_lanes_moments``) or :func:`gh_moments`."""
+def batch_moments(fb, mu_k, cov_k, use_pallas: bool = False,
+                  use_kernel: bool = False):
+    """The three moments for a NonlinearFactorBatch: the block-form kernel
+    (``kernels.fused_moments.fused_moments``) when the caller opted in
+    (``GVIConfig.use_pallas``) and the batch has a block form, else the
+    quadrature kernel (``kernels.quad.quad_lanes_moments``) or
+    :func:`gh_moments`.  Every route applies the ``quad_rdim`` lift."""
+    if use_pallas and fb.block_cost is not None:
+        from ..kernels.fused_moments import fused_moments
+
+        return fused_moments(fb.nodes, fb.weights, mu_k, cov_k,
+                             *_kernel_cost(fb), rdim=fb.quad_rdim)
     if use_kernel:
         from ..kernels.quad import quad_lanes_moments
 
@@ -135,6 +146,18 @@ def ngd_local_gradients(e_phi, e_xmu, e_xxt, cov, temperature):
     ) / t[..., None, None]
     vddmu = 0.5 * (vddmu + vddmu.transpose(-1, -2))
     return vdmu, vddmu
+
+
+def bw_local_gradients(e_phi, e_xmu, e_xxt, cov):
+    """Bures-Wasserstein gradients of the proximal step:
+
+        b_k = Prec_k E[(x-mu)phi]
+        S_k = Prec_k E[(x-mu)(x-mu)^T phi] Prec_k - Prec_k E[phi]"""
+    prec = spd_inv(cov)
+    b_k = torch.einsum("...de,...e->...d", prec, e_xmu)
+    s_k = (torch.einsum("...ab,...bc,...cd->...ad", prec, e_xxt, prec)
+           - prec * e_phi[..., None, None])
+    return b_k, 0.5 * (s_k + s_k.transpose(-1, -2))
 
 
 def _per_problem(temperature, per_factor):

@@ -20,8 +20,20 @@ What the implementation switches mean in the port:
   asserts eligibility and raises ``ValueError`` where the JAX package does,
   ``chain_impl="seq"`` / ``quad_impl="xla"`` included; on CPU tensors it
   runs the kernels' plain versions.  ``"off"`` forces the separate path.
-* ``linesearch="seq"``, ``ema_alpha != 1``, ``moments_eval_dtype`` and
-  ``use_pallas`` raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+* ``use_pallas``: the NGD gradient moments of every nonlinear batch that
+  has a block form (``block_cost``) go through the block-form moments
+  kernel (``kernels/fused_moments.py``, K4) on GPU tensors and through
+  its plain version on CPU tensors.  As in the JAX package it has no
+  effect where the fused gradient kernel runs (K6 computes the moments
+  itself: pass ``fused_gradient="off"``) and none on ``method="prox"``.
+  Unlike the JAX package, the route applies the ``quad_rdim`` lift, so it
+  agrees with the other routes on a marginal rule.
+* ``linesearch="seq"``, ``ema_alpha != 1`` and ``moments_eval_dtype``
+  raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+
+``optimize(..., method="prox")`` runs the proximal (Bures-Wasserstein JKO)
+optimizer: the quadrature kernel's moments, the fused trial kernel when
+eligible, never the fused gradient kernel.
 """
 
 from __future__ import annotations

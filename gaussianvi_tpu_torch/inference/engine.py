@@ -23,7 +23,7 @@ from ..kernels.fused_trials import (
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as gbp_plain
 from ..ops.blocktridiag import solve as solve_plain
-from .gvi import ngd_gradients
+from .gvi import ngd_gradients, prox_gradients
 from .graph import FactorGraph, GaussianState, gather_marginals
 
 _TODO = "not ported yet (ROADMAP.md, Queue A)"
@@ -47,8 +47,8 @@ def use_kernel(impl: str, plain: str, field: str, device: torch.device) -> bool:
 
 def check_config(config, method: str) -> None:
     """Raise for every option the port does not cover yet."""
-    if method != "ngd":
-        raise NotImplementedError(f"method={method!r} is {_TODO}")
+    if method not in ("ngd", "prox"):
+        raise ValueError(f"unknown method {method!r}")
     for name in ("fused_trials", "fused_gradient"):
         value = getattr(config, name)
         if value not in ("auto", "on", "off"):
@@ -62,8 +62,6 @@ def check_config(config, method: str) -> None:
         raise NotImplementedError(f"ema_alpha != 1 is {_TODO}")
     if config.moments_eval_dtype is not None:
         raise NotImplementedError(f"moments_eval_dtype is {_TODO}")
-    if config.use_pallas:
-        raise NotImplementedError(f"use_pallas is {_TODO}")
 
 
 def fused_operands(graph: FactorGraph):
@@ -128,6 +126,7 @@ class LocalEngine:
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
+        self.use_pallas = config.use_pallas
         self.chain_kernel = use_kernel(config.chain_impl, "seq",
                                        "chain_impl", device)
         self.quad_kernel = use_kernel(config.quad_impl, "xla", "quad_impl",
@@ -186,7 +185,11 @@ class LocalEngine:
     # -- gradients -----------------------------------------------------------
     def ngd_gradients(self, mu, cov_diag, cov_off, temperature):
         return ngd_gradients(self.graph, mu, cov_diag, cov_off, temperature,
-                             self.quad_kernel)
+                             self.use_pallas, self.quad_kernel)
+
+    def prox_gradients(self, mu, cov_diag, cov_off, step_size):
+        return prox_gradients(self.graph, mu, cov_diag, cov_off, step_size,
+                              self.quad_kernel)
 
     # -- solve ---------------------------------------------------------------
     def solve_pair(self, bt_main: BlockTridiag, bt_fallback: BlockTridiag,

@@ -1,9 +1,10 @@
-"""Joint-level cost and NGD gradient assembly.
+"""Joint-level cost and gradient assembly for both optimizers.
 
-Counterpart of ``gaussianvi_tpu/inference/gvi.py`` (NGD part): cost =
-sum_k E[psi_k] (/T) + 0.5 log det Lambda, and the joint natural-gradient
-pieces (Vdmu, Vddmu) scatter-added from every factor batch.  Tensors carry
-the problem axis first; ``temperature`` is a scalar or ``[B]``.
+Counterpart of ``gaussianvi_tpu/inference/gvi.py``: cost =
+sum_k E[psi_k] (/T) + 0.5 log det Lambda; the joint natural-gradient
+pieces (Vdmu, Vddmu) scatter-added from every factor batch; and the
+proximal optimizer's Bures-Wasserstein JKO pseudo-gradients.  Tensors
+carry the problem axis first; ``temperature`` is a scalar or ``[B]``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..factors import moments as mm
-from ..ops.blocktridiag import BlockTridiag
+from ..ops.blocktridiag import BlockTridiag, spd_inv
+from ..ops.psd import sqrtm_product
 from .graph import FactorGraph, gather_marginals, scatter_gradients
 
 
@@ -35,7 +37,7 @@ def factor_costs(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
 
 
 def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                  use_kernel: bool = False):
+                  use_pallas: bool = False, use_kernel: bool = False):
     """Assemble joint (Vdmu [..., N, s], Vddmu block-tridiag).
 
     The NGD step downstream is d_precision = Vddmu - Lambda and
@@ -47,7 +49,8 @@ def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
     for fb in graph.nonlinear:
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
-        e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k, use_kernel)
+        e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k, use_pallas,
+                                               use_kernel)
         vdmu, vddmu = mm.ngd_local_gradients(e_phi, e_xmu, e_xxt, cov_k,
                                              temperature)
         scatter_gradients(fb.start, fb.nb, vdmu, vddmu, vdmu_joint,
@@ -62,3 +65,55 @@ def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
         scatter_gradients(lb.start, lb.nb, vdmu, vddmu, vdmu_joint,
                           vddmu_joint, lb.slice_offset)
     return vdmu_joint, vddmu_joint
+
+
+def _bw_jko_step(b_k, s_k, cov_k, step_size):
+    """The Bures-Wasserstein JKO proximal step as pseudo-gradients:
+
+        M = I - s S_k;  Sig_half = M Sig M^T
+        Sig_new = 0.5 Sig_half + s I + 0.5 sqrtm(Sig_half (Sig_half + 4 s I))
+        mu_new  = mu - s b_k
+        Vdmu = (mu_new - mu)/s = -b_k;  Vddmu = (Sig_new^{-1} - Prec_k)/s"""
+    d = cov_k.shape[-1]
+    eye = torch.eye(d, dtype=cov_k.dtype, device=cov_k.device)
+    m = eye - step_size * s_k
+    sig_half = torch.einsum("...ab,...bc,...dc->...ad", m, cov_k, m)
+    sig_new = (0.5 * sig_half + step_size * eye
+               + 0.5 * sqrtm_product(sig_half, step_size))
+    return -b_k, (spd_inv(sig_new) - spd_inv(cov_k)) / step_size
+
+
+def prox_gradients(graph: FactorGraph, mu, cov_diag, cov_off, step_size,
+                   use_kernel: bool = False):
+    """Per-factor Bures-Wasserstein JKO pseudo-gradients, summed into the
+    joint ``(dmu [..., N, s], dprec block-tridiag)``.  The nonlinear
+    moments never take the block-form kernel (as in the JAX package)."""
+    n, s = mu.shape[-2:]
+    dmu_joint = torch.zeros_like(mu)
+    dprec_joint = BlockTridiag.zeros(mu.shape[:-2], n, s, mu.dtype,
+                                     mu.device)
+    for fb in graph.nonlinear:
+        mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
+                                       cov_off, fb.slice_offset)
+        e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k,
+                                               use_kernel=use_kernel)
+        b_k, s_k = mm.bw_local_gradients(e_phi, e_xmu, e_xxt, cov_k)
+        vdmu, vddmu = _bw_jko_step(b_k, s_k, cov_k, step_size)
+        scatter_gradients(fb.start, fb.nb, vdmu, vddmu, dmu_joint,
+                          dprec_joint, fb.slice_offset)
+    for lb in graph.linear:
+        # closed-form BW gradients, without the constant factor (unlike the
+        # NGD linear path): b_k = Lam^T prec_t (Lam mu - Psi mu_t),
+        # S_k = Lam^T prec_t Lam
+        mu_k, cov_k = gather_marginals(lb.start, lb.nb, mu, cov_diag,
+                                       cov_off, lb.slice_offset)
+        resid = (torch.einsum("...rd,...d->...r", lb.lam, mu_k)
+                 - torch.einsum("...rt,...t->...r", lb.psi, lb.target_mu))
+        b_k = torch.einsum("...rd,...rs,...s->...d", lb.lam, lb.target_prec,
+                           resid)
+        s_k = torch.einsum("...ra,...rs,...sb->...ab", lb.lam, lb.target_prec,
+                           lb.lam)
+        vdmu, vddmu = _bw_jko_step(b_k, s_k, cov_k, step_size)
+        scatter_gradients(lb.start, lb.nb, vdmu, vddmu, dmu_joint,
+                          dprec_joint, lb.slice_offset)
+    return dmu_joint, dprec_joint

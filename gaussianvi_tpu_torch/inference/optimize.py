@@ -1,7 +1,8 @@
-"""The GVI optimization loop, NGD with the batched backtracking line search.
+"""The GVI optimization loop: NGD and the proximal optimizer, with the
+batched backtracking line search.
 
-Counterpart of ``gaussianvi_tpu/inference/optimize.py`` (NGD,
-``linesearch="batched"``; separate-kernel and fused paths).  Loop semantics
+Counterpart of ``gaussianvi_tpu/inference/optimize.py``
+(``linesearch="batched"``; separate-kernel and fused paths).  Loop semantics
 follow the JAX package exactly:
 
 * record (mu, Sigma, Lambda, cost, per-factor costs) at the TOP of each
@@ -11,7 +12,12 @@ follow the JAX package exactly:
   (NaN costs compare False);
 * an exhausted search escalates to the high temperature once, then flags
   convergence; a scheduled switch happens at iteration ``niters_lowtemp``;
-* a converged problem's state freezes (later rows repeat it).
+* a converged problem's state freezes (later rows repeat it);
+* ``method="prox"``: the direction is the Bures-Wasserstein JKO
+  pseudo-gradient at step ``step_size_base``, the trial steps are
+  ``step_size_base**t``, costs are never tempered, an exhausted search
+  takes its last trial unless that trial's cost is non-finite, and there
+  is no escalation and no convergence flag.
 
 JAX reaches B problems through ``jax.vmap(optimize)``; here the problem axis
 is explicit and leads every tensor (``mu [B, N, s]``, history
@@ -107,9 +113,17 @@ def make_gvi_init(engine: LocalEngine, init_state: GaussianState,
     )
 
 
-def make_gvi_step(engine: LocalEngine, config: GVIConfig):
-    """The NGD iteration body ``(carry, i_iter) -> (carry, record)``."""
+def make_gvi_step(engine: LocalEngine, config: GVIConfig,
+                  method: str = "ngd"):
+    """The iteration body ``(carry, i_iter) -> (carry, record)`` of
+    ``method`` ``"ngd"`` or ``"prox"`` (validated by ``check_config``)."""
+    ngd = method == "ngd"
     n_trials = config.niters_backtrack + 1
+    # the fused gradient kernel is the NGD step; prox never takes it
+    use_fused_grad = ngd and engine.fused_gradient_ready
+
+    def temper(fc_raw, temperature):
+        return _temper(fc_raw, temperature) if ngd else fc_raw
 
     def iteration(carry: _Carry, i_iter: int):
         state = carry.state
@@ -123,27 +137,33 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
             temperature = torch.where(is_lowtemp, high, temperature)
             is_lowtemp = torch.zeros_like(is_lowtemp)
 
-        fc_iter = _temper(carry.fc_raw, temperature)
+        fc_iter = temper(carry.fc_raw, temperature)
         cost_iter = engine.reduce_fc(fc_iter, carry.logdet) + 0.5 * carry.logdet
 
-        trials = config.step_size_base * (
-            config.step_decay ** torch.arange(1, n_trials + 1, dtype=dtype,
-                                              device=device)
-        )
+        powers = torch.arange(1, n_trials + 1, dtype=dtype, device=device)
         cov_diag, cov_off = carry.cov_diag, carry.cov_off
-        if engine.fused_gradient_ready:
-            # one kernel: the iterate's covariance (recorded in place of the
-            # carried blocks), gradients, dprec and both solves
-            cov_diag, cov_off, _, dprec, dmu, fallback = engine.fused_gradient(
-                state, temperature)
+        if not ngd:
+            # the JKO step is taken at base^1; trial schedule base^t
+            trials = torch.as_tensor(config.step_size_base, dtype=dtype,
+                                     device=device) ** powers
+            dmu, dprec = engine.prox_gradients(mu, cov_diag, cov_off,
+                                               config.step_size_base)
         else:
-            vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
-                                               temperature)
-            dprec = vddmu - prec
-            dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
-        # an indefinite Vddmu NaNs the Cholesky-based solve: fall back to the
-        # current precision (SPD) as the metric, per problem
-        dmu = _where(engine.all_finite(dmu), dmu, fallback)
+            # trial schedule: base * decay^t, t = 1..niters_backtrack+1
+            trials = config.step_size_base * config.step_decay ** powers
+            if use_fused_grad:
+                # one kernel: the iterate's covariance (recorded in place of
+                # the carried blocks), gradients, dprec and both solves
+                (cov_diag, cov_off, _, dprec, dmu,
+                 fallback) = engine.fused_gradient(state, temperature)
+            else:
+                vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
+                                                   temperature)
+                dprec = vddmu - prec
+                dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
+            # an indefinite Vddmu NaNs the Cholesky-based solve: fall back to
+            # the current precision (SPD) as the metric, per problem
+            dmu = _where(engine.all_finite(dmu), dmu, fallback)
 
         # ---- batched backtracking line search: all trials at once ----
         if engine.fused_trials_ready:
@@ -154,7 +174,7 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
             t_prec = (prec + dprec.scale(steps)).symmetrize()
             t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
             t_fc = engine.factor_costs_raw(t_mu, t_cd, t_co)
-        trial_costs = (engine.reduce_fc(_temper(t_fc, temperature), t_ld)
+        trial_costs = (engine.reduce_fc(temper(t_fc, temperature), t_ld)
                        + 0.5 * t_ld)                          # [T, B]
         ok = trial_costs < cost_iter
         accepted = ok.any(0)
@@ -163,14 +183,18 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
                                           dtype=torch.long))
         step_f = trials[sel]
 
-        take = accepted
+        # prox adopts the last trial of an exhausted search, unless its
+        # cost is non-finite; NGD keeps the old iterate
+        take = accepted if ngd else (
+            accepted | torch.isfinite(_pick(trial_costs, sel)))
         acc_mu = _where(take, mu + step_f[..., None, None] * dmu, mu)
         sel_prec = (prec + dprec.scale(step_f)).symmetrize()
         acc_prec = BlockTridiag(_where(take, sel_prec.diag, prec.diag),
                                 _where(take, sel_prec.off, prec.off))
 
         # exhausted line search: escalate temperature once, then converge
-        failed = ~accepted
+        # (NGD only: prox neither escalates nor flags convergence)
+        failed = ~accepted if ngd else torch.zeros_like(accepted)
         esc_temp = failed & is_lowtemp
         new_temperature = torch.where(esc_temp, high, temperature)
         new_is_lowtemp = is_lowtemp & ~esc_temp
@@ -191,7 +215,7 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
         if not engine.fused_trials_ready:
             new_cd = _where(upd, _pick(t_cd, sel), cov_diag)
             new_co = _where(upd, _pick(t_co, sel), cov_off)
-        elif engine.fused_gradient_ready:
+        elif use_fused_grad:
             new_cd, new_co = cov_diag, cov_off
         else:
             new_cd, new_co, _ = engine.cov_logdet(new_state.precision)
@@ -213,9 +237,9 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig):
 
 
 def run_gvi(engine: LocalEngine, init_state: GaussianState,
-            config: GVIConfig):
+            config: GVIConfig, method: str = "ngd"):
     """The GVI loop over an engine: ``(final state, GVIHistory)``."""
-    iteration = make_gvi_step(engine, config)
+    iteration = make_gvi_step(engine, config, method)
     carry = make_gvi_init(engine, init_state, config)
     records = []
     for i in range(config.niters):
@@ -236,4 +260,4 @@ def optimize(graph: FactorGraph, init_state: GaussianState,
     set_precision_policy()
     with torch.no_grad():
         engine = LocalEngine(graph, config, init_state.mu.device)
-        return run_gvi(engine, init_state, config)
+        return run_gvi(engine, init_state, config, method)

@@ -5,6 +5,7 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 from .chain import gbp_covariance_logdet_lanes, solve_lanes
 from .fused_gradient import gradient_lanes
+from . import fused_moments as _fused_moments  # the name stays the module
 from .fused_trials import trial_costs_lanes
 from .quad import quad_lanes_moments, quad_lanes_phi
 
@@ -13,6 +14,7 @@ WRAPPERS = {
     "solve": solve_lanes,
     "quad_phi": quad_lanes_phi,
     "quad_moments": quad_lanes_moments,
+    "fused_moments": _fused_moments.fused_moments,
     "fused_trials": trial_costs_lanes,
     "fused_gradient": gradient_lanes,
 }

@@ -44,6 +44,9 @@ SIGNATURES = {
     # e_phi, e_xmu, e_xxt, count, m, np, nonneg, rdim, stream
     "gvi_quad": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _P),
+    # dtype, d, cost, mu, chol, nodes, weights, params, e_phi, e_xmu, e_xxt,
+    # count, m, np, rdim, stream
+    "gvi_fused_moments": (_I, _I, _I, *(_P,) * 8, _I, _I, _I, _I, _P),
     # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, fpiv,
     # nb, n, nt, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, stream
     "gvi_fused_trials": (_I, _I, _I, _I, *(_P,) * 9, _I, _I, _I,

@@ -1,6 +1,7 @@
 """PyTorch port on the GPU: each CUDA kernel against its plain PyTorch
-version on the card, and the NGD loop on the kernels (separate and fused
-paths) against the plain loop (float64).  Skipped without a CUDA device.
+version on the card, and the NGD loop (separate, fused and block-form
+moments paths) and the proximal optimizer on the kernels against the plain
+loop (float64).  Skipped without a CUDA device.
 On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -73,6 +74,63 @@ def test_quad_kernel_matches_plain(dev, with_moments):
         want = (quad.quad_phi_plain(*args, nonneg=True),)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim_x,marginal", [(2, True), (2, False), (1, True)])
+def test_fused_moments_kernel_matches_plain(dev, dim_x, marginal, dtype):
+    """K4 against its plain version and against K3 moments, small and well
+    conditioned: (K, d, M) = (3*8, 4, 29 | 137) and (3*8, 2, 7), with and
+    without the marginal-rule lift."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.factors.base import param_leaves
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import quad
+
+    fb = build_chain_estimation(num_states=8, dim_x=dim_x, gh_degree=4,
+                                marginal_quad=marginal, dtype=dtype,
+                                device=dev)[0].nonlinear[0]
+    d = 2 * dim_x
+    rng = np.random.default_rng(dim_x)
+    mu = torch.tensor(1.5 + 0.3 * rng.standard_normal((3, 8, d)),
+                      dtype=dtype, device=dev)
+    a = rng.standard_normal((3, 8, d, d)) * 0.3
+    cov = torch.tensor(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d),
+                       dtype=dtype, device=dev)
+    before = fm.fused_moments.launches
+    got = fm.fused_moments(fb.nodes, fb.weights, mu, cov, fb.kernel_cost,
+                           fb.kernel_params, rdim=fb.quad_rdim)
+    assert fm.fused_moments.launches == before + 1
+    leaves = tuple(p.expand(3, *p.shape).reshape(24, *p.shape[1:])
+                   for p in param_leaves(fb.params))
+    want = fm.fused_moments_plain(fb.nodes, fb.weights, mu.reshape(24, d),
+                                  cov.reshape(24, d, d), fb.block_cost,
+                                  leaves, rdim=fb.quad_rdim)
+    other = quad.quad_lanes_moments(mu, cov, fb.nodes, fb.weights,
+                                    fb.kernel_cost, fb.kernel_params,
+                                    rdim=fb.quad_rdim)
+    for g, w, o in zip(got, want, other):
+        _assert_close(g, w.reshape(g.shape), dtype, scaled=True)
+        _assert_close(g, o, dtype, scaled=True)
+
+
+def test_use_pallas_without_a_functor_raises(dev):
+    """A batch with a block form but no CUDA functor raises on the card
+    under ``use_pallas``: never the plain version."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.inference.graph import FactorGraph
+
+    graph, state = _flagship(6, 2, torch.float64, dev, count=2)
+    fb = replace(graph.nonlinear[0], kernel_cost=None, kernel_params=None)
+    graph = FactorGraph(graph.num_states, graph.state_dim, (fb,),
+                        graph.linear)
+    with pytest.raises(ValueError, match="kernel_cost"):
+        optimize(graph, state, GVIConfig(niters=1, use_pallas=True,
+                                         quad_impl="xla", chain_impl="seq"))
 
 
 def _flagship(n, dim_x, dtype, dev, count=4):
@@ -206,7 +264,8 @@ def test_optimize_on_kernels_matches_plain(dev):
     _, hk = optimize(graph, state, GVIConfig(fused_trials="off",
                                              fused_gradient="off", **cfg))
     counts = launch_counts()
-    assert counts.pop("fused_trials") == counts.pop("fused_gradient") == 0
+    assert (counts.pop("fused_trials") == counts.pop("fused_gradient")
+            == counts.pop("fused_moments") == 0)
     assert all(n > 0 for n in counts.values())
     _, hp = optimize(graph, state,
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
@@ -231,3 +290,50 @@ def test_fused_optimize_on_kernels_matches_plain(dev):
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
     torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
     assert torch.equal(hk.accepted_step, hp.accepted_step)
+
+
+def test_new_paths_on_kernels_match_plain(dev):
+    """Block-form moments (K4 once per iteration, no K6) and the proximal
+    optimizer (K3 moments + K5 per iteration, no K2, no K6) on the card
+    against the plain path; 8 problems, float64."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, state = _flagship(8, 2, torch.float64, dev, count=8)
+    cfg = dict(niters=5, niters_lowtemp=5, step_size_base=0.9)
+    plain = dict(chain_impl="seq", quad_impl="xla")
+    reset_launch_counts()
+    _, hk = optimize(graph, state, GVIConfig(use_pallas=True,
+                                             fused_gradient="off", **cfg))
+    counts = launch_counts()
+    assert counts["fused_moments"] == 5 and counts["fused_gradient"] == 0
+    assert counts["quad_moments"] == 0 and counts["solve"] == 5
+    _, hp = optimize(graph, state, GVIConfig(**plain, **cfg))
+    torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+    assert torch.equal(hk.accepted_step, hp.accepted_step)
+
+    cfg["step_size_base"] = 0.1
+    reset_launch_counts()
+    _, hk = optimize(graph, state, GVIConfig(**cfg), method="prox")
+    counts = launch_counts()
+    assert counts["quad_moments"] == counts["fused_trials"] == 5
+    assert counts["fused_gradient"] == counts["solve"] == 0
+    assert counts["fused_moments"] == 0
+    _, hp = optimize(graph, state, GVIConfig(**plain, **cfg), method="prox")
+    torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+    assert torch.equal(hk.accepted_step, hp.accepted_step)
+    assert bool((hk.accepted_step > 0).any())
+
+
+def test_eigh_root_beyond_the_batched_solver_limit(dev):
+    """``sqrtm_product(method="eigh")`` on more matrices than one batched
+    eigensolver call takes on the card (the flagship's 32,768 blocks):
+    chunked, and equal to the CPU result."""
+    from gaussianvi_tpu_torch.ops import psd
+
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, psd._EIGH_MAX_BATCH + 5, 4, 4))
+    a = torch.tensor(q @ np.swapaxes(q, -1, -2) + 0.1 * np.eye(4))
+    got = psd.sqrtm_product(a.to(dev), 0.3, method="eigh")
+    want = psd.sqrtm_product(a, 0.3, method="eigh")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-10, atol=1e-10)

@@ -142,7 +142,7 @@ def test_batch_dispatch_kernel_and_plain_agree(problem):
     cov_t = torch.as_tensor(cov[0])
     for use_kernel in (False, True):
         phi = tmm.batch_phi(tfb, mu_t, cov_t, use_kernel)
-        mom = tmm.batch_moments(tfb, mu_t, cov_t, use_kernel)
+        mom = tmm.batch_moments(tfb, mu_t, cov_t, use_kernel=use_kernel)
         if not use_kernel:
             ref_phi, ref_mom = phi, mom
     np.testing.assert_allclose(phi.numpy(), ref_phi.numpy(), atol=1e-12)

@@ -1,7 +1,7 @@
-"""PyTorch port, the whole slice: ``optimize(method="ngd")`` on four
-different flagship problems carried over from the JAX package with
-``convert.py``, against ``jax.vmap(optimize)`` on the CPU default path
-(CPU, f64)."""
+"""PyTorch port, the whole slice: ``optimize`` (NGD, NGD with the
+block-form moments, and the proximal optimizer) on four different flagship
+problems carried over from the JAX package with ``convert.py``, against
+``jax.vmap(optimize)`` on the CPU default path (CPU, f64)."""
 
 import numpy as np
 import pytest
@@ -41,6 +41,7 @@ def describe(graph, init):
         params={k: a(v) for k, v in fb.params.items()}, nb=fb.nb,
         slice_offset=fb.slice_offset, nonneg_cost=fb.nonneg_cost,
         quad_rdim=fb.quad_rdim, shared_start=fb.shared_start, cost="range",
+        block_cost=fb.block_cost is not None,
     ) for fb in graph.nonlinear]
     linear = [dict(
         start=a(lb.start), lam=a(lb.lam), psi=a(lb.psi),
@@ -60,24 +61,28 @@ def problems():
                                    seed=seed)[:2] for seed in range(B)]
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_slice_matches_jax(problems, name):
-    cfg = CONFIGS[name]
+def run_both(problems, jax_cfg, torch_cfg, method="ngd"):
+    """The JAX problems under ``jax.vmap(optimize)`` and, converted, under
+    the port's ``optimize``: ``(jstate, jhist, state, hist)``."""
     graph_b, state_b = jax_stack([p[0] for p in problems],
                                  [p[1] for p in problems])
-    jcfg = JaxConfig(**cfg)
+    jcfg = JaxConfig(**jax_cfg)
     jstate, jhist = jax.jit(jax.vmap(
-        lambda g, s: jax_optimize(g, s, jcfg)))(graph_b, state_b)
-
+        lambda g, s: jax_optimize(g, s, jcfg, method=method)))(graph_b,
+                                                                state_b)
     described = [describe(g, s) for g, s in problems]
     tgraph, tstate = stack_problems(
         [graph_from_arrays(d) for d, _ in described],
         [state_from_arrays(s) for _, s in described],
     )
-    state, hist = optimize(tgraph, tstate, GVIConfig(**cfg))
+    state, hist = optimize(tgraph, tstate, GVIConfig(**torch_cfg),
+                           method=method)
+    return jstate, jhist, state, hist
 
+
+def assert_same_run(jstate, jhist, state, hist, niters):
     jcost = np.asarray(jhist.cost)
-    assert hist.cost.shape == jcost.shape == (B, cfg["niters"])
+    assert hist.cost.shape == jcost.shape == (B, niters)
     assert np.isfinite(jcost).all()
     np.testing.assert_allclose(hist.cost.numpy(), jcost, rtol=1e-9)
     np.testing.assert_array_equal(hist.accepted_step.numpy(),
@@ -92,6 +97,13 @@ def test_slice_matches_jax(problems, name):
                                np.asarray(jstate.precision.off), atol=1e-9)
     # the problems differ, so per-problem decisions differ too
     assert len({tuple(r) for r in jcost.round(6).tolist()}) == B
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_slice_matches_jax(problems, name):
+    cfg = CONFIGS[name]
+    jstate, jhist, state, hist = run_both(problems, cfg, cfg)
+    assert_same_run(jstate, jhist, state, hist, cfg["niters"])
     if name == "converging":
         # a failed search after the switch freezes the state
         acc = np.asarray(jhist.accepted_step)
@@ -100,8 +112,7 @@ def test_slice_matches_jax(problems, name):
 
 @pytest.mark.parametrize("field,value", [
     ("linesearch", "seq"), ("ema_alpha", 0.5),
-    ("moments_eval_dtype", "bfloat16"), ("use_pallas", True),
-    ("chain_impl", "assoc"),
+    ("moments_eval_dtype", "bfloat16"), ("chain_impl", "assoc"),
 ])
 def test_unported_options_raise(problems, field, value):
     g, s = problems[0]
@@ -120,11 +131,60 @@ def test_kernel_impl_on_cpu_raises(problems, field):
                  GVIConfig(niters=1, **{field: "lanes"}))
 
 
-def test_prox_raises(problems):
+_BENCH = CONFIGS["bench"]
+NEW_PATHS = {
+    # the proximal optimizer, separate path on both sides; at base 0.1 the
+    # search accepts, at base 0.5 it is exhausted and takes its last trial
+    "prox-accepting": ("prox", True, dict(_BENCH, step_size_base=0.1),
+                       dict(fused_trials="off")),
+    "prox-exhausted": ("prox", True, dict(_BENCH, step_size_base=0.5),
+                       dict(fused_trials="off")),
+    # the port's fused trial kernel (its plain version on the CPU) against
+    # the JAX XLA path, the guard contract the port holds every path to
+    "prox-fused-trials": ("prox", True, dict(_BENCH, step_size_base=0.1),
+                          dict(fused_trials="on")),
+    # block-form moments: on the full rule both packages take the route ...
+    "use_pallas-full-rule": ("ngd", False, dict(_BENCH, use_pallas=True),
+                             dict(use_pallas=True)),
+    # ... on the marginal rule the JAX route drops the lift (a reference
+    # fault), so the port's route is held to JAX without it
+    "use_pallas-marginal-rule": ("ngd", True, _BENCH, dict(use_pallas=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_PATHS))
+def test_new_paths_match_jax(name):
+    method, marginal, jax_cfg, port_extra = NEW_PATHS[name]
+    problems = [build_chain_estimation(num_states=N, dim_x=2, gh_degree=4,
+                                       seed=seed, marginal_quad=marginal)[:2]
+                for seed in range(B)]
+    jstate, jhist, state, hist = run_both(
+        problems, jax_cfg, {**jax_cfg, **port_extra}, method)
+    assert_same_run(jstate, jhist, state, hist, jax_cfg["niters"])
+    acc = np.asarray(jhist.accepted_step)
+    if name == "prox-exhausted":
+        # no trial decreased the cost, yet the iterate moved
+        assert (acc == 0).all()
+        assert (np.diff(np.asarray(jhist.cost), axis=1) != 0).any()
+    elif method == "prox":
+        assert (acc > 0).any()
+
+
+def test_prox_ignores_use_pallas_and_the_fused_gradient(problems):
+    """As in the JAX package: prox takes its moments without the
+    block-form kernel and never runs the fused gradient kernel, so neither
+    option changes its result."""
     g, s = problems[0]
     d, st = describe(g, s)
-    with pytest.raises(NotImplementedError):
-        optimize(graph_from_arrays(d), state_from_arrays(st), method="prox")
+    graph, state = graph_from_arrays(d), state_from_arrays(st)
+    cfg = dict(niters=2, niters_lowtemp=2, step_size_base=0.1)
+    _, base = optimize(graph, state, GVIConfig(**cfg), method="prox")
+    _, other = optimize(graph, state,
+                        GVIConfig(use_pallas=True, fused_gradient="on",
+                                  **cfg), method="prox")
+    np.testing.assert_array_equal(base.cost.numpy(), other.cost.numpy())
+    with pytest.raises(ValueError, match="unknown method"):
+        optimize(graph, state, GVIConfig(**cfg), method="adam")
 
 
 def test_single_problem_matches_batch_of_one(problems):
