@@ -1,12 +1,13 @@
 """GPU smoke run of the PyTorch port (``gaussianvi_tpu_torch``) on one card.
 
 Builds the CUDA kernels from ``gaussianvi_tpu_torch/csrc``, holds each of
-the seven kernel entry points against its plain PyTorch version at the
+the nine kernel entry points against its plain PyTorch version at the
 flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
 and negative-linear-cost guard cases; the block-form moments kernel K4 also
-against the quadrature kernel K3), then drives the flagship
+against the quadrature kernel K3; the split fused gradient pair also
+against the single fused gradient kernel), then drives the flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
-the 29-node degree-4 marginal rule, 10 iterations, along four paths:
+the 29-node degree-4 marginal rule, 10 iterations, along five paths:
 
 * the default configuration, which on the card runs the fused kernels
   (trials K5, gradient K6), at B=1024 problems;
@@ -14,12 +15,18 @@ the 29-node degree-4 marginal rule, 10 iterations, along four paths:
 * the block-form moments path (``use_pallas=True``, fused gradient off:
   K4 once per iteration, K2 solves, K5 trials) at B=1024;
 * the proximal optimizer (``method="prox"``: K3 moments, K5 trials, K1)
-  at B=1024.
+  at B=1024;
+* the factor-parallel path (``parallel.optimize_sharded``, dp=1, fp=2: two
+  rank processes on this one card joined by gloo, each running K6 "accum"
+  on its half of the range factors, one all-reduce, K6 "solve", and K5 on
+  its shard) at B=1024, plus a small dp=2 x fp=2 mesh of four ranks.
 
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
 costs finite, float32 close to float64 (see ``main``), and the kernel
-paths equal to the plain paths on a small batch.  Prints the timings with
+paths equal to the plain paths on a small batch; the ranks of the
+factor-parallel path end bit-identical and agree with the single-process
+fused path.  Prints the timings with
 the card's name and power limit (both ``sqrtm_product`` methods included),
 one JSON line of per-kernel results with each kernel's roofline bound,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -555,6 +562,122 @@ def fused_checks(graph_b, state_b, dev, iterate):
     }
 
 
+def half_operands(graph, i):
+    """The nonlinear fused operands of rank ``i`` of a dp=1 x fp=2 mesh,
+    as ``shard_graph`` hands them to the rank's engine (half of the range
+    factors, dynamic starts)."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.parallel import shard_graph
+
+    position = SimpleNamespace(dp=1, fp=2, dp_index=0, fp_index=i)
+    nl_specs, _, nl_arrays, _ = fused_operands(shard_graph(graph, position))
+    return nl_specs, nl_arrays
+
+
+def split_checks(graph_b, dev, iterate):
+    """K6 "accum" and "solve" against their plain versions at the
+    flagship's iterate (as :func:`fused_checks` holds K6 "full": float64 by
+    :func:`compare_conditioned`, float32 by :func:`compare_vs_f64`), and
+    the pair (accum on each half of the 32 range factors, summed, then
+    solve) against the single "full" kernel on the same inputs: equal up to
+    the reassociation of one sum.  Times each mode at the shapes the
+    factor-parallel path gives it (float32)."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+
+    f32, f64 = torch.float32, torch.float64
+    ops = {dt: fused_operands(graph_b[dt]) for dt in (f32, f64)}
+    x, halves, lin = {}, {}, {}
+    for dt in (f64, f32):
+        mu, pd, po = (t.to(dt) for t in iterate)
+        x[dt] = (mu, pd, po, torch.ones(B, dtype=dt, device=dev))
+        halves[dt] = [half_operands(graph_b[dt], i) for i in (0, 1)]
+        lin[dt] = (ops[dt][1], ops[dt][3])
+
+    def accum_plain(dt, i):
+        specs, arrays = halves[dt][i]
+        return fg.gradient_plain(*x[dt], specs, (), arrays, (), mode="accum")
+
+    def solve_plain(dt, seeds):
+        return fg.gradient_plain(*x[dt], (), lin[dt][0], (), lin[dt][1],
+                                 mode="solve", seeds=seeds)
+
+    # accum on half 0 and half 1, kernel against plain
+    pa = {dt: [accum_plain(dt, i) for i in (0, 1)] for dt in (f64, f32)}
+    ka = {dt: [fg.gradient_accum_lanes(*x[dt], *halves[dt][i])
+               for i in (0, 1)] for dt in (f64, f32)}
+    names_a = ("vdmu", "vdd", "vdo")
+    err_a = {
+        f64: max(compare_conditioned(f"K6 accum[{i}] {nm} float64", a, b, c)
+                 for i in (0, 1)
+                 for nm, a, b, c in zip(names_a, ka[f64][i], pa[f64][i],
+                                        pa[f32][i])),
+        f32: max(compare_vs_f64(f"K6 accum[{i}] {nm} float32", a, b, c)
+                 for i in (0, 1)
+                 for nm, a, b, c in zip(names_a, ka[f32][i], pa[f32][i],
+                                        pa[f64][i])),
+    }
+    # solve on the float64 plain sum of the halves (both dtypes get the
+    # same seeds), kernel against plain
+    seeds = {f64: tuple(a + b for a, b in zip(*pa[f64]))}
+    seeds[f32] = tuple(t.to(f32) for t in seeds[f64])
+    ps = {dt: solve_plain(dt, seeds[dt]) for dt in (f64, f32)}
+    ks = {dt: fg.gradient_solve_lanes(*x[dt], seeds[dt], *lin[dt])
+          for dt in (f64, f32)}
+    names_s = ("cov_diag", "cov_off", "logdet", "dprec_diag", "dprec_off",
+               "dmu", "dmu_fallback")
+    err_s = {
+        f64: max(compare_conditioned(f"K6 solve {nm} float64", a, b, c)
+                 for nm, a, b, c in zip(names_s, ks[f64], ps[f64], ps[f32])),
+        f32: max(compare_vs_f64(f"K6 solve {nm} float32", a, b, c)
+                 for nm, a, b, c in zip(names_s, ks[f32], ps[f32], ps[f64])),
+    }
+    # the pair on the kernels against the single kernel
+    pair, full = {}, {}
+    for dt in (f64, f32):
+        total = fg.gradient_accum_lanes(*x[dt], *halves[dt][0])
+        total.buffer.add_(ka[dt][1].buffer)
+        pair[dt] = fg.gradient_solve_lanes(*x[dt], total, *lin[dt])
+        full[dt] = fg.gradient_lanes(*x[dt], *ops[dt])
+    err_pair = {
+        f64: max(compare_conditioned(f"K6 pair vs full {nm} float64", a, b, c)
+                 for nm, a, b, c in zip(names_s, pair[f64], full[f64],
+                                        ps[f32])),
+        f32: max(compare_vs_f64(f"K6 pair vs full {nm} float32", a, b, c)
+                 for nm, a, b, c in zip(names_s, pair[f32], full[f32],
+                                        ps[f64])),
+    }
+    for dt in (f64, f32):
+        print(f"[split gradient {str(dt)[6:]}] max abs err: accum vs plain "
+              f"{err_a[dt]:.3e}, solve vs plain {err_s[dt]:.3e}, accum + "
+              f"accum + solve vs the full kernel {err_pair[dt]:.3e}",
+              flush=True)
+    m = graph_b[f32].nonlinear[0].nodes.shape[0]
+    specs0, arrays0 = halves[f32][0]
+    # accum: per problem both sweeps with the edge inverse, the moments and
+    # the assembly (six products) of the shard's factors; solve: the sweeps
+    # again and both solves
+    flops_a = B * (N * chain_flops(4) + specs0[0].k * (
+        quad_flops(4, m, DIM_X, True) + 12 * 4**3))
+    flops_s = B * N * (chain_flops(4) + 2 * solve_flops(4))
+    return {
+        "fused_gradient_accum": dict(
+            **bound((x[f32], arrays0), ka[f32][0], flops_a),
+            max_abs_err=err_a[f64], err_dtype="float64",
+            ms=cuda_ms(lambda: fg.gradient_accum_lanes(*x[f32], specs0,
+                                                       arrays0)),
+            plain_ms=cuda_ms(lambda: accum_plain(f32, 0), reps=3)),
+        "fused_gradient_solve": dict(
+            **bound((x[f32], seeds[f32], lin[f32][1]), ks[f32], flops_s),
+            max_abs_err=err_s[f64], err_dtype="float64",
+            ms=cuda_ms(lambda: fg.gradient_solve_lanes(*x[f32], seeds[f32],
+                                                       *lin[f32])),
+            plain_ms=cuda_ms(lambda: solve_plain(f32, seeds[f32]), reps=3)),
+    }
+
+
 def fused_guard_cases(dtype, dev):
     """K5's guards agree between kernel and plain: the pivot-trust log
     det, the nonneg band on E[phi] and a negative linear cost are each
@@ -631,6 +754,146 @@ def counted(optimize_fn, *args):
     return out, launch_counts()
 
 
+B_MIXED = 64                    # the dp=2 x fp=2 mesh's batch
+RANKS = 4                       # rank processes of the factor-parallel phase
+
+
+def sharded_rank(rank, world, device, cfg):
+    """One rank process of the factor-parallel phase (all on one card,
+    gloo).  Every rank builds the same global batches.  Returns numpy
+    results for the parent to check:
+
+    * ``mixed``: dp=2 x fp=2 over all four ranks, B=64, float64;
+    * ``small`` (ranks 0, 1): dp=1 x fp=2, 8 problems, float64;
+    * ``main`` (ranks 0, 1): dp=1 x fp=2 at B=1024, float32: one warm-up
+      run, one run with the launch counters zeroed just before it and read
+      just after, then three timed runs."""
+    from gaussianvi_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from gaussianvi_tpu_torch.ops.precision import set_precision_policy
+    from gaussianvi_tpu_torch.parallel import make_mesh, optimize_sharded
+
+    set_precision_policy()
+
+    def result(state, hist):
+        return dict(cost=hist.cost.cpu().numpy(),
+                    accepted_step=hist.accepted_step.cpu().numpy(),
+                    factor_costs=hist.factor_costs.cpu().numpy(),
+                    mu=state.mu.cpu().numpy(),
+                    prec_diag=state.precision.diag.cpu().numpy(),
+                    prec_off=state.precision.off.cpu().numpy())
+
+    out = {}
+    mesh = make_mesh(2, 2)
+    out["mixed"] = result(*optimize_sharded(
+        *build_batch(torch.float64, device, B_MIXED), cfg, mesh))
+    mesh = make_mesh(1, 2)
+    if not mesh.member:
+        return out
+    out["small"] = result(*optimize_sharded(
+        *build_batch(torch.float64, device, 8), cfg, mesh))
+    graph, state0 = build_batch(torch.float32, device)
+    optimize_sharded(graph, state0, cfg, mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reduces = mesh.all_reduces
+    state, hist = optimize_sharded(graph, state0, cfg, mesh)
+    torch.cuda.synchronize()
+    out["main"] = dict(result(state, hist), launches=launch_counts(),
+                       all_reduces=mesh.all_reduces - reduces,
+                       backend=mesh.backend, device=str(device))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        optimize_sharded(graph, state0, cfg, mesh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    out["main"]["seconds"] = statistics.median(times)
+    return out
+
+
+def sharded_path(cfg, dev, optimize):
+    """The factor-parallel path on this card: four rank processes (spawned
+    after the kernel library is built, so none of them compiles), checked
+    against the single-process fused path.  Returns rank 0's launch counts
+    of its counted B=1024 run and the path's rate."""
+    from gaussianvi_tpu_torch.parallel.multiprocess import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_rank, RANKS, (cfg,), backend="gloo",
+                        device=str(dev), timeout_s=600.0)
+    print(f"[factor-parallel path] {RANKS} ranks on {dev} done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def same(a, b, what):
+        for k in ("cost", "accepted_step", "factor_costs", "mu", "prec_diag",
+                  "prec_off"):
+            check(np.array_equal(a[k], b[k], equal_nan=True),
+                  f"{what}: the ranks of one fp row differ in {k}")
+
+    def against_local(name, got, batch):
+        _, ref = optimize(*build_batch(torch.float64, dev, batch), cfg)
+        want = ref.cost.cpu().numpy()
+        rel = float(np.max(np.abs(got["cost"] - want) / np.abs(want)))
+        print(f"[end to end] {name} vs the single-process fused path (f64, "
+              f"{batch} problems): max relative cost difference {rel:.3e}",
+              flush=True)
+        check(rel <= 1e-9, f"{name} differs: {rel:.3e}")
+        check(np.array_equal(got["accepted_step"],
+                             ref.accepted_step.cpu().numpy()),
+              f"{name}: different accepted steps")
+        check(got["factor_costs"].shape == tuple(ref.factor_costs.shape),
+              f"{name}: factor costs {got['factor_costs'].shape}")
+        rel_fc = float(np.max(
+            np.abs(got["factor_costs"] - ref.factor_costs.cpu().numpy())
+            / np.abs(want)[..., None]))
+        check(rel_fc <= 1e-9, f"{name}: factor costs out of order or off: "
+              f"{rel_fc:.3e} of the cost")
+
+    # dp=2 x fp=2: ranks (0, 1) hold problems 0..31, ranks (2, 3) the rest
+    same(ranks[0]["mixed"], ranks[1]["mixed"], "mixed mesh row 0")
+    same(ranks[2]["mixed"], ranks[3]["mixed"], "mixed mesh row 1")
+    mixed = {k: np.concatenate([ranks[0]["mixed"][k], ranks[2]["mixed"][k]])
+             for k in ranks[0]["mixed"]}
+    against_local("dp=2 x fp=2 mesh", mixed, B_MIXED)
+    check("small" not in ranks[2] and "main" not in ranks[3],
+          "ranks outside the 1 x 2 mesh ran on it")
+    same(ranks[0]["small"], ranks[1]["small"], "fp=2, 8 problems")
+    against_local("dp=1 x fp=2 mesh", ranks[0]["small"], 8)
+
+    main0, main1 = ranks[0]["main"], ranks[1]["main"]
+    same(main0, main1, "fp=2, B=1024")
+    for r, m in enumerate((main0, main1)):
+        n = m["launches"]
+        print(f"[factor-parallel path] rank {r} ({m['backend']}, "
+              f"{m['device']}): launches {n}, {m['all_reduces']} "
+              f"all-reduces", flush=True)
+        check(n["fused_gradient_accum"] == n["fused_gradient_solve"]
+              == n["fused_trials"] == NITERS and n["fused_gradient"] == 0,
+              f"rank {r} did not run accum, solve and trials once per "
+              f"iteration: {n}")
+        check(n["gbp_covariance_logdet"] > 0 and n["quad_phi"] > 0,
+              f"rank {r}: the initial covariance / costs skipped their "
+              f"kernels: {n}")
+        # per iteration the cost, the accumulators and the trial costs;
+        # then three lockstep checks
+        check(m["all_reduces"] == 3 * NITERS + 3,
+              f"rank {r}: {m['all_reduces']} all-reduces")
+    cost = torch.as_tensor(main0["cost"]).double()
+    check(cost.shape == (B, NITERS) and bool(torch.isfinite(cost).all()),
+          "factor-parallel path: non-finite cost")
+    rises = int((cost[:, 1:] > cost[:, :-1]).sum())
+    check(rises == 0, f"factor-parallel path: {rises} cost increases")
+    check(np.isfinite(main0["mu"]).all()
+          and np.isfinite(main0["prec_diag"]).all(),
+          "factor-parallel path: non-finite final state")
+    rate = B * NITERS / max(main0["seconds"], main1["seconds"])
+    return main0["launches"], rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
@@ -663,6 +926,7 @@ def main() -> int:
     kern = kernel_checks(graph_b, state_b, dev)
     iterate = flagship_iterate(graph_b, state_b)
     kern.update(fused_checks(graph_b, state_b, dev, iterate))
+    kern.update(split_checks(graph_b, dev, iterate))
     kern.update(moments_checks(graph_b, iterate, dev))
     sqrtm_ms = sqrtm_times(iterate, dev)
 
@@ -759,6 +1023,9 @@ def main() -> int:
           f"ended below their first cost", flush=True)
     check(moved > B // 2, f"prox path: only {moved}/{B} problems moved")
 
+    # ---- factor-parallel path: rank processes on this card, counted ----
+    shard_counts, shard_rate = sharded_path(cfg, dev, optimize)
+
     # ---- kernels against plain versions, end to end (float64) ----
     g8, s8 = build_batch(torch.float64, dev, num_problems=8)
     g8c, s8c = build_batch(torch.float64, torch.device("cpu"), num_problems=8)
@@ -827,6 +1094,10 @@ def main() -> int:
           f"(with separate trials {rates['block_sep']:.1f}), prox "
           f"{rates['prox']:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, "
           f"f32, median of 3)", flush=True)
+    print(f"[throughput] {card}: factor-parallel dp=1 x fp=2 "
+          f"{shard_rate:.1f} prob-iters/s: two ranks time-slicing one card "
+          f"over gloo, no scaling number (B={B}, N={N}, {NITERS} iters, f32, "
+          f"median of 3, the slower rank)", flush=True)
     for name, r in kern.items():
         print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
@@ -851,9 +1122,13 @@ def main() -> int:
         "fused_trials": ("fused_trials.cu", "fused_trials.py:269", "fused"),
         "fused_gradient": ("fused_gradient.cu", "fused_gradient.py:185",
                            "fused"),
+        "fused_gradient_accum": ("fused_gradient_accum.cu",
+                                 "fused_gradient.py:185", "factor_parallel"),
+        "fused_gradient_solve": ("fused_gradient_solve.cu",
+                                 "fused_gradient.py:185", "factor_parallel"),
     }
     counts = {"fused": fused_counts, "separate": sep_counts,
-              "block_moments": block_counts}
+              "block_moments": block_counts, "factor_parallel": shard_counts}
     # library_ms: no single PyTorch call computes any of these functions
     # (block-tridiagonal selected inversion, block-Thomas solve,
     # sigma-point moments of a cost given as code)

@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of gaussianvi_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``gaussianvi_tpu`` is the reference; this package mirrors
-its layout and module names.  It covers the flagship NGD path
-(``examples.chain_estimation`` -> ``inference.optimize.optimize``) on the
-separate-kernel configuration, with hand-written CUDA kernels for the
-chain (``kernels/chain.py``) and the sigma-point quadrature
-(``kernels/quad.py``).  Problems are batched on an explicit leading axis.
+its layout and module names.  It covers the flagship
+(``examples.chain_estimation`` -> ``inference.optimize.optimize``) with the
+NGD and proximal optimizers, single-process and over a (dp, fp) mesh of
+ranks (``parallel.optimize_sharded``), with a hand-written CUDA kernel
+(``kernels/``, ``csrc/``) for every Pallas kernel of the JAX package.
+Problems are batched on an explicit leading axis.
 Imports PyTorch and numpy, never JAX.
 """
 

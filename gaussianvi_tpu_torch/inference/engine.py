@@ -173,14 +173,21 @@ class LocalEngine:
             out.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off))
         return tuple(out)
 
-    @staticmethod
-    def reduce_fc(fc_tuple, like: torch.Tensor) -> torch.Tensor:
+    def reduce_fc(self, fc_tuple, like: torch.Tensor) -> torch.Tensor:
         """Per-problem sum of (already tempered) per-factor costs,
-        ``[..., K] -> [...]``, in the JAX package's order."""
+        ``[..., K] -> [...]``, in the JAX package's order.  A sharded
+        engine sums its sharded batches over its ranks here."""
         total = torch.zeros_like(like)
         for f in fc_tuple:
             total = total + f.sum(-1)
         return total
+
+    def reduce_trial_costs(self, trial_lds, fc_t) -> torch.Tensor:
+        """Total cost of every line-search trial ``[T, ...]``: 0.5 log det
+        plus the (already tempered) per-factor sums.  A sharded engine
+        sums over its ranks here, so that every rank sees the same costs
+        and takes the same accept decisions."""
+        return 0.5 * trial_lds + self.reduce_fc(fc_t, trial_lds)
 
     # -- gradients -----------------------------------------------------------
     def ngd_gradients(self, mu, cov_diag, cov_off, temperature):

@@ -12,7 +12,11 @@ from __future__ import annotations
 import torch
 
 from ..factors import moments as mm
-from ..ops.blocktridiag import BlockTridiag, spd_inv
+from ..ops.blocktridiag import (
+    BlockTridiag,
+    gbp_covariance_logdet,
+    spd_inv,
+)
 from ..ops.psd import sqrtm_product
 from .graph import FactorGraph, gather_marginals, scatter_gradients
 
@@ -36,16 +40,31 @@ def factor_costs(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
     return torch.cat(costs, dim=-1)
 
 
+def joint_cost(graph: FactorGraph, mu, precision: BlockTridiag, temperature,
+               temper_costs: bool = True):
+    """Total V(q) = sum_k E[psi_k] (/T) + 0.5 log det Lambda, per problem
+    (``[...]``), on the plain chain and quadrature."""
+    cov_diag, cov_off, ld = gbp_covariance_logdet(precision)
+    fc = factor_costs(graph, mu, cov_diag, cov_off, temperature, temper_costs)
+    return fc.sum(-1) + 0.5 * ld
+
+
 def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                  use_pallas: bool = False, use_kernel: bool = False):
+                  use_pallas: bool = False, use_kernel: bool = False,
+                  onto=None):
     """Assemble joint (Vdmu [..., N, s], Vddmu block-tridiag).
 
     The NGD step downstream is d_precision = Vddmu - Lambda and
-    d_mu = solve(Vddmu, -Vdmu)."""
+    d_mu = solve(Vddmu, -Vdmu).  ``onto``: accumulators ``(Vdmu, Vddmu)``
+    to add into in place (a sharded engine's summed nonlinear part) in
+    place of zeros."""
     n, s = mu.shape[-2:]
-    vdmu_joint = torch.zeros_like(mu)
-    vddmu_joint = BlockTridiag.zeros(mu.shape[:-2], n, s, mu.dtype,
-                                     mu.device)
+    if onto is not None:
+        vdmu_joint, vddmu_joint = onto
+    else:
+        vdmu_joint = torch.zeros_like(mu)
+        vddmu_joint = BlockTridiag.zeros(mu.shape[:-2], n, s, mu.dtype,
+                                         mu.device)
     for fb in graph.nonlinear:
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)

@@ -174,8 +174,8 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
             t_prec = (prec + dprec.scale(steps)).symmetrize()
             t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
             t_fc = engine.factor_costs_raw(t_mu, t_cd, t_co)
-        trial_costs = (engine.reduce_fc(temper(t_fc, temperature), t_ld)
-                       + 0.5 * t_ld)                          # [T, B]
+        trial_costs = engine.reduce_trial_costs(
+            t_ld, temper(t_fc, temperature))                  # [T, B]
         ok = trial_costs < cost_iter
         accepted = ok.any(0)
         sel = torch.where(accepted, ok.to(dtype).argmax(0),

@@ -4,7 +4,11 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from .chain import gbp_covariance_logdet_lanes, solve_lanes
-from .fused_gradient import gradient_lanes
+from .fused_gradient import (
+    gradient_accum_lanes,
+    gradient_lanes,
+    gradient_solve_lanes,
+)
 from . import fused_moments as _fused_moments  # the name stays the module
 from .fused_trials import trial_costs_lanes
 from .quad import quad_lanes_moments, quad_lanes_phi
@@ -17,6 +21,8 @@ WRAPPERS = {
     "fused_moments": _fused_moments.fused_moments,
     "fused_trials": trial_costs_lanes,
     "fused_gradient": gradient_lanes,
+    "fused_gradient_accum": gradient_accum_lanes,
+    "fused_gradient_solve": gradient_solve_lanes,
 }
 
 

@@ -57,6 +57,10 @@ SIGNATURES = {
     "gvi_fused_grad": (_I, _I, _I, _I, *(_P,) * 15, _I, _I,
                        _I, _P, _P, _I, _P, _P, _P),
 }
+# the split pair of the fused gradient kernel takes the same arguments
+# (mode "accum": null covd .. dfb; mode "solve": vdd, vdo, vdmu hold the sum)
+SIGNATURES["gvi_fused_grad_accum"] = SIGNATURES["gvi_fused_grad"]
+SIGNATURES["gvi_fused_grad_solve"] = SIGNATURES["gvi_fused_grad"]
 
 
 def _sources() -> list[Path]:

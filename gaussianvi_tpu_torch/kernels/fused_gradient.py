@@ -1,24 +1,36 @@
-"""Fused NGD gradient step (K6, mode "full"): covariance + moments + joint
-natural-gradient assembly + both block-Thomas solves in one kernel.
+"""Fused NGD gradient step (K6): covariance + moments + joint
+natural-gradient assembly + both block-Thomas solves in one kernel, or
+split in two where the nonlinear factors are sharded over ranks.
 
 Counterpart of ``gaussianvi_tpu/kernels/fused_gradient.py``.  The inputs
 are the current iterate ``mu``, ``(prec_diag, prec_off)``, the per-problem
 temperature and the factor operands the fused trial kernel takes
-(``kernels/fused_trials.py``); the kernel (``csrc/fused_gradient.cu``, one
-thread per problem) returns the iterate's covariance blocks and log det,
-``dprec = Vddmu - Lambda``, and the solutions of ``Vddmu dmu = -Vdmu``
+(``kernels/fused_trials.py``).  Mode ``"full"`` (``csrc/fused_gradient.cu``,
+one thread per problem) returns the iterate's covariance blocks and log
+det, ``dprec = Vddmu - Lambda``, and the solutions of ``Vddmu dmu = -Vdmu``
 (NaN where Vddmu is indefinite) and of the SPD fallback
 ``Lambda dmu_fb = -Vdmu``.  The linear factors enter through the residual
 form: ``Vdmu = 2 Lam^T prec_c (Lam mu - pm) / T``, ``Vddmu = 2 A / T``,
 which equals the separate path for symmetric target precisions (every
 library prior builds them so).
 
-Modes "accum" and "solve" (the fp-sharded split pair) are not ported.
-``gradient_lanes.launches`` counts kernel launches (never plain-version
-calls).
+The factor-parallel path (``parallel/sharding.py``) runs the same program
+as a pair: mode ``"accum"`` (``csrc/fused_gradient_accum.cu``) returns the
+partial ``(Vdmu, Vddmu diag, Vddmu off)`` of the nonlinear factors it is
+given, as views of one buffer (:class:`Partials`) so that they are summed
+over the ranks in one all-reduce; mode ``"solve"``
+(``csrc/fused_gradient_solve.cu``) takes that sum as ``seeds``, adds the
+linear factors and returns what ``"full"`` returns.
+
+Each mode's kernel launches are counted on its own wrapper (never
+plain-version calls): ``gradient_lanes.launches`` for ``"full"``,
+``gradient_accum_lanes.launches`` and ``gradient_solve_lanes.launches``
+for the pair, whichever of the three functions was called.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,20 +60,41 @@ def _full_a(a, nb: int):
     return torch.cat([top, bot], dim=-2)
 
 
-def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
-                   lin_arrays):
-    """Plain version of K6: ``(cov_diag, cov_off, logdet, dprec_diag,
-    dprec_off, dmu, dmu_fallback)``.
+# mode -> C entry point
+_ENTRIES = {"full": "gvi_fused_grad", "accum": "gvi_fused_grad_accum",
+            "solve": "gvi_fused_grad_solve"}
 
-    The plain GBP, the sigma-point moments with the marginal-rule lift and
-    the NGD local gradients, the residual-form linear gradients, scattered
-    per state and edge, then both solves."""
-    b, n, s = mu.shape
-    prec = BlockTridiag(pd, po)
-    joint_cov, ld = gbp_edge_covariance(prec)
-    _, _, cov_off, cov_diag = edge_blocks(joint_cov, s)
-    vdmu = torch.zeros_like(mu)
-    vdd = BlockTridiag.zeros((b,), n, s, mu.dtype, mu.device)
+
+class Partials(tuple):
+    """``(vdmu [B, N, s], vdd [B, N, s, s], vdo [B, N-1, s, s])``, the
+    joint gradient accumulators, as views of the one tensor ``buffer``: an
+    in-place sum of ``buffer`` over ranks sums all three."""
+
+    buffer: torch.Tensor
+
+    def __new__(cls, b, n, s, dtype, device, batch_last: bool, zero: bool):
+        shapes = ((b, n, s), (b, n, s, s), (b, n - 1, s, s))
+        sizes = [math.prod(sh) for sh in shapes]
+        buffer = (torch.zeros if zero else torch.empty)(
+            sum(sizes), dtype=dtype, device=device)
+        parts = buffer.split(sizes)
+        if batch_last:      # the kernels' layout, [elements, B] per part
+            parts = [unlanes(p.view(-1, b), sh)
+                     for p, sh in zip(parts, shapes)]
+        else:
+            parts = [p.view(sh) for p, sh in zip(parts, shapes)]
+        self = super().__new__(cls, parts)
+        self.buffer = buffer
+        return self
+
+
+def _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
+                lin_arrays, vdmu, vdd):
+    """Add every factor's local gradients into ``vdmu`` / ``vdd`` in place:
+    the sigma-point moments with the marginal-rule lift and the NGD local
+    gradients of the nonlinear batches, the residual-form gradients of the
+    linear ones."""
+    b, _, s = mu.shape
     t = temperature[:, None, None]
     for spec, (start, nodes, weights, params) in zip(nl_specs, nl_arrays):
         off = spec.slice_offset
@@ -81,27 +114,76 @@ def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
         vdd_k = (2.0 * _full_a(a, spec.nb) / t[..., None]).expand(
             b, spec.k, d, d)
         scatter_gradients(start, spec.nb, vd_k, vdd_k, vdmu, vdd, off)
+
+
+def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
+                   lin_arrays, mode: str = "full", seeds=None):
+    """Plain version of K6 in each mode.
+
+    ``"full"`` / ``"solve"``: ``(cov_diag, cov_off, logdet, dprec_diag,
+    dprec_off, dmu, dmu_fallback)`` from the plain GBP, the factors' local
+    gradients scattered per state and edge (onto zeros, or onto a copy of
+    ``seeds``), then both solves.  ``"accum"``: the :class:`Partials` of the
+    factors given, nothing else."""
+    b, n, s = mu.shape
+    prec = BlockTridiag(pd, po)
+    joint_cov, ld = gbp_edge_covariance(prec)
+    _, _, cov_off, cov_diag = edge_blocks(joint_cov, s)
+    acc = Partials(b, n, s, mu.dtype, mu.device, batch_last=False, zero=True)
+    vdmu, vdd = acc[0], BlockTridiag(acc[1], acc[2])
+    if mode == "solve":
+        for dst, src in zip(acc, seeds):
+            dst.copy_(src)
+    _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
+                lin_arrays, vdmu, vdd)
+    if mode == "accum":
+        return acc
     dprec = vdd - prec
     return (cov_diag, cov_off, ld, dprec.diag, dprec.off,
             solve(vdd, -vdmu), solve(prec, -vdmu))
 
 
+def _check_mode(name, mode, seeds, nl_specs, lin_specs, mu):
+    if mode not in _ENTRIES:
+        raise ValueError(f"{name}: unknown mode {mode!r} (one of "
+                         f"{tuple(_ENTRIES)})")
+    if (mode == "solve") != (seeds is not None):
+        raise ValueError(f"{name}: seeds go with mode 'solve', and only "
+                         "with it")
+    if mode == "accum" and lin_specs:
+        raise ValueError(f"{name}: mode 'accum' takes nonlinear factors "
+                         "only (the linear ones go to mode 'solve')")
+    if mode == "solve":
+        if nl_specs:
+            raise ValueError(f"{name}: mode 'solve' takes linear factors "
+                             "only (the nonlinear ones go to mode 'accum')")
+        b, n, s = mu.shape
+        want = ((b, n, s), (b, n, s, s), (b, n - 1, s, s))
+        if len(seeds) != 3 or any(
+                tuple(x.shape) != sh or x.dtype != mu.dtype
+                or x.device != mu.device for x, sh in zip(seeds, want)):
+            raise ValueError(f"{name}: seeds must be (vdmu, vdd, vdo) of "
+                             f"shapes {want} with mu's dtype and device")
+
+
 def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
-                   lin_arrays, mode: str = "full"):
+                   lin_arrays, mode: str = "full", seeds=None):
     """K6: ``mu [B, N, s]``, ``pd [B, N, s, s]``, ``po [B, N-1, s, s]``,
     ``temperature [B]`` and the factor operands of
-    ``kernels/fused_trials.py`` -> ``(cov_diag [B, N, s, s], cov_off
-    [B, N-1, s, s], logdet [B], dprec_diag, dprec_off, dmu [B, N, s],
-    dmu_fallback [B, N, s])``.  CUDA tensors launch the kernel; CPU tensors
-    run :func:`gradient_plain`."""
-    if mode != "full":
-        raise NotImplementedError(
-            f"fused gradient mode {mode!r} (the fp-sharded split pair) is "
-            "not ported yet (ROADMAP.md, Queue B 7)")
+    ``kernels/fused_trials.py``.
+
+    Modes ``"full"`` and ``"solve"`` (``seeds``: the summed ``(vdmu, vdd,
+    vdo)`` of the ``"accum"`` calls, left untouched; linear operands only)
+    -> ``(cov_diag [B, N, s, s], cov_off [B, N-1, s, s], logdet [B],
+    dprec_diag, dprec_off, dmu [B, N, s], dmu_fallback [B, N, s])``.  Mode
+    ``"accum"`` (nonlinear operands only) -> :class:`Partials`.  CUDA
+    tensors launch the mode's kernel; CPU tensors run
+    :func:`gradient_plain`."""
+    name = "gradient_lanes"
+    _check_mode(name, mode, seeds, nl_specs, lin_specs, mu)
     if mu.device.type == "cpu":
         return gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs,
-                              nl_arrays, lin_arrays)
-    name = "gradient_lanes"
+                              nl_arrays, lin_arrays, mode, seeds)
     b, n, s = check_state(name, mu, pd, po, temperature)
     if temperature.shape != (b,):
         raise ValueError(f"{name}: temperature must be [{b}]")
@@ -112,22 +194,55 @@ def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     def like(x):
         return torch.empty_like(x)
 
-    covd, covo, dpd, dpo = like(pd_l), like(po_l), like(pd_l), like(po_l)
-    dmu, dfb = like(mu_l), like(mu_l)
-    fpiv, vdd, vdo, vdmu = like(pd_l), like(pd_l), like(po_l), like(mu_l)
-    ld = torch.empty((b,), dtype=mu.dtype, device=mu.device)
-    err = _build.load().gvi_fused_grad(
+    # the accumulators: the outputs of "accum"; for "solve" a copy of the
+    # seeds (the kernel pivots vdd in place)
+    acc = Partials(b, n, s, mu.dtype, mu.device, batch_last=True, zero=False)
+    if mode == "solve":
+        for dst, src in zip(acc, seeds):
+            dst.copy_(src)
+    vdmu, vdd, vdo = acc       # each view starts where its part does
+    fpiv = like(pd_l)
+    if mode == "accum":
+        outs = [None] * 7
+    else:
+        outs = [like(pd_l), like(po_l),
+                torch.empty((b,), dtype=mu.dtype, device=mu.device),
+                like(pd_l), like(po_l), like(mu_l), like(mu_l)]
+    entry = _ENTRIES[mode]
+    err = getattr(_build.load(), entry)(
         _build.DTYPES[mu.dtype], s, fa.cost, fa.n_params,
-        *(x.data_ptr() for x in (mu_l, pd_l, po_l, temp, covd, covo, ld, dpd,
-                                 dpo, dmu, dfb, fpiv, vdd, vdo, vdmu)),
+        *(x.data_ptr() for x in (mu_l, pd_l, po_l, temp)),
+        *(None if x is None else x.data_ptr() for x in outs),
+        *(x.data_ptr() for x in (fpiv, vdd, vdo, vdmu)),
         b, n, fa.n_nl, fa.nl_ptrs, fa.nl_ints, fa.n_lin, fa.lin_ptrs,
         fa.lin_ints, torch.cuda.current_stream(mu.device).cuda_stream,
     )
-    _build.check(err, "gvi_fused_grad")
-    gradient_lanes.launches += 1
+    _build.check(err, entry)
+    _COUNTED[mode].launches += 1
+    if mode == "accum":
+        return acc
+    covd, covo, ld, dpd, dpo, dmu, dfb = outs
     return (unlanes(covd, pd.shape), unlanes(covo, po.shape), ld,
             unlanes(dpd, pd.shape), unlanes(dpo, po.shape),
             unlanes(dmu, mu.shape), unlanes(dfb, mu.shape))
 
 
-gradient_lanes.launches = 0
+def gradient_accum_lanes(mu, pd, po, temperature, nl_specs, nl_arrays):
+    """K6 mode ``"accum"``: the :class:`Partials` of the nonlinear factors
+    given (one rank's shard)."""
+    return gradient_lanes(mu, pd, po, temperature, nl_specs, (), nl_arrays,
+                          (), mode="accum")
+
+
+def gradient_solve_lanes(mu, pd, po, temperature, seeds, lin_specs,
+                         lin_arrays):
+    """K6 mode ``"solve"``: the outputs of mode ``"full"`` from the summed
+    partial gradients ``seeds`` and the linear factors."""
+    return gradient_lanes(mu, pd, po, temperature, (), lin_specs, (),
+                          lin_arrays, mode="solve", seeds=seeds)
+
+
+_COUNTED = {"full": gradient_lanes, "accum": gradient_accum_lanes,
+            "solve": gradient_solve_lanes}
+for _fn in _COUNTED.values():
+    _fn.launches = 0

@@ -321,6 +321,6 @@ def test_auto_keeps_the_separate_path_on_cpu(slice_problems):
     assert not eng.fused_trials_ready and not eng.fused_gradient_ready
     eng = LocalEngine(graph, GVIConfig(fused_trials="on"), torch.device("cpu"))
     assert eng.fused_trials_ready and not eng.fused_gradient_ready
-    with pytest.raises(NotImplementedError, match="Queue B 7"):
+    with pytest.raises(ValueError, match="unknown mode"):
         tfg.gradient_lanes(None, None, None, None, (), (), (), (),
-                           mode="accum")
+                           mode="half")
