@@ -5,7 +5,10 @@ the nine kernel entry points against its plain PyTorch version at the
 flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
 and negative-linear-cost guard cases; the block-form moments kernel K4 also
 against the quadrature kernel K3; the split fused gradient pair also
-against the single fused gradient kernel), then drives the flagship
+against the single fused gradient kernel; the two redesigned fused kernels
+also at chain lengths around a warp's width, dynamic starts, ragged blocks
+and a chain long enough for the global-scratch route, and launched twice for
+identical bits), then drives the flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
 the 29-node degree-4 marginal rule, 10 iterations, along five paths:
 
@@ -77,19 +80,80 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+_HOLD = {}
+
+
+def hold_device():
+    """Keep the card busy for some milliseconds (one large float32 matrix
+    product) so that the host can queue the calls to be timed behind it:
+    the events then bracket device work that runs back to back, not the
+    host's pace of launching it.  The redesigned kernels take less time
+    than their wrappers take to launch them."""
+    if "a" not in _HOLD:
+        _HOLD["a"] = torch.ones(6144, 6144, device="cuda")
+        _HOLD["out"] = torch.empty_like(_HOLD["a"])
+    torch.mm(_HOLD["a"], _HOLD["a"], out=_HOLD["out"])
+
+
 def cuda_ms(fn, reps=10):
-    """Mean milliseconds per call over ``reps`` calls after one warm-up,
-    CUDA events around the whole run."""
+    """Mean device milliseconds per call over ``reps`` calls after one
+    warm-up, CUDA events around the whole run, queued behind
+    :func:`hold_device`.  The operands stay warm in L2."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    hold_device()
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+_FLUSH = {}
+
+
+def cuda_ms_flushed(fn, reps=10):
+    """Mean device milliseconds per call with the L2 cache flushed before
+    every call (a 256 MB buffer, five times the 50 MB L2, is overwritten):
+    what a caller pays whose operands are not already in L2.  Each call is
+    timed by its own pair of events, queued behind :func:`hold_device`; the
+    flush is outside them."""
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(256 << 20, dtype=torch.uint8,
+                                    device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        hold_device()
+        _FLUSH["buf"].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaNs in the same places."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def check_repeatable(name, fn):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed summation order); returns the first result."""
+    first, second = fn(), fn()
+    flat = lambda out: [t for x in out for t in (  # noqa: E731
+        x if isinstance(x, (tuple, list)) else (x,))]
+    check(all(same_bits(a, b) for a, b in zip(flat(first), flat(second))),
+          f"{name}: two launches on the same inputs differ")
+    return first
 
 
 def tensor_bytes(obj) -> int:
@@ -509,8 +573,12 @@ def fused_checks(graph_b, state_b, dev, iterate):
         x5[dt] = (mu, dmu, pd, po, dpd, dpo, trials)
     p6[f32] = fg.gradient_plain(*x6[f32], *ops[f32])
     p5 = {dt: ft.trial_costs_plain(*x5[dt], *ops[dt]) for dt in (f32, f64)}
-    k6 = {dt: fg.gradient_lanes(*x6[dt], *ops[dt]) for dt in (f32, f64)}
-    k5 = {dt: ft.trial_costs_lanes(*x5[dt], *ops[dt]) for dt in (f32, f64)}
+    k6 = {dt: check_repeatable(
+        f"K6 full {dt}", lambda dt=dt: fg.gradient_lanes(*x6[dt], *ops[dt]))
+        for dt in (f32, f64)}
+    k5 = {dt: check_repeatable(
+        f"K5 {dt}", lambda dt=dt: ft.trial_costs_lanes(*x5[dt], *ops[dt]))
+        for dt in (f32, f64)}
 
     def flat5(out):
         return (out[0], *out[1])
@@ -550,6 +618,8 @@ def fused_checks(graph_b, state_b, dev, iterate):
             **bound((x5[f32], arrays), k5[f32], flops5),
             max_abs_err=errs["K5", f64], err_dtype="float64",
             ms=cuda_ms(lambda: ft.trial_costs_lanes(*x5[f32], *ops[f32])),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda: ft.trial_costs_lanes(*x5[f32], *ops[f32])),
             plain_ms=cuda_ms(lambda: ft.trial_costs_plain(*x5[f32],
                                                           *ops[f32]),
                              reps=3)),
@@ -557,6 +627,8 @@ def fused_checks(graph_b, state_b, dev, iterate):
             **bound((x6[f32], arrays), k6[f32], flops6),
             max_abs_err=errs["K6", f64], err_dtype="float64",
             ms=cuda_ms(lambda: fg.gradient_lanes(*x6[f32], *ops[f32])),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda: fg.gradient_lanes(*x6[f32], *ops[f32])),
             plain_ms=cuda_ms(lambda: fg.gradient_plain(*x6[f32], *ops[f32]),
                              reps=3)),
     }
@@ -606,8 +678,10 @@ def split_checks(graph_b, dev, iterate):
 
     # accum on half 0 and half 1, kernel against plain
     pa = {dt: [accum_plain(dt, i) for i in (0, 1)] for dt in (f64, f32)}
-    ka = {dt: [fg.gradient_accum_lanes(*x[dt], *halves[dt][i])
-               for i in (0, 1)] for dt in (f64, f32)}
+    ka = {dt: [check_repeatable(
+        f"K6 accum[{i}] {dt}",
+        lambda dt=dt, i=i: fg.gradient_accum_lanes(*x[dt], *halves[dt][i]))
+        for i in (0, 1)] for dt in (f64, f32)}
     names_a = ("vdmu", "vdd", "vdo")
     err_a = {
         f64: max(compare_conditioned(f"K6 accum[{i}] {nm} float64", a, b, c)
@@ -624,8 +698,10 @@ def split_checks(graph_b, dev, iterate):
     seeds = {f64: tuple(a + b for a, b in zip(*pa[f64]))}
     seeds[f32] = tuple(t.to(f32) for t in seeds[f64])
     ps = {dt: solve_plain(dt, seeds[dt]) for dt in (f64, f32)}
-    ks = {dt: fg.gradient_solve_lanes(*x[dt], seeds[dt], *lin[dt])
-          for dt in (f64, f32)}
+    ks = {dt: check_repeatable(
+        f"K6 solve {dt}",
+        lambda dt=dt: fg.gradient_solve_lanes(*x[dt], seeds[dt], *lin[dt]))
+        for dt in (f64, f32)}
     names_s = ("cov_diag", "cov_off", "logdet", "dprec_diag", "dprec_off",
                "dmu", "dmu_fallback")
     err_s = {
@@ -635,12 +711,28 @@ def split_checks(graph_b, dev, iterate):
                  for nm, a, b, c in zip(names_s, ks[f32], ps[f32], ps[f64])),
     }
     # the pair on the kernels against the single kernel
-    pair, full = {}, {}
+    pair, full, off_bits = {}, {}, {}
     for dt in (f64, f32):
         total = fg.gradient_accum_lanes(*x[dt], *halves[dt][0])
         total.buffer.add_(ka[dt][1].buffer)
+        kept = total.buffer.clone()
         pair[dt] = fg.gradient_solve_lanes(*x[dt], total, *lin[dt])
+        check(torch.equal(total.buffer, kept),
+              f"K6 solve wrote to its seeds ({dt})")
         full[dt] = fg.gradient_lanes(*x[dt], *ops[dt])
+        # every state has one range factor, so the halves' sum adds a zero
+        # to what one rank holding every factor computes; shard and whole
+        # batch run the same code of the same kernel: the same bits
+        whole = fg.gradient_accum_lanes(*x[dt], ops[dt][0], ops[dt][2])
+        check(same_bits(total.buffer, whole.buffer),
+              f"K6 accum on the two halves does not sum to accum on the "
+              f"whole batch bit for bit ({dt})")
+        # "solve" and "full" are two instances of the template, and the
+        # compiler contracts the linear factors' sums in each its own way:
+        # the pair is held to the full kernel by the tolerances below, and
+        # the entries that differ are counted
+        off_bits[dt] = sum(int((a.nan_to_num() != b.nan_to_num()).sum())
+                           for a, b in zip(pair[dt], full[dt]))
     err_pair = {
         f64: max(compare_conditioned(f"K6 pair vs full {nm} float64", a, b, c)
                  for nm, a, b, c in zip(names_s, pair[f64], full[f64],
@@ -652,7 +744,9 @@ def split_checks(graph_b, dev, iterate):
     for dt in (f64, f32):
         print(f"[split gradient {str(dt)[6:]}] max abs err: accum vs plain "
               f"{err_a[dt]:.3e}, solve vs plain {err_s[dt]:.3e}, accum + "
-              f"accum + solve vs the full kernel {err_pair[dt]:.3e}",
+              f"accum + solve vs the full kernel {err_pair[dt]:.3e} "
+              f"({off_bits[dt]} entries differ; the halves sum to accum on "
+              f"the whole batch bit for bit)",
               flush=True)
     m = graph_b[f32].nonlinear[0].nodes.shape[0]
     specs0, arrays0 = halves[f32][0]
@@ -668,14 +762,112 @@ def split_checks(graph_b, dev, iterate):
             max_abs_err=err_a[f64], err_dtype="float64",
             ms=cuda_ms(lambda: fg.gradient_accum_lanes(*x[f32], specs0,
                                                        arrays0)),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda: fg.gradient_accum_lanes(*x[f32], specs0, arrays0)),
             plain_ms=cuda_ms(lambda: accum_plain(f32, 0), reps=3)),
         "fused_gradient_solve": dict(
             **bound((x[f32], seeds[f32], lin[f32][1]), ks[f32], flops_s),
             max_abs_err=err_s[f64], err_dtype="float64",
             ms=cuda_ms(lambda: fg.gradient_solve_lanes(*x[f32], seeds[f32],
                                                        *lin[f32])),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda: fg.gradient_solve_lanes(*x[f32], seeds[f32],
+                                                *lin[f32])),
             plain_ms=cuda_ms(lambda: solve_plain(f32, seeds[f32]), reps=3)),
     }
+
+
+# name -> (N, dim_x, problems); no batch is a multiple of K6's four problems
+# per block
+LAYOUTS = {"N=2": (2, 2, 3), "N=5, s=2": (5, 1, 5), "N=33": (33, 2, 3),
+           "N=70, s=2": (70, 1, 2), "dynamic starts": (9, 2, 3),
+           "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2)}
+
+
+def layout_checks(dev):
+    """K5 and the three modes of K6 against their plain versions (float64,
+    atol 1e-10 of each output's range, identical NaN patterns) at shapes
+    the warp-per-chain layout can get wrong: chains shorter and longer than
+    a warp, s = 2, a nonlinear batch with dynamic starts in another order
+    than its states, two nonlinear batches, a ragged last block, and a
+    chain too long for shared memory (the global-scratch route).  Each
+    kernel is launched twice for identical bits, and ``accum`` + ``solve``
+    must give the ``full`` kernel's bits."""
+    from gaussianvi_tpu_torch import stack_problems
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    dt = torch.float64
+    worst = {}
+    for name, (n, dim_x, count) in LAYOUTS.items():
+        graph, state = stack_problems(*map(list, zip(*(
+            build_chain_estimation(num_states=n, dim_x=dim_x, gh_degree=4,
+                                   seed=i, dtype=dt, device=dev)[:2]
+            for i in range(count)))))
+        nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
+        sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
+        if name == "dynamic starts":
+            keep = torch.tensor([7, 2, 5, 0, 3], device=dev)
+            nl_specs = (sp._replace(k=len(keep), slice_offset=None),)
+            nl_arrays = ((start[keep], nodes, weights, params[:, keep]),)
+        elif name == "two nonlinear batches":
+            halves = [torch.arange(h, n, 2, device=dev) for h in (0, 1)]
+            nl_specs = tuple(sp._replace(k=len(h), slice_offset=None)
+                             for h in halves)
+            nl_arrays = tuple((start[h], nodes, weights, params[:, h])
+                              for h in halves)
+        ops = (nl_specs, lin_specs, nl_arrays, lin_arrays)
+        s = 2 * dim_x
+        if name == "long chain":
+            check(fg.grad_plan(name, n, s, 8, 0).scratch
+                  and ft.trial_plan(name, n, s, TRIALS, 8, 0).scratch,
+                  f"N={n} does not take the global-scratch route")
+        rng = np.random.default_rng(n)
+        t = lambda a: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+        mu = state.mu + t(0.05 * rng.standard_normal((count, n, s)))
+        pd, po = state.precision.diag, state.precision.off
+        x6 = (mu, pd, po, torch.linspace(1.0, 3.0, count, dtype=dt,
+                                         device=dev))
+        dq = rng.standard_normal((count, n, s, s))
+        x5 = (mu, t(0.5 * rng.standard_normal((count, n, s))), pd, po,
+              t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+              t(0.5 * rng.standard_normal((count, n - 1, s, s))),
+              t(0.9 * 0.75 ** np.arange(1, TRIALS + 1)))
+
+        def held(tag, got, want):
+            def scale(b):
+                fin = b[torch.isfinite(b)]
+                return max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+            return max(compare(f"{tag}[{i}] {name}", a, b, 0.0,
+                               1e-10 * scale(b))
+                       for i, (a, b) in enumerate(zip(got, want)))
+
+        full = check_repeatable(f"K6 full {name}",
+                                lambda: fg.gradient_lanes(*x6, *ops))
+        err = held("K6 full", full, fg.gradient_plain(*x6, *ops))
+        part = check_repeatable(
+            f"K6 accum {name}",
+            lambda: fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays))
+        err = max(err, held("K6 accum", part, fg.gradient_plain(
+            *x6, nl_specs, (), nl_arrays, (), mode="accum")))
+        pair = check_repeatable(
+            f"K6 solve {name}",
+            lambda: fg.gradient_solve_lanes(*x6, part, lin_specs, lin_arrays))
+        check(all(same_bits(a, b) for a, b in zip(pair, full)),
+              f"{name}: accum + solve is not the full kernel bit for bit")
+        k5 = check_repeatable(f"K5 {name}",
+                              lambda: ft.trial_costs_lanes(*x5, *ops))
+        p5 = ft.trial_costs_plain(*x5, *ops)
+        err5 = held("K5", (k5[0], *k5[1]), (p5[0], *p5[1]))
+        worst[name] = (err, err5)
+    print("[layouts f64] max abs err vs plain (K6 three modes, K5), two "
+          "launches bit-identical, accum + solve == full: " + "; ".join(
+              f"{k}: {a:.1e}, {b:.1e}" for k, (a, b) in worst.items()),
+          flush=True)
 
 
 def fused_guard_cases(dtype, dev):
@@ -914,6 +1106,15 @@ def main() -> int:
     _build.load()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # registers / spill stores + loads (bytes) per instance of the two
+    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve
+    print("[ptxas] " + "; ".join(
+        f"{r['kernel']} {r['dtype']} s={r['ints'][0]}"
+        + (f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else "")
+        + f": {r['registers']} regs, spill {r['spill_stores']}+"
+        f"{r['spill_loads']} B"
+        for r in _build.ptxas_report()
+        if r["kernel"] in ("grad_kernel", "trials_kernel")), flush=True)
 
     t0 = time.perf_counter()
     graph_b, state_b = {}, {}
@@ -927,6 +1128,7 @@ def main() -> int:
     iterate = flagship_iterate(graph_b, state_b)
     kern.update(fused_checks(graph_b, state_b, dev, iterate))
     kern.update(split_checks(graph_b, dev, iterate))
+    layout_checks(dev)
     kern.update(moments_checks(graph_b, iterate, dev))
     sqrtm_ms = sqrtm_times(iterate, dev)
 
@@ -1099,7 +1301,9 @@ def main() -> int:
           f"over gloo, no scaling number (B={B}, N={N}, {NITERS} iters, f32, "
           f"median of 3, the slower rank)", flush=True)
     for name, r in kern.items():
-        print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms, plain "
+        flushed = (f" ({r['ms_flushed_l2']:.4f} ms with the L2 flushed "
+                   f"before each call)" if "ms_flushed_l2" in r else "")
+        print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms{flushed}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
               f"{r['bound_by']} (f32, slice shapes)", flush=True)
     k4 = kern["fused_moments"]
@@ -1131,12 +1335,18 @@ def main() -> int:
               "block_moments": block_counts, "factor_parallel": shard_counts}
     # library_ms: no single PyTorch call computes any of these functions
     # (block-tridiagonal selected inversion, block-Thomas solve,
-    # sigma-point moments of a cost given as code)
+    # sigma-point moments of a cost given as code).  bound_ms counts every
+    # tensor the wrapper is handed, read once, and every tensor it returns,
+    # written once; the fused kernels have no scratch and no layout copy in
+    # device memory, so ms is the kernel alone.  ms: the operands warm in
+    # L2 (back-to-back calls); ms_flushed_l2: the L2 flushed before each
+    # call (the two redesigned kernels).
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
                  max_abs_err=kern[name]["max_abs_err"],
                  err_dtype=kern[name]["err_dtype"], ms=kern[name]["ms"],
+                 ms_flushed_l2=kern[name].get("ms_flushed_l2"),
                  plain_ms=kern[name]["plain_ms"],
                  bound_ms=kern[name]["bound_ms"],
                  bound_by=kern[name]["bound_by"], library_ms=None)

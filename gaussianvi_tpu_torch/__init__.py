@@ -6,12 +6,15 @@ its layout and module names.  It covers the flagship
 NGD and proximal optimizers, single-process and over a (dp, fp) mesh of
 ranks (``parallel.optimize_sharded``), with a hand-written CUDA kernel
 (``kernels/``, ``csrc/``) for every Pallas kernel of the JAX package.
-Problems are batched on an explicit leading axis.
+Problems are batched on an explicit leading axis.  Entry points that build
+tensors put them on the card (``default_device``) unless the caller asks for
+the CPU with ``device="cpu"``.
 Imports PyTorch and numpy, never JAX.
 """
 
 from .batching import stack_problems
+from .device import default_device
 from .inference import FactorGraph, GaussianState, GVIConfig, optimize
 
-__all__ = ["FactorGraph", "GaussianState", "GVIConfig", "optimize",
-           "stack_problems"]
+__all__ = ["FactorGraph", "GaussianState", "GVIConfig", "default_device",
+           "optimize", "stack_problems"]

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .examples.chain_estimation import range_cost, range_cost_block
 from .factors.base import LinearFactorBatch, NonlinearFactorBatch, pack_params
 from .inference.graph import FactorGraph, GaussianState
@@ -43,7 +44,9 @@ def _start(a, device):
 
 def graph_from_arrays(desc: dict, dtype=torch.float64,
                       device=None) -> FactorGraph:
-    """The port's :class:`FactorGraph` for one problem's description."""
+    """The port's :class:`FactorGraph` for one problem's description
+    (``device=None``: the card, ``device.default_device``)."""
+    device = resolve_device(device)
     nonlinear = []
     for fb in desc["nonlinear"]:
         cost_fn, kernel_cost, block_cost = COSTS[fb["cost"]]
@@ -83,7 +86,8 @@ def graph_from_arrays(desc: dict, dtype=torch.float64,
 def state_from_arrays(desc: dict, dtype=torch.float64,
                       device=None) -> GaussianState:
     """The port's :class:`GaussianState` from ``{"mu", "prec_diag",
-    "prec_off"}``."""
+    "prec_off"}`` (``device=None``: the card)."""
+    device = resolve_device(device)
     return GaussianState(
         _t(desc["mu"], dtype, device),
         BlockTridiag(_t(desc["prec_diag"], dtype, device),

@@ -1,20 +1,40 @@
-// Factor operands of the fused kernels (fused_trials.cu, fused_gradient.cu)
-// and the per-factor algebra both kernels share.
+// Factor operands of the fused kernels (fused_trials.cu, fused_gradient.cu),
+// the per-factor algebra and the warp-level chain sweeps both kernels share.
 //
 // A graph reaches the fused kernels as up to kMaxBatches nonlinear and
 // kMaxBatches linear factor batches (gaussianvi_tpu_torch/kernels/
 // fused_trials.py builds them, as gaussianvi_tpu/inference/engine.py's
 // _build_fused_specs does):
 //   nonlinear (nb == 1): a quadrature rule (nodes [m, S], weights [m]),
-//     per-problem packed cost params [k * P, B] (batch-last), and the
-//     support of factor k: state offset + k, or starts[k];
+//     per-problem packed cost params [B, k, P], and the per-state index of
+//     the batch's starts (which factors sit at state i);
 //   linear (span 1 or 2 states): the residual form of
 //     cost = <A, Sig> + (Lam mu - pm)^T prec_c (Lam mu - pm) per row
-//     (fused_trials.linear_residual_form), rows [ka, ...] per problem
+//     (fused_trials.linear_residual_form), rows [B, ka, ...]
 //     (ka == 1 for a uniform batch: every factor reads row 0).
-// The C entry points take them as flat host arrays of pointers and ints
-// (parse_factors), passed to the kernel by value as a __grid_constant__
+// Every operand is problem-major, the layout PyTorch holds it in: a warp
+// owns one problem and finds that problem's values side by side, so the
+// wrappers pass the engine's tensors as they are.
+// The C entry points take the batches as flat host arrays of pointers and
+// ints (parse_factors), passed to the kernel by value as a __grid_constant__
 // struct, so a kernel indexes the batches without a local copy.
+//
+// Shared memory of a block: the rules, then the arena (the chains of the
+// block's problems; see chain_elems in each kernel).  A chain too long for
+// shared memory keeps its arena in a global scratch instead: the same
+// pointer arithmetic, another address space.  The per-state indices stay in
+// device memory and are read through L1 (two or three ints per state and
+// batch): the trial kernel's arena leaves no room for them at the flagship
+// if four blocks are to share an SM.
+//
+// What bounds the fused kernels on the card is the latency of dependent
+// s x s algebra along a chain, not bytes or operations; the design answers
+// with parallelism the arithmetic allows (see pivot_sweeps below and each
+// kernel's note): a warp per chain, the two pivot recursions on different
+// lanes at once, a lane per edge for everything that is not serial, the
+// whole chain in shared memory.  Tensor cores do not fit here: the blocks
+// are 4 x 4 and 8 x 8, TF32 is off by the precision policy, and the float64
+// instances are the ones the gates run on.
 #pragma once
 
 #include "sigma.cuh"
@@ -22,31 +42,43 @@
 namespace gvi {
 
 constexpr int kMaxBatches = 4;
-constexpr int kNLPtrs = 5;   // nodes, weights, params, starts, fc
-constexpr int kNLInts = 5;   // k, m, offset, nonneg, rdim
-constexpr int kLinPtrs = 6;  // a, lam, pm, prec, starts, fc
-constexpr int kLinInts = 5;  // span, k, ka, r, offset
+constexpr int kNLPtrs = 5;   // nodes, weights, params, index, fc
+constexpr int kNLInts = 4;   // k, m, nonneg, rdim
+constexpr int kLinPtrs = 6;  // a, lam, pm, prec, index, fc
+constexpr int kLinInts = 4;  // span, k, ka, r
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+// dynamic shared memory a block may ask for on sm_90
+constexpr size_t kMaxSmem = 232448;
+
+// Arena strides: an s x s block takes S * S + 1 words and an s-vector S + 1,
+// so the lanes of a warp, one block or vector each, fall on different banks.
+template <int S>
+struct Pitch {
+  static constexpr int kMat = S * S + 1;
+  static constexpr int kVec = S + 1;
+};
 
 template <typename T>
 struct NLBatch {
   const T* nodes;
   const T* weights;
-  const T* params;    // [k * P, B]
-  const int* starts;  // [k], or nullptr: factor k sits at state offset + k
-  T* fc;              // trial kernel: E[phi] out, [k, T * B]
-  int k, m, offset, nonneg, rdim;
+  const T* params;    // [B, k, P]
+  const int* index;   // per-state index [n + 1 + k] (for_factors_at)
+  T* fc;              // trial kernel: E[phi] out, [T, B, k]
+  int k, m, nonneg, rdim;
   int smem;           // element offset of the rule in shared memory
 };
 
 template <typename T>
 struct LinBatch {
-  const T* a;         // [ka * blocks * S * S, B]; blocks: A, or A11 A22 A12
-  const T* lam;       // [ka * r * span * S, B]
-  const T* pm;        // [ka * r, B]
-  const T* prec;      // [ka * r * r, B]
-  const int* starts;  // [k], or nullptr: factor k sits at offset + k
-  T* fc;              // trial kernel: cost out, [k, T * B]
-  int span, k, ka, r, offset;
+  const T* a;         // [B, ka, blocks, S, S]; blocks: A, or A11 A22 A12
+  const T* lam;       // [B, ka, r, span * S]
+  const T* pm;        // [B, ka, r]
+  const T* prec;      // [B, ka, r, r]
+  const int* index;   // as NLBatch::index
+  T* fc;              // trial kernel: cost out, [T, B, k]
+  int span, k, ka, r;
 };
 
 template <typename T>
@@ -54,16 +86,15 @@ struct Factors {
   NLBatch<T> nl[kMaxBatches];
   LinBatch<T> lin[kMaxBatches];
   int n_nl, n_lin;
+  int rule_elems;     // values of all rules (S + 1 per node)
 };
 
 // Host: fill the struct from the flat arrays; false for too many batches.
-// smem_bytes receives the shared memory the rules take (S + 1 values per
-// node).
 template <typename T, int S>
-inline bool parse_factors(int n_nl, void* const* nl_ptrs, const int* nl_ints,
-                          int n_lin, void* const* lin_ptrs,
-                          const int* lin_ints, Factors<T>& f,
-                          size_t& smem_bytes) {
+inline bool parse_factors(int n_nl, void* const* nl_ptrs,
+                          const int* nl_ints, int n_lin,
+                          void* const* lin_ptrs, const int* lin_ints,
+                          Factors<T>& f) {
   if (n_nl < 0 || n_nl > kMaxBatches || n_lin < 0 || n_lin > kMaxBatches)
     return false;
   f = Factors<T>{};
@@ -77,13 +108,12 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs, const int* nl_ints,
     b.nodes = static_cast<const T*>(p[0]);
     b.weights = static_cast<const T*>(p[1]);
     b.params = static_cast<const T*>(p[2]);
-    b.starts = static_cast<const int*>(p[3]);
+    b.index = static_cast<const int*>(p[3]);
     b.fc = static_cast<T*>(p[4]);
     b.k = q[0];
     b.m = q[1];
-    b.offset = q[2];
-    b.nonneg = q[3];
-    b.rdim = q[4];
+    b.nonneg = q[2];
+    b.rdim = q[3];
     b.smem = off;
     off += b.m * (S + 1);
   }
@@ -95,25 +125,42 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs, const int* nl_ints,
     b.lam = static_cast<const T*>(p[1]);
     b.pm = static_cast<const T*>(p[2]);
     b.prec = static_cast<const T*>(p[3]);
-    b.starts = static_cast<const int*>(p[4]);
+    b.index = static_cast<const int*>(p[4]);
     b.fc = static_cast<T*>(p[5]);
     b.span = q[0];
     b.k = q[1];
     b.ka = q[2];
     b.r = q[3];
-    b.offset = q[4];
   }
-  smem_bytes = sizeof(T) * static_cast<size_t>(off);
+  f.rule_elems = off;
   return true;
 }
 
+// Shared memory of a launch whose arena takes arena_elems values of T there
+// (0: the arena is global).
+template <typename T>
+inline size_t smem_bytes(const Factors<T>& f, size_t arena_elems) {
+  return sizeof(T) * (f.rule_elems + arena_elems);
+}
+
+// Raise the kernel's dynamic shared memory limit where a launch needs more
+// than the 48 KB every kernel may take.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+}
+
 // Every thread of the block copies its share of every rule into shared
-// memory; callers return early only after this barrier.
+// memory, then the block meets once; nothing after this barrier is
+// block-wide unless a kernel says so.
 template <typename T, int S>
-__device__ __forceinline__ void load_rules(const Factors<T>& f, T* smem) {
+__device__ __forceinline__ void load_rules(const Factors<T>& f, T* rules) {
   for (int j = 0; j < f.n_nl; ++j) {
     const NLBatch<T>& b = f.nl[j];
-    T* dst = smem + b.smem;
+    T* dst = rules + b.smem;
     for (int t = threadIdx.x; t < b.m * S; t += blockDim.x) dst[t] = b.nodes[t];
     for (int t = threadIdx.x; t < b.m; t += blockDim.x)
       dst[b.m * S + t] = b.weights[t];
@@ -121,47 +168,45 @@ __device__ __forceinline__ void load_rules(const Factors<T>& f, T* smem) {
   __syncthreads();
 }
 
-// fn(k) for every factor k of a batch whose support starts at state i.
+// fn(k) for every factor k of a batch whose support starts at state i, in
+// ascending k.  index: offsets [n + 1] into the factors ordered by state
+// [k].  Every batch comes with one, a slice of states too, so that fn is
+// compiled once: a rank's shard and the whole batch then run the same
+// code and a factor's contribution has the same bits in either.
 template <typename Fn>
-__device__ __forceinline__ void for_factors_at(const int* starts, int offset,
-                                               int k_count, int i, Fn&& fn) {
-  if (starts == nullptr) {
-    const int k = i - offset;
-    if (k >= 0 && k < k_count) fn(k);
-  } else {
-    for (int k = 0; k < k_count; ++k)
-      if (starts[k] == i) fn(k);
-  }
+__device__ __forceinline__ void for_factors_at(const int* __restrict__ index,
+                                               int n, int i, Fn&& fn) {
+  const int end = index[i + 1];
+  for (int q = index[i]; q < end; ++q) fn(index[n + 1 + q]);
 }
 
-// Packed params of factor k for problem lane b of nb.
+// Packed params of factor k of problem b.
 template <typename T, typename Cost>
 __device__ __forceinline__ void load_params(const NLBatch<T>& fb, int k,
-                                            int64_t nb, int64_t b,
+                                            int64_t b,
                                             T (&p)[Cost::kParams]) {
+  const T* src = fb.params + (b * fb.k + k) * Cost::kParams;
 #pragma unroll
-  for (int j = 0; j < Cost::kParams; ++j)
-    p[j] = fb.params[((int64_t)k * Cost::kParams + j) * nb + b];
+  for (int j = 0; j < Cost::kParams; ++j) p[j] = src[j];
 }
 
-// Residual rows (Lam mu - pm) of row kk of a linear batch whose factors
-// span DE = span * S values, then the weighted rows w = prec_c (Lam mu -
-// pm); rows beyond r (at most MaxR) are zero.  Sums in index order, as
+// Residual rows (Lam mu - pm) of row kk of problem b of a linear batch whose
+// factors span DE = span * S values, then the weighted rows w = prec_c (Lam
+// mu - pm); rows beyond r (at most MaxR) are zero.  Sums in index order, as
 // fused_trials._resid_cost / fused_gradient._lin_resid_w.
 template <typename T, int DE, int MaxR>
 __device__ __forceinline__ void lin_residual(const LinBatch<T>& lb, int kk,
-                                             int64_t nb, int64_t b,
-                                             const T (&mu)[DE],
+                                             int64_t b, const T (&mu)[DE],
                                              T (&res)[MaxR], T (&w)[MaxR]) {
+  const int64_t row0 = (b * lb.ka + kk) * lb.r;
 #pragma unroll
   for (int rr = 0; rr < MaxR; ++rr) {
     res[rr] = T(0);
     if (rr < lb.r) {
-      const int64_t row = (int64_t)kk * lb.r + rr;
-      T acc = -lb.pm[row * nb + b];
+      const int64_t row = row0 + rr;
+      T acc = -lb.pm[row];
 #pragma unroll
-      for (int d = 0; d < DE; ++d)
-        acc = acc + lb.lam[(row * DE + d) * nb + b] * mu[d];
+      for (int d = 0; d < DE; ++d) acc = acc + lb.lam[row * DE + d] * mu[d];
       res[rr] = acc;
     }
   }
@@ -169,23 +214,293 @@ __device__ __forceinline__ void lin_residual(const LinBatch<T>& lb, int kk,
   for (int rr = 0; rr < MaxR; ++rr) {
     w[rr] = T(0);
     if (rr < lb.r) {
-      const int64_t row = ((int64_t)kk * lb.r + rr) * lb.r;
-      T acc = lb.prec[row * nb + b] * res[0];
+      const T* prow = lb.prec + (row0 + rr) * lb.r;
+      T acc = prow[0] * res[0];
 #pragma unroll
       for (int cc = 1; cc < MaxR; ++cc)
-        if (cc < lb.r) acc = acc + lb.prec[(row + cc) * nb + b] * res[cc];
+        if (cc < lb.r) acc = acc + prow[cc] * res[cc];
       w[rr] = acc;
     }
   }
 }
 
-// Block blk (0: A or A11, 1: A22, 2: A12) of row kk of A.
+// Row rr of Lam of row kk of problem b: span * S values.
+template <typename T, int S>
+__device__ __forceinline__ const T* lam_row(const LinBatch<T>& lb, int kk,
+                                            int64_t b, int rr) {
+  return lb.lam + ((b * lb.ka + kk) * lb.r + rr) * (lb.span * S);
+}
+
+// Block blk (0: A or A11, 1: A22, 2: A12) of row kk of problem b of A.
 template <typename T, int S>
 __device__ __forceinline__ void load_a(const LinBatch<T>& lb, int kk, int blk,
-                                       int64_t nb, int64_t b,
-                                       T (&a)[S][S]) {
+                                       int64_t b, T (&a)[S][S]) {
   const int blocks = lb.span == 2 ? 3 : 1;
-  load_mat(lb.a + (((int64_t)kk * blocks + blk) * S * S) * nb + b, nb, a);
+  load_mat(lb.a + (((b * lb.ka + kk) * blocks + blk) * S * S), 1, a);
+}
+
+// count items of Width contiguous values each: global -> arena (pitch words
+// per item) and back, the threads lane, lane + lanes, ... of a warp or a
+// block taking neighbouring words.
+template <typename T, int Width>
+__device__ __forceinline__ void copy_in(T* dst, int pitch, const T* src,
+                                        int count, int lane, int lanes) {
+  for (int e = lane; e < count * Width; e += lanes)
+    dst[(e / Width) * pitch + e % Width] = src[e];
+}
+
+// The same copy made of asynchronous copies (cp.async, one word each: the
+// arena's pitch breaks 16-byte alignment), which land in shared memory
+// without passing through registers while the warp goes on; async_commit
+// closes a group of them and async_wait<N> waits until at most N groups
+// are in flight.  An arena in a global scratch takes the plain copy.
+template <typename T, int Width>
+__device__ __forceinline__ void copy_in_async(T* dst, int pitch, const T* src,
+                                              int count, int lane, int lanes,
+                                              bool shared) {
+#if defined(__CUDACC__)
+  if (shared) {
+    for (int e = lane; e < count * Width; e += lanes) {
+      const unsigned at = static_cast<unsigned>(
+          __cvta_generic_to_shared(dst + (e / Width) * pitch + e % Width));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(at),
+                   "l"(src + e), "n"(sizeof(T))
+                   : "memory");
+    }
+    return;
+  }
+#endif
+  copy_in<T, Width>(dst, pitch, src, count, lane, lanes);
+}
+
+__device__ __forceinline__ void async_commit() {
+#if defined(__CUDACC__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void async_wait() {
+#if defined(__CUDACC__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+template <typename T, int Width>
+__device__ __forceinline__ void copy_out(T* dst, const T* src, int pitch,
+                                         int count, int lane, int lanes) {
+  for (int e = lane; e < count * Width; e += lanes)
+    dst[e] = src[(e / Width) * pitch + e % Width];
+}
+
+// a * b + c in one rounding, spelled out where the gradient accumulators
+// are summed, so that the three modes' kernels round these sums alike.
+// What is left to the compiler (the residuals of the linear factors) it
+// contracts per kernel: "accum" + "solve" equals "full" to rounding.
+__device__ __forceinline__ float dfma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double dfma(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename T, int S>
+__device__ __forceinline__ void zero_mat(T (&a)[S][S]) {
+#pragma unroll
+  for (int r = 0; r < S; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) a[r][c] = T(0);
+}
+
+// Cholesky factor with the reciprocals of its diagonal (chol forms them
+// anyway).  In a chain sweep every operation waits for the one before
+// it, and an IEEE division is a dozen dependent operations: the fused
+// kernels divide once per pivot entry and multiply from then on.  The
+// result differs from smallmat.cuh's chol_solve_vec by rounding only.
+template <typename T, int S>
+__device__ __forceinline__ void chol_r(const T (&a)[S][S], T (&l)[S][S],
+                                       T (&rd)[S]) {
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    T acc = a[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) acc = acc - l[j][k] * l[j][k];
+    const T ljj = dsqrt(acc);
+    l[j][j] = ljj;
+    const T inv = T(1) / ljj;
+    rd[j] = inv;
+#pragma unroll
+    for (int i = j + 1; i < S; ++i) {
+      T acc2 = a[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) acc2 = acc2 - l[i][k] * l[j][k];
+      l[i][j] = acc2 * inv;
+    }
+#pragma unroll
+    for (int i = 0; i < j; ++i) l[i][j] = T(0);
+  }
+}
+
+// Solve (L L^T) x = b for one vector, rd = 1 / diag(L).
+template <typename T, int S>
+__device__ __forceinline__ void chol_solve_r(const T (&l)[S][S],
+                                             const T (&rd)[S],
+                                             const T (&b)[S], T (&x)[S]) {
+  T y[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    T acc = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) acc = acc - l[i][k] * y[k];
+    y[i] = acc * rd[i];
+  }
+#pragma unroll
+  for (int i = S - 1; i >= 0; --i) {
+    T acc = y[i];
+#pragma unroll
+    for (int k = i + 1; k < S; ++k) acc = acc - l[k][i] * x[k];
+    x[i] = acc * rd[i];
+  }
+}
+
+// Full inverse of an SPD matrix from its factor, column by column.
+template <typename T, int S>
+__device__ __forceinline__ void inv_from_chol_r(const T (&l)[S][S],
+                                                const T (&rd)[S],
+                                                T (&inv)[S][S]) {
+#pragma unroll
+  for (int col = 0; col < S; ++col) {
+    T e[S], x[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) e[r] = r == col ? T(1) : T(0);
+    chol_solve_r(l, rd, e, x);
+#pragma unroll
+    for (int r = 0; r < S; ++r) inv[r][col] = x[r];
+  }
+}
+
+// Covariance blocks of one chain edge, as smallmat.cuh edge_covariance: the
+// inverse of the 2s x 2s joint [[F, B], [B^T, G]] column by column from
+// its Cholesky factor; cii = Sig_ii, cjj = Sig_{i+1,i+1}, cij = Sig_{i,i+1}.
+template <typename T, int S>
+__device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
+                                                  const T (&g)[S][S],
+                                                  const T (&bo)[S][S],
+                                                  T (&cii)[S][S],
+                                                  T (&cjj)[S][S],
+                                                  T (&cij)[S][S]) {
+  constexpr int S2 = 2 * S;
+  T joint[S2][S2], l[S2][S2], rd[S2];
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      joint[a][c] = f[a][c];
+      joint[a][S + c] = bo[a][c];
+      joint[S + a][c] = bo[c][a];
+      joint[S + a][S + c] = g[a][c];
+    }
+  chol_r(joint, l, rd);
+#pragma unroll
+  for (int col = 0; col < S2; ++col) {
+    T e[S2], x[S2];
+#pragma unroll
+    for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
+    chol_solve_r(l, rd, e, x);
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      if (col < S) {
+        cii[a][col] = x[a];
+      } else {
+        cij[a][col - S] = x[a];
+        cjj[a][col - S] = x[S + a];
+      }
+    }
+  }
+}
+
+// The lanes of a warp in groups of S: group parity picks one of two
+// recursions, the lane's place in its group the column it solves.  Every
+// group of the same parity computes the same values, so a shuffle reads its
+// own group and no lane idles on a branch.
+template <int S>
+struct Lanes {
+  int side, col, first;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : side((lane / S) & 1), col(lane % S), first(lane - lane % S) {}
+};
+
+// One step of a pivot recursion, the message m = -(Bd^T P^{-1} Bd) from the
+// Cholesky factor l of the pivot P and the directed coupling Bd: the lane
+// solves column col and forms column col of m in the operation order of
+// smallmat.cuh fwd_message / bwd_message (rd = 1 / diag(l)); the group's S
+// lanes then exchange their columns.
+template <typename T, int S>
+__device__ __forceinline__ void message(const T (&l)[S][S],
+                                        const T (&rd)[S],
+                                        const T (&bd)[S][S],
+                                        const Lanes<S>& g, T (&m)[S][S]) {
+  T rhs[S], sol[S], mcol[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    rhs[r] = bd[r][0];
+#pragma unroll
+    for (int c = 1; c < S; ++c)
+      if (c == g.col) rhs[r] = bd[r][c];
+  }
+  chol_solve_r(l, rd, rhs, sol);
+#pragma unroll
+  for (int a = 0; a < S; ++a) {
+    T acc = bd[0][a] * sol[0];
+#pragma unroll
+    for (int k = 1; k < S; ++k) acc = acc + bd[k][a] * sol[k];
+    mcol[a] = -acc;
+  }
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c)
+      m[a][c] = __shfl_sync(kFullMask, mcol[a], g.first + c);
+}
+
+// The forward and the backward pivot recursion of a block-tridiagonal
+// precision, the only serial part of its covariance, run by one warp at the
+// same time: the groups of side 0 walk the chain upwards (F_i = D_i - B_{i-1}^T
+// F_{i-1}^{-1} B_{i-1}), those of side 1 downwards (G_i = D_i - B_i
+// G_{i+1}^{-1} B_i^T), with the same code on mirrored data.  blocks
+// hands out D_i and the directed coupling (B_e, or B_e^T on side 1).  Pivots
+// go to fpiv / gpiv (arena, Pitch<S>::kMat apart).  Returns, on the lanes of
+// side 0, the Kahan-compensated log det poisoned by the pivot-trust guard;
+// the statistic is a running nan_min in one lane's registers, so no
+// reduction can drop a NaN.  All 32 lanes must call.
+template <typename T, int S, bool WithLogdet, typename Blocks>
+__device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
+                                          int lane, T* fpiv, T* gpiv) {
+  constexpr int M = Pitch<S>::kMat;
+  const Lanes<S> g(lane);
+  T* piv_out = g.side ? gpiv : fpiv;
+  T m[S][S];
+  zero_mat(m);
+  T ld = T(0), comp = T(0), trust = T(1);
+  for (int t = 0; t < n; ++t) {
+    const int i = g.side ? n - 1 - t : t;
+    T d[S][S], piv[S][S], l[S][S], rd[S];
+    blocks.diag(i, d);
+    add_mat(d, m, piv);
+    store_mat(piv_out + i * M, 1, piv);
+    chol_r(piv, l, rd);
+    if (WithLogdet) {
+      trust = pivot_trust(l, piv, d, m, trust);
+      kahan_add(ld, comp, logdet_from_chol(l));
+    }
+    if (t < n - 1) {
+      T bd[S][S];
+      blocks.off(g.side ? i - 1 : i, g.side, bd);
+      message(l, rd, bd, g, m);
+    }
+  }
+  __syncwarp();
+  return trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
 }
 
 }  // namespace gvi

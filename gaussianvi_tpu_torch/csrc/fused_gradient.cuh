@@ -2,98 +2,125 @@
 //
 // Replaces the TPU kernel gaussianvi_tpu/kernels/fused_gradient.py,
 // gradient_lanes (_grad_kernel, modes "full", "accum" and "solve").  Mode
-// "full" runs every phase:
-//   0. zero the joint accumulators Vdmu, Vddmu (diag and off);
-//   1. forward sweep over Lambda: pivots (kept in scratch), Kahan-
-//      compensated log det poisoned by the pivot-trust guard;
-//   2. backward sweep fused with each edge's 2s x 2s joint inverse: the
-//      covariance blocks are written out (the iteration's record) and the
-//      state's marginal feeds at once the sigma-point moments with the
-//      marginal-rule lift, the NGD local gradients
-//      Vdmu_k = P E[(x-mu)phi] / T, Vddmu_k = (sym(P E P) - P E[phi]) / T,
-//      and the linear factors' closed-form gradients from the residual form
-//      (Vdmu = 2 Lam^T prec_c (Lam mu - pm) / T, Vddmu = 2 A / T);
-//   3. dprec = Vddmu - Lambda;
-//   4. block-Thomas solve Vddmu dmu = -Vdmu, pivoting Vddmu in place;
-//   5. the SPD fallback solve Lambda dmu_fb = -Vdmu on phase 1's pivots.
+// "full" computes, per problem:
+//   - the forward and backward pivots of Lambda and its Kahan-compensated
+//     log det, poisoned by the pivot-trust guard;
+//   - per edge the 2s x 2s joint inverse: the covariance blocks (the
+//     iteration's record), and from each state's marginal the sigma-point
+//     moments with the marginal-rule lift, the NGD local gradients
+//     Vdmu_k = P E[(x-mu)phi] / T, Vddmu_k = (sym(P E P) - P E[phi]) / T,
+//     and the linear factors' closed-form gradients from the residual form
+//     (Vdmu = 2 Lam^T prec_c (Lam mu - pm) / T, Vddmu = 2 A / T), summed
+//     into the joint accumulators Vdmu, Vddmu (diag and off);
+//   - dprec = Vddmu - Lambda;
+//   - the block-Thomas solves Vddmu dmu = -Vdmu and, the SPD fallback,
+//     Lambda dmu_fb = -Vdmu.
 // The other two modes split that program where a factor-parallel run sums
 // the partial gradients of its ranks:
-//   "accum": phases 0-2 over the nonlinear factors it is given (one rank's
-//     shard), without log det and without the covariance record; the
-//     accumulators vdmu, vdd, vdo are its outputs, and the caller sums them
-//     over the ranks;
-//   "solve": the accumulators arrive holding that sum (phase 0 is skipped),
-//     phases 1-2 run again for the log det, the covariance record and the
-//     linear factors (which every rank holds), then phases 3-5.
+//   "accum": the accumulators of the nonlinear factors it is given (one
+//     rank's shard) are its outputs, without log det, covariance record,
+//     dprec or solves; the caller sums them over the ranks;
+//   "solve": the accumulators start from that sum (seeds, read only), the
+//     linear factors (which every rank holds) are added, and everything
+//     "full" returns is returned.
 // The mode is a template parameter: each mode's kernel contains only its
 // own phases (one .cu file per mode, so the three compile side by side).
 // An indefinite Vddmu gives NaN in dmu (sqrt of a negative pivot), never a
 // trap; the loop then takes dmu_fb.  Moments are unguarded, as on every
 // path of the JAX package; only the log det carries the trust guard.
 //
-// Design: one thread per problem, batch-last arrays ([element, B]) so a
-// warp's 32 problems touch neighbouring words.  Scratch is global and
-// batch-last (fpiv, vdd, vdo, vdmu; at B = 1024, N = 32, s = 4 in float32
-// each is at most 2 MB, resident in the 50 MB L2); the eliminated
-// right-hand side of each solve is kept in its output, which the back
-// substitution overwrites (as csrc/chain.cu's solve does).
-//
-// What bounds it on the card: latency.  B = 1024 problems are 1024
-// threads; blocks of 32 spread them over 32 SMs of 132, and each thread
-// runs the chain, M-node quadrature per state and two solves serially, with
-// enough live s x s blocks to spill in float64.  A warp per problem (the
-// s x s entries and the rule nodes across lanes), or splitting the edge
-// inverse across lanes, is later work.
+// What bounds it on the card: the latency of dependent s x s algebra.  A
+// call moves a few MB and a few hundred MFLOP; the card would need
+// microseconds for either.  Only the two pivot recursions and the solves'
+// sweeps depend on their neighbour in the chain; everything else is
+// independent per edge.  The design:
+//   - a warp per problem, kGradWarps-or-fewer problems per block, so that
+//     B = 1024 problems are 1024 warps over all 132 SMs;
+//   - the problem's chain lives in the arena (shared memory; a global
+//     scratch for a chain too long for it, same code): Lambda, mu, both
+//     pivot arrays, the accumulators, the solves' right-hand sides.  Inputs
+//     arrive by asynchronous copies (cp.async; Lambda first, so phase A
+//     starts while the mean and the seeds are still in flight), outputs
+//     leave by coalesced stores; no operand is read or written twice in
+//     device memory;
+//   - phase A (serial): both pivot recursions at once on different lanes,
+//     the s columns of each message on s lanes (fused.cuh pivot_sweeps);
+//   - phase B (parallel): lane i takes edge i: the joint inverse, the
+//     state's quadrature and gradients, the edge's linear factors.  A state
+//     is owned by its lane; an edge's contribution to the next state is
+//     added behind a __syncwarp, after that state's own: a fixed order, no
+//     atomics, the same bits on every run and on every rank;
+//   - phase C: dprec elementwise over lanes, then both Thomas solves at the
+//     same time, one per lane-group parity with the same code
+//     (thomas_pair); each solve factors each of its pivots once and keeps
+//     the factor in the arena for the back substitution.
 #pragma once
 
 #include "fused.cuh"
 
 namespace gvi {
 
-constexpr int kGradThreads = 32;
+constexpr int kGradWarps = 4;   // most problems (warps) of a block
 
 enum GradMode { kGradFull = 0, kGradAccum = 1, kGradSolve = 2 };
 
-template <typename T, int S>
-__device__ __forceinline__ void zero_mat(T (&a)[S][S]) {
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) a[r][c] = T(0);
+// Arena of one problem, in values of T: pd, po, F, G, vdd, vdo as n blocks
+// each, mu, vdmu and the two solves' vectors as n vectors each
+// (kernels/fused_gradient.py grad_chain_elems is the wrapper's copy).
+template <int S>
+__host__ __device__ constexpr int64_t grad_chain_elems(int64_t n) {
+  return n * (6 * Pitch<S>::kMat + 4 * Pitch<S>::kVec);
 }
 
-// acc_block += a * scale, one s x s block of a width-nb accumulator.
+// acc_block += a * scale, one s x s block of the arena.
 template <typename T, int S>
-__device__ __forceinline__ void accumulate(T* acc, int64_t nb,
-                                           const T (&a)[S][S], T scale) {
+__device__ __forceinline__ void accumulate(T* acc, const T (&a)[S][S],
+                                           T scale) {
 #pragma unroll
   for (int r = 0; r < S; ++r)
 #pragma unroll
-    for (int c = 0; c < S; ++c) {
-      const int64_t e = (int64_t)(r * S + c) * nb;
-      acc[e] = acc[e] + a[r][c] * scale;
-    }
+    for (int c = 0; c < S; ++c)
+      acc[r * S + c] = dfma(a[r][c], scale, acc[r * S + c]);
 }
+
+// Lambda's blocks in the arena, as pivot_sweeps takes them.
+template <typename T, int S>
+struct ArenaBlocks {
+  const T* pd;
+  const T* po;
+  __device__ __forceinline__ void diag(int i, T (&d)[S][S]) const {
+    load_mat(pd + i * Pitch<S>::kMat, 1, d);
+  }
+  // B_e, or B_e^T on side 1
+  __device__ __forceinline__ void off(int e, int side, T (&bd)[S][S]) const {
+    const T* src = po + e * Pitch<S>::kMat;
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) bd[r][c] = src[side ? c * S + r : r * S + c];
+  }
+};
 
 // Joint gradient contributions of every nonlinear (not in mode "solve")
-// and span-1 linear (not in mode "accum") factor at state i, marginal
-// N(mu_c, cov).  vdmu_i / vdd_i point at state i.
+// and span-1 linear (not in mode "accum") factor at state i of problem b,
+// marginal N(mu_c, cov).  vdmu_i / vdd_i point at state i in the arena.
 template <typename T, int S, typename Cost, int Mode>
 __device__ __forceinline__ void state_gradients(
-    const Factors<T>& f, const T* smem, int i, const T (&cov)[S][S],
-    const T (&mu_c)[S], int64_t nb, int64_t b, T inv_t, T* vdmu_i,
+    const Factors<T>& f, const T* rules, int n, int i,
+    const T (&cov)[S][S], const T (&mu_c)[S], int64_t b, T inv_t, T* vdmu_i,
     T* vdd_i) {
   // a compile-time zero drops the loop from the mode that never runs it
   const int n_nl = Mode == kGradSolve ? 0 : f.n_nl;
   const int n_lin = Mode == kGradAccum ? 0 : f.n_lin;
   for (int j = 0; j < n_nl; ++j) {
     const NLBatch<T>& fb = f.nl[j];
-    for_factors_at(fb.starts, fb.offset, fb.k, i, [&](int k) {
-      T l[S][S], p[Cost::kParams], e_phi, absum, e_x[S], e_tri[Tri<S>::value];
-      chol(cov, l);
-      load_params<T, Cost>(fb, k, nb, b, p);
-      sigma_sums<T, S, Cost, true>(l, mu_c, p, smem + fb.smem,
-                                   smem + fb.smem + fb.m * S, fb.m, e_phi,
+    for_factors_at(fb.index, n, i, [&](int k) {
+      T l[S][S], rd[S], p[Cost::kParams], e_phi, absum, e_x[S];
+      T e_tri[Tri<S>::value];
+      chol_r(cov, l, rd);
+      load_params<T, Cost>(fb, k, b, p);
+      sigma_sums<T, S, Cost, true>(l, mu_c, p, rules + fb.smem,
+                                   rules + fb.smem + fb.m * S, fb.m, e_phi,
                                    absum, e_x, e_tri);
       T exx[S][S];
       int t = 0;
@@ -106,94 +133,163 @@ __device__ __forceinline__ void state_gradients(
           exx[c][a] = v;
         }
       T prec[S][S], pe[S][S], pep[S][S];
-      inv_from_chol(l, prec);
+      inv_from_chol_r(l, rd, prec);
       // Vdmu_k = P E[(x-mu) phi] / T
       T vd[S];
 #pragma unroll
       for (int r = 0; r < S; ++r) {
-        T acc = vdmu_i[r * nb];
+        T acc = vdmu_i[r];
 #pragma unroll
-        for (int c = 0; c < S; ++c) acc = acc + prec[r][c] * e_x[c] * inv_t;
+        for (int c = 0; c < S; ++c)
+          acc = dfma(prec[r][c] * e_x[c], inv_t, acc);
         vd[r] = acc;
       }
 #pragma unroll
-      for (int r = 0; r < S; ++r) vdmu_i[r * nb] = vd[r];
+      for (int r = 0; r < S; ++r) vdmu_i[r] = vd[r];
       // Vddmu_k = (sym(P E P) - P E[phi]) / T
       matmul(prec, exx, pe);
       matmul(pe, prec, pep);
 #pragma unroll
       for (int a = 0; a < S; ++a)
 #pragma unroll
-        for (int c = 0; c < S; ++c) {
-          const int64_t e = (int64_t)(a * S + c) * nb;
-          vdd_i[e] = vdd_i[e] + (T(0.5) * (pep[a][c] + pep[c][a]) -
-                                 prec[a][c] * e_phi) * inv_t;
-        }
+        for (int c = 0; c < S; ++c)
+          vdd_i[a * S + c] = dfma(T(0.5) * (pep[a][c] + pep[c][a]) -
+                                      prec[a][c] * e_phi,
+                                  inv_t, vdd_i[a * S + c]);
     });
   }
   for (int j = 0; j < n_lin; ++j) {
     const LinBatch<T>& lb = f.lin[j];
     if (lb.span != 1) continue;
-    for_factors_at(lb.starts, lb.offset, lb.k, i, [&](int k) {
+    for_factors_at(lb.index, n, i, [&](int k) {
       const int kk = min(k, lb.ka - 1);
       T res[2 * S], w[2 * S], a[S][S], vd[S];
-      lin_residual<T, S, 2 * S>(lb, kk, nb, b, mu_c, res, w);
+      lin_residual<T, S, 2 * S>(lb, kk, b, mu_c, res, w);
 #pragma unroll
       for (int d = 0; d < S; ++d) {
-        T acc = vdmu_i[d * nb];
+        T acc = vdmu_i[d];
 #pragma unroll
         for (int rr = 0; rr < 2 * S; ++rr)
           if (rr < lb.r)
-            acc = acc + T(2) * lb.lam[(((int64_t)kk * lb.r + rr) * S + d) * nb + b] *
-                            w[rr] * inv_t;
+            acc = dfma(T(2) * lam_row<T, S>(lb, kk, b, rr)[d] * w[rr], inv_t,
+                       acc);
         vd[d] = acc;
       }
 #pragma unroll
-      for (int d = 0; d < S; ++d) vdmu_i[d * nb] = vd[d];
-      load_a<T, S>(lb, kk, 0, nb, b, a);
-      accumulate(vdd_i, nb, a, T(2) * inv_t);
+      for (int d = 0; d < S; ++d) vdmu_i[d] = vd[d];
+      load_a<T, S>(lb, kk, 0, b, a);
+      accumulate(vdd_i, a, T(2) * inv_t);
     });
   }
 }
 
-// x = A^{-1} (-vdmu) for block-tridiagonal A with forward pivots piv (as
-// stored by the sweep) and super-diagonal blocks off, by elimination and
-// back substitution (fused_gradient._solve_sweeps).  x holds the
-// eliminated right-hand side until the back sweep overwrites it.
+// The span-2 linear factors of edge i of problem b.  Part 0 adds what
+// belongs to the edge's own state and to the edge (vdmu_i, vdd_i, vdo_i);
+// part 1, run behind a __syncwarp, what belongs to state i + 1, which
+// another lane owns.
+template <typename T, int S, int Part>
+__device__ __forceinline__ void edge_gradients(
+    const Factors<T>& f, int n, int i, const T (&mu_i)[S],
+    const T (&mu_j)[S], int64_t b, T inv_t, T* vdmu, T* vdd, T* vdo) {
+  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec;
+  for (int j = 0; j < f.n_lin; ++j) {
+    const LinBatch<T>& lb = f.lin[j];
+    if (lb.span != 2) continue;
+    for_factors_at(lb.index, n, i, [&](int k) {
+      const int kk = min(k, lb.ka - 1);
+      T mu_e[2 * S], res[2 * S], w[2 * S], vd[S], a[S][S];
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        mu_e[r] = mu_i[r];
+        mu_e[S + r] = mu_j[r];
+      }
+      lin_residual<T, 2 * S, 2 * S>(lb, kk, b, mu_e, res, w);
+      T* vdmu_s = vdmu + (i + Part) * V;
+#pragma unroll
+      for (int d = 0; d < S; ++d) {
+        T acc = vdmu_s[d];
+#pragma unroll
+        for (int rr = 0; rr < 2 * S; ++rr)
+          if (rr < lb.r)
+            acc = dfma(T(2) * lam_row<T, S>(lb, kk, b, rr)[Part * S + d] *
+                           w[rr],
+                       inv_t, acc);
+        vd[d] = acc;
+      }
+#pragma unroll
+      for (int d = 0; d < S; ++d) vdmu_s[d] = vd[d];
+      const T two_t = T(2) * inv_t;
+      load_a<T, S>(lb, kk, Part, b, a);
+      accumulate(vdd + (i + Part) * M, a, two_t);
+      if (Part == 0) {
+        load_a<T, S>(lb, kk, 2, b, a);
+        accumulate(vdo + i * M, a, two_t);
+      }
+    });
+  }
+}
+
+// x = A^{-1} (-v) for two block-tridiagonal systems at once, by pivoting,
+// elimination and back substitution (fused_gradient._solve_sweeps): the
+// lane groups of side 0 solve (diag0, off0) into x0, those of side 1
+// (diag1, off1) into x1, with the same code.  Each pivot is
+// factored once; its factor stays in lfac0 / lfac1 (the diagonal as
+// reciprocals) for the back substitution.  x holds the eliminated right-hand side until the back
+// sweep overwrites it.  A pivot that is not positive definite gives NaN.
+// All 32 lanes must call.
 template <typename T, int S>
-__device__ __forceinline__ void thomas_solve(const T* piv, const T* off,
-                                             const T* vdmu, T* x, int64_t nb,
-                                             int n) {
-  const int64_t blk = (int64_t)S * S * nb;
-  const int64_t vec = (int64_t)S * nb;
+__device__ __forceinline__ void thomas_pair(const T* diag0, const T* off0,
+                                            const T* diag1, const T* off1,
+                                            const T* v, T* lfac0, T* lfac1,
+                                            T* x0, T* x1, int n, int lane) {
+  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec;
+  const Lanes<S> g(lane);
+  const T* diag = g.side ? diag1 : diag0;
+  const T* off = g.side ? off1 : off0;
+  T* lfac = g.side ? lfac1 : lfac0;
+  T* x = g.side ? x1 : x0;
+  T m[S][S], y[S];
+  zero_mat(m);
 #pragma unroll
-  for (int r = 0; r < S; ++r) x[r * nb] = -vdmu[r * nb];
-  for (int i = 1; i < n; ++i) {
-    T p[S][S], l[S][S], bo[S][S], yprev[S], sol[S];
-    load_mat(piv + (i - 1) * blk, nb, p);
-    chol(p, l);
-#pragma unroll
-    for (int r = 0; r < S; ++r) yprev[r] = x[(i - 1) * vec + r * nb];
-    chol_solve_vec(l, yprev, sol);
-    load_mat(off + (i - 1) * blk, nb, bo);
+  for (int r = 0; r < S; ++r) y[r] = -v[r];
+  for (int i = 0; i < n; ++i) {
+    T d[S][S], piv[S][S], l[S][S], rd[S];
+    load_mat(diag + i * M, 1, d);
+    add_mat(d, m, piv);
+    chol_r(piv, l, rd);
+    store_mat(lfac + i * M, 1, l);
 #pragma unroll
     for (int r = 0; r < S; ++r) {
-      T acc = -vdmu[i * vec + r * nb];
+      lfac[i * M + r * S + r] = rd[r];
+      x[i * V + r] = y[r];
+    }
+    if (i < n - 1) {
+      T bo[S][S], sol[S];
+      load_mat(off + i * M, 1, bo);
+      message(l, rd, bo, g, m);
+      chol_solve_r(l, rd, y, sol);
 #pragma unroll
-      for (int k = 0; k < S; ++k) acc = acc - bo[k][r] * sol[k];
-      x[i * vec + r * nb] = acc;
+      for (int r = 0; r < S; ++r) {
+        T acc = -v[(i + 1) * V + r];
+#pragma unroll
+        for (int k = 0; k < S; ++k) acc = acc - bo[k][r] * sol[k];
+        y[r] = acc;
+      }
     }
   }
+  __syncwarp();
   T xnext[S];
   for (int i = n - 1; i >= 0; --i) {
-    T p[S][S], l[S][S], rhs[S], sol[S];
-    load_mat(piv + i * blk, nb, p);
-    chol(p, l);
+    T l[S][S], rd[S], rhs[S], sol[S];
+    load_mat(lfac + i * M, 1, l);
 #pragma unroll
-    for (int r = 0; r < S; ++r) rhs[r] = x[i * vec + r * nb];
+    for (int r = 0; r < S; ++r) {
+      rd[r] = l[r][r];
+      rhs[r] = x[i * V + r];
+    }
     if (i < n - 1) {
       T bo[S][S];
-      load_mat(off + i * blk, nb, bo);
+      load_mat(off + i * M, 1, bo);
 #pragma unroll
       for (int r = 0; r < S; ++r) {
         T acc = T(0);
@@ -202,246 +298,218 @@ __device__ __forceinline__ void thomas_solve(const T* piv, const T* off,
         rhs[r] = rhs[r] - acc;
       }
     }
-    chol_solve_vec(l, rhs, sol);
+    chol_solve_r(l, rd, rhs, sol);
+    // every lane of a side reads slot i above and writes it below: all
+    // read before any writes
+    __syncwarp();
 #pragma unroll
     for (int r = 0; r < S; ++r) {
-      x[i * vec + r * nb] = sol[r];
+      x[i * V + r] = sol[r];
       xnext[r] = sol[r];
     }
   }
+  __syncwarp();
 }
 
-// Mode "accum" takes null pointers for covd .. dfb; mode "solve" takes
-// vdd, vdo, vdmu holding the summed partial gradients.
+// Mode "accum" takes null pointers for covd .. dfb and writes vdmu, vdd,
+// vdo; mode "solve" reads them (the summed partial gradients); mode "full"
+// takes null pointers for them.  scratch: the arena of every block where
+// the chains do not fit shared memory, else null.
 template <typename T, int S, typename Cost, int Mode>
-__global__ void __launch_bounds__(kGradThreads)
-grad_kernel(const T* __restrict__ mu, const T* __restrict__ pd,
-            const T* __restrict__ po, const T* __restrict__ temp,
+__global__ void __launch_bounds__(kGradWarps * kWarp)
+grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
+            const T* __restrict__ po_g, const T* __restrict__ temp,
             T* __restrict__ covd, T* __restrict__ covo, T* __restrict__ ld_out,
             T* __restrict__ dpd, T* __restrict__ dpo, T* __restrict__ dmu,
-            T* __restrict__ dfb, T* __restrict__ fpiv, T* __restrict__ vdd,
-            T* __restrict__ vdo, T* __restrict__ vdmu, int nb_, int n,
+            T* __restrict__ dfb, T* vdmu_g, T* vdd_g, T* vdo_g,
+            T* __restrict__ scratch, int nb, int n,
             const __grid_constant__ Factors<T> f) {
-  extern __shared__ unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  load_rules<T, S>(f, smem);
+  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec, SS = S * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* rules = reinterpret_cast<T*>(smem_raw);
+  const int warps = blockDim.x / kWarp;
+  const int64_t chain = grad_chain_elems<S>(n);
+  T* arena = scratch == nullptr
+                 ? rules + f.rule_elems
+                 : scratch + (int64_t)blockIdx.x * warps * chain;
+  load_rules<T, S>(f, rules);
 
-  const int64_t nb = nb_;
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // no block-wide barrier below: a warp past the end may leave
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int64_t b = (int64_t)blockIdx.x * warps + warp;
   if (b >= nb) return;
-  const int64_t blk = (int64_t)S * S * nb;
-  const int64_t vec = (int64_t)S * nb;
-  mu += b; pd += b; po += b; fpiv += b; vdd += b; vdo += b; vdmu += b;
-  if constexpr (Mode != kGradAccum) {
-    covd += b; covo += b; dpd += b; dpo += b; dmu += b; dfb += b;
+
+  T* pd = arena + warp * chain;
+  T* po = pd + n * M;
+  T* fpiv = po + n * M;
+  T* gpiv = fpiv + n * M;
+  T* vdd = gpiv + n * M;
+  T* vdo = vdd + n * M;
+  T* mu = vdo + n * M;
+  T* vdmu = mu + n * V;
+  T* x0 = vdmu + n * V;
+  T* x1 = x0 + n * V;
+  const int64_t mats = (int64_t)n * SS, offs = (int64_t)(n - 1) * SS;
+  const int64_t vecs = (int64_t)n * S;
+
+  // ---- load: the problem's chain, each operand read once.  Lambda comes
+  // first and phase A starts on it while the mean and the seeds arrive ----
+  const bool in_smem = scratch == nullptr;
+  copy_in_async<T, SS>(pd, M, pd_g + b * mats, n, lane, kWarp, in_smem);
+  copy_in_async<T, SS>(po, M, po_g + b * offs, n - 1, lane, kWarp, in_smem);
+  async_commit();
+  copy_in_async<T, S>(mu, V, mu_g + b * vecs, n, lane, kWarp, in_smem);
+  if constexpr (Mode == kGradSolve) {
+    copy_in_async<T, SS>(vdd, M, vdd_g + b * mats, n, lane, kWarp, in_smem);
+    copy_in_async<T, SS>(vdo, M, vdo_g + b * offs, n - 1, lane, kWarp,
+                         in_smem);
+    copy_in_async<T, S>(vdmu, V, vdmu_g + b * vecs, n, lane, kWarp, in_smem);
+  } else {
+    for (int e = lane; e < n * M; e += kWarp) {
+      vdd[e] = T(0);
+      vdo[e] = T(0);
+    }
+    for (int e = lane; e < n * V; e += kWarp) vdmu[e] = T(0);
   }
+  async_commit();
   const T inv_t = T(1) / temp[b];
+  async_wait<1>();
+  __syncwarp();
 
-  // ---- phase 0: zero the accumulators (mode "solve": they hold the sum) --
-  T m[S][S];
-  zero_mat(m);
-  if constexpr (Mode != kGradSolve) {
-    for (int i = 0; i < n; ++i) {
-      store_mat(vdd + i * blk, nb, m);
-      if (i < n - 1) store_mat(vdo + i * blk, nb, m);
-#pragma unroll
-      for (int r = 0; r < S; ++r) vdmu[i * vec + r * nb] = T(0);
-    }
-  }
-
-  // ---- phase 1: forward sweep over Lambda -------------------------------
-  T ld = T(0), comp = T(0), trust = T(1);
-  for (int i = 0; i < n; ++i) {
-    T d[S][S], piv[S][S], l[S][S];
-    load_mat(pd + i * blk, nb, d);
-    add_mat(d, m, piv);
-    store_mat(fpiv + i * blk, nb, piv);
-    chol(piv, l);
-    if constexpr (Mode != kGradAccum) {
-      trust = pivot_trust(l, piv, d, m, trust);
-      kahan_add(ld, comp, logdet_from_chol(l));
-    }
-    if (i < n - 1) {
-      T bo[S][S];
-      load_mat(po + i * blk, nb, bo);
-      fwd_message(l, bo, m);
-    }
-  }
+  // ---- phase A: both pivot recursions, log det --------------------------
+  const ArenaBlocks<T, S> lambda{pd, po};
+  const T ld = pivot_sweeps<T, S, Mode != kGradAccum>(lambda, n, lane, fpiv,
+                                                      gpiv);
   if constexpr (Mode != kGradAccum)
-    ld_out[b] = trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
+    if (lane == 0) ld_out[b] = ld;
+  async_wait<0>();
+  __syncwarp();
 
-  // ---- phase 2: backward sweep fused with the edge inverse + gradients --
-  zero_mat(m);
-  for (int i = n - 2; i >= 0; --i) {
-    T fp[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
-    load_mat(fpiv + i * blk, nb, fp);
-    {
-      T d[S][S];
-      load_mat(pd + (i + 1) * blk, nb, d);
-      add_mat(d, m, g);
-    }
-    load_mat(po + i * blk, nb, bo);
-    edge_covariance(fp, g, bo, cii, cjj, cij);
-    if constexpr (Mode != kGradAccum) {
-      store_mat(covd + i * blk, nb, cii);
-      store_mat(covo + i * blk, nb, cij);
-    }
-
+  // ---- phase B: lane = edge; chunks from the chain's end, so that a state
+  // receives its own contributions before its left neighbour's ------------
+  const int edges = n - 1;
+  for (int base = ((edges - 1) / kWarp) * kWarp; base >= 0; base -= kWarp) {
+    const int i = base + lane;
+    const bool on = i < edges;
     T mu_i[S], mu_j[S];
+    if (on) {
+      T fp[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
+      load_mat(fpiv + i * M, 1, fp);
+      load_mat(gpiv + (i + 1) * M, 1, g);
+      load_mat(po + i * M, 1, bo);
+      edge_covariance_r(fp, g, bo, cii, cjj, cij);
+      if constexpr (Mode != kGradAccum) {
+        // the record, staged where this lane's pivots were (no other lane
+        // reads F_i or G_{i+1}): covd in fpiv, covo[i] in gpiv[i + 1]
+        store_mat(fpiv + i * M, 1, cii);
+        store_mat(gpiv + (i + 1) * M, 1, cij);
+        if (i == edges - 1) store_mat(fpiv + (i + 1) * M, 1, cjj);
+      }
 #pragma unroll
-    for (int r = 0; r < S; ++r) {
-      mu_i[r] = mu[i * vec + r * nb];
-      mu_j[r] = mu[(i + 1) * vec + r * nb];
-    }
-    state_gradients<T, S, Cost, Mode>(f, smem, i, cii, mu_i, nb, b, inv_t,
-                                      vdmu + i * vec, vdd + i * blk);
-    if (i == n - 2) {
+      for (int r = 0; r < S; ++r) {
+        mu_i[r] = mu[i * V + r];
+        mu_j[r] = mu[(i + 1) * V + r];
+      }
+      state_gradients<T, S, Cost, Mode>(f, rules, n, i, cii, mu_i, b,
+                                        inv_t, vdmu + i * V, vdd + i * M);
+      if (i == edges - 1)
+        state_gradients<T, S, Cost, Mode>(f, rules, n, n - 1, cjj, mu_j,
+                                          b, inv_t, vdmu + (n - 1) * V,
+                                          vdd + (n - 1) * M);
       if constexpr (Mode != kGradAccum)
-        store_mat(covd + (int64_t)(n - 1) * blk, nb, cjj);
-      state_gradients<T, S, Cost, Mode>(f, smem, n - 1, cjj, mu_j, nb, b,
-                                        inv_t, vdmu + (n - 1) * vec,
-                                        vdd + (n - 1) * blk);
+        edge_gradients<T, S, 0>(f, n, i, mu_i, mu_j, b, inv_t, vdmu,
+                                vdd, vdo);
     }
-
-    const int n_lin = Mode == kGradAccum ? 0 : f.n_lin;
-    for (int j = 0; j < n_lin; ++j) {
-      const LinBatch<T>& lb = f.lin[j];
-      if (lb.span != 2) continue;
-      for_factors_at(lb.starts, lb.offset, lb.k, i, [&](int k) {
-        const int kk = min(k, lb.ka - 1);
-        T mu_e[2 * S], res[2 * S], w[2 * S], vd_i[S], vd_j[S], a[S][S];
-#pragma unroll
-        for (int r = 0; r < S; ++r) {
-          mu_e[r] = mu_i[r];
-          mu_e[S + r] = mu_j[r];
-        }
-        lin_residual<T, 2 * S, 2 * S>(lb, kk, nb, b, mu_e, res, w);
-#pragma unroll
-        for (int d = 0; d < S; ++d) {
-          T acc_i = vdmu[i * vec + d * nb];
-          T acc_j = vdmu[(i + 1) * vec + d * nb];
-#pragma unroll
-          for (int rr = 0; rr < 2 * S; ++rr) {
-            if (rr < lb.r) {
-              const int64_t row = ((int64_t)kk * lb.r + rr) * 2 * S;
-              acc_i = acc_i + T(2) * lb.lam[(row + d) * nb + b] * w[rr] * inv_t;
-              acc_j = acc_j +
-                      T(2) * lb.lam[(row + S + d) * nb + b] * w[rr] * inv_t;
-            }
-          }
-          vd_i[d] = acc_i;
-          vd_j[d] = acc_j;
-        }
-#pragma unroll
-        for (int d = 0; d < S; ++d) {
-          vdmu[i * vec + d * nb] = vd_i[d];
-          vdmu[(i + 1) * vec + d * nb] = vd_j[d];
-        }
-        const T two_t = T(2) * inv_t;
-        load_a<T, S>(lb, kk, 0, nb, b, a);
-        accumulate(vdd + i * blk, nb, a, two_t);
-        load_a<T, S>(lb, kk, 1, nb, b, a);
-        accumulate(vdd + (i + 1) * blk, nb, a, two_t);
-        load_a<T, S>(lb, kk, 2, nb, b, a);
-        accumulate(vdo + i * blk, nb, a, two_t);
-      });
+    if constexpr (Mode != kGradAccum) {
+      __syncwarp();
+      if (on)
+        edge_gradients<T, S, 1>(f, n, i, mu_i, mu_j, b, inv_t, vdmu,
+                                vdd, vdo);
     }
-
-    if (i > 0) {
-      T lg[S][S];
-      chol(g, lg);
-      bwd_message(lg, bo, m);
-    }
+    __syncwarp();
   }
 
   // mode "accum" ends here: vdmu, vdd, vdo are its outputs
-  if constexpr (Mode == kGradAccum) return;
-
-  // ---- phase 3: dprec = Vddmu - Lambda ----------------------------------
-  for (int i = 0; i < n; ++i) {
-    T v[S][S], d[S][S];
-    load_mat(vdd + i * blk, nb, v);
-    load_mat(pd + i * blk, nb, d);
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-#pragma unroll
-      for (int c = 0; c < S; ++c) v[r][c] = v[r][c] - d[r][c];
-    store_mat(dpd + i * blk, nb, v);
-    if (i < n - 1) {
-      load_mat(vdo + i * blk, nb, v);
-      load_mat(po + i * blk, nb, d);
-#pragma unroll
-      for (int r = 0; r < S; ++r)
-#pragma unroll
-        for (int c = 0; c < S; ++c) v[r][c] = v[r][c] - d[r][c];
-      store_mat(dpo + i * blk, nb, v);
-    }
+  if constexpr (Mode == kGradAccum) {
+    copy_out<T, SS>(vdd_g + b * mats, vdd, M, n, lane, kWarp);
+    copy_out<T, SS>(vdo_g + b * offs, vdo, M, n - 1, lane, kWarp);
+    copy_out<T, S>(vdmu_g + b * vecs, vdmu, V, n, lane, kWarp);
+    return;
   }
 
-  // ---- phase 4: Thomas solve over Vddmu, pivoted in place ----------------
-  zero_mat(m);
-  for (int i = 0; i < n; ++i) {
-    T v[S][S], piv[S][S], l[S][S];
-    load_mat(vdd + i * blk, nb, v);
-    add_mat(v, m, piv);
-    store_mat(vdd + i * blk, nb, piv);
-    if (i < n - 1) {
-      T bo[S][S];
-      chol(piv, l);
-      load_mat(vdo + i * blk, nb, bo);
-      fwd_message(l, bo, m);
-    }
+  // ---- the record out, dprec = Vddmu - Lambda ----------------------------
+  copy_out<T, SS>(covd + b * mats, fpiv, M, n, lane, kWarp);
+  copy_out<T, SS>(covo + b * offs, gpiv + M, M, n - 1, lane, kWarp);
+  for (int e = lane; e < mats; e += kWarp) {
+    const int at = (e / SS) * M + e % SS;
+    dpd[b * mats + e] = vdd[at] - pd[at];
   }
-  thomas_solve<T, S>(vdd, vdo, vdmu, dmu, nb, n);
+  for (int e = lane; e < offs; e += kWarp) {
+    const int at = (e / SS) * M + e % SS;
+    dpo[b * offs + e] = vdo[at] - po[at];
+  }
+  __syncwarp();
 
-  // ---- phase 5: SPD fallback over Lambda on phase 1's pivots -------------
-  thomas_solve<T, S>(fpiv, po, vdmu, dfb, nb, n);
+  // ---- phase C: Vddmu dmu = -Vdmu and Lambda dmu_fb = -Vdmu at once -----
+  thomas_pair<T, S>(vdd, vdo, pd, po, vdmu, gpiv, fpiv, x0, x1, n, lane);
+  copy_out<T, S>(dmu + b * vecs, x0, V, n, lane, kWarp);
+  copy_out<T, S>(dfb + b * vecs, x1, V, n, lane, kWarp);
 }
 
 template <typename T, int S, typename Cost, int Mode>
 int dispatch_grad(const void* mu, const void* pd, const void* po,
                   const void* temp, void* covd, void* covo, void* ld,
-                  void* dpd, void* dpo, void* dmu, void* dfb, void* fpiv,
-                  void* vdd, void* vdo, void* vdmu, int nb, int n, int n_nl,
-                  void* const* nl_ptrs, const int* nl_ints, int n_lin,
-                  void* const* lin_ptrs, const int* lin_ints,
-                  cudaStream_t st) {
+                  void* dpd, void* dpo, void* dmu, void* dfb, void* vdmu,
+                  void* vdd, void* vdo, void* scratch, int nb, int n,
+                  int warps, long long chain, int n_nl, void* const* nl_ptrs,
+                  const int* nl_ints, int n_lin, void* const* lin_ptrs,
+                  const int* lin_ints, cudaStream_t st) {
   Factors<T> f;
-  size_t smem = 0;
-  if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints,
-                           f, smem))
+  if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,
+                           lin_ints, f))
     return -1;
-  const int blocks = (nb + kGradThreads - 1) / kGradThreads;
-  grad_kernel<T, S, Cost, Mode><<<blocks, kGradThreads, smem, st>>>(
+  // the wrapper sized the arena: both sides must lay a chain out alike
+  if (warps < 1 || warps > kGradWarps || chain != grad_chain_elems<S>(n))
+    return -1;
+  const size_t smem =
+      smem_bytes(f, scratch == nullptr ? (size_t)warps * chain : 0);
+  if (smem > kMaxSmem) return -1;
+  auto kernel = grad_kernel<T, S, Cost, Mode>;
+  const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int blocks = (nb + warps - 1) / warps;
+  kernel<<<blocks, warps * kWarp, smem, st>>>(
       static_cast<const T*>(mu), static_cast<const T*>(pd),
       static_cast<const T*>(po), static_cast<const T*>(temp),
       static_cast<T*>(covd), static_cast<T*>(covo), static_cast<T*>(ld),
       static_cast<T*>(dpd), static_cast<T*>(dpo), static_cast<T*>(dmu),
-      static_cast<T*>(dfb), static_cast<T*>(fpiv), static_cast<T*>(vdd),
-      static_cast<T*>(vdo), static_cast<T*>(vdmu), nb, n, f);
+      static_cast<T*>(dfb), static_cast<T*>(vdmu), static_cast<T*>(vdd),
+      static_cast<T*>(vdo), static_cast<T*>(scratch), nb, n, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One mode's instantiations (float32 / float64, s = 2 / 4, the range cost).
 // dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
-// params.  Returns the cudaError_t of the launch (0 = success) or -1 for
-// sizes that are not instantiated.
+// params.  warps problems per block, chain = grad_chain_elems values per
+// problem, scratch = the global arena or null.  Returns the cudaError_t of
+// the launch (0 = success) or -1 for sizes that are not instantiated.
 template <int Mode>
 int launch_grad(int dtype, int s, int cost, int np, const void* mu,
                 const void* pd, const void* po, const void* temp, void* covd,
                 void* covo, void* ld, void* dpd, void* dpo, void* dmu,
-                void* dfb, void* fpiv, void* vdd, void* vdo, void* vdmu,
-                int nb, int n, int n_nl, void* const* nl_ptrs,
-                const int* nl_ints, int n_lin, void* const* lin_ptrs,
-                const int* lin_ints, void* stream) {
+                void* dfb, void* vdmu, void* vdd, void* vdo, void* scratch,
+                int nb, int n, int warps, long long chain, int n_nl,
+                void* const* nl_ptrs, const int* nl_ints, int n_lin,
+                void* const* lin_ptrs, const int* lin_ints, void* stream) {
   if (nb <= 0) return 0;
-  if (cost != kRangeCost) return -1;
+  if (cost != kRangeCost || n < 2) return -1;
   auto st = static_cast<cudaStream_t>(stream);
 #define GVI_GRAD(T, S, DX)                                                     \
   if (np != RangeCost<DX>::kParams) return -1;                                \
   return dispatch_grad<T, S, RangeCost<DX>, Mode>(                            \
-      mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu, dfb, fpiv, vdd, vdo,   \
-      vdmu, nb, n, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, st);
+      mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd, vdo,   \
+      scratch, nb, n, warps, chain, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,  \
+      lin_ints, st);
   if (dtype == 0 && s == 2) { GVI_GRAD(float, 2, 1) }
   if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, 2) }
   if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, 1) }
@@ -457,13 +525,14 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
   extern "C" int NAME(int dtype, int s, int cost, int np, const void* mu,     \
                       const void* pd, const void* po, const void* temp,       \
                       void* covd, void* covo, void* ld, void* dpd, void* dpo, \
-                      void* dmu, void* dfb, void* fpiv, void* vdd, void* vdo, \
-                      void* vdmu, int nb, int n, int n_nl,                    \
-                      void* const* nl_ptrs, const int* nl_ints, int n_lin,    \
-                      void* const* lin_ptrs, const int* lin_ints,             \
-                      void* stream) {                                         \
+                      void* dmu, void* dfb, void* vdmu, void* vdd, void* vdo, \
+                      void* scratch, int nb, int n, int warps,                \
+                      long long chain, int n_nl, void* const* nl_ptrs,        \
+                      const int* nl_ints, int n_lin, void* const* lin_ptrs,   \
+                      const int* lin_ints, void* stream) {                    \
     return gvi::launch_grad<MODE>(dtype, s, cost, np, mu, pd, po, temp, covd, \
-                                  covo, ld, dpd, dpo, dmu, dfb, fpiv, vdd,    \
-                                  vdo, vdmu, nb, n, n_nl, nl_ptrs, nl_ints,   \
-                                  n_lin, lin_ptrs, lin_ints, stream);         \
+                                  covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd,    \
+                                  vdo, scratch, nb, n, warps, chain, n_nl,    \
+                                  nl_ptrs, nl_ints, n_lin, lin_ptrs,          \
+                                  lin_ints, stream);                          \
   }

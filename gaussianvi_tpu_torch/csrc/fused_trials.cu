@@ -2,283 +2,330 @@
 //
 // Replaces the TPU kernel gaussianvi_tpu/kernels/fused_trials.py,
 // trial_costs_lanes (_trials_kernel): for every trial step s_t and problem
-// b it forms the trial iterate mu + s_t dmu, sym(Lambda + s_t dLambda)
-// in registers (the [T, B, N, s, s] trial tensors never reach device
-// memory), runs the GBP forward sweep with a Kahan-compensated,
-// pivot-trust-poisoned log det, then the backward sweep fused with each
-// edge's 2s x 2s joint inverse: as Sig_ii, Sig_jj, Sig_ij come out they are
-// consumed at once by the state's nonlinear E[phi] (rule in shared memory),
-// the anchor costs (span 1) and the edge costs (span 2), and dropped.
-// Outputs: ld [T, B] and per batch fc [K, T, B].
+// b it forms the trial iterate mu + s_t dmu, sym(Lambda + s_t dLambda) on
+// the fly (the [T, B, N, s, s] trial tensors never reach device memory),
+// runs both GBP pivot recursions with a Kahan-compensated,
+// pivot-trust-poisoned log det, then each edge's 2s x 2s joint inverse: as
+// Sig_ii, Sig_jj, Sig_ij come out they are consumed at once by the state's
+// nonlinear E[phi] (rule in shared memory), the anchor costs (span 1) and
+// the edge costs (span 2), and dropped.  Outputs: ld [T, B] and per batch
+// fc [T, B, K].
 //
 // Guards: unlike the TPU kernel (log-det guard only), E[phi] carries the
 // 64-ulp cancellation guard and, for nonnegative costs, the 4096-ulp band,
 // and a negative linear cost is NaN: the contract of the separate path
 // (factors/moments.py), so every path rejects the same trials.
 //
-// Design: one thread per (trial, problem) pair, T * B = 11,264 threads at
-// the flagship; problem data are batch-last ([element, B]) so a warp's 32
-// problems read neighbouring words, and the T threads of a problem read
-// the same words (served by L1/L2).  The forward pivots go to a global
-// batch-last scratch [N, s, s, T * B] for the backward sweep.
-//
-// What bounds it on the card: latency of the serial s x s algebra along
-// the chain plus the per-state quadrature (M nodes), at low occupancy
-// (176 blocks of 64 threads for 132 SMs at the flagship) and high register
-// pressure (the 2s x 2s joint factor, three covariance blocks and the
-// quadrature state live at once).  A warp per (trial, problem), or the
-// edge inverse split across lanes, is later work.
+// What bounds it on the card: as the gradient kernel (fused_gradient.cuh),
+// the latency and the sheer count of dependent s x s operations along
+// T * B chains, at the occupancy the edge inverse's registers leave; bytes
+// and operations would take microseconds.  The design:
+//   - a block per problem: the problem's precision and its direction are
+//     staged in the arena once (shared memory; a global scratch for a
+//     chain too long for it) and read for all T trials; the means, read
+//     once per item, stay where they are;
+//   - phase A, the serial part, for all trials at once: 2s lanes per trial
+//     (both pivot recursions at the same time, the s columns of a message
+//     on s lanes: fused.cuh pivot_sweeps), so a warp walks 32 / 2s chains
+//     and T = 11 trials at s = 4 take three warps, not eleven; each trial's
+//     forward and backward pivots stay in the arena;
+//   - phase B, behind one block barrier: the T * (N - 1) (trial, edge)
+//     items spread over all threads of the block: the joint inverse, the
+//     guarded E[phi] of the state's factors, the span-1 and span-2 linear
+//     costs, each written where the caller reads it ([T, B, K]:
+//     neighbouring items write neighbouring words);
+//   - more trials than the arena holds go in chunks through the same two
+//     phases.
+// Factor operands (params, the linear rows) are read in place through L1:
+// they are a few hundred bytes per problem and shared by the T trials.
 #include "fused.cuh"
 
 namespace gvi {
 
-constexpr int kTrialThreads = 64;
+// Warps of a block, and blocks the compiler is to fit on an SM: at the
+// flagship (N = 32, s = 4, T = 11, float32) a block's arena takes 56 KB, so
+// four share an SM if each thread keeps to 128 registers; the serial
+// sweeps are latency-bound, and the warps of other blocks are what hides it.
+constexpr int kTrialWarps = 4;
+constexpr int kTrialBlocksPerSM = 4;
 
-// x + st * dx for an s x s block of a width-nb array.
-template <typename T, int S>
-__device__ __forceinline__ void trial_block(const T* x, const T* dx, T st,
-                                            int64_t nb, T (&out)[S][S]) {
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) {
-      const int64_t e = (int64_t)(r * S + c) * nb;
-      out[r][c] = x[e] + st * dx[e];
-    }
+// Arena of one block that holds `chunk` trials at once, in values of T: pd,
+// dpd, po, dpo as n blocks each, then per trial F and G as n blocks each
+// (kernels/fused_trials.py trial_arena_elems is the wrapper's copy).
+template <int S>
+__host__ __device__ constexpr int64_t trial_stage_elems(int64_t n) {
+  return n * 4 * Pitch<S>::kMat;
 }
 
-template <typename T, int S>
-__device__ __forceinline__ void trial_diag(const T* x, const T* dx, T st,
-                                           int64_t nb, T (&out)[S][S]) {
-  T a[S][S];
-  trial_block(x, dx, st, nb, a);
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) out[r][c] = T(0.5) * (a[r][c] + a[c][r]);
+template <int S>
+__host__ __device__ constexpr int64_t trial_arena_elems(int64_t n,
+                                                        int64_t chunk) {
+  return trial_stage_elems<S>(n) + chunk * 2 * n * Pitch<S>::kMat;
 }
 
+// The blocks of the trial precision sym(Lambda + st dLambda), formed from
+// the staged iterate and direction as pivot_sweeps asks for them.
 template <typename T, int S>
-__device__ __forceinline__ void trial_vec(const T* x, const T* dx, T st,
-                                          int64_t nb, T (&out)[S]) {
+struct TrialBlocks {
+  const T* pd;
+  const T* dpd;
+  const T* po;
+  const T* dpo;
+  T st;
+  __device__ __forceinline__ void diag(int i, T (&d)[S][S]) const {
+    const T* x = pd + i * Pitch<S>::kMat;
+    const T* dx = dpd + i * Pitch<S>::kMat;
+    T a[S][S];
 #pragma unroll
-  for (int r = 0; r < S; ++r) out[r] = x[r * nb] + st * dx[r * nb];
-}
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) a[r][c] = x[r * S + c] + st * dx[r * S + c];
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) d[r][c] = T(0.5) * (a[r][c] + a[c][r]);
+  }
+  // B_e, or B_e^T on side 1
+  __device__ __forceinline__ void off(int e, int side, T (&bd)[S][S]) const {
+    const T* x = po + e * Pitch<S>::kMat;
+    const T* dx = dpo + e * Pitch<S>::kMat;
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        const int at = side ? c * S + r : r * S + c;
+        bd[r][c] = x[at] + st * dx[at];
+      }
+  }
+};
 
 // A negative closed-form linear cost is rounding garbage (the cost is
 // <A, Sig> + a weighted square >= 0): NaN, as moments.guard_linear_cost.
 template <typename T>
-__device__ __forceinline__ void store_linear_cost(const LinBatch<T>& lb,
-                                                  int k, int64_t count,
-                                                  int64_t idx, T cost) {
-  lb.fc[(int64_t)k * count + idx] = cost < T(0) ? quiet_nan<T>() : cost;
+__device__ __forceinline__ T guard_linear(T cost) {
+  return cost < T(0) ? quiet_nan<T>() : cost;
 }
 
 // Guarded E[phi] of every nonlinear factor and cost of every span-1
-// linear factor at state i, marginal N(mu_c, cov).
+// linear factor at state i of problem b, marginal N(mu_c, cov); tb is the
+// (trial, problem) row of the [T, B, K] outputs.
 template <typename T, int S, typename Cost>
 __device__ __forceinline__ void state_costs(const Factors<T>& f,
-                                            const T* smem, int i,
+                                            const T* rules, int n, int i,
                                             const T (&cov)[S][S],
-                                            const T (&mu_c)[S], int64_t nb,
-                                            int64_t b, int64_t count,
-                                            int64_t idx) {
+                                            const T (&mu_c)[S], int64_t b,
+                                            int64_t tb) {
   for (int j = 0; j < f.n_nl; ++j) {
     const NLBatch<T>& fb = f.nl[j];
-    for_factors_at(fb.starts, fb.offset, fb.k, i, [&](int k) {
+    for_factors_at(fb.index, n, i, [&](int k) {
       T l[S][S], p[Cost::kParams], acc, absum, ax[S], axx[Tri<S>::value];
       chol(cov, l);
-      load_params<T, Cost>(fb, k, nb, b, p);
-      sigma_sums<T, S, Cost, false>(l, mu_c, p, smem + fb.smem,
-                                    smem + fb.smem + fb.m * S, fb.m, acc,
+      load_params<T, Cost>(fb, k, b, p);
+      sigma_sums<T, S, Cost, false>(l, mu_c, p, rules + fb.smem,
+                                    rules + fb.smem + fb.m * S, fb.m, acc,
                                     absum, ax, axx);
-      fb.fc[(int64_t)k * count + idx] = guard_phi(acc, absum, fb.nonneg);
+      fb.fc[tb * fb.k + k] = guard_phi(acc, absum, fb.nonneg);
     });
   }
   for (int j = 0; j < f.n_lin; ++j) {
     const LinBatch<T>& lb = f.lin[j];
     if (lb.span != 1) continue;
-    for_factors_at(lb.starts, lb.offset, lb.k, i, [&](int k) {
+    for_factors_at(lb.index, n, i, [&](int k) {
       const int kk = min(k, lb.ka - 1);
       T res[2 * S], w[2 * S], a[S][S];
-      lin_residual<T, S, 2 * S>(lb, kk, nb, b, mu_c, res, w);
+      lin_residual<T, S, 2 * S>(lb, kk, b, mu_c, res, w);
       T acc = res[0] * w[0];
 #pragma unroll
       for (int rr = 1; rr < 2 * S; ++rr)
         if (rr < lb.r) acc = acc + res[rr] * w[rr];
-      load_a<T, S>(lb, kk, 0, nb, b, a);
+      load_a<T, S>(lb, kk, 0, b, a);
 #pragma unroll
       for (int r = 0; r < S; ++r)
 #pragma unroll
         for (int c = 0; c < S; ++c) acc = acc + a[r][c] * cov[r][c];
-      store_linear_cost(lb, k, count, idx, acc);
+      lb.fc[tb * lb.k + k] = guard_linear(acc);
     });
   }
 }
 
+// grid: B blocks.  chunk: trials the arena holds at once.  scratch: the
+// arena of every block where the chain does not fit shared memory, else
+// null.
 template <typename T, int S, typename Cost>
-__global__ void __launch_bounds__(kTrialThreads)
-trials_kernel(const T* __restrict__ mu, const T* __restrict__ dmu,
-              const T* __restrict__ pd, const T* __restrict__ po,
-              const T* __restrict__ dpd, const T* __restrict__ dpo,
+__global__ void __launch_bounds__(kTrialWarps * kWarp, kTrialBlocksPerSM)
+trials_kernel(const T* __restrict__ mu_g, const T* __restrict__ dmu_g,
+              const T* __restrict__ pd_g, const T* __restrict__ po_g,
+              const T* __restrict__ dpd_g, const T* __restrict__ dpo_g,
               const T* __restrict__ trials, T* __restrict__ ld_out,
-              T* __restrict__ fpiv, int nb_, int n, int nt,
+              T* __restrict__ scratch, int nb, int n, int nt, int chunk,
               const __grid_constant__ Factors<T> f) {
-  extern __shared__ unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  load_rules<T, S>(f, smem);
+  constexpr int M = Pitch<S>::kMat, SS = S * S;
+  constexpr int kPerTrial = 2 * S;               // lanes of one trial
+  constexpr int kPerWarp = kWarp / kPerTrial;    // trials of one warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* rules = reinterpret_cast<T*>(smem_raw);
+  const int64_t arena_elems = trial_arena_elems<S>(n, chunk);
+  T* arena = scratch == nullptr
+                 ? rules + f.rule_elems
+                 : scratch + (int64_t)blockIdx.x * arena_elems;
+  load_rules<T, S>(f, rules);
 
-  const int64_t nb = nb_;
-  const int64_t count = nb * nt;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= count) return;
-  const int64_t b = idx % nb;
-  const T st = trials[idx / nb];
-  const int64_t blk = (int64_t)S * S * nb;   // s x s block, width B
-  const int64_t vec = (int64_t)S * nb;       // s-vector, width B
-  const int64_t tblk = (int64_t)S * S * count;
-  mu += b; dmu += b; pd += b; po += b; dpd += b; dpo += b; fpiv += idx;
+  const int64_t b = blockIdx.x;
+  T* pd = arena;
+  T* dpd = pd + n * M;
+  T* po = dpd + n * M;
+  T* dpo = po + n * M;
+  T* pivots = arena + trial_stage_elems<S>(n);   // per trial: F, then G
+  const int64_t mats = (int64_t)n * SS, offs = (int64_t)(n - 1) * SS;
+  const T* mu = mu_g + b * n * S;
+  const T* dmu = dmu_g + b * n * S;
 
-  // ---- forward sweep: pivots, log det, pivot trust ----------------------
-  T m[S][S];
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) m[r][c] = T(0);
-  T ld = T(0), comp = T(0), trust = T(1);
-  for (int i = 0; i < n; ++i) {
-    T d[S][S], piv[S][S], l[S][S];
-    trial_diag(pd + i * blk, dpd + i * blk, st, nb, d);
-    add_mat(d, m, piv);
-    store_mat(fpiv + i * tblk, count, piv);
-    chol(piv, l);
-    trust = pivot_trust(l, piv, d, m, trust);
-    kahan_add(ld, comp, logdet_from_chol(l));
-    if (i < n - 1) {
-      T bo[S][S];
-      trial_block(po + i * blk, dpo + i * blk, st, nb, bo);
-      fwd_message(l, bo, m);
+  // ---- stage the problem once for all its trials (plain coalesced loads:
+  // phase A needs all of it at once, an asynchronous copy has nothing to
+  // overlap with) -----------------------------------------------------------
+  const int tid = threadIdx.x, threads = blockDim.x;
+  copy_in<T, SS>(pd, M, pd_g + b * mats, n, tid, threads);
+  copy_in<T, SS>(dpd, M, dpd_g + b * mats, n, tid, threads);
+  copy_in<T, SS>(po, M, po_g + b * offs, n - 1, tid, threads);
+  copy_in<T, SS>(dpo, M, dpo_g + b * offs, n - 1, tid, threads);
+  __syncthreads();
+
+  const int warp = tid / kWarp, lane = tid % kWarp, warps = threads / kWarp;
+  const int edges = n - 1;
+  // every thread takes every turn of this loop: it holds block barriers
+  for (int t0 = 0; t0 < nt; t0 += chunk) {
+    const int held = min(chunk, nt - t0);
+
+    // ---- phase A: both pivot recursions and the log det of every trial
+    // held, 2s lanes each; a lane past the last trial repeats it (same
+    // values to the same words) so that the warp stays whole -------------
+    for (int first = warp * kPerWarp; first < held;
+         first += warps * kPerWarp) {
+      const int slot = min(first + lane / kPerTrial, held - 1);
+      const TrialBlocks<T, S> prec{pd, dpd, po, dpo, trials[t0 + slot]};
+      T* fpiv = pivots + (int64_t)slot * 2 * n * M;
+      const T ld = pivot_sweeps<T, S, true>(prec, n, lane, fpiv,
+                                            fpiv + n * M);
+      if (lane % kPerTrial == 0 && first + lane / kPerTrial < held)
+        ld_out[(int64_t)(t0 + slot) * nb + b] = ld;
     }
-  }
-  ld_out[idx] = trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
+    __syncthreads();
 
-  // ---- backward sweep fused with the edge inverse and the costs ---------
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) m[r][c] = T(0);
-  for (int i = n - 2; i >= 0; --i) {
-    T fp[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
-    load_mat(fpiv + i * tblk, count, fp);
-    {
-      T d[S][S];
-      trial_diag(pd + (i + 1) * blk, dpd + (i + 1) * blk, st, nb, d);
-      add_mat(d, m, g);
-    }
-    trial_block(po + i * blk, dpo + i * blk, st, nb, bo);
-    edge_covariance(fp, g, bo, cii, cjj, cij);
+    // ---- phase B: one (trial, edge) item per thread and turn -------------
+    for (int item = tid; item < held * edges; item += threads) {
+      const int slot = item / edges, i = item % edges;
+      const T st = trials[t0 + slot];
+      const int64_t tb = (int64_t)(t0 + slot) * nb + b;
+      const TrialBlocks<T, S> prec{pd, dpd, po, dpo, st};
+      const T* fpiv = pivots + (int64_t)slot * 2 * n * M;
+      const T* gpiv = fpiv + n * M;
+      T fp[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
+      load_mat(fpiv + i * M, 1, fp);
+      load_mat(gpiv + (i + 1) * M, 1, g);
+      prec.off(i, 0, bo);
+      edge_covariance_r(fp, g, bo, cii, cjj, cij);
 
-    T mu_i[S], mu_j[S];
-    trial_vec(mu + i * vec, dmu + i * vec, st, nb, mu_i);
-    trial_vec(mu + (i + 1) * vec, dmu + (i + 1) * vec, st, nb, mu_j);
-    state_costs<T, S, Cost>(f, smem, i, cii, mu_i, nb, b, count, idx);
-    if (i == n - 2)
-      state_costs<T, S, Cost>(f, smem, n - 1, cjj, mu_j, nb, b, count, idx);
+      T mu_i[S], mu_j[S];
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        mu_i[r] = mu[i * S + r] + st * dmu[i * S + r];
+        mu_j[r] = mu[(i + 1) * S + r] + st * dmu[(i + 1) * S + r];
+      }
+      state_costs<T, S, Cost>(f, rules, n, i, cii, mu_i, b, tb);
+      if (i == edges - 1)
+        state_costs<T, S, Cost>(f, rules, n, n - 1, cjj, mu_j, b, tb);
 
-    for (int j = 0; j < f.n_lin; ++j) {
-      const LinBatch<T>& lb = f.lin[j];
-      if (lb.span != 2) continue;
-      for_factors_at(lb.starts, lb.offset, lb.k, i, [&](int k) {
-        const int kk = min(k, lb.ka - 1);
-        T mu_e[2 * S], res[2 * S], w[2 * S], a11[S][S], a22[S][S], a12[S][S];
+      for (int j = 0; j < f.n_lin; ++j) {
+        const LinBatch<T>& lb = f.lin[j];
+        if (lb.span != 2) continue;
+        for_factors_at(lb.index, n, i, [&](int k) {
+          const int kk = min(k, lb.ka - 1);
+          T mu_e[2 * S], res[2 * S], w[2 * S], a11[S][S], a22[S][S], a12[S][S];
 #pragma unroll
-        for (int r = 0; r < S; ++r) {
-          mu_e[r] = mu_i[r];
-          mu_e[S + r] = mu_j[r];
-        }
-        lin_residual<T, 2 * S, 2 * S>(lb, kk, nb, b, mu_e, res, w);
-        T acc = res[0] * w[0];
-#pragma unroll
-        for (int rr = 1; rr < 2 * S; ++rr)
-          if (rr < lb.r) acc = acc + res[rr] * w[rr];
-        load_a<T, S>(lb, kk, 0, nb, b, a11);
-        load_a<T, S>(lb, kk, 1, nb, b, a22);
-        load_a<T, S>(lb, kk, 2, nb, b, a12);
-#pragma unroll
-        for (int r = 0; r < S; ++r)
-#pragma unroll
-          for (int c = 0; c < S; ++c) {
-            acc = acc + a11[r][c] * cii[r][c];
-            acc = acc + a22[r][c] * cjj[r][c];
-            acc = acc + T(2) * a12[r][c] * cij[r][c];
+          for (int r = 0; r < S; ++r) {
+            mu_e[r] = mu_i[r];
+            mu_e[S + r] = mu_j[r];
           }
-        store_linear_cost(lb, k, count, idx, acc);
-      });
+          lin_residual<T, 2 * S, 2 * S>(lb, kk, b, mu_e, res, w);
+          T acc = res[0] * w[0];
+#pragma unroll
+          for (int rr = 1; rr < 2 * S; ++rr)
+            if (rr < lb.r) acc = acc + res[rr] * w[rr];
+          load_a<T, S>(lb, kk, 0, b, a11);
+          load_a<T, S>(lb, kk, 1, b, a22);
+          load_a<T, S>(lb, kk, 2, b, a12);
+#pragma unroll
+          for (int r = 0; r < S; ++r)
+#pragma unroll
+            for (int c = 0; c < S; ++c) {
+              acc = acc + a11[r][c] * cii[r][c];
+              acc = acc + a22[r][c] * cjj[r][c];
+              acc = acc + T(2) * a12[r][c] * cij[r][c];
+            }
+          lb.fc[tb * lb.k + k] = guard_linear(acc);
+        });
+      }
     }
-
-    // next message m_i = -B_i G_{i+1}^{-1} B_i^T
-    if (i > 0) {
-      T lg[S][S];
-      chol(g, lg);
-      bwd_message(lg, bo, m);
-    }
+    // the next chunk overwrites the pivots
+    __syncthreads();
   }
-}
-
-template <typename T, int S, typename Cost>
-int launch_trials(const void* mu, const void* dmu, const void* pd,
-                  const void* po, const void* dpd, const void* dpo,
-                  const void* trials, void* ld, void* fpiv, int nb, int n,
-                  int nt, const Factors<T>& f, size_t smem, cudaStream_t st) {
-  const int64_t count = (int64_t)nb * nt;
-  const int blocks = (int)((count + kTrialThreads - 1) / kTrialThreads);
-  trials_kernel<T, S, Cost><<<blocks, kTrialThreads, smem, st>>>(
-      static_cast<const T*>(mu), static_cast<const T*>(dmu),
-      static_cast<const T*>(pd), static_cast<const T*>(po),
-      static_cast<const T*>(dpd), static_cast<const T*>(dpo),
-      static_cast<const T*>(trials), static_cast<T*>(ld),
-      static_cast<T*>(fpiv), nb, n, nt, f);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int S, typename Cost>
 int dispatch_trials(const void* mu, const void* dmu, const void* pd,
                     const void* po, const void* dpd, const void* dpo,
-                    const void* trials, void* ld, void* fpiv, int nb, int n,
-                    int nt, int n_nl, void* const* nl_ptrs,
-                    const int* nl_ints, int n_lin, void* const* lin_ptrs,
-                    const int* lin_ints, cudaStream_t st) {
+                    const void* trials, void* ld, void* scratch, int nb,
+                    int n, int nt, int warps, int chunk, long long arena,
+                    int n_nl, void* const* nl_ptrs, const int* nl_ints,
+                    int n_lin, void* const* lin_ptrs, const int* lin_ints,
+                    cudaStream_t st) {
   Factors<T> f;
-  size_t smem = 0;
-  if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints,
-                           f, smem))
+  if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,
+                           lin_ints, f))
     return -1;
-  return launch_trials<T, S, Cost>(mu, dmu, pd, po, dpd, dpo, trials, ld,
-                                   fpiv, nb, n, nt, f, smem, st);
+  // the wrapper sized the arena: both sides must lay a block out alike
+  if (warps != kTrialWarps || chunk < 1 ||
+      arena != trial_arena_elems<S>(n, chunk))
+    return -1;
+  const size_t smem = smem_bytes(f, scratch == nullptr ? (size_t)arena : 0);
+  if (smem > kMaxSmem) return -1;
+  auto kernel = trials_kernel<T, S, Cost>;
+  const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<nb, warps * kWarp, smem, st>>>(
+      static_cast<const T*>(mu), static_cast<const T*>(dmu),
+      static_cast<const T*>(pd), static_cast<const T*>(po),
+      static_cast<const T*>(dpd), static_cast<const T*>(dpo),
+      static_cast<const T*>(trials), static_cast<T*>(ld),
+      static_cast<T*>(scratch), nb, n, nt, chunk, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gvi
 
 // dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
-// params.  Returns the cudaError_t of the launch (0 = success) or -1 for
-// sizes that are not instantiated.
+// params.  A block has `warps` warps and holds `chunk` trials at once;
+// arena = trial_arena_elems values per block, scratch = the global arena
+// or null.  Returns the cudaError_t of the launch (0 = success) or -1
+// for sizes that are not instantiated.
 extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
                                 const void* mu, const void* dmu,
                                 const void* pd, const void* po,
                                 const void* dpd, const void* dpo,
-                                const void* trials, void* ld, void* fpiv,
-                                int nb, int n, int nt, int n_nl,
+                                const void* trials, void* ld, void* scratch,
+                                int nb, int n, int nt, int warps, int chunk,
+                                long long arena, int n_nl,
                                 void* const* nl_ptrs, const int* nl_ints,
                                 int n_lin, void* const* lin_ptrs,
                                 const int* lin_ints, void* stream) {
   if (nb <= 0 || nt <= 0) return 0;
-  if (cost != gvi::kRangeCost) return -1;
+  if (cost != gvi::kRangeCost || n < 2) return -1;
   auto st = static_cast<cudaStream_t>(stream);
 #define GVI_TRIALS(T, S, DX)                                                  \
   if (np != gvi::RangeCost<DX>::kParams) return -1;                          \
   return gvi::dispatch_trials<T, S, gvi::RangeCost<DX>>(                     \
-      mu, dmu, pd, po, dpd, dpo, trials, ld, fpiv, nb, n, nt, n_nl, nl_ptrs, \
-      nl_ints, n_lin, lin_ptrs, lin_ints, st);
+      mu, dmu, pd, po, dpd, dpo, trials, ld, scratch, nb, n, nt, warps,      \
+      chunk, arena, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, st);
   if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, 1) }
   if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, 2) }
   if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, 1) }

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..factors.base import make_nonlinear_batch
 from ..factors.priors import fixed_prior, minimum_acc_prior
 from ..inference.config import GVIConfig
@@ -71,7 +72,9 @@ def build_chain_estimation(
 ):
     """One problem: ``(graph, init_state, config)``.  ``marginal_quad``
     integrates the range factor over the position marginal (29 vs 137
-    sigma points at dim_x=2 / degree 4)."""
+    sigma points at dim_x=2 / degree 4).  ``device=None`` is the card
+    (``device.default_device``); ``device="cpu"`` builds CPU tensors."""
+    device = resolve_device(device)
     state_dim = 2 * dim_x
     pos, v0, beacon, ranges, sig_r = simulate_trajectory(
         num_states, dim_x, dt, seed

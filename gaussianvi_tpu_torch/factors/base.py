@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..quadrature.table import get_rule
 
 
@@ -127,6 +128,7 @@ def make_nonlinear_batch(
 ) -> NonlinearFactorBatch:
     """Build a NonlinearFactorBatch with a (dim, degree) quadrature rule
     (the configuration-marginal rule when ``quad_rdim < nb * state_dim``)."""
+    device = resolve_device(device)
     dim = nb * state_dim
     if quad_rdim is not None and quad_rdim < dim:
         nodes, weights = marginal_rule(dim, quad_rdim, gh_degree, kind)

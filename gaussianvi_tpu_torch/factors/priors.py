@@ -11,11 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .base import LinearFactorBatch, detect_slice_offset
 
 
 def _as_batch(start, lam, psi, target_mu, target_prec, constant, nb, dtype,
               device=None):
+    device = resolve_device(device)
     start_np = np.asarray(start, np.int64)
     arrays = [np.asarray(a) for a in (lam, psi, target_mu, target_prec,
                                       constant)]

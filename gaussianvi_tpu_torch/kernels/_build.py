@@ -4,7 +4,9 @@
 use, under a name keyed on a hash of the sources and flags, so a fresh
 checkout builds once and an edited source rebuilds.  Each ``.cu`` file is
 compiled by its own ``nvcc`` process, all started together, and one more
-call links the objects.  The library has a plain C interface and is loaded
+call links the objects.  ``-Xptxas -v`` is on: what ptxas says of every
+kernel (registers, spills) is kept beside the library
+(:func:`ptxas_report`).  The library has a plain C interface and is loaded
 with ``ctypes`` (no PyTorch headers: the build takes seconds, not
 minutes).  Nothing here runs at import.
 """
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +30,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # the entry points' dtype codes
@@ -35,6 +38,7 @@ DTYPES = {torch.float32: 0, torch.float64: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 SIGNATURES = {
     # dtype, s, diag, off, covd, covo, ld, fpiv, gpiv, nb, n, stream
     "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -47,18 +51,20 @@ SIGNATURES = {
     # dtype, d, cost, mu, chol, nodes, weights, params, e_phi, e_xmu, e_xxt,
     # count, m, np, rdim, stream
     "gvi_fused_moments": (_I, _I, _I, *(_P,) * 8, _I, _I, _I, _I, _P),
-    # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, fpiv,
-    # nb, n, nt, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, stream
-    "gvi_fused_trials": (_I, _I, _I, _I, *(_P,) * 9, _I, _I, _I,
+    # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, scratch,
+    # nb, n, nt, warps, groups, arena, n_nl, nl_ptrs, nl_ints, n_lin,
+    # lin_ptrs, lin_ints, stream
+    "gvi_fused_trials": (_I, _I, _I, _I, *(_P,) * 9, _I, _I, _I, _I, _I, _L,
                          _I, _P, _P, _I, _P, _P, _P),
     # dtype, s, cost, np, mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu,
-    # dfb, fpiv, vdd, vdo, vdmu, nb, n, n_nl, nl_ptrs, nl_ints, n_lin,
-    # lin_ptrs, lin_ints, stream
-    "gvi_fused_grad": (_I, _I, _I, _I, *(_P,) * 15, _I, _I,
+    # dfb, vdmu, vdd, vdo, scratch, nb, n, warps, chain, n_nl, nl_ptrs,
+    # nl_ints, n_lin, lin_ptrs, lin_ints, stream
+    "gvi_fused_grad": (_I, _I, _I, _I, *(_P,) * 15, _I, _I, _I, _L,
                        _I, _P, _P, _I, _P, _P, _P),
 }
 # the split pair of the fused gradient kernel takes the same arguments
-# (mode "accum": null covd .. dfb; mode "solve": vdd, vdo, vdmu hold the sum)
+# (mode "accum": null covd .. dfb, writes vdmu, vdd, vdo; mode "solve" reads
+# them; mode "full": null)
 SIGNATURES["gvi_fused_grad_accum"] = SIGNATURES["gvi_fused_grad"]
 SIGNATURES["gvi_fused_grad_solve"] = SIGNATURES["gvi_fused_grad"]
 
@@ -88,17 +94,19 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _run(procs) -> None:
+def _run(procs) -> str:
     """Wait for every ``(cmd, Popen)``; raise with the output of the first
-    that failed."""
-    failed = None
+    that failed, else return all their output."""
+    failed, outputs = None, []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outputs.append(out)
         if proc.returncode != 0 and failed is None:
             failed = (cmd, proc.returncode, out)
     if failed is not None:
         cmd, code, out = failed
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outputs)
 
 
 def build() -> Path:
@@ -120,13 +128,51 @@ def build() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
             objs.append(obj)
-        _run(procs)
+        log = _run(procs)
         lib = os.path.join(tmp, out.name)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True))])
+        Path(tmp, "ptxas.txt").write_text(log)
+        os.replace(os.path.join(tmp, "ptxas.txt"), out.with_suffix(".ptxas"))
         os.replace(lib, out)
     return out
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_KERNEL = re.compile(r"\d+([a-z_]+_kernel)I([fd])")
+
+
+def ptxas_report() -> list[dict]:
+    """Registers and spill bytes of every kernel of the built library, from
+    the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints,
+    registers, spill_stores, spill_loads}]`` with ``ints`` the integer
+    template arguments as mangled (block size, mode, ...)."""
+    log = build().with_suffix(".ptxas").read_text()
+    rows, row = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            k = _KERNEL.search(name)
+            row = dict(
+                kernel=k.group(1) if k else name,
+                dtype={"f": "float32", "d": "float64"}[k.group(2)] if k else "",
+                ints=[int(x) for x in re.findall(r"Li(\d+)E", name)],
+                registers=None, spill_stores=None, spill_loads=None)
+            rows.append(row)
+            continue
+        if row is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_stores"], row["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+            row = None
+    return rows
 
 
 @functools.cache
@@ -139,6 +185,12 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the entry points
+    take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, name: str) -> None:

@@ -5,8 +5,11 @@ split in two where the nonlinear factors are sharded over ranks.
 Counterpart of ``gaussianvi_tpu/kernels/fused_gradient.py``.  The inputs
 are the current iterate ``mu``, ``(prec_diag, prec_off)``, the per-problem
 temperature and the factor operands the fused trial kernel takes
-(``kernels/fused_trials.py``).  Mode ``"full"`` (``csrc/fused_gradient.cu``,
-one thread per problem) returns the iterate's covariance blocks and log
+(``kernels/fused_trials.py``), all problem-major as the engine holds them:
+nothing is copied or re-laid per call and every output is allocated in its
+final shape.  Mode ``"full"`` (``csrc/fused_gradient.cu``: a warp per
+problem, the chain in shared memory, or in a global scratch where it is too
+long, :func:`grad_plan`) returns the iterate's covariance blocks and log
 det, ``dprec = Vddmu - Lambda``, and the solutions of ``Vddmu dmu = -Vdmu``
 (NaN where Vddmu is indefinite) and of the SPD fallback
 ``Lambda dmu_fb = -Vdmu``.  The linear factors enter through the residual
@@ -38,13 +41,17 @@ from ..factors.moments import gh_moments, ngd_local_gradients
 from ..inference.graph import scatter_gradients, take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance, solve
 from . import _build
-from .chain import lanes, unlanes
 from .fused_trials import (
+    SMEM_LIMIT,
+    SMEM_TARGET,
+    BlockPlan,
     check_state,
     edge_blocks,
     edge_means,
     factor_args,
+    mat_pitch,
     residual_weights,
+    vec_pitch,
 )
 from .quad import KERNEL_COSTS
 
@@ -60,6 +67,33 @@ def _full_a(a, nb: int):
     return torch.cat([top, bot], dim=-2)
 
 
+GRAD_WARPS = 4       # csrc/fused_gradient.cuh kGradWarps
+
+
+def grad_chain_elems(n: int, s: int) -> int:
+    """Arena of one K6 problem (csrc/fused_gradient.cuh grad_chain_elems):
+    pd, po, both pivot arrays, vdd, vdo as n blocks each; mu, vdmu and the
+    two solves' vectors as n vectors each."""
+    return n * (6 * mat_pitch(s) + 4 * vec_pitch(s))
+
+
+def grad_plan(name: str, n: int, s: int, itemsize: int,
+              fixed_bytes: int) -> BlockPlan:
+    """K6's block: 4, 2 or 1 problems (warps) whose chains fit
+    ``SMEM_TARGET`` beside the rules (``fixed_bytes``), else one
+    problem in all of shared memory, else (a chain too long for that) the
+    arena in a global scratch."""
+    if fixed_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: rules of {fixed_bytes} bytes "
+                         f"exceed the {SMEM_LIMIT} bytes of shared memory")
+    chain = grad_chain_elems(n, s)
+    for warps in (GRAD_WARPS, 2, 1):
+        smem = fixed_bytes + warps * chain * itemsize
+        if smem <= (SMEM_TARGET if warps > 1 else SMEM_LIMIT):
+            return BlockPlan(warps, chain, smem, False)
+    return BlockPlan(GRAD_WARPS, chain, fixed_bytes, True)
+
+
 # mode -> C entry point
 _ENTRIES = {"full": "gvi_fused_grad", "accum": "gvi_fused_grad_accum",
             "solve": "gvi_fused_grad_solve"}
@@ -72,17 +106,12 @@ class Partials(tuple):
 
     buffer: torch.Tensor
 
-    def __new__(cls, b, n, s, dtype, device, batch_last: bool, zero: bool):
+    def __new__(cls, b, n, s, dtype, device, zero: bool):
         shapes = ((b, n, s), (b, n, s, s), (b, n - 1, s, s))
         sizes = [math.prod(sh) for sh in shapes]
         buffer = (torch.zeros if zero else torch.empty)(
             sum(sizes), dtype=dtype, device=device)
-        parts = buffer.split(sizes)
-        if batch_last:      # the kernels' layout, [elements, B] per part
-            parts = [unlanes(p.view(-1, b), sh)
-                     for p, sh in zip(parts, shapes)]
-        else:
-            parts = [p.view(sh) for p, sh in zip(parts, shapes)]
+        parts = [p.view(sh) for p, sh in zip(buffer.split(sizes), shapes)]
         self = super().__new__(cls, parts)
         self.buffer = buffer
         return self
@@ -129,7 +158,7 @@ def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     prec = BlockTridiag(pd, po)
     joint_cov, ld = gbp_edge_covariance(prec)
     _, _, cov_off, cov_diag = edge_blocks(joint_cov, s)
-    acc = Partials(b, n, s, mu.dtype, mu.device, batch_last=False, zero=True)
+    acc = Partials(b, n, s, mu.dtype, mu.device, zero=True)
     vdmu, vdd = acc[0], BlockTridiag(acc[1], acc[2])
     if mode == "solve":
         for dst, src in zip(acc, seeds):
@@ -184,47 +213,49 @@ def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     if mu.device.type == "cpu":
         return gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs,
                               nl_arrays, lin_arrays, mode, seeds)
+    return _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs,
+                            nl_arrays, lin_arrays, mode, seeds)
+
+
+def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
+                     lin_arrays, mode, seeds):
+    name = "gradient_lanes"
     b, n, s = check_state(name, mu, pd, po, temperature)
     if temperature.shape != (b,):
         raise ValueError(f"{name}: temperature must be [{b}]")
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays)
-    mu_l, pd_l, po_l = lanes(mu, b), lanes(pd, b), lanes(po, b)
-    temp = temperature.contiguous()
-
-    def like(x):
-        return torch.empty_like(x)
-
-    # the accumulators: the outputs of "accum"; for "solve" a copy of the
-    # seeds (the kernel pivots vdd in place)
-    acc = Partials(b, n, s, mu.dtype, mu.device, batch_last=True, zero=False)
-    if mode == "solve":
-        for dst, src in zip(acc, seeds):
-            dst.copy_(src)
-    vdmu, vdd, vdo = acc       # each view starts where its part does
-    fpiv = like(pd_l)
+    plan = grad_plan(name, n, s, mu.element_size(), fa.fixed_bytes)
+    ins = [x.contiguous() for x in (mu, pd, po, temperature)]
+    dt, dev = mu.dtype, mu.device
+    # the accumulators reach device memory only as the outputs of "accum"
+    # and as the seeds of "solve", which the kernel reads and never writes
     if mode == "accum":
+        acc = Partials(b, n, s, dt, dev, zero=False)
         outs = [None] * 7
     else:
-        outs = [like(pd_l), like(po_l),
-                torch.empty((b,), dtype=mu.dtype, device=mu.device),
-                like(pd_l), like(po_l), like(mu_l), like(mu_l)]
+        acc = ([x.contiguous() for x in seeds] if mode == "solve"
+               else [None] * 3)
+        outs = [torch.empty_like(ins[1]), torch.empty_like(ins[2]),
+                torch.empty((b,), dtype=dt, device=dev),
+                torch.empty_like(ins[1]), torch.empty_like(ins[2]),
+                torch.empty_like(ins[0]), torch.empty_like(ins[0])]
+    blocks = -(-b // plan.warps)
+    scratch = (torch.empty((blocks * plan.warps * plan.arena,), dtype=dt,
+                           device=dev) if plan.scratch else None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     entry = _ENTRIES[mode]
     err = getattr(_build.load(), entry)(
-        _build.DTYPES[mu.dtype], s, fa.cost, fa.n_params,
-        *(x.data_ptr() for x in (mu_l, pd_l, po_l, temp)),
-        *(None if x is None else x.data_ptr() for x in outs),
-        *(x.data_ptr() for x in (fpiv, vdd, vdo, vdmu)),
-        b, n, fa.n_nl, fa.nl_ptrs, fa.nl_ints, fa.n_lin, fa.lin_ptrs,
-        fa.lin_ints, torch.cuda.current_stream(mu.device).cuda_stream,
+        _build.DTYPES[dt], s, fa.cost, fa.n_params, *map(ptr, ins),
+        *map(ptr, outs), *map(ptr, acc), ptr(scratch), b, n, plan.warps,
+        plan.arena, fa.n_nl, fa.nl_ptrs, fa.nl_ints, fa.n_lin, fa.lin_ptrs,
+        fa.lin_ints, _build.current_stream(dev),
     )
     _build.check(err, entry)
     _COUNTED[mode].launches += 1
-    if mode == "accum":
-        return acc
-    covd, covo, ld, dpd, dpo, dmu, dfb = outs
-    return (unlanes(covd, pd.shape), unlanes(covo, po.shape), ld,
-            unlanes(dpd, pd.shape), unlanes(dpo, po.shape),
-            unlanes(dmu, mu.shape), unlanes(dfb, mu.shape))
+    return acc if mode == "accum" else tuple(outs)
 
 
 def gradient_accum_lanes(mu, pd, po, temperature, nl_specs, nl_arrays):

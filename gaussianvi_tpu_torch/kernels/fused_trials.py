@@ -4,11 +4,19 @@ iteration, chain + quadrature + linear costs, in one kernel.
 Counterpart of ``gaussianvi_tpu/kernels/fused_trials.py``.  The inputs are
 the current iterate and the step direction at width B; the T trial
 iterates ``mu + s_t dmu``, ``sym(Lambda + s_t dLambda)`` exist only inside
-the kernel (``csrc/fused_trials.cu``, one thread per (trial, problem)
-pair).  The backward GBP sweep hands each edge's covariance blocks straight
-to the factors of that state and edge, so nothing covariance-sized is
-written: the outputs are the log det ``[T, B]`` and one ``[T, B, K]`` cost
-array per factor batch, nonlinear batches first, then linear.
+the kernel (``csrc/fused_trials.cu``: a block per problem, the chain in
+shared memory, the trials' serial sweeps side by side in a few warps, the
+(trial, edge) items over all threads).  Each edge's covariance blocks go
+straight to the factors of that state and edge, so nothing covariance-sized
+is written: the outputs are the log det ``[T, B]`` and one ``[T, B, K]``
+cost array per factor batch, nonlinear batches first, then linear.
+
+The kernels take every operand problem-major, as the engine holds it: no
+operand is copied or re-laid per call.  What a call adds is the block plan
+(:func:`trial_plan`: trials held at once, the arena's size, shared memory
+or, for a chain too long for it, a global scratch) and each batch's
+per-state index (:func:`state_index`, built once and kept on the start
+tensor).
 
 Factor operands (built once per graph by ``inference.engine.LocalEngine``,
 shared with the fused gradient kernel):
@@ -21,10 +29,12 @@ shared with the fused gradient kernel):
   :func:`linear_residual_form` (``blocks``: A for an anchor, A11, A22, A12
   for an edge), described by :class:`LinTrialSpec`.
 
-``start`` is read only when the spec's ``slice_offset`` is None.  Every
-cost carries the guards of the separate path (``factors/moments.py``); the
-JAX kernel guards only the log det.  ``trial_costs_lanes.launches`` counts
-kernel launches (never plain-version calls).
+``start`` reaches the kernels as a per-state index (:func:`state_index`)
+for every batch, a slice of states too: one code path finds the factors at
+a state.  Every cost carries the guards of the separate path
+(``factors/moments.py``); the JAX kernel guards only the log det.
+``trial_costs_lanes.launches`` counts kernel launches (never plain-version
+calls).
 """
 
 from __future__ import annotations
@@ -38,12 +48,13 @@ from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
 from . import _build
-from .chain import lanes
 from .quad import KERNEL_COSTS
 
 BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s (local dim d = s)
 MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
-_MAX_SMEM = 48 * 1024
+SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
+SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
+TRIAL_WARPS = 4          # csrc/fused_trials.cu kTrialWarps
 
 
 class NLTrialSpec(NamedTuple):
@@ -154,6 +165,71 @@ def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
 # kernel launch (shared with kernels/fused_gradient.py)
 # ---------------------------------------------------------------------------
 
+def mat_pitch(s: int) -> int:
+    """Arena words of an s x s block (csrc/fused.cuh Pitch::kMat): one
+    more than it holds, so a warp's lanes fall on different banks."""
+    return s * s + 1
+
+
+def vec_pitch(s: int) -> int:
+    """Arena words of an s-vector (Pitch::kVec)."""
+    return s + 1
+
+
+class BlockPlan(NamedTuple):
+    """How a fused kernel lays its chains on the card."""
+
+    warps: int        # warps of a block (K6: one problem each)
+    arena: int        # arena values per block (K6: per problem)
+    smem: int         # dynamic shared memory of a block, bytes
+    scratch: bool     # the arena lives in a global scratch, not in smem
+    chunk: int = 0    # K5: trials the arena holds at once
+
+
+def trial_arena_elems(n: int, s: int, chunk: int) -> int:
+    """Arena of one K5 block (csrc/fused_trials.cu trial_arena_elems): the
+    staged pd, dpd, po, dpo, then F and G per trial held."""
+    return (4 + 2 * chunk) * n * mat_pitch(s)
+
+
+def trial_plan(name: str, n: int, s: int, nt: int, itemsize: int,
+               fixed_bytes: int) -> BlockPlan:
+    """K5's block of ``TRIAL_WARPS`` warps: as many of the T trials at
+    once as fit shared memory beside the rules (``fixed_bytes``); a chain
+    that does not fit with one trial goes to a global scratch."""
+    if fixed_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: rules of {fixed_bytes} bytes "
+                         f"exceed the {SMEM_LIMIT} bytes of shared memory")
+
+    def plan(chunk, scratch):
+        arena = trial_arena_elems(n, s, chunk)
+        smem = fixed_bytes + (0 if scratch else arena * itemsize)
+        return BlockPlan(TRIAL_WARPS, arena, smem, scratch, chunk)
+
+    for chunk in range(nt, 0, -1):
+        found = plan(chunk, False)
+        if found.smem <= SMEM_LIMIT:
+            return found
+    return plan(nt, True)
+
+
+def state_index(start: torch.Tensor, n: int) -> torch.Tensor:
+    """The per-state index of a batch's starts, int32 ``[n + 1 + K]``:
+    offsets ``[n + 1]`` into the factors ordered by state (ascending k
+    within a state) ``[K]``, so that the factors at state i are
+    ``order[offs[i]:offs[i + 1]]``.  Built once per start tensor and
+    kept on it."""
+    cached = getattr(start, "_gvi_state_index", None)
+    if cached is not None and cached[:2] == (start._version, n):
+        return cached[2]
+    order = torch.argsort(start, stable=True)
+    counts = torch.bincount(start, minlength=n)[:n]
+    offs = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    index = torch.cat([offs, order]).to(torch.int32)
+    start._gvi_state_index = (start._version, n, index)
+    return index
+
+
 def check_state(name, mu, pd, po, *same):
     """Validate the iterate blocks; returns ``(B, N, s)``."""
     if mu.dtype not in _build.DTYPES:
@@ -191,14 +267,17 @@ class FactorArgs(NamedTuple):
     lin_ptrs: ctypes.Array
     lin_ints: ctypes.Array
     keep: list           # tensors the pointers refer to
-    fc: tuple            # per batch [K, count] cost outputs (trial kernel)
+    fc: tuple            # per batch [rows, K] cost outputs (trial kernel)
+    fixed_bytes: int     # shared memory of the rules
 
 
 def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                count: int | None = None) -> FactorArgs:
-    """Check and pack the factor operands for a launch at ``mu [B, N, s]``.
-    ``count`` (trial kernel): allocate ``[K, count]`` cost outputs."""
-    b, _, s = mu.shape
+                rows: int | None = None) -> FactorArgs:
+    """Check and pack the factor operands for a launch at ``mu [B, N, s]``:
+    every per-problem operand as it is (problem-major, contiguous), and
+    each batch's per-state index.  ``rows`` (trial kernel, T * B): allocate
+    ``[rows, K]`` cost outputs."""
+    b, n, s = mu.shape
     dt, dev = mu.dtype, mu.device
     if len(nl_specs) > MAX_BATCHES or len(lin_specs) > MAX_BATCHES:
         raise ValueError(f"{name}: at most {MAX_BATCHES} nonlinear and "
@@ -221,32 +300,27 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
             raise ValueError(f"{name}: {what} shape {tuple(t.shape)}, "
                              f"expected {shape}")
 
-    def starts_of(sp, start):
-        if sp.slice_offset is not None:
-            return None
+    def index_of(sp, start):
         if start.shape != (sp.k,) or start.device != dev:
             raise ValueError(f"{name}: start must be [{sp.k}] on {dev}")
-        return start.to(torch.int32).contiguous()
+        return state_index(start, n)
 
-    keep, fc, nl_ptrs, nl_ints, smem = [], [], [], [], 0
+    keep, fc, nl_ptrs, nl_ints, fixed = [], [], [], [], 0
     for sp, (start, nodes, weights, params) in zip(nl_specs, nl_arrays):
         same(nodes, (sp.m, s), "nodes")
         same(weights, (sp.m,), "weights")
         same(params, (b, sp.k, n_params), "kernel_params")
-        smem += sp.m * (s + 1) * mu.element_size()
-        ops = [nodes.contiguous(), weights.contiguous(), lanes(params, b),
-               starts_of(sp, start)]
-        if count is not None:
-            ops.append(torch.empty((sp.k, count), dtype=dt, device=dev))
+        fixed += sp.m * (s + 1) * mu.element_size()
+        ops = [nodes.contiguous(), weights.contiguous(), params.contiguous(),
+               index_of(sp, start)]
+        if rows is not None:
+            ops.append(torch.empty((rows, sp.k), dtype=dt, device=dev))
             fc.append(ops[-1])
         keep += [t for t in ops if t is not None]
         nl_ptrs += [t.data_ptr() if t is not None else None for t in ops]
         nl_ptrs += [None] * (5 - len(ops))
-        nl_ints += [sp.k, sp.m,
-                    -1 if sp.slice_offset is None else sp.slice_offset,
-                    int(sp.nonneg), s if sp.rdim is None else sp.rdim]
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: rules of {smem} bytes exceed shared memory")
+        nl_ints += [sp.k, sp.m, int(sp.nonneg),
+                    s if sp.rdim is None else sp.rdim]
     lin_ptrs, lin_ints = [], []
     for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         if sp.nb not in (1, 2) or not 1 <= sp.r <= 2 * s or sp.ka not in (
@@ -257,16 +331,15 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
         same(lam, (b, sp.ka, sp.r, sp.nb * s), "lam")
         same(pm, (b, sp.ka, sp.r), "pm")
         same(prec_c, (b, sp.ka, sp.r, sp.r), "prec_c")
-        ops = [lanes(a, b), lanes(lam, b), lanes(pm, b), lanes(prec_c, b),
-               starts_of(sp, start)]
-        if count is not None:
-            ops.append(torch.empty((sp.k, count), dtype=dt, device=dev))
+        ops = [a.contiguous(), lam.contiguous(), pm.contiguous(),
+               prec_c.contiguous(), index_of(sp, start)]
+        if rows is not None:
+            ops.append(torch.empty((rows, sp.k), dtype=dt, device=dev))
             fc.append(ops[-1])
         keep += [t for t in ops if t is not None]
         lin_ptrs += [t.data_ptr() if t is not None else None for t in ops]
         lin_ptrs += [None] * (6 - len(ops))
-        lin_ints += [sp.nb, sp.k, sp.ka, sp.r,
-                     -1 if sp.slice_offset is None else sp.slice_offset]
+        lin_ints += [sp.nb, sp.k, sp.ka, sp.r]
 
     def arr(ctype, values):
         return (ctype * max(len(values), 1))(*values)
@@ -274,7 +347,7 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
     return FactorArgs(cost_id, n_params, len(nl_specs),
                       arr(ctypes.c_void_p, nl_ptrs), arr(ctypes.c_int, nl_ints),
                       len(lin_specs), arr(ctypes.c_void_p, lin_ptrs),
-                      arr(ctypes.c_int, lin_ints), keep, tuple(fc))
+                      arr(ctypes.c_int, lin_ints), keep, tuple(fc), fixed)
 
 
 def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
@@ -287,6 +360,12 @@ def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     if mu.device.type == "cpu":
         return trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
                                  lin_specs, nl_arrays, lin_arrays)
+    return _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
+                               lin_specs, nl_arrays, lin_arrays)
+
+
+def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
+                        lin_specs, nl_arrays, lin_arrays):
     name = "trial_costs_lanes"
     b, n, s = check_state(name, mu, pd, po, dmu, dpd, dpo, trials)
     if dmu.shape != mu.shape or dpd.shape != pd.shape or dpo.shape != po.shape:
@@ -294,24 +373,23 @@ def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     if trials.ndim != 1 or trials.shape[0] < 1:
         raise ValueError(f"{name}: trials must be [T], T >= 1")
     nt = trials.shape[0]
-    count = nt * b
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                     count)
-    ops = [lanes(x, b) for x in (mu, dmu, pd, po, dpd, dpo)]
-    trials_c = trials.contiguous()
-    ld = torch.empty((count,), dtype=mu.dtype, device=mu.device)
-    fpiv = torch.empty((n * s * s, count), dtype=mu.dtype, device=mu.device)
+                     nt * b)
+    plan = trial_plan(name, n, s, nt, mu.element_size(), fa.fixed_bytes)
+    ops = [x.contiguous() for x in (mu, dmu, pd, po, dpd, dpo, trials)]
+    ld = torch.empty((nt, b), dtype=mu.dtype, device=mu.device)
+    scratch = (torch.empty((b * plan.arena,), dtype=mu.dtype,
+                           device=mu.device) if plan.scratch else None)
     err = _build.load().gvi_fused_trials(
         _build.DTYPES[mu.dtype], s, fa.cost, fa.n_params,
-        *(x.data_ptr() for x in ops), trials_c.data_ptr(), ld.data_ptr(),
-        fpiv.data_ptr(), b, n, nt, fa.n_nl, fa.nl_ptrs, fa.nl_ints, fa.n_lin,
-        fa.lin_ptrs, fa.lin_ints,
-        torch.cuda.current_stream(mu.device).cuda_stream,
+        *(x.data_ptr() for x in ops), ld.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, n, nt,
+        plan.warps, plan.chunk, plan.arena, fa.n_nl, fa.nl_ptrs, fa.nl_ints, fa.n_lin,
+        fa.lin_ptrs, fa.lin_ints, _build.current_stream(mu.device),
     )
     _build.check(err, "gvi_fused_trials")
     trial_costs_lanes.launches += 1
-    return (ld.reshape(nt, b),
-            tuple(f.reshape(-1, nt, b).permute(1, 2, 0) for f in fa.fc))
+    return ld, tuple(f.view(nt, b, -1) for f in fa.fc)
 
 
 trial_costs_lanes.launches = 0

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import resolve_device
 from .smallmat import chol_small, spd_inv_small, spd_solve_small
 
 
@@ -59,6 +60,7 @@ class BlockTridiag:
     def zeros(batch_shape, num_states: int, block_dim: int, dtype,
               device=None) -> "BlockTridiag":
         s = block_dim
+        device = resolve_device(device)
         return BlockTridiag(
             torch.zeros((*batch_shape, num_states, s, s), dtype=dtype,
                         device=device),
@@ -70,6 +72,7 @@ class BlockTridiag:
     def identity(batch_shape, num_states: int, block_dim: int, scale=1.0,
                  dtype=torch.float64, device=None) -> "BlockTridiag":
         s = block_dim
+        device = resolve_device(device)
         eye = torch.eye(s, dtype=dtype, device=device) * scale
         return BlockTridiag(
             eye.expand((*batch_shape, num_states, s, s)).clone(),

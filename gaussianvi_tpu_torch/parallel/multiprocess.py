@@ -6,12 +6,14 @@ devices; here every rank is a ``torch.distributed`` process that builds the
 same global problem batch, keeps its shard and runs
 :func:`.sharding.optimize_sharded`.
 
-Backend: ``"nccl"`` when every rank has a GPU of its own (rank ``r`` takes
-``cuda:r`` of its host), ``"gloo"`` otherwise: CPU tensors, or several
-ranks on one card (NCCL refuses two ranks on one device), where gloo
-copies each CUDA tensor through host memory.  The choice is an
-argument and is never changed silently: a rank asked for a GPU that finds
-none raises.
+Device and backend: the ranks run on the card unless asked for the CPU.
+``device="cuda"`` (the default) gives rank ``r`` GPU ``r`` modulo the
+host's count, ``"cuda:i"`` puts every rank on one card, ``"cpu"`` is taken
+only when asked for.  ``backend=None`` (the default) follows from that
+(:func:`resolve_backend`): ``"nccl"`` when every rank has a GPU of its own,
+``"gloo"`` otherwise: CPU tensors, or several ranks on one card (NCCL
+refuses two ranks on one device), where gloo copies each CUDA tensor
+through host memory.  A rank asked for a GPU that finds none raises.
 
 Launch one process per rank,
 
@@ -44,24 +46,44 @@ import torch.distributed as dist
 BACKENDS = ("gloo", "nccl")
 
 
+def resolve_backend(backend: str | None, device: str,
+                    world_size: int) -> str:
+    """The backend for ``world_size`` ranks on ``device``: as given, or
+    (None) ``"nccl"`` where every rank gets a GPU of its own (``"cuda"``
+    with at least ``world_size`` cards, or a single rank) and ``"gloo"``
+    where ranks share a card or run on the CPU."""
+    if backend is not None:
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r} (one of "
+                             f"{BACKENDS})")
+        return backend
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "gloo"
+    own_card = world_size == 1 or (
+        dev.index is None and world_size <= torch.cuda.device_count())
+    return "nccl" if own_card else "gloo"
+
+
 def initialize_multiprocess(init_method: str, world_size: int, rank: int,
-                            backend: str = "gloo", device: str = "cpu",
+                            backend: str | None = None, device: str = "cuda",
                             timeout_s: float = 300.0) -> torch.device:
     """Join the process group and return this rank's device.
 
     ``init_method``: a ``torch.distributed`` rendezvous URL
-    (``tcp://host:port`` or ``file:///path``).  ``device``: ``"cpu"``,
-    ``"cuda"`` (rank r takes GPU r modulo the host's count: NCCL's layout)
-    or ``"cuda:i"`` (e.g. every rank on card 0 under gloo).  ``timeout_s``
-    bounds every collective, so a lost rank fails the others instead of
-    hanging them."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+    (``tcp://host:port`` or ``file:///path``).  ``device``: ``"cuda"``
+    (rank r takes GPU r modulo the host's count: NCCL's layout),
+    ``"cuda:i"`` (e.g. every rank on card 0 under gloo) or, only when asked
+    for, ``"cpu"``.  ``backend``: None follows the device
+    (:func:`resolve_backend`).  ``timeout_s`` bounds every collective, so a
+    lost rank fails the others instead of hanging them."""
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank} was asked for {device!r} but "
+                           "finds no CUDA device (no GPU is visible to "
+                           "PyTorch); pass device='cpu' to run on the CPU")
+    backend = resolve_backend(backend, device, world_size)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"rank {rank} was asked for {device!r} but "
-                               "finds no CUDA device")
         if dev.index is None:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
@@ -109,12 +131,14 @@ def _rank_main(fn, rank, world_size, init_method, backend, device, timeout_s,
             dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world_size: int, args=(), backend: str = "gloo",
-                device: str = "cpu", timeout_s: float = 300.0,
+def spawn_ranks(fn, world_size: int, args=(), backend: str | None = None,
+                device: str = "cuda", timeout_s: float = 300.0,
                 rendezvous_dir: str | None = None) -> list:
     """Run ``fn(rank, world_size, device, *args)`` in ``world_size`` fresh
     processes joined in one process group; returns the ranks' results in
-    rank order.
+    rank order.  ``device`` and ``backend`` as
+    :func:`initialize_multiprocess` takes them: the card by default, the
+    CPU only when asked for.
 
     ``fn`` is a module-level function and ``args`` and the results pickle
     (numpy arrays, not tensors on a device).  The processes use the
@@ -218,9 +242,12 @@ def _demo_main(argv=None) -> int:
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--dp", type=int, required=True)
     ap.add_argument("--fp", type=int, required=True)
-    ap.add_argument("--backend", choices=BACKENDS, default="gloo")
-    ap.add_argument("--device", default="cpu",
-                    help="cpu, cuda (GPU = rank) or cuda:i (one card)")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="default: nccl where every rank has its own GPU, "
+                         "gloo where ranks share a card or run on the CPU")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (GPU = rank, the default), cuda:i (one card) "
+                         "or cpu")
     ap.add_argument("--problems", type=int, default=None,
                     help="global batch (default: one problem per dp row)")
     ap.add_argument("--timeout", type=float, default=300.0)

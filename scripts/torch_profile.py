@@ -15,6 +15,22 @@ operations only, while the other rank's kernels take turns on the card).
 Run from the repository root on a machine with a CUDA device:
 
     python3 scripts/torch_profile.py [--runs 5]
+
+Two shorter modes, each printing one line:
+
+    python3 scripts/torch_profile.py --rates [--runs 7] [--tree DIR]
+
+the five paths' prob-iters/s only (median of ``--runs`` interleaved runs,
+no profiler).  ``--tree DIR`` measures the package of another checkout
+(say the parent commit unpacked beside this one): to compare two trees,
+alternate the two commands on one card, several times in a row.
+
+    python3 scripts/torch_profile.py --parts
+
+the device time of the fused kernels K5 and K6 ``full`` at the flagship's
+shapes with all factors, the nonlinear or the linear ones only, none, and
+K5 with a single trial: what the chain alone costs and what the factors
+add (CUDA events around 20 calls queued behind a matrix product).
 """
 
 from __future__ import annotations
@@ -88,6 +104,88 @@ def profile_paths(paths, runs):
     return lines
 
 
+def path_configs():
+    from gaussianvi_tpu_torch import GVIConfig
+
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    return cfg, {
+        "fused": (cfg, "ngd"),
+        "separate": (replace(cfg, fused_trials="off", fused_gradient="off"),
+                     "ngd"),
+        "block_moments": (replace(cfg, use_pallas=True, fused_gradient="off"),
+                          "ngd"),
+        "prox": (replace(cfg, step_size_base=0.1), "prox"),
+    }
+
+
+def rates(dev, runs, tree):
+    """One line: the paths' prob-iters/s, median of interleaved runs."""
+    from gaussianvi_tpu_torch import optimize
+
+    graph, state = build(dev)
+    _, paths = path_configs()
+    paths["block_separate_trials"] = (
+        replace(paths["block_moments"][0], fused_trials="off"), "ngd")
+    walls = {name: [] for name in paths}
+    for i in range(runs + 1):           # the first round warms up
+        for name, (cfg, method) in paths.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            optimize(graph, state, cfg, method)
+            torch.cuda.synchronize()
+            if i:
+                walls[name].append(time.perf_counter() - t)
+    return f"[rates {tree}] " + ", ".join(
+        f"{name} {B * NITERS / statistics.median(w):.1f}"
+        for name, w in walls.items()) + (
+            f" prob-iters/s (B={B}, N={N}, {NITERS} iters, f32, median of "
+            f"{runs})")
+
+
+def kernel_parts(dev):
+    """One line: device ms of K5 and K6 ``full`` by what they are given."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    graph, state = build(dev)
+    nl_specs, lin_specs, nl, lin = fused_operands(graph)
+    mu, pd, po = state.mu, state.precision.diag, state.precision.off
+    temp = torch.ones(B, dtype=mu.dtype, device=dev)
+    out = fg.gradient_lanes(mu, pd, po, temp, nl_specs, lin_specs, nl, lin)
+    trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=mu.dtype, device=dev)
+    blocker = torch.ones(6144, 6144, device=dev)
+
+    def ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.mm(blocker, blocker)      # the host queues the calls behind it
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    subsets = {"all factors": (nl_specs, lin_specs, nl, lin),
+               "nonlinear only": (nl_specs, (), nl, ()),
+               "linear only": ((), lin_specs, (), lin),
+               "no factor": ((), (), (), ())}
+    parts = []
+    for name, ops in subsets.items():
+        k5 = ms(lambda: ft.trial_costs_lanes(mu, out[6], pd, po, out[3],
+                                             out[4], trials, *ops))
+        k6 = ms(lambda: fg.gradient_lanes(mu, pd, po, temp, *ops))
+        parts.append(f"{name}: K5 {k5:.4f}, K6 full {k6:.4f}")
+    one = ms(lambda: ft.trial_costs_lanes(mu, out[6], pd, po, out[3], out[4],
+                                          trials[:1], (), (), (), ()))
+    parts.append(f"no factor, one trial: K5 {one:.4f}")
+    return ("[parts] " + "; ".join(parts) + f" ms (B={B}, N={N}, 11 trials, "
+            f"f32, at the initial iterate)")
+
+
 def sharded_rank(rank, world, device, cfg, runs):
     """One of the two ranks of the factor-parallel path; both run the same
     sequence, each profiles itself, rank 0's report is printed."""
@@ -102,36 +200,47 @@ def sharded_rank(rank, world, device, cfg, runs):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--runs", type=int, default=5,
-                        help="unprofiled runs per path (interleaved)")
+    parser.add_argument("--runs", type=int, default=None,
+                        help="unprofiled runs per path, interleaved "
+                             "(default 5; 7 with --rates)")
+    parser.add_argument("--rates", action="store_true",
+                        help="print the paths' rates only")
+    parser.add_argument("--parts", action="store_true",
+                        help="print K5 / K6 times by the factors given")
+    parser.add_argument("--tree", default=None,
+                        help="measure the package of this checkout instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
         return 1
-    from gaussianvi_tpu_torch import GVIConfig, optimize
+    if args.tree is not None:
+        sys.path.insert(0, os.path.abspath(args.tree))
+    from gaussianvi_tpu_torch import optimize
     from gaussianvi_tpu_torch.kernels import _build
+    from gaussianvi_tpu_torch.ops.precision import set_precision_policy
     from gaussianvi_tpu_torch.parallel.multiprocess import spawn_ranks
 
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+        capture_output=True, text=True, check=True).stdout.strip()
+    set_precision_policy()
     dev = torch.device("cuda", 0)
+    if args.rates:
+        print(card + " " + rates(dev, args.runs or 7, args.tree or "."))
+        return 0
+    if args.parts:
+        print(card + " " + kernel_parts(dev))
+        return 0
+    print(card)
+    runs = args.runs or 5
     graph, state = build(dev)
-    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
-    paths = {
-        "fused": (cfg, "ngd"),
-        "separate": (replace(cfg, fused_trials="off", fused_gradient="off"),
-                     "ngd"),
-        "block_moments": (replace(cfg, use_pallas=True, fused_gradient="off"),
-                          "ngd"),
-        "prox": (replace(cfg, step_size_base=0.1), "prox"),
-    }
+    cfg, paths = path_configs()
     print("\n".join(profile_paths(
         {name: (lambda c=c, m=m: optimize(graph, state, c, m))
-         for name, (c, m) in paths.items()}, args.runs)))
+         for name, (c, m) in paths.items()}, runs)))
     # the ranks load the library this process has built
     _build.load()
-    ranks = spawn_ranks(sharded_rank, 2, (cfg, args.runs), backend="gloo",
+    ranks = spawn_ranks(sharded_rank, 2, (cfg, runs), backend="gloo",
                         device=str(dev), timeout_s=600.0)
     print("\n".join(ranks[0]))
     return 0

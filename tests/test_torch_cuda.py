@@ -281,7 +281,7 @@ def test_split_gradient_kernels_match_plain(dev, n, dim_x, dtype):
     got = fg.gradient_lanes(*x, (), lin_specs, (), lin_arrays, mode="solve",
                             seeds=total)
     assert counts() == (before[0], before[1] + 2, before[2] + 1)
-    for t, t0 in zip(total, seeds):         # the kernel pivots a copy
+    for t, t0 in zip(total, seeds):         # the kernel only reads them
         assert torch.equal(t, t0)
     want = fg.gradient_plain(*x, (), lin_specs, (), lin_arrays, mode="solve",
                              seeds=total)
@@ -303,6 +303,157 @@ def test_split_gradient_kernels_match_plain(dev, n, dim_x, dtype):
             # kernel's test holds them to float64); the pair is held to the
             # full kernel, from which it differs by one reassociated sum
             _assert_close(g, f, dtype, scaled=True)
+
+
+def _layout_case(name, dtype, dev):
+    """Operands at shapes the warp-per-chain layout can get wrong:
+    ``(x6, x5, nl_specs, lin_specs, nl_arrays, lin_arrays)``.  The batch is
+    never a multiple of the gradient kernel's problems per block."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+
+    n, dim_x, count = {"n2": (2, 2, 3), "n5_s2": (5, 1, 5), "n33": (33, 2, 3),
+                       "n70_s2": (70, 1, 2), "dynamic": (9, 2, 3),
+                       "two_batches": (8, 2, 5),
+                       "long_chain": (520, 2, 2)}[name]
+    graph, state = _flagship(n, dim_x, dtype, dev, count=count)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
+    sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
+    if name == "dynamic":
+        # the factors in another order than the states, some states bare
+        keep = torch.tensor([7, 2, 5, 0, 3], device=dev)
+        nl_specs = (sp._replace(k=len(keep), slice_offset=None),)
+        nl_arrays = ((start[keep], nodes, weights, params[:, keep]),)
+    elif name == "two_batches":
+        halves = [torch.arange(0, n, 2, device=dev),
+                  torch.arange(1, n, 2, device=dev)]
+        nl_specs = tuple(sp._replace(k=len(h), slice_offset=None)
+                         for h in halves)
+        nl_arrays = tuple((start[h], nodes, weights, params[:, h])
+                          for h in halves)
+    s, b = 2 * dim_x, count
+    rng = np.random.default_rng(n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    mu = state.mu + t(0.05 * rng.standard_normal((b, n, s)))
+    temp = torch.linspace(1.0, 3.0, b, dtype=dtype, device=dev)
+    x6 = (mu, state.precision.diag, state.precision.off, temp)
+    dq = rng.standard_normal((b, n, s, s))
+    x5 = (mu, t(0.5 * rng.standard_normal((b, n, s))),
+          state.precision.diag, state.precision.off,
+          t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+          t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+          t(0.9 * 0.75 ** np.arange(1, 12)))
+    return x6, x5, nl_specs, lin_specs, nl_arrays, lin_arrays
+
+
+def _same_bits(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
+
+
+LAYOUT_CASES = ["n2", "n5_s2", "n33", "n70_s2", "dynamic", "two_batches",
+                "long_chain"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_fused_kernels_at_awkward_layouts(dev, name, dtype):
+    """K5 and the three modes of K6 against their plain versions at chain
+    lengths around the warp's width, s = 2, dynamic starts, two nonlinear
+    batches, a ragged last block and a chain that takes the global-scratch
+    route; two launches on the same inputs give the same bits, and
+    ``accum`` + ``solve`` equals ``full``."""
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    x6, x5, nl_specs, lin_specs, nl_arrays, lin_arrays = _layout_case(
+        name, dtype, dev)
+    ops = (nl_specs, lin_specs, nl_arrays, lin_arrays)
+    b, n, s = x6[0].shape
+    size = x6[0].element_size()
+    f64 = dtype == torch.float64
+    if name == "long_chain":
+        # K6 takes the global scratch; K5 too in float64, while in float32
+        # one trial at a time still fits shared memory (the chunk loop)
+        assert fg.grad_plan("t", n, s, size, 0).scratch
+        plan = ft.trial_plan("t", n, s, 11, size, 0)
+        assert plan.scratch if f64 else plan.chunk < 11
+    if not f64:
+        # float32 rounding grows along a chain and through the solves: the
+        # kernel must take the float32 plain version's NaN decisions and be
+        # no further from the float64 plain version than 4x the float32
+        # plain version is (plus 1e-6 of the output's range), as for the
+        # solves of test_fused_gradient_kernel_matches_plain
+        x6_ref = tuple(t.double() for t in x6)
+        x5_ref = tuple(t.double() for t in x5)
+        ops_ref = _as_f64(ops)
+
+    def check(got, want, ref):
+        for g, w, r in zip(got, want, want if f64 else ref()):
+            if f64:     # atol 1e-10 of the output's range
+                fin = w[torch.isfinite(w)]
+                scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+                torch.testing.assert_close(g, w, rtol=0, atol=ATOL * scale,
+                                           equal_nan=True)
+                continue
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            fin = torch.isfinite(g) & torch.isfinite(r)
+            if not fin.any():
+                continue
+            err_k = (g.double() - r)[fin].abs().max()
+            err_p = (w.double() - r)[fin].abs().max()
+            floor = 1e-6 * max(1.0, float(r[fin].abs().max()))
+            assert err_k <= 4 * err_p + floor, (err_k, err_p)
+
+    full = fg.gradient_lanes(*x6, *ops)
+    again = fg.gradient_lanes(*x6, *ops)
+    assert all(_same_bits(a, c) for a, c in zip(full, again))
+    check(full, fg.gradient_plain(*x6, *ops),
+          lambda: fg.gradient_plain(*x6_ref, *ops_ref))
+
+    part = fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays)
+    assert all(_same_bits(a, c) for a, c in zip(
+        part, fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays)))
+    check(part,
+          fg.gradient_plain(*x6, nl_specs, (), nl_arrays, (), mode="accum"),
+          lambda: fg.gradient_plain(*x6_ref, ops_ref[0], (), ops_ref[2], (),
+                                    mode="accum"))
+    seeds = [t.clone() for t in part]
+    pair = fg.gradient_solve_lanes(*x6, part, lin_specs, lin_arrays)
+    assert all(torch.equal(a, c) for a, c in zip(part, seeds))
+    assert all(_same_bits(a, c) for a, c in zip(
+        pair, fg.gradient_solve_lanes(*x6, part, lin_specs, lin_arrays)))
+    # one rank's accumulators, then the linear factors: the order in which
+    # the full kernel adds them, so the pair gives the full kernel's bits
+    assert all(_same_bits(a, c) for a, c in zip(pair, full))
+
+    ld, fc = ft.trial_costs_lanes(*x5, *ops)
+    ld2, fc2 = ft.trial_costs_lanes(*x5, *ops)
+    assert _same_bits(ld, ld2) and all(
+        _same_bits(a, c) for a, c in zip(fc, fc2))
+    ld_p, fc_p = ft.trial_costs_plain(*x5, *ops)
+
+    def ref5():
+        ld_r, fc_r = ft.trial_costs_plain(*x5_ref, *ops_ref)
+        return (ld_r, *fc_r)
+
+    check((ld, *fc), (ld_p, *fc_p), ref5)
+
+
+def test_device_none_builds_on_the_card(dev):
+    """``device=None`` is the card wherever tensors are built."""
+    from gaussianvi_tpu_torch import default_device
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+
+    assert default_device().type == "cuda"
+    graph, state, _ = build_chain_estimation(num_states=4)
+    assert state.mu.device.type == "cuda"
+    assert graph.linear[0].lam.device.type == "cuda"
+    assert graph.nonlinear[0].nodes.device.type == "cuda"
 
 
 def test_sharded_engine_on_one_rank_is_the_local_engine(dev):

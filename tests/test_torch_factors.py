@@ -22,6 +22,8 @@ from gaussianvi_tpu_torch.factors import priors as tpr  # noqa: E402
 from gaussianvi_tpu_torch.inference import graph as tgraph  # noqa: E402
 from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag  # noqa: E402
 
+CPU = torch.device("cpu")
+
 ATOL = 1e-10
 _LIN = ("lam", "psi", "target_mu", "target_prec", "constant")
 
@@ -37,8 +39,8 @@ def test_prior_matrices_match_jax():
                                   jpr.min_acc_q_inv(qc, 0.1))
     for jb, tb in [
         (jpr.fixed_prior(2, [1.0, 2.0], 0.5 * np.eye(2)),
-         tpr.fixed_prior(2, [1.0, 2.0], 0.5 * np.eye(2))),
-        (jpr.minimum_acc_prior(qc, 0.1, 5), tpr.minimum_acc_prior(qc, 0.1, 5)),
+         tpr.fixed_prior(2, [1.0, 2.0], 0.5 * np.eye(2), device=CPU)),
+        (jpr.minimum_acc_prior(qc, 0.1, 5), tpr.minimum_acc_prior(qc, 0.1, 5, device=CPU)),
     ]:
         for name in ("start", *_LIN):
             np.testing.assert_array_equal(_np(getattr(tb, name)),
@@ -52,7 +54,7 @@ def test_build_chain_estimation_same_arrays(dim_x, degree, marginal):
     kw = dict(num_states=6, dim_x=dim_x, gh_degree=degree, seed=3,
               marginal_quad=marginal)
     jg, jinit, jcfg = jce.build_chain_estimation(**kw)
-    tg, tinit, tcfg = tce.build_chain_estimation(**kw)
+    tg, tinit, tcfg = tce.build_chain_estimation(**kw, device=CPU)
     jfb, tfb = jg.nonlinear[0], tg.nonlinear[0]
     for name in ("start", "nodes", "weights"):
         np.testing.assert_array_equal(_np(getattr(tfb, name)),
@@ -93,7 +95,7 @@ def _edge_problem(seed):
 def test_linear_costs_and_gradients_match_jax():
     qc = np.eye(1)
     jlb = jpr.minimum_acc_prior(qc, 0.1, 5)
-    tlb = tpr.minimum_acc_prior(qc, 0.1, 5)
+    tlb = tpr.minimum_acc_prior(qc, 0.1, 5, device=CPU)
     mu, cd, co = _edge_problem(0)
     temps = np.array([1.0, 10.0])
 
@@ -110,7 +112,7 @@ def test_linear_costs_and_gradients_match_jax():
     tlb_b = stack_problems(
         [tgraph.FactorGraph(5, 2, (), (tlb,))] * 2,
         [tgraph.GaussianState(torch.zeros(5, 2),
-                              BlockTridiag.zeros((), 5, 2, torch.float64))] * 2,
+                              BlockTridiag.zeros((), 5, 2, torch.float64, device=CPU))] * 2,
     )[0].linear[0]
     mu_t, cd_t, co_t = map(torch.as_tensor, (mu, cd, co))
     cost = tmm.batch_linear_cost(tlb_b, mu_t, cd_t, co_t)
@@ -172,7 +174,7 @@ def test_gather_scatter_match_jax(nb, starts):
     got_m = tgraph.gather_marginals(start_t, nb, *map(torch.as_tensor,
                                                       (mu, cd, co)), offset)
     gmu = torch.zeros(2, n, s, dtype=torch.float64)
-    gprec = BlockTridiag.zeros((2,), n, s, torch.float64)
+    gprec = BlockTridiag.zeros((2,), n, s, torch.float64, device=CPU)
     tgraph.scatter_gradients(start_t, nb, torch.as_tensor(vdmu),
                              torch.as_tensor(vddmu), gmu, gprec, offset)
     for i in range(2):
@@ -191,8 +193,8 @@ def test_gather_scatter_match_jax(nb, starts):
 
 
 def test_stack_problems_aligns_metadata():
-    g1, s1, _ = tce.build_chain_estimation(num_states=4, seed=0)
-    g2, s2, _ = tce.build_chain_estimation(num_states=4, seed=1)
+    g1, s1, _ = tce.build_chain_estimation(num_states=4, seed=0, device=CPU)
+    g2, s2, _ = tce.build_chain_estimation(num_states=4, seed=1, device=CPU)
     gb, sb = stack_problems([g1, g2], [s1, s2])
     fb = gb.nonlinear[0]
     assert fb.start.shape == (4,) and fb.slice_offset == 0 and fb.shared_start
@@ -200,7 +202,7 @@ def test_stack_problems_aligns_metadata():
     assert fb.params["r"].shape == (2, 4)
     assert gb.linear[1].lam.shape == (2, 3, 2, 4) and gb.linear[1].uniform
     assert sb.mu.shape == (2, 4, 2) and sb.precision.off.shape == (2, 3, 2, 2)
-    g3, s3, _ = tce.build_chain_estimation(num_states=4, gh_degree=3)
+    g3, s3, _ = tce.build_chain_estimation(num_states=4, gh_degree=3, device=CPU)
     with pytest.raises(ValueError, match="nodes"):
         stack_problems([g1, g3], [s1, s3])
 
@@ -218,7 +220,7 @@ def test_factor_costs_and_ngd_gradients_match_jax():
 
     kw = dict(num_states=6, dim_x=2, gh_degree=4)
     jp = [jce.build_chain_estimation(seed=s, **kw)[:2] for s in (0, 1)]
-    tp = [tce.build_chain_estimation(seed=s, **kw)[:2] for s in (0, 1)]
+    tp = [tce.build_chain_estimation(seed=s, **kw, device=CPU)[:2] for s in (0, 1)]
     jg, js = jstack(*map(list, zip(*jp)))
     tg, ts = stack_problems(*map(list, zip(*tp)))
     temps = np.array([1.0, 10.0])

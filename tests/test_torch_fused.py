@@ -34,6 +34,8 @@ from gaussianvi_tpu_torch.kernels import fused_gradient as tfg  # noqa: E402
 from gaussianvi_tpu_torch.kernels import fused_trials as tft  # noqa: E402
 from test_torch_slice import CONFIGS, describe  # noqa: E402
 
+CPU = torch.device("cpu")
+
 ATOL = 1e-10
 B = 3
 
@@ -46,8 +48,8 @@ def _problems(n, dim_x, seeds):
 def _port(problems):
     """The port's stacked graph and state for the JAX problems."""
     described = [describe(g, s) for g, s in problems]
-    return stack_problems([graph_from_arrays(d) for d, _ in described],
-                          [state_from_arrays(s) for _, s in described])
+    return stack_problems([graph_from_arrays(d, device=CPU) for d, _ in described],
+                          [state_from_arrays(s, device=CPU) for _, s in described])
 
 
 def _jax_operands(problems, jcfg):
@@ -305,10 +307,10 @@ def test_fused_on_raises_where_jax_raises(slice_problems, fields, strip):
         JaxEngine(_jax_without_lanes_cost(g) if strip else g,
                   JaxConfig(niters=1, **jcfg))
     d, st = describe(g, s)
-    graph = graph_from_arrays(d)
+    graph = graph_from_arrays(d, device=CPU)
     with pytest.raises(ValueError, match="fused"):
         optimize(_without_kernel_cost(graph) if strip else graph,
-                 state_from_arrays(st), GVIConfig(niters=1, **fields))
+                 state_from_arrays(st, device=CPU), GVIConfig(niters=1, **fields))
 
 
 def test_auto_keeps_the_separate_path_on_cpu(slice_problems):
@@ -324,3 +326,189 @@ def test_auto_keeps_the_separate_path_on_cpu(slice_problems):
     with pytest.raises(ValueError, match="unknown mode"):
         tfg.gradient_lanes(None, None, None, None, (), (), (), (),
                            mode="half")
+
+
+# ---------------------------------------------------------------------------
+# what the wrappers hand the kernels: layout, per-state index, block plans
+# ---------------------------------------------------------------------------
+
+def _read(ptr, count, dtype):
+    """``count`` values at address ``ptr``, as a kernel reads them."""
+    import ctypes
+
+    ctype = {np.float64: ctypes.c_double, np.int32: ctypes.c_int}[dtype]
+    return np.ctypeslib.as_array((ctype * count).from_address(ptr)).copy()
+
+
+def _dynamic_operands(graph):
+    """The fused operands with the nonlinear batch cut to five factors in
+    another order than their states (dynamic starts, bare states)."""
+    nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
+    sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
+    keep = torch.tensor([4, 1, 5, 0, 4])
+    return ((sp._replace(k=len(keep), slice_offset=None),), lin_specs,
+            ((start[keep], nodes, weights, params[:, keep]),), lin_arrays)
+
+
+def _check_index(sp, start, p_index, n):
+    """A batch's support as ``for_factors_at`` finds it: the per-state
+    index, ascending k within a state, for a slice of states too."""
+    index = _read(p_index, n + 1 + sp.k, np.int32)
+    for i in range(n):
+        got = index[n + 1 + index[i]:n + 1 + index[i + 1]]
+        assert got.tolist() == [kk for kk in range(sp.k)
+                                if int(start[kk]) == i]
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_packed_factor_operands_read_back(slice_problems, dynamic):
+    """``factor_args`` hands the kernels the engine's tensors as they are
+    (problem-major, no copy) plus each batch's per-state index.  A
+    reader that indexes the packed pointers as ``csrc/fused.cuh`` does
+    (``load_params``, ``lin_residual``, ``load_a``, ``for_factors_at``)
+    gets back exactly what the plain versions are given."""
+    graph, state = _port(slice_problems)
+    ops = _dynamic_operands(graph) if dynamic else fused_operands(graph)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = ops
+    b, n, s = state.mu.shape
+    nt = 3
+    fa = tft.factor_args("t", state.mu, *ops, rows=nt * b)
+    assert (fa.n_nl, fa.n_lin) == (len(nl_specs), len(lin_specs))
+    fixed = 0
+    for j, (sp, (start, nodes, weights, params)) in enumerate(
+            zip(nl_specs, nl_arrays)):
+        p_nodes, p_w, p_params, p_index, p_fc = fa.nl_ptrs[5 * j:5 * j + 5]
+        k, m, nonneg, rdim = fa.nl_ints[4 * j:4 * j + 4]
+        assert (k, m, nonneg, rdim) == (sp.k, sp.m, int(sp.nonneg),
+                                        s if sp.rdim is None else sp.rdim)
+        # no re-laying: the kernel reads the caller's memory
+        assert p_params == params.contiguous().data_ptr() or not \
+            params.is_contiguous()
+        assert p_nodes == nodes.data_ptr() and p_w == weights.data_ptr()
+        n_par = params.shape[-1]
+        flat = _read(p_params, b * k * n_par, np.float64)
+        for bi in range(b):
+            for kk in range(k):      # load_params: (b * K + k) * P + j
+                at = (bi * k + kk) * n_par
+                np.testing.assert_array_equal(flat[at:at + n_par],
+                                              params[bi, kk].numpy())
+        assert fa.fc[j].shape == (nt * b, k) and p_fc == fa.fc[j].data_ptr()
+        fixed += m * (s + 1) * 8
+        _check_index(sp, start, p_index, n)
+    for j, (sp, (start, a, lam, pm, prec_c)) in enumerate(
+            zip(lin_specs, lin_arrays)):
+        p_a, p_lam, p_pm, p_prec, p_index, p_fc = fa.lin_ptrs[6 * j:6 * j + 6]
+        span, k, ka, r = fa.lin_ints[4 * j:4 * j + 4]
+        assert (span, k, ka, r) == (sp.nb, sp.k, sp.ka, sp.r)
+        _check_index(sp, start, p_index, n)
+        blocks, de = (3 if span == 2 else 1), span * s
+        flat_a = _read(p_a, b * ka * blocks * s * s, np.float64)
+        flat_lam = _read(p_lam, b * ka * r * de, np.float64)
+        flat_pm = _read(p_pm, b * ka * r, np.float64)
+        flat_prec = _read(p_prec, b * ka * r * r, np.float64)
+        for bi in range(b):
+            for kk in range(ka):
+                for blk in range(blocks):   # load_a
+                    at = ((bi * ka + kk) * blocks + blk) * s * s
+                    np.testing.assert_array_equal(
+                        flat_a[at:at + s * s].reshape(s, s),
+                        a[bi, kk, blk].numpy())
+                row0 = (bi * ka + kk) * r   # lin_residual
+                np.testing.assert_array_equal(
+                    flat_pm[row0:row0 + r], pm[bi, kk].numpy())
+                np.testing.assert_array_equal(
+                    flat_lam[row0 * de:(row0 + r) * de].reshape(r, de),
+                    lam[bi, kk].numpy())
+                np.testing.assert_array_equal(
+                    flat_prec[row0 * r:(row0 + r) * r].reshape(r, r),
+                    prec_c[bi, kk].numpy())
+    assert fa.fixed_bytes == fixed
+
+
+def test_state_index_is_built_once_per_start_tensor():
+    start = torch.tensor([3, 0, 3, 1])
+    index = tft.state_index(start, 5)
+    assert index.dtype == torch.int32
+    assert index.tolist() == [0, 1, 2, 2, 4, 4, 1, 3, 0, 2]
+    assert tft.state_index(start, 5) is index
+    assert tft.state_index(start, 6) is not index       # another chain
+    start[0] = 2                                         # edited in place
+    assert tft.state_index(start, 5).tolist() == [0, 1, 2, 3, 4, 4,
+                                                  1, 3, 0, 2]
+
+
+def test_the_iterate_reaches_the_kernels_as_it_is():
+    """The engine's iterate is contiguous and problem-major already: the
+    wrappers' ``.contiguous()`` hands the kernels the caller's memory, and
+    the accumulators are views of the one buffer an all-reduce sums."""
+    n = 6
+    state = _port(_problems(n, 2, range(B)))[1]
+    for x in (state.mu, state.precision.diag, state.precision.off):
+        assert x.contiguous().data_ptr() == x.data_ptr()
+    acc = tfg.Partials(B, n, 4, torch.float64, CPU, zero=True)
+    assert [tuple(t.shape) for t in acc] == [
+        (B, n, 4), (B, n, 4, 4), (B, n - 1, 4, 4)]
+    assert all(t.is_contiguous() for t in acc)
+    acc.buffer.add_(1.0)
+    assert all(bool((t == 1.0).all()) for t in acc)
+    assert acc[0].data_ptr() == acc.buffer.data_ptr()
+
+
+# (n, s, itemsize, fixed bytes) -> (warps, scratch): the flagship in
+# float32 and float64, a chain that fills shared memory alone, one too long
+# for it
+@pytest.mark.parametrize("n,s,size,fixed,warps,scratch", [
+    (32, 4, 4, 580, 4, False),
+    (32, 4, 8, 1160, 2, False),
+    (32, 2, 8, 200, 4, False),
+    (400, 4, 4, 580, 1, False),
+    (600, 4, 4, 580, 4, True),
+    (300, 4, 8, 1160, 4, True),
+])
+def test_gradient_block_plan(n, s, size, fixed, warps, scratch):
+    plan = tfg.grad_plan("t", n, s, size, fixed)
+    chain = n * (6 * (s * s + 1) + 4 * (s + 1))
+    assert tfg.grad_chain_elems(n, s) == chain == plan.arena
+    assert (plan.warps, plan.scratch) == (warps, scratch)
+    if scratch:
+        assert plan.smem == fixed
+        assert fixed + chain * size > tft.SMEM_LIMIT
+    else:
+        assert plan.smem == fixed + warps * chain * size <= tft.SMEM_LIMIT
+        if warps > 1:
+            assert plan.smem <= tft.SMEM_TARGET
+
+
+@pytest.mark.parametrize("n,s,nt,size,fixed,chunk,scratch", [
+    (32, 4, 11, 4, 580, 11, False),      # the flagship: four blocks per SM
+    (32, 4, 11, 8, 1160, 11, False),
+    (32, 4, 40, 8, 1160, 24, False),     # more trials than fit: chunks
+    (5, 2, 3, 8, 200, 3, False),
+    (2000, 4, 11, 4, 580, 11, True),
+])
+def test_trial_block_plan(n, s, nt, size, fixed, chunk, scratch):
+    plan = tft.trial_plan("t", n, s, nt, size, fixed)
+    arena = (4 + 2 * chunk) * n * (s * s + 1)
+    assert tft.trial_arena_elems(n, s, chunk) == arena == plan.arena
+    assert (plan.warps, plan.chunk, plan.scratch) == (
+        tft.TRIAL_WARPS, chunk, scratch)
+    if scratch:
+        assert plan.smem == fixed
+        assert fixed + tft.trial_arena_elems(n, s, 1) * size > tft.SMEM_LIMIT
+    else:
+        assert plan.smem == fixed + arena * size <= tft.SMEM_LIMIT
+        if chunk < nt:
+            assert fixed + tft.trial_arena_elems(
+                n, s, chunk + 1) * size > tft.SMEM_LIMIT
+    if (n, s, nt, size) == (32, 4, 11, 4):
+        # four blocks, each with its reserved KB, share an SM's 228 KB
+        assert 4 * (plan.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("plan", [
+    lambda: tfg.grad_plan("K6", 32, 4, 4, tft.SMEM_LIMIT + 4),
+    lambda: tft.trial_plan("K5", 32, 4, 11, 4, tft.SMEM_LIMIT + 4),
+])
+def test_rules_beyond_shared_memory_raise_with_the_numbers(plan):
+    with pytest.raises(ValueError, match=str(tft.SMEM_LIMIT)):
+        plan()

@@ -34,6 +34,8 @@ from gaussianvi_tpu_torch.ops.blocktridiag import (  # noqa: E402
     gbp_covariance_logdet as tgbp,
 )
 
+CPU = torch.device("cpu")
+
 # the tolerances of tests/test_pallas_kernel.py (interpret-mode parity)
 RTOL, ATOL = 1e-9, 1e-10
 K = 6
@@ -45,7 +47,7 @@ def _batches(dim_x, marginal):
     kw = dict(num_states=K, dim_x=dim_x, gh_degree=4, seed=2,
               marginal_quad=marginal)
     jfb = jce.build_chain_estimation(**kw)[0].nonlinear[0]
-    tfb = tce.build_chain_estimation(**kw)[0].nonlinear[0]
+    tfb = tce.build_chain_estimation(**kw, device=CPU)[0].nonlinear[0]
     d = 2 * dim_x
     rng = np.random.default_rng(10 * dim_x + marginal)
     mu = 1.5 + 0.3 * rng.standard_normal((K, d))
@@ -192,7 +194,7 @@ def test_prox_gradients_match_jax():
     closed-form linear batches (the GP prior's 8x8 blocks)."""
     kw = dict(num_states=6, dim_x=2, gh_degree=4)
     jp = [jce.build_chain_estimation(seed=s, **kw)[:2] for s in (0, 1)]
-    tp = [tce.build_chain_estimation(seed=s, **kw)[:2] for s in (0, 1)]
+    tp = [tce.build_chain_estimation(seed=s, **kw, device=CPU)[:2] for s in (0, 1)]
     jg, js = jstack(*map(list, zip(*jp)))
     tg, ts = stack_problems(*map(list, zip(*tp)))
     rng = np.random.default_rng(11)

@@ -20,6 +20,8 @@ from gaussianvi_tpu_torch.kernels import chain as tchain  # noqa: E402
 from gaussianvi_tpu_torch.ops import blocktridiag as tbt  # noqa: E402
 from gaussianvi_tpu_torch.ops import smallmat as tsm  # noqa: E402
 
+CPU = torch.device("cpu")
+
 ATOL = 1e-10
 
 
@@ -159,8 +161,8 @@ def test_pivot_trust_poisons_like_jax():
 def test_block_tridiag_algebra():
     diag, off, _ = _chain(2, 3, 2, seed=5)
     a = tbt.BlockTridiag(_t(diag), _t(off))
-    z = tbt.BlockTridiag.zeros((2,), 3, 2, torch.float64)
-    eye = tbt.BlockTridiag.identity((2,), 3, 2, 2.0, torch.float64)
+    z = tbt.BlockTridiag.zeros((2,), 3, 2, torch.float64, device=CPU)
+    eye = tbt.BlockTridiag.identity((2,), 3, 2, 2.0, torch.float64, device=CPU)
     np.testing.assert_allclose((a + z - z).diag, a.diag)
     np.testing.assert_allclose((eye.scale(torch.tensor([1.0, 3.0]))).diag[1],
                                6.0 * np.broadcast_to(np.eye(2), (3, 2, 2)))

@@ -30,7 +30,8 @@ def problem():
     """The flagship's range batch (29-node marginal rule, d=4) and B=3
     different sets of marginals and params."""
     jfb = jax_build(num_states=8, dim_x=2, gh_degree=4, seed=0)[0].nonlinear[0]
-    tfb = torch_build(num_states=8, dim_x=2, gh_degree=4, seed=0)[0].nonlinear[0]
+    tfb = torch_build(num_states=8, dim_x=2, gh_degree=4, seed=0,
+                      device="cpu")[0].nonlinear[0]
     rng = np.random.default_rng(0)
     b, k, d = 3, 8, 4
     mu = rng.standard_normal((b, k, d))

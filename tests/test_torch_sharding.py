@@ -30,6 +30,8 @@ from gaussianvi_tpu_torch.kernels import fused_gradient as tfg  # noqa: E402
 from gaussianvi_tpu_torch.parallel.multiprocess import spawn_ranks  # noqa: E402
 from gaussianvi_tpu_torch.parallel.sharding import FactorShardEngine  # noqa: E402
 
+CPU = torch.device("cpu")
+
 WORLD = 4
 MESHES = [(2, 2), (1, 4), (4, 1)]
 _BENCH = dict(niters=5, niters_lowtemp=5, step_size_base=0.9)
@@ -59,8 +61,8 @@ def _jax_problems(key):
 
 
 def _port_batch(descs):
-    return stack_problems([graph_from_arrays(d) for d, _ in descs],
-                          [state_from_arrays(s) for _, s in descs])
+    return stack_problems([graph_from_arrays(d, device=CPU) for d, _ in descs],
+                          [state_from_arrays(s, device=CPU) for _, s in descs])
 
 
 def _np(tree):
@@ -369,7 +371,7 @@ def test_a_failed_rank_fails_the_run(tmp_path):
     waiting in a collective is stopped: ``spawn_ranks`` raises instead of
     hanging."""
     with pytest.raises(RuntimeError, match="rank 1 gives up"):
-        spawn_ranks(_failing_rank, 2, timeout_s=60.0,
+        spawn_ranks(_failing_rank, 2, device="cpu", timeout_s=60.0,
                     rendezvous_dir=str(tmp_path))
 
 
@@ -544,8 +546,8 @@ def test_one_by_one_mesh_is_the_local_run_to_the_bit(descs):
         parallel.make_mesh(1, 2)
     with pytest.raises(ValueError, match="problem-batched"):
         parallel.optimize_sharded(
-            graph_from_arrays(descs["split"][0][0]),
-            state_from_arrays(descs["split"][0][1]), cfg, mesh)
+            graph_from_arrays(descs["split"][0][0], device=CPU),
+            state_from_arrays(descs["split"][0][1], device=CPU), cfg, mesh)
 
 
 def test_auto_impls_go_by_the_device(descs):
@@ -588,7 +590,8 @@ def test_nccl_without_a_gpu_raises():
         initialize_multiprocess("tcp://localhost:1", 1, 0, backend="nccl",
                                 device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        initialize_multiprocess("tcp://localhost:1", 1, 0, backend="mpi")
+        initialize_multiprocess("tcp://localhost:1", 1, 0, backend="mpi",
+                                device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +662,7 @@ def test_best_of_restarts_matches_jax_on_the_same_inits(jax_sets, descs,
     jbest = int(jnp.argmin(jcosts))
 
     d, st = descs["flagship"][1]
-    graph, init = graph_from_arrays(d), state_from_arrays(st)
+    graph, init = graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU)
     from gaussianvi_tpu_torch.inference.graph import GaussianState
     from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
 
@@ -685,7 +688,7 @@ def test_perturb_inits_and_optimize_restarts(descs):
     follows the generator, and ``optimize_restarts`` is ``best_of_restarts``
     of those initial states."""
     d, st = descs["flagship"][0]
-    graph, init = graph_from_arrays(d), state_from_arrays(st)
+    graph, init = graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU)
 
     def gen():
         return torch.Generator().manual_seed(3)

@@ -22,6 +22,8 @@ from gaussianvi_tpu_torch.convert import (  # noqa: E402
     state_from_arrays,
 )
 
+CPU = torch.device("cpu")
+
 N, B = 8, 4
 CONFIGS = {
     # the bench's settings, shortened
@@ -72,8 +74,8 @@ def run_both(problems, jax_cfg, torch_cfg, method="ngd"):
                                                                 state_b)
     described = [describe(g, s) for g, s in problems]
     tgraph, tstate = stack_problems(
-        [graph_from_arrays(d) for d, _ in described],
-        [state_from_arrays(s) for _, s in described],
+        [graph_from_arrays(d, device=CPU) for d, _ in described],
+        [state_from_arrays(s, device=CPU) for _, s in described],
     )
     state, hist = optimize(tgraph, tstate, GVIConfig(**torch_cfg),
                            method=method)
@@ -118,7 +120,7 @@ def test_unported_options_raise(problems, field, value):
     g, s = problems[0]
     d, st = describe(g, s)
     with pytest.raises(NotImplementedError):
-        optimize(graph_from_arrays(d), state_from_arrays(st),
+        optimize(graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU),
                  GVIConfig(niters=1, **{field: value}))
 
 
@@ -127,7 +129,7 @@ def test_kernel_impl_on_cpu_raises(problems, field):
     g, s = problems[0]
     d, st = describe(g, s)
     with pytest.raises(ValueError, match="CUDA"):
-        optimize(graph_from_arrays(d), state_from_arrays(st),
+        optimize(graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU),
                  GVIConfig(niters=1, **{field: "lanes"}))
 
 
@@ -176,7 +178,7 @@ def test_prox_ignores_use_pallas_and_the_fused_gradient(problems):
     option changes its result."""
     g, s = problems[0]
     d, st = describe(g, s)
-    graph, state = graph_from_arrays(d), state_from_arrays(st)
+    graph, state = graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU)
     cfg = dict(niters=2, niters_lowtemp=2, step_size_base=0.1)
     _, base = optimize(graph, state, GVIConfig(**cfg), method="prox")
     _, other = optimize(graph, state,
@@ -192,7 +194,7 @@ def test_single_problem_matches_batch_of_one(problems):
     unvmapped ``optimize``) with the same result as a batch of one."""
     g, s = problems[1]
     d, st = describe(g, s)
-    graph, state = graph_from_arrays(d), state_from_arrays(st)
+    graph, state = graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU)
     cfg = GVIConfig(niters=3, niters_lowtemp=3, step_size_base=0.9)
     one_state, one = optimize(graph, state, cfg)
     batch_state, batch = optimize(*stack_problems([graph], [state]), cfg)
