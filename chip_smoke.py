@@ -5,10 +5,12 @@ the nine kernel entry points against its plain PyTorch version at the
 flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
 and negative-linear-cost guard cases; the block-form moments kernel K4 also
 against the quadrature kernel K3; the split fused gradient pair also
-against the single fused gradient kernel; the two redesigned fused kernels
-also at chain lengths around a warp's width, dynamic starts, ragged blocks
-and a chain long enough for the global-scratch route, and launched twice for
-identical bits), then drives the flagship
+against the single fused gradient kernel; the four redesigned kernels, the
+fused ones and the chain kernels K1 and K2, also at chain lengths around a
+warp's width, s = 2, ragged warps and blocks, leading shapes, dynamic
+starts and a chain long enough for the global-scratch route, and launched
+twice for identical bits; K2 also timed beside ``torch.linalg.solve`` on
+its densified systems), then drives the flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
 the 29-node degree-4 marginal rule, 10 iterations, along five paths:
 
@@ -250,13 +252,14 @@ def kernel_checks(graph_b, state_b, dev):
         err1 = max(compare(f"K1 cov_diag {dtype}", k1[0], p1[0], *tol_chain),
                    compare(f"K1 cov_off {dtype}", k1[1], p1[1], *tol_chain),
                    compare(f"K1 logdet {dtype}", k1[2], p1[2], *tol_ld))
-        # K2 on the solve pair: 2 x 1024 chains
+        # K2 on the solve pair: B main systems and B fallbacks against one
+        # right-hand side, as the NGD step hands them over
         d2, o2, rhs = spd_chains(2 * B, N, 4, rng, dtype, dev)
-        shape2 = (2, B)
-        d2, o2 = d2.reshape(*shape2, N, 4, 4), o2.reshape(*shape2, N - 1, 4, 4)
-        rhs = rhs.reshape(*shape2, N, 4)
-        err2 = compare(f"K2 x {dtype}", chain.solve_lanes(d2, o2, rhs),
-                       chain.solve_plain(d2, o2, rhs), *tol_chain)
+        pair = (d2[:B], o2[:B], d2[B:], o2[B:], rhs[:B])
+        k2 = chain.solve_pair_lanes(*pair)
+        err2 = max(compare(f"K2 x{i} {dtype}", a, b_, *tol_chain)
+                   for i, (a, b_) in enumerate(
+                       zip(k2, chain.solve_pair_plain(*pair))))
         # K3 on real marginal means and params, covariances from K1
         mu = state_b[dtype].mu + 0.05 * torch.tensor(
             rng.standard_normal((TRIALS, B, N, 4)), dtype=dtype, device=dev)
@@ -285,8 +288,8 @@ def kernel_checks(graph_b, state_b, dev):
                 cuda_ms(lambda: chain.gbp_covariance_logdet_lanes(diag, off)),
                 cuda_ms(lambda: chain.gbp_covariance_logdet_plain(diag, off),
                         reps=3)),
-            "solve": (cuda_ms(lambda: chain.solve_lanes(d2, o2, rhs)),
-                      cuda_ms(lambda: chain.solve_plain(d2, o2, rhs), reps=3)),
+            "solve": (cuda_ms(lambda: chain.solve_pair_lanes(*pair)),
+                      cuda_ms(lambda: chain.solve_pair_plain(*pair), reps=3)),
             "quad_phi": (
                 cuda_ms(lambda: quad.quad_lanes_phi(*args3, nonneg=True)),
                 cuda_ms(lambda: quad.quad_phi_plain(*args3, nonneg=True))),
@@ -300,7 +303,7 @@ def kernel_checks(graph_b, state_b, dev):
         bounds = {
             "gbp_covariance_logdet": bound(
                 (diag, off), k1, TRIALS * B * N * chain_flops(4)),
-            "solve": bound((d2, o2, rhs), rhs, 2 * B * N * solve_flops(4)),
+            "solve": bound(pair, k2, 2 * B * N * solve_flops(4)),
             "quad_phi": bound(args3[:4] + args3[5:], mu[..., 0],
                               TRIALS * B * N * quad_flops(4, m, DIM_X, False)),
             "quad_moments": bound(args4[:4] + args4[5:], km,
@@ -310,7 +313,41 @@ def kernel_checks(graph_b, state_b, dev):
             results[name] = dict(max_abs_err=errs[name],
                                  err_dtype="float32", ms=ms,
                                  plain_ms=plain_ms, **bounds[name])
+        results["gbp_covariance_logdet"]["ms_flushed_l2"] = cuda_ms_flushed(
+            lambda: chain.gbp_covariance_logdet_lanes(diag, off))
+        results["solve"]["ms_flushed_l2"] = cuda_ms_flushed(
+            lambda: chain.solve_pair_lanes(*pair))
+        results["solve"]["library_ms"] = dense_solve_ms(pair)
     return results
+
+
+def dense_solve_ms(pair):
+    """K2's yardstick: ``torch.linalg.solve`` on the pair's systems as one
+    batch of dense SPD matrices [2B, N s, N s] (built outside the timed
+    call) against the right-hand side, one PyTorch call; its result is held
+    to K2's plain version first."""
+    from gaussianvi_tpu_torch.kernels import chain
+
+    d0, o0, d1, o1, rhs = pair
+    nb, n, s = rhs.shape
+    dense = torch.zeros(2 * nb, n * s, n * s, dtype=rhs.dtype,
+                        device=rhs.device)
+    for i, (d, o) in enumerate(((d0, o0), (d1, o1))):
+        rows = dense[i * nb:(i + 1) * nb]
+        for k in range(n):
+            rows[:, k * s:(k + 1) * s, k * s:(k + 1) * s] = d[:, k]
+            if k < n - 1:
+                rows[:, k * s:(k + 1) * s, (k + 1) * s:(k + 2) * s] = o[:, k]
+                rows[:, (k + 1) * s:(k + 2) * s, k * s:(k + 1) * s] = (
+                    o[:, k].transpose(-1, -2))
+    b = rhs.reshape(nb, n * s).repeat(2, 1)
+    x = torch.linalg.solve(dense, b).reshape(2, nb, n, s)
+    want = chain.solve_pair_plain(*pair)
+    for got, w in zip(x, want):
+        err = float((got - w).abs().max())
+        check(err <= 1e-3 * max(1.0, float(w.abs().max())),
+              f"dense solve off K2's plain version by {err:.3e}")
+    return cuda_ms(lambda: torch.linalg.solve(dense, b), reps=3)
 
 
 def guard_cases(dtype, dev):
@@ -870,6 +907,58 @@ def layout_checks(dev):
           flush=True)
 
 
+# name -> (leading shape, N, s) of K1 / K2 layouts: chains shorter and
+# longer than a warp's lanes, s = 2, a ragged last warp and lane group
+# (counts not a multiple of the 4 or 8 chains a warp carries), the trial
+# batch's and the solve pair's leading shapes, and a chain too long for
+# shared memory (the global-scratch route)
+CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((6,), 2, 4),
+                 "N=33": ((5,), 33, 4), "N=70, s=2": ((9,), 70, 2),
+                 "ragged": ((13,), 6, 4), "(11, B)": ((11, 37), 5, 4),
+                 "(2, B)": ((2, 37), 8, 4), "long chain": ((3,), 1100, 4)}
+
+
+def chain_layout_checks(dev):
+    """K1, K2 and K2's pair entry (an expanded right-hand side) against
+    their plain versions in float64 (atol 1e-10 of each output's range,
+    identical NaN patterns) at the layouts of ``CHAIN_LAYOUTS``, each
+    launched twice for identical bits."""
+    from gaussianvi_tpu_torch.kernels import chain
+
+    rng = np.random.default_rng(SEED)
+    dt = torch.float64
+    worst = {}
+    for name, (lead, n, s) in CHAIN_LAYOUTS.items():
+        count = int(np.prod(lead))
+        diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
+                          for x in spd_chains(count, n, s, rng, dt, dev))
+        if name == "long chain":
+            check(chain.chain_plan(chain.gbp_warp_elems(n, s, False, 8), 8,
+                                   1).scratch
+                  and chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8,
+                                       1).scratch,
+                  f"N={n} does not take the global-scratch route")
+        one = rhs.reshape(-1, n, s)[0].expand(*lead, n, s)
+        shifted = diag + torch.eye(s, dtype=dt, device=dev)
+        got = (*check_repeatable(
+            f"K1 {name}", lambda: chain.gbp_covariance_logdet_lanes(diag, off)),
+            check_repeatable(f"K2 {name}",
+                             lambda: (chain.solve_lanes(diag, off, rhs),))[0],
+            *check_repeatable(f"K2 pair {name}", lambda: chain.solve_pair_lanes(
+                diag, off, shifted, off, one)))
+        want = (*chain.gbp_covariance_logdet_plain(diag, off),
+                chain.solve_plain(diag, off, rhs),
+                *chain.solve_pair_plain(diag, off, shifted, off, one))
+        worst[name] = max(
+            compare(f"chain output {i} {name}", a, b, 0.0,
+                    1e-10 * max(1.0, float(b.abs().max())) if b.numel()
+                    else 1e-10)
+            for i, (a, b) in enumerate(zip(got, want)))
+    print("[chain layouts f64] max abs err vs plain (K1, K2, K2 pair), two "
+          "launches bit-identical: " + "; ".join(
+              f"{k}: {v:.1e}" for k, v in worst.items()), flush=True)
+
+
 def fused_guard_cases(dtype, dev):
     """K5's guards agree between kernel and plain: the pivot-trust log
     det, the nonneg band on E[phi] and a negative linear cost are each
@@ -1106,15 +1195,23 @@ def main() -> int:
     _build.load()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # registers / spill stores + loads (bytes) per instance of the two
-    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve
+    # registers / spill stores + loads (bytes) per instance of the four
+    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve;
+    # gbp_kernel's D and B read through L1 (L1) or staged in the arena
+    def instance(r):
+        if r["kernel"] == "grad_kernel":
+            return f" mode {r['ints'][-1]}"
+        if r["kernel"] == "gbp_kernel":
+            return " staged" if r["ints"][-1] else " L1"
+        return ""
+
     print("[ptxas] " + "; ".join(
-        f"{r['kernel']} {r['dtype']} s={r['ints'][0]}"
-        + (f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else "")
-        + f": {r['registers']} regs, spill {r['spill_stores']}+"
+        f"{r['kernel']} {r['dtype']} s={r['ints'][0]}{instance(r)}"
+        f": {r['registers']} regs, spill {r['spill_stores']}+"
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
-        if r["kernel"] in ("grad_kernel", "trials_kernel")), flush=True)
+        if r["kernel"] in ("grad_kernel", "trials_kernel", "gbp_kernel",
+                           "solve_kernel")), flush=True)
 
     t0 = time.perf_counter()
     graph_b, state_b = {}, {}
@@ -1129,6 +1226,7 @@ def main() -> int:
     kern.update(fused_checks(graph_b, state_b, dev, iterate))
     kern.update(split_checks(graph_b, dev, iterate))
     layout_checks(dev)
+    chain_layout_checks(dev)
     kern.update(moments_checks(graph_b, iterate, dev))
     sqrtm_ms = sqrtm_times(iterate, dev)
 
@@ -1303,9 +1401,11 @@ def main() -> int:
     for name, r in kern.items():
         flushed = (f" ({r['ms_flushed_l2']:.4f} ms with the L2 flushed "
                    f"before each call)" if "ms_flushed_l2" in r else "")
+        library = (f", library {r['library_ms']:.4f} ms"
+                   if "library_ms" in r else "")
         print(f"[kernel time] {card}: {name} {r['ms']:.4f} ms{flushed}, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']} (f32, slice shapes)", flush=True)
+              f"{r['plain_ms']:.4f} ms{library}, bound {r['bound_ms']:.5f} ms "
+              f"by {r['bound_by']} (f32, slice shapes)", flush=True)
     k4 = kern["fused_moments"]
     print(f"[kernel time] {card}: K4 {k4['ms']:.4f} ms (kernel alone, "
           f"Cholesky factor given: {k4['kernel_only_ms']:.4f} ms) vs K3 "
@@ -1333,14 +1433,22 @@ def main() -> int:
     }
     counts = {"fused": fused_counts, "separate": sep_counts,
               "block_moments": block_counts, "factor_parallel": shard_counts}
-    # library_ms: no single PyTorch call computes any of these functions
-    # (block-tridiagonal selected inversion, block-Thomas solve,
-    # sigma-point moments of a cost given as code).  bound_ms counts every
-    # tensor the wrapper is handed, read once, and every tensor it returns,
-    # written once; the fused kernels have no scratch and no layout copy in
-    # device memory, so ms is the kernel alone.  ms: the operands warm in
-    # L2 (back-to-back calls); ms_flushed_l2: the L2 flushed before each
-    # call (the two redesigned kernels).
+    # library_ms: K2's is torch.linalg.solve on the densified pair
+    # (dense_solve_ms).  No single PyTorch call computes the others: K1's
+    # selected covariance blocks and log det together (a dense inverse
+    # gives the blocks, a Cholesky the log det), a block-Thomas pass inside
+    # the fused kernels, or sigma-point moments of a cost given as code.
+    # bound_ms counts every tensor the wrapper is handed, read once, and
+    # every tensor it returns, written once; the redesigned kernels have no
+    # scratch and no layout copy in device memory, so ms is the kernel
+    # alone.  ms: the operands warm in L2 (back-to-back calls);
+    # ms_flushed_l2: the L2 flushed before each call (the redesigned
+    # kernels).
+    no_library = ("no single PyTorch call computes this function: "
+                  + ("selected blocks of the inverse and the log det "
+                     "together" if name == "gbp_covariance_logdet" else
+                     "a custom fused or quadrature function")
+                  for name in WRAPPERS)
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
@@ -1349,8 +1457,11 @@ def main() -> int:
                  ms_flushed_l2=kern[name].get("ms_flushed_l2"),
                  plain_ms=kern[name]["plain_ms"],
                  bound_ms=kern[name]["bound_ms"],
-                 bound_by=kern[name]["bound_by"], library_ms=None)
-            for name in WRAPPERS]
+                 bound_by=kern[name]["bound_by"],
+                 library_ms=kern[name].get("library_ms"),
+                 **({} if "library_ms" in kern[name]
+                    else {"library_note": note}))
+            for name, note in zip(WRAPPERS, no_library)]
     check(all(r["launches"] > 0 for r in rows),
           f"a kernel was launched on no path: {rows}")
     print(json.dumps({"kernels": rows}))

@@ -1,232 +1,378 @@
 // Chain kernels over a batch of block-tridiagonal SPD precisions.
 //
 // Replaces the TPU kernels of gaussianvi_tpu/kernels/chain_lanes.py:
-//   gvi_gbp   <- gbp_covariance_logdet_lanes (_gbp_kernel): GBP forward and
-//                backward sweeps, covariance diag/off blocks from one 2s x 2s
-//                Cholesky inverse per edge, Kahan-compensated log det
-//                NaN-poisoned by the 8-eps pivot-trust guard;
-//   gvi_solve <- solve_lanes (_solve_kernel): block-Thomas solve A x = b.
+//   gvi_gbp   <- gbp_covariance_logdet_lanes (_gbp_kernel): both GBP pivot
+//                recursions, the covariance diag/off blocks from each edge's
+//                2s x 2s joint inverse, the Kahan-compensated log det
+//                NaN-poisoned by the 8-eps pivot-trust guard (N = 1: the
+//                inverse of the one block);
+//   gvi_solve <- solve_lanes (_solve_kernel): block-Thomas solves A x = b,
+//                two systems per lane group pair (the NGD step's main system
+//                and its SPD fallback against one right-hand side).
 //
-// Design: one thread per chain; the whole chain recurrence runs in that
-// thread's registers with the s x s algebra unrolled (smallmat.cuh).
-// Arrays are batch-last ([element, chain]) so a warp's 32 chains read and
-// write neighbouring addresses.  Forward pivots (K1) or Cholesky factors
-// (K2) go to a global scratch array that the wrapper allocates.
-//
-// What bounds it on the card: latency of the serial s x s algebra along
-// the chain (each step depends on the previous one); parallelism exists
-// only across problems.  At B = 1024 (2048 chains for K2, 11264 for K1 on
-// the line-search batch) that is a few hundred to a few thousand warps
-// for 132 SMs, so occupancy is low.  Later work can give each chain a
-// warp (parallel over the s x s entries) or pack more problems per SM.
-#include "smallmat.cuh"
+// What bounds them on the card: the latency and the instruction issue of
+// dependent s x s algebra along a chain, not bytes or operations.  K1 at the
+// line-search batch (11 x 1024 chains, N = 32, s = 4, float32) moves 91 MB,
+// 27 us at the memory rate, and K2 at the solve pair 10 MB, 3 us; the
+// first port (one thread per chain, every operand transposed to batch-last
+// and back, the pivots in a global scratch, an IEEE division in every solve
+// step) took 30x and 64x that, with 2.7 and 0.5 warps per SM.  The design
+// is that of the fused kernels (fused.cuh):
+//   - operands problem-major as PyTorch holds them; outputs leave through
+//     the arena by coalesced stores, allocated in their final shape;
+//   - 2s lanes per chain (K1: the forward and the backward pivot recursion
+//     at once, the s columns of a message on s lanes, pivot_sweeps) or per
+//     pair of chains (K2: one solve per lane-group parity, thomas), so a
+//     warp carries 32 / 2s chains or pairs: 11264 chains are 2816 warps,
+//     1024 pairs 256;
+//   - pivots and factors keep the reciprocals of their diagonal (chol_r):
+//     every solve step multiplies;
+//   - K1, after the sweeps: the warp's (chain, edge) items over its 32
+//     lanes, each the 2s x 2s joint inverse of one edge, side by side;
+//   - the arena: K1 keeps both pivot arrays of the warp's chains, K2 its
+//     systems, right-hand sides, factors and solutions, in shared memory,
+//     or in a global scratch for a chain too long for it (same code); each
+//     chain's arrays slot_pitch apart, so that the few chains a warp
+//     serves fall on different banks.
+// The layout was chosen on an H100 (scripts/torch_profile.py
+// --chain-plans; PERF.md, section 6).  K1 reads D and B through L1 in 16-byte
+// pieces (kStaged false): its arena is then the pivots alone, 17.7 KB per
+// warp in float32, and 12 warps share an SM (0.138 ms at the flagship);
+// staged in the arena (kStaged true) it takes 34.8 KB per warp and 6 warps
+// per SM (0.176 ms).  Warps per block (1, 2 or 4) change neither kernel's
+// time: the wrapper asks for one, the finest grain for the SM to pack.
+// K2 fits 3 warps per SM in float32, so its 256 warps are one wave.
+// Every output word is written by one lane, in a fixed order: the same bits
+// on every launch.
+#include "fused.cuh"
 
 namespace gvi {
 
+constexpr int kChainWarps = 4;   // most warps of a block
+
+// Chains (K1) or pairs (K2) of one warp: 2s lanes each.
+template <int S>
+struct PerWarp {
+  static constexpr int value = kWarp / (2 * S);
+};
+
+// Values from one of a warp's `slots` arrays of `base` values to the next:
+// padded so that the arrays start 32 / slots banks apart, and the loads or
+// stores of a sweep step, one word per array, fall on different banks.
+template <typename T>
+__host__ __device__ constexpr int64_t slot_pitch(int64_t base, int slots) {
+  constexpr int64_t kBank = 32 * 4 / sizeof(T);   // values per bank row
+  return base + ((kBank / slots - base) % kBank + kBank) % kBank;
+}
+
+// Arena of one K1 warp, in values of T: F and G of its C chains, n blocks
+// each (slot_pitch apart), then, staged, D (n blocks) and B (n - 1
+// blocks) of each (kernels/chain.py gbp_warp_elems is the wrapper's copy).
 template <typename T, int S>
-__global__ void __launch_bounds__(64)
+__host__ __device__ constexpr int64_t gbp_warp_elems(int64_t n, bool staged) {
+  constexpr int C = PerWarp<S>::value, M = Pitch<S>::kMat;
+  return C * (2 * slot_pitch<T>(n * M, C) + (staged ? (2 * n - 1) * M : 0));
+}
+
+// Arena of one K2 warp: for each of its 2C systems (system 0 of its C
+// pairs, then system 1) D, then B, then the factors L, as n, n - 1 and n
+// blocks, then the right-hand side and the solution as n vectors, each
+// array slot_pitch apart (kernels/chain.py solve_warp_elems).
+template <typename T, int S>
+__host__ __device__ constexpr int64_t solve_warp_elems(int64_t n) {
+  constexpr int C2 = 2 * PerWarp<S>::value, M = Pitch<S>::kMat;
+  constexpr int V = Pitch<S>::kVec;
+  return C2 * (2 * slot_pitch<T>(n * M, C2) + slot_pitch<T>((n - 1) * M, C2) +
+               2 * slot_pitch<T>(n * V, C2));
+}
+
+// The warp's arena: in dynamic shared memory, or its slice of scratch.
+template <typename T>
+__device__ __forceinline__ T* warp_arena(T* scratch, int64_t elems,
+                                         int64_t w, int warp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return scratch == nullptr ? reinterpret_cast<T*>(smem_raw) + warp * elems
+                            : scratch + w * elems;
+}
+
+template <typename T, int S, bool kStaged>
+__global__ void __launch_bounds__(kChainWarps * kWarp)
 gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
            T* __restrict__ covd, T* __restrict__ covo, T* __restrict__ ld_out,
-           T* __restrict__ fpiv, T* __restrict__ gpiv, int nb, int n) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const int64_t blk = (int64_t)S * S * nb;  // stride of one s x s block
-  diag += b; off += b; covd += b; covo += b; fpiv += b; gpiv += b;
-
-  // forward sweep: pivots F_i = D_i + f_i, log det, pivot trust
-  T m[S][S];
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) m[r][c] = T(0);
-  T ld = T(0), comp = T(0), trust = T(1);
-  for (int i = 0; i < n; ++i) {
-    T d[S][S], piv[S][S], l[S][S];
-    load_mat(diag + i * blk, nb, d);
-    add_mat(d, m, piv);
-    store_mat(fpiv + i * blk, nb, piv);
-    chol(piv, l);
-    trust = pivot_trust(l, piv, d, m, trust);
-    kahan_add(ld, comp, logdet_from_chol(l));
-    if (i < n - 1) {
-      T bo[S][S];
-      load_mat(off + i * blk, nb, bo);
-      fwd_message(l, bo, m);
-    }
+           T* __restrict__ scratch, int nb, int n) {
+  constexpr int M = Pitch<S>::kMat, SS = S * S, C = PerWarp<S>::value;
+  // where the sweeps and the edges read D and B: the arena, or device memory
+  constexpr int P = kStaged ? M : SS;
+  // no block-wide barrier below: a warp past the end may leave
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int64_t w = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int64_t b0 = w * C;   // the warp's first chain
+  if (b0 >= nb) return;
+  const int valid = (int)min((int64_t)C, nb - b0);
+  const int64_t cp = slot_pitch<T>(n * M, C);
+  T* fpiv = warp_arena(scratch, gbp_warp_elems<T, S>(n, kStaged), w, warp);
+  T* gpiv = fpiv + C * cp;
+  const int64_t mats = (int64_t)n * SS, offs = (int64_t)(n - 1) * SS;
+  const T* pd = diag + b0 * mats;
+  const T* po = off + b0 * offs;
+  if constexpr (kStaged) {
+    T* pd_a = gpiv + C * cp;
+    T* po_a = pd_a + C * n * M;
+    const bool in_smem = scratch == nullptr;
+    copy_in_async<T, SS>(pd_a, M, pd, valid * n, lane, kWarp, in_smem);
+    copy_in_async<T, SS>(po_a, M, po, valid * (n - 1), lane, kWarp, in_smem);
+    async_commit();
+    async_wait<0>();
+    __syncwarp();
+    pd = pd_a;
+    po = po_a;
   }
-  ld_out[b] = trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
+  auto blocks = [&](int q) {
+    return ChainBlocks<T, S, P>{pd + q * n * P, po + q * (n - 1) * P};
+  };
 
-  // backward sweep: G_i = D_i + b_i
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) m[r][c] = T(0);
-  for (int i = n - 1; i >= 0; --i) {
-    T d[S][S], piv[S][S];
-    load_mat(diag + i * blk, nb, d);
-    add_mat(d, m, piv);
-    store_mat(gpiv + i * blk, nb, piv);
-    if (i > 0) {
-      T l[S][S], bo[S][S];
-      chol(piv, l);
-      load_mat(off + (i - 1) * blk, nb, bo);
-      bwd_message(l, bo, m);
-    }
+  // ---- both pivot recursions of every chain, 2s lanes each; a lane past
+  // the last chain repeats it (same values to the same words) -------------
+  const int c = min(lane / (2 * S), valid - 1);
+  const T ld = pivot_sweeps<T, S, true>(blocks(c), n, lane, fpiv + c * cp,
+                                        gpiv + c * cp);
+  if (lane % (2 * S) == 0 && lane / (2 * S) < valid) ld_out[b0 + c] = ld;
+
+  // ---- the edges, one (chain, edge) item per lane and turn: the record is
+  // staged where the item's own pivots were (no other item reads F_i or
+  // G_{i+1}): Sig_ii in F_i, Sig_{i,i+1} in G_{i+1}, the last state's
+  // Sig_jj in F_{N-1} ------------------------------------------------------
+  const int edges = n - 1;
+  if (edges == 0 && lane < valid) {
+    T f[S][S], l[S][S], rd[S], inv[S][S];
+    load_mat(fpiv + lane * cp, 1, f);
+    chol_r(f, l, rd);
+    inv_from_chol_r(l, rd, inv);
+    store_mat(fpiv + lane * cp, 1, inv);
   }
-
-  if (n == 1) {
-    T d[S][S], l[S][S], inv[S][S];
-    load_mat(diag, nb, d);
-    chol(d, l);
-    inv_from_chol(l, inv);
-    store_mat(covd, nb, inv);
-    return;
+  for (int e = lane; e < valid * edges; e += kWarp) {
+    const int q = e / edges, i = e % edges;
+    T* fq = fpiv + q * cp;
+    T* gq = gpiv + q * cp;
+    T fp[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
+    load_mat(fq + i * M, 1, fp);
+    load_mat(gq + (i + 1) * M, 1, g);
+    blocks(q).off(i, 0, bo);
+    edge_covariance_r(fp, g, bo, cii, cjj, cij);
+    store_mat(fq + i * M, 1, cii);
+    store_mat(gq + (i + 1) * M, 1, cij);
+    if (i == edges - 1) store_mat(fq + (i + 1) * M, 1, cjj);
   }
+  __syncwarp();
 
-  // edges: invert [[F_i, B_i], [B_i^T, G_{i+1}]]
-  for (int i = 0; i < n - 1; ++i) {
-    T f[S][S], g[S][S], bo[S][S], cii[S][S], cjj[S][S], cij[S][S];
-    load_mat(fpiv + i * blk, nb, f);
-    load_mat(gpiv + (i + 1) * blk, nb, g);
-    load_mat(off + i * blk, nb, bo);
-    edge_covariance(f, g, bo, cii, cjj, cij);
-    store_mat(covd + i * blk, nb, cii);
-    store_mat(covo + i * blk, nb, cij);
-    if (i == n - 2) store_mat(covd + (int64_t)(n - 1) * blk, nb, cjj);
-  }
-}
-
-template <typename T, int S>
-__global__ void __launch_bounds__(64)
-solve_kernel(const T* __restrict__ diag, const T* __restrict__ off,
-             const T* __restrict__ rhs, T* __restrict__ x_out,
-             T* __restrict__ lfac, int nb, int n) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const int64_t blk = (int64_t)S * S * nb;
-  const int64_t vec = (int64_t)S * nb;
-  diag += b; off += b; rhs += b; x_out += b; lfac += b;
-
-  // forward: pivots, their Cholesky factors (kept in scratch for the back
-  // sweep), and the eliminated rhs y_i = b_i - B_{i-1}^T F_{i-1}^{-1} y_{i-1}
-  // (stored in x_out, overwritten by the back sweep)
-  T m[S][S], lprev[S][S], yprev[S];
-#pragma unroll
-  for (int r = 0; r < S; ++r)
-#pragma unroll
-    for (int c = 0; c < S; ++c) m[r][c] = T(0);
-  for (int i = 0; i < n; ++i) {
-    T d[S][S], piv[S][S], l[S][S], y[S];
-    load_mat(diag + i * blk, nb, d);
-    add_mat(d, m, piv);
-    chol(piv, l);
-    store_mat(lfac + i * blk, nb, l);
-#pragma unroll
-    for (int r = 0; r < S; ++r) y[r] = rhs[i * vec + (int64_t)r * nb];
-    if (i > 0) {
-      T bo[S][S], sol[S];
-      load_mat(off + (i - 1) * blk, nb, bo);
-      chol_solve_vec(lprev, yprev, sol);
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        T acc = y[r];
-#pragma unroll
-        for (int k = 0; k < S; ++k) acc = acc - bo[k][r] * sol[k];
-        y[r] = acc;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < S; ++r) x_out[i * vec + (int64_t)r * nb] = y[r];
-    if (i < n - 1) {
-      T bo[S][S];
-      load_mat(off + i * blk, nb, bo);
-      fwd_message(l, bo, m);
-    }
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      yprev[r] = y[r];
-#pragma unroll
-      for (int c = 0; c < S; ++c) lprev[r][c] = l[r][c];
-    }
-  }
-
-  // back: x_i = F_i^{-1} (y_i - B_i x_{i+1}); the last state has no B-term
-  // (selected, never multiplied by an unset value)
-  T xnext[S];
-  for (int i = n - 1; i >= 0; --i) {
-    T l[S][S], r_[S], sol[S];
-    load_mat(lfac + i * blk, nb, l);
-#pragma unroll
-    for (int r = 0; r < S; ++r) r_[r] = x_out[i * vec + (int64_t)r * nb];
-    if (i < n - 1) {
-      T bo[S][S];
-      load_mat(off + i * blk, nb, bo);
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        T acc = T(0);
-#pragma unroll
-        for (int c = 0; c < S; ++c) acc = acc + bo[r][c] * xnext[c];
-        r_[r] = r_[r] - acc;
-      }
-    }
-    chol_solve_vec(l, r_, sol);
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      x_out[i * vec + (int64_t)r * nb] = sol[r];
-      xnext[r] = sol[r];
-    }
+  // ---- out, chain by chain --------------------------------------------
+  for (int q = 0; q < valid; ++q) {
+    copy_out<T, SS>(covd + (b0 + q) * mats, fpiv + q * cp, M, n, lane, kWarp);
+    copy_out<T, SS>(covo + (b0 + q) * offs, gpiv + q * cp + M, M, edges,
+                    lane, kWarp);
   }
 }
 
-constexpr int kChainThreads = 64;
+// Pair u solves system 0 (d0, o0, v0 -> x0) and, for u < units1, system 1
+// (d1, o1, v1 -> x1); v1 == v0 is one right-hand side for both.
+template <typename T, int S>
+__global__ void __launch_bounds__(kChainWarps * kWarp)
+solve_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
+             const T* v0, T* __restrict__ x0,
+             const T* __restrict__ d1, const T* __restrict__ o1,
+             const T* v1, T* __restrict__ x1,
+             T* __restrict__ scratch, int units, int units1, int n) {
+  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec, SS = S * S;
+  constexpr int C = PerWarp<S>::value;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int64_t w = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int64_t u0 = w * C;   // the warp's first pair
+  if (u0 >= units) return;
+  const int valid = (int)min((int64_t)C, units - u0);
+  const int valid1 = (int)max((int64_t)0, min((int64_t)valid, units1 - u0));
+  constexpr int C2 = 2 * C;
+  const int64_t pitch_d = slot_pitch<T>(n * M, C2);
+  const int64_t pitch_b = slot_pitch<T>((n - 1) * M, C2);
+  const int64_t pitch_v = slot_pitch<T>(n * V, C2);
+  T* dg = warp_arena(scratch, solve_warp_elems<T, S>(n), w, warp);
+  T* og = dg + C2 * pitch_d;
+  T* lf = og + C2 * pitch_b;
+  T* vv = lf + C2 * pitch_d;
+  T* xx = vv + C2 * pitch_v;
+  const int64_t mats = (int64_t)n * SS, offs = (int64_t)(n - 1) * SS;
+  const int64_t vecs = (int64_t)n * S;
+  const bool in_smem = scratch == nullptr, one_rhs = v1 == v0;
 
-inline int blocks_for(int nb) { return (nb + kChainThreads - 1) / kChainThreads; }
+  // ---- stage: system 0 of the warp's pairs in slots 0..C-1, system 1 in
+  // C..2C-1; each operand read once ----------------------------------------
+  for (int q = 0; q < valid; ++q) {
+    const int64_t u = u0 + q;
+    copy_in_async<T, SS>(dg + q * pitch_d, M, d0 + u * mats, n, lane, kWarp,
+                         in_smem);
+    copy_in_async<T, SS>(og + q * pitch_b, M, o0 + u * offs, n - 1, lane,
+                         kWarp, in_smem);
+    copy_in_async<T, S>(vv + q * pitch_v, V, v0 + u * vecs, n, lane, kWarp,
+                        in_smem);
+    if (q >= valid1) continue;
+    copy_in_async<T, SS>(dg + (C + q) * pitch_d, M, d1 + u * mats, n, lane,
+                         kWarp, in_smem);
+    copy_in_async<T, SS>(og + (C + q) * pitch_b, M, o1 + u * offs, n - 1,
+                         lane, kWarp, in_smem);
+    if (!one_rhs)
+      copy_in_async<T, S>(vv + (C + q) * pitch_v, V, v1 + u * vecs, n, lane,
+                          kWarp, in_smem);
+  }
+  async_commit();
+  async_wait<0>();
+  __syncwarp();
+
+  // ---- both sweeps of every system, S lanes each.  A lane past the last
+  // pair repeats it (same values to the same words); side 1 of a pair
+  // without a system 1 solves system 0 again into a slot nobody reads ----
+  const Lanes<S> g(lane);
+  const int q = min(lane / (2 * S), valid - 1);
+  const int slot = g.side * C + q;
+  const int src = g.side && q < valid1 ? slot : q;
+  thomas<T, S, false>(dg + src * pitch_d, og + src * pitch_b,
+                      vv + (one_rhs ? q : src) * pitch_v,
+                      lf + slot * pitch_d, xx + slot * pitch_v, n, g);
+
+  for (int k = 0; k < valid; ++k) {
+    copy_out<T, S>(x0 + (u0 + k) * vecs, xx + k * pitch_v, V, n, lane, kWarp);
+    if (k < valid1)
+      copy_out<T, S>(x1 + (u0 + k) * vecs, xx + (C + k) * pitch_v, V, n,
+                     lane, kWarp);
+  }
+}
+
+// Blocks of `warps` warps over `count` chains (K1) or pairs (K2).
+template <int S>
+inline int chain_blocks(int64_t count, int warps) {
+  const int64_t per_block = (int64_t)warps * PerWarp<S>::value;
+  return static_cast<int>((count + per_block - 1) / per_block);
+}
+
+// The kernel's dynamic shared memory limit raised to what the launch asks
+// for, and the SM's shared memory carved out to the most it allows: the
+// chain kernels keep everything they reuse in the arena.
+template <typename Kernel>
+inline cudaError_t prepare(Kernel kernel, size_t smem) {
+  const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
 
 template <typename T, int S>
-int launch_gbp(const void* diag, const void* off, void* covd, void* covo,
-               void* ld, void* fpiv, void* gpiv, int nb, int n,
-               cudaStream_t st) {
-  gbp_kernel<T, S><<<blocks_for(nb), kChainThreads, 0, st>>>(
+int launch_gbp(int staged, const void* diag, const void* off, void* covd,
+               void* covo, void* ld, void* scratch, int nb, int n, int warps,
+               long long arena, cudaStream_t st) {
+  // the wrapper sized the arena: both sides must lay a warp out alike
+  if (warps < 1 || warps > kChainWarps || n < 1 ||
+      arena != gbp_warp_elems<T, S>(n, staged != 0))
+    return -1;
+  // read through L1 in 16-byte pieces (load_block_vec)
+  if (!staged && ((reinterpret_cast<uintptr_t>(diag) |
+                   reinterpret_cast<uintptr_t>(off)) & 15) != 0)
+    return -1;
+  const size_t smem = scratch == nullptr ? sizeof(T) * warps * arena : 0;
+  if (smem > kMaxSmem) return -1;
+  auto kernel = staged ? gbp_kernel<T, S, true> : gbp_kernel<T, S, false>;
+  const cudaError_t prep = prepare(kernel, smem);
+  if (prep != cudaSuccess) return static_cast<int>(prep);
+  kernel<<<chain_blocks<S>(nb, warps), warps * kWarp, smem, st>>>(
       static_cast<const T*>(diag), static_cast<const T*>(off),
       static_cast<T*>(covd), static_cast<T*>(covo), static_cast<T*>(ld),
-      static_cast<T*>(fpiv), static_cast<T*>(gpiv), nb, n);
+      static_cast<T*>(scratch), nb, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int S>
-int launch_solve(const void* diag, const void* off, const void* rhs, void* x,
-                 void* lfac, int nb, int n, cudaStream_t st) {
-  solve_kernel<T, S><<<blocks_for(nb), kChainThreads, 0, st>>>(
-      static_cast<const T*>(diag), static_cast<const T*>(off),
-      static_cast<const T*>(rhs), static_cast<T*>(x), static_cast<T*>(lfac),
-      nb, n);
+int launch_solve(const void* const* ops, void* scratch, int units, int units1,
+                 int n, int warps, long long arena, cudaStream_t st) {
+  if (warps < 1 || warps > kChainWarps || n < 1 ||
+      arena != solve_warp_elems<T, S>(n))
+    return -1;
+  const size_t smem = scratch == nullptr ? sizeof(T) * warps * arena : 0;
+  if (smem > kMaxSmem) return -1;
+  auto kernel = solve_kernel<T, S>;
+  const cudaError_t prep = prepare(kernel, smem);
+  if (prep != cudaSuccess) return static_cast<int>(prep);
+  kernel<<<chain_blocks<S>(units, warps), warps * kWarp, smem, st>>>(
+      static_cast<const T*>(ops[0]), static_cast<const T*>(ops[1]),
+      static_cast<const T*>(ops[2]), static_cast<T*>(const_cast<void*>(ops[3])),
+      static_cast<const T*>(ops[4]), static_cast<const T*>(ops[5]),
+      static_cast<const T*>(ops[6]), static_cast<T*>(const_cast<void*>(ops[7])),
+      static_cast<T*>(scratch), units, units1, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gvi
 
-// dtype: 0 = float32, 1 = float64.  Returns the cudaError_t of the launch
-// (0 = success) or -1 for a (dtype, s) that is not instantiated.
-extern "C" int gvi_gbp(int dtype, int s, const void* diag, const void* off,
-                       void* covd, void* covo, void* ld, void* fpiv,
-                       void* gpiv, int nb, int n, void* stream) {
+// dtype: 0 = float32, 1 = float64.  staged: 1 stages D and B in the arena.
+// warps: warps of a block; arena: gbp_warp_elems values per warp; scratch:
+// the arenas of all warps where they do not fit shared memory, else null.
+// Returns the cudaError_t of the launch (0 = success) or -1 for sizes that
+// are not instantiated.
+extern "C" int gvi_gbp(int dtype, int s, int staged, const void* diag,
+                       const void* off, void* covd, void* covo, void* ld,
+                       void* scratch, int nb, int n, int warps,
+                       long long arena, void* stream) {
   if (nb <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && s == 2) return gvi::launch_gbp<float, 2>(diag, off, covd, covo, ld, fpiv, gpiv, nb, n, st);
-  if (dtype == 0 && s == 4) return gvi::launch_gbp<float, 4>(diag, off, covd, covo, ld, fpiv, gpiv, nb, n, st);
-  if (dtype == 1 && s == 2) return gvi::launch_gbp<double, 2>(diag, off, covd, covo, ld, fpiv, gpiv, nb, n, st);
-  if (dtype == 1 && s == 4) return gvi::launch_gbp<double, 4>(diag, off, covd, covo, ld, fpiv, gpiv, nb, n, st);
+#define GVI_GBP(T, S)                                                         \
+  return gvi::launch_gbp<T, S>(staged, diag, off, covd, covo, ld, scratch,   \
+                               nb, n, warps, arena, st);
+  if (dtype == 0 && s == 2) { GVI_GBP(float, 2) }
+  if (dtype == 0 && s == 4) { GVI_GBP(float, 4) }
+  if (dtype == 1 && s == 2) { GVI_GBP(double, 2) }
+  if (dtype == 1 && s == 4) { GVI_GBP(double, 4) }
+#undef GVI_GBP
   return -1;
 }
 
-extern "C" int gvi_solve(int dtype, int s, const void* diag, const void* off,
-                         const void* rhs, void* x, void* lfac, int nb, int n,
-                         void* stream) {
-  if (nb <= 0) return 0;
+// ops: d0, o0, v0, x0, d1, o1, v1, x1 (pair u: chain u of each system, of
+// system 1 only for u < units1).  warps, arena (solve_warp_elems values per
+// warp), scratch and the return value as gvi_gbp.
+extern "C" int gvi_solve(int dtype, int s, const void* const* ops,
+                         void* scratch, int units, int units1, int n,
+                         int warps, long long arena, void* stream) {
+  if (units <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && s == 2) return gvi::launch_solve<float, 2>(diag, off, rhs, x, lfac, nb, n, st);
-  if (dtype == 0 && s == 4) return gvi::launch_solve<float, 4>(diag, off, rhs, x, lfac, nb, n, st);
-  if (dtype == 1 && s == 2) return gvi::launch_solve<double, 2>(diag, off, rhs, x, lfac, nb, n, st);
-  if (dtype == 1 && s == 4) return gvi::launch_solve<double, 4>(diag, off, rhs, x, lfac, nb, n, st);
+#define GVI_SOLVE(T, S)                                                       \
+  return gvi::launch_solve<T, S>(ops, scratch, units, units1, n, warps,      \
+                                 arena, st);
+  if (dtype == 0 && s == 2) { GVI_SOLVE(float, 2) }
+  if (dtype == 0 && s == 4) { GVI_SOLVE(float, 4) }
+  if (dtype == 1 && s == 2) { GVI_SOLVE(double, 2) }
+  if (dtype == 1 && s == 4) { GVI_SOLVE(double, 4) }
+#undef GVI_SOLVE
+  return -1;
+}
+
+// Blocks of `warps` warps of the kernel (0: K1 with D and B read through
+// L1, 1: K1 staged, 2: K2) that one SM holds at `smem` bytes of dynamic
+// shared memory each, or -1.
+extern "C" int gvi_chain_occupancy(int which, int dtype, int s, int warps,
+                                   long long smem) {
+  int blocks = -1;
+  auto count = [&](auto kernel) {
+    if (gvi::prepare(kernel, static_cast<size_t>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, warps * gvi::kWarp, static_cast<size_t>(smem)) !=
+            cudaSuccess)
+      blocks = -1;
+  };
+#define GVI_OCC(T, S)                                                         \
+  if (which == 0) count(gvi::gbp_kernel<T, S, false>);                       \
+  if (which == 1) count(gvi::gbp_kernel<T, S, true>);                        \
+  if (which == 2) count(gvi::solve_kernel<T, S>);                            \
+  return blocks;
+  if (dtype == 0 && s == 2) { GVI_OCC(float, 2) }
+  if (dtype == 0 && s == 4) { GVI_OCC(float, 4) }
+  if (dtype == 1 && s == 2) { GVI_OCC(double, 2) }
+  if (dtype == 1 && s == 4) { GVI_OCC(double, 4) }
+#undef GVI_OCC
   return -1;
 }

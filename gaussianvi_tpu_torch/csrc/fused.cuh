@@ -37,6 +37,8 @@
 // instances are the ones the gates run on.
 #pragma once
 
+#include <cstring>
+
 #include "sigma.cuh"
 
 namespace gvi {
@@ -419,6 +421,69 @@ __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
   }
 }
 
+// An s x s block stored contiguously in device memory at a 16-byte
+// aligned address, read through L1 in 16-byte pieces: a warp whose lanes
+// read a few blocks then issues a quarter of the scalar loads (and of the
+// cache-line requests each of them makes).
+template <typename T, int S>
+__device__ __forceinline__ void load_block_vec(const T* src, T (&a)[S][S]) {
+  constexpr int kPer = 16 / sizeof(T);
+  T flat[S * S];
+#pragma unroll
+  for (int j = 0; j < S * S / kPer; ++j) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(src) + j);
+    memcpy(&flat[j * kPer], &v, 16);
+  }
+#pragma unroll
+  for (int r = 0; r < S; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) a[r][c] = flat[r * S + c];
+}
+
+// A block-tridiagonal precision's blocks as pivot_sweeps takes them: D_i
+// and B_e, P values apart: Pitch<S>::kMat in an arena, or S * S in device
+// memory (problem-major, 16-byte aligned, read in 16-byte pieces).
+template <typename T, int S, int P = Pitch<S>::kMat>
+struct ChainBlocks {
+  const T* pd;
+  const T* po;
+  __device__ __forceinline__ void diag(int i, T (&d)[S][S]) const {
+    if constexpr (P == S * S)
+      load_block_vec(pd + i * P, d);
+    else
+      load_mat(pd + i * P, 1, d);
+  }
+  // B_e, or B_e^T on side 1
+  __device__ __forceinline__ void off(int e, int side, T (&bd)[S][S]) const {
+    const T* src = po + e * P;
+    T b[S][S];
+    if constexpr (P == S * S)
+      load_block_vec(src, b);
+    else
+      load_mat(src, 1, b);
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) bd[r][c] = side ? b[c][r] : b[r][c];
+  }
+};
+
+// The S lanes of a group hold the same s x s block: each stores one row
+// (its own, `row`), S stores where each lane would make S * S.
+template <typename T, int S>
+__device__ __forceinline__ void store_rows(T* dst, const T (&a)[S][S],
+                                           int row) {
+  T v[S];
+#pragma unroll
+  for (int c = 0; c < S; ++c) v[c] = a[0][c];
+#pragma unroll
+  for (int r = 1; r < S; ++r)
+#pragma unroll
+    for (int c = 0; c < S; ++c) v[c] = r == row ? a[r][c] : v[c];
+#pragma unroll
+  for (int c = 0; c < S; ++c) dst[row * S + c] = v[c];
+}
+
 // The lanes of a warp in groups of S: group parity picks one of two
 // recursions, the lane's place in its group the column it solves.  Every
 // group of the same parity computes the same values, so a shuffle reads its
@@ -469,7 +534,8 @@ __device__ __forceinline__ void message(const T (&l)[S][S],
 // F_{i-1}^{-1} B_{i-1}), those of side 1 downwards (G_i = D_i - B_i
 // G_{i+1}^{-1} B_i^T), with the same code on mirrored data.  blocks
 // hands out D_i and the directed coupling (B_e, or B_e^T on side 1).  Pivots
-// go to fpiv / gpiv (arena, Pitch<S>::kMat apart).  Returns, on the lanes of
+// go to fpiv / gpiv (arena, Pitch<S>::kMat apart; a row per lane of the
+// group).  Returns, on the lanes of
 // side 0, the Kahan-compensated log det poisoned by the pivot-trust guard;
 // the statistic is a running nan_min in one lane's registers, so no
 // reduction can drop a NaN.  All 32 lanes must call.
@@ -487,7 +553,7 @@ __device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
     T d[S][S], piv[S][S], l[S][S], rd[S];
     blocks.diag(i, d);
     add_mat(d, m, piv);
-    store_mat(piv_out + i * M, 1, piv);
+    store_rows(piv_out + i * M, piv, g.col);
     chol_r(piv, l, rd);
     if (WithLogdet) {
       trust = pivot_trust(l, piv, d, m, trust);
@@ -501,6 +567,98 @@ __device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
   }
   __syncwarp();
   return trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
+}
+
+// x = A^{-1} v (Negate: A^{-1} (-v)) for one block-tridiagonal system on
+// the S lanes of the caller's lane group, by pivoting, elimination and back
+// substitution (fused_gradient._solve_sweeps): the lane solves column
+// g.col of each message.  Each pivot is factored once; its factor stays in
+// lfac (the diagonal as reciprocals) for the back substitution.  x holds
+// the eliminated right-hand side until the back sweep overwrites it.  A
+// pivot that is not positive definite gives NaN.  All 32 lanes must call
+// (each group on its own system, or groups on the same one writing the same
+// values).
+template <typename T, int S, bool Negate>
+__device__ __forceinline__ void thomas(const T* diag, const T* off,
+                                       const T* v, T* lfac, T* x, int n,
+                                       const Lanes<S>& g) {
+  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec;
+  T m[S][S], y[S];
+  zero_mat(m);
+#pragma unroll
+  for (int r = 0; r < S; ++r) y[r] = Negate ? -v[r] : v[r];
+  for (int i = 0; i < n; ++i) {
+    T d[S][S], piv[S][S], l[S][S], rd[S];
+    load_mat(diag + i * M, 1, d);
+    add_mat(d, m, piv);
+    chol_r(piv, l, rd);
+    T lr[S][S];   // the factor with its diagonal as reciprocals
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int c = 0; c < S; ++c) lr[r][c] = r == c ? rd[r] : l[r][c];
+    store_rows(lfac + i * M, lr, g.col);
+#pragma unroll
+    for (int r = 0; r < S; ++r) x[i * V + r] = y[r];
+    if (i < n - 1) {
+      T bo[S][S], sol[S];
+      load_mat(off + i * M, 1, bo);
+      message(l, rd, bo, g, m);
+      chol_solve_r(l, rd, y, sol);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        T acc = Negate ? -v[(i + 1) * V + r] : v[(i + 1) * V + r];
+#pragma unroll
+        for (int k = 0; k < S; ++k) acc = acc - bo[k][r] * sol[k];
+        y[r] = acc;
+      }
+    }
+  }
+  __syncwarp();
+  T xnext[S];
+  for (int i = n - 1; i >= 0; --i) {
+    T l[S][S], rd[S], rhs[S], sol[S];
+    load_mat(lfac + i * M, 1, l);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      rd[r] = l[r][r];
+      rhs[r] = x[i * V + r];
+    }
+    if (i < n - 1) {
+      T bo[S][S];
+      load_mat(off + i * M, 1, bo);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        T acc = T(0);
+#pragma unroll
+        for (int c = 0; c < S; ++c) acc = acc + bo[r][c] * xnext[c];
+        rhs[r] = rhs[r] - acc;
+      }
+    }
+    chol_solve_r(l, rd, rhs, sol);
+    // every lane of a group reads slot i above and writes it below: all
+    // read before any writes
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      x[i * V + r] = sol[r];
+      xnext[r] = sol[r];
+    }
+  }
+  __syncwarp();
+}
+
+// x = A^{-1} (-v) for two block-tridiagonal systems at once: the lane
+// groups of side 0 solve (diag0, off0) into x0, those of side 1 (diag1,
+// off1) into x1, with the same code (thomas).  All 32 lanes must call.
+template <typename T, int S>
+__device__ __forceinline__ void thomas_pair(const T* diag0, const T* off0,
+                                            const T* diag1, const T* off1,
+                                            const T* v, T* lfac0, T* lfac1,
+                                            T* x0, T* x1, int n, int lane) {
+  const Lanes<S> g(lane);
+  thomas<T, S, true>(g.side ? diag1 : diag0, g.side ? off1 : off0, v,
+                     g.side ? lfac1 : lfac0, g.side ? x1 : x0, n, g);
 }
 
 }  // namespace gvi

@@ -83,24 +83,6 @@ __device__ __forceinline__ void accumulate(T* acc, const T (&a)[S][S],
       acc[r * S + c] = dfma(a[r][c], scale, acc[r * S + c]);
 }
 
-// Lambda's blocks in the arena, as pivot_sweeps takes them.
-template <typename T, int S>
-struct ArenaBlocks {
-  const T* pd;
-  const T* po;
-  __device__ __forceinline__ void diag(int i, T (&d)[S][S]) const {
-    load_mat(pd + i * Pitch<S>::kMat, 1, d);
-  }
-  // B_e, or B_e^T on side 1
-  __device__ __forceinline__ void off(int e, int side, T (&bd)[S][S]) const {
-    const T* src = po + e * Pitch<S>::kMat;
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-#pragma unroll
-      for (int c = 0; c < S; ++c) bd[r][c] = src[side ? c * S + r : r * S + c];
-  }
-};
-
 // Joint gradient contributions of every nonlinear (not in mode "solve")
 // and span-1 linear (not in mode "accum") factor at state i of problem b,
 // marginal N(mu_c, cov).  vdmu_i / vdd_i point at state i in the arena.
@@ -229,88 +211,6 @@ __device__ __forceinline__ void edge_gradients(
   }
 }
 
-// x = A^{-1} (-v) for two block-tridiagonal systems at once, by pivoting,
-// elimination and back substitution (fused_gradient._solve_sweeps): the
-// lane groups of side 0 solve (diag0, off0) into x0, those of side 1
-// (diag1, off1) into x1, with the same code.  Each pivot is
-// factored once; its factor stays in lfac0 / lfac1 (the diagonal as
-// reciprocals) for the back substitution.  x holds the eliminated right-hand side until the back
-// sweep overwrites it.  A pivot that is not positive definite gives NaN.
-// All 32 lanes must call.
-template <typename T, int S>
-__device__ __forceinline__ void thomas_pair(const T* diag0, const T* off0,
-                                            const T* diag1, const T* off1,
-                                            const T* v, T* lfac0, T* lfac1,
-                                            T* x0, T* x1, int n, int lane) {
-  constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec;
-  const Lanes<S> g(lane);
-  const T* diag = g.side ? diag1 : diag0;
-  const T* off = g.side ? off1 : off0;
-  T* lfac = g.side ? lfac1 : lfac0;
-  T* x = g.side ? x1 : x0;
-  T m[S][S], y[S];
-  zero_mat(m);
-#pragma unroll
-  for (int r = 0; r < S; ++r) y[r] = -v[r];
-  for (int i = 0; i < n; ++i) {
-    T d[S][S], piv[S][S], l[S][S], rd[S];
-    load_mat(diag + i * M, 1, d);
-    add_mat(d, m, piv);
-    chol_r(piv, l, rd);
-    store_mat(lfac + i * M, 1, l);
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      lfac[i * M + r * S + r] = rd[r];
-      x[i * V + r] = y[r];
-    }
-    if (i < n - 1) {
-      T bo[S][S], sol[S];
-      load_mat(off + i * M, 1, bo);
-      message(l, rd, bo, g, m);
-      chol_solve_r(l, rd, y, sol);
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        T acc = -v[(i + 1) * V + r];
-#pragma unroll
-        for (int k = 0; k < S; ++k) acc = acc - bo[k][r] * sol[k];
-        y[r] = acc;
-      }
-    }
-  }
-  __syncwarp();
-  T xnext[S];
-  for (int i = n - 1; i >= 0; --i) {
-    T l[S][S], rd[S], rhs[S], sol[S];
-    load_mat(lfac + i * M, 1, l);
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      rd[r] = l[r][r];
-      rhs[r] = x[i * V + r];
-    }
-    if (i < n - 1) {
-      T bo[S][S];
-      load_mat(off + i * M, 1, bo);
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        T acc = T(0);
-#pragma unroll
-        for (int c = 0; c < S; ++c) acc = acc + bo[r][c] * xnext[c];
-        rhs[r] = rhs[r] - acc;
-      }
-    }
-    chol_solve_r(l, rd, rhs, sol);
-    // every lane of a side reads slot i above and writes it below: all
-    // read before any writes
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      x[i * V + r] = sol[r];
-      xnext[r] = sol[r];
-    }
-  }
-  __syncwarp();
-}
-
 // Mode "accum" takes null pointers for covd .. dfb and writes vdmu, vdd,
 // vdo; mode "solve" reads them (the summed partial gradients); mode "full"
 // takes null pointers for them.  scratch: the arena of every block where
@@ -377,7 +277,7 @@ grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
   __syncwarp();
 
   // ---- phase A: both pivot recursions, log det --------------------------
-  const ArenaBlocks<T, S> lambda{pd, po};
+  const ChainBlocks<T, S> lambda{pd, po};
   const T ld = pivot_sweeps<T, S, Mode != kGradAccum>(lambda, n, lane, fpiv,
                                                       gpiv);
   if constexpr (Mode != kGradAccum)

@@ -87,6 +87,21 @@ def expectation_phi(nodes, weights, mu, cov, cost_fn, params,
                      torch.sum(torch.abs(wphi), dim=0), nonneg)
 
 
+def kernel_covers(fb) -> str | None:
+    """Why the quadrature kernel (``kernels.quad``) does not cover the
+    NonlinearFactorBatch ``fb``, or None where it does: a batch spanning
+    one state with a CUDA cost functor instantiated for its dim and rule."""
+    from ..kernels.quad import covers
+
+    if fb.nb != 1:
+        return (f"nonlinear factors spanning nb={fb.nb} states take the "
+                "plain quadrature")
+    if fb.kernel_params is None:
+        return covers(None, fb.dim, 0, fb.nodes.shape[0], fb.nodes.dtype)
+    return covers(fb.kernel_cost, fb.dim, fb.kernel_params.shape[-1],
+                  fb.nodes.shape[0], fb.nodes.dtype)
+
+
 def _kernel_cost(fb):
     if fb.kernel_cost is None or fb.kernel_params is None:
         raise ValueError(

@@ -4,22 +4,29 @@ and defaults (``gaussianvi_tpu/inference/config.py``).
 What the implementation switches mean in the port:
 
 * ``chain_impl`` / ``quad_impl``: ``"auto"`` runs the CUDA kernels
-  (``kernels/chain.py``, ``kernels/quad.py``) for GPU tensors and their
-  plain PyTorch versions for CPU tensors; ``"lanes"`` means the kernel and
-  raises for CPU tensors; ``"seq"`` (chain) / ``"xla"`` (quadrature) force
-  the plain PyTorch versions on any device.  ``chain_impl="assoc"`` is not
-  ported.
+  (``kernels/chain.py``, ``kernels/quad.py``) for GPU tensors where they
+  cover the shape and the plain PyTorch versions elsewhere: the chain
+  kernels at s in {2, 4}; the quadrature follows the resolved chain, then
+  per nonlinear batch (a batch without a ``kernel_cost`` functor, or
+  spanning two states, takes the plain version).  ``"lanes"`` means the
+  kernel and raises for CPU tensors and for what it does not cover;
+  ``"seq"`` (chain) / ``"xla"`` (quadrature) force the plain PyTorch
+  versions on any device.  ``chain_impl="assoc"`` is not ported.
 * ``fused_trials`` / ``fused_gradient``: the fused line-search trial
   kernel (``kernels/fused_trials.py``, K5) and the fused gradient kernel
-  (``kernels/fused_gradient.py``, K6).  ``"auto"`` takes them when the
-  graph is eligible (N >= 2; every nonlinear batch nb == 1 with a
-  ``kernel_cost``; every linear batch nb <= 2; starts a slice or shared by
-  all problems; for the trials, ``linesearch="batched"``) and the chain
-  and quadrature run the kernels, i.e. for GPU tensors: the JAX package's
+  (``kernels/fused_gradient.py``, K6).  ``"auto"`` takes them where the
+  quadrature resolved to its kernels (the JAX package's gate: the
+  quadrature alone) and they cover the graph (N >= 2; s in {2, 4}; every
+  nonlinear batch nb == 1 with a ``kernel_cost``, one cost for all;
+  every linear batch nb <= 2; starts a slice or shared by all problems;
+  the rules within shared memory; for the trials,
+  ``linesearch="batched"``), i.e. for GPU tensors: the JAX package's
   static choice, so CPU tensors stay on the separate path.  ``"on"``
-  asserts eligibility and raises ``ValueError`` where the JAX package does,
-  ``chain_impl="seq"`` / ``quad_impl="xla"`` included; on CPU tensors it
-  runs the kernels' plain versions.  ``"off"`` forces the separate path.
+  asserts that and raises ``ValueError`` where the JAX package does
+  (``quad_impl="xla"``, or ``"auto"`` with ``chain_impl="seq"``,
+  included; ``chain_impl="seq", quad_impl="lanes"`` builds); on CPU
+  tensors it runs the kernels' plain versions.  ``"off"`` forces the
+  separate path.
 * ``use_pallas``: the NGD gradient moments of every nonlinear batch that
   has a block form (``block_cost``) go through the block-form moments
   kernel (``kernels/fused_moments.py``, K4) on GPU tensors and through

@@ -3,8 +3,14 @@
 Counterpart of ``gaussianvi_tpu/inference/engine.py`` :class:`LocalEngine`.
 The engine resolves ``chain_impl``, ``quad_impl``, ``fused_trials`` and
 ``fused_gradient`` once, from the config, the graph and the device the
-problem lives on, and exposes the loop's hooks over problem-batched
-tensors: every result is per problem, never reduced over a leading axis.
+problem lives on, as the JAX package's engine does: ``"auto"`` takes a
+kernel where the device is the card and the kernel covers the shape (the
+chain's block size and dtype, each nonlinear batch's cost functor and
+support, the fused kernels' operands), and the plain version elsewhere;
+``quad_impl="auto"`` follows the resolved chain, and the fused kernels are
+gated on the resolved quadrature alone.  It exposes the loop's hooks over
+problem-batched tensors: every result is per problem, never reduced over a
+leading axis.
 """
 
 from __future__ import annotations
@@ -12,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..factors import moments as mm
-from ..kernels.chain import gbp_covariance_logdet_lanes, solve_lanes
+from ..kernels import chain
+from ..kernels import fused_trials as ft
 from ..kernels.fused_gradient import gradient_lanes
 from ..kernels.fused_trials import (
     LinTrialSpec,
@@ -22,23 +29,28 @@ from ..kernels.fused_trials import (
 )
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as gbp_plain
-from ..ops.blocktridiag import solve as solve_plain
 from .gvi import ngd_gradients, prox_gradients
 from .graph import FactorGraph, GaussianState, gather_marginals
 
 _TODO = "not ported yet (ROADMAP.md, Queue A)"
 
 
-def use_kernel(impl: str, plain: str, field: str, device: torch.device) -> bool:
-    """Resolve an implementation switch: ``"auto"`` -> the CUDA kernel for
-    GPU tensors and the plain version for CPU tensors; ``"lanes"`` -> the
-    kernel (raises for CPU tensors); ``plain`` -> the plain version."""
+def use_kernel(impl: str, plain: str, field: str, device: torch.device,
+               why_not: str | None = None) -> bool:
+    """Resolve an implementation switch for one kernel family on one shape
+    or batch: ``"auto"`` -> the CUDA kernel for GPU tensors it covers
+    (``why_not`` None), else the plain version; ``"lanes"`` -> the kernel
+    (raises for CPU tensors, and with ``why_not`` for what it does not
+    cover); ``plain`` -> the plain version.  A resolution, made once: a
+    covered CUDA tensor then launches the kernel or raises."""
     if impl == "auto":
-        return device.type == "cuda"
+        return device.type == "cuda" and why_not is None
     if impl == "lanes":
         if device.type != "cuda":
             raise ValueError(f"{field}='lanes' runs the CUDA kernels; the "
                              f"problem's tensors are on {device}")
+        if why_not is not None:
+            raise ValueError(f"{field}='lanes': {why_not}")
         return True
     if impl == plain:
         return False
@@ -69,7 +81,8 @@ def fused_operands(graph: FactorGraph):
     gradient kernels (``engine._build_fused_specs`` in the JAX package):
     ``(nl_specs, lin_specs, nl_arrays, lin_arrays)`` as
     ``kernels/fused_trials.py`` describes them, or a string saying why the
-    graph is not eligible.  Per-problem leaves keep the graph's leading
+    kernels do not cover the graph (checked before any call:
+    ``fused_trials.covers``).  Per-problem leaves keep the graph's leading
     axes."""
     s = graph.state_dim
     if graph.num_states < 2:
@@ -81,6 +94,9 @@ def fused_operands(graph: FactorGraph):
                     "with kernel_params")
         if fb.slice_offset is None and not fb.shared_start:
             return "nonlinear starts must be a slice or shared by all problems"
+        why = mm.kernel_covers(fb)
+        if why is not None:
+            return why
         nl_specs.append(NLTrialSpec(fb.kernel_cost, fb.num_factors,
                                     fb.nodes.shape[0], fb.slice_offset,
                                     fb.quad_rdim, fb.nonneg_cost))
@@ -103,60 +119,76 @@ def fused_operands(graph: FactorGraph):
         lin_specs.append(LinTrialSpec(lb.nb, lb.num_factors, a.shape[-4],
                                       lam.shape[-2], lb.slice_offset))
         lin_arrays.append((lb.start, a, lam, pm, prec_c))
+    why = ft.covers(s, graph.dtype, nl_specs, lin_specs)
+    if why is not None:
+        return why
     return (tuple(nl_specs), tuple(lin_specs), tuple(nl_arrays),
             tuple(lin_arrays))
 
 
 def _use_fused(field: str, value: str, why_not: str | None,
-               kernels: bool) -> bool:
-    """``"auto"`` -> the fused kernel when eligible and the chain and
-    quadrature run the kernels; ``"on"`` -> asserts eligibility (raises
-    ``ValueError``); ``"off"`` -> the separate path."""
+               quad_kernel: bool) -> bool:
+    """``"auto"`` -> the fused kernel where the graph is covered and the
+    quadrature resolved to its kernels; ``"on"`` -> asserts that the
+    kernels cover the graph and the config (raises ``ValueError``, as the
+    JAX package does); ``"off"`` -> the separate path."""
     if value == "on":
         if why_not is not None:
             raise ValueError(f"{field}='on' but the graph/config is not "
                              f"eligible: {why_not}")
         return True
-    return value == "auto" and why_not is None and kernels
+    return value == "auto" and why_not is None and quad_kernel
 
 
 class LocalEngine:
     """Single-device hooks: the whole (problem-batched) graph lives on one
-    device."""
+    device.
+
+    Resolved routes: ``chain_kernel`` (K1/K2), ``quad_kernel`` (the
+    quadrature's route: its kernel family, or the plain version for every
+    batch), ``quad_batches`` (per nonlinear batch, whether that batch takes
+    the quadrature kernel), ``fused_trials_ready``, ``fused_gradient_ready``."""
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
         self.use_pallas = config.use_pallas
-        self.chain_kernel = use_kernel(config.chain_impl, "seq",
-                                       "chain_impl", device)
-        self.quad_kernel = use_kernel(config.quad_impl, "xla", "quad_impl",
-                                      device)
-        if self.quad_kernel:
-            for fb in graph.nonlinear:
-                if fb.nb != 1:
-                    raise NotImplementedError(
-                        f"nonlinear factors spanning nb={fb.nb} states on "
-                        f"the quadrature kernel are {_TODO}")
-        # the fused kernels stand in for the chain and quadrature kernels:
-        # "on" is refused where those are forced to their plain versions
+        self.chain_kernel = use_kernel(
+            config.chain_impl, "seq", "chain_impl", device,
+            chain.covers(graph.state_dim, graph.dtype))
+        # quad_impl="auto" follows the resolved chain (the JAX package's
+        # bundle); each batch then takes the kernel where it is covered
+        quad_impl = config.quad_impl
+        if quad_impl == "auto" and not self.chain_kernel:
+            quad_impl = "xla"
+        self.quad_kernel = use_kernel(quad_impl, "xla", "quad_impl", device)
+        self.quad_batches = tuple(
+            self.quad_kernel and use_kernel(quad_impl, "xla", "quad_impl",
+                                            device, mm.kernel_covers(fb))
+            for fb in graph.nonlinear)
+        # the fused kernels are gated on the quadrature alone
+        # (gaussianvi_tpu/inference/engine.py): "on" is refused where the
+        # config forces the plain quadrature, on any device
         ops = fused_operands(graph)
         why_not = ops if isinstance(ops, str) else None
-        if config.chain_impl == "seq" or config.quad_impl == "xla":
-            why_not = "chain_impl='seq' / quad_impl='xla' force the plain path"
-        kernels = self.chain_kernel and self.quad_kernel
+        if config.quad_impl == "xla" or (config.quad_impl == "auto"
+                                         and config.chain_impl == "seq"):
+            why_not = ("quad_impl='xla' (or 'auto' with chain_impl='seq') "
+                       "forces the plain quadrature")
         self.fused_trials_ready = _use_fused(
             "fused_trials", config.fused_trials,
             why_not or (None if config.linesearch == "batched"
-                        else "linesearch must be 'batched'"), kernels)
+                        else "linesearch must be 'batched'"),
+            self.quad_kernel)
         self.fused_gradient_ready = _use_fused(
-            "fused_gradient", config.fused_gradient, why_not, kernels)
+            "fused_gradient", config.fused_gradient, why_not,
+            self.quad_kernel)
         self._fused_ops = ops if why_not is None else None
 
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
         """(cov_diag, cov_off, logdet) of the joint precision."""
         if self.chain_kernel:
-            return gbp_covariance_logdet_lanes(prec.diag, prec.off)
+            return chain.gbp_covariance_logdet_lanes(prec.diag, prec.off)
         return gbp_plain(prec)
 
     # -- costs ---------------------------------------------------------------
@@ -165,10 +197,10 @@ class LocalEngine:
         (nonlinear batches first, then linear)."""
         g = self.graph
         out = []
-        for fb in g.nonlinear:
+        for fb, kernel in zip(g.nonlinear, self.quad_batches):
             mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                            cov_off, fb.slice_offset)
-            out.append(mm.batch_phi(fb, mu_k, cov_k, self.quad_kernel))
+            out.append(mm.batch_phi(fb, mu_k, cov_k, kernel))
         for lb in g.linear:
             out.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off))
         return tuple(out)
@@ -192,25 +224,21 @@ class LocalEngine:
     # -- gradients -----------------------------------------------------------
     def ngd_gradients(self, mu, cov_diag, cov_off, temperature):
         return ngd_gradients(self.graph, mu, cov_diag, cov_off, temperature,
-                             self.use_pallas, self.quad_kernel)
+                             self.use_pallas, self.quad_batches)
 
     def prox_gradients(self, mu, cov_diag, cov_off, step_size):
         return prox_gradients(self.graph, mu, cov_diag, cov_off, step_size,
-                              self.quad_kernel)
+                              self.quad_batches)
 
     # -- solve ---------------------------------------------------------------
     def solve_pair(self, bt_main: BlockTridiag, bt_fallback: BlockTridiag,
                    rhs):
         """Solve both systems (main metric + SPD fallback) against the same
-        rhs ``[..., N, s]`` in ONE chain call (2B chains)."""
-        diag = torch.stack([bt_main.diag, bt_fallback.diag])
-        off = torch.stack([bt_main.off, bt_fallback.off])
-        b = rhs.expand(2, *rhs.shape)
-        if self.chain_kernel:
-            sols = solve_lanes(diag, off, b)
-        else:
-            sols = solve_plain(BlockTridiag(diag, off), b)
-        return sols[0], sols[1]
+        rhs ``[..., N, s]`` in ONE chain call (K2 reads the rhs once)."""
+        solve = (chain.solve_pair_lanes if self.chain_kernel
+                 else chain.solve_pair_plain)
+        return solve(bt_main.diag, bt_main.off, bt_fallback.diag,
+                     bt_fallback.off, rhs)
 
     # -- fused kernels ---------------------------------------------------------
     def _flat_operands(self, batch):

@@ -43,6 +43,15 @@ class FactorGraph:
     nonlinear: tuple[NonlinearFactorBatch, ...] = ()
     linear: tuple[LinearFactorBatch, ...] = ()
 
+    @property
+    def dtype(self) -> torch.dtype | None:
+        """The dtype of the factors' data (None without factors)."""
+        for fb in self.nonlinear:
+            return fb.nodes.dtype
+        for lb in self.linear:
+            return lb.lam.dtype
+        return None
+
 
 def _state_axis(arr: torch.Tensor, rest: int) -> int:
     return arr.ndim - 1 - rest

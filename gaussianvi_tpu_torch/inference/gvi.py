@@ -5,6 +5,8 @@ sum_k E[psi_k] (/T) + 0.5 log det Lambda; the joint natural-gradient
 pieces (Vdmu, Vddmu) scatter-added from every factor batch; and the
 proximal optimizer's Bures-Wasserstein JKO pseudo-gradients.  Tensors
 carry the problem axis first; ``temperature`` is a scalar or ``[B]``.
+``quad_batches``: per nonlinear batch, whether its quadrature takes the
+kernel (``inference.engine.LocalEngine.quad_batches``; empty: none does).
 """
 
 from __future__ import annotations
@@ -21,18 +23,24 @@ from ..ops.psd import sqrtm_product
 from .graph import FactorGraph, gather_marginals, scatter_gradients
 
 
+def _with_kernels(graph: FactorGraph, quad_batches):
+    """Each nonlinear batch with its quadrature route."""
+    return zip(graph.nonlinear,
+               quad_batches or (False,) * len(graph.nonlinear), strict=True)
+
+
 def factor_costs(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                 temper_costs: bool = True, use_kernel: bool = False):
+                 temper_costs: bool = True, quad_batches=()):
     """Concatenated per-factor expected costs E[psi_k] (optionally / T):
     ``[..., K_total]``, nonlinear batches first, then linear."""
     t = temperature if temper_costs else 1.0
     if isinstance(t, torch.Tensor) and t.ndim:
         t = t[..., None]
     costs = []
-    for fb in graph.nonlinear:
+    for fb, kernel in _with_kernels(graph, quad_batches):
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
-        costs.append(mm.batch_phi(fb, mu_k, cov_k, use_kernel) / t)
+        costs.append(mm.batch_phi(fb, mu_k, cov_k, kernel) / t)
     for lb in graph.linear:
         costs.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off) / t)
     if not costs:
@@ -50,8 +58,7 @@ def joint_cost(graph: FactorGraph, mu, precision: BlockTridiag, temperature,
 
 
 def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                  use_pallas: bool = False, use_kernel: bool = False,
-                  onto=None):
+                  use_pallas: bool = False, quad_batches=(), onto=None):
     """Assemble joint (Vdmu [..., N, s], Vddmu block-tridiag).
 
     The NGD step downstream is d_precision = Vddmu - Lambda and
@@ -65,11 +72,11 @@ def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
         vdmu_joint = torch.zeros_like(mu)
         vddmu_joint = BlockTridiag.zeros(mu.shape[:-2], n, s, mu.dtype,
                                          mu.device)
-    for fb in graph.nonlinear:
+    for fb, kernel in _with_kernels(graph, quad_batches):
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
         e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k, use_pallas,
-                                               use_kernel)
+                                               kernel)
         vdmu, vddmu = mm.ngd_local_gradients(e_phi, e_xmu, e_xxt, cov_k,
                                              temperature)
         scatter_gradients(fb.start, fb.nb, vdmu, vddmu, vdmu_joint,
@@ -103,7 +110,7 @@ def _bw_jko_step(b_k, s_k, cov_k, step_size):
 
 
 def prox_gradients(graph: FactorGraph, mu, cov_diag, cov_off, step_size,
-                   use_kernel: bool = False):
+                   quad_batches=()):
     """Per-factor Bures-Wasserstein JKO pseudo-gradients, summed into the
     joint ``(dmu [..., N, s], dprec block-tridiag)``.  The nonlinear
     moments never take the block-form kernel (as in the JAX package)."""
@@ -111,11 +118,11 @@ def prox_gradients(graph: FactorGraph, mu, cov_diag, cov_off, step_size,
     dmu_joint = torch.zeros_like(mu)
     dprec_joint = BlockTridiag.zeros(mu.shape[:-2], n, s, mu.dtype,
                                      mu.device)
-    for fb in graph.nonlinear:
+    for fb, kernel in _with_kernels(graph, quad_batches):
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
         e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k,
-                                               use_kernel=use_kernel)
+                                               use_kernel=kernel)
         b_k, s_k = mm.bw_local_gradients(e_phi, e_xmu, e_xxt, cov_k)
         vdmu, vddmu = _bw_jko_step(b_k, s_k, cov_k, step_size)
         scatter_gradients(fb.start, fb.nb, vdmu, vddmu, dmu_joint,

@@ -40,10 +40,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 SIGNATURES = {
-    # dtype, s, diag, off, covd, covo, ld, fpiv, gpiv, nb, n, stream
-    "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # dtype, s, diag, off, rhs, x, lfac, nb, n, stream
-    "gvi_solve": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # dtype, s, staged, diag, off, covd, covo, ld, scratch, nb, n, warps,
+    # arena, stream
+    "gvi_gbp": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # dtype, s, ops (d0, o0, v0, x0, d1, o1, v1, x1), scratch, units,
+    # units1, n, warps, arena, stream
+    "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _I, _L, _P),
+    # kernel, dtype, s, warps, smem
+    "gvi_chain_occupancy": (_I, _I, _I, _I, _L),
     # dtype, d, cost, with_moments, mu, cov, nodes, weights, params,
     # e_phi, e_xmu, e_xxt, count, m, np, nonneg, rdim, stream
     "gvi_quad": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -147,7 +151,8 @@ def ptxas_report() -> list[dict]:
     """Registers and spill bytes of every kernel of the built library, from
     the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints,
     registers, spill_stores, spill_loads}]`` with ``ints`` the integer
-    template arguments as mangled (block size, mode, ...)."""
+    and bool template arguments as mangled (block size, mode, staged,
+    ...)."""
     log = build().with_suffix(".ptxas").read_text()
     rows, row = [], None
     for line in log.splitlines():
@@ -158,7 +163,7 @@ def ptxas_report() -> list[dict]:
             row = dict(
                 kernel=k.group(1) if k else name,
                 dtype={"f": "float32", "d": "float64"}[k.group(2)] if k else "",
-                ints=[int(x) for x in re.findall(r"Li(\d+)E", name)],
+                ints=[int(x) for x in re.findall(r"L[ib](\d+)E", name)],
                 registers=None, spill_stores=None, spill_loads=None)
             rows.append(row)
             continue

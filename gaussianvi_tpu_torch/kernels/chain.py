@@ -2,16 +2,25 @@
 
 Counterpart of ``gaussianvi_tpu/kernels/chain_lanes.py``.  Each wrapper
 takes the JAX shapes with any leading batch axes (problems, or line-search
-trials x problems), launches the CUDA kernel (``csrc/chain.cu``, one thread
-per chain) for GPU tensors and runs the plain PyTorch version for CPU
-tensors.  The kernel's log det is Kahan-compensated and its plain version
-(``ops.blocktridiag``) is not, so the two agree to rounding, not bitwise.
+trials x problems), launches the CUDA kernel (``csrc/chain.cu``: 2s lanes
+per chain or pair of chains, the warp's chains in shared memory) for GPU
+tensors and runs the plain PyTorch version for CPU tensors.  Operands are
+read problem-major as they are and outputs are allocated in their final
+shape: nothing is copied or re-laid per call.  The kernel's log det is
+Kahan-compensated and its plain version (``ops.blocktridiag``) is not, so
+the two agree to rounding, not bitwise.
 
-``<wrapper>.launches`` counts kernel launches (never plain-version calls).
+K2 has two entry points: :func:`solve_lanes` (any batch of systems, each
+with its own right-hand side) and :func:`solve_pair_lanes` (the NGD step's
+main system and its SPD fallback against one right-hand side, which the
+kernel reads once).  Both count their launches on ``solve_lanes.launches``;
+``gbp_covariance_logdet_lanes.launches`` counts K1's (never plain-version
+calls).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -20,8 +29,67 @@ from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as _gbp_plain
 from ..ops.blocktridiag import solve as _solve_plain
 from . import _build
+from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
 
 BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s
+# The layout chosen on the card (PERF.md section 6; scripts/torch_profile.py
+# --chain-plans measures the others): warps of a block for K1 and K2, and
+# whether K1 stages D and B in shared memory or reads them through L1.
+GBP_WARPS = 1
+GBP_STAGED = False
+SOLVE_WARPS = 1
+
+
+def covers(s: int, dtype: torch.dtype) -> str | None:
+    """Why K1 and K2 do not cover chains of block size ``s`` in ``dtype``,
+    or None where they do.  The engine resolves ``chain_impl="auto"`` by
+    it, and the wrappers check it before a launch."""
+    if dtype not in _build.DTYPES:
+        return f"dtype {dtype} not supported (float32 or float64)"
+    if s not in BLOCK_SIZES:
+        return f"block size s={s} not instantiated (have {BLOCK_SIZES})"
+    return None
+
+
+def chains_per_warp(s: int) -> int:
+    """Chains (K1) or pairs (K2) a warp carries: 2s lanes each."""
+    return 32 // (2 * s)
+
+
+def slot_pitch(base: int, slots: int, itemsize: int) -> int:
+    """Values from one of a warp's ``slots`` arrays of ``base`` values to
+    the next (csrc/chain.cu slot_pitch): padded so that the arrays start
+    32 / slots banks apart."""
+    bank = 32 * 4 // itemsize
+    return base + (bank // slots - base) % bank
+
+
+def gbp_warp_elems(n: int, s: int, staged: bool, itemsize: int) -> int:
+    """Arena of one K1 warp (csrc/chain.cu gbp_warp_elems): both pivot
+    arrays of its chains and, staged, their D and B blocks."""
+    c, m = chains_per_warp(s), mat_pitch(s)
+    return c * (2 * slot_pitch(n * m, c, itemsize)
+                + ((2 * n - 1) * m if staged else 0))
+
+
+def solve_warp_elems(n: int, s: int, itemsize: int) -> int:
+    """Arena of one K2 warp (csrc/chain.cu solve_warp_elems): D, B, the
+    factors, right-hand side and solution of both systems of its pairs."""
+    c2, m, v = 2 * chains_per_warp(s), mat_pitch(s), vec_pitch(s)
+    return c2 * (2 * slot_pitch(n * m, c2, itemsize)
+                 + slot_pitch((n - 1) * m, c2, itemsize)
+                 + 2 * slot_pitch(n * v, c2, itemsize))
+
+
+def chain_plan(elems: int, itemsize: int, warps: int) -> BlockPlan:
+    """Blocks of ``warps`` warps (fewer where they do not fit) whose
+    arenas of ``elems`` values each lie in shared memory, or, for a chain
+    too long for one warp's arena there, in a global scratch."""
+    for w in range(warps, 0, -1):
+        smem = w * elems * itemsize
+        if smem <= SMEM_LIMIT:
+            return BlockPlan(w, elems, smem, False)
+    return BlockPlan(warps, elems, 0, True)
 
 
 def gbp_covariance_logdet_plain(diag, off):
@@ -34,26 +102,21 @@ def solve_plain(diag, off, b):
     return _solve_plain(BlockTridiag(diag, off), b)
 
 
-def lanes(x: torch.Tensor, nb: int) -> torch.Tensor:
-    """[*lead, ...] -> batch-last contiguous [elements, nb]."""
-    return x.reshape(nb, -1).t().contiguous()
-
-
-def unlanes(x: torch.Tensor, shape) -> torch.Tensor:
-    return x.t().reshape(shape)
+def solve_pair_plain(d0, o0, d1, o1, b):
+    """Plain version of the pair: both systems stacked, one call."""
+    x = solve_plain(torch.stack([d0, d1]), torch.stack([o0, o1]),
+                    b.expand(2, *b.shape))
+    return x[0], x[1]
 
 
 def _check(name, diag, off, *others):
-    if diag.dtype not in _build.DTYPES:
-        raise ValueError(f"{name}: dtype {diag.dtype} not supported "
-                         "(float32 or float64)")
+    why = covers(diag.shape[-1], diag.dtype)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     s = diag.shape[-1]
-    if s not in BLOCK_SIZES:
-        raise ValueError(f"{name}: block size s={s} not instantiated "
-                         f"(have {BLOCK_SIZES})")
     n = diag.shape[-3]
     lead = diag.shape[:-3]
-    if off.shape != (*lead, max(n - 1, 0), s, s):
+    if n < 1 or off.shape != (*lead, n - 1, s, s):
         raise ValueError(f"{name}: off shape {tuple(off.shape)} does not "
                          f"match diag {tuple(diag.shape)}")
     for t in (off, *others):
@@ -62,55 +125,127 @@ def _check(name, diag, off, *others):
     return lead, n, s
 
 
+def _scratch(plan, count, s, like):
+    """The global arena of every warp a launch over ``count`` chains or
+    pairs takes, where the plan puts it there."""
+    if not plan.scratch:
+        return None
+    warps = -(-count // chains_per_warp(s))
+    blocks = -(-warps // plan.warps)
+    return torch.empty((blocks * plan.warps * plan.arena,), dtype=like.dtype,
+                       device=like.device)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
     """K1: ``diag [..., N, s, s]``, ``off [..., N-1, s, s]`` ->
     ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``."""
     if diag.device.type == "cpu":
         return gbp_covariance_logdet_plain(diag, off)
-    lead, n, s = _check("gbp_covariance_logdet_lanes", diag, off)
+    return gbp_kernel(diag, off, GBP_STAGED, GBP_WARPS)
+
+
+def gbp_kernel(diag, off, staged: bool, warps: int):
+    """K1 on CUDA tensors in the layout given (``staged``, ``warps``
+    asked for per block): what :func:`gbp_covariance_logdet_lanes` runs
+    with the chosen layout."""
+    name = "gbp_covariance_logdet_lanes"
+    lead, n, s = _check(name, diag, off)
     nb = math.prod(lead)
-    d_l = lanes(diag, nb)
-    o_l = lanes(off, nb) if n > 1 else d_l
-    covd = torch.empty_like(d_l)
-    covo = torch.empty(((n - 1) * s * s, nb), dtype=diag.dtype,
-                       device=diag.device)
-    ld = torch.empty((nb,), dtype=diag.dtype, device=diag.device)
-    fpiv = torch.empty_like(d_l)
-    gpiv = torch.empty_like(d_l)
+    # the blocks are read in 16-byte pieces where they stay in device memory
+    diag, off = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (diag, off))
+    covd, covo = torch.empty_like(diag), torch.empty_like(off)
+    ld = torch.empty(lead, dtype=diag.dtype, device=diag.device)
+    plan = chain_plan(gbp_warp_elems(n, s, staged, diag.element_size()),
+                      diag.element_size(), warps)
+    scratch = _scratch(plan, nb, s, diag)
     err = _build.load().gvi_gbp(
-        _build.DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
-        covd.data_ptr(), covo.data_ptr(), ld.data_ptr(), fpiv.data_ptr(),
-        gpiv.data_ptr(), nb, n,
-        torch.cuda.current_stream(diag.device).cuda_stream,
-    )
+        _build.DTYPES[diag.dtype], s, int(staged), diag.data_ptr(),
+        off.data_ptr(), covd.data_ptr(), covo.data_ptr(), ld.data_ptr(),
+        _ptr(scratch), nb, n, plan.warps, plan.arena,
+        _build.current_stream(diag.device))
     _build.check(err, "gvi_gbp")
     gbp_covariance_logdet_lanes.launches += 1
-    return (unlanes(covd, diag.shape), unlanes(covo, off.shape),
-            ld.reshape(lead))
+    return covd, covo, ld
+
+
+def _solve_launch(systems, units, units1, n, s, warps):
+    """One K2 launch: ``systems`` are (d0, o0, v0, x0, d1, o1, v1, x1),
+    contiguous; pair u takes chain u of system 0 and, for u < units1, of
+    system 1."""
+    like = systems[0]
+    size = like.element_size()
+    plan = chain_plan(solve_warp_elems(n, s, size), size, warps)
+    scratch = _scratch(plan, units, s, like)
+    ops = (ctypes.c_void_p * 8)(*(x.data_ptr() for x in systems))
+    err = _build.load().gvi_solve(
+        _build.DTYPES[like.dtype], s, ops, _ptr(scratch), units, units1, n,
+        plan.warps, plan.arena, _build.current_stream(like.device))
+    _build.check(err, "gvi_solve")
+    solve_lanes.launches += 1
 
 
 def solve_lanes(diag: torch.Tensor, off: torch.Tensor, b: torch.Tensor):
-    """K2: SPD block-tridiagonal solve, ``b [..., N, s]`` -> ``x [..., N, s]``."""
+    """K2: SPD block-tridiagonal solve, ``b [..., N, s]`` -> ``x [..., N,
+    s]``."""
     if diag.device.type == "cpu":
         return solve_plain(diag, off, b)
+    return solve_kernel(diag, off, b, SOLVE_WARPS)
+
+
+def solve_kernel(diag, off, b, warps: int):
+    """K2 on CUDA tensors with ``warps`` asked for per block.  The
+    flattened chains go to the kernel as two halves, pair u solving chain u
+    and chain u + ceil(count / 2)."""
     lead, n, s = _check("solve_lanes", diag, off, b)
     if b.shape != (*lead, n, s):
         raise ValueError(f"solve_lanes: rhs shape {tuple(b.shape)} does not "
                          f"match diag {tuple(diag.shape)}")
-    nb = math.prod(lead)
-    d_l = lanes(diag, nb)
-    o_l = lanes(off, nb) if n > 1 else d_l
-    b_l = lanes(b, nb)
-    x = torch.empty_like(b_l)
-    lfac = torch.empty_like(d_l)
-    err = _build.load().gvi_solve(
-        _build.DTYPES[diag.dtype], s, d_l.data_ptr(), o_l.data_ptr(),
-        b_l.data_ptr(), x.data_ptr(), lfac.data_ptr(), nb, n,
-        torch.cuda.current_stream(diag.device).cuda_stream,
-    )
-    _build.check(err, "gvi_solve")
-    solve_lanes.launches += 1
-    return unlanes(x, b.shape)
+    count = math.prod(lead)
+    half = (count + 1) // 2
+    d = diag.contiguous().view(count, n, s, s)
+    o = off.contiguous().view(count, n - 1, s, s)
+    r = b.contiguous().view(count, n, s)
+    x = torch.empty((count, n, s), dtype=b.dtype, device=b.device)
+    _solve_launch((d, o, r, x, d[half:], o[half:], r[half:], x[half:]), half,
+                  count - half, n, s, warps)
+    return x.view(b.shape)
+
+
+def solve_pair_lanes(d0, o0, d1, o1, b):
+    """K2 on the NGD step's pair: the systems ``(d0, o0)`` and ``(d1, o1)``
+    (``[..., N, s, s]``, ``[..., N-1, s, s]``) against the one right-hand
+    side ``b [..., N, s]`` -> ``(x0, x1)``, one launch, ``b`` read once."""
+    if d0.device.type == "cpu":
+        return solve_pair_plain(d0, o0, d1, o1, b)
+    return solve_pair_kernel(d0, o0, d1, o1, b, SOLVE_WARPS)
+
+
+def solve_pair_kernel(d0, o0, d1, o1, b, warps: int):
+    """:func:`solve_pair_lanes` on CUDA tensors with ``warps`` asked for
+    per block."""
+    lead, n, s = _check("solve_pair_lanes", d0, o0, d1, o1, b)
+    if d1.shape != d0.shape or b.shape != (*lead, n, s):
+        raise ValueError(f"solve_pair_lanes: shapes {tuple(d0.shape)}, "
+                         f"{tuple(d1.shape)}, rhs {tuple(b.shape)} differ")
+    count = math.prod(lead)
+    ops = [x.contiguous() for x in (d0, o0, b, d1, o1)]
+    x0, x1 = torch.empty_like(ops[2]), torch.empty_like(ops[2])
+    _solve_launch((*ops[:3], x0, *ops[3:], ops[2], x1), count, count, n, s,
+                  warps)
+    return x0, x1
+
+
+def occupancy(which: str, dtype: torch.dtype, s: int, plan: BlockPlan) -> int:
+    """Blocks of the plan one SM holds (CUDA's occupancy calculator):
+    ``which`` is ``"gbp"``, ``"gbp_staged"`` or ``"solve"``."""
+    kernel = {"gbp": 0, "gbp_staged": 1, "solve": 2}[which]
+    return _build.load().gvi_chain_occupancy(
+        kernel, _build.DTYPES[dtype], s, plan.warps, plan.smem)
 
 
 gbp_covariance_logdet_lanes.launches = 0

@@ -255,6 +255,38 @@ def check_state(name, mu, pd, po, *same):
     return b, n, s
 
 
+def covers(s: int, dtype: torch.dtype, nl_specs, lin_specs) -> str | None:
+    """Why the fused kernels (K5, K6) do not cover factor batches of these
+    specs on chains of block size ``s`` in ``dtype``, or None where they
+    do.  The engine checks it before any call (``fused_operands``), the
+    wrappers before a launch; the global-scratch route takes any chain
+    length, so the rules are the one size that can fail."""
+    if dtype not in _build.DTYPES:
+        return f"dtype {dtype} not supported (float32 or float64)"
+    if s not in BLOCK_SIZES:
+        return f"block size s={s} not instantiated (have {BLOCK_SIZES})"
+    if len(nl_specs) > MAX_BATCHES or len(lin_specs) > MAX_BATCHES:
+        return (f"at most {MAX_BATCHES} nonlinear and {MAX_BATCHES} linear "
+                "batches")
+    costs = {sp.cost for sp in nl_specs} or {"range"}
+    if len(costs) != 1 or not costs <= set(KERNEL_COSTS):
+        return (f"the nonlinear batches must share one kernel cost of "
+                f"{sorted(KERNEL_COSTS)}, got {sorted(costs)}")
+    cost = costs.pop()
+    if s not in KERNEL_COSTS[cost][2]:
+        return f"cost {cost!r} not instantiated for d={s}"
+    for sp in lin_specs:
+        if sp.nb not in (1, 2) or not 1 <= sp.r <= 2 * s or sp.ka not in (
+                1, sp.k):
+            return (f"linear batch {sp} not supported (nb 1 or 2, "
+                    "1 <= r <= 2s, ka 1 or k)")
+    rules = sum(sp.m * (s + 1) for sp in nl_specs) * dtype.itemsize
+    if rules > SMEM_LIMIT:
+        return (f"rules of {rules} bytes exceed the {SMEM_LIMIT} bytes of "
+                "shared memory")
+    return None
+
+
 class FactorArgs(NamedTuple):
     """The factor operands as the C entry points take them."""
 
@@ -279,18 +311,11 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
     ``[rows, K]`` cost outputs."""
     b, n, s = mu.shape
     dt, dev = mu.dtype, mu.device
-    if len(nl_specs) > MAX_BATCHES or len(lin_specs) > MAX_BATCHES:
-        raise ValueError(f"{name}: at most {MAX_BATCHES} nonlinear and "
-                         f"{MAX_BATCHES} linear batches")
-    costs = {sp.cost for sp in nl_specs} or {"range"}
-    if len(costs) != 1 or not costs <= set(KERNEL_COSTS):
-        raise ValueError(f"{name}: the nonlinear batches must share one "
-                         f"kernel cost of {sorted(KERNEL_COSTS)}, got "
-                         f"{sorted(costs)}")
-    cost = costs.pop()
+    why = covers(s, dt, nl_specs, lin_specs)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    cost = nl_specs[0].cost if nl_specs else "range"
     cost_id, _, dims = KERNEL_COSTS[cost]
-    if s not in dims:
-        raise ValueError(f"{name}: cost {cost!r} not instantiated for d={s}")
     n_params = dims[s]
 
     def same(t, shape, what):
@@ -323,10 +348,6 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                     s if sp.rdim is None else sp.rdim]
     lin_ptrs, lin_ints = [], []
     for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
-        if sp.nb not in (1, 2) or not 1 <= sp.r <= 2 * s or sp.ka not in (
-                1, sp.k):
-            raise ValueError(f"{name}: linear batch {sp} not supported "
-                             "(nb 1 or 2, 1 <= r <= 2s, ka 1 or k)")
         same(a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")
         same(lam, (b, sp.ka, sp.r, sp.nb * s), "lam")
         same(pm, (b, sp.ka, sp.r), "pm")

@@ -57,30 +57,45 @@ def quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim=None):
                       rdim=rdim)
 
 
+def covers(cost: str | None, d: int, p: int, m: int,
+           dtype: torch.dtype) -> str | None:
+    """Why K3 does not cover a batch with the kernel cost ``cost`` (P =
+    ``p`` packed params) at local dim ``d`` on an ``m``-node rule in
+    ``dtype``, or None where it does.  The engine resolves
+    ``quad_impl="auto"`` per batch by it; the wrappers check it."""
+    if cost is None:
+        return ("the quadrature kernels need a factor batch with kernel_cost "
+                "and kernel_params set (a CUDA cost functor in "
+                "csrc/costs.cuh)")
+    if cost not in KERNEL_COSTS:
+        return f"unknown kernel cost {cost!r} (have {sorted(KERNEL_COSTS)})"
+    dims = KERNEL_COSTS[cost][2]
+    if dims.get(d) != p:
+        return f"cost {cost!r} not instantiated for d={d}, P={p} (have {dims})"
+    if dtype not in _build.DTYPES:
+        return f"dtype {dtype} not supported (float32 or float64)"
+    if m * (d + 1) * dtype.itemsize > _MAX_SMEM:
+        return f"rule of {m} nodes exceeds shared memory"
+    return None
+
+
 def _launch(name, mu, cov, nodes, weights, cost, params, with_moments,
             nonneg, rdim):
-    if cost not in KERNEL_COSTS:
-        raise ValueError(f"{name}: unknown kernel cost {cost!r} "
-                         f"(have {sorted(KERNEL_COSTS)})")
-    cost_id, _, dims = KERNEL_COSTS[cost]
     d = mu.shape[-1]
     k = mu.shape[-2]
     lead = mu.shape[:-2]
     p = params.shape[-1]
-    if dims.get(d) != p:
-        raise ValueError(f"{name}: cost {cost!r} not instantiated for d={d}, "
-                         f"P={p} (have {dims})")
-    if mu.dtype not in _build.DTYPES:
-        raise ValueError(f"{name}: dtype {mu.dtype} not supported")
+    m = nodes.shape[0]
+    why = covers(cost, d, p, m, mu.dtype)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    cost_id = KERNEL_COSTS[cost][0]
     for t in (cov, nodes, weights, params):
         if t.device != mu.device or t.dtype != mu.dtype:
             raise ValueError(f"{name}: operands on different devices/dtypes")
     if cov.shape != (*lead, k, d, d) or nodes.ndim != 2 or nodes.shape[1] != d:
         raise ValueError(f"{name}: shape mismatch mu {tuple(mu.shape)}, "
                          f"cov {tuple(cov.shape)}, nodes {tuple(nodes.shape)}")
-    m = nodes.shape[0]
-    if m * (d + 1) * mu.element_size() > _MAX_SMEM:
-        raise ValueError(f"{name}: rule of {m} nodes exceeds shared memory")
     count = math.prod(lead) * k
     mu_l = mu.reshape(count, d).t().contiguous()
     cov_l = cov.reshape(count, d * d).t().contiguous()

@@ -132,7 +132,7 @@ class FactorShardEngine(LocalEngine):
         g = self.graph
         vdmu, vddmu = gvi.ngd_gradients(
             replace(g, linear=()), mu, cov_diag, cov_off, temperature,
-            False, self.quad_kernel)
+            False, self.quad_batches)
         vdmu, diag, off = self.mesh.psum(vdmu, vddmu.diag, vddmu.off)
         return gvi.ngd_gradients(
             replace(g, nonlinear=()), mu, cov_diag, cov_off, temperature,
@@ -142,7 +142,7 @@ class FactorShardEngine(LocalEngine):
         g = self.graph
         dmu, dprec = gvi.prox_gradients(
             replace(g, linear=()), mu, cov_diag, cov_off, step_size,
-            self.quad_kernel)
+            self.quad_batches)
         dmu, diag, off = self.mesh.psum(dmu, dprec.diag, dprec.off)
         dmu_l, dprec_l = gvi.prox_gradients(
             replace(g, nonlinear=()), mu, cov_diag, cov_off, step_size)

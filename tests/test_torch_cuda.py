@@ -34,22 +34,57 @@ def _chains(nb, n, s, seed, dev):
     return [torch.tensor(x, device=dev) for x in (diag, off, rhs)]
 
 
-@pytest.mark.parametrize("n,s", [(1, 4), (6, 4), (5, 2)])
-def test_chain_kernels_match_plain(dev, n, s):
+# name -> (leading shape, N, s): chains shorter and longer than a warp's
+# lanes, s = 2, a ragged last warp and lane group (chains and pairs not a
+# multiple of a warp's), the trial batch's and the solve pair's leading
+# shapes, and a chain too long for shared memory (the global-scratch route)
+CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((7,), 2, 4),
+                 "N=33": ((5,), 33, 4), "N=70, s=2": ((9,), 70, 2),
+                 "ragged": ((13,), 6, 4), "(11, B)": ((11, 6), 5, 4),
+                 "(2, B), s=2": ((2, 5), 6, 2), "long chain": ((3,), 1100, 4)}
+
+
+def _twice(fn):
+    """Two launches give the same bits; returns the first result."""
+    first, second = fn(), fn()
+    for a, b in zip(first, second):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.isnan(), b.isnan())
+    return first
+
+
+@pytest.mark.parametrize("layout", sorted(CHAIN_LAYOUTS))
+def test_chain_kernels_match_plain(dev, layout):
+    """K1 and K2 (both entry points, an expanded right-hand side for the
+    pair) against their plain versions, each launched twice."""
     from gaussianvi_tpu_torch.kernels import chain
 
-    diag, off, rhs = _chains(7, n, s, seed=n, dev=dev)
+    lead, n, s = CHAIN_LAYOUTS[layout]
+    count = int(np.prod(lead))
+    diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
+                      for x in _chains(count, n, s, seed=n, dev=dev))
+    if layout == "long chain":
+        assert chain.chain_plan(chain.gbp_warp_elems(n, s, False, 8), 8,
+                                1).scratch
+        assert chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8, 1).scratch
     before = (chain.gbp_covariance_logdet_lanes.launches,
               chain.solve_lanes.launches)
-    got = chain.gbp_covariance_logdet_lanes(diag, off)
+    got = _twice(lambda: chain.gbp_covariance_logdet_lanes(diag, off))
     want = chain.gbp_covariance_logdet_plain(diag, off)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
-    torch.testing.assert_close(chain.solve_lanes(diag, off, rhs),
-                               chain.solve_plain(diag, off, rhs),
-                               rtol=0, atol=ATOL)
+    x = _twice(lambda: (chain.solve_lanes(diag, off, rhs),))[0]
+    torch.testing.assert_close(x, chain.solve_plain(diag, off, rhs), rtol=0,
+                               atol=ATOL)
+    shifted = diag + torch.eye(s, dtype=diag.dtype, device=dev)
+    one = rhs.reshape(-1, n, s)[0].expand(*lead, n, s)
+    pair = _twice(lambda: chain.solve_pair_lanes(diag, off, shifted, off,
+                                                 one))
+    for g, w in zip(pair, chain.solve_pair_plain(diag, off, shifted, off,
+                                                 one)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
     assert (chain.gbp_covariance_logdet_lanes.launches,
-            chain.solve_lanes.launches) == (before[0] + 1, before[1] + 1)
+            chain.solve_lanes.launches) == (before[0] + 2, before[1] + 4)
 
 
 @pytest.mark.parametrize("with_moments", [False, True])
@@ -577,3 +612,55 @@ def test_eigh_root_beyond_the_batched_solver_limit(dev):
     got = psd.sqrtm_product(a.to(dev), 0.3, method="eigh")
     want = psd.sqrtm_product(a, 0.3, method="eigh")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-10, atol=1e-10)
+
+
+def _six_dim(count, n, dev):
+    """``count`` s = 6 chains (dim_x = 3: a constant-velocity GP prior and
+    an anchor, no nonlinear factor), float64."""
+    from gaussianvi_tpu_torch import stack_problems
+    from gaussianvi_tpu_torch.factors.priors import (
+        fixed_prior,
+        minimum_acc_prior,
+    )
+    from gaussianvi_tpu_torch.inference.graph import FactorGraph, GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    graphs, states = [], []
+    for seed in range(count):
+        rng = np.random.default_rng(seed)
+        mu0 = rng.standard_normal(6)
+        graphs.append(FactorGraph(n, 6, (), (
+            fixed_prior(0, mu0, 0.01 * np.eye(6), device=dev),
+            minimum_acc_prior(np.eye(3), 0.1, n, device=dev))))
+        mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, 6)), axis=0)
+        states.append(GaussianState(
+            torch.tensor(mu, device=dev),
+            BlockTridiag.identity((), n, 6, 10.0, device=dev)))
+    return stack_problems(graphs, states)
+
+
+def test_uncovered_graphs_run_under_the_defaults(dev):
+    """On the card ``"auto"`` takes the plain version for what no kernel
+    covers, per batch and shape: a range batch without a CUDA functor
+    (plain quadrature and no fused kernels, the chain kernels still) and
+    an s = 6 chain (no kernel at all) run under the default config and
+    equal the plain path; 4 problems, float64."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, state = _flagship(8, 2, torch.float64, dev, count=4)
+    graph = replace(graph, nonlinear=tuple(
+        replace(fb, kernel_cost=None, kernel_params=None)
+        for fb in graph.nonlinear))
+    cfg = dict(niters=4, niters_lowtemp=2, step_size_base=0.9)
+    plain = GVIConfig(chain_impl="seq", quad_impl="xla", **cfg)
+    for g, s, kernels in ((graph, state, {"gbp_covariance_logdet", "solve"}),
+                          (*_six_dim(4, 8, dev), set())):
+        reset_launch_counts()
+        _, hk = optimize(g, s, GVIConfig(**cfg))
+        assert {k for k, v in launch_counts().items() if v} == kernels
+        _, hp = optimize(g, s, plain)
+        torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+        assert torch.equal(hk.accepted_step, hp.accepted_step)

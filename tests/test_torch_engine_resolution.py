@@ -1,0 +1,167 @@
+"""PyTorch port, how the engine resolves ``"auto"``: per shape and per
+batch, as the JAX package does.  The engine is built for the card on CPU
+tensors (resolution launches nothing), then the graphs the kernels do not
+cover run through ``optimize`` on the CPU against ``jax.vmap(optimize)``
+(f64)."""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from gaussianvi_tpu.factors.priors import fixed_prior as jax_fixed_prior  # noqa: E402
+from gaussianvi_tpu.factors.priors import (  # noqa: E402
+    minimum_acc_prior as jax_min_acc_prior,
+)
+from gaussianvi_tpu.inference import GVIConfig as JaxConfig  # noqa: E402
+from gaussianvi_tpu.inference.graph import FactorGraph as JaxGraph  # noqa: E402
+from gaussianvi_tpu.inference.graph import GaussianState as JaxState  # noqa: E402
+from gaussianvi_tpu.inference.optimize import optimize as jax_optimize  # noqa: E402
+from gaussianvi_tpu.ops import BlockTridiag as JaxBlockTridiag  # noqa: E402
+from gaussianvi_tpu.parallel.sharding import stack_problems as jax_stack  # noqa: E402
+from gaussianvi_tpu_torch import GVIConfig, optimize, stack_problems  # noqa: E402
+from gaussianvi_tpu_torch.convert import (  # noqa: E402
+    graph_from_arrays,
+    state_from_arrays,
+)
+from gaussianvi_tpu_torch.inference.engine import LocalEngine  # noqa: E402
+from test_torch_slice import (  # noqa: E402
+    CPU,
+    assert_same_run,
+    build_chain_estimation,
+    describe,
+)
+
+CARD = torch.device("cuda")
+
+
+def _without_kernel_cost(graph):
+    """The graph with its range batch given as ``cost_fn`` only."""
+    return replace(graph, nonlinear=tuple(
+        replace(fb, kernel_cost=None, kernel_params=None)
+        for fb in graph.nonlinear))
+
+
+def _six_dim_problem(n, seed):
+    """An s = 6 chain (dim_x = 3): a constant-velocity GP prior and an
+    anchor, no nonlinear factor."""
+    rng = np.random.default_rng(seed)
+    mu0 = rng.standard_normal(6)
+    graph = JaxGraph(num_states=n, state_dim=6, linear=(
+        jax_fixed_prior(0, mu0, 0.01 * np.eye(6)),
+        jax_min_acc_prior(np.eye(3), 0.1, n)))
+    mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, 6)), axis=0)
+    return graph, JaxState(jnp.asarray(mu),
+                           JaxBlockTridiag.identity(n, 6, 10.0, jnp.float64))
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """The port's flagship (N = 8), its cost_fn-only variant and an s = 6
+    graph, on the CPU."""
+    flag = graph_from_arrays(describe(*build_chain_estimation(
+        num_states=8, dim_x=2, gh_degree=4, seed=0)[:2])[0], device=CPU)
+    six = graph_from_arrays(describe(*_six_dim_problem(8, 0))[0], device=CPU)
+    return {"flagship": flag, "cost_fn only": _without_kernel_cost(flag),
+            "s=6": six}
+
+
+def _routes(eng):
+    return (eng.chain_kernel, eng.quad_kernel, eng.quad_batches,
+            eng.fused_trials_ready, eng.fused_gradient_ready)
+
+
+@pytest.mark.parametrize("name,fields,want", [
+    # every kernel covers the flagship
+    ("flagship", {}, (True, True, (True,), True, True)),
+    # no functor: the batch takes the plain quadrature, the fused kernels
+    # (which need one) stay off; the chain keeps its kernels
+    ("cost_fn only", {}, (True, True, (False,), False, False)),
+    # s = 6: no chain kernel; the quadrature follows the chain
+    ("s=6", {}, (False, False, (), False, False)),
+    # the fused kernels are gated on the quadrature alone
+    ("flagship", dict(chain_impl="seq", quad_impl="lanes",
+                      fused_gradient="on"),
+     (False, True, (True,), True, True)),
+    ("flagship", dict(chain_impl="seq"), (False, False, (False,), False,
+                                          False)),
+    ("flagship", dict(quad_impl="xla"), (True, False, (False,), False,
+                                         False)),
+])
+def test_auto_resolves_per_shape_and_batch(graphs, name, fields, want):
+    """``LocalEngine`` for the card resolves each kernel family where it
+    covers the graph, without launching anything."""
+    eng = LocalEngine(graphs[name], GVIConfig(**fields), CARD)
+    assert _routes(eng) == want
+
+
+def test_nonlinear_pair_batches_take_the_plain_quadrature(graphs):
+    """A nonlinear batch spanning two states has no quadrature kernel:
+    ``"auto"`` takes the plain version for it, ``"lanes"`` raises."""
+    g = graphs["flagship"]
+    pair = replace(g, nonlinear=(replace(g.nonlinear[0], nb=2),))
+    eng = LocalEngine(pair, GVIConfig(), CARD)
+    assert eng.quad_batches == (False,) and eng.chain_kernel
+    assert not eng.fused_trials_ready and not eng.fused_gradient_ready
+    with pytest.raises(ValueError, match="nb=2"):
+        LocalEngine(pair, GVIConfig(quad_impl="lanes"), CARD)
+
+
+@pytest.mark.parametrize("name,fields,match", [
+    ("s=6", dict(chain_impl="lanes"), "block size s=6"),
+    ("s=6", dict(fused_trials="on"), "fused_trials='on'"),
+    ("cost_fn only", dict(quad_impl="lanes"), "kernel_cost"),
+    ("cost_fn only", dict(fused_gradient="on"), "kernel_cost"),
+    ("flagship", dict(chain_impl="seq", fused_gradient="on"),
+     "forces the plain quadrature"),
+])
+def test_lanes_and_on_raise_for_what_no_kernel_covers(graphs, name, fields,
+                                                      match):
+    with pytest.raises(ValueError, match=match):
+        LocalEngine(graphs[name], GVIConfig(**fields), CARD)
+
+
+def test_fused_trials_need_the_batched_search(graphs):
+    """``fused_trials="auto"`` with the sequential search keeps the
+    separate trials (``"on"`` raises: ``check_config``)."""
+    eng = LocalEngine(graphs["flagship"], GVIConfig(linesearch="seq"), CARD)
+    assert not eng.fused_trials_ready and eng.fused_gradient_ready
+
+
+CFG = dict(niters=4, niters_lowtemp=2, step_size_base=0.9)
+
+
+def _matches_jax(problems, port_graph=lambda g: g):
+    """``optimize`` on the CPU under the defaults against
+    ``jax.vmap(optimize)`` on four problems; ``port_graph`` edits the
+    port's stacked graph."""
+    graph_b, state_b = jax_stack([p[0] for p in problems],
+                                 [p[1] for p in problems])
+    jcfg = JaxConfig(**CFG)
+    jstate, jhist = jax.jit(jax.vmap(
+        lambda g, s: jax_optimize(g, s, jcfg)))(graph_b, state_b)
+    described = [describe(g, s) for g, s in problems]
+    graph, state0 = stack_problems(
+        [graph_from_arrays(d, device=CPU) for d, _ in described],
+        [state_from_arrays(s, device=CPU) for _, s in described])
+    state, hist = optimize(port_graph(graph), state0, GVIConfig(**CFG))
+    assert_same_run(jstate, jhist, state, hist, CFG["niters"])
+
+
+def test_cost_fn_only_graph_matches_jax():
+    """A range batch without a functor runs under the defaults with the
+    JAX package's result (on the CPU the JAX package takes its default
+    path, which reads ``cost_fn`` too)."""
+    _matches_jax([build_chain_estimation(num_states=6, dim_x=2, gh_degree=4,
+                                         seed=seed)[:2] for seed in range(4)],
+                 _without_kernel_cost)
+
+
+def test_six_dim_chain_matches_jax():
+    """An s = 6 chain (no K1/K2 instance) under the defaults."""
+    _matches_jax([_six_dim_problem(6, seed) for seed in range(4)])

@@ -120,6 +120,50 @@ def test_chain_kernel_plain_matches_jax_kernels(n):
     assert tchain.solve_lanes.launches == 0
 
 
+def test_solve_pair_plain_matches_jax_kernel():
+    """K2's pair entry (main system and fallback against one right-hand
+    side; its plain version on the CPU) against the JAX kernel run on each
+    system in interpret mode."""
+    d0, o0, rhs = _chain(3, 5, 4, seed=20)
+    d1, o1, _ = _chain(3, 5, 4, seed=21)
+    got = tchain.solve_pair_lanes(_t(d0), _t(o0), _t(d1), _t(o1), _t(rhs))
+    for x, (d, o) in zip(got, ((d0, o0), (d1, o1))):
+        want = jlanes.solve_lanes(jnp.asarray(d), jnp.asarray(o),
+                                  jnp.asarray(rhs), interpret=True)
+        np.testing.assert_allclose(x.numpy(), np.asarray(want), atol=ATOL)
+    assert tchain.solve_lanes.launches == 0
+
+
+# (n, s, itemsize) -> bytes of one warp's arena: K1 reading D and B
+# through L1, K1 staged, K2; the flagship's f32 values are what the
+# kernels asked for on the card (scripts/torch_profile.py --chain-plans)
+CHAIN_ARENAS = {(32, 4, 4): (17664, 34800, 63104),
+                (32, 2, 8): (20736, 40896, 86656),
+                (1, 4, 8): (1280, 1824, 4736)}
+
+
+@pytest.mark.parametrize("n,s,size", sorted(CHAIN_ARENAS))
+def test_chain_block_plans(n, s, size):
+    """The chain kernels' arenas: each warp's chain (or pair) arrays start
+    32 / slots banks apart, the sizes the C side checks, blocks shrunk to
+    fit shared memory, and a chain too long for it on the scratch route."""
+    gbp, staged, solve = CHAIN_ARENAS[n, s, size]
+    assert tchain.gbp_warp_elems(n, s, False, size) * size == gbp
+    assert tchain.gbp_warp_elems(n, s, True, size) * size == staged
+    assert tchain.solve_warp_elems(n, s, size) * size == solve
+    c = tchain.chains_per_warp(s)
+    for slots, base in ((c, n * (s * s + 1)), (2 * c, n * (s + 1))):
+        pitch = tchain.slot_pitch(base, slots, size)
+        assert base <= pitch < base + 32 * 4 // size
+        assert pitch * size // 4 % 32 == 32 // slots
+    plan = tchain.chain_plan(solve // size, size, 4)
+    assert plan.warps == min(4, tchain.SMEM_LIMIT // solve)
+    assert not plan.scratch and plan.smem == plan.warps * solve
+    long = tchain.chain_plan(tchain.gbp_warp_elems(1100, s, False, size),
+                             size, 1)
+    assert long.scratch and long.smem == 0
+
+
 def test_trial_axis_matches_per_problem():
     """Extra leading axes (line-search trials x problems) give the same
     per-chain results as one problem at a time."""
