@@ -9,7 +9,7 @@ against the single fused gradient kernel; the four redesigned kernels, the
 fused ones and the chain kernels K1 and K2, also at chain lengths around a
 warp's width, s = 2, ragged warps and blocks, leading shapes, dynamic
 starts and a chain long enough for the global-scratch route, and launched
-twice for identical bits; K2 also timed beside ``torch.linalg.solve`` on
+twice for identical bits; K2 also timed beside ``torch.linalg.solve_ex`` on
 its densified systems), then drives the flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
 the 29-node degree-4 marginal rule, 10 iterations, along five paths:
@@ -322,10 +322,13 @@ def kernel_checks(graph_b, state_b, dev):
 
 
 def dense_solve_ms(pair):
-    """K2's yardstick: ``torch.linalg.solve`` on the pair's systems as one
-    batch of dense SPD matrices [2B, N s, N s] (built outside the timed
+    """K2's yardstick: ``torch.linalg.solve_ex`` on the pair's systems as
+    one batch of dense SPD matrices [2B, N s, N s] (built outside the timed
     call) against the right-hand side, one PyTorch call; its result is held
-    to K2's plain version first."""
+    to K2's plain version first, outside the timing.  ``solve_ex`` with
+    ``check_errors=False``, not ``solve``: ``solve`` reads its error info
+    back to the host after every call, so the host would wait for the card
+    between calls and the time would count those round trips."""
     from gaussianvi_tpu_torch.kernels import chain
 
     d0, o0, d1, o1, rhs = pair
@@ -341,13 +344,17 @@ def dense_solve_ms(pair):
                 rows[:, (k + 1) * s:(k + 2) * s, k * s:(k + 1) * s] = (
                     o[:, k].transpose(-1, -2))
     b = rhs.reshape(nb, n * s).repeat(2, 1)
-    x = torch.linalg.solve(dense, b).reshape(2, nb, n, s)
+
+    def library():
+        return torch.linalg.solve_ex(dense, b, check_errors=False)[0]
+
+    x = library().reshape(2, nb, n, s)
     want = chain.solve_pair_plain(*pair)
     for got, w in zip(x, want):
         err = float((got - w).abs().max())
         check(err <= 1e-3 * max(1.0, float(w.abs().max())),
               f"dense solve off K2's plain version by {err:.3e}")
-    return cuda_ms(lambda: torch.linalg.solve(dense, b), reps=3)
+    return cuda_ms(library)
 
 
 def guard_cases(dtype, dev):
@@ -933,10 +940,9 @@ def chain_layout_checks(dev):
         diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
                           for x in spd_chains(count, n, s, rng, dt, dev))
         if name == "long chain":
-            check(chain.chain_plan(chain.gbp_warp_elems(n, s, False, 8), 8,
-                                   1).scratch
-                  and chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8,
-                                       1).scratch,
+            check(chain.chain_plan(chain.gbp_warp_elems(n, s, 8), 8).scratch
+                  and chain.chain_plan(chain.solve_warp_elems(n, s, 8),
+                                       8).scratch,
                   f"N={n} does not take the global-scratch route")
         one = rhs.reshape(-1, n, s)[0].expand(*lead, n, s)
         shifted = diag + torch.eye(s, dtype=dt, device=dev)
@@ -1196,14 +1202,9 @@ def main() -> int:
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # registers / spill stores + loads (bytes) per instance of the four
-    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve;
-    # gbp_kernel's D and B read through L1 (L1) or staged in the arena
+    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve
     def instance(r):
-        if r["kernel"] == "grad_kernel":
-            return f" mode {r['ints'][-1]}"
-        if r["kernel"] == "gbp_kernel":
-            return " staged" if r["ints"][-1] else " L1"
-        return ""
+        return f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else ""
 
     print("[ptxas] " + "; ".join(
         f"{r['kernel']} {r['dtype']} s={r['ints'][0]}{instance(r)}"
@@ -1433,7 +1434,7 @@ def main() -> int:
     }
     counts = {"fused": fused_counts, "separate": sep_counts,
               "block_moments": block_counts, "factor_parallel": shard_counts}
-    # library_ms: K2's is torch.linalg.solve on the densified pair
+    # library_ms: K2's is torch.linalg.solve_ex on the densified pair
     # (dense_solve_ms).  No single PyTorch call computes the others: K1's
     # selected covariance blocks and log det together (a dense inverse
     # gives the blocks, a Cholesky the log det), a block-Thomas pass inside

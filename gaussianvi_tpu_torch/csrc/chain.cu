@@ -34,21 +34,26 @@
 //     or in a global scratch for a chain too long for it (same code); each
 //     chain's arrays slot_pitch apart, so that the few chains a warp
 //     serves fall on different banks.
-// The layout was chosen on an H100 (scripts/torch_profile.py
-// --chain-plans; PERF.md, section 6).  K1 reads D and B through L1 in 16-byte
-// pieces (kStaged false): its arena is then the pivots alone, 17.7 KB per
-// warp in float32, and 12 warps share an SM (0.138 ms at the flagship);
-// staged in the arena (kStaged true) it takes 34.8 KB per warp and 6 warps
-// per SM (0.176 ms).  Warps per block (1, 2 or 4) change neither kernel's
-// time: the wrapper asks for one, the finest grain for the SM to pack.
-// K2 fits 3 warps per SM in float32, so its 256 warps are one wave.
+// The layout was chosen on an H100 (PERF.md, section 6).  K1 reads D and B
+// through L1 in 16-byte pieces: its arena is then the pivots alone, 17.7 KB
+// per warp in float32, and 12 warps share an SM (0.136 ms at the flagship);
+// staging D and B in the arena too took 34.8 KB per warp, 6 warps per SM and
+// 0.176 ms.  A block is one warp: 2 and 4 warps a block measured the same,
+// and one is the finest grain for the SM to pack.  K2 fits 3 warps per SM
+// in float32, so its 256 warps are one wave.  Warps in flight are what hides
+// a sweep step's latency, so the SM's shared memory goes to the arenas.  No
+// carveout is asked for: CUDA sizes it so that shared memory does not limit
+// occupancy (K1 took the same time with a maximum-shared hint), and L1
+// keeps what the 12 arenas leave.  D and B pass through it from L2; each
+// block is read by the sweeps and once more by its edge.
 // Every output word is written by one lane, in a fixed order: the same bits
 // on every launch.
+#include <atomic>
+#include <cstdint>
+
 #include "fused.cuh"
 
 namespace gvi {
-
-constexpr int kChainWarps = 4;   // most warps of a block
 
 // Chains (K1) or pairs (K2) of one warp: 2s lanes each.
 template <int S>
@@ -66,12 +71,12 @@ __host__ __device__ constexpr int64_t slot_pitch(int64_t base, int slots) {
 }
 
 // Arena of one K1 warp, in values of T: F and G of its C chains, n blocks
-// each (slot_pitch apart), then, staged, D (n blocks) and B (n - 1
-// blocks) of each (kernels/chain.py gbp_warp_elems is the wrapper's copy).
+// each, slot_pitch apart (kernels/chain.py gbp_warp_elems is the wrapper's
+// copy).
 template <typename T, int S>
-__host__ __device__ constexpr int64_t gbp_warp_elems(int64_t n, bool staged) {
+__host__ __device__ constexpr int64_t gbp_warp_elems(int64_t n) {
   constexpr int C = PerWarp<S>::value, M = Pitch<S>::kMat;
-  return C * (2 * slot_pitch<T>(n * M, C) + (staged ? (2 * n - 1) * M : 0));
+  return C * 2 * slot_pitch<T>(n * M, C);
 }
 
 // Arena of one K2 warp: for each of its 2C systems (system 0 of its C
@@ -86,49 +91,31 @@ __host__ __device__ constexpr int64_t solve_warp_elems(int64_t n) {
                2 * slot_pitch<T>(n * V, C2));
 }
 
-// The warp's arena: in dynamic shared memory, or its slice of scratch.
+// The block's (one warp's) arena: in dynamic shared memory, or its slice
+// of scratch.
 template <typename T>
-__device__ __forceinline__ T* warp_arena(T* scratch, int64_t elems,
-                                         int64_t w, int warp) {
+__device__ __forceinline__ T* warp_arena(T* scratch, int64_t elems) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  return scratch == nullptr ? reinterpret_cast<T*>(smem_raw) + warp * elems
-                            : scratch + w * elems;
+  return scratch == nullptr ? reinterpret_cast<T*>(smem_raw)
+                            : scratch + blockIdx.x * elems;
 }
 
-template <typename T, int S, bool kStaged>
-__global__ void __launch_bounds__(kChainWarps * kWarp)
+template <typename T, int S>
+__global__ void __launch_bounds__(kWarp)
 gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
            T* __restrict__ covd, T* __restrict__ covo, T* __restrict__ ld_out,
            T* __restrict__ scratch, int nb, int n) {
   constexpr int M = Pitch<S>::kMat, SS = S * S, C = PerWarp<S>::value;
-  // where the sweeps and the edges read D and B: the arena, or device memory
-  constexpr int P = kStaged ? M : SS;
-  // no block-wide barrier below: a warp past the end may leave
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t w = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
-  const int64_t b0 = w * C;   // the warp's first chain
-  if (b0 >= nb) return;
+  const int lane = threadIdx.x;
+  const int64_t b0 = (int64_t)blockIdx.x * C;   // the warp's first chain
   const int valid = (int)min((int64_t)C, nb - b0);
   const int64_t cp = slot_pitch<T>(n * M, C);
-  T* fpiv = warp_arena(scratch, gbp_warp_elems<T, S>(n, kStaged), w, warp);
+  T* fpiv = warp_arena(scratch, gbp_warp_elems<T, S>(n));
   T* gpiv = fpiv + C * cp;
   const int64_t mats = (int64_t)n * SS, offs = (int64_t)(n - 1) * SS;
-  const T* pd = diag + b0 * mats;
-  const T* po = off + b0 * offs;
-  if constexpr (kStaged) {
-    T* pd_a = gpiv + C * cp;
-    T* po_a = pd_a + C * n * M;
-    const bool in_smem = scratch == nullptr;
-    copy_in_async<T, SS>(pd_a, M, pd, valid * n, lane, kWarp, in_smem);
-    copy_in_async<T, SS>(po_a, M, po, valid * (n - 1), lane, kWarp, in_smem);
-    async_commit();
-    async_wait<0>();
-    __syncwarp();
-    pd = pd_a;
-    po = po_a;
-  }
+  // D and B stay in device memory, read through L1 in 16-byte pieces
   auto blocks = [&](int q) {
-    return ChainBlocks<T, S, P>{pd + q * n * P, po + q * (n - 1) * P};
+    return ChainBlocks<T, S, SS>{diag + (b0 + q) * mats, off + (b0 + q) * offs};
   };
 
   // ---- both pivot recursions of every chain, 2s lanes each; a lane past
@@ -176,7 +163,7 @@ gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
 // Pair u solves system 0 (d0, o0, v0 -> x0) and, for u < units1, system 1
 // (d1, o1, v1 -> x1); v1 == v0 is one right-hand side for both.
 template <typename T, int S>
-__global__ void __launch_bounds__(kChainWarps * kWarp)
+__global__ void __launch_bounds__(kWarp)
 solve_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
              const T* v0, T* __restrict__ x0,
              const T* __restrict__ d1, const T* __restrict__ o1,
@@ -184,17 +171,15 @@ solve_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
              T* __restrict__ scratch, int units, int units1, int n) {
   constexpr int M = Pitch<S>::kMat, V = Pitch<S>::kVec, SS = S * S;
   constexpr int C = PerWarp<S>::value;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t w = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
-  const int64_t u0 = w * C;   // the warp's first pair
-  if (u0 >= units) return;
+  const int lane = threadIdx.x;
+  const int64_t u0 = (int64_t)blockIdx.x * C;   // the warp's first pair
   const int valid = (int)min((int64_t)C, units - u0);
   const int valid1 = (int)max((int64_t)0, min((int64_t)valid, units1 - u0));
   constexpr int C2 = 2 * C;
   const int64_t pitch_d = slot_pitch<T>(n * M, C2);
   const int64_t pitch_b = slot_pitch<T>((n - 1) * M, C2);
   const int64_t pitch_v = slot_pitch<T>(n * V, C2);
-  T* dg = warp_arena(scratch, solve_warp_elems<T, S>(n), w, warp);
+  T* dg = warp_arena(scratch, solve_warp_elems<T, S>(n));
   T* og = dg + C2 * pitch_d;
   T* lf = og + C2 * pitch_b;
   T* vv = lf + C2 * pitch_d;
@@ -245,43 +230,45 @@ solve_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
   }
 }
 
-// Blocks of `warps` warps over `count` chains (K1) or pairs (K2).
+// One-warp blocks over `count` chains (K1) or pairs (K2).
 template <int S>
-inline int chain_blocks(int64_t count, int warps) {
-  const int64_t per_block = (int64_t)warps * PerWarp<S>::value;
-  return static_cast<int>((count + per_block - 1) / per_block);
+inline int chain_blocks(int64_t count) {
+  return static_cast<int>((count + PerWarp<S>::value - 1) /
+                          PerWarp<S>::value);
 }
 
-// The kernel's dynamic shared memory limit raised to what the launch asks
-// for, and the SM's shared memory carved out to the most it allows: the
-// chain kernels keep everything they reuse in the arena.
+// The kernel's dynamic shared memory limit raised to the most a block may
+// ask for, once per device: `done` (one bit per device) belongs to the
+// kernel's instance.  A cudaFuncSetAttribute per launch would sit on the
+// host's path to every launch.
 template <typename Kernel>
-inline cudaError_t prepare(Kernel kernel, size_t smem) {
-  const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return attr;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+inline cudaError_t allow_smem_once(Kernel kernel, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  const cudaError_t attr = allow_smem(kernel, kMaxSmem);
+  if (attr == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return attr;
 }
 
 template <typename T, int S>
-int launch_gbp(int staged, const void* diag, const void* off, void* covd,
-               void* covo, void* ld, void* scratch, int nb, int n, int warps,
-               long long arena, cudaStream_t st) {
+int launch_gbp(const void* diag, const void* off, void* covd, void* covo,
+               void* ld, void* scratch, int nb, int n, long long arena,
+               cudaStream_t st) {
   // the wrapper sized the arena: both sides must lay a warp out alike
-  if (warps < 1 || warps > kChainWarps || n < 1 ||
-      arena != gbp_warp_elems<T, S>(n, staged != 0))
-    return -1;
+  if (n < 1 || arena != gbp_warp_elems<T, S>(n)) return -1;
   // read through L1 in 16-byte pieces (load_block_vec)
-  if (!staged && ((reinterpret_cast<uintptr_t>(diag) |
-                   reinterpret_cast<uintptr_t>(off)) & 15) != 0)
+  if (((reinterpret_cast<uintptr_t>(diag) |
+        reinterpret_cast<uintptr_t>(off)) & 15) != 0)
     return -1;
-  const size_t smem = scratch == nullptr ? sizeof(T) * warps * arena : 0;
+  const size_t smem = scratch == nullptr ? sizeof(T) * arena : 0;
   if (smem > kMaxSmem) return -1;
-  auto kernel = staged ? gbp_kernel<T, S, true> : gbp_kernel<T, S, false>;
-  const cudaError_t prep = prepare(kernel, smem);
+  static std::atomic<uint64_t> smem_allowed{0};
+  const cudaError_t prep = allow_smem_once(gbp_kernel<T, S>, smem_allowed);
   if (prep != cudaSuccess) return static_cast<int>(prep);
-  kernel<<<chain_blocks<S>(nb, warps), warps * kWarp, smem, st>>>(
+  gbp_kernel<T, S><<<chain_blocks<S>(nb), kWarp, smem, st>>>(
       static_cast<const T*>(diag), static_cast<const T*>(off),
       static_cast<T*>(covd), static_cast<T*>(covo), static_cast<T*>(ld),
       static_cast<T*>(scratch), nb, n);
@@ -290,16 +277,14 @@ int launch_gbp(int staged, const void* diag, const void* off, void* covd,
 
 template <typename T, int S>
 int launch_solve(const void* const* ops, void* scratch, int units, int units1,
-                 int n, int warps, long long arena, cudaStream_t st) {
-  if (warps < 1 || warps > kChainWarps || n < 1 ||
-      arena != solve_warp_elems<T, S>(n))
-    return -1;
-  const size_t smem = scratch == nullptr ? sizeof(T) * warps * arena : 0;
+                 int n, long long arena, cudaStream_t st) {
+  if (n < 1 || arena != solve_warp_elems<T, S>(n)) return -1;
+  const size_t smem = scratch == nullptr ? sizeof(T) * arena : 0;
   if (smem > kMaxSmem) return -1;
-  auto kernel = solve_kernel<T, S>;
-  const cudaError_t prep = prepare(kernel, smem);
+  static std::atomic<uint64_t> smem_allowed{0};
+  const cudaError_t prep = allow_smem_once(solve_kernel<T, S>, smem_allowed);
   if (prep != cudaSuccess) return static_cast<int>(prep);
-  kernel<<<chain_blocks<S>(units, warps), warps * kWarp, smem, st>>>(
+  solve_kernel<T, S><<<chain_blocks<S>(units), kWarp, smem, st>>>(
       static_cast<const T*>(ops[0]), static_cast<const T*>(ops[1]),
       static_cast<const T*>(ops[2]), static_cast<T*>(const_cast<void*>(ops[3])),
       static_cast<const T*>(ops[4]), static_cast<const T*>(ops[5]),
@@ -310,20 +295,18 @@ int launch_solve(const void* const* ops, void* scratch, int units, int units1,
 
 }  // namespace gvi
 
-// dtype: 0 = float32, 1 = float64.  staged: 1 stages D and B in the arena.
-// warps: warps of a block; arena: gbp_warp_elems values per warp; scratch:
-// the arenas of all warps where they do not fit shared memory, else null.
-// Returns the cudaError_t of the launch (0 = success) or -1 for sizes that
-// are not instantiated.
-extern "C" int gvi_gbp(int dtype, int s, int staged, const void* diag,
-                       const void* off, void* covd, void* covo, void* ld,
-                       void* scratch, int nb, int n, int warps,
-                       long long arena, void* stream) {
+// dtype: 0 = float32, 1 = float64.  arena: gbp_warp_elems values per warp;
+// scratch: the arenas of all warps where they do not fit shared memory, else
+// null.  Returns the cudaError_t of the launch (0 = success) or -1 for sizes
+// that are not instantiated.
+extern "C" int gvi_gbp(int dtype, int s, const void* diag, const void* off,
+                       void* covd, void* covo, void* ld, void* scratch,
+                       int nb, int n, long long arena, void* stream) {
   if (nb <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
 #define GVI_GBP(T, S)                                                         \
-  return gvi::launch_gbp<T, S>(staged, diag, off, covd, covo, ld, scratch,   \
-                               nb, n, warps, arena, st);
+  return gvi::launch_gbp<T, S>(diag, off, covd, covo, ld, scratch, nb, n,    \
+                               arena, st);
   if (dtype == 0 && s == 2) { GVI_GBP(float, 2) }
   if (dtype == 0 && s == 4) { GVI_GBP(float, 4) }
   if (dtype == 1 && s == 2) { GVI_GBP(double, 2) }
@@ -333,46 +316,19 @@ extern "C" int gvi_gbp(int dtype, int s, int staged, const void* diag,
 }
 
 // ops: d0, o0, v0, x0, d1, o1, v1, x1 (pair u: chain u of each system, of
-// system 1 only for u < units1).  warps, arena (solve_warp_elems values per
-// warp), scratch and the return value as gvi_gbp.
+// system 1 only for u < units1).  arena (solve_warp_elems values per warp),
+// scratch and the return value as gvi_gbp.
 extern "C" int gvi_solve(int dtype, int s, const void* const* ops,
                          void* scratch, int units, int units1, int n,
-                         int warps, long long arena, void* stream) {
+                         long long arena, void* stream) {
   if (units <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
 #define GVI_SOLVE(T, S)                                                       \
-  return gvi::launch_solve<T, S>(ops, scratch, units, units1, n, warps,      \
-                                 arena, st);
+  return gvi::launch_solve<T, S>(ops, scratch, units, units1, n, arena, st);
   if (dtype == 0 && s == 2) { GVI_SOLVE(float, 2) }
   if (dtype == 0 && s == 4) { GVI_SOLVE(float, 4) }
   if (dtype == 1 && s == 2) { GVI_SOLVE(double, 2) }
   if (dtype == 1 && s == 4) { GVI_SOLVE(double, 4) }
 #undef GVI_SOLVE
-  return -1;
-}
-
-// Blocks of `warps` warps of the kernel (0: K1 with D and B read through
-// L1, 1: K1 staged, 2: K2) that one SM holds at `smem` bytes of dynamic
-// shared memory each, or -1.
-extern "C" int gvi_chain_occupancy(int which, int dtype, int s, int warps,
-                                   long long smem) {
-  int blocks = -1;
-  auto count = [&](auto kernel) {
-    if (gvi::prepare(kernel, static_cast<size_t>(smem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, kernel, warps * gvi::kWarp, static_cast<size_t>(smem)) !=
-            cudaSuccess)
-      blocks = -1;
-  };
-#define GVI_OCC(T, S)                                                         \
-  if (which == 0) count(gvi::gbp_kernel<T, S, false>);                       \
-  if (which == 1) count(gvi::gbp_kernel<T, S, true>);                        \
-  if (which == 2) count(gvi::solve_kernel<T, S>);                            \
-  return blocks;
-  if (dtype == 0 && s == 2) { GVI_OCC(float, 2) }
-  if (dtype == 0 && s == 4) { GVI_OCC(float, 4) }
-  if (dtype == 1 && s == 2) { GVI_OCC(double, 2) }
-  if (dtype == 1 && s == 4) { GVI_OCC(double, 4) }
-#undef GVI_OCC
   return -1;
 }

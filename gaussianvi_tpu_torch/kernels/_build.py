@@ -40,14 +40,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 SIGNATURES = {
-    # dtype, s, staged, diag, off, covd, covo, ld, scratch, nb, n, warps,
-    # arena, stream
-    "gvi_gbp": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # dtype, s, diag, off, covd, covo, ld, scratch, nb, n, arena, stream
+    "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     # dtype, s, ops (d0, o0, v0, x0, d1, o1, v1, x1), scratch, units,
-    # units1, n, warps, arena, stream
-    "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _I, _L, _P),
-    # kernel, dtype, s, warps, smem
-    "gvi_chain_occupancy": (_I, _I, _I, _I, _L),
+    # units1, n, arena, stream
+    "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _L, _P),
     # dtype, d, cost, with_moments, mu, cov, nodes, weights, params,
     # e_phi, e_xmu, e_xxt, count, m, np, nonneg, rdim, stream
     "gvi_quad": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -151,8 +148,7 @@ def ptxas_report() -> list[dict]:
     """Registers and spill bytes of every kernel of the built library, from
     the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints,
     registers, spill_stores, spill_loads}]`` with ``ints`` the integer
-    and bool template arguments as mangled (block size, mode, staged,
-    ...)."""
+    and bool template arguments as mangled (block size, mode, ...)."""
     log = build().with_suffix(".ptxas").read_text()
     rows, row = [], None
     for line in log.splitlines():

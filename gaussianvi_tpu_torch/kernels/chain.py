@@ -32,12 +32,6 @@ from . import _build
 from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
 
 BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s
-# The layout chosen on the card (PERF.md section 6; scripts/torch_profile.py
-# --chain-plans measures the others): warps of a block for K1 and K2, and
-# whether K1 stages D and B in shared memory or reads them through L1.
-GBP_WARPS = 1
-GBP_STAGED = False
-SOLVE_WARPS = 1
 
 
 def covers(s: int, dtype: torch.dtype) -> str | None:
@@ -64,12 +58,11 @@ def slot_pitch(base: int, slots: int, itemsize: int) -> int:
     return base + (bank // slots - base) % bank
 
 
-def gbp_warp_elems(n: int, s: int, staged: bool, itemsize: int) -> int:
+def gbp_warp_elems(n: int, s: int, itemsize: int) -> int:
     """Arena of one K1 warp (csrc/chain.cu gbp_warp_elems): both pivot
-    arrays of its chains and, staged, their D and B blocks."""
-    c, m = chains_per_warp(s), mat_pitch(s)
-    return c * (2 * slot_pitch(n * m, c, itemsize)
-                + ((2 * n - 1) * m if staged else 0))
+    arrays of its chains."""
+    c = chains_per_warp(s)
+    return c * 2 * slot_pitch(n * mat_pitch(s), c, itemsize)
 
 
 def solve_warp_elems(n: int, s: int, itemsize: int) -> int:
@@ -81,15 +74,12 @@ def solve_warp_elems(n: int, s: int, itemsize: int) -> int:
                  + 2 * slot_pitch(n * v, c2, itemsize))
 
 
-def chain_plan(elems: int, itemsize: int, warps: int) -> BlockPlan:
-    """Blocks of ``warps`` warps (fewer where they do not fit) whose
-    arenas of ``elems`` values each lie in shared memory, or, for a chain
-    too long for one warp's arena there, in a global scratch."""
-    for w in range(warps, 0, -1):
-        smem = w * elems * itemsize
-        if smem <= SMEM_LIMIT:
-            return BlockPlan(w, elems, smem, False)
-    return BlockPlan(warps, elems, 0, True)
+def chain_plan(elems: int, itemsize: int) -> BlockPlan:
+    """One-warp blocks whose arenas of ``elems`` values lie in shared
+    memory, or, for a chain too long for it, in a global scratch."""
+    smem = elems * itemsize
+    scratch = smem > SMEM_LIMIT
+    return BlockPlan(1, elems, 0 if scratch else smem, scratch)
 
 
 def gbp_covariance_logdet_plain(diag, off):
@@ -131,8 +121,7 @@ def _scratch(plan, count, s, like):
     if not plan.scratch:
         return None
     warps = -(-count // chains_per_warp(s))
-    blocks = -(-warps // plan.warps)
-    return torch.empty((blocks * plan.warps * plan.arena,), dtype=like.dtype,
+    return torch.empty((warps * plan.arena,), dtype=like.dtype,
                        device=like.device)
 
 
@@ -145,46 +134,37 @@ def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
     ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``."""
     if diag.device.type == "cpu":
         return gbp_covariance_logdet_plain(diag, off)
-    return gbp_kernel(diag, off, GBP_STAGED, GBP_WARPS)
-
-
-def gbp_kernel(diag, off, staged: bool, warps: int):
-    """K1 on CUDA tensors in the layout given (``staged``, ``warps``
-    asked for per block): what :func:`gbp_covariance_logdet_lanes` runs
-    with the chosen layout."""
-    name = "gbp_covariance_logdet_lanes"
-    lead, n, s = _check(name, diag, off)
+    lead, n, s = _check("gbp_covariance_logdet_lanes", diag, off)
     nb = math.prod(lead)
     # the blocks are read in 16-byte pieces where they stay in device memory
     diag, off = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
         memory_format=torch.contiguous_format) for x in (diag, off))
     covd, covo = torch.empty_like(diag), torch.empty_like(off)
     ld = torch.empty(lead, dtype=diag.dtype, device=diag.device)
-    plan = chain_plan(gbp_warp_elems(n, s, staged, diag.element_size()),
-                      diag.element_size(), warps)
+    plan = chain_plan(gbp_warp_elems(n, s, diag.element_size()),
+                      diag.element_size())
     scratch = _scratch(plan, nb, s, diag)
     err = _build.load().gvi_gbp(
-        _build.DTYPES[diag.dtype], s, int(staged), diag.data_ptr(),
-        off.data_ptr(), covd.data_ptr(), covo.data_ptr(), ld.data_ptr(),
-        _ptr(scratch), nb, n, plan.warps, plan.arena,
-        _build.current_stream(diag.device))
+        _build.DTYPES[diag.dtype], s, diag.data_ptr(), off.data_ptr(),
+        covd.data_ptr(), covo.data_ptr(), ld.data_ptr(), _ptr(scratch), nb, n,
+        plan.arena, _build.current_stream(diag.device))
     _build.check(err, "gvi_gbp")
     gbp_covariance_logdet_lanes.launches += 1
     return covd, covo, ld
 
 
-def _solve_launch(systems, units, units1, n, s, warps):
+def _solve_launch(systems, units, units1, n, s):
     """One K2 launch: ``systems`` are (d0, o0, v0, x0, d1, o1, v1, x1),
     contiguous; pair u takes chain u of system 0 and, for u < units1, of
     system 1."""
     like = systems[0]
     size = like.element_size()
-    plan = chain_plan(solve_warp_elems(n, s, size), size, warps)
+    plan = chain_plan(solve_warp_elems(n, s, size), size)
     scratch = _scratch(plan, units, s, like)
     ops = (ctypes.c_void_p * 8)(*(x.data_ptr() for x in systems))
     err = _build.load().gvi_solve(
         _build.DTYPES[like.dtype], s, ops, _ptr(scratch), units, units1, n,
-        plan.warps, plan.arena, _build.current_stream(like.device))
+        plan.arena, _build.current_stream(like.device))
     _build.check(err, "gvi_solve")
     solve_lanes.launches += 1
 
@@ -194,13 +174,8 @@ def solve_lanes(diag: torch.Tensor, off: torch.Tensor, b: torch.Tensor):
     s]``."""
     if diag.device.type == "cpu":
         return solve_plain(diag, off, b)
-    return solve_kernel(diag, off, b, SOLVE_WARPS)
-
-
-def solve_kernel(diag, off, b, warps: int):
-    """K2 on CUDA tensors with ``warps`` asked for per block.  The
-    flattened chains go to the kernel as two halves, pair u solving chain u
-    and chain u + ceil(count / 2)."""
+    # the flattened chains go to the kernel as two halves, pair u solving
+    # chain u and chain u + ceil(count / 2)
     lead, n, s = _check("solve_lanes", diag, off, b)
     if b.shape != (*lead, n, s):
         raise ValueError(f"solve_lanes: rhs shape {tuple(b.shape)} does not "
@@ -212,7 +187,7 @@ def solve_kernel(diag, off, b, warps: int):
     r = b.contiguous().view(count, n, s)
     x = torch.empty((count, n, s), dtype=b.dtype, device=b.device)
     _solve_launch((d, o, r, x, d[half:], o[half:], r[half:], x[half:]), half,
-                  count - half, n, s, warps)
+                  count - half, n, s)
     return x.view(b.shape)
 
 
@@ -222,12 +197,6 @@ def solve_pair_lanes(d0, o0, d1, o1, b):
     side ``b [..., N, s]`` -> ``(x0, x1)``, one launch, ``b`` read once."""
     if d0.device.type == "cpu":
         return solve_pair_plain(d0, o0, d1, o1, b)
-    return solve_pair_kernel(d0, o0, d1, o1, b, SOLVE_WARPS)
-
-
-def solve_pair_kernel(d0, o0, d1, o1, b, warps: int):
-    """:func:`solve_pair_lanes` on CUDA tensors with ``warps`` asked for
-    per block."""
     lead, n, s = _check("solve_pair_lanes", d0, o0, d1, o1, b)
     if d1.shape != d0.shape or b.shape != (*lead, n, s):
         raise ValueError(f"solve_pair_lanes: shapes {tuple(d0.shape)}, "
@@ -235,17 +204,8 @@ def solve_pair_kernel(d0, o0, d1, o1, b, warps: int):
     count = math.prod(lead)
     ops = [x.contiguous() for x in (d0, o0, b, d1, o1)]
     x0, x1 = torch.empty_like(ops[2]), torch.empty_like(ops[2])
-    _solve_launch((*ops[:3], x0, *ops[3:], ops[2], x1), count, count, n, s,
-                  warps)
+    _solve_launch((*ops[:3], x0, *ops[3:], ops[2], x1), count, count, n, s)
     return x0, x1
-
-
-def occupancy(which: str, dtype: torch.dtype, s: int, plan: BlockPlan) -> int:
-    """Blocks of the plan one SM holds (CUDA's occupancy calculator):
-    ``which`` is ``"gbp"``, ``"gbp_staged"`` or ``"solve"``."""
-    kernel = {"gbp": 0, "gbp_staged": 1, "solve": 2}[which]
-    return _build.load().gvi_chain_occupancy(
-        kernel, _build.DTYPES[dtype], s, plan.warps, plan.smem)
 
 
 gbp_covariance_logdet_lanes.launches = 0

@@ -32,13 +32,6 @@ the device time of the fused kernels K5 and K6 ``full`` at the flagship's
 shapes with all factors, the nonlinear or the linear ones only, none, and
 K5 with a single trial: what the chain alone costs and what the factors
 add (CUDA events around 20 calls queued behind a matrix product).
-
-    python3 scripts/torch_profile.py --chain-plans
-
-the chain kernels' registers and spills, then the device time of K1 and K2
-at the flagship's shapes in every layout they take, warm and with the L2
-flushed, and the blocks an SM holds in each: the measurement that chose
-``kernels/chain.py``'s layout.
 """
 
 from __future__ import annotations
@@ -199,85 +192,6 @@ def kernel_parts(dev):
             f"f32, at the initial iterate)")
 
 
-def chain_plans(dev):
-    """Lines: device ms of K1 (11 x B chains) and K2 (the pair of B
-    systems) at the flagship's shapes in every layout the kernels take (K1
-    reading D and B through L1 or staging them, 1, 2 or 4 warps a block),
-    warm and with the L2 flushed, with each layout's blocks per SM; every
-    layout held to the plain version first (f32)."""
-    from gaussianvi_tpu_torch.kernels import chain
-
-    s, dt = 2 * DIM_X, torch.float32
-    gen = torch.Generator(device="cpu").manual_seed(0)
-
-    def spd(count):
-        lo = (torch.eye(s) * (1.0 + torch.rand(count, N, 1, s, generator=gen))
-              + 0.2 * torch.randn(count, N, s, s, generator=gen).tril(-1))
-        c = 0.1 * torch.randn(count, N - 1, s, s, generator=gen)
-        diag = lo @ lo.transpose(-1, -2)
-        diag[:, 1:] += c @ c.transpose(-1, -2)
-        off = lo[:, :-1] @ c.transpose(-1, -2)
-        return diag.to(dev, dt), off.to(dev, dt)
-
-    diag, off = spd(11 * B)
-    d0, o0 = spd(B)
-    d1, o1 = spd(B)
-    rhs = torch.randn(B, N, s, generator=gen).to(dev, dt)
-    want1 = chain.gbp_covariance_logdet_plain(diag, off)
-    want2 = chain.solve_pair_plain(d0, o0, d1, o1, rhs)
-    blocker = torch.ones(6144, 6144, device=dev)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    def ms(fn, reps=20, flushed=False):
-        fn()
-        torch.cuda.synchronize()
-        pairs = []
-        torch.mm(blocker, blocker)      # the host queues the calls behind it
-        for _ in range(reps):
-            if flushed:
-                flush.zero_()
-            pairs.append((torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True)))
-            pairs[-1][0].record()
-            fn()
-            pairs[-1][1].record()
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / reps
-
-    def held(got, want):
-        err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(got, want))
-        if not err < 1e-3:
-            raise RuntimeError(f"chain layout off the plain version: {err}")
-
-    lines = []
-    for staged in (False, True):
-        for warps in (1, 2, 4):
-            def k1():
-                return chain.gbp_kernel(diag, off, staged, warps)
-            held(k1(), want1)
-            plan = chain.chain_plan(chain.gbp_warp_elems(N, s, staged, 4),
-                                    4, warps)
-            which = "gbp_staged" if staged else "gbp"
-            lines.append(
-                f"[chain plans] K1 {'staged' if staged else 'L1'} "
-                f"{plan.warps} warp(s)/block: {ms(k1):.4f} ms, flushed "
-                f"{ms(k1, flushed=True):.4f} ms, "
-                f"{chain.occupancy(which, dt, s, plan)} blocks/SM, "
-                f"{plan.smem} B/block")
-    for warps in (1, 2, 4):
-        def k2():
-            return chain.solve_pair_kernel(d0, o0, d1, o1, rhs, warps)
-        held(k2(), want2)
-        plan = chain.chain_plan(chain.solve_warp_elems(N, s, 4), 4, warps)
-        lines.append(
-            f"[chain plans] K2 pair {plan.warps} warp(s)/block: "
-            f"{ms(k2):.4f} ms, flushed {ms(k2, flushed=True):.4f} ms, "
-            f"{chain.occupancy('solve', dt, s, plan)} blocks/SM, "
-            f"{plan.smem} B/block")
-    return lines
-
-
 def sharded_rank(rank, world, device, cfg, runs):
     """One of the two ranks of the factor-parallel path; both run the same
     sequence, each profiles itself, rank 0's report is printed."""
@@ -299,8 +213,6 @@ def main() -> int:
                         help="print the paths' rates only")
     parser.add_argument("--parts", action="store_true",
                         help="print K5 / K6 times by the factors given")
-    parser.add_argument("--chain-plans", action="store_true",
-                        help="print K1 / K2 times in every layout")
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
@@ -324,15 +236,6 @@ def main() -> int:
         return 0
     if args.parts:
         print(card + " " + kernel_parts(dev))
-        return 0
-    if args.chain_plans:
-        print(card)
-        print("[ptxas] " + "; ".join(
-            f"{r['kernel']} {r['dtype']} {r['ints']}: {r['registers']} regs, "
-            f"spill {r['spill_stores']}+{r['spill_loads']} B"
-            for r in _build.ptxas_report()
-            if r["kernel"] in ("gbp_kernel", "solve_kernel")))
-        print("\n".join(chain_plans(dev)))
         return 0
     print(card)
     runs = args.runs or 5

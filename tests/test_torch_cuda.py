@@ -64,9 +64,8 @@ def test_chain_kernels_match_plain(dev, layout):
     diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
                       for x in _chains(count, n, s, seed=n, dev=dev))
     if layout == "long chain":
-        assert chain.chain_plan(chain.gbp_warp_elems(n, s, False, 8), 8,
-                                1).scratch
-        assert chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8, 1).scratch
+        assert chain.chain_plan(chain.gbp_warp_elems(n, s, 8), 8).scratch
+        assert chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8).scratch
     before = (chain.gbp_covariance_logdet_lanes.launches,
               chain.solve_lanes.launches)
     got = _twice(lambda: chain.gbp_covariance_logdet_lanes(diag, off))

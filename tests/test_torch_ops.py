@@ -134,34 +134,32 @@ def test_solve_pair_plain_matches_jax_kernel():
     assert tchain.solve_lanes.launches == 0
 
 
-# (n, s, itemsize) -> bytes of one warp's arena: K1 reading D and B
-# through L1, K1 staged, K2; the flagship's f32 values are what the
-# kernels asked for on the card (scripts/torch_profile.py --chain-plans)
-CHAIN_ARENAS = {(32, 4, 4): (17664, 34800, 63104),
-                (32, 2, 8): (20736, 40896, 86656),
-                (1, 4, 8): (1280, 1824, 4736)}
+# (n, s, itemsize) -> bytes of one warp's arena: K1 (the pivots), K2;
+# the flagship's f32 values are what the kernels asked for on the card
+CHAIN_ARENAS = {(32, 4, 4): (17664, 63104),
+                (32, 2, 8): (20736, 86656),
+                (1, 4, 8): (1280, 4736)}
 
 
 @pytest.mark.parametrize("n,s,size", sorted(CHAIN_ARENAS))
 def test_chain_block_plans(n, s, size):
     """The chain kernels' arenas: each warp's chain (or pair) arrays start
-    32 / slots banks apart, the sizes the C side checks, blocks shrunk to
-    fit shared memory, and a chain too long for it on the scratch route."""
-    gbp, staged, solve = CHAIN_ARENAS[n, s, size]
-    assert tchain.gbp_warp_elems(n, s, False, size) * size == gbp
-    assert tchain.gbp_warp_elems(n, s, True, size) * size == staged
+    32 / slots banks apart, the sizes the C side checks, one-warp blocks
+    in shared memory, and a chain too long for it on the scratch route."""
+    gbp, solve = CHAIN_ARENAS[n, s, size]
+    assert tchain.gbp_warp_elems(n, s, size) * size == gbp
     assert tchain.solve_warp_elems(n, s, size) * size == solve
     c = tchain.chains_per_warp(s)
     for slots, base in ((c, n * (s * s + 1)), (2 * c, n * (s + 1))):
         pitch = tchain.slot_pitch(base, slots, size)
         assert base <= pitch < base + 32 * 4 // size
         assert pitch * size // 4 % 32 == 32 // slots
-    plan = tchain.chain_plan(solve // size, size, 4)
-    assert plan.warps == min(4, tchain.SMEM_LIMIT // solve)
-    assert not plan.scratch and plan.smem == plan.warps * solve
-    long = tchain.chain_plan(tchain.gbp_warp_elems(1100, s, False, size),
-                             size, 1)
-    assert long.scratch and long.smem == 0
+    for arena in (gbp, solve):
+        plan = tchain.chain_plan(arena // size, size)
+        assert plan.warps == 1 and not plan.scratch and plan.smem == arena
+    long = tchain.chain_plan(tchain.gbp_warp_elems(1100, s, size), size)
+    assert long.scratch and long.smem == 0 and long.arena * size > (
+        tchain.SMEM_LIMIT)
 
 
 def test_trial_axis_matches_per_problem():
