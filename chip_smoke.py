@@ -5,12 +5,15 @@ the nine kernel entry points against its plain PyTorch version at the
 flagship's shapes (float64 and float32, plus the pivot-trust, nonneg-band
 and negative-linear-cost guard cases; the block-form moments kernel K4 also
 against the quadrature kernel K3; the split fused gradient pair also
-against the single fused gradient kernel; the four redesigned kernels, the
-fused ones and the chain kernels K1 and K2, also at chain lengths around a
-warp's width, s = 2, ragged warps and blocks, leading shapes, dynamic
-starts and a chain long enough for the global-scratch route, and launched
-twice for identical bits; K2 also timed beside ``torch.linalg.solve_ex`` on
-its densified systems), then drives the flagship
+against the single fused gradient kernel; the fused kernels and the chain
+kernels K1 and K2 also at chain lengths around a warp's width, s = 2,
+ragged warps and blocks, leading shapes, dynamic starts and a chain long
+enough for the global-scratch route; the quadrature kernels K3 and K4 also
+at factor counts that leave a warp ragged, leading shapes, broadcast
+params, rules of 7 to 137 nodes at d = 2 and 4 and strided views; every
+kernel launched twice for identical bits; K2 also timed beside
+``torch.linalg.solve_ex`` on its densified systems), then drives the
+flagship
 (``examples.chain_estimation`` -> ``optimize``) at N=32 states, dim_x=2,
 the 29-node degree-4 marginal rule, 10 iterations, along five paths:
 
@@ -265,12 +268,15 @@ def kernel_checks(graph_b, state_b, dev):
             rng.standard_normal((TRIALS, B, N, 4)), dtype=dtype, device=dev)
         cov = k1[0]
         args3 = (mu, cov, fb.nodes, fb.weights, "range", fb.kernel_params)
-        err3 = compare(f"K3 phi {dtype}",
-                       quad.quad_lanes_phi(*args3, nonneg=True),
-                       quad.quad_phi_plain(*args3, nonneg=True), *tol_quad)
+        err3 = compare(f"K3 phi {dtype}", check_repeatable(
+            f"K3 phi {dtype}", lambda: (quad.quad_lanes_phi(*args3,
+                                                            nonneg=True),))[0],
+            quad.quad_phi_plain(*args3, nonneg=True), *tol_quad)
         args4 = (mu[0], cov[0], fb.nodes, fb.weights, "range",
                  fb.kernel_params)
-        km = quad.quad_lanes_moments(*args4, rdim=fb.quad_rdim)
+        km = check_repeatable(f"K3 moments {dtype}", lambda:
+                              quad.quad_lanes_moments(*args4,
+                                                      rdim=fb.quad_rdim))
         pm = quad.quad_moments_plain(*args4, rdim=fb.quad_rdim)
         # float32 moments: absolute floor scaled to each output's range
         # (E[(x-mu) phi] entries pass through zero)
@@ -317,6 +323,10 @@ def kernel_checks(graph_b, state_b, dev):
             lambda: chain.gbp_covariance_logdet_lanes(diag, off))
         results["solve"]["ms_flushed_l2"] = cuda_ms_flushed(
             lambda: chain.solve_pair_lanes(*pair))
+        results["quad_phi"]["ms_flushed_l2"] = cuda_ms_flushed(
+            lambda: quad.quad_lanes_phi(*args3, nonneg=True))
+        results["quad_moments"]["ms_flushed_l2"] = cuda_ms_flushed(
+            lambda: quad.quad_lanes_moments(*args4, rdim=2))
         results["solve"]["library_ms"] = dense_solve_ms(pair)
     return results
 
@@ -483,7 +493,6 @@ def moments_checks(graph_b, iterate, dev):
     from gaussianvi_tpu_torch.kernels.chain import (
         gbp_covariance_logdet_lanes,
     )
-    from gaussianvi_tpu_torch.ops.smallmat import chol_small
 
     mu64, pd64, po64 = iterate
     cov64 = gbp_covariance_logdet_lanes(pd64, po64)[0]
@@ -501,7 +510,8 @@ def moments_checks(graph_b, iterate, dev):
         for rule, rdim in ((fb, fb.quad_rdim), (full, None)):
             args = (rule.nodes, rule.weights, mu, cov, "range",
                     fb.kernel_params)
-            k4 = fm.fused_moments(*args, rdim=rdim)
+            k4 = check_repeatable(f"K4 {dtype}", lambda: fm.fused_moments(
+                *args, rdim=rdim))
             p4 = fm.fused_moments_plain(
                 rule.nodes, rule.weights, flat[0], flat[1],
                 quad.KERNEL_COSTS["range"][1], (flat[2],), rdim)
@@ -532,15 +542,12 @@ def moments_checks(graph_b, iterate, dev):
         out["fused_moments"] = dict(
             max_abs_err=err_plain, err_dtype="float32",
             ms=cuda_ms(lambda: fm.fused_moments(*args, rdim=2)),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda: fm.fused_moments(*args, rdim=2)),
             plain_ms=cuda_ms(lambda: fm.fused_moments_plain(
                 fb.nodes, fb.weights, *flat[:2],
                 quad.KERNEL_COSTS["range"][1], (flat[2],), 2)),
             k3_moments_ms=k3_ms,
-            # the kernel alone, its Cholesky factor (PyTorch ops in the
-            # wrapper) taken beforehand
-            kernel_only_ms=cuda_ms(lambda chol=chol_small(flat[1]): fm._launch(
-                fb.nodes, fb.weights, flat[0].contiguous(), chol,
-                "range", flat[2].contiguous(), 2)),
             **bound(args[:4] + args[5:], fm.fused_moments(*args, rdim=2),
                     B * N * quad_flops(4, fb.nodes.shape[0], DIM_X, True)))
     return out
@@ -965,6 +972,97 @@ def chain_layout_checks(dev):
               f"{k}: {v:.1e}" for k, v in worst.items()), flush=True)
 
 
+# name -> (leading shape, K, dim_x, degree, marginal rule, params' leading
+# shape, view) of K3 / K4 layouts: factor counts that are not a multiple
+# of a warp's factors (1, 3, 33, 1025), leading shapes (), (B,) and (T, B),
+# params [K, P], [1, K, P] and [B, K, P] broadcast, rules of 7, 29 and 137
+# nodes at d = 2 and 4, and mu / cov views: a slice of the state axis (a
+# batch stride) and a transposed (T, B) pair of axes (copied)
+QUAD_LAYOUTS = {
+    "1 factor, ()": ((), 1, 2, 4, True, (), None),
+    "3, (B,)": ((3,), 1, 2, 4, True, (3,), None),
+    "33, (T, B)": ((3, 11), 1, 2, 4, True, (11,), None),
+    "1025, [1, K, P]": ((25,), 41, 2, 4, True, (1,), None),
+    "M=137": ((2,), 17, 2, 4, False, (2,), None),
+    "d=2, M=7": ((5,), 7, 1, 7, True, (), None),
+    "d=2, M=137": ((3,), 6, 1, 7, False, (3,), None),
+    "state slice": ((9,), 5, 2, 4, True, (9,), "slice"),
+    "(T, B) transposed": ((4, 3), 6, 2, 4, True, (3,), "transposed"),
+}
+
+
+def quad_layout(name, dtype, dev):
+    """The operands of a ``QUAD_LAYOUTS`` entry, numpy-seeded: ``(mu, cov,
+    nodes, weights, params, rdim)`` with well-conditioned covariances and
+    range params."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+
+    lead, k, dim_x, degree, marginal, plead, view = QUAD_LAYOUTS[name]
+    fb = build_chain_estimation(num_states=2, dim_x=dim_x, gh_degree=degree,
+                                marginal_quad=marginal, dtype=dtype,
+                                device=dev)[0].nonlinear[0]
+    d = 2 * dim_x
+    rng = np.random.default_rng(len(name))
+    shape = {"slice": (*lead, k + 3), "transposed": (*lead[::-1], k)}.get(
+        view, (*lead, k))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    mu = t(rng.standard_normal((*shape, d)))
+    a = 0.3 * rng.standard_normal((*shape, d, d))
+    cov = t(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d))
+    if view == "slice":
+        mu, cov = mu.narrow(-2, 2, k), cov.narrow(-3, 2, k)
+    elif view == "transposed":
+        mu, cov = mu.transpose(0, 1), cov.transpose(0, 1)
+    par = rng.standard_normal((*plead, k, fb.kernel_params.shape[-1]))
+    par[..., -2] = 1.0 + np.abs(par[..., -2])       # range
+    par[..., -1] = 0.1 + np.abs(par[..., -1])       # its variance
+    return mu, cov, fb.nodes, fb.weights, t(par), fb.quad_rdim
+
+
+def quad_layout_checks(dev):
+    """K3 (both variants) and K4 against their plain versions at the
+    layouts of ``QUAD_LAYOUTS``, each launched twice for identical bits,
+    K4 also against K3 moments (the same kernel body: identical bits).
+    float64: atol 1e-10 of each output's range; float32: the flagship's
+    tolerances (rtol 1e-4, atol 1e-6, of the range for the moments).  NaN
+    patterns identical."""
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import quad
+
+    def scale(b):
+        fin = b[torch.isfinite(b)]
+        return max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+
+    for dt in (torch.float64, torch.float32):
+        f64 = dt == torch.float64
+        worst = {}
+        for name in QUAD_LAYOUTS:
+            mu, cov, nodes, weights, par, rdim = quad_layout(name, dt, dev)
+            args = (mu, cov, nodes, weights, "range", par)
+            phi = check_repeatable(f"K3 phi {name} {dt}", lambda: (
+                quad.quad_lanes_phi(*args, nonneg=True),))
+            mom = check_repeatable(f"K3 moments {name} {dt}", lambda:
+                                   quad.quad_lanes_moments(*args, rdim=rdim))
+            k4 = check_repeatable(f"K4 {name} {dt}", lambda: fm.fused_moments(
+                nodes, weights, mu, cov, "range", par, rdim=rdim))
+            check(all(same_bits(a, b) for a, b in zip(k4, mom)),
+                  f"K4 {name} {dt}: not K3 moments' bits")
+            want = (quad.quad_phi_plain(*args, nonneg=True),
+                    *quad.quad_moments_plain(*args, rdim=rdim))
+            worst[name] = max(
+                compare(f"K3 output {i} {name} {dt}", a, b,
+                        0.0 if f64 else 1e-4,
+                        (1e-10 if f64 else 1e-6) * (scale(b) if i or f64
+                                                    else 1.0))
+                for i, (a, b) in enumerate(zip((*phi, *mom), want)))
+        print(f"[quad layouts {str(dt)[6:]}] max abs err vs plain (K3 phi, "
+              f"K3 moments; K4 = K3 moments bit for bit), two launches "
+              f"bit-identical: " + "; ".join(
+                  f"{k}: {v:.1e}" for k, v in worst.items()), flush=True)
+
+
 def fused_guard_cases(dtype, dev):
     """K5's guards agree between kernel and plain: the pivot-trust log
     det, the nonneg band on E[phi] and a negative linear cost are each
@@ -1201,18 +1299,23 @@ def main() -> int:
     _build.load()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # registers / spill stores + loads (bytes) per instance of the four
-    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve
+    # registers / spill stores + loads (bytes) per instance of the six
+    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve;
+    # quad_kernel's variants: 0 phi, 1 moments (K3 and K4)
     def instance(r):
-        return f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else ""
+        if r["kernel"] in ("grad_kernel", "quad_kernel"):
+            return f" mode {r['ints'][-1]}"
+        return ""
 
-    print("[ptxas] " + "; ".join(
+    # (K4 builds its own instances of quad_kernel's moments variant: each
+    # instance is listed once)
+    print("[ptxas] " + "; ".join(dict.fromkeys(
         f"{r['kernel']} {r['dtype']} s={r['ints'][0]}{instance(r)}"
         f": {r['registers']} regs, spill {r['spill_stores']}+"
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
         if r["kernel"] in ("grad_kernel", "trials_kernel", "gbp_kernel",
-                           "solve_kernel")), flush=True)
+                           "solve_kernel", "quad_kernel"))), flush=True)
 
     t0 = time.perf_counter()
     graph_b, state_b = {}, {}
@@ -1228,6 +1331,7 @@ def main() -> int:
     kern.update(split_checks(graph_b, dev, iterate))
     layout_checks(dev)
     chain_layout_checks(dev)
+    quad_layout_checks(dev)
     kern.update(moments_checks(graph_b, iterate, dev))
     sqrtm_ms = sqrtm_times(iterate, dev)
 
@@ -1408,10 +1512,9 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms{library}, bound {r['bound_ms']:.5f} ms "
               f"by {r['bound_by']} (f32, slice shapes)", flush=True)
     k4 = kern["fused_moments"]
-    print(f"[kernel time] {card}: K4 {k4['ms']:.4f} ms (kernel alone, "
-          f"Cholesky factor given: {k4['kernel_only_ms']:.4f} ms) vs K3 "
-          f"moments {k4['k3_moments_ms']:.4f} ms on the same {B * N} factors "
-          f"(f32, 29 nodes)", flush=True)
+    print(f"[kernel time] {card}: K4 {k4['ms']:.4f} ms vs K3 moments "
+          f"{k4['k3_moments_ms']:.4f} ms on the same {B * N} factors (f32, 29 "
+          f"nodes; one kernel body, quad.cuh)", flush=True)
     print(f"[sqrtm_product] {card}: " + ", ".join(
         f"{shape} {method} {ms:.3f} ms"
         for (shape, method), ms in sqrtm_ms.items()) + " (f32)", flush=True)

@@ -1,7 +1,6 @@
-// Sigma-point sums of one factor for one thread: the quadrature core shared
-// by the quadrature kernel (quad.cu), the fused kernels (fused_trials.cu,
-// fused_gradient.cu) and the block-form moments kernel (fused_moments.cu),
-// whose threads each take the nodes first, first + step, ... of one factor.
+// Sigma-point sums of one factor: the quadrature core shared by the
+// quadrature kernels (quad.cuh: quad.cu and fused_moments.cu) and the fused
+// kernels (fused_trials.cu, fused_gradient.cu).
 //
 // For a factor with marginal N(mu, L L^T) and a rule (nodes, weights) in
 // shared memory, each node gives the offset d = L node (summed in the order
@@ -9,6 +8,13 @@
 // the cost functor is evaluated once.  The sums kept in registers are
 // sum w phi and either sum |w phi| (the cost path's guards) or the central
 // moments sum w phi d and sum w phi d d^T (lower triangle, row-major).
+//
+// sigma_sums: one thread takes the nodes first, first + step, ... of a
+// factor from a node-major rule [m][D] (the fused kernels).
+// group_sigma_sums + group_sum: a group of G lanes shares one factor, lane
+// j taking nodes j, j + G, ... from a coordinate-major rule [D][m], so the
+// group's lanes read neighbouring words; a butterfly then leaves every lane
+// of the group with the totals (the quadrature kernels).
 #pragma once
 
 #include "costs.cuh"
@@ -64,6 +70,59 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
       absum = absum + dabs(wphi);
     }
   }
+}
+
+template <typename T, int D, typename Cost, bool WithMoments>
+__device__ __forceinline__ void group_sigma_sums(
+    const T (&l)[D][D], const T (&mu)[D], const T (&p)[Cost::kParams],
+    const T* s_nodes, const T* s_w, int m, int lane, int group, T& acc,
+    T& absum, T (&acc_x)[D], T (&acc_xx)[Tri<D>::value]) {
+  acc = T(0);
+  absum = T(0);
+#pragma unroll
+  for (int i = 0; i < D; ++i) acc_x[i] = T(0);
+#pragma unroll
+  for (int t = 0; t < Tri<D>::value; ++t) acc_xx[t] = T(0);
+  for (int mi = lane; mi < m; mi += group) {
+    T nd[D], diff[D], pts[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) nd[i] = s_nodes[i * m + mi];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      T t = nd[0] * l[i][0];
+#pragma unroll
+      for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
+      diff[i] = t;
+      pts[i] = t + mu[i];
+    }
+    const T wphi = Cost::template eval<T, D>(pts, p) * s_w[mi];
+    acc = acc + wphi;
+    if (WithMoments) {
+      int t = 0;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const T wd = wphi * diff[i];
+        acc_x[i] = acc_x[i] + wd;
+#pragma unroll
+        for (int j = 0; j <= i; ++j) {
+          acc_xx[t] = acc_xx[t] + wd * diff[j];
+          ++t;
+        }
+      }
+    } else {
+      absum = absum + dabs(wphi);
+    }
+  }
+}
+
+// Sum over an aligned group of `group` lanes (a power of two up to 32) by
+// an xor butterfly: every lane ends with the same bits, since each step
+// adds the same two values on both sides.  Every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int group) {
+  for (int o = group >> 1; o > 0; o >>= 1)
+    v = v + __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // E[phi] poisoned to NaN when its sign cannot be trusted: |sum| below 64

@@ -39,19 +39,22 @@ DTYPES = {torch.float32: 0, torch.float64: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# the quadrature entries' operands (csrc/quad.cuh quad_entry): mu, mu_sb,
+# mu_sk, cov, cov_sb, cov_sk, nodes, weights, params, period, e_phi, e_xmu,
+# e_xxt, count, k, m, np
+QUAD_OPERANDS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _L, _P, _P, _P, _L, _I,
+                 _I, _I)
 SIGNATURES = {
     # dtype, s, diag, off, covd, covo, ld, scratch, nb, n, arena, stream
     "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     # dtype, s, ops (d0, o0, v0, x0, d1, o1, v1, x1), scratch, units,
     # units1, n, arena, stream
     "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _L, _P),
-    # dtype, d, cost, with_moments, mu, cov, nodes, weights, params,
-    # e_phi, e_xmu, e_xxt, count, m, np, nonneg, rdim, stream
-    "gvi_quad": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _P),
-    # dtype, d, cost, mu, chol, nodes, weights, params, e_phi, e_xmu, e_xxt,
-    # count, m, np, rdim, stream
-    "gvi_fused_moments": (_I, _I, _I, *(_P,) * 8, _I, _I, _I, _I, _P),
+    # dtype, d, cost, with_moments, then QUAD_OPERANDS, nonneg, rdim,
+    # group_shift, threads, stream
+    "gvi_quad": (_I, _I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _I, _P),
+    # dtype, d, cost, then QUAD_OPERANDS, rdim, group_shift, threads, stream
+    "gvi_fused_moments": (_I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _P),
     # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, scratch,
     # nb, n, nt, warps, groups, arena, n_nl, nl_ptrs, nl_ints, n_lin,
     # lin_ptrs, lin_ints, stream

@@ -9,15 +9,17 @@ kernel's caller, this one applies the marginal-rule lift
 ``L[:, r:] L[:, r:]^T E[phi]`` for ``rdim``, so a rule over the leading
 ``rdim`` dims gives the moments of ``factors.moments.gh_moments``.
 
-The Cholesky factor is taken outside the kernel with ``chol_small``, as
-the JAX wrapper does; leading axes flatten onto one factor axis.  On the
-card the cost is the CUDA functor ``kernel_cost`` names
-(``csrc/costs.cuh``) with its packed params; the kernel
-(``csrc/fused_moments.cu``) runs one warp per factor with the rule's nodes
-across the lanes.  For CPU tensors the wrapper runs
-:func:`fused_moments_plain`, which takes the cost as a block-form callable
-(``NonlinearFactorBatch.block_cost`` with the param leaves, or the
-functor's PyTorch form with the packed params as its one leaf);
+On the card the cost is the CUDA functor ``kernel_cost`` names
+(``csrc/costs.cuh``) with its packed params, and the kernel
+(``csrc/fused_moments.cu``) takes the covariance and its Cholesky factor
+itself: one call is one launch and no PyTorch op.  It is the quadrature
+kernel's moments body (``csrc/quad.cuh``) under its own entry, with the
+same operand layout (read in place: ``kernels.quad._operands``) and plan
+(``kernels.quad.quad_plan``).  For CPU tensors the wrapper runs
+:func:`fused_moments_plain`, which takes the Cholesky factor with
+``chol_small`` as the JAX wrapper does and the cost as a block-form
+callable (``NonlinearFactorBatch.block_cost`` with the param leaves, or
+the functor's PyTorch form with the packed params as its one leaf);
 ``fused_moments.launches`` counts kernel launches only.
 """
 
@@ -29,7 +31,7 @@ import torch
 
 from ..ops.smallmat import chol_small
 from . import _build
-from .quad import _MAX_SMEM, KERNEL_COSTS
+from .quad import KERNEL_COSTS, _operands
 
 
 def fused_moments_plain(nodes, weights, mu, cov, block_cost, params=(),
@@ -53,43 +55,17 @@ def fused_moments_plain(nodes, weights, mu, cov, block_cost, params=(),
     return e_phi, e_xmu, e_xxt
 
 
-def _launch(nodes, weights, mu, chol, cost, params, rdim):
-    """One kernel launch on flat factor-major operands ``mu [K, d]``,
-    ``chol [K, d, d]``, ``params [K, P]``."""
-    if cost not in KERNEL_COSTS:
-        raise ValueError(f"fused_moments: unknown kernel cost {cost!r} "
-                         f"(have {sorted(KERNEL_COSTS)})")
-    cost_id, _, dims = KERNEL_COSTS[cost]
-    k, d = mu.shape
-    p = params.shape[-1]
-    if dims.get(d) != p:
-        raise ValueError(f"fused_moments: cost {cost!r} not instantiated for "
-                         f"d={d}, P={p} (have {dims})")
-    if mu.dtype not in _build.DTYPES:
-        raise ValueError(f"fused_moments: dtype {mu.dtype} not supported")
-    for t in (chol, nodes, weights, params):
-        if t.device != mu.device or t.dtype != mu.dtype:
-            raise ValueError("fused_moments: operands on different "
-                             "devices/dtypes")
-    if nodes.ndim != 2 or nodes.shape[1] != d:
-        raise ValueError(f"fused_moments: rule {tuple(nodes.shape)} does not "
-                         f"match d={d}")
-    m = nodes.shape[0]
-    if m * (d + 1) * mu.element_size() > _MAX_SMEM:
-        raise ValueError(f"fused_moments: rule of {m} nodes exceeds shared "
-                         "memory")
-    e_phi = torch.empty((k,), dtype=mu.dtype, device=mu.device)
-    e_xmu = torch.empty((k, d), dtype=mu.dtype, device=mu.device)
-    e_xxt = torch.empty((k, d, d), dtype=mu.dtype, device=mu.device)
+def _launch(nodes, weights, mu, cov, kernel_cost, kernel_params, rdim):
+    """One K4 launch (``gvi_fused_moments``) on the operands as they lie."""
+    d = mu.shape[-1]
+    call = _operands("fused_moments", mu, cov, nodes, weights, kernel_cost,
+                     kernel_params, True)
     err = _build.load().gvi_fused_moments(
-        _build.DTYPES[mu.dtype], d, cost_id, mu.data_ptr(), chol.data_ptr(),
-        nodes.data_ptr(), weights.data_ptr(), params.data_ptr(),
-        e_phi.data_ptr(), e_xmu.data_ptr(), e_xxt.data_ptr(), k, m, p,
-        d if rdim is None else rdim,
-        torch.cuda.current_stream(mu.device).cuda_stream,
-    )
+        _build.DTYPES[mu.dtype], d, call.cost_id, *call.args,
+        d if rdim is None else rdim, call.plan.group.bit_length() - 1,
+        call.plan.threads, _build.current_stream(mu.device))
     _build.check(err, "gvi_fused_moments")
-    return e_phi, e_xmu, e_xxt
+    return call.outs
 
 
 def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
@@ -99,9 +75,9 @@ def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
     with ``kernel_params`` (packed, broadcastable to ``[..., K, P]``) ->
     the three moments, with the marginal-rule lift for ``rdim``.
 
-    GPU tensors launch the kernel; CPU tensors run the plain version with
-    the functor's PyTorch form, which is a block cost with the packed
-    params as its one leaf."""
+    GPU tensors launch the kernel, which factorizes ``cov`` itself; CPU
+    tensors run the plain version with the functor's PyTorch form, which is
+    a block cost with the packed params as its one leaf."""
     if kernel_cost is None or kernel_params is None:
         raise ValueError(
             "the block-form moments kernel needs a factor batch with "
@@ -109,23 +85,20 @@ def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
             "csrc/costs.cuh)")
     lead = mu.shape[:-1]
     d = mu.shape[-1]
-    count = math.prod(lead)
     if cov.shape != (*lead, d, d):
         raise ValueError(f"fused_moments: shape mismatch mu {tuple(mu.shape)},"
                          f" cov {tuple(cov.shape)}")
-    p = kernel_params.shape[-1]
-    mu_f, cov_f = mu.reshape(count, d), cov.reshape(count, d, d)
-    par_f = kernel_params.expand(*lead, p).reshape(count, p)
-    if mu.device.type == "cpu":
-        out = fused_moments_plain(nodes, weights, mu_f, cov_f,
-                                  KERNEL_COSTS[kernel_cost][1], (par_f,),
-                                  rdim)
-    else:
-        out = _launch(nodes.contiguous(), weights.contiguous(),
-                      mu_f.contiguous(), chol_small(cov_f).contiguous(),
-                      kernel_cost, par_f.contiguous(), rdim)
+    if mu.device.type != "cpu":
+        out = _launch(nodes, weights, mu, cov, kernel_cost, kernel_params,
+                      rdim)
         fused_moments.launches += 1
-    e_phi, e_xmu, e_xxt = out
+        return out
+    count = math.prod(lead)
+    p = kernel_params.shape[-1]
+    par_f = kernel_params.expand(*lead, p).reshape(count, p)
+    e_phi, e_xmu, e_xxt = fused_moments_plain(
+        nodes, weights, mu.reshape(count, d), cov.reshape(count, d, d),
+        KERNEL_COSTS[kernel_cost][1], (par_f,), rdim)
     return (e_phi.reshape(lead), e_xmu.reshape(*lead, d),
             e_xxt.reshape(*lead, d, d))
 

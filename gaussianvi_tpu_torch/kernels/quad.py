@@ -7,20 +7,27 @@ Python callable here: a factor batch names a CUDA functor
 and to its plain PyTorch form (same arithmetic, same packed params), which
 the plain versions evaluate.
 
-Each wrapper launches the kernel (``csrc/quad.cu``, one thread per
-(problem, factor) pair) for GPU tensors and runs the plain version for CPU
-tensors; ``<wrapper>.launches`` counts kernel launches only.
+Each wrapper launches the kernel (``csrc/quad.cu`` -> ``csrc/quad.cuh``:
+a group of lanes per factor, sized by :func:`quad_plan`) for GPU tensors
+and runs the plain version for CPU tensors; ``<wrapper>.launches`` counts
+kernel launches only.  The kernel reads the operands where they lie: mu
+and cov at their batch and factor strides, the params through their
+broadcast (a period over the flat factor index), and writes outputs
+allocated in their final shapes; an operand is copied only where the
+kernel cannot read it in place (a non-dense block, leading axes that do
+not collapse, or a broadcast other than over leading axes).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..factors.moments import expectation_phi, gh_moments
 from . import _build
-
 
 
 def _range_cost_packed(x, p):
@@ -74,51 +81,136 @@ def covers(cost: str | None, d: int, p: int, m: int,
         return f"cost {cost!r} not instantiated for d={d}, P={p} (have {dims})"
     if dtype not in _build.DTYPES:
         return f"dtype {dtype} not supported (float32 or float64)"
-    if m * (d + 1) * dtype.itemsize > _MAX_SMEM:
+    if quad_plan(m, d, True, dtype).smem > _MAX_SMEM:
         return f"rule of {m} nodes exceeds shared memory"
     return None
 
 
-def _launch(name, mu, cov, nodes, weights, cost, params, with_moments,
-            nonneg, rdim):
-    d = mu.shape[-1]
-    k = mu.shape[-2]
-    lead = mu.shape[:-2]
+class QuadPlan(NamedTuple):
+    """How the quadrature kernels (csrc/quad.cuh) lay factors on the card."""
+
+    group: int        # lanes per factor, a power of two from 1 to 32
+    threads: int      # threads per block
+    smem: int         # dynamic shared memory of a block, bytes: the rule,
+                      # and for the moments each warp's staging area
+
+
+# Lanes per factor, fixed by ``scripts/torch_profile.py --quad-plans`` on
+# an H100 (PERF.md, section 6) for the 7-, 29- and 137-node rules in
+# float32 and float64.  Each further lane of a group repeats the factor's
+# loads, Cholesky, butterfly and stores, so a group only pays where the
+# card would otherwise idle: the phi variant's line-search batch (11 x B x
+# K factors) fills it with one thread per factor; the moments variant (B x
+# K factors) is fastest with two lanes per factor on every rule measured.
+PHI_GROUP = 1
+MOMENTS_GROUP = 2
+QUAD_THREADS = 128
+
+
+def quad_plan(m: int, d: int, moments: bool, dtype: torch.dtype) -> QuadPlan:
+    """The layout of a launch over an ``m``-node rule at local dim ``d``:
+    phi only (``moments=False``) or the moments (K3 moments and K4)."""
+    group = MOMENTS_GROUP if moments else PHI_GROUP
+    staged = QUAD_THREADS // group * (1 + d + d * d) if moments else 0
+    return QuadPlan(group, QUAD_THREADS,
+                    (m * (d + 1) + staged) * dtype.itemsize)
+
+
+def _rows(x: torch.Tensor, inner: int):
+    """``x [..., K, *block]`` (``inner`` trailing block axes) as the kernel
+    reads it: ``(x, batch stride, factor stride)`` in elements, the leading
+    axes collapsed into one.  ``x`` is copied only where its block is not
+    dense or its leading axes do not collapse into one stride."""
+    shape, stride = x.shape, x.stride()
+    n = x.ndim
+    size = 1
+    dense = True
+    for i in range(n - 1, n - 1 - inner, -1):
+        dense = dense and (shape[i] == 1 or stride[i] == size)
+        size *= shape[i]
+    lead = [(shape[i], stride[i]) for i in range(n - 1 - inner)
+            if shape[i] != 1]
+    collapses = all(a[1] == b[1] * b[0] for a, b in zip(lead, lead[1:]))
+    if not (dense and collapses):
+        return _rows(x.contiguous(), inner)
+    return x, (lead[-1][1] if lead else 0), stride[n - 1 - inner]
+
+
+def _param_rows(params: torch.Tensor, full: tuple, name: str):
+    """Packed params broadcastable to ``[*full, P]`` as ``(rows [period, P],
+    period)``: factor f of the flat batch reads row ``f % period``.  That
+    is the broadcast wherever the params' axes (leading ones dropped) are
+    the batch's trailing axes; any other broadcast is expanded."""
     p = params.shape[-1]
+    if torch.broadcast_shapes(params.shape, (*full, p)) != (*full, p):
+        raise ValueError(f"{name}: params {tuple(params.shape)} do not "
+                         f"broadcast to {(*full, p)}")
+    own = list(params.shape[:-1])
+    while own and own[0] == 1:
+        own.pop(0)
+    if tuple(own) == full[len(full) - len(own):]:
+        return params.contiguous(), math.prod(own)
+    return params.expand(*full, p).contiguous(), math.prod(full)
+
+
+class QuadCall(NamedTuple):
+    """A launch's operands as the C entries take them."""
+
+    args: tuple       # the entry's arguments from mu to np (QUAD_OPERANDS)
+    outs: tuple       # (e_phi, e_xmu, e_xxt); None where not computed
+    plan: QuadPlan
+    cost_id: int
+    held: tuple       # the tensors the pointers point into, kept alive
+
+
+def _operands(name, mu, cov, nodes, weights, cost, params, moments):
+    """Check a launch's operands and lay them out as the C entries take
+    them.  Nothing is copied that the kernel can read in place."""
+    if mu.ndim < 2:
+        raise ValueError(f"{name}: mu {tuple(mu.shape)} is not [..., K, d]")
+    d, k, lead = mu.shape[-1], mu.shape[-2], tuple(mu.shape[:-2])
     m = nodes.shape[0]
-    why = covers(cost, d, p, m, mu.dtype)
+    why = covers(cost, d, params.shape[-1], m, mu.dtype)
     if why is not None:
         raise ValueError(f"{name}: {why}")
-    cost_id = KERNEL_COSTS[cost][0]
     for t in (cov, nodes, weights, params):
         if t.device != mu.device or t.dtype != mu.dtype:
             raise ValueError(f"{name}: operands on different devices/dtypes")
     if cov.shape != (*lead, k, d, d) or nodes.ndim != 2 or nodes.shape[1] != d:
         raise ValueError(f"{name}: shape mismatch mu {tuple(mu.shape)}, "
                          f"cov {tuple(cov.shape)}, nodes {tuple(nodes.shape)}")
+    plan = quad_plan(m, d, moments, mu.dtype)
     count = math.prod(lead) * k
-    mu_l = mu.reshape(count, d).t().contiguous()
-    cov_l = cov.reshape(count, d * d).t().contiguous()
-    par_l = params.expand(*lead, k, p).reshape(count, p).t().contiguous()
-    nodes_c, weights_c = nodes.contiguous(), weights.contiguous()
-    e_phi = torch.empty((count,), dtype=mu.dtype, device=mu.device)
-    e_xmu = e_xxt = e_phi
-    if with_moments:
-        e_xmu = torch.empty((d, count), dtype=mu.dtype, device=mu.device)
-        e_xxt = torch.empty((d * d, count), dtype=mu.dtype, device=mu.device)
+    if count * plan.group >= 2**31:
+        raise ValueError(f"{name}: {count} factors exceed the kernel's "
+                         f"32-bit lane index at {plan.group} lanes each")
+    mu, mu_sb, mu_sk = _rows(mu, 1)
+    cov, cov_sb, cov_sk = _rows(cov, 2)
+    par, period = _param_rows(params, (*lead, k), name)
+    nodes, weights = nodes.contiguous(), weights.contiguous()
+    new = functools.partial(torch.empty, dtype=mu.dtype, device=mu.device)
+    outs = (new((*lead, k)), new((*lead, k, d)) if moments else None,
+            new((*lead, k, d, d)) if moments else None)
+    args = (mu.data_ptr(), mu_sb, mu_sk, cov.data_ptr(), cov_sb, cov_sk,
+            nodes.data_ptr(), weights.data_ptr(), par.data_ptr(), period,
+            *(None if o is None else o.data_ptr() for o in outs),
+            count, k, m, params.shape[-1])
+    return QuadCall(args, outs, plan, KERNEL_COSTS[cost][0],
+                    (mu, cov, par, nodes, weights))
+
+
+def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
+            rdim):
+    """One K3 launch (``gvi_quad``)."""
+    d = mu.shape[-1]
+    call = _operands(name, mu, cov, nodes, weights, cost, params, moments)
     err = _build.load().gvi_quad(
-        _build.DTYPES[mu.dtype], d, cost_id, int(with_moments),
-        mu_l.data_ptr(), cov_l.data_ptr(), nodes_c.data_ptr(), weights_c.data_ptr(),
-        par_l.data_ptr(), e_phi.data_ptr(),
-        e_xmu.data_ptr(), e_xxt.data_ptr(), count, m, p, int(nonneg),
-        d if rdim is None else rdim,
-        torch.cuda.current_stream(mu.device).cuda_stream,
-    )
+        _build.DTYPES[mu.dtype], d, call.cost_id, int(moments), *call.args,
+        int(nonneg), d if rdim is None else rdim,
+        call.plan.group.bit_length() - 1, call.plan.threads,
+        _build.current_stream(mu.device))
     _build.check(err, "gvi_quad")
-    if not with_moments:
-        return e_phi.reshape(*lead, k)
-    return (e_phi.reshape(*lead, k), e_xmu.t().reshape(*lead, k, d),
-            e_xxt.t().reshape(*lead, k, d, d))
+    return call.outs if moments else call.outs[0]
 
 
 def quad_lanes_phi(mu, cov, nodes, weights, cost: str, params,

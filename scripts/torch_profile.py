@@ -32,6 +32,21 @@ the device time of the fused kernels K5 and K6 ``full`` at the flagship's
 shapes with all factors, the nonlinear or the linear ones only, none, and
 K5 with a single trial: what the chain alone costs and what the factors
 add (CUDA events around 20 calls queued behind a matrix product).
+
+    python3 scripts/torch_profile.py --quad-plans
+
+the device time of the quadrature kernels K3 (phi only, on the line-search
+batch of 11 x 1024 x 32 factors; moments, on 1024 x 32) and K4 (1024 x
+32) for every lane group of ``kernels.quad.quad_plan``'s candidates (1 to
+32 lanes per factor) and 128 or 256 threads a block, on the 29-node
+marginal rule (d = 4), the 137-node full rule (d = 4) and the 7-node rule
+at d = 2, float32 and float64: the measurement that fixes the plan.
+
+    python3 scripts/torch_profile.py --quad-times [--tree DIR]
+
+K3 (both variants) and K4 at the flagship's shapes, warm and with the L2
+flushed, through the wrappers of the package of ``--tree`` (say the
+parent): alternate the two trees on one card to compare them.
 """
 
 from __future__ import annotations
@@ -103,7 +118,8 @@ def profile_paths(paths, runs):
         # the five largest, then the chain kernels K1 and K2 wherever they
         # rank
         shown = ranked[:5] + [e for e in ranked[5:] if any(
-            k in e.key for k in ("gbp_kernel", "solve_kernel"))]
+            k in e.key for k in ("gbp_kernel", "solve_kernel",
+                                 "quad_kernel"))]
         for e in shown:
             lines.append(f"    {e.device_time_total / 1e3:8.2f} ms  "
                          f"{e.count:5d} x  {e.key[:70]}")
@@ -160,36 +176,133 @@ def kernel_parts(dev):
     temp = torch.ones(B, dtype=mu.dtype, device=dev)
     out = fg.gradient_lanes(mu, pd, po, temp, nl_specs, lin_specs, nl, lin)
     trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=mu.dtype, device=dev)
-    blocker = torch.ones(6144, 6144, device=dev)
-
-    def ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.mm(blocker, blocker)      # the host queues the calls behind it
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
     subsets = {"all factors": (nl_specs, lin_specs, nl, lin),
                "nonlinear only": (nl_specs, (), nl, ()),
                "linear only": ((), lin_specs, (), lin),
                "no factor": ((), (), (), ())}
     parts = []
     for name, ops in subsets.items():
-        k5 = ms(lambda: ft.trial_costs_lanes(mu, out[6], pd, po, out[3],
-                                             out[4], trials, *ops))
-        k6 = ms(lambda: fg.gradient_lanes(mu, pd, po, temp, *ops))
+        k5 = device_ms(lambda: ft.trial_costs_lanes(
+            mu, out[6], pd, po, out[3], out[4], trials, *ops))
+        k6 = device_ms(lambda: fg.gradient_lanes(mu, pd, po, temp, *ops))
         parts.append(f"{name}: K5 {k5:.4f}, K6 full {k6:.4f}")
-    one = ms(lambda: ft.trial_costs_lanes(mu, out[6], pd, po, out[3], out[4],
-                                          trials[:1], (), (), (), ()))
+    one = device_ms(lambda: ft.trial_costs_lanes(
+        mu, out[6], pd, po, out[3], out[4], trials[:1], (), (), (), ()))
     parts.append(f"no factor, one trial: K5 {one:.4f}")
     return ("[parts] " + "; ".join(parts) + f" ms (B={B}, N={N}, 11 trials, "
             f"f32, at the initial iterate)")
+
+
+_BLOCKER = {}
+
+
+def device_ms(fn, reps=20, flushed=False):
+    """Mean device milliseconds per call of ``fn`` after one warm-up: CUDA
+    events around ``reps`` calls queued behind a matrix product (the host
+    queues them while the card works), or, ``flushed``, each call between
+    its own events after a 256 MB write that evicts the 50 MB L2."""
+    if not _BLOCKER:
+        _BLOCKER["a"] = torch.ones(6144, 6144, device="cuda")
+        _BLOCKER["flush"] = torch.empty(256 << 20, dtype=torch.uint8,
+                                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    torch.mm(_BLOCKER["a"], _BLOCKER["a"])
+    pairs = []
+    for _ in range(reps if flushed else 1):
+        if flushed:
+            _BLOCKER["flush"].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(1 if flushed else reps):
+            fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def quad_inputs(dev, dim_x=2, degree=4, marginal=True, dtype=torch.float32):
+    """The rule of the flagship's range batch (or another), random range
+    params [B, N, P], and random well-conditioned marginals on the
+    line-search batch [11, B, N] and on [B, N]."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fb = build_chain_estimation(num_states=2, dim_x=dim_x, gh_degree=degree,
+                                marginal_quad=marginal, dtype=dtype,
+                                device=dev)[0].nonlinear[0]
+    d = 2 * dim_x
+
+    def marginals(*lead):
+        mu = torch.randn(*lead, d, generator=gen, device=dev, dtype=dtype)
+        a = 0.3 * torch.randn(*lead, d, d, generator=gen, device=dev,
+                              dtype=dtype)
+        eye = torch.eye(d, device=dev, dtype=dtype)
+        return mu, a @ a.transpose(-1, -2) + 0.5 * eye
+
+    par = torch.rand(B, N, fb.kernel_params.shape[-1], generator=gen,
+                     device=dev, dtype=dtype) + 0.5
+    return fb, par, marginals(11, B, N), marginals(B, N)
+
+
+def quad_calls(fb, par, trial, batch):
+    """K3 phi on the line-search batch, K3 moments and K4 on [B, N]."""
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import quad
+
+    return {
+        "K3 phi": lambda: quad.quad_lanes_phi(
+            *trial, fb.nodes, fb.weights, "range", par, nonneg=True),
+        "K3 moments": lambda: quad.quad_lanes_moments(
+            *batch, fb.nodes, fb.weights, "range", par, rdim=fb.quad_rdim),
+        "K4": lambda: fm.fused_moments(
+            fb.nodes, fb.weights, *batch, "range", par, rdim=fb.quad_rdim),
+    }
+
+
+def quad_times(dev, tree):
+    """One line: K3 and K4's device ms at the flagship's shapes, warm and
+    with the L2 flushed, for the package of ``tree``."""
+    calls = quad_calls(*quad_inputs(dev))
+    return f"[quad times {tree}] " + ", ".join(
+        f"{name} {device_ms(call):.4f} (flushed "
+        f"{device_ms(call, flushed=True):.4f})"
+        for name, call in calls.items()) + (
+            f" ms (B={B}, N={N}, 29-node rule, f32)")
+
+
+def quad_plans(dev):
+    """Lines of device ms of K3 and K4 per lane group and block size."""
+    from gaussianvi_tpu_torch.kernels import quad
+
+    plain = quad.quad_plan
+    lines = []
+    for dim_x, degree, marginal in ((2, 4, True), (2, 4, False),
+                                    (1, 7, True)):
+        for dtype in (torch.float32, torch.float64):
+            fb, par, trial, batch = quad_inputs(dev, dim_x, degree, marginal,
+                                                dtype)
+            d, m = 2 * dim_x, fb.nodes.shape[0]
+            for name, call in quad_calls(fb, par, trial, batch).items():
+                chosen = plain(m, d, name != "K3 phi", dtype)
+                cells = []
+                for group in (1, 2, 4, 8, 16, 32):
+                    for threads in (128, 256):
+                        quad.quad_plan = (
+                            lambda *a, g=group, t=threads:
+                            plain(*a)._replace(group=g, threads=t))
+                        cells.append(f"{group}/{threads} "
+                                     f"{device_ms(call):.4f}")
+                quad.quad_plan = plain
+                lines.append(
+                    f"[quad plans] {name}, M={m}, d={d}, {str(dtype)[6:]}, "
+                    f"plan {chosen.group}/{chosen.threads}: "
+                    + ", ".join(cells) + " ms (group/threads)")
+    return lines
 
 
 def sharded_rank(rank, world, device, cfg, runs):
@@ -213,6 +326,10 @@ def main() -> int:
                         help="print the paths' rates only")
     parser.add_argument("--parts", action="store_true",
                         help="print K5 / K6 times by the factors given")
+    parser.add_argument("--quad-plans", action="store_true",
+                        help="print K3 / K4 times by lane group")
+    parser.add_argument("--quad-times", action="store_true",
+                        help="print K3 / K4 times at the flagship's shapes")
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
@@ -236,6 +353,13 @@ def main() -> int:
         return 0
     if args.parts:
         print(card + " " + kernel_parts(dev))
+        return 0
+    if args.quad_plans:
+        print(card)
+        print("\n".join(quad_plans(dev)))
+        return 0
+    if args.quad_times:
+        print(card + " " + quad_times(dev, args.tree or "."))
         return 0
     print(card)
     runs = args.runs or 5

@@ -86,69 +86,107 @@ def test_chain_kernels_match_plain(dev, layout):
             chain.solve_lanes.launches) == (before[0] + 2, before[1] + 4)
 
 
-@pytest.mark.parametrize("with_moments", [False, True])
-def test_quad_kernel_matches_plain(dev, with_moments):
+# name -> (leading shape, K, dim_x, degree, marginal rule, params' leading
+# shape, view) of the quadrature kernels' layouts: the flagship's rules on
+# a (3, 8) batch, factor counts that are not a multiple of a warp's
+# factors (1, 3, 33, 1025), leading shapes (), (B,) and (T, B), params
+# [K, P], [1, K, P] and [B, K, P] broadcast, rules of 4, 7, 29 and 137
+# nodes at d = 2 and 4, and mu / cov views: a slice of the state axis (a
+# batch stride) and a transposed (T, B) pair of axes
+QUAD_LAYOUTS = {
+    "(3, 8), M=29": ((3,), 8, 2, 4, True, (), None),
+    "(3, 8), M=137": ((3,), 8, 2, 4, False, (3,), None),
+    "(3, 8), d=2, M=4": ((3,), 8, 1, 4, True, (1,), None),
+    "1 factor, ()": ((), 1, 2, 4, True, (), None),
+    "3, (B,)": ((3,), 1, 2, 4, True, (3,), None),
+    "33, (T, B)": ((3, 11), 1, 2, 4, True, (11,), None),
+    "1025, [1, K, P]": ((25,), 41, 2, 4, True, (1,), None),
+    "d=2, M=7": ((5,), 7, 1, 7, True, (), None),
+    "d=2, M=137": ((3,), 6, 1, 7, False, (3,), None),
+    "state slice": ((9,), 5, 2, 4, True, (9,), "slice"),
+    "(T, B) transposed": ((4, 3), 6, 2, 4, True, (3,), "transposed"),
+}
+
+
+def _quad_layout(name, dtype, dev):
+    """``(mu, cov, nodes, weights, params, rdim)`` of a ``QUAD_LAYOUTS``
+    entry: numpy-seeded, well-conditioned covariances, range params."""
     from gaussianvi_tpu_torch.examples.chain_estimation import (
         build_chain_estimation,
     )
-    from gaussianvi_tpu_torch.kernels import quad
 
-    fb = build_chain_estimation(num_states=8, dim_x=2, gh_degree=4,
-                                device=dev)[0].nonlinear[0]
-    rng = np.random.default_rng(0)
-    mu = torch.tensor(rng.standard_normal((3, 8, 4)), device=dev)
-    a = rng.standard_normal((3, 8, 4, 4)) * 0.3
-    cov = torch.tensor(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(4),
-                       device=dev)
-    args = (mu, cov, fb.nodes, fb.weights, "range", fb.kernel_params)
-    if with_moments:
-        got = quad.quad_lanes_moments(*args, rdim=2)
-        want = quad.quad_moments_plain(*args, rdim=2)
-    else:
-        got = (quad.quad_lanes_phi(*args, nonneg=True),)
-        want = (quad.quad_phi_plain(*args, nonneg=True),)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("dim_x,marginal", [(2, True), (2, False), (1, True)])
-def test_fused_moments_kernel_matches_plain(dev, dim_x, marginal, dtype):
-    """K4 against its plain version and against K3 moments, small and well
-    conditioned: (K, d, M) = (3*8, 4, 29 | 137) and (3*8, 2, 7), with and
-    without the marginal-rule lift."""
-    from gaussianvi_tpu_torch.examples.chain_estimation import (
-        build_chain_estimation,
-    )
-    from gaussianvi_tpu_torch.factors.base import param_leaves
-    from gaussianvi_tpu_torch.kernels import fused_moments as fm
-    from gaussianvi_tpu_torch.kernels import quad
-
-    fb = build_chain_estimation(num_states=8, dim_x=dim_x, gh_degree=4,
+    lead, k, dim_x, degree, marginal, plead, view = QUAD_LAYOUTS[name]
+    fb = build_chain_estimation(num_states=2, dim_x=dim_x, gh_degree=degree,
                                 marginal_quad=marginal, dtype=dtype,
                                 device=dev)[0].nonlinear[0]
     d = 2 * dim_x
-    rng = np.random.default_rng(dim_x)
-    mu = torch.tensor(1.5 + 0.3 * rng.standard_normal((3, 8, d)),
-                      dtype=dtype, device=dev)
-    a = rng.standard_normal((3, 8, d, d)) * 0.3
-    cov = torch.tensor(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d),
-                       dtype=dtype, device=dev)
+    rng = np.random.default_rng(len(name))
+    shape = {"slice": (*lead, k + 3), "transposed": (*lead[::-1], k)}.get(
+        view, (*lead, k))
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    mu = t(rng.standard_normal((*shape, d)))
+    a = 0.3 * rng.standard_normal((*shape, d, d))
+    cov = t(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d))
+    if view == "slice":
+        mu, cov = mu.narrow(-2, 2, k), cov.narrow(-3, 2, k)
+    elif view == "transposed":
+        mu, cov = mu.transpose(0, 1), cov.transpose(0, 1)
+    par = rng.standard_normal((*plead, k, fb.kernel_params.shape[-1]))
+    par[..., -2] = 1.0 + np.abs(par[..., -2])
+    par[..., -1] = 0.1 + np.abs(par[..., -1])
+    return mu, cov, fb.nodes, fb.weights, t(par), fb.quad_rdim
+
+
+@pytest.mark.parametrize("layout", sorted(QUAD_LAYOUTS))
+@pytest.mark.parametrize("with_moments", [False, True])
+def test_quad_kernel_matches_plain(dev, with_moments, layout):
+    """K3, either variant, against its plain version (float64), launched
+    twice for the same bits."""
+    from gaussianvi_tpu_torch.kernels import quad
+
+    mu, cov, nodes, weights, par, rdim = _quad_layout(layout, torch.float64,
+                                                      dev)
+    args = (mu, cov, nodes, weights, "range", par)
+    if with_moments:
+        got = _twice(lambda: quad.quad_lanes_moments(*args, rdim=rdim))
+        want = quad.quad_moments_plain(*args, rdim=rdim)
+    else:
+        got = _twice(lambda: (quad.quad_lanes_phi(*args, nonneg=True),))
+        want = (quad.quad_phi_plain(*args, nonneg=True),)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", sorted(QUAD_LAYOUTS))
+def test_fused_moments_kernel_matches_plain(dev, layout, dtype):
+    """K4 against its plain version (the packed params through the
+    functor's PyTorch form) and against K3 moments, which runs the same
+    kernel body (the same bits), launched twice for the same bits."""
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import quad
+
+    mu, cov, nodes, weights, par, rdim = _quad_layout(layout, dtype, dev)
+    d = mu.shape[-1]
     before = fm.fused_moments.launches
-    got = fm.fused_moments(fb.nodes, fb.weights, mu, cov, fb.kernel_cost,
-                           fb.kernel_params, rdim=fb.quad_rdim)
-    assert fm.fused_moments.launches == before + 1
-    leaves = tuple(p.expand(3, *p.shape).reshape(24, *p.shape[1:])
-                   for p in param_leaves(fb.params))
-    want = fm.fused_moments_plain(fb.nodes, fb.weights, mu.reshape(24, d),
-                                  cov.reshape(24, d, d), fb.block_cost,
-                                  leaves, rdim=fb.quad_rdim)
-    other = quad.quad_lanes_moments(mu, cov, fb.nodes, fb.weights,
-                                    fb.kernel_cost, fb.kernel_params,
-                                    rdim=fb.quad_rdim)
+    got = _twice(lambda: fm.fused_moments(nodes, weights, mu, cov, "range",
+                                          par, rdim=rdim))
+    assert fm.fused_moments.launches == before + 2
+    lead = mu.shape[:-1]
+    count = int(np.prod(lead))
+    want = fm.fused_moments_plain(
+        nodes, weights, mu.reshape(count, d), cov.reshape(count, d, d),
+        quad.KERNEL_COSTS["range"][1],
+        (par.expand(*lead, par.shape[-1]).reshape(count, -1),), rdim)
+    other = quad.quad_lanes_moments(mu, cov, nodes, weights, "range", par,
+                                    rdim=rdim)
     for g, w, o in zip(got, want, other):
+        assert g.shape == o.shape and g.is_contiguous()
         _assert_close(g, w.reshape(g.shape), dtype, scaled=True)
-        _assert_close(g, o, dtype, scaled=True)
+        assert torch.equal(g, o)
 
 
 def test_use_pallas_without_a_functor_raises(dev):

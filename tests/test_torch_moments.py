@@ -275,3 +275,49 @@ def test_sqrtm_product_auto_goes_by_the_tensor(monkeypatch):
         assert torch.equal(tpsd.sqrtm_product(a, 0.3), eigh)
     with pytest.raises(ValueError, match="unknown"):
         tpsd.sqrtm_product(a, 0.3, method="schur")
+
+
+def test_kernel_is_handed_the_covariance(monkeypatch):
+    """K4's launch hands the C entry the caller's mu, cov and params (no
+    copy, no expansion, no Cholesky factor: the kernel takes it), in one
+    call with no PyTorch op before it, and returns the outputs the entry
+    writes, contiguous in their final shapes.  A recording stub stands in
+    for the kernel library."""
+    from gaussianvi_tpu_torch.kernels import _build
+    from gaussianvi_tpu_torch.kernels import quad as tquad
+
+    calls = []
+
+    class Entries:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "load", Entries)
+    monkeypatch.setattr(_build, "current_stream", lambda device: 0)
+
+    def no_cholesky(*args):
+        raise AssertionError("the kernel route took a PyTorch Cholesky")
+
+    monkeypatch.setattr(tfm, "chol_small", no_cholesky)
+    _, tfb, mu, cov = _batches(2, marginal=True)
+    mu_t = torch.as_tensor(np.stack([mu, mu + 0.1]))           # [2, K, 4]
+    cov_t = torch.as_tensor(np.stack([cov, cov]))
+    params = tfb.kernel_params                                 # [K, 4]
+    got = tfm._launch(tfb.nodes, tfb.weights, mu_t, cov_t, "range", params,
+                      tfb.quad_rdim)
+    ((name, args),) = calls
+    assert name == "gvi_fused_moments"
+    (dtype, d, cost, p_mu, mu_sb, mu_sk, p_cov, cov_sb, cov_sk, p_nodes, p_w,
+     p_par, period, p_phi, p_xmu, p_xxt, count, k, m, n_par, rdim, shift,
+     threads, _) = args
+    assert (dtype, d, cost, rdim) == (1, 4, 0, 2)
+    assert (p_mu, p_cov, p_par, p_nodes, p_w) == tuple(
+        x.data_ptr() for x in (mu_t, cov_t, params, tfb.nodes, tfb.weights))
+    assert (mu_sb, mu_sk, cov_sb, cov_sk, period) == (4 * K, 4, 16 * K, 16, K)
+    assert (count, k, m, n_par) == (2 * K, K, 29, 4)
+    plan = tquad.quad_plan(29, 4, True, torch.float64)
+    assert (1 << shift, threads) == (plan.group, plan.threads)
+    for out, ptr, shape in zip(got, (p_phi, p_xmu, p_xxt),
+                               ((2, K), (2, K, 4), (2, K, 4, 4))):
+        assert out.shape == shape and out.is_contiguous()
+        assert out.data_ptr() == ptr

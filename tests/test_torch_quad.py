@@ -158,3 +158,216 @@ def test_kernel_path_requires_a_named_cost(problem):
     with pytest.raises(ValueError, match="kernel_cost"):
         tmm.batch_phi(replace(tfb, kernel_cost=None), torch.as_tensor(mu[0]),
                       torch.as_tensor(cov[0]), use_kernel=True)
+
+
+# ---- what the wrappers hand the kernels (no card: a recording stub) ----
+
+class _Entries:
+    """Stands in for the kernel library: records each C entry's arguments
+    and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def entries(monkeypatch):
+    from gaussianvi_tpu_torch.kernels import _build
+
+    lib = _Entries()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "current_stream", lambda device: 0)
+    return lib
+
+
+def _read(ptr, count, dtype=np.float64):
+    import ctypes
+
+    ctype = {np.float64: ctypes.c_double, np.float32: ctypes.c_float}[dtype]
+    return np.ctypeslib.as_array((ctype * count).from_address(ptr)).copy()
+
+
+def _marginals(shape, d, seed=0):
+    rng = np.random.default_rng(seed)
+    a = 0.3 * rng.standard_normal((*shape, d, d))
+    return (torch.as_tensor(rng.standard_normal((*shape, d))),
+            torch.as_tensor(a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d)))
+
+
+@pytest.mark.parametrize("moments", [False, True])
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("m", [7, 29, 137])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_quad_plan(m, d, moments, dtype):
+    """The layout a launch takes (the measured choice, PERF.md): one lane
+    per factor for phi, two for the moments, on every rule; whole warps of
+    whole groups; the rule (nodes and weights) in shared memory, and for
+    the moments each warp's staging area of 1 + d + d^2 values a
+    factor."""
+    plan = tquad.quad_plan(m, d, moments, dtype)
+    assert plan.group == (2 if moments else 1)
+    assert plan.threads % 32 == 0 and plan.threads % plan.group == 0
+    staged = plan.threads // plan.group * (1 + d + d * d) if moments else 0
+    assert plan.smem == (m * (d + 1) + staged) * dtype.itemsize
+    assert tquad.covers("range", d, d // 2 + 2, m, dtype) is None
+
+
+@pytest.mark.parametrize("moments", [False, True])
+def test_wrappers_hand_over_the_operands_in_place(entries, problem, moments):
+    """On contiguous operands in the flagship's trial layout (mu
+    [T, B, K, d], cov [T, B, K, d, d], params [B, K, P] broadcast over the
+    trials) the C entry gets the operands' own storage, the params
+    unexpanded (period B K), and the outputs it writes are the wrapper's
+    results, contiguous in their final shapes."""
+    _, tfb, _, _, _ = problem
+    mu, cov = _marginals((3, 2, 8), 4)
+    params = tfb.kernel_params.expand(2, 8, 4).contiguous()
+    got = tquad._launch("quad_lanes", mu, cov, tfb.nodes, tfb.weights,
+                        "range", params, moments, True, 2)
+    ((name, args),) = entries.calls
+    assert name == "gvi_quad"
+    (dtype, d, cost, with_moments, p_mu, mu_sb, mu_sk, p_cov, cov_sb,
+     cov_sk, p_nodes, p_w, p_par, period, p_phi, p_xmu, p_xxt, count, k, m,
+     n_par, nonneg, rdim, shift, threads, _) = args
+    assert (dtype, d, cost, with_moments) == (1, 4, 0, int(moments))
+    assert (p_mu, p_cov, p_par) == (mu.data_ptr(), cov.data_ptr(),
+                                    params.data_ptr())
+    assert (p_nodes, p_w) == (tfb.nodes.data_ptr(), tfb.weights.data_ptr())
+    assert (mu_sb, mu_sk, cov_sb, cov_sk) == (32, 4, 128, 16)
+    assert (period, count, k, m, n_par) == (16, 48, 8, 29, 4)
+    plan = tquad.quad_plan(29, 4, moments, torch.float64)
+    assert (1 << shift, threads) == (plan.group, plan.threads)
+    assert (nonneg, rdim) == (1, 2)
+    outs = got if moments else (got,)
+    shapes = [(3, 2, 8), (3, 2, 8, 4), (3, 2, 8, 4, 4)]
+    for out, ptr, shape in zip(outs, (p_phi, p_xmu, p_xxt), shapes):
+        assert out.shape == shape and out.is_contiguous()
+        assert out.data_ptr() == ptr
+    if not moments:
+        assert p_xmu is None and p_xxt is None
+
+
+# name -> (mu / cov, params): layouts the kernel reads in place, and two
+# it gets a copy of
+READ_BACK = {
+    "contiguous, params [B, K, P]": ("plain", (4,)),
+    "params [K, P]": ("plain", ()),
+    "params [1, K, P]": ("plain", (1,)),
+    "state slice": ("slice", (4,)),
+    "leading axis expanded: copied": ("expanded", (4,)),
+    "transposed (T, B): copied": ("transposed", (4,)),
+    "params [T, 1, K, P]: expanded": ("plain", (3, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(READ_BACK))
+def test_operands_read_back(name):
+    """A reader that indexes the pointers as ``csrc/quad.cuh`` does
+    (factor f = b K + k at b * stride_b + k * stride_k, params row f %
+    period) gets back each factor's mu, cov and params; storage is shared
+    wherever the layout allows it."""
+    view, plead = READ_BACK[name]
+    t, b, k, d, p = 3, 4, 5, 4, 4
+    if view == "slice":
+        mu_s, cov_s = _marginals((t, b, k + 3), d)
+        mu, cov = mu_s.narrow(-2, 2, k), cov_s.narrow(-3, 2, k)
+    elif view == "expanded":
+        mu_s, cov_s = _marginals((1, b, k), d)
+        mu, cov = mu_s.expand(t, b, k, d), cov_s.expand(t, b, k, d, d)
+    elif view == "transposed":
+        mu_s, cov_s = _marginals((b, t, k), d)
+        mu, cov = mu_s.transpose(0, 1), cov_s.transpose(0, 1)
+    else:
+        mu, cov = _marginals((t, b, k), d)
+        mu_s = mu
+    params = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (*plead, k, p)))
+    nodes, weights = torch.zeros(3, d, dtype=mu.dtype), torch.ones(3)
+    call = tquad._operands("read back", mu, cov, nodes, weights.double(),
+                           "range", params, True)
+    (p_mu, mu_sb, mu_sk, p_cov, cov_sb, cov_sk, _, _, p_par, period, *_,
+     count, kk, _, n_par) = call.args
+    assert (count, kk, n_par) == (t * b * k, k, p)
+    copied = view in ("transposed", "expanded")
+    assert (p_mu == mu_s.data_ptr() + 8 * mu.storage_offset()) != copied
+    assert (p_par == params.data_ptr()) == (plead != (3, 1))
+    want_par = params.expand(t, b, k, p).reshape(-1, p)
+    for f in range(count):
+        row, col = divmod(f, k)
+        np.testing.assert_array_equal(
+            _read(p_mu + 8 * (row * mu_sb + col * mu_sk), d),
+            mu.reshape(-1, k, d)[row, col].numpy())
+        np.testing.assert_array_equal(
+            _read(p_cov + 8 * (row * cov_sb + col * cov_sk), d * d),
+            cov.reshape(-1, k, d * d)[row, col].numpy())
+        np.testing.assert_array_equal(
+            _read(p_par + 8 * (f % period) * p, p), want_par[f].numpy())
+
+
+def test_flagship_path_operands_are_contiguous(monkeypatch):
+    """On the flagship (the engine resolved for the card on CPU tensors),
+    the operands every path hands K3 and K4 are contiguous: the initial
+    costs and the separate path's trial costs (K3 phi), the NGD
+    gradient's moments (K3 moments, or K4 under ``use_pallas``) and the
+    prox gradient's (K3 moments).  No operand is copied."""
+    from gaussianvi_tpu_torch import GVIConfig, stack_problems
+    from gaussianvi_tpu_torch.inference import gvi
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.kernels import fused_moments as tfm
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+
+    graph, state = stack_problems(*map(list, zip(*(
+        torch_build(num_states=8, dim_x=2, gh_degree=4, seed=i,
+                    device="cpu")[:2] for i in range(3)))))
+    engine = LocalEngine(graph, GVIConfig(), torch.device("cuda"))
+    assert engine.quad_batches == (True,)
+    seen = []
+
+    def spy(name, plain, moments):
+        def run(*args, **kw):
+            if name == "fused_moments":
+                nodes, weights, mu, cov, cost, params = args
+            else:
+                mu, cov, nodes, weights, cost, params = args
+            call = tquad._operands(name, mu, cov, nodes, weights, cost,
+                                   params, moments)
+            held = call.held[:3]
+            assert all(x.is_contiguous() for x in (mu, cov, params))
+            assert [x.data_ptr() for x in held] == [
+                x.data_ptr() for x in (mu, cov, params)]
+            seen.append((name, tuple(mu.shape)))
+            return plain(*args, **kw)
+        return run
+
+    monkeypatch.setattr(tquad, "quad_lanes_phi", spy(
+        "quad_phi", tquad.quad_lanes_phi, False))
+    monkeypatch.setattr(tquad, "quad_lanes_moments", spy(
+        "quad_moments", tquad.quad_lanes_moments, True))
+    monkeypatch.setattr(tfm, "fused_moments", spy(
+        "fused_moments", tfm.fused_moments, True))
+    mu, prec = state.mu, state.precision
+    cd, co, _ = gbp_covariance_logdet(prec)
+    engine.factor_costs_raw(mu, cd, co)
+    steps = 0.9 * 0.75 ** torch.arange(1, 12, dtype=mu.dtype)
+    t_mu = mu + steps[:, None, None, None] * 0.1 * torch.ones_like(mu)
+    t_prec = BlockTridiag(prec.diag.expand(11, *prec.diag.shape).clone(),
+                          prec.off.expand(11, *prec.off.shape).clone())
+    t_cd, t_co, _ = gbp_covariance_logdet(t_prec)
+    engine.factor_costs_raw(t_mu, t_cd, t_co)
+    temp = torch.ones(3, dtype=mu.dtype)
+    for use_pallas in (False, True):
+        gvi.ngd_gradients(graph, mu, cd, co, temp, use_pallas,
+                          engine.quad_batches)
+    gvi.prox_gradients(graph, mu, cd, co, 0.1, engine.quad_batches)
+    assert seen == [("quad_phi", (3, 8, 4)), ("quad_phi", (11, 3, 8, 4)),
+                    ("quad_moments", (3, 8, 4)), ("fused_moments", (3, 8, 4)),
+                    ("quad_moments", (3, 8, 4))]
