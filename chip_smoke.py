@@ -195,11 +195,13 @@ def solve_flops(s):
     return s**3 / 3 + 4 * s**3 + 6 * s**2
 
 
-def quad_flops(d, m, dx, moments):
-    """Per factor: its Cholesky, then per node the placement, the range
-    cost (~3 dx + 8) and the weighted sums."""
+def quad_flops(d, m, dx, moments, cost=None):
+    """Per factor: its Cholesky, then per node the placement, the cost
+    (``cost`` operations; the range cost's ~3 dx + 8 by default) and the
+    weighted sums."""
     sums = 2 + 2 * d + d * (d + 1) if moments else 4
-    return d**3 / 3 + m * (d * (d + 1) + 3 * dx + 8 + sums)
+    cost = 3 * dx + 8 if cost is None else cost
+    return d**3 / 3 + m * (d * (d + 1) + cost + sums)
 
 
 def compare(name, got, want, rtol, atol):
@@ -1279,6 +1281,472 @@ def sharded_path(cfg, dev, optimize):
     return main0["launches"], rate
 
 
+# ---- the planar planner (examples/planar_planning.py) --------------------
+# build_planar_planning's own config: N = 20 states of dim 4, a 100 x 100
+# field, the 13-node 2-D marginal rule of degree 3, 30 iterations (20 at
+# temperature 0.1, then 1.0); restarts from parallel.perturb_inits with
+# mean_scale 0.3, the batch the JAX package's planning bench ran
+PLAN_B, PLAN_N, PLAN_ITERS = 1024, 20, 30
+PLAN_B_SEPARATE = 256
+PLAN_B_PLAIN = 64
+# operations of one planar SDF cost evaluation (clip, two divisions, two
+# floors, the four-corner blend, the hinge); its four gathers hit L1 / L2
+PLANAR_COST_OPS = 35
+
+
+def planner_problem(dtype, dev, count=None):
+    """``(graph, restarts, config, sdf)``: one planar planning problem in
+    ``dtype`` and ``count`` perturbed initial states, drawn in float64 and
+    cast, so both dtypes start from the same restarts (restart 0 is the
+    straight line through the obstacle)."""
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+
+    graph, init, config, sdf = build_planar_planning(dtype=dtype, device=dev)
+    init64 = build_planar_planning(device=dev)[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    inits = perturb_inits(init64, gen, count or PLAN_B, mean_scale=0.3)
+    prec = inits.precision
+    inits = GaussianState(inits.mu.to(dtype), BlockTridiag(
+        prec.diag.to(dtype), prec.off.to(dtype)))
+    return graph, inits, config, sdf
+
+
+def subset(state, count):
+    """The first ``count`` problems of a batched state."""
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    return GaussianState(state.mu[:count], BlockTridiag(
+        state.precision.diag[:count], state.precision.off[:count]))
+
+
+def planner_iterate(dev):
+    """The float64 iterate five plain NGD iterations reach on the 1024
+    restarts, with four restarts moved to where the planar cost's clamps
+    act: restart 1 on the field's last column (x = 10), restart 2 on its
+    last row (y = 10), restart 3 off the field, restart 4 on grid nodes.
+    Returns ``(mu, prec_diag, prec_off)``."""
+    from gaussianvi_tpu_torch import optimize
+
+    graph, inits, config, _ = planner_problem(torch.float64, dev)
+    state, _ = optimize(graph, inits, replace(
+        config, niters=5, niters_lowtemp=5, chain_impl="seq",
+        quad_impl="xla"))
+    mu = state.mu.clone()
+    cell = 10.0 / 99
+    mu[1, :, 0] = 10.0
+    mu[2, :, 1] = 10.0
+    mu[3, :, :2] += torch.tensor([-15.0, 14.0], dtype=mu.dtype, device=dev)
+    mu[4, :, :2] = torch.round(mu[4, :, :2] / cell) * cell
+    return mu, state.precision.diag, state.precision.off
+
+
+def tridiag_matvec(diag, off, x):
+    """``A x`` for block-tridiagonal ``A`` (``diag [B, N, s, s]``, ``off
+    [B, N-1, s, s]`` above the diagonal) and ``x [B, N, s]``."""
+    y = torch.einsum("bnij,bnj->bni", diag, x)
+    y[:, :-1] += torch.einsum("bnij,bnj->bni", off, x[:, 1:])
+    y[:, 1:] += torch.einsum("bnji,bnj->bni", off, x[:, :-1])
+    return y
+
+
+def backward_error(x, x64, diag, off, rows):
+    """``max |A (x - x64)| / (|A| |x64|)`` over the problems ``rows`` of a
+    block-tridiagonal system ``A`` (float64), max norms, ``|A|`` its
+    largest entry times the 3s entries of a row: how far ``x`` is from
+    solving the system ``x64`` solves, in units of the system's size.  A
+    backward-stable solve keeps it near N eps whatever A's condition."""
+    xd, xr = x.double()[rows], x64[rows]
+    d, o = diag[rows], off[rows]
+    s = xr.shape[-1]
+    scale = (3 * s * torch.maximum(d.abs().flatten(1).amax(1),
+                                   o.abs().flatten(1).amax(1))
+             * xr.abs().flatten(1).amax(1))
+    return (tridiag_matvec(d, o, xd - xr).abs().flatten(1).amax(1)
+            / scale).max().item()
+
+
+def compare_backward(name, x_k, x_p, diag, off):
+    """A float64 kernel solution ``x_k`` of ``A x = b`` held to the plain
+    version's ``x_p`` by its backward error in the plain system
+    (:func:`backward_error`) instead of a forward bound: on systems whose
+    condition makes float32 saturate, the forward bound scaled from
+    float32 says nothing.  NaN patterns (an indefinite A) must be
+    identical.  Returns ``(backward error, forward max abs difference)``."""
+    check(torch.equal(torch.isnan(x_k), torch.isnan(x_p)),
+          f"{name}: NaN pattern differs")
+    fin = torch.isfinite(x_p).flatten(1).all(1)
+    if not fin.any():
+        return 0.0, 0.0
+    back = backward_error(x_k, x_p, diag, off, fin)
+    check(back <= 1e-10, f"{name}: backward error {back:.3e} over 1e-10")
+    return back, (x_k - x_p)[fin].abs().max().item()
+
+
+def compare_backward_vs_f64(name, x_k32, x_p32, x_p64, diag, off):
+    """The float32 counterpart of :func:`compare_backward`, in the form of
+    :func:`compare_vs_f64`: the kernel takes no more NaN (indefinite)
+    decisions that differ from float64's than the float32 plain version,
+    and its backward error in the float64 plain system is at most 4 times
+    the float32 plain version's plus 16 float32 ulps.  Returns the
+    kernel's backward error."""
+    nan_r = ~torch.isfinite(x_p64).flatten(1).all(1)
+    mis_k = int(((~torch.isfinite(x_k32).flatten(1).all(1)) != nan_r).sum())
+    mis_p = int(((~torch.isfinite(x_p32).flatten(1).all(1)) != nan_r).sum())
+    check(mis_k <= mis_p, f"{name}: {mis_k} NaN decisions differ from "
+          f"float64, the plain version's {mis_p}")
+    rows = (torch.isfinite(x_k32).flatten(1).all(1)
+            & torch.isfinite(x_p32).flatten(1).all(1) & ~nan_r)
+    if not rows.any():
+        return 0.0
+    back_k = backward_error(x_k32, x_p64, diag, off, rows)
+    back_p = backward_error(x_p32, x_p64, diag, off, rows)
+    check(back_k <= 4 * back_p + 16 * torch.finfo(torch.float32).eps,
+          f"{name}: backward error {back_k:.3e}, the float32 plain "
+          f"version's {back_p:.3e}")
+    return back_k
+
+
+def planner_kernel_checks(dev):
+    """K3 (both variants), K5 and K6 ``full`` with the planar SDF cost
+    against their plain versions at the planner's shapes: the trial batch
+    [11, 1024, 20] and the gradient batch [1024, 20], the 13-node rule,
+    the 100 x 100 field.  At :func:`planner_iterate` the factors include
+    ones clear of the obstacle (E[phi] exactly 0), inside it, off the
+    field and on its last row and column; K5 takes the direction the
+    next NGD step takes.  float64 is held with :func:`compare_conditioned`,
+    float32 with :func:`compare_vs_f64`, each kernel launched twice for the
+    same bits; float64 zeros must fall where the plain version's do.  K6's
+    main solve (``Vddmu dmu = -Vdmu``) is held by its backward error
+    (:func:`compare_backward`, :func:`compare_backward_vs_f64`): this
+    iterate's Vddmu is so ill-conditioned on some restarts that float32
+    saturates there, so a forward bound scaled from it says nothing.
+    Times the four kernels in float32 with their plain versions and
+    bounds."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+    from gaussianvi_tpu_torch.kernels import quad
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f32, f64 = torch.float32, torch.float64
+    it64 = planner_iterate(dev)
+    cd64 = gbp_covariance_logdet(BlockTridiag(*it64[1:]))[0]
+    rng = np.random.default_rng(SEED)
+    jitter = torch.tensor(0.05 * rng.standard_normal(
+        (TRIALS, PLAN_B, PLAN_N, 4)), dtype=f64, device=dev)
+    graphs, args3, args4, x5, x6, ops = {}, {}, {}, {}, {}, {}
+    for dt in (f64, f32):
+        graphs[dt] = planner_problem(dt, dev, 1)[0]
+        fb = graphs[dt].nonlinear[0]
+        mu, pd, po = (x.to(dt) for x in it64)
+        cd = cd64.to(dt)
+        args3[dt] = ((mu + jitter.to(dt)).contiguous(),
+                     cd.expand(TRIALS, *cd.shape).contiguous(), fb.nodes,
+                     fb.weights, "planar_sdf", fb.kernel_params)
+        args4[dt] = (mu, cd, fb.nodes, fb.weights, "planar_sdf",
+                     fb.kernel_params)
+        ops[dt] = fused_operands(_batch_graph(graphs[dt], PLAN_B))
+        x6[dt] = (mu, pd, po, torch.full((PLAN_B,), 0.1, dtype=dt,
+                                         device=dev))
+    p6 = fg.gradient_plain(*x6[f64], *ops[f64])
+    finite = torch.isfinite(p6[5]).flatten(1).all(1)
+    direction = (torch.where(finite[:, None, None], p6[5], p6[6]), p6[3],
+                 p6[4])
+    for dt in (f64, f32):
+        dmu, dpd, dpo = (x.to(dt) for x in direction)
+        trials = 0.9 * 0.75 ** torch.arange(1, TRIALS + 1, dtype=dt,
+                                            device=dev)
+        mu, pd, po, _ = x6[dt]
+        x5[dt] = (mu, dmu, pd, po, dpd, dpo, trials)
+
+    def k3_phi(dt):
+        fb = graphs[dt].nonlinear[0]
+        return (quad.quad_lanes_phi(*args3[dt], nonneg=True,
+                                    field=fb.kernel_field),)
+
+    def p3_phi(dt):
+        fb = graphs[dt].nonlinear[0]
+        return (quad.quad_phi_plain(*args3[dt], nonneg=True,
+                                    field=fb.kernel_field),)
+
+    def k3_mom(dt):
+        fb = graphs[dt].nonlinear[0]
+        return quad.quad_lanes_moments(*args4[dt], rdim=fb.quad_rdim,
+                                       field=fb.kernel_field)
+
+    def p3_mom(dt):
+        fb = graphs[dt].nonlinear[0]
+        return quad.quad_moments_plain(*args4[dt], rdim=fb.quad_rdim,
+                                       field=fb.kernel_field)
+
+    def flat5(out):
+        return (out[0], *out[1])
+
+    cases = {
+        "quad_phi": (k3_phi, p3_phi),
+        "quad_moments": (k3_mom, p3_mom),
+        "fused_trials": (lambda dt: flat5(ft.trial_costs_lanes(*x5[dt],
+                                                               *ops[dt])),
+                         lambda dt: flat5(ft.trial_costs_plain(*x5[dt],
+                                                               *ops[dt]))),
+        "fused_gradient": (lambda dt: fg.gradient_lanes(*x6[dt], *ops[dt]),
+                           lambda dt: fg.gradient_plain(*x6[dt], *ops[dt])),
+    }
+    errs, zeros, solve = {}, {}, {}
+    for name, (kern, plain) in cases.items():
+        k = {dt: check_repeatable(f"planner {name} {dt}",
+                                  lambda dt=dt: kern(dt)) for dt in (f64, f32)}
+        p = {dt: plain(dt) for dt in (f64, f32)}
+        held64 = list(zip(k[f64], p[f64], p[f32]))
+        held32 = list(zip(k[f32], p[f32], p[f64]))
+        if name == "fused_gradient":
+            # output 5, dmu, by its backward error in the float64 plain
+            # system Vddmu = dprec + Lambda
+            _, pd, po, _ = x6[f64]
+            vdd = (p[f64][3] + pd, p[f64][4] + po)
+            solve["backward"], solve["forward"] = compare_backward(
+                "planner fused_gradient dmu float64", k[f64][5], p[f64][5],
+                *vdd)
+            solve["backward32"] = compare_backward_vs_f64(
+                "planner fused_gradient dmu float32", k[f32][5], p[f32][5],
+                p[f64][5], *vdd)
+            solve["indefinite"] = int(
+                (~torch.isfinite(p[f64][5]).flatten(1).all(1)).sum())
+            held64, held32 = held64[:5] + held64[6:], held32[:5] + held32[6:]
+        errs[name, f64] = max(
+            compare_conditioned(f"planner {name}[{i}] float64", a, b, c)
+            for i, (a, b, c) in enumerate(held64))
+        errs[name, f32] = max(
+            compare_vs_f64(f"planner {name}[{i}] float32", a, b, c)
+            for i, (a, b, c) in enumerate(held32))
+        if name in ("quad_phi", "quad_moments", "fused_trials"):
+            # E[phi] of the clear factors: exactly 0 in both, never NaN
+            at = 1 if name == "fused_trials" else 0
+            got, want = k[f64][at], p[f64][at]
+            check(torch.equal(got == 0, want == 0) and bool((want == 0).any())
+                  and bool((want > 0).any()),
+                  f"planner {name}: exact zeros differ from the plain "
+                  f"version's ({int((got == 0).sum())} vs "
+                  f"{int((want == 0).sum())})")
+            zeros[name] = (int((want == 0).sum()), want.numel(),
+                           int((k[f32][at] == 0).sum()),
+                           int((p[f32][at] == 0).sum()))
+    print("[planner kernels] max abs err vs plain, f64 / f32 (two launches "
+          "bit-identical each): " + "; ".join(
+              f"{n} {errs[n, f64]:.3e} / {errs[n, f32]:.3e}" for n in cases)
+          + "; exact-zero E[phi] (f64 kernel = plain, f32 kernel / plain): "
+          + "; ".join(f"{n} {z[0]}/{z[1]} ({z[2]} / {z[3]})"
+                      for n, z in zeros.items())
+          + f"; K6 dmu: backward error f64 {solve['backward']:.3e} (max abs "
+          f"difference {solve['forward']:.3e}), f32 {solve['backward32']:.3e};"
+          f" Vddmu indefinite on {solve['indefinite']}/{PLAN_B}", flush=True)
+
+    field = graphs[f32].nonlinear[0].kernel_field
+    m = graphs[f32].nonlinear[0].nodes.shape[0]
+    cost = dict(cost=PLANAR_COST_OPS)
+    work = {
+        "quad_phi": TRIALS * PLAN_B * PLAN_N * quad_flops(4, m, 2, False,
+                                                          **cost),
+        "quad_moments": PLAN_B * PLAN_N * quad_flops(4, m, 2, True, **cost),
+        "fused_trials": TRIALS * PLAN_B * PLAN_N * (
+            chain_flops(4) + quad_flops(4, m, 2, False, **cost) + 16 * 4**2),
+        "fused_gradient": PLAN_B * PLAN_N * (
+            chain_flops(4) + quad_flops(4, m, 2, True, **cost)
+            + 12 * 4**3 + 2 * solve_flops(4)),
+    }
+    inputs = {"quad_phi": args3[f32][:4] + args3[f32][5:] + (field,),
+              "quad_moments": args4[f32][:4] + args4[f32][5:] + (field,),
+              "fused_trials": (x5[f32], ops[f32][2:]),
+              "fused_gradient": (x6[f32], ops[f32][2:])}
+    out = {}
+    for name, (kern, plain) in cases.items():
+        out[name] = dict(
+            max_abs_err=errs[name, f64], err_dtype="float64",
+            ms=cuda_ms(lambda: kern(f32)),
+            ms_flushed_l2=cuda_ms_flushed(lambda: kern(f32)),
+            plain_ms=cuda_ms(lambda: plain(f32), reps=3),
+            **bound(inputs[name], kern(f32), work[name]))
+    return out
+
+
+def check_plan(name, hist, state, sdf, batch):
+    """Costs finite, non-increasing and non-negative on every restart;
+    restart 0 (the straight line through the obstacle) ends clear of it
+    with its endpoints within 0.05 of start and goal
+    (``tests/test_planning.py``)."""
+    cost = hist.cost.double()
+    check(cost.shape == (batch, PLAN_ITERS), f"{name}: history {cost.shape}")
+    check(bool(torch.isfinite(cost).all()), f"{name}: non-finite cost")
+    rises = int((cost[:, 1:] > cost[:, :-1]).sum())
+    check(rises == 0, f"{name}: {rises} recorded cost increases")
+    check(bool((cost >= 0).all()), f"{name}: negative cost "
+          f"{float(cost.min()):.3e}")
+    pos = state.mu[0, :, :2]
+    clearance = float(sdf.signed_distance(pos).min())
+    ends = max(float((pos[0] - torch.tensor([1.0, 1.0], device=pos.device))
+                     .abs().max()),
+               float((pos[-1] - torch.tensor([8.5, 8.5], device=pos.device))
+                     .abs().max()))
+    check(clearance > 0.0, f"{name}: restart 0 ends in the obstacle "
+          f"(signed distance {clearance:.3e})")
+    check(ends < 0.05, f"{name}: restart 0's endpoints off by {ends:.3e}")
+    clear = int((sdf.signed_distance(state.mu[..., :2]).amin(-1) > 0).sum())
+    return clearance, clear
+
+
+def planner_runs(card, dev):
+    """The planner's paths, each counted: fused (the default) and
+    separate, against the plain path and float64; throughput.  Returns
+    ``(counts per path, rates)``."""
+    from gaussianvi_tpu_torch import optimize
+
+    f32, f64 = torch.float32, torch.float64
+    graph32, inits32, cfg, sdf = planner_problem(f32, dev)
+    graph64, inits64, _, _ = planner_problem(f64, dev)
+    cfg_sep = replace(cfg, fused_trials="off", fused_gradient="off")
+    cfg_plain = replace(cfg, chain_impl="seq", quad_impl="xla")
+
+    (state32, hist32), fused_counts = counted(optimize, graph32, inits32, cfg)
+    print(f"[planner fused path] launches {fused_counts}", flush=True)
+    check(fused_counts["fused_trials"] == PLAN_ITERS
+          and fused_counts["fused_gradient"] == PLAN_ITERS,
+          f"planner: the fused kernels did not run once per iteration: "
+          f"{fused_counts}")
+    check(fused_counts["gbp_covariance_logdet"] > 0
+          and fused_counts["quad_phi"] > 0,
+          f"planner: the initial covariance / costs skipped their kernels: "
+          f"{fused_counts}")
+    clearance, clear = check_plan("planner fused path", hist32, state32, sdf,
+                                  PLAN_B)
+    print(f"[planner fused path] restart 0 clears the obstacle by "
+          f"{clearance:.4f}; {clear}/{PLAN_B} restarts end clear of it; "
+          f"final cost min {float(hist32.cost[:, -1].min()):.4f}, median "
+          f"{float(hist32.cost[:, -1].median()):.4f}", flush=True)
+
+    # float32 against float64: every restart's first record, the batch
+    # median of the final costs, and restart 0's final cost.  Restart 0's
+    # whole history is printed, not gated: on the planner's nominal problem
+    # float32 takes another line-search step than float64 at iteration 6
+    # on the plain path and in the JAX package alike (history 0.3 apart,
+    # final costs 1e-4 apart; tests/test_torch_planning.py
+    # test_float32_takes_other_steps_in_both_packages)
+    state64, hist64 = optimize(graph64, inits64, cfg)
+    rel = ((hist32.cost.double() - hist64.cost).abs()
+           / hist64.cost.abs().clamp_min(1e-12))
+    rel_first, rel_seed0 = rel[:, 0].max().item(), rel[0].max().item()
+    rel_final_median = rel[:, -1].median().item()
+    rel_final0 = rel[0, -1].item()
+    other = int((~torch.isclose(hist32.accepted_step[0].double(),
+                                hist64.accepted_step[0], rtol=1e-5)).sum())
+    print(f"[planner fused path] f32 vs f64 relative cost difference: first "
+          f"record max {rel_first:.3e}, restart-0 final {rel_final0:.3e} "
+          f"(history max {rel_seed0:.3e}; other steps at {other}/"
+          f"{PLAN_ITERS} iterations), final median {rel_final_median:.3e} "
+          f"(final max {rel[:, -1].max().item():.3e})", flush=True)
+    check(rel_first < 1e-4, f"planner first-record f32 vs f64 {rel_first:.3e}")
+    check(rel_final0 < 1e-3,
+          f"planner restart-0 final f32 vs f64 {rel_final0:.3e}")
+    check(rel_final_median < 1e-3,
+          f"planner median final f32 vs f64 {rel_final_median:.3e}")
+
+    sep = subset(inits32, PLAN_B_SEPARATE)
+    (state_s, hist_s), sep_counts = counted(optimize, graph32, sep, cfg_sep)
+    print(f"[planner separate path] launches {sep_counts}", flush=True)
+    check(all(sep_counts[k] > 0 for k in ("gbp_covariance_logdet", "solve",
+                                          "quad_phi", "quad_moments"))
+          and sep_counts["fused_trials"] == sep_counts["fused_gradient"] == 0,
+          f"planner: the separate path skipped a kernel: {sep_counts}")
+    check_plan("planner separate path", hist_s, state_s, sdf,
+               PLAN_B_SEPARATE)
+
+    # kernels against plain versions end to end (float64, 8 restarts).
+    # The planner amplifies rounding: on the plain path alone, initial
+    # means changed by 1e-15 of their size move the costs by ~1e-6 within
+    # 8 iterations and take other steps within ~16 (printed below), so two
+    # correct orders of the same sums part after that.  The gate (rtol
+    # 1e-9, the same steps) holds the first 6 iterations (20 states, the
+    # switch to the high temperature at 4), the horizon of the CPU parity
+    # test against the JAX package; the 30-iteration runs are printed
+    # beside the plain path's own sensitivity.
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    short = replace(cfg, niters=6, niters_lowtemp=4)
+    g8c = planner_problem(f64, torch.device("cpu"), 1)[0]
+    s8 = subset(inits64, 8)
+    s8c = GaussianState(s8.mu.cpu(), BlockTridiag(
+        s8.precision.diag.cpu(), s8.precision.off.cpu()))
+    _, hk = optimize(graph64, s8, short)
+    _, hs = optimize(graph64, s8, replace(short, fused_trials="off",
+                                          fused_gradient="off"))
+    _, hp = optimize(graph64, s8, replace(short, chain_impl="seq",
+                                          quad_impl="xla"))
+    _, hc = optimize(g8c, s8c, replace(short, fused_trials="on",
+                                       fused_gradient="on"))
+    for name, got, want in (
+            ("fused kernels vs plain path", hk, hp),
+            ("separate kernels vs plain path", hs, hp),
+            ("fused kernels vs fused plain versions (CPU)", hk, hc)):
+        want_cost = want.cost.to(dev)
+        rel_kp = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
+        print(f"[planner end to end] {name} (f64, 8 restarts, 6 iters): max "
+              f"relative cost difference {rel_kp:.3e}", flush=True)
+        check(rel_kp < 1e-9, f"planner {name} differ: {rel_kp:.3e}")
+        check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
+              f"planner {name}: different accepted steps")
+
+    def apart(a, b):
+        rel = ((a.cost - b.cost).abs() / b.cost.abs()).max(0).values
+        steps = int((a.accepted_step != b.accepted_step).any(0).sum())
+        return rel, steps
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nudged = GaussianState(s8.mu * (1 + 1e-15 * torch.randn(
+        s8.mu.shape, generator=gen, dtype=f64, device=dev)), s8.precision)
+    _, hk30 = optimize(graph64, s8, cfg)
+    _, hp30 = optimize(graph64, s8, cfg_plain)
+    _, hn30 = optimize(graph64, nudged, cfg_plain)
+    for name, (rel, steps) in (
+            ("fused kernels vs plain path", apart(hk30, hp30)),
+            ("plain path vs itself from means nudged by 1e-15",
+             apart(hn30, hp30))):
+        check(bool(torch.isfinite(rel).all()), f"planner {name}: non-finite")
+        print(f"[planner end to end] {name} (f64, 8 restarts, {PLAN_ITERS} "
+              f"iters): max relative cost difference at iterations 6 / 8 / "
+              f"16 / last {rel[5]:.1e} / {rel[7]:.1e} / {rel[15]:.1e} / "
+              f"{rel[-1]:.1e}, max {rel.max().item():.1e}; steps differ at "
+              f"{steps}/{PLAN_ITERS} iterations", flush=True)
+
+    def rate(config, state):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            optimize(graph32, state, config)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return state.mu.shape[0] * PLAN_ITERS / statistics.median(times)
+
+    rates = {"fused": rate(cfg, inits32), "separate": rate(cfg_sep, inits32),
+             "plain": rate(cfg_plain, subset(inits32, PLAN_B_PLAIN))}
+    print(f"[throughput] {card}: planar planner fused {rates['fused']:.1f}, "
+          f"separate {rates['separate']:.1f} prob-iters/s (B={PLAN_B}, "
+          f"N={PLAN_N}, {PLAN_ITERS} iters, f32, median of 3); plain PyTorch "
+          f"{rates['plain']:.1f} prob-iters/s (B={PLAN_B_PLAIN})",
+          flush=True)
+    return {"fused": fused_counts, "separate": sep_counts}, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
@@ -1300,7 +1768,8 @@ def main() -> int:
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # registers / spill stores + loads (bytes) per instance of the six
-    # redesigned kernels; grad_kernel's modes: 0 full, 1 accum, 2 solve;
+    # redesigned kernels, by cost functor (range, planar_sdf) where the
+    # kernel evaluates one; grad_kernel's modes: 0 full, 1 accum, 2 solve;
     # quad_kernel's variants: 0 phi, 1 moments (K3 and K4)
     def instance(r):
         if r["kernel"] in ("grad_kernel", "quad_kernel"):
@@ -1310,7 +1779,8 @@ def main() -> int:
     # (K4 builds its own instances of quad_kernel's moments variant: each
     # instance is listed once)
     print("[ptxas] " + "; ".join(dict.fromkeys(
-        f"{r['kernel']} {r['dtype']} s={r['ints'][0]}{instance(r)}"
+        f"{r['kernel']}{' ' + r['cost'] if r['cost'] else ''} {r['dtype']} "
+        f"s={r['ints'][0]}{instance(r)}"
         f": {r['registers']} regs, spill {r['spill_stores']}+"
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
@@ -1519,6 +1989,17 @@ def main() -> int:
         f"{shape} {method} {ms:.3f} ms"
         for (shape, method), ms in sqrtm_ms.items()) + " (f32)", flush=True)
 
+    # ---- the planar planner: kernels at its shapes, its paths ----
+    plan_kern = planner_kernel_checks(dev)
+    plan_counts, _ = planner_runs(card, dev)
+    for name, r in plan_kern.items():
+        print(f"[kernel time] {card}: planner {name} {r['ms']:.4f} ms "
+              f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
+              f"call), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, planner "
+              f"shapes: B={PLAN_B}, N={PLAN_N}, 13-node rule, planar SDF "
+              f"cost)", flush=True)
+
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
         "gbp_covariance_logdet": ("chain.cu", "chain_lanes.py:131", "fused"),
@@ -1537,6 +2018,20 @@ def main() -> int:
     }
     counts = {"fused": fused_counts, "separate": sep_counts,
               "block_moments": block_counts, "factor_parallel": shard_counts}
+    # the planner's launches (fused path at B=1024, separate at B=256) and,
+    # for the kernels with the planar SDF cost, their times and bounds at
+    # the planner's shapes
+    plan_path = {"gbp_covariance_logdet": "fused", "solve": "separate",
+                 "quad_phi": "fused", "quad_moments": "separate",
+                 "fused_trials": "fused", "fused_gradient": "fused"}
+    planner_rows = {
+        name: (dict(path=plan_path[name],
+                    launches=plan_counts[plan_path[name]][name],
+                    **plan_kern.get(name, {}))
+               if name in plan_path else
+               dict(path=None, launches=0,
+                    note="not on the planar planner's paths"))
+        for name in WRAPPERS}
     # library_ms: K2's is torch.linalg.solve_ex on the densified pair
     # (dense_solve_ms).  No single PyTorch call computes the others: K1's
     # selected covariance blocks and log det together (a dense inverse
@@ -1564,7 +2059,8 @@ def main() -> int:
                  bound_by=kern[name]["bound_by"],
                  library_ms=kern[name].get("library_ms"),
                  **({} if "library_ms" in kern[name]
-                    else {"library_note": note}))
+                    else {"library_note": note}),
+                 planner=planner_rows[name])
             for name, note in zip(WRAPPERS, no_library)]
     check(all(r["launches"] > 0 for r in rows),
           f"a kernel was launched on no path: {rows}")

@@ -6,7 +6,9 @@ leaf and runs the batch under ``jax.vmap``; the port stacks the per-problem
 data and runs its batched functions directly.  The quadrature rule is one
 shared tensor, and start indices stay shared (``[K]``) when every problem
 has the same ones, else they stack to ``[B, K]`` with ``shared_start`` and
-``slice_offset`` cleared, as in JAX.
+``slice_offset`` cleared, as in JAX.  A cost's field (``kernel_field``)
+is shared like the rule: the problems must hold equal ones, and the
+stacked batch keeps the first.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .ops.blocktridiag import BlockTridiag
 
 _NL_DATA = ("kernel_params",)
 _LIN_DATA = ("lam", "psi", "target_mu", "target_prec", "constant")
-_SHARED = ("nodes", "weights")
+_SHARED = ("nodes", "weights", "kernel_field")
 _ALIGNED = ("start", "slice_offset", "shared_start", "uniform", "params")
 
 
@@ -34,9 +36,12 @@ def _stack_batches(batches):
         if name in _ALIGNED:
             continue
         if name in _SHARED:
-            if any(not torch.equal(values[0], v) for v in values[1:]):
+            if any((v is None) != (values[0] is None)
+                   or (v is not None and not torch.equal(values[0], v))
+                   for v in values[1:]):
                 raise ValueError(f"stack_problems: {name} differ between "
-                                 "problems (the rule must be shared)")
+                                 "problems (the rule and a cost's field "
+                                 "must be shared)")
         elif name in _NL_DATA or name in _LIN_DATA:
             updates[name] = None if values[0] is None else torch.stack(values)
         elif any(v != values[0] for v in values[1:]):

@@ -5,17 +5,37 @@
 // instead a functor here, passed to the kernel as a template parameter.  A
 // factor batch names its functor with ``kernel_cost`` (Python side:
 // gaussianvi_tpu_torch/kernels/quad.py, KERNEL_COSTS) and carries its
-// params packed per factor, leaves in sorted-key order, as ``[.., K, P]``.
+// params packed per factor, leaves in sorted-key order, as ``[.., K, P]``,
+// and, for a cost that reads one, a field shared by all its factors (one
+// device tensor, read in place).
 //
-// Contract: ``kParams`` is P; ``eval(x, p)`` returns phi at the point x of
-// the factor's local dimension D given the factor's P params.
+// Contract: ``kParams`` is P; ``kField`` says whether the cost reads a
+// field; ``eval(x, p, field)`` returns phi at the point x of the factor's
+// local dimension D given the factor's P params and the batch's field (a
+// cost that reads none ignores it).
 #pragma once
 
 #include "smallmat.cuh"
 
 namespace gvi {
 
-enum CostId : int { kRangeCost = 0 };
+enum CostId : int { kRangeCost = 0, kPlanarSdfCost = 1 };
+
+// A batch's field: rows x cols values, row-major, in device memory, shared
+// by every factor and problem of the batch and read through the read-only
+// path; data is null for a cost that reads no field.
+template <typename T>
+struct Field {
+  const T* data;
+  int rows, cols;
+};
+
+// A launch of Cost may go ahead with this field: present where the cost
+// reads one.
+template <typename Cost, typename T>
+inline bool field_ok(const Field<T>& f) {
+  return !Cost::kField || (f.data != nullptr && f.rows >= 1 && f.cols >= 1);
+}
 
 // Range measurement (gaussianvi_tpu/examples/chain_estimation.py,
 // range_cost_lanes): phi = (r - |pos - beacon|)^2 / (2 sig_r^2) with pos the
@@ -23,10 +43,12 @@ enum CostId : int { kRangeCost = 0 };
 template <int DX>
 struct RangeCost {
   static constexpr int kParams = DX + 2;
+  static constexpr bool kField = false;
 
   template <typename T, int D>
   __device__ __forceinline__ static T eval(const T (&x)[D],
-                                           const T (&p)[kParams]) {
+                                           const T (&p)[kParams],
+                                           const Field<T>&) {
     static_assert(DX <= D, "range cost reads the leading DX coordinates");
     T d2 = T(0);
 #pragma unroll
@@ -37,6 +59,68 @@ struct RangeCost {
     const T dist = dsqrt(d2 + T(1e-12));
     const T res = p[DX] - dist;
     return res * res / (T(2) * p[DX + 1]);
+  }
+};
+
+// Planar point robot against a 2-D signed-distance field
+// (gaussianvi_tpu/factors/robots.py make_planar_obstacle_factor with
+// planar_point_balls: one ball at (x[0], x[1])): the clamped bilinear
+// lookup of PlanarSDF.signed_distance (gaussianvi_tpu/factors/sdf.py),
+// then the hinge of hinge_obstacle_cost,
+//   phi = sigma * (slope * max(0, eps + radius - sd))^2.
+// The field is data[row, col], row <-> y and col <-> x, origin (x0, y0),
+// square cells.  Params (the geometry rides in them, the descriptor is the
+// bare array): eps, radius, sigma, slope, x0, y0, cell.
+//
+// The arithmetic is the plain version's, step for step: the clip to the
+// field's extent, the division by the cell (not a reciprocal multiply),
+// floor, the corner indices clamped to the last row and column, the
+// four-corner blend in the same order.  The selects are written so that a
+// NaN coordinate (a failed Cholesky upstream) stays NaN through the clip
+// and the hinge, as torch.clamp / torch.maximum keep it: its corner index
+// converts to 0 and its weights are NaN.
+//
+// What it costs: two divisions, two floors and four gathers a point.  The
+// gathers are data-dependent but stay on chip (the planner's 100 x 100
+// f32 field is 40 KB, read through the read-only path, and every factor
+// reads the same field): on an H100, K3 phi on the planner's trial batch
+// (225,280 factors, 13 nodes) takes 0.024 ms, 4.3x its byte bound
+// (PERF.md, section 6).
+struct PlanarSdfCost {
+  static constexpr int kParams = 7;
+  static constexpr bool kField = true;
+
+  template <typename T>
+  __device__ __forceinline__ static T clip(T v, T lo, T hi) {
+    v = v < lo ? lo : v;
+    return v > hi ? hi : v;
+  }
+
+  template <typename T, int D>
+  __device__ __forceinline__ static T eval(const T (&x)[D],
+                                           const T (&p)[kParams],
+                                           const Field<T>& f) {
+    static_assert(D >= 2, "the planar SDF cost reads (x[0], x[1])");
+    const T x0 = p[4], y0 = p[5], cell = p[6];
+    const T px = clip(x[0], x0, x0 + T(f.cols - 1) * cell);
+    const T py = clip(x[1], y0, y0 + T(f.rows - 1) * cell);
+    const T c = (px - x0) / cell;
+    const T r = (py - y0) / cell;
+    const T lr = dfloor(r), lc = dfloor(c);
+    const int lri = min(max(static_cast<int>(lr), 0), f.rows - 1);
+    const int lci = min(max(static_cast<int>(lc), 0), f.cols - 1);
+    const int hri = min(lri + 1, f.rows - 1);
+    const int hci = min(lci + 1, f.cols - 1);
+    const T wr = r - lr, wc = c - lc;
+    const T* lo_row = f.data + (int64_t)lri * f.cols;
+    const T* hi_row = f.data + (int64_t)hri * f.cols;
+    const T sd = (T(1) - wr) * (T(1) - wc) * __ldg(lo_row + lci) +
+                 wr * (T(1) - wc) * __ldg(hi_row + lci) +
+                 (T(1) - wr) * wc * __ldg(lo_row + hci) +
+                 wr * wc * __ldg(hi_row + hci);
+    const T e = p[0] + p[1] - sd;
+    const T err = (e < T(0) ? T(0) : e) * p[3];
+    return err * err * p[2];
   }
 };
 

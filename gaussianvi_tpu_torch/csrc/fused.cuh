@@ -6,8 +6,9 @@
 // fused_trials.py builds them, as gaussianvi_tpu/inference/engine.py's
 // _build_fused_specs does):
 //   nonlinear (nb == 1): a quadrature rule (nodes [m, S], weights [m]),
-//     per-problem packed cost params [B, k, P], and the per-state index of
-//     the batch's starts (which factors sit at state i);
+//     per-problem packed cost params [B, k, P], the cost's field (one
+//     array all problems read in place; null for the range cost), and the
+//     per-state index of the batch's starts (which factors sit at state i);
 //   linear (span 1 or 2 states): the residual form of
 //     cost = <A, Sig> + (Lam mu - pm)^T prec_c (Lam mu - pm) per row
 //     (fused_trials.linear_residual_form), rows [B, ka, ...]
@@ -44,8 +45,8 @@
 namespace gvi {
 
 constexpr int kMaxBatches = 4;
-constexpr int kNLPtrs = 5;   // nodes, weights, params, index, fc
-constexpr int kNLInts = 4;   // k, m, nonneg, rdim
+constexpr int kNLPtrs = 6;   // nodes, weights, params, index, fc, field
+constexpr int kNLInts = 6;   // k, m, nonneg, rdim, field rows, field cols
 constexpr int kLinPtrs = 6;  // a, lam, pm, prec, index, fc
 constexpr int kLinInts = 4;  // span, k, ka, r
 constexpr int kWarp = 32;
@@ -68,6 +69,7 @@ struct NLBatch {
   const T* params;    // [B, k, P]
   const int* index;   // per-state index [n + 1 + k] (for_factors_at)
   T* fc;              // trial kernel: E[phi] out, [T, B, k]
+  Field<T> field;     // the cost's field, shared by every problem
   int k, m, nonneg, rdim;
   int smem;           // element offset of the rule in shared memory
 };
@@ -112,6 +114,7 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs,
     b.params = static_cast<const T*>(p[2]);
     b.index = static_cast<const int*>(p[3]);
     b.fc = static_cast<T*>(p[4]);
+    b.field = Field<T>{static_cast<const T*>(p[5]), q[4], q[5]};
     b.k = q[0];
     b.m = q[1];
     b.nonneg = q[2];
@@ -135,6 +138,14 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs,
     b.r = q[3];
   }
   f.rule_elems = off;
+  return true;
+}
+
+// Every nonlinear batch brings the field Cost reads, where it reads one.
+template <typename Cost, typename T>
+inline bool fields_ok(const Factors<T>& f) {
+  for (int j = 0; j < f.n_nl; ++j)
+    if (!field_ok<Cost>(f.nl[j].field)) return false;
   return true;
 }
 

@@ -101,7 +101,7 @@ __device__ __forceinline__ void state_gradients(
       T e_tri[Tri<S>::value];
       chol_r(cov, l, rd);
       load_params<T, Cost>(fb, k, b, p);
-      sigma_sums<T, S, Cost, true>(l, mu_c, p, rules + fb.smem,
+      sigma_sums<T, S, Cost, true>(l, mu_c, p, fb.field, rules + fb.smem,
                                    rules + fb.smem + fb.m * S, fb.m, e_phi,
                                    absum, e_x, e_tri);
       T exx[S][S];
@@ -366,7 +366,8 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
                   const int* lin_ints, cudaStream_t st) {
   Factors<T> f;
   if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,
-                           lin_ints, f))
+                           lin_ints, f) ||
+      !fields_ok<Cost>(f))
     return -1;
   // the wrapper sized the arena: both sides must lay a chain out alike
   if (warps < 1 || warps > kGradWarps || chain != grad_chain_elems<S>(n))
@@ -388,9 +389,10 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One mode's instantiations (float32 / float64, s = 2 / 4, the range cost).
-// dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
-// params.  warps problems per block, chain = grad_chain_elems values per
+// One mode's instantiations (float32 / float64, s = 2 / 4, the range and
+// the planar SDF cost).  dtype: 0 = float32, 1 = float64; cost:
+// csrc/costs.cuh CostId with np params (one cost for every nonlinear
+// batch; each batch brings its own field, null for the range cost).  warps problems per block, chain = grad_chain_elems values per
 // problem, scratch = the global arena or null.  Returns the cudaError_t of
 // the launch (0 = success) or -1 for sizes that are not instantiated.
 template <int Mode>
@@ -402,18 +404,26 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
                 void* const* nl_ptrs, const int* nl_ints, int n_lin,
                 void* const* lin_ptrs, const int* lin_ints, void* stream) {
   if (nb <= 0) return 0;
-  if (cost != kRangeCost || n < 2) return -1;
+  if (n < 2) return -1;
   auto st = static_cast<cudaStream_t>(stream);
-#define GVI_GRAD(T, S, DX)                                                     \
-  if (np != RangeCost<DX>::kParams) return -1;                                \
-  return dispatch_grad<T, S, RangeCost<DX>, Mode>(                            \
+#define GVI_GRAD(T, S, COST)                                                   \
+  if (np != COST::kParams) return -1;                                         \
+  return dispatch_grad<T, S, COST, Mode>(                                     \
       mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd, vdo,   \
       scratch, nb, n, warps, chain, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,  \
       lin_ints, st);
-  if (dtype == 0 && s == 2) { GVI_GRAD(float, 2, 1) }
-  if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, 2) }
-  if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, 1) }
-  if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, 2) }
+  if (cost == kRangeCost) {
+    if (dtype == 0 && s == 2) { GVI_GRAD(float, 2, RangeCost<1>) }
+    if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, RangeCost<2>) }
+    if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, RangeCost<1>) }
+    if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, RangeCost<2>) }
+  }
+  if (cost == kPlanarSdfCost) {
+    if (dtype == 0 && s == 2) { GVI_GRAD(float, 2, PlanarSdfCost) }
+    if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, PlanarSdfCost) }
+    if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, PlanarSdfCost) }
+    if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarSdfCost) }
+  }
 #undef GVI_GRAD
   return -1;
 }

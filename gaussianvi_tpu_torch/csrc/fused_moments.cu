@@ -27,7 +27,11 @@
 #include "quad.cuh"
 
 // Operands as gvi_quad takes them (strides in elements, the params'
-// period in factors, contiguous outputs; rdim = d disables the lift).
+// period in factors, the cost's field, contiguous outputs; rdim = d
+// disables the lift).  The field passes through to the shared body: no
+// batch with a field reaches this kernel today (the planner's obstacle
+// batch has no block form, as in the JAX package), but every cost the
+// body is instantiated for takes its operands here too.
 // Returns the cudaError_t of the launch (0 = success) or -1 for a
 // (dtype, d, cost, np) combination that is not instantiated.
 extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
@@ -35,7 +39,8 @@ extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
                                  const void* cov, long long cov_sb,
                                  long long cov_sk, const void* nodes,
                                  const void* weights, const void* params,
-                                 long long period, void* e_phi, void* e_xmu,
+                                 long long period, const void* field,
+                                 int rows, int cols, void* e_phi, void* e_xmu,
                                  void* e_xxt, long long count, int k, int m,
                                  int np, int rdim, int group_shift,
                                  int threads, void* stream) {
@@ -43,12 +48,12 @@ extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
   if (dtype == 0)
     return gvi::quad_entry<float, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
-        params, period, e_phi, e_xmu, e_xxt, count, k, m, 0, rdim,
-        group_shift, threads, stream);
+        params, period, field, rows, cols, e_phi, e_xmu, e_xxt, count, k, m,
+        0, rdim, group_shift, threads, stream);
   if (dtype == 1)
     return gvi::quad_entry<double, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
-        params, period, e_phi, e_xmu, e_xxt, count, k, m, 0, rdim,
-        group_shift, threads, stream);
+        params, period, field, rows, cols, e_phi, e_xmu, e_xxt, count, k, m,
+        0, rdim, group_shift, threads, stream);
   return -1;
 }

@@ -121,7 +121,7 @@ __device__ __forceinline__ void state_costs(const Factors<T>& f,
       T l[S][S], p[Cost::kParams], acc, absum, ax[S], axx[Tri<S>::value];
       chol(cov, l);
       load_params<T, Cost>(fb, k, b, p);
-      sigma_sums<T, S, Cost, false>(l, mu_c, p, rules + fb.smem,
+      sigma_sums<T, S, Cost, false>(l, mu_c, p, fb.field, rules + fb.smem,
                                     rules + fb.smem + fb.m * S, fb.m, acc,
                                     absum, ax, axx);
       fb.fc[tb * fb.k + k] = guard_phi(acc, absum, fb.nonneg);
@@ -281,7 +281,8 @@ int dispatch_trials(const void* mu, const void* dmu, const void* pd,
                     cudaStream_t st) {
   Factors<T> f;
   if (!parse_factors<T, S>(n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs,
-                           lin_ints, f))
+                           lin_ints, f) ||
+      !fields_ok<Cost>(f))
     return -1;
   // the wrapper sized the arena: both sides must lay a block out alike
   if (warps != kTrialWarps || chunk < 1 ||
@@ -304,7 +305,8 @@ int dispatch_trials(const void* mu, const void* dmu, const void* pd,
 }  // namespace gvi
 
 // dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
-// params.  A block has `warps` warps and holds `chunk` trials at once;
+// params (one cost for every nonlinear batch; each batch brings its own
+// field, null for the range cost).  A block has `warps` warps and holds `chunk` trials at once;
 // arena = trial_arena_elems values per block, scratch = the global arena
 // or null.  Returns the cudaError_t of the launch (0 = success) or -1
 // for sizes that are not instantiated.
@@ -319,17 +321,25 @@ extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
                                 int n_lin, void* const* lin_ptrs,
                                 const int* lin_ints, void* stream) {
   if (nb <= 0 || nt <= 0) return 0;
-  if (cost != gvi::kRangeCost || n < 2) return -1;
+  if (n < 2) return -1;
   auto st = static_cast<cudaStream_t>(stream);
-#define GVI_TRIALS(T, S, DX)                                                  \
-  if (np != gvi::RangeCost<DX>::kParams) return -1;                          \
-  return gvi::dispatch_trials<T, S, gvi::RangeCost<DX>>(                     \
+#define GVI_TRIALS(T, S, COST)                                                \
+  if (np != COST::kParams) return -1;                                        \
+  return gvi::dispatch_trials<T, S, COST>(                                   \
       mu, dmu, pd, po, dpd, dpo, trials, ld, scratch, nb, n, nt, warps,      \
       chunk, arena, n_nl, nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, st);
-  if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, 1) }
-  if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, 2) }
-  if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, 1) }
-  if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, 2) }
+  if (cost == gvi::kRangeCost) {
+    if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::RangeCost<1>) }
+    if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::RangeCost<2>) }
+    if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::RangeCost<1>) }
+    if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::RangeCost<2>) }
+  }
+  if (cost == gvi::kPlanarSdfCost) {
+    if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::PlanarSdfCost) }
+    if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::PlanarSdfCost) }
+    if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::PlanarSdfCost) }
+    if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::PlanarSdfCost) }
+  }
 #undef GVI_TRIALS
   return -1;
 }

@@ -19,7 +19,8 @@
 // Operands as PyTorch holds them: mu [nb, K, D] and cov [nb, K, D, D] at
 // any batch and factor strides (in elements) with the D or D x D block
 // dense, params [period, P] dense with factor f reading row f % period
-// (their broadcast over leading axes), outputs contiguous [count],
+// (their broadcast over leading axes), the cost's field (one array every
+// factor reads in place; costs.cuh Field), outputs contiguous [count],
 // [count, D], [count, D, D] with f = b * K + k.  The rule is staged once
 // per block in shared memory, coordinate-major ([D][m] nodes, then [m]
 // weights), so the group's lanes read neighbouring words; the moments'
@@ -67,6 +68,7 @@ struct QuadOperands {
   const T* nodes;    // [m, D] node-major, as the caller holds the rule
   const T* weights;  // [m]
   const T* params;
+  Field<T> field;    // the cost's field (null data for a cost without one)
   T* e_phi;
   T* e_xmu;
   T* e_xxt;
@@ -112,9 +114,9 @@ __global__ void quad_kernel(const QuadOperands<T> op) {
   chol(c, l);
 
   T acc, absum, acc_x[D], acc_xx[Tri<D>::value];
-  group_sigma_sums<T, D, Cost, WithMoments>(l, mu_k, p, s_nodes, s_w, op.m,
-                                            lane, group, acc, absum, acc_x,
-                                            acc_xx);
+  group_sigma_sums<T, D, Cost, WithMoments>(l, mu_k, p, op.field, s_nodes,
+                                            s_w, op.m, lane, group, acc,
+                                            absum, acc_x, acc_xx);
   acc = group_sum(acc, group);
   if (!WithMoments) {
     absum = group_sum(absum, group);
@@ -178,14 +180,16 @@ int launch_quad(const QuadOperands<T>& op, int threads, cudaStream_t st) {
 
 // The C entries' common body: the instantiated (d, cost, np)
 // combinations, -1 for any other; strides and the params' period in
-// elements / factors; rdim = d disables the lift.
+// elements / factors; field: the cost's rows x cols field (null, 0, 0 for
+// a cost without one); rdim = d disables the lift.
 template <typename T, bool WithMoments>
 int quad_entry(int d, int cost, int np, const void* mu,
                long long mu_sb, long long mu_sk, const void* cov,
                long long cov_sb, long long cov_sk, const void* nodes,
                const void* weights, const void* params, long long period,
-               void* e_phi, void* e_xmu, void* e_xxt, long long count, int k,
-               int m, int nonneg, int rdim, int group_shift, int threads,
+               const void* field, int rows, int cols, void* e_phi,
+               void* e_xmu, void* e_xxt, long long count, int k, int m,
+               int nonneg, int rdim, int group_shift, int threads,
                void* stream) {
   QuadOperands<T> op;
   op.mu = static_cast<const T*>(mu);
@@ -193,6 +197,7 @@ int quad_entry(int d, int cost, int np, const void* mu,
   op.nodes = static_cast<const T*>(nodes);
   op.weights = static_cast<const T*>(weights);
   op.params = static_cast<const T*>(params);
+  op.field = Field<T>{static_cast<const T*>(field), rows, cols};
   op.e_phi = static_cast<T*>(e_phi);
   op.e_xmu = static_cast<T*>(e_xmu);
   op.e_xxt = static_cast<T*>(e_xxt);
@@ -212,6 +217,13 @@ int quad_entry(int d, int cost, int np, const void* mu,
     return launch_quad<T, 2, RangeCost<1>, WithMoments>(op, threads, st);
   if (cost == kRangeCost && d == 4 && np == RangeCost<2>::kParams)
     return launch_quad<T, 4, RangeCost<2>, WithMoments>(op, threads, st);
+  if (cost != kPlanarSdfCost || np != PlanarSdfCost::kParams ||
+      !field_ok<PlanarSdfCost>(op.field))
+    return -1;
+  if (d == 2)
+    return launch_quad<T, 2, PlanarSdfCost, WithMoments>(op, threads, st);
+  if (d == 4)
+    return launch_quad<T, 4, PlanarSdfCost, WithMoments>(op, threads, st);
   return -1;
 }
 

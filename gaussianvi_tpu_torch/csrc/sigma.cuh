@@ -5,7 +5,8 @@
 // For a factor with marginal N(mu, L L^T) and a rule (nodes, weights) in
 // shared memory, each node gives the offset d = L node (summed in the order
 // of gaussianvi_tpu/kernels/quad_lanes.py) and the point x = mu + d, where
-// the cost functor is evaluated once.  The sums kept in registers are
+// the cost functor is evaluated once (with the batch's field, for a cost
+// that reads one).  The sums kept in registers are
 // sum w phi and either sum |w phi| (the cost path's guards) or the central
 // moments sum w phi d and sum w phi d d^T (lower triangle, row-major).
 //
@@ -30,6 +31,7 @@ template <typename T, int D, typename Cost, bool WithMoments>
 __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
                                            const T (&mu)[D],
                                            const T (&p)[Cost::kParams],
+                                           const Field<T>& field,
                                            const T* s_nodes, const T* s_w,
                                            int m, T& acc, T& absum,
                                            T (&acc_x)[D],
@@ -52,7 +54,7 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
       diff[i] = t;
       pts[i] = t + mu[i];
     }
-    const T wphi = Cost::template eval<T, D>(pts, p) * s_w[mi];
+    const T wphi = Cost::template eval<T, D>(pts, p, field) * s_w[mi];
     acc = acc + wphi;
     if (WithMoments) {
       int t = 0;
@@ -75,8 +77,9 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
 template <typename T, int D, typename Cost, bool WithMoments>
 __device__ __forceinline__ void group_sigma_sums(
     const T (&l)[D][D], const T (&mu)[D], const T (&p)[Cost::kParams],
-    const T* s_nodes, const T* s_w, int m, int lane, int group, T& acc,
-    T& absum, T (&acc_x)[D], T (&acc_xx)[Tri<D>::value]) {
+    const Field<T>& field, const T* s_nodes, const T* s_w, int m, int lane,
+    int group, T& acc, T& absum, T (&acc_x)[D],
+    T (&acc_xx)[Tri<D>::value]) {
   acc = T(0);
   absum = T(0);
 #pragma unroll
@@ -95,7 +98,7 @@ __device__ __forceinline__ void group_sigma_sums(
       diff[i] = t;
       pts[i] = t + mu[i];
     }
-    const T wphi = Cost::template eval<T, D>(pts, p) * s_w[mi];
+    const T wphi = Cost::template eval<T, D>(pts, p, field) * s_w[mi];
     acc = acc + wphi;
     if (WithMoments) {
       int t = 0;

@@ -21,6 +21,8 @@ __device__ __forceinline__ float dlog(float x) { return logf(x); }
 __device__ __forceinline__ double dlog(double x) { return log(x); }
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ float dfloor(float x) { return floorf(x); }
+__device__ __forceinline__ double dfloor(double x) { return floor(x); }
 
 template <typename T> __device__ __forceinline__ T quiet_nan();
 template <> __device__ __forceinline__ float quiet_nan<float>() {

@@ -32,8 +32,10 @@ class NonlinearFactorBatch:
     ``kernel_cost`` names the CUDA cost functor (``csrc/costs.cuh``) that
     the quadrature kernel evaluates in place of ``cost_fn``;
     ``kernel_params [B, K, P]`` are the leaves packed for it in sorted-key
-    order (:func:`pack_params`).  The kernel path raises for a batch that
-    names no functor.
+    order (:func:`pack_params`); ``kernel_field`` is the one tensor the
+    functor reads in place where it reads one (a signed-distance field),
+    shared by every factor and problem, like the rule.  The kernel path
+    raises for a batch that names no functor.
 
     ``block_cost`` says the batch has a block form, which the block-form
     moments kernel (``kernels/fused_moments.py``, ``GVIConfig.use_pallas``)
@@ -51,6 +53,7 @@ class NonlinearFactorBatch:
     nb: int = 1
     kernel_cost: str | None = None
     kernel_params: torch.Tensor | None = None   # [B, K, P]
+    kernel_field: torch.Tensor | None = None    # shared, e.g. [rows, cols]
     block_cost: Callable | None = None
     # start == slice_offset + arange(K): gathers/scatters become slices
     slice_offset: int | None = None

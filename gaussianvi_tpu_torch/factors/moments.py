@@ -90,7 +90,8 @@ def expectation_phi(nodes, weights, mu, cov, cost_fn, params,
 def kernel_covers(fb) -> str | None:
     """Why the quadrature kernel (``kernels.quad``) does not cover the
     NonlinearFactorBatch ``fb``, or None where it does: a batch spanning
-    one state with a CUDA cost functor instantiated for its dim and rule."""
+    one state with a CUDA cost functor instantiated for its dim and rule,
+    and the field the functor reads where it reads one."""
     from ..kernels.quad import covers
 
     if fb.nb != 1:
@@ -99,7 +100,7 @@ def kernel_covers(fb) -> str | None:
     if fb.kernel_params is None:
         return covers(None, fb.dim, 0, fb.nodes.shape[0], fb.nodes.dtype)
     return covers(fb.kernel_cost, fb.dim, fb.kernel_params.shape[-1],
-                  fb.nodes.shape[0], fb.nodes.dtype)
+                  fb.nodes.shape[0], fb.nodes.dtype, fb.kernel_field)
 
 
 def _kernel_cost(fb):
@@ -118,7 +119,8 @@ def batch_phi(fb, mu_k, cov_k, use_kernel: bool):
         from ..kernels.quad import quad_lanes_phi
 
         return quad_lanes_phi(mu_k, cov_k, fb.nodes, fb.weights,
-                              *_kernel_cost(fb), nonneg=fb.nonneg_cost)
+                              *_kernel_cost(fb), nonneg=fb.nonneg_cost,
+                              field=fb.kernel_field)
     return expectation_phi(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
                            fb.params, nonneg=fb.nonneg_cost)
 
@@ -134,12 +136,14 @@ def batch_moments(fb, mu_k, cov_k, use_pallas: bool = False,
         from ..kernels.fused_moments import fused_moments
 
         return fused_moments(fb.nodes, fb.weights, mu_k, cov_k,
-                             *_kernel_cost(fb), rdim=fb.quad_rdim)
+                             *_kernel_cost(fb), rdim=fb.quad_rdim,
+                             field=fb.kernel_field)
     if use_kernel:
         from ..kernels.quad import quad_lanes_moments
 
         return quad_lanes_moments(mu_k, cov_k, fb.nodes, fb.weights,
-                                  *_kernel_cost(fb), rdim=fb.quad_rdim)
+                                  *_kernel_cost(fb), rdim=fb.quad_rdim,
+                                  field=fb.kernel_field)
     return gh_moments(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
                       fb.params, rdim=fb.quad_rdim)
 

@@ -1,0 +1,384 @@
+"""Robot collision models: check-ball placement, DH forward kinematics and
+the obstacle factors built on them.
+
+Counterpart of ``gaussianvi_tpu/factors/robots.py``.  Each model maps a
+robot state to a set of collision-check sphere centers; the obstacle factor
+composes it with an SDF lookup and the hinge loss (``factors/sdf.py``).
+The functions take batched states ``[..., d]`` where the JAX package takes
+one state under ``vmap``.
+
+What differs from the JAX package:
+
+* ``interp="auto"`` resolves to the gather (``"gather"``): the JAX package
+  takes the hat-function matmul on a TPU only, where gathers serialize.
+* The planar point robot's factor with the gather names the CUDA cost
+  functor ``"planar_sdf"`` (``csrc/costs.cuh`` ``PlanarSdfCost``) and
+  carries its packed params ``[eps, radius, sigma, slope, x0, y0, cell]``
+  and the field, which the quadrature kernels (K3, and K5 / K6 on the
+  fused path) read from device memory; ``interp="matmul"`` and the other
+  robots give a ``cost_fn``-only batch, which the plain routes take.
+* ``patch_size`` raises ``NotImplementedError``: the pre-gathered window
+  mode exists in the JAX package because a TPU kernel has no per-lane
+  gather (ROADMAP.md, Queue A 9); whether the port wants it is a
+  measurement for later.  Its functions (``make_patch_prep_*``,
+  ``make_patch_cost_*``) are ported as plain tensor functions.
+* Like the JAX factors these batches have no block form, so
+  ``GVIConfig.use_pallas`` never routes them to the block-form moments
+  kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..quadrature.table import get_rule
+from .base import NonlinearFactorBatch, detect_slice_offset, marginal_rule
+from .sdf import SDF3D, PlanarSDF, hinge_obstacle_cost
+
+_PATCH = ("patch_size (the pre-gathered SDF window mode) is not ported: "
+          "the port's kernels read the whole field (ROADMAP.md, Queue A 9)")
+
+
+def planar_point_balls(pose: torch.Tensor) -> torch.Tensor:
+    """Planar point robot: one ball at (x, y): ``[..., 1, 2]``."""
+    return pose[..., None, :2]
+
+
+def planar_quad_balls(pose: torch.Tensor, n_balls: int = 5,
+                      length: float = 5.0, radius: float = 1.0):
+    """Planar quadrotor: n balls along the body axis, ``[..., n, 2]``;
+    pose = (x, z, phi, ...)."""
+    x, z, phi = pose[..., 0], pose[..., 1], pose[..., 2]
+    l_x = x - (length - radius * 1.5) * torch.cos(phi) / 2.0
+    l_z = z - (length - radius * 1.5) * torch.sin(phi) / 2.0
+    i = torch.arange(n_balls, dtype=pose.dtype, device=pose.device)
+    pt_x = l_x[..., None] + (length * torch.cos(phi) / n_balls)[..., None] * i
+    pt_z = l_z[..., None] + (length * torch.sin(phi) / n_balls)[..., None] * i
+    return torch.stack([pt_x, pt_z], dim=-1)
+
+
+def point3d_balls(pose: torch.Tensor) -> torch.Tensor:
+    """3-D point robot: one ball at (x, y, z): ``[..., 1, 3]``."""
+    return pose[..., None, :3]
+
+
+@dataclass(frozen=True)
+class DHForwardKinematics:
+    """Denavit-Hartenberg chain with attached collision spheres."""
+
+    a: torch.Tensor           # [J]
+    alpha: torch.Tensor       # [J]
+    d: torch.Tensor           # [J]
+    theta_bias: torch.Tensor  # [J]
+    frames: torch.Tensor      # [S] int: sphere -> joint frame
+    centers: torch.Tensor     # [S, 3] sphere center in its frame
+
+    def _dh_matrix(self, i: int, theta: torch.Tensor) -> torch.Tensor:
+        """Joint i's transform at angles ``theta [...]``: ``[..., 4, 4]``."""
+        ct, st = torch.cos(theta), torch.sin(theta)
+        ca, sa = torch.cos(self.alpha[i]), torch.sin(self.alpha[i])
+        a_i, d_i = self.a[i], self.d[i]
+        zero, one = torch.zeros_like(theta), torch.ones_like(theta)
+        rows = [
+            [ct, -st * ca, st * sa, a_i * ct],
+            [st, ct * ca, -ct * sa, a_i * st],
+            [zero, sa + zero, ca + zero, d_i + zero],
+            [zero, zero, zero, one],
+        ]
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    def joint_transforms(self, theta: torch.Tensor) -> torch.Tensor:
+        """Cumulative base -> frame transforms T_0..T_{J-1} at joint angles
+        ``theta [..., J]``: ``[..., J, 4, 4]``, one 4x4 product a joint."""
+        full = theta + self.theta_bias
+        t = torch.eye(4, dtype=theta.dtype, device=theta.device)
+        out = []
+        for i in range(self.a.shape[0]):
+            t = torch.matmul(t, self._dh_matrix(i, full[..., i]))
+            out.append(t)
+        return torch.stack(out, dim=-3)
+
+    def sphere_centers(self, theta: torch.Tensor) -> torch.Tensor:
+        """World positions of all collision spheres, ``[..., S, 3]``."""
+        t_s = self.joint_transforms(theta)[..., self.frames, :, :]
+        rot = t_s[..., :3, :3]
+        pos = t_s[..., :3, 3]
+        return pos + torch.einsum("...sij,sj->...si", rot, self.centers)
+
+
+def _resolve_interp(interp: str) -> str:
+    """``interp="auto"`` -> the direct gather: on the card a thread gathers
+    freely (the JAX package takes the matmul on a TPU only)."""
+    return "gather" if interp == "auto" else interp
+
+
+def make_patch_prep_2d(sdf: PlanarSDF, patch: int):
+    """The window prep of the patch mode for a planar point robot: a
+    ``patch x patch`` cell window of the field around each factor's
+    marginal-mean ball center.  ``prep(mu_k [K, >=2])`` -> ``(patches
+    [K, P, P], r0 [K], c0 [K])`` (window origin in cell units, in mu's
+    dtype)."""
+
+    def prep(mu_k):
+        rows, cols = sdf.data.shape
+        c = (mu_k[:, 0] - sdf.origin[0]) / sdf.cell_size
+        r = (mu_k[:, 1] - sdf.origin[1]) / sdf.cell_size
+        r0 = torch.clamp(torch.floor(r).long() - patch // 2 + 1, 0,
+                         rows - patch)
+        c0 = torch.clamp(torch.floor(c).long() - patch // 2 + 1, 0,
+                         cols - patch)
+        step = torch.arange(patch, device=mu_k.device)
+        ri = (r0[:, None] + step)[:, :, None]
+        ci = (c0[:, None] + step)[:, None, :]
+        return sdf.data[ri, ci], r0.to(mu_k.dtype), c0.to(mu_k.dtype)
+
+    return prep
+
+
+def make_patch_cost_2d(sdf: PlanarSDF, patch: int, epsilon, radius, sigma,
+                       slope=1.0):
+    """The patch mode's planar point-robot cost on a pre-gathered window:
+    bilinear interpolation as a separable hat-function sum
+    ``sd = sum_ij relu(1-|r-i|) relu(1-|c-j|) patch[i, j]`` (the 4-corner
+    blend for in-window points; points outside the window clamp to its
+    edge), then the hinge.  ``cost(x [..., >=2], patches [..., P, P],
+    r0 [...], c0 [...]) -> [...]``."""
+    ox, oy = float(sdf.origin[0]), float(sdf.origin[1])
+    cell = float(sdf.cell_size)
+
+    def cost(x, patches, r0, c0):
+        c_rel = torch.clamp((x[..., 0] - ox) / cell - c0, 0.0, patch - 1.0)
+        r_rel = torch.clamp((x[..., 1] - oy) / cell - r0, 0.0, patch - 1.0)
+        wc = [torch.clamp_min(1.0 - torch.abs(c_rel - j), 0.0)
+              for j in range(patch)]
+        sd = None
+        for i in range(patch):
+            row = None
+            for j in range(patch):
+                term = wc[j] * patches[..., i, j]
+                row = term if row is None else row + term
+            wr = torch.clamp_min(1.0 - torch.abs(r_rel - i), 0.0)
+            contrib = wr * row
+            sd = contrib if sd is None else sd + contrib
+        return hinge_obstacle_cost(sd[..., None], epsilon, radius, sigma,
+                                   slope)
+
+    return cost
+
+
+def make_patch_prep_3d(sdf: SDF3D, patch: int):
+    """3-D analog of :func:`make_patch_prep_2d`: a P^3 voxel window around
+    each factor's marginal-mean ball center.  ``prep(mu_k [K, >=3])`` ->
+    ``(patches [K, P, P, P], z0 [K], r0 [K], c0 [K])``."""
+
+    def prep(mu_k):
+        nz, rows, cols = sdf.data.shape
+        c = (mu_k[:, 0] - sdf.origin[0]) / sdf.cell_size
+        r = (mu_k[:, 1] - sdf.origin[1]) / sdf.cell_size
+        z = (mu_k[:, 2] - sdf.origin[2]) / sdf.cell_size
+        h = patch // 2 - 1
+        z0 = torch.clamp(torch.floor(z).long() - h, 0, nz - patch)
+        r0 = torch.clamp(torch.floor(r).long() - h, 0, rows - patch)
+        c0 = torch.clamp(torch.floor(c).long() - h, 0, cols - patch)
+        step = torch.arange(patch, device=mu_k.device)
+        zi = (z0[:, None] + step)[:, :, None, None]
+        ri = (r0[:, None] + step)[:, None, :, None]
+        ci = (c0[:, None] + step)[:, None, None, :]
+        return (sdf.data[zi, ri, ci], z0.to(mu_k.dtype), r0.to(mu_k.dtype),
+                c0.to(mu_k.dtype))
+
+    return prep
+
+
+def make_patch_cost_3d(sdf: SDF3D, patch: int, epsilon, radius, sigma,
+                       slope=1.0):
+    """The patch mode's 3-D point-robot cost: trilinear interpolation as a
+    separable hat-function sum over the pre-gathered P^3 window (see
+    :func:`make_patch_cost_2d`).  ``cost(x [..., >=3], patches
+    [..., P, P, P], z0, r0, c0) -> [...]``."""
+    ox, oy, oz = (float(sdf.origin[0]), float(sdf.origin[1]),
+                  float(sdf.origin[2]))
+    cell = float(sdf.cell_size)
+
+    def cost(x, patches, z0, r0, c0):
+        c_rel = torch.clamp((x[..., 0] - ox) / cell - c0, 0.0, patch - 1.0)
+        r_rel = torch.clamp((x[..., 1] - oy) / cell - r0, 0.0, patch - 1.0)
+        z_rel = torch.clamp((x[..., 2] - oz) / cell - z0, 0.0, patch - 1.0)
+        wc = [torch.clamp_min(1.0 - torch.abs(c_rel - j), 0.0)
+              for j in range(patch)]
+        wr = [torch.clamp_min(1.0 - torch.abs(r_rel - i), 0.0)
+              for i in range(patch)]
+        sd = None
+        for kz in range(patch):
+            plane = None
+            for i in range(patch):
+                row = None
+                for j in range(patch):
+                    term = wc[j] * patches[..., kz, i, j]
+                    row = term if row is None else row + term
+                t = wr[i] * row
+                plane = t if plane is None else plane + t
+            wz = torch.clamp_min(1.0 - torch.abs(z_rel - kz), 0.0)
+            contrib = wz * plane
+            sd = contrib if sd is None else sd + contrib
+        return hinge_obstacle_cost(sd[..., None], epsilon, radius, sigma,
+                                   slope)
+
+    return cost
+
+
+def _obstacle_batch(cost_fn, start_indices, state_dim, rdim, gh_degree,
+                    dtype, device, **kernel):
+    """A hinge-cost factor batch (nonnegative cost) on the marginal rule
+    over the leading ``rdim`` dims, or the full-state rule for None."""
+    if rdim is not None:
+        nodes, weights = marginal_rule(state_dim, rdim, gh_degree)
+    else:
+        nodes, weights = get_rule(state_dim, gh_degree)
+    start_np = np.asarray(start_indices, np.int64)
+    return NonlinearFactorBatch(
+        start=torch.as_tensor(start_np, device=device),
+        slice_offset=detect_slice_offset(start_np),
+        nodes=torch.as_tensor(np.asarray(nodes), dtype=dtype, device=device),
+        weights=torch.as_tensor(np.asarray(weights), dtype=dtype,
+                                device=device),
+        params=None,
+        cost_fn=cost_fn,
+        nb=1,
+        nonneg_cost=True,   # hinge loss: phi >= 0 everywhere
+        quad_rdim=rdim,
+        **kernel,
+    )
+
+
+def make_planar_obstacle_factor(
+    sdf: PlanarSDF,
+    start_indices,
+    state_dim: int,
+    cost_sigma: float = 15.5,
+    epsilon: float = 0.5,
+    radius: float = 1.0,
+    slope: float = 1.0,
+    balls_fn=planar_point_balls,
+    gh_degree: int = 3,
+    patch_size: int | None = None,
+    interp: str = "auto",
+    marginal_quad: bool = True,
+    dtype=torch.float64,
+    device=None,
+) -> NonlinearFactorBatch:
+    """Per-state planar collision factor psi(x) = hinge(sd(balls(x))).
+    The field lives on the device once, shared by all factors.
+
+    ``interp``: "auto" (the gather here), "gather" or "matmul" (the
+    hat-function contraction, same values).  ``marginal_quad``: the rule
+    over the configuration marginal (2 dims for the point robot, 3 for the
+    quadrotor; other ``balls_fn`` keep the full-state rule).  The point
+    robot with the gather also names the kernel cost ``"planar_sdf"``.
+    ``device=None`` is the card."""
+    if patch_size is not None:
+        raise NotImplementedError(_PATCH)
+    device = resolve_device(device)
+    sdf = sdf.to(dtype, device)
+    gather = _resolve_interp(interp) != "matmul"
+    lookup = sdf.signed_distance if gather else sdf.signed_distance_matmul
+
+    def cost_fn(x, params):
+        del params
+        sd = lookup(balls_fn(x))
+        return hinge_obstacle_cost(sd, epsilon, radius, cost_sigma, slope)
+
+    rdim = None
+    if marginal_quad:
+        rdim = (2 if balls_fn is planar_point_balls
+                else 3 if balls_fn is planar_quad_balls else None)
+    kernel = {}
+    if gather and balls_fn is planar_point_balls:
+        # PlanarSdfCost's params: eps, radius, sigma, slope, x0, y0, cell
+        row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
+                                      dtype=dtype, device=device),
+                         sdf.origin, sdf.cell_size[None]])
+        k = len(np.atleast_1d(start_indices))
+        kernel = dict(kernel_cost="planar_sdf",
+                      kernel_params=row.expand(k, 7).contiguous(),
+                      kernel_field=sdf.data)
+    return _obstacle_batch(cost_fn, start_indices, state_dim, rdim,
+                           gh_degree, dtype, device, **kernel)
+
+
+def make_point3d_obstacle_factor(
+    sdf: SDF3D,
+    start_indices,
+    state_dim: int,
+    cost_sigma: float = 15.5,
+    epsilon: float = 0.5,
+    radius: float = 1.0,
+    slope: float = 1.0,
+    gh_degree: int = 3,
+    patch_size: int | None = None,
+    interp: str = "auto",
+    marginal_quad: bool = True,
+    dtype=torch.float64,
+    device=None,
+) -> NonlinearFactorBatch:
+    """3-D point-robot collision factor: one ball at (x, y, z) -> trilinear
+    SDF lookup -> hinge (state = [pos3; vel3]); position-marginal rule.
+    A ``cost_fn``-only batch: the 3-D kernel cost is not ported yet
+    (ROADMAP.md, Queue B 1).  ``device=None`` is the card."""
+    if patch_size is not None:
+        raise NotImplementedError(_PATCH)
+    device = resolve_device(device)
+    sdf = sdf.to(dtype, device)
+    lookup = (sdf.signed_distance_matmul
+              if _resolve_interp(interp) == "matmul" else sdf.signed_distance)
+
+    def cost_fn(x, params):
+        del params
+        sd = lookup(point3d_balls(x))
+        return hinge_obstacle_cost(sd, epsilon, radius, cost_sigma, slope)
+
+    return _obstacle_batch(cost_fn, start_indices, state_dim,
+                           3 if marginal_quad else None, gh_degree, dtype,
+                           device)
+
+
+def make_arm_obstacle_factor(
+    sdf: SDF3D,
+    fk: DHForwardKinematics,
+    radii,
+    start_indices,
+    state_dim: int,
+    cost_sigma: float = 15.5,
+    epsilon: float = 0.5,
+    slope: float = 1.0,
+    gh_degree: int = 3,
+    n_joints: int | None = None,
+    interp: str = "auto",
+    marginal_quad: bool = True,
+    dtype=torch.float64,
+    device=None,
+) -> NonlinearFactorBatch:
+    """Arm collision factor: DH forward kinematics -> sphere centers -> 3-D
+    SDF -> hinge (state = [theta; theta_dot], the first ``n_joints``
+    entries are joint angles); joint-angle-marginal rule.  A
+    ``cost_fn``-only batch, on the plain routes.  ``device=None`` is the
+    card."""
+    device = resolve_device(device)
+    sdf = sdf.to(dtype, device)
+    radii = torch.as_tensor(radii, dtype=dtype, device=device)
+    nj = n_joints if n_joints is not None else state_dim // 2
+    lookup = (sdf.signed_distance_matmul
+              if _resolve_interp(interp) == "matmul" else sdf.signed_distance)
+
+    def cost_fn(x, params):
+        del params
+        sd = lookup(fk.sphere_centers(x[..., :nj]))
+        return hinge_obstacle_cost(sd, epsilon, radii, cost_sigma, slope)
+
+    rdim = nj if (marginal_quad and nj < state_dim) else None
+    return _obstacle_batch(cost_fn, start_indices, state_dim, rdim,
+                           gh_degree, dtype, device)

@@ -83,7 +83,7 @@ def fused_operands(graph: FactorGraph):
     ``kernels/fused_trials.py`` describes them, or a string saying why the
     kernels do not cover the graph (checked before any call:
     ``fused_trials.covers``).  Per-problem leaves keep the graph's leading
-    axes."""
+    axes; a batch's field is shared by all problems, as its rule is."""
     s = graph.state_dim
     if graph.num_states < 2:
         return "the fused kernels need N >= 2 states"
@@ -100,7 +100,9 @@ def fused_operands(graph: FactorGraph):
         nl_specs.append(NLTrialSpec(fb.kernel_cost, fb.num_factors,
                                     fb.nodes.shape[0], fb.slice_offset,
                                     fb.quad_rdim, fb.nonneg_cost))
-        nl_arrays.append((fb.start, fb.nodes, fb.weights, fb.kernel_params))
+        nl_arrays.append((fb.start, fb.nodes, fb.weights, fb.kernel_params,
+                          *(() if fb.kernel_field is None
+                            else (fb.kernel_field,))))
     for lb in graph.linear:
         if lb.nb not in (1, 2):
             return "every linear batch needs nb <= 2"
@@ -250,7 +252,8 @@ class LocalEngine:
             return x.expand(*batch, *x.shape[x.ndim - tail:]).reshape(
                 -1, *x.shape[x.ndim - tail:])
 
-        nl = tuple((st, nd, w, flat(p, 2)) for st, nd, w, p in nl_arrays)
+        nl = tuple((st, nd, w, flat(p, 2), *field)
+                   for st, nd, w, p, *field in nl_arrays)
         lin = tuple((st, flat(a, 4), flat(lam, 3), flat(pm, 2), flat(pc, 3))
                     for st, a, lam, pm, pc in lin_arrays)
         return nl_specs, lin_specs, nl, lin

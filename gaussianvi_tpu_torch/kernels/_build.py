@@ -40,10 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # the quadrature entries' operands (csrc/quad.cuh quad_entry): mu, mu_sb,
-# mu_sk, cov, cov_sb, cov_sk, nodes, weights, params, period, e_phi, e_xmu,
-# e_xxt, count, k, m, np
-QUAD_OPERANDS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _L, _P, _P, _P, _L, _I,
-                 _I, _I)
+# mu_sk, cov, cov_sb, cov_sk, nodes, weights, params, period, field, rows,
+# cols, e_phi, e_xmu, e_xxt, count, k, m, np
+QUAD_OPERANDS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _L, _P, _I, _I, _P, _P,
+                 _P, _L, _I, _I, _I)
 SIGNATURES = {
     # dtype, s, diag, off, covd, covo, ld, scratch, nb, n, arena, stream
     "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
@@ -145,13 +145,17 @@ def build() -> Path:
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I([fd])")
+# the cost functor a kernel instance was built for (csrc/costs.cuh)
+_COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf"}
 
 
 def ptxas_report() -> list[dict]:
     """Registers and spill bytes of every kernel of the built library, from
-    the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints,
+    the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints, cost,
     registers, spill_stores, spill_loads}]`` with ``ints`` the integer
-    and bool template arguments as mangled (block size, mode, ...)."""
+    and bool template arguments as mangled (block size, mode, ...) and
+    ``cost`` the cost functor's name in ``KERNEL_COSTS`` (None for a
+    kernel without one)."""
     log = build().with_suffix(".ptxas").read_text()
     rows, row = [], None
     for line in log.splitlines():
@@ -163,6 +167,7 @@ def ptxas_report() -> list[dict]:
                 kernel=k.group(1) if k else name,
                 dtype={"f": "float32", "d": "float64"}[k.group(2)] if k else "",
                 ints=[int(x) for x in re.findall(r"L[ib](\d+)E", name)],
+                cost=next((v for c, v in _COSTS.items() if c in name), None),
                 registers=None, spill_stores=None, spill_loads=None)
             rows.append(row)
             continue

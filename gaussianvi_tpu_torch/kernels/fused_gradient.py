@@ -50,10 +50,11 @@ from .fused_trials import (
     edge_means,
     factor_args,
     mat_pitch,
+    nl_field,
     residual_weights,
     vec_pitch,
 )
-from .quad import KERNEL_COSTS
+from .quad import cost_form
 
 
 def _full_a(a, nb: int):
@@ -125,12 +126,13 @@ def _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
     linear ones."""
     b, _, s = mu.shape
     t = temperature[:, None, None]
-    for spec, (start, nodes, weights, params) in zip(nl_specs, nl_arrays):
+    for spec, arrays in zip(nl_specs, nl_arrays):
+        start, nodes, weights, params = arrays[:4]
         off = spec.slice_offset
         cov_k = take_states(cov_diag, start, off, 2)
         moments = gh_moments(nodes, weights, take_states(mu, start, off, 1),
-                             cov_k, KERNEL_COSTS[spec.cost][1], params,
-                             rdim=spec.rdim)
+                             cov_k, cost_form(spec.cost, nl_field(arrays)),
+                             params, rdim=spec.rdim)
         vd_k, vdd_k = ngd_local_gradients(*moments, cov_k, temperature)
         scatter_gradients(start, 1, vd_k, vdd_k, vdmu, vdd, off)
     for spec, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):

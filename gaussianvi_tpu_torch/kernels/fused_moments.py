@@ -31,7 +31,7 @@ import torch
 
 from ..ops.smallmat import chol_small
 from . import _build
-from .quad import KERNEL_COSTS, _operands
+from .quad import _operands, cost_form
 
 
 def fused_moments_plain(nodes, weights, mu, cov, block_cost, params=(),
@@ -55,11 +55,12 @@ def fused_moments_plain(nodes, weights, mu, cov, block_cost, params=(),
     return e_phi, e_xmu, e_xxt
 
 
-def _launch(nodes, weights, mu, cov, kernel_cost, kernel_params, rdim):
+def _launch(nodes, weights, mu, cov, kernel_cost, kernel_params, rdim,
+            field=None):
     """One K4 launch (``gvi_fused_moments``) on the operands as they lie."""
     d = mu.shape[-1]
     call = _operands("fused_moments", mu, cov, nodes, weights, kernel_cost,
-                     kernel_params, True)
+                     kernel_params, True, field)
     err = _build.load().gvi_fused_moments(
         _build.DTYPES[mu.dtype], d, call.cost_id, *call.args,
         d if rdim is None else rdim, call.plan.group.bit_length() - 1,
@@ -69,11 +70,14 @@ def _launch(nodes, weights, mu, cov, kernel_cost, kernel_params, rdim):
 
 
 def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
-                  rdim: int | None = None):
+                  rdim: int | None = None, field=None):
     """K4: ``nodes [M, d]``, ``weights [M]``, ``mu [..., K, d]``,
     ``cov [..., K, d, d]``, the cost as the functor name ``kernel_cost``
-    with ``kernel_params`` (packed, broadcastable to ``[..., K, P]``) ->
-    the three moments, with the marginal-rule lift for ``rdim``.
+    with ``kernel_params`` (packed, broadcastable to ``[..., K, P]``) and
+    its ``field`` where it reads one -> the three moments, with the
+    marginal-rule lift for ``rdim``.  (The field passes through to the
+    body K4 shares with K3; no batch with a field has a block form today,
+    so none reaches K4 from the engine, as in the JAX package.)
 
     GPU tensors launch the kernel, which factorizes ``cov`` itself; CPU
     tensors run the plain version with the functor's PyTorch form, which is
@@ -90,7 +94,7 @@ def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
                          f" cov {tuple(cov.shape)}")
     if mu.device.type != "cpu":
         out = _launch(nodes, weights, mu, cov, kernel_cost, kernel_params,
-                      rdim)
+                      rdim, field)
         fused_moments.launches += 1
         return out
     count = math.prod(lead)
@@ -98,7 +102,7 @@ def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
     par_f = kernel_params.expand(*lead, p).reshape(count, p)
     e_phi, e_xmu, e_xxt = fused_moments_plain(
         nodes, weights, mu.reshape(count, d), cov.reshape(count, d, d),
-        KERNEL_COSTS[kernel_cost][1], (par_f,), rdim)
+        cost_form(kernel_cost, field), (par_f,), rdim)
     return (e_phi.reshape(lead), e_xmu.reshape(*lead, d),
             e_xxt.reshape(*lead, d, d))
 

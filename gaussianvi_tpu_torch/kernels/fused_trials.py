@@ -22,8 +22,11 @@ Factor operands (built once per graph by ``inference.engine.LocalEngine``,
 shared with the fused gradient kernel):
 
 * nonlinear batch ``(start [K], nodes [M, s], weights [M], params
-  [B, K, P])``, described by :class:`NLTrialSpec`; its cost is a CUDA
-  functor named by ``kernel_cost`` (``kernels/quad.py`` KERNEL_COSTS);
+  [B, K, P])``, and a fifth entry, the cost's field (one tensor all
+  problems read in place, :func:`nl_field`), for a cost that reads one;
+  described by :class:`NLTrialSpec`; its cost is a CUDA functor named by
+  ``kernel_cost`` (``kernels/quad.py`` KERNEL_COSTS), one for all the
+  nonlinear batches of a launch;
 * linear batch ``(start [K], a [B, Ka, blocks, s, s], lam [B, Ka, r,
   nb * s], pm [B, Ka, r], prec_c [B, Ka, r, r])`` in the residual form of
   :func:`linear_residual_form` (``blocks``: A for an anchor, A11, A22, A12
@@ -48,10 +51,14 @@ from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
 from . import _build
-from .quad import KERNEL_COSTS
+from .quad import KERNEL_COSTS, cost_form, field_covers
 
 BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s (local dim d = s)
 MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
+# pointers and ints per nonlinear batch (csrc/fused.cuh kNLPtrs, kNLInts):
+# nodes, weights, params, index, fc, field; k, m, nonneg, rdim, field rows,
+# field cols
+NL_PTRS, NL_INTS = 6, 6
 SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
 SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
 TRIAL_WARPS = 4          # csrc/fused_trials.cu kTrialWarps
@@ -78,6 +85,12 @@ class LinTrialSpec(NamedTuple):
     ka: int                      # 1 if uniform over K else k
     r: int                       # residual rank (lam rows)
     slice_offset: int | None
+
+
+def nl_field(arrays):
+    """The field of a nonlinear batch's operands ``(start, nodes, weights,
+    params[, field])``, or None for a cost that reads none."""
+    return arrays[4] if len(arrays) > 4 else None
 
 
 def linear_residual_form(lam, psi, target_mu, target_prec, constant):
@@ -135,12 +148,14 @@ def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     joint_cov, ld = gbp_edge_covariance(t_prec)
     cii, cjj, cij, cov = edge_blocks(joint_cov, mu.shape[-1])
     out = []
-    for spec, (start, nodes, weights, params) in zip(nl_specs, nl_arrays):
+    for spec, arrays in zip(nl_specs, nl_arrays):
+        start, nodes, weights, params = arrays[:4]
         off = spec.slice_offset
         out.append(expectation_phi(
             nodes, weights, take_states(t_mu, start, off, 1),
-            take_states(cov, start, off, 2), KERNEL_COSTS[spec.cost][1],
-            params, nonneg=spec.nonneg))
+            take_states(cov, start, off, 2),
+            cost_form(spec.cost, nl_field(arrays)), params,
+            nonneg=spec.nonneg))
     for spec, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         off = spec.slice_offset
         if spec.nb == 1:
@@ -306,8 +321,9 @@ class FactorArgs(NamedTuple):
 def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                 rows: int | None = None) -> FactorArgs:
     """Check and pack the factor operands for a launch at ``mu [B, N, s]``:
-    every per-problem operand as it is (problem-major, contiguous), and
-    each batch's per-state index.  ``rows`` (trial kernel, T * B): allocate
+    every per-problem operand as it is (problem-major, contiguous), each
+    batch's per-state index, and a nonlinear batch's field (null and 0 x 0
+    for a cost without one).  ``rows`` (trial kernel, T * B): allocate
     ``[rows, K]`` cost outputs."""
     b, n, s = mu.shape
     dt, dev = mu.dtype, mu.device
@@ -315,7 +331,7 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
     if why is not None:
         raise ValueError(f"{name}: {why}")
     cost = nl_specs[0].cost if nl_specs else "range"
-    cost_id, _, dims = KERNEL_COSTS[cost]
+    cost_id, _, dims, _ = KERNEL_COSTS[cost]
     n_params = dims[s]
 
     def same(t, shape, what):
@@ -331,21 +347,32 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
         return state_index(start, n)
 
     keep, fc, nl_ptrs, nl_ints, fixed = [], [], [], [], 0
-    for sp, (start, nodes, weights, params) in zip(nl_specs, nl_arrays):
+    for sp, arrays in zip(nl_specs, nl_arrays):
+        start, nodes, weights, params = arrays[:4]
+        field = nl_field(arrays)
         same(nodes, (sp.m, s), "nodes")
         same(weights, (sp.m,), "weights")
         same(params, (b, sp.k, n_params), "kernel_params")
+        why = field_covers(sp.cost, field, dt)
+        if why is not None:
+            raise ValueError(f"{name}: {why}")
+        if field is not None:
+            field = field.contiguous()
+            if field.device != dev:
+                raise ValueError(f"{name}: field on another device")
         fixed += sp.m * (s + 1) * mu.element_size()
         ops = [nodes.contiguous(), weights.contiguous(), params.contiguous(),
                index_of(sp, start)]
+        ops.append(None if rows is None else
+                   torch.empty((rows, sp.k), dtype=dt, device=dev))
         if rows is not None:
-            ops.append(torch.empty((rows, sp.k), dtype=dt, device=dev))
             fc.append(ops[-1])
+        ops.append(field)
         keep += [t for t in ops if t is not None]
         nl_ptrs += [t.data_ptr() if t is not None else None for t in ops]
-        nl_ptrs += [None] * (5 - len(ops))
         nl_ints += [sp.k, sp.m, int(sp.nonneg),
-                    s if sp.rdim is None else sp.rdim]
+                    s if sp.rdim is None else sp.rdim,
+                    *((0, 0) if field is None else field.shape)]
     lin_ptrs, lin_ints = [], []
     for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         same(a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")

@@ -3,9 +3,11 @@
 Counterpart of ``gaussianvi_tpu/kernels/quad_lanes.py``.  The cost is not a
 Python callable here: a factor batch names a CUDA functor
 (``csrc/costs.cuh``) with ``kernel_cost`` and carries its params packed as
-``[..., K, P]``.  :data:`KERNEL_COSTS` maps each name to the functor's id
-and to its plain PyTorch form (same arithmetic, same packed params), which
-the plain versions evaluate.
+``[..., K, P]`` and, for a cost that reads one, its field (one tensor every
+factor and problem shares, ``kernel_field``).  :data:`KERNEL_COSTS` maps
+each name to the functor's id and to its plain PyTorch form (same
+arithmetic, same packed params and field), which the plain versions
+evaluate.
 
 Each wrapper launches the kernel (``csrc/quad.cu`` -> ``csrc/quad.cuh``:
 a group of lanes per factor, sized by :func:`quad_plan`) for GPU tensors
@@ -30,9 +32,10 @@ from ..factors.moments import expectation_phi, gh_moments
 from . import _build
 
 
-def _range_cost_packed(x, p):
+def _range_cost_packed(x, p, field=None):
     """(r - |pos - beacon|)^2 / (2 sig_r^2); ``p = [beacon..., r, sig_r_sq]``
-    (``RangeCost`` in csrc/costs.cuh).  ``x [M, ..., d]``, ``p [..., P]``."""
+    (``RangeCost`` in csrc/costs.cuh).  ``x [M, ..., d]``, ``p [..., P]``;
+    no field."""
     dim_x = p.shape[-1] - 2
     d2 = 0
     for j in range(dim_x):
@@ -41,35 +44,94 @@ def _range_cost_packed(x, p):
     return (p[..., dim_x] - dist) ** 2 / (2.0 * p[..., dim_x + 1])
 
 
-# name -> (functor id in csrc/costs.cuh, plain PyTorch form, instantiated
-# local dims d with their param counts P)
+def _planar_sdf_cost_packed(x, p, field):
+    """``sigma * (slope * max(0, eps + radius - sd(x[0], x[1])))^2`` with
+    ``sd`` the clamped bilinear lookup of ``field [rows, cols]`` (row <-> y,
+    col <-> x): ``factors.sdf.PlanarSDF.signed_distance`` followed by
+    ``factors.sdf.hinge_obstacle_cost`` for one ball, step for step
+    (``PlanarSdfCost`` in csrc/costs.cuh).  ``p = [eps, radius, sigma,
+    slope, x0, y0, cell]``; ``x [M, ..., d]``, ``p [..., P]``."""
+    rows, cols = field.shape
+    x0, y0, cell = p[..., 4], p[..., 5], p[..., 6]
+    px = torch.clamp(x[..., 0], x0, x0 + (cols - 1.0) * cell)
+    py = torch.clamp(x[..., 1], y0, y0 + (rows - 1.0) * cell)
+    c = (px - x0) / cell
+    r = (py - y0) / cell
+    lr, lc = torch.floor(r), torch.floor(c)
+    lri = torch.clamp(lr.long(), 0, rows - 1)
+    lci = torch.clamp(lc.long(), 0, cols - 1)
+    hri = torch.clamp(lri + 1, 0, rows - 1)
+    hci = torch.clamp(lci + 1, 0, cols - 1)
+    wr, wc = r - lr, c - lc
+    sd = ((1 - wr) * (1 - wc) * field[lri, lci]
+          + wr * (1 - wc) * field[hri, lci]
+          + (1 - wr) * wc * field[lri, hci]
+          + wr * wc * field[hri, hci])
+    err = torch.clamp_min(p[..., 0] + p[..., 1] - sd, 0.0) * p[..., 3]
+    return err * err * p[..., 2]
+
+
+# name -> (functor id in csrc/costs.cuh, plain PyTorch form
+# ``form(x, p, field)``, instantiated local dims d with their param counts
+# P, the dims of the field the cost reads or None)
 KERNEL_COSTS = {
-    "range": (0, _range_cost_packed, {2: 3, 4: 4}),
+    "range": (0, _range_cost_packed, {2: 3, 4: 4}, None),
+    "planar_sdf": (1, _planar_sdf_cost_packed, {2: 7, 4: 7}, 2),
 }
+
+
+def cost_form(cost: str, field=None):
+    """The named cost's plain PyTorch form as a ``cost_fn(x, p)`` over
+    packed params, its field bound."""
+    form = KERNEL_COSTS[cost][1]
+    return form if field is None else functools.partial(form, field=field)
 
 _MAX_SMEM = 48 * 1024
 
 
-def quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg=False):
+def quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg=False,
+                   field=None):
     """Plain version of the phi-only variant: guarded E[phi] [..., K]
     (``moments.expectation_phi`` with the named cost's PyTorch form)."""
-    return expectation_phi(nodes, weights, mu, cov, KERNEL_COSTS[cost][1],
+    return expectation_phi(nodes, weights, mu, cov, cost_form(cost, field),
                            params, nonneg=nonneg)
 
 
-def quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim=None):
+def quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim=None,
+                       field=None):
     """Plain version of the moments variant (``moments.gh_moments`` with
     the named cost's PyTorch form), marginal-rule lift included."""
-    return gh_moments(nodes, weights, mu, cov, KERNEL_COSTS[cost][1], params,
-                      rdim=rdim)
+    return gh_moments(nodes, weights, mu, cov, cost_form(cost, field),
+                      params, rdim=rdim)
+
+
+def field_covers(cost: str, field, dtype: torch.dtype) -> str | None:
+    """Why the kernels cannot take ``field`` for the kernel cost ``cost``
+    in ``dtype``, or None where they can (none for a cost without one)."""
+    ndim = KERNEL_COSTS[cost][3]
+    if ndim is None:
+        return (None if field is None else
+                f"cost {cost!r} reads no field, but the batch carries one")
+    if field is None:
+        return (f"cost {cost!r} reads a {ndim}-D field: the batch carries "
+                "none (kernel_field)")
+    if field.ndim != ndim or min(field.shape) < 1:
+        return (f"cost {cost!r} reads a {ndim}-D field, got "
+                f"{tuple(field.shape)}")
+    if field.dtype != dtype:
+        return f"field dtype {field.dtype} is not the batch's {dtype}"
+    if field.numel() >= 2**31:
+        return f"field of {field.numel()} values exceeds a 32-bit index"
+    return None
 
 
 def covers(cost: str | None, d: int, p: int, m: int,
-           dtype: torch.dtype) -> str | None:
+           dtype: torch.dtype, field=None) -> str | None:
     """Why K3 does not cover a batch with the kernel cost ``cost`` (P =
-    ``p`` packed params) at local dim ``d`` on an ``m``-node rule in
-    ``dtype``, or None where it does.  The engine resolves
-    ``quad_impl="auto"`` per batch by it; the wrappers check it."""
+    ``p`` packed params, the field ``field`` where the cost reads one) at
+    local dim ``d`` on an ``m``-node rule in ``dtype``, or None where it
+    does.  The engine resolves ``quad_impl="auto"`` per batch by it; the
+    wrappers check it."""
     if cost is None:
         return ("the quadrature kernels need a factor batch with kernel_cost "
                 "and kernel_params set (a CUDA cost functor in "
@@ -81,6 +143,9 @@ def covers(cost: str | None, d: int, p: int, m: int,
         return f"cost {cost!r} not instantiated for d={d}, P={p} (have {dims})"
     if dtype not in _build.DTYPES:
         return f"dtype {dtype} not supported (float32 or float64)"
+    why = field_covers(cost, field, dtype)
+    if why is not None:
+        return why
     if quad_plan(m, d, True, dtype).smem > _MAX_SMEM:
         return f"rule of {m} nodes exceeds shared memory"
     return None
@@ -163,17 +228,19 @@ class QuadCall(NamedTuple):
     held: tuple       # the tensors the pointers point into, kept alive
 
 
-def _operands(name, mu, cov, nodes, weights, cost, params, moments):
+def _operands(name, mu, cov, nodes, weights, cost, params, moments,
+              field=None):
     """Check a launch's operands and lay them out as the C entries take
     them.  Nothing is copied that the kernel can read in place."""
     if mu.ndim < 2:
         raise ValueError(f"{name}: mu {tuple(mu.shape)} is not [..., K, d]")
     d, k, lead = mu.shape[-1], mu.shape[-2], tuple(mu.shape[:-2])
     m = nodes.shape[0]
-    why = covers(cost, d, params.shape[-1], m, mu.dtype)
+    why = covers(cost, d, params.shape[-1], m, mu.dtype, field)
     if why is not None:
         raise ValueError(f"{name}: {why}")
-    for t in (cov, nodes, weights, params):
+    for t in (cov, nodes, weights, params,
+              *(() if field is None else (field,))):
         if t.device != mu.device or t.dtype != mu.dtype:
             raise ValueError(f"{name}: operands on different devices/dtypes")
     if cov.shape != (*lead, k, d, d) or nodes.ndim != 2 or nodes.shape[1] != d:
@@ -188,22 +255,26 @@ def _operands(name, mu, cov, nodes, weights, cost, params, moments):
     cov, cov_sb, cov_sk = _rows(cov, 2)
     par, period = _param_rows(params, (*lead, k), name)
     nodes, weights = nodes.contiguous(), weights.contiguous()
+    fld = None if field is None else field.contiguous()
     new = functools.partial(torch.empty, dtype=mu.dtype, device=mu.device)
     outs = (new((*lead, k)), new((*lead, k, d)) if moments else None,
             new((*lead, k, d, d)) if moments else None)
     args = (mu.data_ptr(), mu_sb, mu_sk, cov.data_ptr(), cov_sb, cov_sk,
             nodes.data_ptr(), weights.data_ptr(), par.data_ptr(), period,
+            *((None, 0, 0) if fld is None
+              else (fld.data_ptr(), *fld.shape)),
             *(None if o is None else o.data_ptr() for o in outs),
             count, k, m, params.shape[-1])
     return QuadCall(args, outs, plan, KERNEL_COSTS[cost][0],
-                    (mu, cov, par, nodes, weights))
+                    (mu, cov, par, nodes, weights, fld))
 
 
 def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
-            rdim):
+            rdim, field=None):
     """One K3 launch (``gvi_quad``)."""
     d = mu.shape[-1]
-    call = _operands(name, mu, cov, nodes, weights, cost, params, moments)
+    call = _operands(name, mu, cov, nodes, weights, cost, params, moments,
+                     field)
     err = _build.load().gvi_quad(
         _build.DTYPES[mu.dtype], d, call.cost_id, int(moments), *call.args,
         int(nonneg), d if rdim is None else rdim,
@@ -214,27 +285,30 @@ def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
 
 
 def quad_lanes_phi(mu, cov, nodes, weights, cost: str, params,
-                   nonneg: bool = False):
+                   nonneg: bool = False, field=None):
     """K3, phi-only: ``mu [..., K, d]``, ``cov [..., K, d, d]``,
     ``nodes [M, d]``, ``weights [M]``, packed ``params`` broadcastable to
-    ``[..., K, P]`` -> guarded E[phi] ``[..., K]``."""
+    ``[..., K, P]`` and the cost's ``field`` where it reads one -> guarded
+    E[phi] ``[..., K]``."""
     if mu.device.type == "cpu":
-        return quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg)
+        return quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg,
+                              field)
     out = _launch("quad_lanes_phi", mu, cov, nodes, weights, cost, params,
-                  False, nonneg, None)
+                  False, nonneg, None, field)
     quad_lanes_phi.launches += 1
     return out
 
 
 def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
-                       rdim: int | None = None):
+                       rdim: int | None = None, field=None):
     """K3, moments: as :func:`quad_lanes_phi` -> (E[phi] ``[..., K]``,
     E[(x-mu)phi] ``[..., K, d]``, E[(x-mu)(x-mu)^T phi] ``[..., K, d, d]``),
     unguarded, with the marginal-rule lift for ``rdim``."""
     if mu.device.type == "cpu":
-        return quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim)
+        return quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim,
+                                  field)
     out = _launch("quad_lanes_moments", mu, cov, nodes, weights, cost,
-                  params, True, False, rdim)
+                  params, True, False, rdim, field)
     quad_lanes_moments.launches += 1
     return out
 

@@ -15,7 +15,7 @@ from .sharding import (
 )
 
 _SEQPAR = ("the sequence-parallel chain ({name}) is not ported yet "
-           "(ROADMAP.md, Queue A 13: time_sharding, chain_seqpar, "
+           "(ROADMAP.md, Queue A 11: time_sharding, chain_seqpar, "
            "comm_model, scaling_bench)")
 
 

@@ -47,6 +47,12 @@ at d = 2, float32 and float64: the measurement that fixes the plan.
 K3 (both variants) and K4 at the flagship's shapes, warm and with the L2
 flushed, through the wrappers of the package of ``--tree`` (say the
 parent): alternate the two trees on one card to compare them.
+
+    python3 scripts/torch_profile.py --planner [--runs 5]
+
+the same profile for the planar planner (``examples.planar_planning``:
+B=1024 restarts from ``parallel.perturb_inits`` with mean_scale 0.3, N=20,
+build_planar_planning's 30 iterations, float32), fused and separate paths.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
+PLAN_B, PLAN_ITERS = 1024, 30   # the planar planner's restarts, iterations
 
 
 def build(dev):
@@ -79,10 +86,11 @@ def build(dev):
     return stack_problems(*map(list, zip(*problems)))
 
 
-def profile_paths(paths, runs):
-    """``paths``: name -> callable running the path once.  Returns the
-    report lines: per path the median wall time of ``runs`` interleaved
-    unprofiled runs, then one profiled run's device operations."""
+def profile_paths(paths, runs, work=B * NITERS):
+    """``paths``: name -> callable running the path once (``work``
+    prob-iters).  Returns the report lines: per path the median wall time
+    of ``runs`` interleaved unprofiled runs, then one profiled run's
+    device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     def run(name):
@@ -111,7 +119,7 @@ def profile_paths(paths, runs):
         ops = sum(e.count for e in events)
         lines.append(
             f"[{name}] wall {1e3 * wall:.2f} ms (median of {runs}), "
-            f"{B * NITERS / wall:.1f} prob-iters/s; {ops} device ops, "
+            f"{work / wall:.1f} prob-iters/s; {ops} device ops, "
             f"{device_us / 1e3:.2f} ms device time, busy "
             f"{device_us / 1e6 / wall:.0%}")
         ranked = sorted(events, key=lambda e: -e.device_time_total)
@@ -119,7 +127,8 @@ def profile_paths(paths, runs):
         # rank
         shown = ranked[:5] + [e for e in ranked[5:] if any(
             k in e.key for k in ("gbp_kernel", "solve_kernel",
-                                 "quad_kernel"))]
+                                 "quad_kernel", "trials_kernel",
+                                 "grad_kernel"))]
         for e in shown:
             lines.append(f"    {e.device_time_total / 1e3:8.2f} ms  "
                          f"{e.count:5d} x  {e.key[:70]}")
@@ -138,6 +147,24 @@ def path_configs():
                           "ngd"),
         "prox": (replace(cfg, step_size_base=0.1), "prox"),
     }
+
+
+def planner_paths(dev):
+    """The planar planner's fused and separate paths on PLAN_B restarts,
+    float32: name -> callable running the path once."""
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+
+    graph, init, cfg, _ = build_planar_planning(dtype=torch.float32,
+                                                device=dev)
+    inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(0),
+                          PLAN_B, mean_scale=0.3)
+    sep = replace(cfg, fused_trials="off", fused_gradient="off")
+    return {f"planner {name}": (lambda c=c: optimize(graph, inits, c))
+            for name, c in (("fused", cfg), ("separate", sep))}
 
 
 def rates(dev, runs, tree):
@@ -330,6 +357,8 @@ def main() -> int:
                         help="print K3 / K4 times by lane group")
     parser.add_argument("--quad-times", action="store_true",
                         help="print K3 / K4 times at the flagship's shapes")
+    parser.add_argument("--planner", action="store_true",
+                        help="profile the planar planner's paths")
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
@@ -363,6 +392,10 @@ def main() -> int:
         return 0
     print(card)
     runs = args.runs or 5
+    if args.planner:
+        print("\n".join(profile_paths(planner_paths(dev), runs,
+                                      PLAN_B * PLAN_ITERS)))
+        return 0
     graph, state = build(dev)
     cfg, paths = path_configs()
     print("\n".join(profile_paths(

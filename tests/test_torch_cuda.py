@@ -701,3 +701,169 @@ def test_uncovered_graphs_run_under_the_defaults(dev):
         _, hp = optimize(g, s, plain)
         torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
         assert torch.equal(hk.accepted_step, hp.accepted_step)
+
+
+# ---------------------------------------------------------------------------
+# the planar planner's cost functor (PlanarSdfCost) in K3, K5 and K6
+# ---------------------------------------------------------------------------
+
+def _planner(dtype, dev, n=8, count=6, seed=0):
+    """The planar planner's graph with ``count`` restarts on the card:
+    ``(graph_b, state_b)``, the means jittered around the straight line
+    (through the obstacle)."""
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    graph, init, _, _ = build_planar_planning(num_states=n, dtype=dtype,
+                                              device=dev)
+    rng = np.random.default_rng(seed)
+    noise = 0.3 * rng.standard_normal((count, n, 4))
+    noise[0] = 0.0
+    prec = init.precision
+    state = GaussianState(
+        init.mu + torch.tensor(noise, dtype=dtype, device=dev),
+        BlockTridiag(prec.diag.expand(count, n, 4, 4).clone(),
+                     prec.off.expand(count, n - 1, 4, 4).clone()))
+    return _batch_graph(graph, count), state
+
+
+def _planner_marginals(count, dtype, dev, seed=0):
+    """Factor marginals over every kind of point the planar cost meets:
+    clear of the obstacle (E[phi] exactly 0), inside it, off the field, on
+    its last row and column, on grid nodes."""
+    rng = np.random.default_rng(seed)
+    cell = 10.0 / 99
+    kinds = [np.c_[rng.uniform(-3.0, 13.0, (count, 2)),
+                   rng.standard_normal((count, 2))],
+             np.c_[rng.uniform(4.0, 6.0, (count, 1)),
+                   rng.uniform(3.0, 5.0, (count, 1)), np.zeros((count, 2))],
+             np.c_[np.full((count, 1), 10.0), rng.uniform(0, 10, (count, 1)),
+                   np.zeros((count, 2))],
+             np.c_[rng.uniform(0, 10, (count, 1)), np.full((count, 1), 10.0),
+                   np.zeros((count, 2))],
+             np.c_[cell * rng.integers(0, 100, (count, 2)),
+                   np.zeros((count, 2))],
+             np.tile([1.0, 1.0, 0.5, 0.5], (count, 1))]
+    mu = np.stack(kinds, 1)                                   # [count, 6, 4]
+    a = 0.2 * rng.standard_normal((*mu.shape, 4))
+    cov = a @ np.swapaxes(a, -1, -2) + 0.01 * np.eye(4)
+    cov[:, -1] = 0.001 * np.eye(4)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return t(mu), t(cov)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_moments", [False, True])
+def test_planar_sdf_quad_kernel_matches_plain(dev, with_moments, dtype):
+    """K3 (both variants) with the planar SDF cost against its plain
+    version, twice for the same bits; exact zeros (all-clear factors) in
+    the same places, never NaN."""
+    from gaussianvi_tpu_torch.kernels import quad
+
+    graph, _ = _planner(dtype, dev)
+    fb = graph.nonlinear[0]
+    mu, cov = _planner_marginals(5, dtype, dev)
+    args = (mu, cov, fb.nodes, fb.weights, "planar_sdf",
+            fb.kernel_params[0, 0])
+    if with_moments:
+        got = _twice(lambda: quad.quad_lanes_moments(
+            *args, rdim=fb.quad_rdim, field=fb.kernel_field))
+        want = quad.quad_moments_plain(*args, rdim=fb.quad_rdim,
+                                       field=fb.kernel_field)
+    else:
+        got = _twice(lambda: (quad.quad_lanes_phi(
+            *args, nonneg=True, field=fb.kernel_field),))
+        want = (quad.quad_phi_plain(*args, nonneg=True,
+                                    field=fb.kernel_field),)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_close(g, w, dtype, scaled=i > 0)
+    assert torch.equal(got[0] == 0, want[0] == 0)
+    assert (want[0][:, -1] == 0).all() and not torch.isnan(got[0]).any()
+    assert (want[0][:, 1] > 0).all()
+    with pytest.raises(ValueError, match="carries none"):
+        quad.quad_lanes_phi(*args, nonneg=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_planar_sdf_fused_kernels_match_plain(dev, dtype):
+    """K5 and K6 (``full``, and ``accum`` + ``solve``) on the planner's
+    graph against their plain versions."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    graph, state = _planner(dtype, dev)
+    ops = fused_operands(graph)
+    b, n, s = state.mu.shape
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    q = rng.standard_normal((b, n, s, s))
+    dq = rng.standard_normal((b, n, s, s))
+    pd = t(10.0 * np.eye(s) + 0.5 * q @ np.swapaxes(q, -1, -2))
+    po = t(0.5 * rng.standard_normal((b, n - 1, s, s)))
+    x5 = (state.mu, t(0.5 * rng.standard_normal((b, n, s))), pd, po,
+          t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+          t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+          t(0.9 * 0.75 ** np.arange(1, 12)))
+    got5 = _twice(lambda: (lambda ld, fc: (ld, *fc))(
+        *ft.trial_costs_lanes(*x5, *ops)))
+    want5 = ft.trial_costs_plain(*x5, *ops)
+    if dtype == torch.float64:
+        _assert_close(got5[0], want5[0], dtype)
+    else:
+        torch.testing.assert_close(got5[0], want5[0], rtol=1e-5, atol=0,
+                                   equal_nan=True)
+    for g, w in zip(got5[1:], want5[1]):
+        _assert_close(g, w, dtype)
+    assert (want5[1][0] == 0).any() and (want5[1][0] > 0).any()
+    x6 = (state.mu, pd, po, torch.full((b,), 0.5, dtype=dtype, device=dev))
+    got6 = _twice(lambda: fg.gradient_lanes(*x6, *ops))
+    want6 = fg.gradient_plain(*x6, *ops)
+    for i, (g, w) in enumerate(zip(got6, want6)):
+        _assert_close(g, w, dtype, scaled=i > 2)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = ops
+    part = fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays)
+    for g, w in zip(part, fg.gradient_plain(*x6, nl_specs, (), nl_arrays, (),
+                                            mode="accum")):
+        _assert_close(g, w, dtype, scaled=True)
+    split = fg.gradient_solve_lanes(*x6, part, lin_specs, lin_arrays)
+    for i, (g, w) in enumerate(zip(split, want6)):
+        _assert_close(g, w, dtype, scaled=i > 2)
+
+
+def test_planner_optimize_on_kernels_matches_plain(dev):
+    """The planner under the defaults on the card runs K5 and K6 once per
+    iteration (K1 and K3 phi at init) and the separate path K1-K3; both
+    equal the plain path on 6 restarts (float64, rtol 1e-9, the same
+    accepted steps)."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, state = _planner(torch.float64, dev)
+    cfg = GVIConfig(niters=6, niters_lowtemp=4, step_size_base=0.9,
+                    temperature=0.1, high_temperature=1.0)
+    reset_launch_counts()
+    _, hk = optimize(graph, state, cfg)
+    counts = launch_counts()
+    assert counts["fused_trials"] == counts["fused_gradient"] == 6
+    assert counts["gbp_covariance_logdet"] > 0 and counts["quad_phi"] > 0
+    reset_launch_counts()
+    _, hs = optimize(graph, state, replace(cfg, fused_trials="off",
+                                           fused_gradient="off"))
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("gbp_covariance_logdet", "solve",
+                                       "quad_phi", "quad_moments"))
+    _, hp = optimize(graph, state, replace(cfg, chain_impl="seq",
+                                           quad_impl="xla"))
+    for h in (hk, hs):
+        torch.testing.assert_close(h.cost, hp.cost, rtol=1e-9, atol=0)
+        assert torch.equal(h.accepted_step, hp.accepted_step)

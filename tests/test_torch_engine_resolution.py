@@ -165,3 +165,36 @@ def test_cost_fn_only_graph_matches_jax():
 def test_six_dim_chain_matches_jax():
     """An s = 6 chain (no K1/K2 instance) under the defaults."""
     _matches_jax([_six_dim_problem(6, seed) for seed in range(4)])
+
+
+@pytest.mark.parametrize("interp,want", [
+    # the gather names the planar SDF functor: every kernel covers it
+    ("auto", (True, True, (True,), True, True)),
+    ("gather", (True, True, (True,), True, True)),
+    # the hat-function matmul is a cost_fn-only batch: the plain
+    # quadrature, the fused kernels off, the chain kernels on
+    ("matmul", (True, True, (False,), False, False)),
+])
+def test_planner_resolves_per_batch(interp, want):
+    """The planar planner built for the card resolves to the chain kernels
+    (s = 4), K3 for its obstacle batch and the fused K5 / K6; its
+    ``interp="matmul"`` variant to the plain quadrature.  ``"lanes"`` and
+    ``"on"`` raise for the variant no kernel covers."""
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+
+    graph, _, config, _ = build_planar_planning(num_states=6, interp=interp,
+                                                device=CPU)
+    assert _routes(LocalEngine(graph, config, CARD)) == want
+    if interp == "matmul":
+        for fields in (dict(quad_impl="lanes"), dict(fused_trials="on")):
+            with pytest.raises(ValueError, match="kernel_cost"):
+                LocalEngine(graph, replace(config, **fields), CARD)
+    # a field the kernels cannot take keeps the batch on the plain routes
+    if interp == "gather":
+        bad = replace(graph, nonlinear=(replace(
+            graph.nonlinear[0],
+            kernel_field=graph.nonlinear[0].kernel_field.float()),))
+        assert _routes(LocalEngine(bad, config, CARD)) == (
+            True, True, (False,), False, False)
