@@ -29,6 +29,14 @@ the 29-node degree-4 marginal rule, 10 iterations, along five paths:
   on its half of the range factors, one all-reduce, K6 "solve", and K5 on
   its shard) at B=1024, plus a small dp=2 x fp=2 mesh of four ranks.
 
+Then the planar planner (its kernels at its shapes, its fused, separate
+and plain paths), and the s = 6 models: every kernel at the shapes of
+chain estimation at dim_x=3 and of the 3-D point planner (K1, K2, K3 both
+variants, K4, K5, K6 "full"), the point planner fused and separate at
+B=1024 restarts (plain at 64), the planar quadrotor on K1 / K2 at B=1024
+(plain at 64), chain estimation at dim_x=3 fused and block-form at
+B=1024, each counted and held to the plain path.
+
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
 costs finite, float32 close to float64 (see ``main``), and the kernel
@@ -403,7 +411,7 @@ def guard_cases(dtype, dev):
               f"nonneg band case wrong (nonneg={nonneg}, {dtype})")
 
 
-def build_batch(dtype, dev, num_problems=None):
+def build_batch(dtype, dev, num_problems=None, dim_x=DIM_X):
     from gaussianvi_tpu_torch import stack_problems
     from gaussianvi_tpu_torch.examples.chain_estimation import (
         build_chain_estimation,
@@ -411,7 +419,7 @@ def build_batch(dtype, dev, num_problems=None):
 
     graphs, states = [], []
     for seed in range(num_problems or B):
-        g, s, _ = build_chain_estimation(num_states=N, dim_x=DIM_X,
+        g, s, _ = build_chain_estimation(num_states=N, dim_x=dim_x,
                                          gh_degree=DEGREE, seed=seed,
                                          dtype=dtype, device=dev)
         graphs.append(g)
@@ -831,10 +839,12 @@ def split_checks(graph_b, dev, iterate):
 
 
 # name -> (N, dim_x, problems); no batch is a multiple of K6's four problems
-# per block
+# per block; s = 6 (dim_x = 3: K5 and K6 "full", the split pair is not
+# instantiated there) at a ragged block and on the global-scratch route
 LAYOUTS = {"N=2": (2, 2, 3), "N=5, s=2": (5, 1, 5), "N=33": (33, 2, 3),
            "N=70, s=2": (70, 1, 2), "dynamic starts": (9, 2, 3),
-           "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2)}
+           "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2),
+           "N=5, s=6": (5, 3, 3), "long chain, s=6": (600, 3, 2)}
 
 
 def layout_checks(dev):
@@ -875,7 +885,7 @@ def layout_checks(dev):
                               for h in halves)
         ops = (nl_specs, lin_specs, nl_arrays, lin_arrays)
         s = 2 * dim_x
-        if name == "long chain":
+        if name.startswith("long chain"):
             check(fg.grad_plan(name, n, s, 8, 0).scratch
                   and ft.trial_plan(name, n, s, TRIALS, 8, 0).scratch,
                   f"N={n} does not take the global-scratch route")
@@ -902,6 +912,12 @@ def layout_checks(dev):
         full = check_repeatable(f"K6 full {name}",
                                 lambda: fg.gradient_lanes(*x6, *ops))
         err = held("K6 full", full, fg.gradient_plain(*x6, *ops))
+        if fg.covers(s, ("accum", "solve")) is not None:
+            k5 = check_repeatable(f"K5 {name}",
+                                  lambda: ft.trial_costs_lanes(*x5, *ops))
+            p5 = ft.trial_costs_plain(*x5, *ops)
+            worst[name] = (err, held("K5", (k5[0], *k5[1]), (p5[0], *p5[1])))
+            continue
         part = check_repeatable(
             f"K6 accum {name}",
             lambda: fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays))
@@ -917,8 +933,9 @@ def layout_checks(dev):
         p5 = ft.trial_costs_plain(*x5, *ops)
         err5 = held("K5", (k5[0], *k5[1]), (p5[0], *p5[1]))
         worst[name] = (err, err5)
-    print("[layouts f64] max abs err vs plain (K6 three modes, K5), two "
-          "launches bit-identical, accum + solve == full: " + "; ".join(
+    print("[layouts f64] max abs err vs plain (K6 three modes, at s = 6 "
+          "full only; K5), two launches bit-identical, accum + solve == "
+          "full: " + "; ".join(
               f"{k}: {a:.1e}, {b:.1e}" for k, (a, b) in worst.items()),
           flush=True)
 
@@ -927,11 +944,16 @@ def layout_checks(dev):
 # longer than a warp's lanes, s = 2, a ragged last warp and lane group
 # (counts not a multiple of the 4 or 8 chains a warp carries), the trial
 # batch's and the solve pair's leading shapes, and a chain too long for
-# shared memory (the global-scratch route)
+# shared memory (the global-scratch route); s = 6 (two chains a warp, its
+# last 8 lanes repeating its first) at N = 1, an odd count, the trial
+# batch's leading shape and on the global-scratch route
 CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((6,), 2, 4),
                  "N=33": ((5,), 33, 4), "N=70, s=2": ((9,), 70, 2),
                  "ragged": ((13,), 6, 4), "(11, B)": ((11, 37), 5, 4),
-                 "(2, B)": ((2, 37), 8, 4), "long chain": ((3,), 1100, 4)}
+                 "(2, B)": ((2, 37), 8, 4), "long chain": ((3,), 1100, 4),
+                 "N=1, s=6": ((5,), 1, 6), "N=9, s=6": ((7,), 9, 6),
+                 "(11, B), s=6": ((11, 7), 5, 6),
+                 "long chain, s=6": ((3,), 700, 6)}
 
 
 def chain_layout_checks(dev):
@@ -948,7 +970,7 @@ def chain_layout_checks(dev):
         count = int(np.prod(lead))
         diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
                           for x in spd_chains(count, n, s, rng, dt, dev))
-        if name == "long chain":
+        if name.startswith("long chain"):
             check(chain.chain_plan(chain.gbp_warp_elems(n, s, 8), 8).scratch
                   and chain.chain_plan(chain.solve_warp_elems(n, s, 8),
                                        8).scratch,
@@ -978,8 +1000,9 @@ def chain_layout_checks(dev):
 # shape, view) of K3 / K4 layouts: factor counts that are not a multiple
 # of a warp's factors (1, 3, 33, 1025), leading shapes (), (B,) and (T, B),
 # params [K, P], [1, K, P] and [B, K, P] broadcast, rules of 7, 29 and 137
-# nodes at d = 2 and 4, and mu / cov views: a slice of the state axis (a
-# batch stride) and a transposed (T, B) pair of axes (copied)
+# nodes at d = 2 and 4 and of 69 at d = 6, and mu / cov views: a slice of
+# the state axis (a batch stride) and a transposed (T, B) pair of axes
+# (copied)
 QUAD_LAYOUTS = {
     "1 factor, ()": ((), 1, 2, 4, True, (), None),
     "3, (B,)": ((3,), 1, 2, 4, True, (3,), None),
@@ -990,6 +1013,8 @@ QUAD_LAYOUTS = {
     "d=2, M=137": ((3,), 6, 1, 7, False, (3,), None),
     "state slice": ((9,), 5, 2, 4, True, (9,), "slice"),
     "(T, B) transposed": ((4, 3), 6, 2, 4, True, (3,), "transposed"),
+    "d=6, M=69, (T, B)": ((3, 11), 5, 3, 4, True, (11,), None),
+    "d=6, state slice": ((9,), 5, 3, 4, True, (9,), "slice"),
 }
 
 
@@ -1117,16 +1142,32 @@ def fused_guard_cases(dtype, dev):
           f"K5 edge costs of the guard case differ ({dtype})")
 
 
-def check_costs(name, hist, batch):
-    """Every recorded cost finite, non-increasing, the final one > 0."""
+def held_to_plain(name, got, want, dev, rtol=1e-9, tag="end to end"):
+    """A kernel path's float64 run against another path's (the plain
+    path's, as a rule): every relative cost within ``rtol`` and the same
+    accepted steps."""
+    want_cost = want.cost.to(dev)
+    rel = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
+    print(f"[{tag}] {name} (f64, {got.cost.shape[0]} problems, "
+          f"{got.cost.shape[-1]} iters): max relative cost difference "
+          f"{rel:.3e}", flush=True)
+    check(rel < rtol, f"{name} differ: {rel:.3e}")
+    check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
+          f"{name}: different accepted steps")
+
+
+def check_costs(name, hist, batch, iters=NITERS, nonneg=False):
+    """Every recorded cost finite and non-increasing; the final one > 0,
+    or (``nonneg``, a planner's hinge costs) every one >= 0."""
     cost = hist.cost.double()
-    check(cost.shape == (batch, NITERS), f"{name}: history {cost.shape}")
+    check(cost.shape == (batch, iters), f"{name}: history {cost.shape}")
     check(bool(torch.isfinite(cost).all()), f"{name}: non-finite cost")
     rises = int((cost[:, 1:] > cost[:, :-1]).sum())
     check(rises == 0, f"{name}: {rises} recorded cost increases")
-    check(bool((cost[:, -1] > 0).all()),
-          f"{name}: {int((cost[:, -1] <= 0).sum())}/{batch} final costs <= 0"
-          f" (min {float(cost[:, -1].min()):.3e})")
+    low = cost >= 0 if nonneg else cost[:, -1] > 0
+    check(bool(low.all()),
+          f"{name}: {int((~low).sum())} costs below the bound (min "
+          f"{float(cost.min()):.3e})")
 
 
 def counted(optimize_fn, *args):
@@ -1294,26 +1335,34 @@ PLAN_B_PLAIN = 64
 PLANAR_COST_OPS = 35
 
 
-def planner_problem(dtype, dev, count=None):
-    """``(graph, restarts, config, sdf)``: one planar planning problem in
-    ``dtype`` and ``count`` perturbed initial states, drawn in float64 and
-    cast, so both dtypes start from the same restarts (restart 0 is the
-    straight line through the obstacle)."""
-    from gaussianvi_tpu_torch.examples.planar_planning import (
-        build_planar_planning,
-    )
+def restarts(build, dtype, dev, count):
+    """``(graph, restarts, config, sdf)``: one planning problem of the
+    example builder ``build`` in ``dtype`` and ``count`` perturbed initial
+    states (``parallel.perturb_inits``, mean_scale 0.3), drawn in float64
+    and cast, so both dtypes start from the same restarts (restart 0 is
+    the nominal straight line, through the obstacle)."""
     from gaussianvi_tpu_torch.inference.graph import GaussianState
     from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
     from gaussianvi_tpu_torch.parallel import perturb_inits
 
-    graph, init, config, sdf = build_planar_planning(dtype=dtype, device=dev)
-    init64 = build_planar_planning(device=dev)[1]
+    graph, _, config, sdf = build(dtype=dtype, device=dev)
+    init64 = build(device=dev)[1]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    inits = perturb_inits(init64, gen, count or PLAN_B, mean_scale=0.3)
+    inits = perturb_inits(init64, gen, count, mean_scale=0.3)
     prec = inits.precision
     inits = GaussianState(inits.mu.to(dtype), BlockTridiag(
         prec.diag.to(dtype), prec.off.to(dtype)))
     return graph, inits, config, sdf
+
+
+def planner_problem(dtype, dev, count=None):
+    """``(graph, restarts, config, sdf)`` of the planar planner
+    (:func:`restarts`)."""
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+
+    return restarts(build_planar_planning, dtype, dev, count or PLAN_B)
 
 
 def subset(state, count):
@@ -1427,11 +1476,12 @@ def planner_kernel_checks(dev):
     iterate's Vddmu is so ill-conditioned on some restarts that float32
     saturates there, so a forward bound scaled from it says nothing.
     Times the four kernels in float32 with their plain versions and
-    bounds."""
+    bounds, and K1 / K2 (no cost functor) on well-conditioned chains at
+    the planner's shapes."""
     from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import chain, quad
     from gaussianvi_tpu_torch.kernels import fused_gradient as fg
     from gaussianvi_tpu_torch.kernels import fused_trials as ft
-    from gaussianvi_tpu_torch.kernels import quad
     from gaussianvi_tpu_torch.ops.blocktridiag import (
         BlockTridiag,
         gbp_covariance_logdet,
@@ -1576,6 +1626,38 @@ def planner_kernel_checks(dev):
             ms_flushed_l2=cuda_ms_flushed(lambda: kern(f32)),
             plain_ms=cuda_ms(lambda: plain(f32), reps=3),
             **bound(inputs[name], kern(f32), work[name]))
+    # K1 on the trial batch and K2 on the pair at the planner's shapes
+    # (cost-free: well-conditioned chains, the flagship's float32
+    # tolerances), timed beside the others
+    rng = np.random.default_rng(SEED + 2)
+    d1, o1, _ = spd_chains(TRIALS * PLAN_B, PLAN_N, 4, rng, f32, dev)
+    d2, o2, rhs = spd_chains(2 * PLAN_B, PLAN_N, 4, rng, f32, dev)
+    chains = {
+        "gbp_covariance_logdet": (
+            chain.gbp_covariance_logdet_lanes,
+            chain.gbp_covariance_logdet_plain,
+            (d1.reshape(TRIALS, PLAN_B, PLAN_N, 4, 4),
+             o1.reshape(TRIALS, PLAN_B, PLAN_N - 1, 4, 4)),
+            TRIALS * PLAN_B * PLAN_N * chain_flops(4)),
+        "solve": (chain.solve_pair_lanes, chain.solve_pair_plain,
+                  (d2[:PLAN_B], o2[:PLAN_B], d2[PLAN_B:], o2[PLAN_B:],
+                   rhs[:PLAN_B]), 2 * PLAN_B * PLAN_N * solve_flops(4)),
+    }
+    for name, (kern, plain, args, flops) in chains.items():
+        got = check_repeatable(f"planner {name} {f32}",
+                               lambda kern=kern, args=args: kern(*args))
+        want = plain(*args)
+        err = max(compare(f"planner {name}[{i}] float32", a, b_,
+                          *((1e-5, 0.0) if a.ndim == 2 else (1e-4, 1e-6)))
+                  for i, (a, b_) in enumerate(zip(got, want)))
+        out[name] = dict(
+            max_abs_err=err, err_dtype="float32",
+            ms=cuda_ms(lambda kern=kern, args=args: kern(*args)),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda kern=kern, args=args: kern(*args)),
+            plain_ms=cuda_ms(lambda plain=plain, args=args: plain(*args),
+                             reps=3),
+            **bound(args, got, flops))
     return out
 
 
@@ -1584,13 +1666,7 @@ def check_plan(name, hist, state, sdf, batch):
     restart 0 (the straight line through the obstacle) ends clear of it
     with its endpoints within 0.05 of start and goal
     (``tests/test_planning.py``)."""
-    cost = hist.cost.double()
-    check(cost.shape == (batch, PLAN_ITERS), f"{name}: history {cost.shape}")
-    check(bool(torch.isfinite(cost).all()), f"{name}: non-finite cost")
-    rises = int((cost[:, 1:] > cost[:, :-1]).sum())
-    check(rises == 0, f"{name}: {rises} recorded cost increases")
-    check(bool((cost >= 0).all()), f"{name}: negative cost "
-          f"{float(cost.min()):.3e}")
+    check_costs(name, hist, batch, PLAN_ITERS, nonneg=True)
     pos = state.mu[0, :, :2]
     clearance = float(sdf.signed_distance(pos).min())
     ends = max(float((pos[0] - torch.tensor([1.0, 1.0], device=pos.device))
@@ -1697,13 +1773,7 @@ def planner_runs(card, dev):
             ("fused kernels vs plain path", hk, hp),
             ("separate kernels vs plain path", hs, hp),
             ("fused kernels vs fused plain versions (CPU)", hk, hc)):
-        want_cost = want.cost.to(dev)
-        rel_kp = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
-        print(f"[planner end to end] {name} (f64, 8 restarts, 6 iters): max "
-              f"relative cost difference {rel_kp:.3e}", flush=True)
-        check(rel_kp < 1e-9, f"planner {name} differ: {rel_kp:.3e}")
-        check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
-              f"planner {name}: different accepted steps")
+        held_to_plain(f"planner {name}", got, want, dev)
 
     def apart(a, b):
         rel = ((a.cost - b.cost).abs() / b.cost.abs()).max(0).values
@@ -1745,6 +1815,514 @@ def planner_runs(card, dev):
           f"{rates['plain']:.1f} prob-iters/s (B={PLAN_B_PLAIN})",
           flush=True)
     return {"fused": fused_counts, "separate": sep_counts}, rates
+
+
+# ---- s = 6: the 3-D point and quadrotor planners, chain estimation at
+# dim_x = 3 ------------------------------------------------------------------
+# build_point3d_planning's own config: N = 20 states of dim 6, a 50^3 field,
+# the 25-node 3-D marginal rule of degree 3, 30 iterations (20 at
+# temperature 0.1, then 1.0); build_quadrotor_planning's: N = 12, the
+# 7-node (3, 2) pose-marginal rule, a 120 x 120 planar field, 20
+# iterations; chain estimation at dim_x = 3: the flagship's N = 32 and
+# degree 4 (the 69-node (3, 4) marginal rule), 10 iterations.  B = 1024
+# restarts (perturb_inits, mean_scale 0.3) or problems; not cut.
+S6_B = 1024
+S6_B_PLAIN = 64
+P3_N, P3_ITERS = 20, 30
+QR_N, QR_ITERS = 12, 20
+# operations of one 3-D SDF cost evaluation (clip, three divisions, three
+# floors, the eight-corner blend, the hinge); its eight gathers hit L2
+SDF3D_COST_OPS = 55
+
+
+def point3d_problem(dtype, dev, count=None):
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+
+    return restarts(build_point3d_planning, dtype, dev, count or S6_B)
+
+
+def quadrotor_problem(dtype, dev, count=None):
+    from gaussianvi_tpu_torch.examples.quadrotor_planning import (
+        build_quadrotor_planning,
+    )
+
+    return restarts(build_quadrotor_planning, dtype, dev, count or S6_B)
+
+
+def plain_iterate(graph, state, config):
+    """The float64 iterate five plain NGD iterations reach:
+    ``(mu, prec_diag, prec_off)``."""
+    from gaussianvi_tpu_torch import optimize
+
+    state, _ = optimize(graph, state, replace(
+        config, niters=5, niters_lowtemp=5, chain_impl="seq",
+        quad_impl="xla"))
+    return state.mu, state.precision.diag, state.precision.off
+
+
+def s6_models(dev):
+    """The two models whose kernels run at s = 6 with a cost functor, at
+    their real iterates (float64, five plain iterations): ``{name: (graphs
+    by dtype, iterate, cost, cost operations)}``.  Four of the point
+    planner's restarts are moved to where the 3-D cost's clamps act: on
+    the field's last x, y and z planes, and off the field; a fifth onto
+    grid nodes."""
+    from gaussianvi_tpu_torch import GVIConfig
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f32, f64 = torch.float32, torch.float64
+    g64, s64 = build_batch(f64, dev, S6_B, dim_x=3)
+    dx3 = {f32: build_batch(f32, dev, S6_B, dim_x=3)[0], f64: g64}
+    it_dx3 = plain_iterate(g64, s64, GVIConfig(step_size_base=0.9))
+    p3 = {dt: _batch_graph(point3d_problem(dt, dev, 1)[0], S6_B)
+          for dt in (f32, f64)}
+    g64, inits, config, _ = point3d_problem(f64, dev)
+    mu, pd, po = plain_iterate(g64, inits, config)
+    mu = mu.clone()
+    cell = 10.0 / 49
+    for r, axis in ((1, 0), (2, 1), (3, 2)):
+        mu[r, :, axis] = 10.0
+    mu[4, :, :3] += torch.tensor([-15.0, 14.0, 3.0], dtype=mu.dtype,
+                                 device=dev)
+    mu[5, :, :3] = torch.round(mu[5, :, :3] / cell) * cell
+    return {"dim_x=3": (dx3, it_dx3, "range", None),
+            "point3d": (p3, (mu, pd, po), "sdf3d", SDF3D_COST_OPS)}
+
+
+def s6_kernel_checks(dev):
+    """Every kernel at s = 6 against its plain version on the card, at the
+    shapes of chain estimation at dim_x = 3 (B = 1024, N = 32, the range
+    cost on 69 nodes) and of the point planner (1024 restarts, N = 20, the
+    3-D SDF cost on 25 nodes): K1 on the trial batch and K2 on the solve
+    pair on well-conditioned chains (float64 atol 1e-10, float32 rtol
+    1e-4 / atol 1e-6); K3 (both variants), K4 (dim_x = 3: the block-form
+    path's), K5 and K6 ``full`` at the model's real iterate, float64 by
+    :func:`compare_conditioned` and float32 by :func:`compare_vs_f64`, K6's
+    main solve by its backward error; each launched twice for the same
+    bits, K4 = K3 moments bit for bit; on the point planner the exact-zero
+    E[phi] where the plain version has them.  Times each kernel in
+    float32: ``{(model, name): row}``."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import chain, quad
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_moments as fm
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 6)
+    out = {}
+    for model, (graphs, it64, cost, cost_ops) in s6_models(dev).items():
+        n = it64[0].shape[1]
+        field = graphs[f64].nonlinear[0].kernel_field
+        # K1 on the trial batch and K2 on the pair: well-conditioned chains
+        chains = {}
+        for dt in (f64, f32):
+            d1, o1, _ = spd_chains(TRIALS * S6_B, n, 6, rng, dt, dev)
+            d2, o2, rhs = spd_chains(2 * S6_B, n, 6, rng, dt, dev)
+            chains[dt] = ((d1.reshape(TRIALS, S6_B, n, 6, 6),
+                           o1.reshape(TRIALS, S6_B, n - 1, 6, 6)),
+                          (d2[:S6_B], o2[:S6_B], d2[S6_B:], o2[S6_B:],
+                           rhs[:S6_B]))
+        errs = {}
+        for dt in (f64, f32):
+            tol = (1e-10, 1e-10) if dt == f64 else (1e-4, 1e-6)
+            tol_ld = (0.0, 1e-10) if dt == f64 else (1e-5, 0.0)
+            k1 = check_repeatable(f"{model} K1 {dt}", lambda dt=dt:
+                                  chain.gbp_covariance_logdet_lanes(
+                                      *chains[dt][0]))
+            p1 = chain.gbp_covariance_logdet_plain(*chains[dt][0])
+            errs["gbp_covariance_logdet", dt] = max(
+                compare(f"{model} K1 cov_diag {dt}", k1[0], p1[0], *tol),
+                compare(f"{model} K1 cov_off {dt}", k1[1], p1[1], *tol),
+                compare(f"{model} K1 logdet {dt}", k1[2], p1[2], *tol_ld))
+            k2 = check_repeatable(f"{model} K2 {dt}", lambda dt=dt:
+                                  chain.solve_pair_lanes(*chains[dt][1]))
+            errs["solve", dt] = max(
+                compare(f"{model} K2 x{i} {dt}", a, b_, *tol)
+                for i, (a, b_) in enumerate(zip(
+                    k2, chain.solve_pair_plain(*chains[dt][1]))))
+        # K3, K4, K5, K6 at the model's iterate
+        cd64 = gbp_covariance_logdet(BlockTridiag(*it64[1:]))[0]
+        jitter = torch.tensor(0.05 * rng.standard_normal(
+            (TRIALS, S6_B, n, 6)), dtype=f64, device=dev)
+        args3, args4, x5, x6, ops = {}, {}, {}, {}, {}
+        for dt in (f64, f32):
+            fb = graphs[dt].nonlinear[0]
+            mu, pd, po = (x.to(dt) for x in it64)
+            cd = cd64.to(dt)
+            args3[dt] = ((mu + jitter.to(dt)).contiguous(),
+                         cd.expand(TRIALS, *cd.shape).contiguous(), fb.nodes,
+                         fb.weights, cost, fb.kernel_params)
+            args4[dt] = (mu, cd, fb.nodes, fb.weights, cost, fb.kernel_params)
+            ops[dt] = fused_operands(graphs[dt])
+            x6[dt] = (mu, pd, po, torch.full((S6_B,), 0.1, dtype=dt,
+                                             device=dev))
+        p6 = fg.gradient_plain(*x6[f64], *ops[f64])
+        finite = torch.isfinite(p6[5]).flatten(1).all(1)
+        direction = (torch.where(finite[:, None, None], p6[5], p6[6]),
+                     p6[3], p6[4])
+        for dt in (f64, f32):
+            dmu, dpd, dpo = (x.to(dt) for x in direction)
+            trials = 0.9 * 0.75 ** torch.arange(1, TRIALS + 1, dtype=dt,
+                                                device=dev)
+            mu, pd, po, _ = x6[dt]
+            x5[dt] = (mu, dmu, pd, po, dpd, dpo, trials)
+        fields = {dt: graphs[dt].nonlinear[0].kernel_field
+                  for dt in (f64, f32)}
+        rdim = graphs[f64].nonlinear[0].quad_rdim
+
+        def flat5(o):
+            return (o[0], *o[1])
+
+        cases = {
+            "quad_phi": (
+                lambda dt: (quad.quad_lanes_phi(*args3[dt], nonneg=True,
+                                                field=fields[dt]),),
+                lambda dt: (quad.quad_phi_plain(*args3[dt], nonneg=True,
+                                                field=fields[dt]),)),
+            "quad_moments": (
+                lambda dt: quad.quad_lanes_moments(*args4[dt], rdim=rdim,
+                                                   field=fields[dt]),
+                lambda dt: quad.quad_moments_plain(*args4[dt], rdim=rdim,
+                                                   field=fields[dt])),
+            "fused_trials": (
+                lambda dt: flat5(ft.trial_costs_lanes(*x5[dt], *ops[dt])),
+                lambda dt: flat5(ft.trial_costs_plain(*x5[dt], *ops[dt]))),
+            "fused_gradient": (
+                lambda dt: fg.gradient_lanes(*x6[dt], *ops[dt]),
+                lambda dt: fg.gradient_plain(*x6[dt], *ops[dt])),
+        }
+        if model == "dim_x=3":
+            def k4(dt):
+                a = args4[dt]
+                return fm.fused_moments(a[2], a[3], a[0], a[1], cost, a[5],
+                                        rdim=rdim)
+
+            def p4(dt):
+                mu, cd, nodes, weights, _, par = args4[dt]
+                got = fm.fused_moments_plain(
+                    nodes, weights, mu.reshape(-1, 6), cd.reshape(-1, 6, 6),
+                    quad.KERNEL_COSTS[cost][1], (par.reshape(-1, 5),), rdim)
+                return tuple(x.reshape(y.shape) for x, y in zip(
+                    got, (mu[..., 0], mu, cd)))
+
+            cases["fused_moments"] = (k4, p4)
+        solve = {}
+        for name, (kern, plain) in cases.items():
+            k = {dt: check_repeatable(f"{model} {name} {dt}",
+                                      lambda dt=dt, kern=kern: kern(dt))
+                 for dt in (f64, f32)}
+            p = {dt: plain(dt) for dt in (f64, f32)}
+            held64 = list(zip(k[f64], p[f64], p[f32]))
+            held32 = list(zip(k[f32], p[f32], p[f64]))
+            if name == "fused_gradient":
+                # dmu by its backward error in the float64 plain system
+                # Vddmu = dprec + Lambda
+                vdd = (p[f64][3] + x6[f64][1], p[f64][4] + x6[f64][2])
+                solve["backward"], solve["forward"] = compare_backward(
+                    f"{model} K6 dmu float64", k[f64][5], p[f64][5], *vdd)
+                solve["backward32"] = compare_backward_vs_f64(
+                    f"{model} K6 dmu float32", k[f32][5], p[f32][5],
+                    p[f64][5], *vdd)
+                solve["indefinite"] = int((~finite).sum())
+                held64 = held64[:5] + held64[6:]
+                held32 = held32[:5] + held32[6:]
+            if name == "fused_moments":
+                k3 = cases["quad_moments"][0]
+                for dt in (f64, f32):
+                    check(all(same_bits(a, b_) for a, b_ in zip(k[dt],
+                                                                k3(dt))),
+                          f"{model} K4 {dt}: not K3 moments' bits")
+            errs[name, f64] = max(
+                compare_conditioned(f"{model} {name}[{i}] float64", a, b_, c)
+                for i, (a, b_, c) in enumerate(held64))
+            errs[name, f32] = max(
+                compare_vs_f64(f"{model} {name}[{i}] float32", a, b_, c)
+                for i, (a, b_, c) in enumerate(held32))
+            if model == "point3d" and name != "fused_gradient":
+                at = 1 if name == "fused_trials" else 0
+                got, want = k[f64][at], p[f64][at]
+                check(torch.equal(got == 0, want == 0)
+                      and bool((want == 0).any()) and bool((want > 0).any()),
+                      f"{model} {name}: exact zeros differ from the plain "
+                      f"version's ({int((got == 0).sum())} vs "
+                      f"{int((want == 0).sum())})")
+                solve[f"zeros {name}"] = (int((want == 0).sum()),
+                                          want.numel())
+        names = ("gbp_covariance_logdet", "solve", *cases)
+        print(f"[s=6 kernels, {model}] max abs err vs plain, f64 / f32 (two "
+              f"launches bit-identical each): " + "; ".join(
+                  f"{nm} {errs[nm, f64]:.3e} / {errs[nm, f32]:.3e}"
+                  for nm in names)
+              + f"; K6 dmu backward error f64 {solve['backward']:.3e} (max "
+              f"abs difference {solve['forward']:.3e}), f32 "
+              f"{solve['backward32']:.3e}; Vddmu indefinite on "
+              f"{solve['indefinite']}/{S6_B}" + "".join(
+                  f"; {k} exact {v[0]}/{v[1]}" for k, v in solve.items()
+                  if k.startswith("zeros")), flush=True)
+
+        m = graphs[f32].nonlinear[0].nodes.shape[0]
+        cost_kw = {} if cost_ops is None else dict(cost=cost_ops)
+        q = dict(d=6, m=m, dx=3, **cost_kw)
+        work = {
+            "gbp_covariance_logdet": TRIALS * S6_B * n * chain_flops(6),
+            "solve": 2 * S6_B * n * solve_flops(6),
+            "quad_phi": TRIALS * S6_B * n * quad_flops(moments=False, **q),
+            "quad_moments": S6_B * n * quad_flops(moments=True, **q),
+            "fused_moments": S6_B * n * quad_flops(moments=True, **q),
+            "fused_trials": TRIALS * S6_B * n * (
+                chain_flops(6) + quad_flops(moments=False, **q) + 16 * 6**2),
+            "fused_gradient": S6_B * n * (
+                chain_flops(6) + quad_flops(moments=True, **q) + 12 * 6**3
+                + 2 * solve_flops(6)),
+        }
+        extra = () if fields[f32] is None else (fields[f32],)
+        inputs = {"gbp_covariance_logdet": chains[f32][0],
+                  "solve": chains[f32][1],
+                  "quad_phi": args3[f32][:4] + args3[f32][5:] + extra,
+                  "quad_moments": args4[f32][:4] + args4[f32][5:] + extra,
+                  "fused_moments": args4[f32][:4] + args4[f32][5:],
+                  "fused_trials": (x5[f32], ops[f32][2:]),
+                  "fused_gradient": (x6[f32], ops[f32][2:])}
+        calls = {
+            "gbp_covariance_logdet": (
+                lambda: chain.gbp_covariance_logdet_lanes(*chains[f32][0]),
+                lambda: chain.gbp_covariance_logdet_plain(*chains[f32][0])),
+            "solve": (lambda: chain.solve_pair_lanes(*chains[f32][1]),
+                      lambda: chain.solve_pair_plain(*chains[f32][1])),
+            **{name: (lambda kern=kern: kern(f32),
+                      lambda plain=plain: plain(f32))
+               for name, (kern, plain) in cases.items()},
+        }
+        for name, (kern, plain) in calls.items():
+            out[model, name] = dict(
+                max_abs_err=errs[name, f64], err_dtype="float64",
+                ms=cuda_ms(kern), ms_flushed_l2=cuda_ms_flushed(kern),
+                plain_ms=cuda_ms(plain, reps=3),
+                **bound(inputs[name], kern(), work[name]))
+    return out
+
+
+def f32_vs_f64(name, hist32, hist64, final0=False):
+    """float32 against float64: every problem's first record (< 1e-4) and
+    the batch median of the final costs (< 1e-3); with ``final0`` problem
+    0's final cost (< 1e-3).  Problem 0's history is printed, not held: at
+    s = 6 float32 takes other line-search steps than float64 on it in the
+    JAX package too (dim_x = 3 seed 0 5.3e-2 apart at iteration 5, the
+    quadrotor's final cost 1.3e-3 apart, the point planner 9e-4 to 0.40
+    apart from means nudged by 1e-7; tests/test_torch_point3d.py
+    test_float32_steps_differ_in_jax)."""
+    rel = ((hist32.cost.double() - hist64.cost).abs()
+           / hist64.cost.abs().clamp_min(1e-12))
+    first, seed0 = rel[:, 0].max().item(), rel[0].max().item()
+    median, last0 = rel[:, -1].median().item(), rel[0, -1].item()
+    print(f"[{name}] f32 vs f64 relative cost difference: first record max "
+          f"{first:.3e}, final median {median:.3e}, problem-0 final "
+          f"{last0:.3e} (problem-0 history max {seed0:.3e}, final max "
+          f"{rel[:, -1].max().item():.3e})", flush=True)
+    check(first < 1e-4, f"{name}: first-record f32 vs f64 {first:.3e}")
+    check(median < 1e-3, f"{name}: median final f32 vs f64 {median:.3e}")
+    check(not final0 or last0 < 1e-3,
+          f"{name}: problem-0 final f32 vs f64 {last0:.3e}")
+
+
+
+
+def s6_runs(card, dev):
+    """The three s = 6 models through ``optimize`` under the defaults on
+    the card, each path counted: the point planner fused and separate at
+    B = 1024 (plain at B = 64), the quadrotor on K1 / K2 at B = 1024
+    (plain at B = 64), chain estimation at dim_x = 3 fused and block-form
+    at B = 1024; float32 against float64; the kernel paths against the
+    plain path on 8 problems in float64; the planners' own checks
+    (``tests/test_sdf_io.py``, ``tests/test_quadrotor.py``); throughput.
+    Returns ``(counts per path, rates)``."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.factors.robots import planar_quad_balls
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    f32, f64 = torch.float32, torch.float64
+    counts, rates = {}, {}
+
+    def rate(graph, state, config, iters):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            optimize(graph, state, config)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return state.mu.shape[0] * iters / statistics.median(times)
+
+    def plain_of(config):
+        return replace(config, chain_impl="seq", quad_impl="xla")
+
+    def on_cpu(state):
+        return GaussianState(state.mu.cpu(), BlockTridiag(
+            state.precision.diag.cpu(), state.precision.off.cpu()))
+
+    # ---- the 3-D point planner ----
+    graph32, inits32, cfg, sdf = point3d_problem(f32, dev)
+    graph64, inits64, _, _ = point3d_problem(f64, dev)
+    cfg_sep = replace(cfg, fused_trials="off", fused_gradient="off")
+    (state32, hist32), counts["point3d fused"] = counted(
+        optimize, graph32, inits32, cfg)
+    n = counts["point3d fused"]
+    print(f"[point3d fused path] launches {n}", flush=True)
+    check(n["fused_trials"] == n["fused_gradient"] == P3_ITERS
+          and n["gbp_covariance_logdet"] > 0 and n["quad_phi"] > 0,
+          f"point3d: the fused path skipped its kernels: {n}")
+    check_costs("point3d fused path", hist32, S6_B, P3_ITERS, nonneg=True)
+    pos = state32.mu[0, :, :3]
+    clearance = float(sdf.signed_distance(pos).min())
+    ends = max(float((pos[0] - torch.tensor([1.0, 1.0, 4.5], device=dev))
+                     .abs().max()),
+               float((pos[-1] - torch.tensor([8.5, 8.5, 4.5], device=dev))
+                     .abs().max()))
+    clear = int((sdf.signed_distance(state32.mu[..., :3]).amin(-1) > 0).sum())
+    print(f"[point3d fused path] restart 0 clears the box by {clearance:.4f}"
+          f", endpoints within {ends:.3e}; {clear}/{S6_B} restarts end "
+          f"clear; final cost median "
+          f"{float(hist32.cost[:, -1].median()):.4f}", flush=True)
+    check(clearance > 0.0, f"point3d: restart 0 ends in the box "
+          f"({clearance:.3e})")
+    check(ends < 0.2, f"point3d: restart 0's endpoints off by {ends:.3e}")
+    _, hist64 = optimize(graph64, inits64, cfg)
+    f32_vs_f64("point3d fused path", hist32, hist64, final0=True)
+    (_, hist_s), counts["point3d separate"] = counted(
+        optimize, graph32, inits32, cfg_sep)
+    n = counts["point3d separate"]
+    print(f"[point3d separate path] launches {n}", flush=True)
+    check(all(n[k] > 0 for k in ("gbp_covariance_logdet", "solve",
+                                 "quad_phi", "quad_moments"))
+          and n["fused_trials"] == n["fused_gradient"] == 0,
+          f"point3d: the separate path skipped a kernel: {n}")
+    check_costs("point3d separate path", hist_s, S6_B, P3_ITERS, nonneg=True)
+
+    # kernel paths against the plain path (float64, 8 restarts) over the
+    # whole run: the point planner keeps rounding in check (its plain
+    # path's costs from means nudged by 1e-15, printed beside, stay within
+    # ~2e-11 over the 30 iterations), unlike the planar planner
+    s8 = subset(inits64, 8)
+    g8c = point3d_problem(f64, torch.device("cpu"), 1)[0]
+    hp = optimize(graph64, s8, plain_of(cfg))[1]
+    hk = optimize(graph64, s8, cfg)[1]
+    for name, got, want in (
+            ("point3d fused kernels vs plain path", hk, hp),
+            ("point3d separate kernels vs plain path",
+             optimize(graph64, s8, cfg_sep)[1], hp),
+            ("point3d fused kernels vs fused plain versions (CPU)", hk,
+             optimize(g8c, on_cpu(s8), replace(
+                 cfg, fused_trials="on", fused_gradient="on"))[1])):
+        held_to_plain(name, got, want, dev, tag="s=6 end to end")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nudged = GaussianState(s8.mu * (1 + 1e-15 * torch.randn(
+        s8.mu.shape, generator=gen, dtype=f64, device=dev)), s8.precision)
+    hn = optimize(graph64, nudged, plain_of(cfg))[1]
+    for name, a, b_ in (("fused kernels vs plain path", hk, hp),
+                        ("plain path vs itself from means nudged by 1e-15",
+                         hn, hp)):
+        rel = ((a.cost - b_.cost).abs() / b_.cost.abs()).max(0).values
+        steps = int((a.accepted_step != b_.accepted_step).any(0).sum())
+        check(bool(torch.isfinite(rel).all()), f"point3d {name}: non-finite")
+        print(f"[point3d end to end] {name} (f64, 8 restarts, {P3_ITERS} "
+              f"iters): max relative cost difference at iterations 6 / 10 / "
+              f"20 / last {rel[5]:.1e} / {rel[9]:.1e} / {rel[19]:.1e} / "
+              f"{rel[-1]:.1e}, max {rel.max().item():.1e}; steps differ at "
+              f"{steps}/{P3_ITERS} iterations", flush=True)
+    rates["point3d fused"] = rate(graph32, inits32, cfg, P3_ITERS)
+    rates["point3d separate"] = rate(graph32, inits32, cfg_sep, P3_ITERS)
+    rates["point3d plain"] = rate(graph32, subset(inits32, S6_B_PLAIN),
+                                  plain_of(cfg), P3_ITERS)
+
+    # ---- the planar quadrotor ----
+    graph32, inits32, qcfg, qsdf = quadrotor_problem(f32, dev)
+    graph64, inits64, _, _ = quadrotor_problem(f64, dev)
+    (state32, hist32), counts["quadrotor"] = counted(
+        optimize, graph32, inits32, qcfg)
+    n = counts["quadrotor"]
+    print(f"[quadrotor path] launches {n}", flush=True)
+    check(n["gbp_covariance_logdet"] > 0 and n["solve"] == QR_ITERS
+          and n["quad_phi"] == n["quad_moments"] == n["fused_trials"]
+          == n["fused_gradient"] == 0,
+          f"quadrotor: not K1 / K2 with the plain quadrature: {n}")
+    check_costs("quadrotor path", hist32, S6_B, QR_ITERS, nonneg=True)
+    cost0 = hist32.cost[0].double()
+    balls = planar_quad_balls(state32.mu[0], 5, 5.0, 1.0)
+    clearance = float(qsdf.signed_distance(balls.reshape(-1, 2)).min())
+    print(f"[quadrotor path] restart 0: balls clear by {clearance:.4f}, cost "
+          f"{float(cost0[0]):.2f} -> {float(cost0[-1]):.2f}", flush=True)
+    check(clearance > 0.0, f"quadrotor: restart 0's balls in the block "
+          f"({clearance:.3e})")
+    check(float(cost0[-1]) < float(cost0[0]) / 10,
+          f"quadrotor: restart 0's cost fell only to {float(cost0[-1]):.3e}")
+    _, hist64 = optimize(graph64, inits64, qcfg)
+    f32_vs_f64("quadrotor path", hist32, hist64)
+    s8 = subset(inits64, 8)
+    held_to_plain("quadrotor chain kernels vs plain path",
+                  optimize(graph64, s8, qcfg)[1],
+                  optimize(graph64, s8, plain_of(qcfg))[1], dev,
+                  tag="s=6 end to end")
+    rates["quadrotor"] = rate(graph32, inits32, qcfg, QR_ITERS)
+    rates["quadrotor plain"] = rate(graph32, subset(inits32, S6_B_PLAIN),
+                                    plain_of(qcfg), QR_ITERS)
+
+    # ---- chain estimation at dim_x = 3 ----
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    cfg_block = replace(cfg, use_pallas=True, fused_gradient="off")
+    graph32, state32 = build_batch(f32, dev, S6_B, dim_x=3)
+    graph64, state64 = build_batch(f64, dev, S6_B, dim_x=3)
+    (_, hist32), counts["dim_x=3 fused"] = counted(
+        optimize, graph32, state32, cfg)
+    n = counts["dim_x=3 fused"]
+    print(f"[dim_x=3 fused path] launches {n}", flush=True)
+    check(n["fused_trials"] == n["fused_gradient"] == NITERS
+          and n["gbp_covariance_logdet"] > 0 and n["quad_phi"] > 0,
+          f"dim_x=3: the fused path skipped its kernels: {n}")
+    check_costs("dim_x=3 fused path", hist32, S6_B, NITERS)
+    f32_vs_f64("dim_x=3 fused path", hist32,
+               optimize(graph64, state64, cfg)[1])
+    (_, hist_a), counts["dim_x=3 block"] = counted(
+        optimize, graph32, state32, cfg_block)
+    n = counts["dim_x=3 block"]
+    print(f"[dim_x=3 block-moments path] launches {n}", flush=True)
+    check(n["fused_moments"] == n["solve"] == n["fused_trials"] == NITERS
+          and n["fused_gradient"] == n["quad_moments"] == 0,
+          f"dim_x=3: the block-form moments path took other kernels: {n}")
+    check_costs("dim_x=3 block-moments path", hist_a, S6_B, NITERS)
+    g8, s8 = build_batch(f64, dev, 8, dim_x=3)
+    g8c, s8c = build_batch(f64, torch.device("cpu"), 8, dim_x=3)
+    hp = optimize(g8, s8, plain_of(cfg))[1]
+    hs = optimize(g8, s8, replace(cfg, fused_trials="off",
+                                  fused_gradient="off"))[1]
+    for name, got, want in (
+            ("dim_x=3 fused kernels vs plain path",
+             optimize(g8, s8, cfg)[1], hp),
+            ("dim_x=3 separate kernels vs plain path", hs, hp),
+            ("dim_x=3 block-form moments vs separate kernels",
+             optimize(g8, s8, cfg_block)[1], hs),
+            ("dim_x=3 fused kernels vs fused plain versions (CPU)",
+             optimize(g8, s8, cfg)[1],
+             optimize(g8c, s8c, replace(cfg, fused_trials="on",
+                                        fused_gradient="on"))[1])):
+        held_to_plain(name, got, want, dev, tag="s=6 end to end")
+    rates["dim_x=3 fused"] = rate(graph32, state32, cfg, NITERS)
+    print(f"[throughput] {card}: point3d fused {rates['point3d fused']:.1f}, "
+          f"separate {rates['point3d separate']:.1f} prob-iters/s (B={S6_B}, "
+          f"N={P3_N}, {P3_ITERS} iters), plain {rates['point3d plain']:.1f} "
+          f"(B={S6_B_PLAIN}); quadrotor (K1 / K2) {rates['quadrotor']:.1f} "
+          f"(B={S6_B}, N={QR_N}, {QR_ITERS} iters), plain "
+          f"{rates['quadrotor plain']:.1f} (B={S6_B_PLAIN}); dim_x=3 fused "
+          f"{rates['dim_x=3 fused']:.1f} (B={S6_B}, N={N}, {NITERS} iters); "
+          f"f32, median of 3", flush=True)
+    return counts, rates
 
 
 def main() -> int:
@@ -1939,13 +2517,7 @@ def main() -> int:
     # the same conditioning floor sets this gate
     check(rel_root < 1e-6, f"prox eigh vs newton differ: {rel_root:.3e}")
     for name, got, want, rtol in pairs:
-        want_cost = want.cost.to(dev)
-        rel_kp = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
-        print(f"[end to end] {name} (f64, 8 problems): max relative cost "
-              f"difference {rel_kp:.3e}", flush=True)
-        check(rel_kp < rtol, f"{name} differ: {rel_kp:.3e}")
-        check(torch.equal(got.accepted_step, want.accepted_step.to(dev)),
-              f"{name}: different accepted steps")
+        held_to_plain(name, got, want, dev, rtol)
 
     # ---- throughput: fused, separate and plain paths (float32) ----
     def rate(config, method="ngd"):
@@ -1997,8 +2569,18 @@ def main() -> int:
               f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
               f"call), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, planner "
-              f"shapes: B={PLAN_B}, N={PLAN_N}, 13-node rule, planar SDF "
-              f"cost)", flush=True)
+              f"shapes: B={PLAN_B}, N={PLAN_N}, s=4; K3, K5, K6 with the "
+              f"13-node rule and the planar SDF cost)", flush=True)
+
+    # ---- s = 6: kernels at the models' shapes, their paths ----
+    s6_kern = s6_kernel_checks(dev)
+    s6_counts, _ = s6_runs(card, dev)
+    for (model, name), r in s6_kern.items():
+        print(f"[kernel time] {card}: s=6 {model} {name} {r['ms']:.4f} ms "
+              f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
+              f"call), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, B={S6_B}, "
+              f"N={N if model == 'dim_x=3' else P3_N})", flush=True)
 
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
@@ -2048,6 +2630,30 @@ def main() -> int:
                      "together" if name == "gbp_covariance_logdet" else
                      "a custom fused or quadrature function")
                   for name in WRAPPERS)
+    # the s = 6 instances: each model's launches (the point planner's
+    # fused path at B = 1024, its separate path for K2 and K3 moments, the
+    # quadrotor's K1 / K2, chain estimation at dim_x = 3 fused, and
+    # block-form for K4) and, where measured, their times and bounds
+    s6_path = {"gbp_covariance_logdet": ("point3d fused", "dim_x=3 fused",
+                                         "quadrotor"),
+               "solve": ("point3d separate", "quadrotor", "dim_x=3 block"),
+               "quad_phi": ("point3d fused", "dim_x=3 fused"),
+               "quad_moments": ("point3d separate",),
+               "fused_moments": ("dim_x=3 block",),
+               "fused_trials": ("point3d fused", "dim_x=3 fused"),
+               "fused_gradient": ("point3d fused", "dim_x=3 fused")}
+
+    def s6_row(name):
+        if name not in s6_path:
+            return dict(note="not instantiated at s = 6 (the factor-"
+                        "parallel pair; kernels/fused_gradient.py covers)")
+        row = {}
+        for path in s6_path[name]:
+            model = path.split(" ")[0]
+            row[path] = dict(launches=s6_counts[path][name],
+                             **s6_kern.get((model, name), {}))
+        return row
+
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
@@ -2060,8 +2666,11 @@ def main() -> int:
                  library_ms=kern[name].get("library_ms"),
                  **({} if "library_ms" in kern[name]
                     else {"library_note": note}),
-                 planner=planner_rows[name])
+                 planner=planner_rows[name], s6=s6_row(name))
             for name, note in zip(WRAPPERS, no_library)]
+    check(all(v["launches"] > 0 for name in s6_path
+              for v in s6_row(name).values()),
+          "an s = 6 kernel was launched on none of its paths")
     check(all(r["launches"] > 0 for r in rows),
           f"a kernel was launched on no path: {rows}")
     print(json.dumps({"kernels": rows}))

@@ -24,11 +24,13 @@
 //     at once, the s columns of a message on s lanes, pivot_sweeps) or per
 //     pair of chains (K2: one solve per lane-group parity, thomas), so a
 //     warp carries 32 / 2s chains or pairs: 11264 chains are 2816 warps,
-//     1024 pairs 256;
+//     1024 pairs 256 (at s = 6 two per warp, its last 8 lanes repeating
+//     lanes 0-7: fused.cuh group_lane);
 //   - pivots and factors keep the reciprocals of their diagonal (chol_r):
 //     every solve step multiplies;
 //   - K1, after the sweeps: the warp's (chain, edge) items over its 32
-//     lanes, each the 2s x 2s joint inverse of one edge, side by side;
+//     lanes, each the 2s x 2s joint inverse of one edge, side by side (at
+//     s = 6 from s x s Schur complements: fused.cuh edge_covariance_r);
 //   - the arena: K1 keeps both pivot arrays of the warp's chains, K2 its
 //     systems, right-hand sides, factors and solutions, in shared memory,
 //     or in a global scratch for a chain too long for it (same code); each
@@ -119,11 +121,14 @@ gbp_kernel(const T* __restrict__ diag, const T* __restrict__ off,
   };
 
   // ---- both pivot recursions of every chain, 2s lanes each; a lane past
-  // the last chain repeats it (same values to the same words) -------------
-  const int c = min(lane / (2 * S), valid - 1);
+  // the last chain, or past the warp's whole lane groups (s = 6), repeats
+  // another (same values to the same words) --------------------------------
+  const int gl = group_lane<S>(lane);
+  const int c = min(gl / (2 * S), valid - 1);
   const T ld = pivot_sweeps<T, S, true>(blocks(c), n, lane, fpiv + c * cp,
                                         gpiv + c * cp);
-  if (lane % (2 * S) == 0 && lane / (2 * S) < valid) ld_out[b0 + c] = ld;
+  if (lane == gl && gl % (2 * S) == 0 && gl / (2 * S) < valid)
+    ld_out[b0 + c] = ld;
 
   // ---- the edges, one (chain, edge) item per lane and turn: the record is
   // staged where the item's own pivots were (no other item reads F_i or
@@ -212,10 +217,11 @@ solve_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
   __syncwarp();
 
   // ---- both sweeps of every system, S lanes each.  A lane past the last
-  // pair repeats it (same values to the same words); side 1 of a pair
-  // without a system 1 solves system 0 again into a slot nobody reads ----
+  // pair, or past the warp's whole lane groups (s = 6), repeats another
+  // (same values to the same words); side 1 of a pair without a system 1
+  // solves system 0 again into a slot nobody reads ----------------------
   const Lanes<S> g(lane);
-  const int q = min(lane / (2 * S), valid - 1);
+  const int q = min(group_lane<S>(lane) / (2 * S), valid - 1);
   const int slot = g.side * C + q;
   const int src = g.side && q < valid1 ? slot : q;
   thomas<T, S, false>(dg + src * pitch_d, og + src * pitch_b,
@@ -309,8 +315,10 @@ extern "C" int gvi_gbp(int dtype, int s, const void* diag, const void* off,
                                arena, st);
   if (dtype == 0 && s == 2) { GVI_GBP(float, 2) }
   if (dtype == 0 && s == 4) { GVI_GBP(float, 4) }
+  if (dtype == 0 && s == 6) { GVI_GBP(float, 6) }
   if (dtype == 1 && s == 2) { GVI_GBP(double, 2) }
   if (dtype == 1 && s == 4) { GVI_GBP(double, 4) }
+  if (dtype == 1 && s == 6) { GVI_GBP(double, 6) }
 #undef GVI_GBP
   return -1;
 }
@@ -327,8 +335,10 @@ extern "C" int gvi_solve(int dtype, int s, const void* const* ops,
   return gvi::launch_solve<T, S>(ops, scratch, units, units1, n, arena, st);
   if (dtype == 0 && s == 2) { GVI_SOLVE(float, 2) }
   if (dtype == 0 && s == 4) { GVI_SOLVE(float, 4) }
+  if (dtype == 0 && s == 6) { GVI_SOLVE(float, 6) }
   if (dtype == 1 && s == 2) { GVI_SOLVE(double, 2) }
   if (dtype == 1 && s == 4) { GVI_SOLVE(double, 4) }
+  if (dtype == 1 && s == 6) { GVI_SOLVE(double, 6) }
 #undef GVI_SOLVE
   return -1;
 }

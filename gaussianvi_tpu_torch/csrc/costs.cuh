@@ -19,22 +19,32 @@
 
 namespace gvi {
 
-enum CostId : int { kRangeCost = 0, kPlanarSdfCost = 1 };
+enum CostId : int { kRangeCost = 0, kPlanarSdfCost = 1, kSdf3dCost = 2 };
 
-// A batch's field: rows x cols values, row-major, in device memory, shared
-// by every factor and problem of the batch and read through the read-only
-// path; data is null for a cost that reads no field.
+// A batch's field: nz x rows x cols values, row-major (data[z, row, col]),
+// in device memory, shared by every factor and problem of the batch and
+// read through the read-only path; nz is 1 for a planar field, data null
+// for a cost that reads no field.
 template <typename T>
 struct Field {
   const T* data;
-  int rows, cols;
+  int rows, cols, nz;
 };
 
 // A launch of Cost may go ahead with this field: present where the cost
-// reads one.
+// reads one, with the depth its dimension allows (one plane for a planar
+// cost, kFieldDims == 2).
 template <typename Cost, typename T>
 inline bool field_ok(const Field<T>& f) {
-  return !Cost::kField || (f.data != nullptr && f.rows >= 1 && f.cols >= 1);
+  if (!Cost::kField) return true;
+  return f.data != nullptr && f.rows >= 1 && f.cols >= 1 &&
+         (Cost::kFieldDims == 3 ? f.nz >= 1 : f.nz == 1);
+}
+
+template <typename T>
+__device__ __forceinline__ T clip(T v, T lo, T hi) {
+  v = v < lo ? lo : v;
+  return v > hi ? hi : v;
 }
 
 // Range measurement (gaussianvi_tpu/examples/chain_estimation.py,
@@ -44,6 +54,7 @@ template <int DX>
 struct RangeCost {
   static constexpr int kParams = DX + 2;
   static constexpr bool kField = false;
+  static constexpr int kFieldDims = 0;
 
   template <typename T, int D>
   __device__ __forceinline__ static T eval(const T (&x)[D],
@@ -89,12 +100,7 @@ struct RangeCost {
 struct PlanarSdfCost {
   static constexpr int kParams = 7;
   static constexpr bool kField = true;
-
-  template <typename T>
-  __device__ __forceinline__ static T clip(T v, T lo, T hi) {
-    v = v < lo ? lo : v;
-    return v > hi ? hi : v;
-  }
+  static constexpr int kFieldDims = 2;
 
   template <typename T, int D>
   __device__ __forceinline__ static T eval(const T (&x)[D],
@@ -118,6 +124,70 @@ struct PlanarSdfCost {
                  wr * (T(1) - wc) * __ldg(hi_row + lci) +
                  (T(1) - wr) * wc * __ldg(lo_row + hci) +
                  wr * wc * __ldg(hi_row + hci);
+    const T e = p[0] + p[1] - sd;
+    const T err = (e < T(0) ? T(0) : e) * p[3];
+    return err * err * p[2];
+  }
+};
+
+// 3-D point robot against a 3-D signed-distance field
+// (gaussianvi_tpu/factors/robots.py make_point3d_obstacle_factor: one ball
+// at (x[0], x[1], x[2])): the clamped trilinear lookup of
+// SDF3D.signed_distance (gaussianvi_tpu/factors/sdf.py), then the hinge of
+// hinge_obstacle_cost, as PlanarSdfCost does in the plane.  The field is
+// data[z, row, col], row <-> y, col <-> x, origin (x0, y0, z0), cubic
+// cells.  Params: eps, radius, sigma, slope, x0, y0, z0, cell.
+//
+// The plain version's arithmetic step for step: the clip to the extent,
+// the division by the cell, floor, the corner indices clamped, the blend
+// along rows, then columns, then z; a NaN coordinate stays NaN.
+//
+// What it costs: three divisions, three floors and eight gathers a point.
+// The point planner's 50^3 field is 500 KB in float32 (1 MB in float64):
+// it stays in L2, not in one SM's L1, so a gather is an L2 hit; the
+// factors of one warp sit near one another on the trajectory and share
+// cache lines.  On an H100, K3 phi on the planner's trial batch (225,280
+// factors, 25 nodes) takes 0.076 ms, 6.4x its byte bound (PERF.md,
+// section 6).
+struct Sdf3dCost {
+  static constexpr int kParams = 8;
+  static constexpr bool kField = true;
+  static constexpr int kFieldDims = 3;
+
+  template <typename T, int D>
+  __device__ __forceinline__ static T eval(const T (&x)[D],
+                                           const T (&p)[kParams],
+                                           const Field<T>& f) {
+    static_assert(D >= 3, "the 3-D SDF cost reads (x[0], x[1], x[2])");
+    const T x0 = p[4], y0 = p[5], z0 = p[6], cell = p[7];
+    const T px = clip(x[0], x0, x0 + T(f.cols - 1) * cell);
+    const T py = clip(x[1], y0, y0 + T(f.rows - 1) * cell);
+    const T pz = clip(x[2], z0, z0 + T(f.nz - 1) * cell);
+    const T c = (px - x0) / cell;
+    const T r = (py - y0) / cell;
+    const T zz = (pz - z0) / cell;
+    const T lr = dfloor(r), lc = dfloor(c), lz = dfloor(zz);
+    const int lri = min(max(static_cast<int>(lr), 0), f.rows - 1);
+    const int lci = min(max(static_cast<int>(lc), 0), f.cols - 1);
+    const int lzi = min(max(static_cast<int>(lz), 0), f.nz - 1);
+    const int hri = min(lri + 1, f.rows - 1);
+    const int hci = min(lci + 1, f.cols - 1);
+    const int hzi = min(lzi + 1, f.nz - 1);
+    const T wr = r - lr, wc = c - lc, wz = zz - lz;
+    const int64_t plane = (int64_t)f.rows * f.cols;
+    const T* lo = f.data + lzi * plane;
+    const T* hi = f.data + hzi * plane;
+    const int64_t l_l = (int64_t)lri * f.cols + lci;
+    const int64_t h_l = (int64_t)hri * f.cols + lci;
+    const int64_t l_h = (int64_t)lri * f.cols + hci;
+    const int64_t h_h = (int64_t)hri * f.cols + hci;
+    const T c00 = (T(1) - wr) * __ldg(lo + l_l) + wr * __ldg(lo + h_l);
+    const T c01 = (T(1) - wr) * __ldg(hi + l_l) + wr * __ldg(hi + h_l);
+    const T c10 = (T(1) - wr) * __ldg(lo + l_h) + wr * __ldg(lo + h_h);
+    const T c11 = (T(1) - wr) * __ldg(hi + l_h) + wr * __ldg(hi + h_h);
+    const T c0 = (T(1) - wc) * c00 + wc * c10;
+    const T c1 = (T(1) - wc) * c01 + wc * c11;
+    const T sd = (T(1) - wz) * c0 + wz * c1;
     const T e = p[0] + p[1] - sd;
     const T err = (e < T(0) ? T(0) : e) * p[3];
     return err * err * p[2];

@@ -46,7 +46,8 @@ namespace gvi {
 
 constexpr int kMaxBatches = 4;
 constexpr int kNLPtrs = 6;   // nodes, weights, params, index, fc, field
-constexpr int kNLInts = 6;   // k, m, nonneg, rdim, field rows, field cols
+// k, m, nonneg, rdim, field rows, field cols, field depth
+constexpr int kNLInts = 7;
 constexpr int kLinPtrs = 6;  // a, lam, pm, prec, index, fc
 constexpr int kLinInts = 4;  // span, k, ka, r
 constexpr int kWarp = 32;
@@ -114,7 +115,7 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs,
     b.params = static_cast<const T*>(p[2]);
     b.index = static_cast<const int*>(p[3]);
     b.fc = static_cast<T*>(p[4]);
-    b.field = Field<T>{static_cast<const T*>(p[5]), q[4], q[5]};
+    b.field = Field<T>{static_cast<const T*>(p[5]), q[4], q[5], q[6]};
     b.k = q[0];
     b.m = q[1];
     b.nonneg = q[2];
@@ -392,9 +393,69 @@ __device__ __forceinline__ void inv_from_chol_r(const T (&l)[S][S],
   }
 }
 
+// Covariance blocks of one chain edge from s x s Schur complements of the
+// joint J = [[F, B], [B^T, G]]:
+//   X = G^{-1} B^T,  Sig_ii = (F - B X)^{-1},  Sig_ij = -Sig_ii X^T,
+//   Sig_jj = G^{-1} + X Sig_ii X^T = G^{-1} - X Sig_ij.
+// Two s x s factorizations instead of one 2s x 2s one: at s = 6 the joint
+// and its factor would hold about 300 values in one lane's registers.
+template <typename T, int S>
+__device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
+                                                      const T (&g)[S][S],
+                                                      const T (&bo)[S][S],
+                                                      T (&cii)[S][S],
+                                                      T (&cjj)[S][S],
+                                                      T (&cij)[S][S]) {
+  T lg[S][S], rg[S], x[S][S];
+  chol_r(g, lg, rg);
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    T rhs[S], sol[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) rhs[r] = bo[c][r];
+    chol_solve_r(lg, rg, rhs, sol);
+#pragma unroll
+    for (int r = 0; r < S; ++r) x[r][c] = sol[r];
+  }
+  {
+    T p[S][S], lp[S][S], rp[S];
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        T acc = f[a][c];
+#pragma unroll
+        for (int k = 0; k < S; ++k) acc = acc - bo[a][k] * x[k][c];
+        p[a][c] = acc;
+      }
+    chol_r(p, lp, rp);
+    inv_from_chol_r(lp, rp, cii);
+  }
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      T acc = cii[a][0] * x[c][0];
+#pragma unroll
+      for (int k = 1; k < S; ++k) acc = acc + cii[a][k] * x[c][k];
+      cij[a][c] = -acc;
+    }
+  inv_from_chol_r(lg, rg, cjj);
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      T acc = cjj[a][c];
+#pragma unroll
+      for (int k = 0; k < S; ++k) acc = acc - x[a][k] * cij[k][c];
+      cjj[a][c] = acc;
+    }
+}
+
 // Covariance blocks of one chain edge, as smallmat.cuh edge_covariance: the
 // inverse of the 2s x 2s joint [[F, B], [B^T, G]] column by column from
 // its Cholesky factor; cii = Sig_ii, cjj = Sig_{i+1,i+1}, cij = Sig_{i,i+1}.
+// Above s = 4 the same blocks come from edge_covariance_schur.
 template <typename T, int S>
 __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
                                                   const T (&g)[S][S],
@@ -402,31 +463,35 @@ __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
                                                   T (&cii)[S][S],
                                                   T (&cjj)[S][S],
                                                   T (&cij)[S][S]) {
-  constexpr int S2 = 2 * S;
-  T joint[S2][S2], l[S2][S2], rd[S2];
+  if constexpr (S > 4) {
+    edge_covariance_schur(f, g, bo, cii, cjj, cij);
+  } else {
+    constexpr int S2 = 2 * S;
+    T joint[S2][S2], l[S2][S2], rd[S2];
 #pragma unroll
-  for (int a = 0; a < S; ++a)
+    for (int a = 0; a < S; ++a)
 #pragma unroll
-    for (int c = 0; c < S; ++c) {
-      joint[a][c] = f[a][c];
-      joint[a][S + c] = bo[a][c];
-      joint[S + a][c] = bo[c][a];
-      joint[S + a][S + c] = g[a][c];
-    }
-  chol_r(joint, l, rd);
+      for (int c = 0; c < S; ++c) {
+        joint[a][c] = f[a][c];
+        joint[a][S + c] = bo[a][c];
+        joint[S + a][c] = bo[c][a];
+        joint[S + a][S + c] = g[a][c];
+      }
+    chol_r(joint, l, rd);
 #pragma unroll
-  for (int col = 0; col < S2; ++col) {
-    T e[S2], x[S2];
+    for (int col = 0; col < S2; ++col) {
+      T e[S2], x[S2];
 #pragma unroll
-    for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
-    chol_solve_r(l, rd, e, x);
+      for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
+      chol_solve_r(l, rd, e, x);
 #pragma unroll
-    for (int a = 0; a < S; ++a) {
-      if (col < S) {
-        cii[a][col] = x[a];
-      } else {
-        cij[a][col - S] = x[a];
-        cjj[a][col - S] = x[S + a];
+      for (int a = 0; a < S; ++a) {
+        if (col < S) {
+          cii[a][col] = x[a];
+        } else {
+          cij[a][col - S] = x[a];
+          cjj[a][col - S] = x[S + a];
+        }
       }
     }
   }
@@ -495,15 +560,33 @@ __device__ __forceinline__ void store_rows(T* dst, const T (&a)[S][S],
   for (int c = 0; c < S; ++c) dst[row * S + c] = v[c];
 }
 
+// The lane whose work a lane repeats.  The lanes that hold whole pairs of
+// lane groups (2s lanes each: all 32 at s = 2 and 4, 24 at s = 6) repeat
+// themselves; past them a lane repeats the lane as many places from lane
+// 0.  A repeating lane computes the same values as the lane it repeats, so
+// it may read that lane's group by shuffles and store the same values to
+// the same words.
+template <int S>
+__device__ __forceinline__ int group_lane(int lane) {
+  constexpr int kWhole = kWarp / (2 * S) * (2 * S);
+  if constexpr (kWhole == kWarp)
+    return lane;
+  else
+    return lane % kWhole;
+}
+
 // The lanes of a warp in groups of S: group parity picks one of two
 // recursions, the lane's place in its group the column it solves.  Every
 // group of the same parity computes the same values, so a shuffle reads its
-// own group and no lane idles on a branch.
+// own group and no lane idles on a branch.  Lanes past the last whole pair
+// of groups take the place of the lane they repeat (group_lane).
 template <int S>
 struct Lanes {
   int side, col, first;
   __device__ __forceinline__ explicit Lanes(int lane)
-      : side((lane / S) & 1), col(lane % S), first(lane - lane % S) {}
+      : side((group_lane<S>(lane) / S) & 1),
+        col(group_lane<S>(lane) % S),
+        first(group_lane<S>(lane) - group_lane<S>(lane) % S) {}
 };
 
 // One step of a pivot recursion, the message m = -(Bd^T P^{-1} Bd) from the

@@ -389,8 +389,9 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One mode's instantiations (float32 / float64, s = 2 / 4, the range and
-// the planar SDF cost).  dtype: 0 = float32, 1 = float64; cost:
+// One mode's instantiations (float32 / float64; s = 2 / 4 with the range
+// and the planar SDF cost; in mode "full" also s = 6 with the range and the
+// 3-D SDF cost).  dtype: 0 = float32, 1 = float64; cost:
 // csrc/costs.cuh CostId with np params (one cost for every nonlinear
 // batch; each batch brings its own field, null for the range cost).  warps problems per block, chain = grad_chain_elems values per
 // problem, scratch = the global arena or null.  Returns the cudaError_t of
@@ -423,6 +424,18 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
     if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, PlanarSdfCost) }
     if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarSdfCost) }
+  }
+  // s = 6 (the 3-D planners, chain estimation at dim_x = 3): mode "full"
+  // only; the factor-parallel pair waits (kernels/fused_gradient.py covers)
+  if constexpr (Mode == kGradFull) {
+    if (cost == kRangeCost) {
+      if (dtype == 0 && s == 6) { GVI_GRAD(float, 6, RangeCost<3>) }
+      if (dtype == 1 && s == 6) { GVI_GRAD(double, 6, RangeCost<3>) }
+    }
+    if (cost == kSdf3dCost) {
+      if (dtype == 0 && s == 6) { GVI_GRAD(float, 6, Sdf3dCost) }
+      if (dtype == 1 && s == 6) { GVI_GRAD(double, 6, Sdf3dCost) }
+    }
   }
 #undef GVI_GRAD
   return -1;

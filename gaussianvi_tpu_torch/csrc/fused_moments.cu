@@ -29,8 +29,8 @@
 // Operands as gvi_quad takes them (strides in elements, the params'
 // period in factors, the cost's field, contiguous outputs; rdim = d
 // disables the lift).  The field passes through to the shared body: no
-// batch with a field reaches this kernel today (the planner's obstacle
-// batch has no block form, as in the JAX package), but every cost the
+// batch with a field reaches this kernel today (the planners' obstacle
+// batches have no block form, as in the JAX package), but every cost the
 // body is instantiated for takes its operands here too.
 // Returns the cudaError_t of the launch (0 = success) or -1 for a
 // (dtype, d, cost, np) combination that is not instantiated.
@@ -40,20 +40,20 @@ extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
                                  long long cov_sk, const void* nodes,
                                  const void* weights, const void* params,
                                  long long period, const void* field,
-                                 int rows, int cols, void* e_phi, void* e_xmu,
-                                 void* e_xxt, long long count, int k, int m,
-                                 int np, int rdim, int group_shift,
-                                 int threads, void* stream) {
+                                 int rows, int cols, int depth, void* e_phi,
+                                 void* e_xmu, void* e_xxt, long long count,
+                                 int k, int m, int np, int rdim,
+                                 int group_shift, int threads, void* stream) {
   if (count <= 0) return 0;
   if (dtype == 0)
     return gvi::quad_entry<float, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
-        params, period, field, rows, cols, e_phi, e_xmu, e_xxt, count, k, m,
-        0, rdim, group_shift, threads, stream);
+        params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
+        k, m, 0, rdim, group_shift, threads, stream);
   if (dtype == 1)
     return gvi::quad_entry<double, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
-        params, period, field, rows, cols, e_phi, e_xmu, e_xxt, count, k, m,
-        0, rdim, group_shift, threads, stream);
+        params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
+        k, m, 0, rdim, group_shift, threads, stream);
   return -1;
 }

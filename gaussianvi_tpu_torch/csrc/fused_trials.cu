@@ -27,8 +27,9 @@
 //   - phase A, the serial part, for all trials at once: 2s lanes per trial
 //     (both pivot recursions at the same time, the s columns of a message
 //     on s lanes: fused.cuh pivot_sweeps), so a warp walks 32 / 2s chains
-//     and T = 11 trials at s = 4 take three warps, not eleven; each trial's
-//     forward and backward pivots stay in the arena;
+//     and T = 11 trials at s = 4 take three warps, not eleven (at s = 6,
+//     two trials a warp, six warp turns over the block's four warps); each
+//     trial's forward and backward pivots stay in the arena;
 //   - phase B, behind one block barrier: the T * (N - 1) (trial, edge)
 //     items spread over all threads of the block: the joint inverse, the
 //     guarded E[phi] of the state's factors, the span-1 and span-2 linear
@@ -48,6 +49,17 @@ namespace gvi {
 // sweeps are latency-bound, and the warps of other blocks are what hides it.
 constexpr int kTrialWarps = 4;
 constexpr int kTrialBlocksPerSM = 4;
+
+// Blocks per SM the launch bounds ask for at block size S: four above cap
+// a thread at 128 registers, where s = 6 (its s x s Schur complements and
+// the 12-row linear residuals) would spill most of its working set; two
+// leave it 255.  At s = 6 a block's arena takes 77-123 KB in float32 at
+// the planners' and chain estimation's shapes, so no more than two blocks
+// share an SM anyway.
+template <int S>
+struct TrialBlocksPerSM {
+  static constexpr int value = S > 4 ? 2 : kTrialBlocksPerSM;
+};
 
 // Arena of one block that holds `chunk` trials at once, in values of T: pd,
 // dpd, po, dpo as n blocks each, then per trial F and G as n blocks each
@@ -152,7 +164,8 @@ __device__ __forceinline__ void state_costs(const Factors<T>& f,
 // arena of every block where the chain does not fit shared memory, else
 // null.
 template <typename T, int S, typename Cost>
-__global__ void __launch_bounds__(kTrialWarps * kWarp, kTrialBlocksPerSM)
+__global__ void __launch_bounds__(kTrialWarps * kWarp,
+                                  TrialBlocksPerSM<S>::value)
 trials_kernel(const T* __restrict__ mu_g, const T* __restrict__ dmu_g,
               const T* __restrict__ pd_g, const T* __restrict__ po_g,
               const T* __restrict__ dpd_g, const T* __restrict__ dpo_g,
@@ -197,16 +210,18 @@ trials_kernel(const T* __restrict__ mu_g, const T* __restrict__ dmu_g,
     const int held = min(chunk, nt - t0);
 
     // ---- phase A: both pivot recursions and the log det of every trial
-    // held, 2s lanes each; a lane past the last trial repeats it (same
-    // values to the same words) so that the warp stays whole -------------
+    // held, 2s lanes each; a lane past the last trial, or past the warp's
+    // whole lane groups (s = 6), repeats another (same values to the same
+    // words) so that the warp stays whole ----------------------------------
+    const int gl = group_lane<S>(lane);
     for (int first = warp * kPerWarp; first < held;
          first += warps * kPerWarp) {
-      const int slot = min(first + lane / kPerTrial, held - 1);
+      const int slot = min(first + gl / kPerTrial, held - 1);
       const TrialBlocks<T, S> prec{pd, dpd, po, dpo, trials[t0 + slot]};
       T* fpiv = pivots + (int64_t)slot * 2 * n * M;
       const T ld = pivot_sweeps<T, S, true>(prec, n, lane, fpiv,
                                             fpiv + n * M);
-      if (lane % kPerTrial == 0 && first + lane / kPerTrial < held)
+      if (lane == gl && gl % kPerTrial == 0 && first + gl / kPerTrial < held)
         ld_out[(int64_t)(t0 + slot) * nb + b] = ld;
     }
     __syncthreads();
@@ -306,7 +321,9 @@ int dispatch_trials(const void* mu, const void* dmu, const void* pd,
 
 // dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
 // params (one cost for every nonlinear batch; each batch brings its own
-// field, null for the range cost).  A block has `warps` warps and holds `chunk` trials at once;
+// field, null for the range cost): the range cost at s = 2, 4, 6, the
+// planar SDF at s = 2, 4, the 3-D SDF at s = 6.  A block has `warps`
+// warps and holds `chunk` trials at once;
 // arena = trial_arena_elems values per block, scratch = the global arena
 // or null.  Returns the cudaError_t of the launch (0 = success) or -1
 // for sizes that are not instantiated.
@@ -331,14 +348,20 @@ extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
   if (cost == gvi::kRangeCost) {
     if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::RangeCost<1>) }
     if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::RangeCost<2>) }
+    if (dtype == 0 && s == 6) { GVI_TRIALS(float, 6, gvi::RangeCost<3>) }
     if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::RangeCost<1>) }
     if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::RangeCost<2>) }
+    if (dtype == 1 && s == 6) { GVI_TRIALS(double, 6, gvi::RangeCost<3>) }
   }
   if (cost == gvi::kPlanarSdfCost) {
     if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::PlanarSdfCost) }
     if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::PlanarSdfCost) }
     if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::PlanarSdfCost) }
+  }
+  if (cost == gvi::kSdf3dCost) {
+    if (dtype == 0 && s == 6) { GVI_TRIALS(float, 6, gvi::Sdf3dCost) }
+    if (dtype == 1 && s == 6) { GVI_TRIALS(double, 6, gvi::Sdf3dCost) }
   }
 #undef GVI_TRIALS
   return -1;

@@ -37,24 +37,26 @@
 // (dtype, d, cost, np) combination that is not instantiated.  mu and cov
 // are read at batch / factor strides mu_sb, mu_sk, cov_sb, cov_sk
 // (elements), params as rows of np, factor f reading row f % period, the
-// cost's field as rows x cols values (null, 0, 0 for the range cost); the
-// outputs are contiguous.  group = 1 << group_shift lanes per factor,
-// threads per block a multiple of 32.
+// cost's field as depth x rows x cols values (depth 1 for a planar field;
+// null, 0, 0, 0 for the range cost); the outputs are contiguous.
+// group = 1 << group_shift lanes per factor, threads per block a multiple
+// of 32.
 extern "C" int gvi_quad(int dtype, int d, int cost, int with_moments,
                         const void* mu, long long mu_sb, long long mu_sk,
                         const void* cov, long long cov_sb, long long cov_sk,
                         const void* nodes, const void* weights,
                         const void* params, long long period,
-                        const void* field, int rows, int cols, void* e_phi,
-                        void* e_xmu, void* e_xxt, long long count, int k,
-                        int m, int np, int nonneg, int rdim, int group_shift,
-                        int threads, void* stream) {
+                        const void* field, int rows, int cols, int depth,
+                        void* e_phi, void* e_xmu, void* e_xxt,
+                        long long count, int k, int m, int np, int nonneg,
+                        int rdim, int group_shift, int threads,
+                        void* stream) {
   if (count <= 0) return 0;
 #define GVI_QUAD(T, M)                                                       \
   gvi::quad_entry<T, M>(d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, \
                         nodes, weights, params, period, field, rows, cols,   \
-                        e_phi, e_xmu, e_xxt, count, k, m, nonneg, rdim,      \
-                        group_shift, threads, stream)
+                        depth, e_phi, e_xmu, e_xxt, count, k, m, nonneg,     \
+                        rdim, group_shift, threads, stream)
   if (dtype == 0)
     return with_moments ? GVI_QUAD(float, true) : GVI_QUAD(float, false);
   if (dtype == 1)

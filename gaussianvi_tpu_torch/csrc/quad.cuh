@@ -179,17 +179,19 @@ int launch_quad(const QuadOperands<T>& op, int threads, cudaStream_t st) {
 }
 
 // The C entries' common body: the instantiated (d, cost, np)
-// combinations, -1 for any other; strides and the params' period in
-// elements / factors; field: the cost's rows x cols field (null, 0, 0 for
-// a cost without one); rdim = d disables the lift.
+// combinations (range at d = 2, 4, 6; the planar SDF at d = 2, 4; the 3-D
+// SDF at d = 6), -1 for any other; strides and the params' period in
+// elements / factors; field: the cost's depth x rows x cols field (depth 1
+// for a planar one; null, 0, 0, 0 for a cost without one); rdim = d
+// disables the lift.
 template <typename T, bool WithMoments>
 int quad_entry(int d, int cost, int np, const void* mu,
                long long mu_sb, long long mu_sk, const void* cov,
                long long cov_sb, long long cov_sk, const void* nodes,
                const void* weights, const void* params, long long period,
-               const void* field, int rows, int cols, void* e_phi,
-               void* e_xmu, void* e_xxt, long long count, int k, int m,
-               int nonneg, int rdim, int group_shift, int threads,
+               const void* field, int rows, int cols, int depth,
+               void* e_phi, void* e_xmu, void* e_xxt, long long count, int k,
+               int m, int nonneg, int rdim, int group_shift, int threads,
                void* stream) {
   QuadOperands<T> op;
   op.mu = static_cast<const T*>(mu);
@@ -197,7 +199,7 @@ int quad_entry(int d, int cost, int np, const void* mu,
   op.nodes = static_cast<const T*>(nodes);
   op.weights = static_cast<const T*>(weights);
   op.params = static_cast<const T*>(params);
-  op.field = Field<T>{static_cast<const T*>(field), rows, cols};
+  op.field = Field<T>{static_cast<const T*>(field), rows, cols, depth};
   op.e_phi = static_cast<T*>(e_phi);
   op.e_xmu = static_cast<T*>(e_xmu);
   op.e_xxt = static_cast<T*>(e_xxt);
@@ -217,6 +219,11 @@ int quad_entry(int d, int cost, int np, const void* mu,
     return launch_quad<T, 2, RangeCost<1>, WithMoments>(op, threads, st);
   if (cost == kRangeCost && d == 4 && np == RangeCost<2>::kParams)
     return launch_quad<T, 4, RangeCost<2>, WithMoments>(op, threads, st);
+  if (cost == kRangeCost && d == 6 && np == RangeCost<3>::kParams)
+    return launch_quad<T, 6, RangeCost<3>, WithMoments>(op, threads, st);
+  if (cost == kSdf3dCost && d == 6 && np == Sdf3dCost::kParams &&
+      field_ok<Sdf3dCost>(op.field))
+    return launch_quad<T, 6, Sdf3dCost, WithMoments>(op, threads, st);
   if (cost != kPlanarSdfCost || np != PlanarSdfCost::kParams ||
       !field_ok<PlanarSdfCost>(op.field))
     return -1;

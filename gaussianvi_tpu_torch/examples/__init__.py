@@ -1,1 +1,2 @@
-"""Example problems (the flagship chain estimation)."""
+"""Example problems: chain estimation (the flagship) and the planar,
+3-D point and quadrotor planners."""

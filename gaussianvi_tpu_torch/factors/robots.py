@@ -11,12 +11,14 @@ What differs from the JAX package:
 
 * ``interp="auto"`` resolves to the gather (``"gather"``): the JAX package
   takes the hat-function matmul on a TPU only, where gathers serialize.
-* The planar point robot's factor with the gather names the CUDA cost
-  functor ``"planar_sdf"`` (``csrc/costs.cuh`` ``PlanarSdfCost``) and
-  carries its packed params ``[eps, radius, sigma, slope, x0, y0, cell]``
-  and the field, which the quadrature kernels (K3, and K5 / K6 on the
-  fused path) read from device memory; ``interp="matmul"`` and the other
-  robots give a ``cost_fn``-only batch, which the plain routes take.
+* The planar and the 3-D point robot's factors with the gather name the
+  CUDA cost functors ``"planar_sdf"`` and ``"sdf3d"`` (``csrc/costs.cuh``
+  ``PlanarSdfCost``, ``Sdf3dCost``) and carry their packed params
+  ``[eps, radius, sigma, slope, x0, y0, (z0,) cell]`` and the field, which
+  the quadrature kernels (K3, and K5 / K6 on the fused path) read from
+  device memory; ``interp="matmul"`` and the other robots (the quadrotor's
+  five balls, the arm) give a ``cost_fn``-only batch, which the plain
+  routes take.
 * ``patch_size`` raises ``NotImplementedError``: the pre-gathered window
   mode exists in the JAX package because a TPU kernel has no per-lane
   gather (ROADMAP.md, Queue A 9); whether the port wants it is a
@@ -327,23 +329,34 @@ def make_point3d_obstacle_factor(
 ) -> NonlinearFactorBatch:
     """3-D point-robot collision factor: one ball at (x, y, z) -> trilinear
     SDF lookup -> hinge (state = [pos3; vel3]); position-marginal rule.
-    A ``cost_fn``-only batch: the 3-D kernel cost is not ported yet
-    (ROADMAP.md, Queue B 1).  ``device=None`` is the card."""
+    With the gather (``interp`` "auto" or "gather") the batch also names
+    the kernel cost ``"sdf3d"``; ``interp="matmul"`` gives a
+    ``cost_fn``-only batch.  ``device=None`` is the card."""
     if patch_size is not None:
         raise NotImplementedError(_PATCH)
     device = resolve_device(device)
     sdf = sdf.to(dtype, device)
-    lookup = (sdf.signed_distance_matmul
-              if _resolve_interp(interp) == "matmul" else sdf.signed_distance)
+    gather = _resolve_interp(interp) != "matmul"
+    lookup = sdf.signed_distance if gather else sdf.signed_distance_matmul
 
     def cost_fn(x, params):
         del params
         sd = lookup(point3d_balls(x))
         return hinge_obstacle_cost(sd, epsilon, radius, cost_sigma, slope)
 
+    kernel = {}
+    if gather:
+        # Sdf3dCost's params: eps, radius, sigma, slope, x0, y0, z0, cell
+        row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
+                                      dtype=dtype, device=device),
+                         sdf.origin, sdf.cell_size[None]])
+        k = len(np.atleast_1d(start_indices))
+        kernel = dict(kernel_cost="sdf3d",
+                      kernel_params=row.expand(k, 8).contiguous(),
+                      kernel_field=sdf.data)
     return _obstacle_batch(cost_fn, start_indices, state_dim,
                            3 if marginal_quad else None, gh_degree, dtype,
-                           device)
+                           device, **kernel)
 
 
 def make_arm_obstacle_factor(

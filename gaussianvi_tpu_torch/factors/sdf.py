@@ -15,7 +15,9 @@ Two interpolations give the same values:
   hat-function weights ``relu(1 - |r - i|)`` against the whole field, one
   ``torch.einsum``.  The JAX package added it because gathers serialize on
   a TPU; the port keeps it for parity and resolves ``interp="auto"`` to the
-  gather (``factors/robots.py``), which the planar kernel cost reads too.
+  gather (``factors/robots.py``), which the planar and the 3-D kernel costs
+  compute too: the point robots' obstacle batches hand a field's ``data``
+  to the kernels as their ``kernel_field``, read in place.
 
 The JAX package's ``set_sdf_matmul_precision`` (a TPU matrix-unit pass
 count) has no counterpart: float32 contractions here run at full float32

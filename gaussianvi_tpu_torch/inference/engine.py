@@ -20,6 +20,7 @@ import torch
 from ..factors import moments as mm
 from ..kernels import chain
 from ..kernels import fused_trials as ft
+from ..kernels import fused_gradient as fg
 from ..kernels.fused_gradient import gradient_lanes
 from ..kernels.fused_trials import (
     LinTrialSpec,
@@ -149,7 +150,11 @@ class LocalEngine:
     Resolved routes: ``chain_kernel`` (K1/K2), ``quad_kernel`` (the
     quadrature's route: its kernel family, or the plain version for every
     batch), ``quad_batches`` (per nonlinear batch, whether that batch takes
-    the quadrature kernel), ``fused_trials_ready``, ``fused_gradient_ready``."""
+    the quadrature kernel), ``fused_trials_ready``, ``fused_gradient_ready``
+    (K6 in the modes of ``gradient_modes``)."""
+
+    # the modes of K6 the fused gradient step runs
+    gradient_modes = ("full",)
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
@@ -182,7 +187,8 @@ class LocalEngine:
                         else "linesearch must be 'batched'"),
             self.quad_kernel)
         self.fused_gradient_ready = _use_fused(
-            "fused_gradient", config.fused_gradient, why_not,
+            "fused_gradient", config.fused_gradient,
+            why_not or fg.covers(graph.state_dim, self.gradient_modes),
             self.quad_kernel)
         self._fused_ops = ops if why_not is None else None
 

@@ -41,9 +41,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # the quadrature entries' operands (csrc/quad.cuh quad_entry): mu, mu_sb,
 # mu_sk, cov, cov_sb, cov_sk, nodes, weights, params, period, field, rows,
-# cols, e_phi, e_xmu, e_xxt, count, k, m, np
-QUAD_OPERANDS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _L, _P, _I, _I, _P, _P,
-                 _P, _L, _I, _I, _I)
+# cols, depth, e_phi, e_xmu, e_xxt, count, k, m, np
+QUAD_OPERANDS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _L, _P, _I, _I, _I, _P,
+                 _P, _P, _L, _I, _I, _I)
 SIGNATURES = {
     # dtype, s, diag, off, covd, covo, ld, scratch, nb, n, arena, stream
     "gvi_gbp": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
@@ -146,7 +146,8 @@ def build() -> Path:
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I([fd])")
 # the cost functor a kernel instance was built for (csrc/costs.cuh)
-_COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf"}
+_COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf",
+          "Sdf3dCost": "sdf3d"}
 
 
 def ptxas_report() -> list[dict]:

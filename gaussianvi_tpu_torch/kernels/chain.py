@@ -31,7 +31,7 @@ from ..ops.blocktridiag import solve as _solve_plain
 from . import _build
 from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
 
-BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s
+BLOCK_SIZES = (2, 4, 6)  # instantiated state-block sizes s
 
 
 def covers(s: int, dtype: torch.dtype) -> str | None:
@@ -46,7 +46,8 @@ def covers(s: int, dtype: torch.dtype) -> str | None:
 
 
 def chains_per_warp(s: int) -> int:
-    """Chains (K1) or pairs (K2) a warp carries: 2s lanes each."""
+    """Chains (K1) or pairs (K2) a warp carries: 2s lanes each (at s = 6
+    two, the warp's last 8 lanes repeating its first)."""
     return 32 // (2 * s)
 
 

@@ -69,6 +69,23 @@ def _full_a(a, nb: int):
 
 
 GRAD_WARPS = 4       # csrc/fused_gradient.cuh kGradWarps
+# block sizes s each mode is instantiated at (csrc/fused_gradient.cuh
+# launch_grad; the dtypes and costs are fused_trials.covers'): the
+# factor-parallel pair not at s = 6 yet
+MODE_BLOCK_SIZES = {"full": (2, 4, 6), "accum": (2, 4), "solve": (2, 4)}
+
+
+def covers(s: int, modes) -> str | None:
+    """Why K6 in every mode of ``modes`` does not cover chains of block
+    size ``s``, or None where it does (beside ``fused_trials.covers``,
+    which both fused kernels share).  The engine resolves
+    ``fused_gradient`` by it for the modes it runs, the wrapper checks
+    it before a launch."""
+    for mode in modes:
+        if s not in MODE_BLOCK_SIZES[mode]:
+            return (f"K6 mode {mode!r} not instantiated for s={s} (have "
+                    f"{MODE_BLOCK_SIZES[mode]})")
+    return None
 
 
 def grad_chain_elems(n: int, s: int) -> int:
@@ -223,6 +240,9 @@ def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
                      lin_arrays, mode, seeds):
     name = "gradient_lanes"
     b, n, s = check_state(name, mu, pd, po, temperature)
+    why = covers(s, (mode,))
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     if temperature.shape != (b,):
         raise ValueError(f"{name}: temperature must be [{b}]")
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays)

@@ -51,14 +51,14 @@ from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
 from . import _build
-from .quad import KERNEL_COSTS, cost_form, field_covers
+from .quad import KERNEL_COSTS, cost_form, field_covers, field_dims
 
-BLOCK_SIZES = (2, 4)     # instantiated state-block sizes s (local dim d = s)
+BLOCK_SIZES = (2, 4, 6)  # instantiated state-block sizes s (local dim d = s)
 MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
 # pointers and ints per nonlinear batch (csrc/fused.cuh kNLPtrs, kNLInts):
 # nodes, weights, params, index, fc, field; k, m, nonneg, rdim, field rows,
-# field cols
-NL_PTRS, NL_INTS = 6, 6
+# field cols, field depth
+NL_PTRS, NL_INTS = 6, 7
 SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
 SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
 TRIAL_WARPS = 4          # csrc/fused_trials.cu kTrialWarps
@@ -322,9 +322,9 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                 rows: int | None = None) -> FactorArgs:
     """Check and pack the factor operands for a launch at ``mu [B, N, s]``:
     every per-problem operand as it is (problem-major, contiguous), each
-    batch's per-state index, and a nonlinear batch's field (null and 0 x 0
-    for a cost without one).  ``rows`` (trial kernel, T * B): allocate
-    ``[rows, K]`` cost outputs."""
+    batch's per-state index, and a nonlinear batch's field (null and
+    0 x 0 x 0 for a cost without one).  ``rows`` (trial kernel, T * B):
+    allocate ``[rows, K]`` cost outputs."""
     b, n, s = mu.shape
     dt, dev = mu.dtype, mu.device
     why = covers(s, dt, nl_specs, lin_specs)
@@ -371,8 +371,7 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
         keep += [t for t in ops if t is not None]
         nl_ptrs += [t.data_ptr() if t is not None else None for t in ops]
         nl_ints += [sp.k, sp.m, int(sp.nonneg),
-                    s if sp.rdim is None else sp.rdim,
-                    *((0, 0) if field is None else field.shape)]
+                    s if sp.rdim is None else sp.rdim, *field_dims(field)]
     lin_ptrs, lin_ints = [], []
     for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         same(a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")

@@ -71,12 +71,48 @@ def _planar_sdf_cost_packed(x, p, field):
     return err * err * p[..., 2]
 
 
+def _sdf3d_cost_packed(x, p, field):
+    """``sigma * (slope * max(0, eps + radius - sd(x[0], x[1], x[2])))^2``
+    with ``sd`` the clamped trilinear lookup of ``field [nz, rows, cols]``
+    (z, row <-> y, col <-> x): ``factors.sdf.SDF3D.signed_distance``
+    followed by ``factors.sdf.hinge_obstacle_cost`` for one ball, step for
+    step (``Sdf3dCost`` in csrc/costs.cuh): blended along rows, then
+    columns, then z.  ``p = [eps, radius, sigma, slope, x0, y0, z0,
+    cell]``; ``x [M, ..., d]``, ``p [..., P]``."""
+    nz, rows, cols = field.shape
+    x0, y0, z0, cell = p[..., 4], p[..., 5], p[..., 6], p[..., 7]
+    px = torch.clamp(x[..., 0], x0, x0 + (cols - 1.0) * cell)
+    py = torch.clamp(x[..., 1], y0, y0 + (rows - 1.0) * cell)
+    pz = torch.clamp(x[..., 2], z0, z0 + (nz - 1.0) * cell)
+    c = (px - x0) / cell
+    r = (py - y0) / cell
+    zz = (pz - z0) / cell
+    lr, lc, lz = torch.floor(r), torch.floor(c), torch.floor(zz)
+    lri = torch.clamp(lr.long(), 0, rows - 1)
+    lci = torch.clamp(lc.long(), 0, cols - 1)
+    lzi = torch.clamp(lz.long(), 0, nz - 1)
+    hri = torch.clamp(lri + 1, 0, rows - 1)
+    hci = torch.clamp(lci + 1, 0, cols - 1)
+    hzi = torch.clamp(lzi + 1, 0, nz - 1)
+    wr, wc, wz = r - lr, c - lc, zz - lz
+    c00 = (1 - wr) * field[lzi, lri, lci] + wr * field[lzi, hri, lci]
+    c01 = (1 - wr) * field[hzi, lri, lci] + wr * field[hzi, hri, lci]
+    c10 = (1 - wr) * field[lzi, lri, hci] + wr * field[lzi, hri, hci]
+    c11 = (1 - wr) * field[hzi, lri, hci] + wr * field[hzi, hri, hci]
+    c0 = (1 - wc) * c00 + wc * c10
+    c1 = (1 - wc) * c01 + wc * c11
+    sd = (1 - wz) * c0 + wz * c1
+    err = torch.clamp_min(p[..., 0] + p[..., 1] - sd, 0.0) * p[..., 3]
+    return err * err * p[..., 2]
+
+
 # name -> (functor id in csrc/costs.cuh, plain PyTorch form
 # ``form(x, p, field)``, instantiated local dims d with their param counts
 # P, the dims of the field the cost reads or None)
 KERNEL_COSTS = {
-    "range": (0, _range_cost_packed, {2: 3, 4: 4}, None),
+    "range": (0, _range_cost_packed, {2: 3, 4: 4, 6: 5}, None),
     "planar_sdf": (1, _planar_sdf_cost_packed, {2: 7, 4: 7}, 2),
+    "sdf3d": (2, _sdf3d_cost_packed, {6: 8}, 3),
 }
 
 
@@ -103,6 +139,17 @@ def quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim=None,
     the named cost's PyTorch form), marginal-rule lift included."""
     return gh_moments(nodes, weights, mu, cov, cost_form(cost, field),
                       params, rdim=rdim)
+
+
+def field_dims(field) -> tuple:
+    """``(rows, cols, depth)`` of a field as the C entries take them: a
+    planar field has depth 1, a 3-D one ``[depth, rows, cols]``; no field
+    is ``(0, 0, 0)``."""
+    if field is None:
+        return 0, 0, 0
+    if field.ndim == 2:
+        return (*field.shape, 1)
+    return field.shape[1], field.shape[2], field.shape[0]
 
 
 def field_covers(cost: str, field, dtype: torch.dtype) -> str | None:
@@ -261,8 +308,7 @@ def _operands(name, mu, cov, nodes, weights, cost, params, moments,
             new((*lead, k, d, d)) if moments else None)
     args = (mu.data_ptr(), mu_sb, mu_sk, cov.data_ptr(), cov_sb, cov_sk,
             nodes.data_ptr(), weights.data_ptr(), par.data_ptr(), period,
-            *((None, 0, 0) if fld is None
-              else (fld.data_ptr(), *fld.shape)),
+            None if fld is None else fld.data_ptr(), *field_dims(fld),
             *(None if o is None else o.data_ptr() for o in outs),
             count, k, m, params.shape[-1])
     return QuadCall(args, outs, plan, KERNEL_COSTS[cost][0],

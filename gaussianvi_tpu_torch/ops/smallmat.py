@@ -58,10 +58,14 @@ def _chol_solve_entries(l, b, s):
 
 def chol_small(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of batched SPD [..., s, s]; unrolled for s <= 8.
-    A non-SPD input yields NaN entries (no exception), as in JAX."""
+    A non-SPD input yields NaN entries (no exception), as in JAX: above
+    the unroll limit its whole lower triangle, as ``jnp.linalg.cholesky``
+    gives it (``cholesky_ex`` leaves a partial factor there)."""
     s = a.shape[-1]
     if s > _MAX_UNROLL:
-        return torch.linalg.cholesky_ex(a)[0]
+        l, info = torch.linalg.cholesky_ex(a)
+        return torch.where((info == 0)[..., None, None], l,
+                           torch.full_like(l, float("nan")).tril())
     l = _chol_entries(_entries(a, s), s)
     zero = torch.zeros_like(l[0][0])
     return _stack(

@@ -113,6 +113,11 @@ class FactorShardEngine(LocalEngine):
         self.mesh = mesh
         super().__init__(graph, replace(config, use_pallas=False), device)
 
+    @property
+    def gradient_modes(self):
+        """K6's split pair where fp >= 2, else the single kernel."""
+        return ("accum", "solve") if self.mesh.fp > 1 else ("full",)
+
     def reduce_fc(self, fc_tuple, like):
         """The sharded (nonlinear) batches summed over fp, the linear ones
         added by every rank.  ``reduce_trial_costs`` comes through here

@@ -39,8 +39,9 @@ the device time of the quadrature kernels K3 (phi only, on the line-search
 batch of 11 x 1024 x 32 factors; moments, on 1024 x 32) and K4 (1024 x
 32) for every lane group of ``kernels.quad.quad_plan``'s candidates (1 to
 32 lanes per factor) and 128 or 256 threads a block, on the 29-node
-marginal rule (d = 4), the 137-node full rule (d = 4) and the 7-node rule
-at d = 2, float32 and float64: the measurement that fixes the plan.
+marginal rule (d = 4), the 137-node full rule (d = 4), the 7-node rule
+at d = 2 and the 69- and 25-node marginal rules at d = 6, float32 and
+float64: the measurement that fixes the plan.
 
     python3 scripts/torch_profile.py --quad-times [--tree DIR]
 
@@ -53,6 +54,15 @@ parent): alternate the two trees on one card to compare them.
 the same profile for the planar planner (``examples.planar_planning``:
 B=1024 restarts from ``parallel.perturb_inits`` with mean_scale 0.3, N=20,
 build_planar_planning's 30 iterations, float32), fused and separate paths.
+
+    python3 scripts/torch_profile.py --s6 [--runs 5]
+
+the same profile for the s = 6 models: the 3-D point planner
+(``examples.point3d_planning``, B=1024 restarts as above, N=20, 30
+iterations; fused and separate), the planar quadrotor
+(``examples.quadrotor_planning``, B=1024 restarts, N=12, 20 iterations;
+the default path: K1 / K2 and the plain quadrature) and chain estimation
+at dim_x=3 (B=1024, N=32, 10 iterations; fused).
 """
 
 from __future__ import annotations
@@ -73,13 +83,13 @@ B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
 PLAN_B, PLAN_ITERS = 1024, 30   # the planar planner's restarts, iterations
 
 
-def build(dev):
+def build(dev, dim_x=DIM_X):
     from gaussianvi_tpu_torch import stack_problems
     from gaussianvi_tpu_torch.examples.chain_estimation import (
         build_chain_estimation,
     )
 
-    problems = [build_chain_estimation(num_states=N, dim_x=DIM_X,
+    problems = [build_chain_estimation(num_states=N, dim_x=dim_x,
                                        gh_degree=DEGREE, seed=seed,
                                        dtype=torch.float32, device=dev)[:2]
                 for seed in range(B)]
@@ -165,6 +175,38 @@ def planner_paths(dev):
     sep = replace(cfg, fused_trials="off", fused_gradient="off")
     return {f"planner {name}": (lambda c=c: optimize(graph, inits, c))
             for name, c in (("fused", cfg), ("separate", sep))}
+
+
+def s6_paths(dev):
+    """The s = 6 models' paths, float32: ``[(name -> callable running
+    the path once, prob-iters per run)]``, one entry per model."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.examples.quadrotor_planning import (
+        build_quadrotor_planning,
+    )
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+
+    out = []
+    for label, builder, names in (
+            ("point3d", build_point3d_planning, ("fused", "separate")),
+            ("quadrotor", build_quadrotor_planning, ("default",))):
+        graph, init, cfg, _ = builder(dtype=torch.float32, device=dev)
+        inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(
+            0), PLAN_B, mean_scale=0.3)
+        configs = {"fused": cfg, "default": cfg,
+                   "separate": replace(cfg, fused_trials="off",
+                                       fused_gradient="off")}
+        out.append(({f"{label} {name}": (
+            lambda c=configs[name], g=graph, i=inits: optimize(g, i, c))
+            for name in names}, PLAN_B * cfg.niters))
+    graph, state = build(dev, dim_x=3)
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    out.append(({"dim_x=3 fused": lambda: optimize(graph, state, cfg)},
+                B * NITERS))
+    return out
 
 
 def rates(dev, runs, tree):
@@ -309,7 +351,8 @@ def quad_plans(dev):
     plain = quad.quad_plan
     lines = []
     for dim_x, degree, marginal in ((2, 4, True), (2, 4, False),
-                                    (1, 7, True)):
+                                    (1, 7, True), (3, 4, True),
+                                    (3, 3, True)):
         for dtype in (torch.float32, torch.float64):
             fb, par, trial, batch = quad_inputs(dev, dim_x, degree, marginal,
                                                 dtype)
@@ -319,6 +362,13 @@ def quad_plans(dev):
                 cells = []
                 for group in (1, 2, 4, 8, 16, 32):
                     for threads in (128, 256):
+                        staged = (threads // group * (1 + d + d * d)
+                                  if name != "K3 phi" else 0)
+                        if ((m * (d + 1) + staged) * dtype.itemsize
+                                > quad._MAX_SMEM):
+                            # more than a block may take without asking
+                            cells.append(f"{group}/{threads} -")
+                            continue
                         quad.quad_plan = (
                             lambda *a, g=group, t=threads:
                             plain(*a)._replace(group=g, threads=t))
@@ -359,6 +409,8 @@ def main() -> int:
                         help="print K3 / K4 times at the flagship's shapes")
     parser.add_argument("--planner", action="store_true",
                         help="profile the planar planner's paths")
+    parser.add_argument("--s6", action="store_true",
+                        help="profile the s = 6 models' paths")
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
@@ -395,6 +447,10 @@ def main() -> int:
     if args.planner:
         print("\n".join(profile_paths(planner_paths(dev), runs,
                                       PLAN_B * PLAN_ITERS)))
+        return 0
+    if args.s6:
+        for paths, work in s6_paths(dev):
+            print("\n".join(profile_paths(paths, runs, work)), flush=True)
         return 0
     graph, state = build(dev)
     cfg, paths = path_configs()

@@ -37,11 +37,15 @@ def _chains(nb, n, s, seed, dev):
 # name -> (leading shape, N, s): chains shorter and longer than a warp's
 # lanes, s = 2, a ragged last warp and lane group (chains and pairs not a
 # multiple of a warp's), the trial batch's and the solve pair's leading
-# shapes, and a chain too long for shared memory (the global-scratch route)
+# shapes, and a chain too long for shared memory (the global-scratch
+# route); s = 6 (two chains a warp, its last 8 lanes repeating its first)
+# at an odd count, N = 1 and on the global-scratch route
 CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((7,), 2, 4),
                  "N=33": ((5,), 33, 4), "N=70, s=2": ((9,), 70, 2),
                  "ragged": ((13,), 6, 4), "(11, B)": ((11, 6), 5, 4),
-                 "(2, B), s=2": ((2, 5), 6, 2), "long chain": ((3,), 1100, 4)}
+                 "(2, B), s=2": ((2, 5), 6, 2), "long chain": ((3,), 1100, 4),
+                 "s=6": ((5,), 9, 6), "s=6, N=1": ((3,), 1, 6),
+                 "s=6, long chain": ((3,), 700, 6)}
 
 
 def _twice(fn):
@@ -105,6 +109,7 @@ QUAD_LAYOUTS = {
     "d=2, M=137": ((3,), 6, 1, 7, False, (3,), None),
     "state slice": ((9,), 5, 2, 4, True, (9,), "slice"),
     "(T, B) transposed": ((4, 3), 6, 2, 4, True, (3,), "transposed"),
+    "d=6, M=69": ((3,), 8, 3, 4, True, (3,), None),
 }
 
 
@@ -235,7 +240,7 @@ def _assert_close(got, want, dtype, scaled=False):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1)])
+@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1), (6, 3)])
 def test_fused_trials_kernel_matches_plain(dev, n, dim_x, dtype):
     from gaussianvi_tpu_torch.inference.engine import fused_operands
     from gaussianvi_tpu_torch.kernels import fused_trials as ft
@@ -270,7 +275,7 @@ def test_fused_trials_kernel_matches_plain(dev, n, dim_x, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1)])
+@pytest.mark.parametrize("n,dim_x", [(6, 2), (5, 1), (6, 3)])
 def test_fused_gradient_kernel_matches_plain(dev, n, dim_x, dtype):
     """At the initial iterate (Vddmu indefinite on the flagship: the main
     solve is NaN there in both) and at a perturbed one."""
@@ -651,9 +656,10 @@ def test_eigh_root_beyond_the_batched_solver_limit(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-10, atol=1e-10)
 
 
-def _six_dim(count, n, dev):
-    """``count`` s = 6 chains (dim_x = 3: a constant-velocity GP prior and
-    an anchor, no nonlinear factor), float64."""
+def _six_dim(count, n, dev, dim_x=3):
+    """``count`` chains of s = 2 dim_x (s = 6 by default: a
+    constant-velocity GP prior and an anchor, no nonlinear factor),
+    float64."""
     from gaussianvi_tpu_torch import stack_problems
     from gaussianvi_tpu_torch.factors.priors import (
         fixed_prior,
@@ -663,16 +669,17 @@ def _six_dim(count, n, dev):
     from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
 
     graphs, states = [], []
+    s = 2 * dim_x
     for seed in range(count):
         rng = np.random.default_rng(seed)
-        mu0 = rng.standard_normal(6)
-        graphs.append(FactorGraph(n, 6, (), (
-            fixed_prior(0, mu0, 0.01 * np.eye(6), device=dev),
-            minimum_acc_prior(np.eye(3), 0.1, n, device=dev))))
-        mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, 6)), axis=0)
+        mu0 = rng.standard_normal(s)
+        graphs.append(FactorGraph(n, s, (), (
+            fixed_prior(0, mu0, 0.01 * np.eye(s), device=dev),
+            minimum_acc_prior(np.eye(dim_x), 0.1, n, device=dev))))
+        mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, s)), axis=0)
         states.append(GaussianState(
             torch.tensor(mu, device=dev),
-            BlockTridiag.identity((), n, 6, 10.0, device=dev)))
+            BlockTridiag.identity((), n, s, 10.0, device=dev)))
     return stack_problems(graphs, states)
 
 
@@ -680,7 +687,7 @@ def test_uncovered_graphs_run_under_the_defaults(dev):
     """On the card ``"auto"`` takes the plain version for what no kernel
     covers, per batch and shape: a range batch without a CUDA functor
     (plain quadrature and no fused kernels, the chain kernels still) and
-    an s = 6 chain (no kernel at all) run under the default config and
+    an s = 8 chain (no kernel at all) run under the default config and
     equal the plain path; 4 problems, float64."""
     from dataclasses import replace
 
@@ -694,7 +701,7 @@ def test_uncovered_graphs_run_under_the_defaults(dev):
     cfg = dict(niters=4, niters_lowtemp=2, step_size_base=0.9)
     plain = GVIConfig(chain_impl="seq", quad_impl="xla", **cfg)
     for g, s, kernels in ((graph, state, {"gbp_covariance_logdet", "solve"}),
-                          (*_six_dim(4, 8, dev), set())):
+                          (*_six_dim(4, 8, dev, dim_x=4), set())):
         reset_launch_counts()
         _, hk = optimize(g, s, GVIConfig(**cfg))
         assert {k for k, v in launch_counts().items() if v} == kernels
@@ -867,3 +874,186 @@ def test_planner_optimize_on_kernels_matches_plain(dev):
     for h in (hk, hs):
         torch.testing.assert_close(h.cost, hp.cost, rtol=1e-9, atol=0)
         assert torch.equal(h.accepted_step, hp.accepted_step)
+
+
+# ---------------------------------------------------------------------------
+# s = 6: the 3-D point planner's cost functor (Sdf3dCost) in K3, K5 and K6,
+# and the three s = 6 models on the kernels
+# ---------------------------------------------------------------------------
+
+def _point3d(dtype, dev, n=8, count=6, seed=0):
+    """The 3-D point planner's graph with ``count`` restarts on the card:
+    ``(graph_b, state_b)``, the means jittered around the straight line
+    (through the obstacle)."""
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    graph, init, _, _ = build_point3d_planning(num_states=n, dtype=dtype,
+                                               device=dev)
+    rng = np.random.default_rng(seed)
+    mu = init.mu + torch.tensor(0.4 * rng.standard_normal((count, n, 6)),
+                                dtype=dtype, device=dev)
+    prec = init.precision
+    state = GaussianState(mu, BlockTridiag(
+        prec.diag.expand(count, n, 6, 6).clone(),
+        prec.off.expand(count, n - 1, 6, 6).clone()))
+    return _batch_graph(graph, count), state
+
+
+def _point3d_marginals(count, dtype, dev, seed=0):
+    """Factor marginals over every kind of point the 3-D cost meets: clear
+    of the box (E[phi] exactly 0), inside it, off the field past each
+    face, on the field's last plane, row and column, on grid nodes."""
+    rng = np.random.default_rng(seed)
+    cell = 10.0 / 49
+
+    def pos(x, y, z):
+        return np.c_[x, y, z, rng.standard_normal((count, 3))]
+
+    u = lambda lo, hi: rng.uniform(lo, hi, (count, 1))  # noqa: E731
+    full = lambda v: np.full((count, 1), v)  # noqa: E731
+    kinds = [pos(u(-3, 13), u(-3, 13), u(-3, 13)),
+             pos(u(4, 6), u(3, 5), u(2, 7)),
+             pos(full(10.0), u(0, 10), u(0, 10)),
+             pos(u(0, 10), full(10.0), u(0, 10)),
+             pos(u(0, 10), u(0, 10), full(10.0)),
+             np.c_[cell * rng.integers(0, 50, (count, 3)),
+                   np.zeros((count, 3))],
+             np.tile([1.0, 1.0, 4.5, 0.5, 0.5, 0.0], (count, 1))]
+    mu = np.stack(kinds, 1)                                   # [count, 7, 6]
+    a = 0.2 * rng.standard_normal((*mu.shape, 6))
+    cov = a @ np.swapaxes(a, -1, -2) + 0.01 * np.eye(6)
+    cov[:, -1] = 0.001 * np.eye(6)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return t(mu), t(cov)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_moments", [False, True])
+def test_sdf3d_quad_kernel_matches_plain(dev, with_moments, dtype):
+    """K3 (both variants) with the 3-D SDF cost at d = 6 against its plain
+    version, twice for the same bits; exact zeros (all-clear factors) in
+    the same places, never NaN."""
+    from gaussianvi_tpu_torch.kernels import quad
+
+    graph, _ = _point3d(dtype, dev)
+    fb = graph.nonlinear[0]
+    mu, cov = _point3d_marginals(5, dtype, dev)
+    args = (mu, cov, fb.nodes, fb.weights, "sdf3d", fb.kernel_params[0, 0])
+    if with_moments:
+        got = _twice(lambda: quad.quad_lanes_moments(
+            *args, rdim=fb.quad_rdim, field=fb.kernel_field))
+        want = quad.quad_moments_plain(*args, rdim=fb.quad_rdim,
+                                       field=fb.kernel_field)
+    else:
+        got = _twice(lambda: (quad.quad_lanes_phi(
+            *args, nonneg=True, field=fb.kernel_field),))
+        want = (quad.quad_phi_plain(*args, nonneg=True,
+                                    field=fb.kernel_field),)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_close(g, w, dtype, scaled=i > 0)
+    assert torch.equal(got[0] == 0, want[0] == 0)
+    assert (want[0][:, -1] == 0).all() and not torch.isnan(got[0]).any()
+    assert (want[0][:, 1] > 0).all()
+    with pytest.raises(ValueError, match="carries none"):
+        quad.quad_lanes_phi(*args, nonneg=True)
+    with pytest.raises(ValueError, match="3-D field"):
+        quad.quad_lanes_phi(*args, nonneg=True, field=fb.kernel_field[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sdf3d_fused_kernels_match_plain(dev, dtype):
+    """K5 and K6 ``full`` on the 3-D point planner's graph (s = 6) against
+    their plain versions, twice for the same bits; the split pair is not
+    instantiated at s = 6 and says so."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    graph, state = _point3d(dtype, dev)
+    ops = fused_operands(graph)
+    b, n, s = state.mu.shape
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    q = rng.standard_normal((b, n, s, s))
+    dq = rng.standard_normal((b, n, s, s))
+    pd = t(10.0 * np.eye(s) + 0.5 * q @ np.swapaxes(q, -1, -2))
+    po = t(0.5 * rng.standard_normal((b, n - 1, s, s)))
+    x5 = (state.mu, t(0.5 * rng.standard_normal((b, n, s))), pd, po,
+          t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+          t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+          t(0.9 * 0.75 ** np.arange(1, 12)))
+    got5 = _twice(lambda: (lambda ld, fc: (ld, *fc))(
+        *ft.trial_costs_lanes(*x5, *ops)))
+    want5 = ft.trial_costs_plain(*x5, *ops)
+    if dtype == torch.float64:
+        _assert_close(got5[0], want5[0], dtype)
+    else:
+        torch.testing.assert_close(got5[0], want5[0], rtol=1e-5, atol=0,
+                                   equal_nan=True)
+    for g, w in zip(got5[1:], want5[1]):
+        _assert_close(g, w, dtype)
+    assert (want5[1][0] == 0).any() and (want5[1][0] > 0).any()
+    x6 = (state.mu, pd, po, torch.full((b,), 0.5, dtype=dtype, device=dev))
+    got6 = _twice(lambda: fg.gradient_lanes(*x6, *ops))
+    want6 = fg.gradient_plain(*x6, *ops)
+    for i, (g, w) in enumerate(zip(got6, want6)):
+        _assert_close(g, w, dtype, scaled=i > 2)
+    nl_specs, _, nl_arrays, _ = ops
+    with pytest.raises(ValueError, match="mode 'accum' not instantiated"):
+        fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays)
+
+
+def test_s6_models_on_kernels_match_plain(dev):
+    """The three s = 6 models under the defaults on the card, against the
+    plain path (float64, rtol 1e-9, the same accepted steps): the 3-D
+    point planner on K5 / K6 once per iteration (K1 and K3 phi at init)
+    and on the separate kernels; chain estimation at dim_x = 3 on K5 / K6;
+    the quadrotor on K1 / K2 with the plain quadrature."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.examples.quadrotor_planning import (
+        build_quadrotor_planning,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f64 = torch.float64
+    cfg = GVIConfig(niters=6, niters_lowtemp=4, step_size_base=0.9,
+                    temperature=0.1, high_temperature=1.0)
+    qg, qi, qcfg, _ = build_quadrotor_planning(device=dev)
+    quad_state = GaussianState(qi.mu.expand(3, *qi.mu.shape).clone(),
+                               BlockTridiag(
+                                   qi.precision.diag.expand(3, 12, 6, 6),
+                                   qi.precision.off.expand(3, 11, 6, 6)))
+    fused = {"fused_trials", "fused_gradient", "gbp_covariance_logdet",
+             "quad_phi"}
+    runs = [(*_point3d(f64, dev), cfg, fused),
+            (*_point3d(f64, dev), replace(cfg, fused_trials="off",
+                                           fused_gradient="off"),
+             {"gbp_covariance_logdet", "solve", "quad_phi", "quad_moments"}),
+            (*_flagship(8, 3, f64, dev), cfg, fused),
+            (_batch_graph(qg, 3), quad_state, qcfg,
+             {"gbp_covariance_logdet", "solve"})]
+    for graph, state, config, kernels in runs:
+        reset_launch_counts()
+        _, hk = optimize(graph, state, config)
+        counts = launch_counts()
+        assert {k for k, v in counts.items() if v} == kernels, counts
+        if "fused_trials" in kernels:
+            assert counts["fused_trials"] == counts["fused_gradient"] == \
+                config.niters
+        _, hp = optimize(graph, state, replace(config, chain_impl="seq",
+                                               quad_impl="xla"))
+        torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+        assert torch.equal(hk.accepted_step, hp.accepted_step)

@@ -47,28 +47,31 @@ def _without_kernel_cost(graph):
         for fb in graph.nonlinear))
 
 
-def _six_dim_problem(n, seed):
-    """An s = 6 chain (dim_x = 3): a constant-velocity GP prior and an
-    anchor, no nonlinear factor."""
+def _six_dim_problem(n, seed, dim_x=3):
+    """An s = 2 dim_x chain (s = 6 by default): a constant-velocity GP
+    prior and an anchor, no nonlinear factor."""
+    s = 2 * dim_x
     rng = np.random.default_rng(seed)
-    mu0 = rng.standard_normal(6)
-    graph = JaxGraph(num_states=n, state_dim=6, linear=(
-        jax_fixed_prior(0, mu0, 0.01 * np.eye(6)),
-        jax_min_acc_prior(np.eye(3), 0.1, n)))
-    mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, 6)), axis=0)
+    mu0 = rng.standard_normal(s)
+    graph = JaxGraph(num_states=n, state_dim=s, linear=(
+        jax_fixed_prior(0, mu0, 0.01 * np.eye(s)),
+        jax_min_acc_prior(np.eye(dim_x), 0.1, n)))
+    mu = mu0 + 0.3 * np.cumsum(rng.standard_normal((n, s)), axis=0)
     return graph, JaxState(jnp.asarray(mu),
-                           JaxBlockTridiag.identity(n, 6, 10.0, jnp.float64))
+                           JaxBlockTridiag.identity(n, s, 10.0, jnp.float64))
 
 
 @pytest.fixture(scope="module")
 def graphs():
-    """The port's flagship (N = 8), its cost_fn-only variant and an s = 6
-    graph, on the CPU."""
+    """The port's flagship (N = 8), its cost_fn-only variant, an s = 6
+    graph and an s = 8 graph (no kernel instance), on the CPU."""
     flag = graph_from_arrays(describe(*build_chain_estimation(
         num_states=8, dim_x=2, gh_degree=4, seed=0)[:2])[0], device=CPU)
     six = graph_from_arrays(describe(*_six_dim_problem(8, 0))[0], device=CPU)
+    eight = graph_from_arrays(describe(*_six_dim_problem(8, 0, 4))[0],
+                              device=CPU)
     return {"flagship": flag, "cost_fn only": _without_kernel_cost(flag),
-            "s=6": six}
+            "s=6": six, "s=8": eight}
 
 
 def _routes(eng):
@@ -82,8 +85,9 @@ def _routes(eng):
     # no functor: the batch takes the plain quadrature, the fused kernels
     # (which need one) stay off; the chain keeps its kernels
     ("cost_fn only", {}, (True, True, (False,), False, False)),
-    # s = 6: no chain kernel; the quadrature follows the chain
-    ("s=6", {}, (False, False, (), False, False)),
+    # s = 6: the chain kernels and, without a nonlinear batch, both fused
+    # kernels (K5, K6 "full") cover it
+    ("s=6", {}, (True, True, (), True, True)),
     # the fused kernels are gated on the quadrature alone
     ("flagship", dict(chain_impl="seq", quad_impl="lanes",
                       fused_gradient="on"),
@@ -113,8 +117,8 @@ def test_nonlinear_pair_batches_take_the_plain_quadrature(graphs):
 
 
 @pytest.mark.parametrize("name,fields,match", [
-    ("s=6", dict(chain_impl="lanes"), "block size s=6"),
-    ("s=6", dict(fused_trials="on"), "fused_trials='on'"),
+    ("s=8", dict(chain_impl="lanes"), "block size s=8"),
+    ("s=8", dict(fused_trials="on"), "fused_trials='on'"),
     ("cost_fn only", dict(quad_impl="lanes"), "kernel_cost"),
     ("cost_fn only", dict(fused_gradient="on"), "kernel_cost"),
     ("flagship", dict(chain_impl="seq", fused_gradient="on"),
@@ -163,7 +167,7 @@ def test_cost_fn_only_graph_matches_jax():
 
 
 def test_six_dim_chain_matches_jax():
-    """An s = 6 chain (no K1/K2 instance) under the defaults."""
+    """An s = 6 chain under the defaults (the plain routes on the CPU)."""
     _matches_jax([_six_dim_problem(6, seed) for seed in range(4)])
 
 
@@ -198,3 +202,72 @@ def test_planner_resolves_per_batch(interp, want):
             kernel_field=graph.nonlinear[0].kernel_field.float()),))
         assert _routes(LocalEngine(bad, config, CARD)) == (
             True, True, (False,), False, False)
+
+
+def _s6_model(name):
+    """The three models at s = 6, built for the card on the CPU."""
+    if name == "point3d":
+        from gaussianvi_tpu_torch.examples.point3d_planning import (
+            build_point3d_planning,
+        )
+
+        graph, _, config, _ = build_point3d_planning(num_states=6,
+                                                     device=CPU)
+        return graph, config
+    if name == "quadrotor":
+        from gaussianvi_tpu_torch.examples.quadrotor_planning import (
+            build_quadrotor_planning,
+        )
+
+        graph, _, config, _ = build_quadrotor_planning(num_states=6,
+                                                       device=CPU)
+        return graph, config
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation as port_build,
+    )
+
+    graph, _, config = port_build(num_states=6, dim_x=3, gh_degree=4,
+                                  device=CPU)
+    return graph, config
+
+
+@pytest.mark.parametrize("name,want", [
+    # the 3-D point planner names the "sdf3d" functor: every kernel
+    ("point3d", (True, True, (True,), True, True)),
+    # chain estimation at dim_x = 3: the range functor at d = 6
+    ("dim_x=3", (True, True, (True,), True, True)),
+    # the quadrotor's five balls are cost_fn only, as in JAX: the chain
+    # kernels (K1 / K2) and the plain quadrature, no fused kernel
+    ("quadrotor", (True, True, (False,), False, False)),
+])
+def test_s6_models_resolve(name, want):
+    """``"auto"`` on the card at s = 6: the planners and chain estimation
+    at dim_x = 3 take every kernel that covers them; ``"lanes"`` / ``"on"``
+    raise for the quadrotor's cost_fn-only batch with the reason."""
+    graph, config = _s6_model(name)
+    assert _routes(LocalEngine(graph, config, CARD)) == want
+    if name == "quadrotor":
+        for fields in (dict(quad_impl="lanes"), dict(fused_trials="on"),
+                       dict(fused_gradient="on")):
+            with pytest.raises(ValueError, match="kernel_cost"):
+                LocalEngine(graph, replace(config, **fields), CARD)
+
+
+@pytest.mark.parametrize("fp,want", [(1, True), (2, False)])
+def test_s6_factor_parallel_gradient(fp, want):
+    """K6's split pair (``accum`` / ``solve``) is not instantiated at
+    s = 6: a factor-parallel engine with fp >= 2 takes the separate
+    gradient there under ``"auto"`` (K5 stays on) and raises for
+    ``fused_gradient="on"``; with fp = 1 it runs K6 ``full``."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch.parallel.sharding import FactorShardEngine
+
+    graph, config = _s6_model("point3d")
+    mesh = SimpleNamespace(fp=fp)
+    eng = FactorShardEngine(graph, config, CARD, mesh)
+    assert eng.fused_trials_ready and eng.fused_gradient_ready == want
+    if not want:
+        with pytest.raises(ValueError, match="mode 'accum' not instantiated"):
+            FactorShardEngine(graph, replace(config, fused_gradient="on"),
+                              CARD, mesh)

@@ -380,11 +380,11 @@ def test_packed_factor_operands_read_back(slice_problems, dynamic):
         np_, ni = tft.NL_PTRS, tft.NL_INTS
         p_nodes, p_w, p_params, p_index, p_fc, p_field = (
             fa.nl_ptrs[np_ * j:np_ * j + 6])
-        k, m, nonneg, rdim, rows, cols = fa.nl_ints[ni * j:ni * j + 6]
+        k, m, nonneg, rdim, rows, cols, depth = fa.nl_ints[ni * j:ni * j + 7]
         assert (k, m, nonneg, rdim) == (sp.k, sp.m, int(sp.nonneg),
                                         s if sp.rdim is None else sp.rdim)
         # the range cost reads no field
-        assert (p_field, rows, cols) == (None, 0, 0)
+        assert (p_field, rows, cols, depth) == (None, 0, 0, 0)
         # no re-laying: the kernel reads the caller's memory
         assert p_params == params.contiguous().data_ptr() or not \
             params.is_contiguous()

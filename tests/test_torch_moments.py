@@ -308,10 +308,11 @@ def test_kernel_is_handed_the_covariance(monkeypatch):
     ((name, args),) = calls
     assert name == "gvi_fused_moments"
     (dtype, d, cost, p_mu, mu_sb, mu_sk, p_cov, cov_sb, cov_sk, p_nodes, p_w,
-     p_par, period, p_field, rows, cols, p_phi, p_xmu, p_xxt, count, k, m,
-     n_par, rdim, shift, threads, _) = args
+     p_par, period, p_field, rows, cols, depth, p_phi, p_xmu, p_xxt, count,
+     k, m, n_par, rdim, shift, threads, _) = args
     assert (dtype, d, cost, rdim) == (1, 4, 0, 2)
-    assert (p_field, rows, cols) == (None, 0, 0)   # the range cost has none
+    # the range cost has no field
+    assert (p_field, rows, cols, depth) == (None, 0, 0, 0)
     assert (p_mu, p_cov, p_par, p_nodes, p_w) == tuple(
         x.data_ptr() for x in (mu_t, cov_t, params, tfb.nodes, tfb.weights))
     assert (mu_sb, mu_sk, cov_sb, cov_sk, period) == (4 * K, 4, 16 * K, 16, K)

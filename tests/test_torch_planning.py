@@ -205,9 +205,9 @@ def test_shard_graph_gives_every_shard_the_field(fp):
 
 def test_packed_operands_carry_the_field():
     """``factor_args`` hands K5 / K6 the planner batch's field in place:
-    its pointer, rows and columns in the batch's slots (``csrc/fused.cuh``
-    ``parse_factors``), the packed params row by row, the planar cost's
-    id and param count."""
+    its pointer, rows, columns and depth (1) in the batch's slots
+    (``csrc/fused.cuh`` ``parse_factors``), the packed params row by row,
+    the planar cost's id and param count."""
     import ctypes
 
     from gaussianvi_tpu_torch.kernels import fused_trials as tft
@@ -219,8 +219,9 @@ def test_packed_operands_carry_the_field():
     fa = tft.factor_args("t", state.mu, *ops, rows=3 * 2)
     assert (fa.cost, fa.n_params) == (KERNEL_COSTS["planar_sdf"][0], 7)
     p_field = fa.nl_ptrs[5]
-    k, m, nonneg, rdim, rows, cols = fa.nl_ints[:tft.NL_INTS]
-    assert (k, m, nonneg, rdim, rows, cols) == (N, 13, 1, 2, 100, 100)
+    k, m, nonneg, rdim, rows, cols, depth = fa.nl_ints[:tft.NL_INTS]
+    assert (k, m, nonneg, rdim, rows, cols, depth) == (N, 13, 1, 2, 100, 100,
+                                                       1)
     assert p_field == fb.kernel_field.data_ptr()
     back = np.ctypeslib.as_array(
         (ctypes.c_double * (rows * cols)).from_address(p_field))

@@ -302,7 +302,8 @@ def test_planar_obstacle_factor_matches_jax(interp):
 @pytest.mark.parametrize("build", ["point3d", "arm", "quad"])
 def test_cost_fn_only_obstacle_factors_match_jax(build):
     """The 3-D point, arm and planar-quadrotor factors: the JAX rule and
-    cost, no kernel cost (plain routes)."""
+    cost; the arm and quadrotor name no kernel cost (plain routes), the
+    3-D point robot's gather the ``"sdf3d"`` functor."""
     rng = np.random.default_rng(12)
     (jf2, jf3), (tf2, tf3) = _fields(rng)
     if build == "point3d":
@@ -327,7 +328,8 @@ def test_cost_fn_only_obstacle_factors_match_jax(build):
         tb = trob.make_planar_obstacle_factor(
             tf2, np.arange(3), 6, balls_fn=trob.planar_quad_balls, device=CPU)
         d = 6
-    assert tb.kernel_cost is None and tb.quad_rdim == jb.quad_rdim
+    assert tb.kernel_cost == ("sdf3d" if build == "point3d" else None)
+    assert tb.quad_rdim == jb.quad_rdim
     np.testing.assert_array_equal(tb.nodes.numpy(), np.asarray(jb.nodes))
     np.testing.assert_array_equal(tb.weights.numpy(), np.asarray(jb.weights))
     pts = rng.standard_normal((30, d))
