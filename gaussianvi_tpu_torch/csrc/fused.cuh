@@ -452,10 +452,15 @@ __device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
     }
 }
 
-// Covariance blocks of one chain edge, as smallmat.cuh edge_covariance: the
-// inverse of the 2s x 2s joint [[F, B], [B^T, G]] column by column from
-// its Cholesky factor; cii = Sig_ii, cjj = Sig_{i+1,i+1}, cij = Sig_{i,i+1}.
-// Above s = 4 the same blocks come from edge_covariance_schur.
+// Covariance blocks of one chain edge: the inverse of the 2s x 2s joint
+// [[F, B], [B^T, G]] column by column from its Cholesky factor; cii =
+// Sig_ii, cjj = Sig_{i+1,i+1}, cij = Sig_{i,i+1}.  Above s = 4 the same
+// blocks come from edge_covariance_schur.  At s in {2, 4} the joint stays:
+// it sums in the plain version's order (ops/blocktridiag.py
+// gbp_edge_covariance), to whose float32 results the kernels are held.
+// The Schur form there ran K5 5% faster at s = 4 but put K6's float32
+// gradient off the plain version's beyond that tolerance (PERF.md,
+// section 6).
 template <typename T, int S>
 __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
                                                   const T (&g)[S][S],

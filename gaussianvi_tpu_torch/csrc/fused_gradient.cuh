@@ -389,9 +389,24 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Mode "full" at s = 6 (the 3-D planners, chain estimation at dim_x = 3)
+// with the range and the 3-D SDF cost, float32 and float64: built in its
+// own translation unit, fused_gradient_s6.cu, whose four instances take
+// nvcc longer than the rest of the library, so that the build compiles
+// them beside the others.  Arguments and result as launch_grad's.
+int launch_grad_full_s6(int dtype, int cost, int np, const void* mu,
+                        const void* pd, const void* po, const void* temp,
+                        void* covd, void* covo, void* ld, void* dpd,
+                        void* dpo, void* dmu, void* dfb, void* vdmu,
+                        void* vdd, void* vdo, void* scratch, int nb, int n,
+                        int warps, long long chain, int n_nl,
+                        void* const* nl_ptrs, const int* nl_ints, int n_lin,
+                        void* const* lin_ptrs, const int* lin_ints,
+                        cudaStream_t st);
+
 // One mode's instantiations (float32 / float64; s = 2 / 4 with the range
-// and the planar SDF cost; in mode "full" also s = 6 with the range and the
-// 3-D SDF cost).  dtype: 0 = float32, 1 = float64; cost:
+// and the planar SDF cost; in mode "full" s = 6 goes to
+// launch_grad_full_s6).  dtype: 0 = float32, 1 = float64; cost:
 // csrc/costs.cuh CostId with np params (one cost for every nonlinear
 // batch; each batch brings its own field, null for the range cost).  warps problems per block, chain = grad_chain_elems values per
 // problem, scratch = the global arena or null.  Returns the cudaError_t of
@@ -425,17 +440,15 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
     if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarSdfCost) }
   }
-  // s = 6 (the 3-D planners, chain estimation at dim_x = 3): mode "full"
-  // only; the factor-parallel pair waits (kernels/fused_gradient.py covers)
+  // s = 6: mode "full" only; the factor-parallel pair waits
+  // (kernels/fused_gradient.py covers)
   if constexpr (Mode == kGradFull) {
-    if (cost == kRangeCost) {
-      if (dtype == 0 && s == 6) { GVI_GRAD(float, 6, RangeCost<3>) }
-      if (dtype == 1 && s == 6) { GVI_GRAD(double, 6, RangeCost<3>) }
-    }
-    if (cost == kSdf3dCost) {
-      if (dtype == 0 && s == 6) { GVI_GRAD(float, 6, Sdf3dCost) }
-      if (dtype == 1 && s == 6) { GVI_GRAD(double, 6, Sdf3dCost) }
-    }
+    if (s == 6)
+      return launch_grad_full_s6(dtype, cost, np, mu, pd, po, temp, covd,
+                                 covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd,
+                                 vdo, scratch, nb, n, warps, chain, n_nl,
+                                 nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints,
+                                 st);
   }
 #undef GVI_GRAD
   return -1;

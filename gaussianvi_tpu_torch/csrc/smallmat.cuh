@@ -222,47 +222,6 @@ __device__ __forceinline__ void bwd_message(const T (&l)[S][S],
     }
 }
 
-// Covariance blocks of one chain edge: the inverse of the 2s x 2s joint
-// [[F, B], [B^T, G]] (forward pivot F_i, backward pivot G_{i+1}, coupling
-// B_i), solved column by column from its Cholesky factor.  Returns the
-// blocks cii = Sig_ii, cjj = Sig_{i+1,i+1} and cij = Sig_{i,i+1}; nothing
-// of the joint inverse outlives the call.
-template <typename T, int S>
-__device__ __forceinline__ void edge_covariance(const T (&f)[S][S],
-                                                const T (&g)[S][S],
-                                                const T (&bo)[S][S],
-                                                T (&cii)[S][S], T (&cjj)[S][S],
-                                                T (&cij)[S][S]) {
-  constexpr int S2 = 2 * S;
-  T joint[S2][S2], l[S2][S2];
-#pragma unroll
-  for (int a = 0; a < S; ++a)
-#pragma unroll
-    for (int c = 0; c < S; ++c) {
-      joint[a][c] = f[a][c];
-      joint[a][S + c] = bo[a][c];
-      joint[S + a][c] = bo[c][a];
-      joint[S + a][S + c] = g[a][c];
-    }
-  chol(joint, l);
-#pragma unroll
-  for (int col = 0; col < S2; ++col) {
-    T e[S2], x[S2];
-#pragma unroll
-    for (int r = 0; r < S2; ++r) e[r] = r == col ? T(1) : T(0);
-    chol_solve_vec(l, e, x);
-#pragma unroll
-    for (int a = 0; a < S; ++a) {
-      if (col < S) {
-        cii[a][col] = x[a];
-      } else {
-        cij[a][col - S] = x[a];
-        cjj[a][col - S] = x[S + a];
-      }
-    }
-  }
-}
-
 // Batch-last ("lanes") addressing: element e of problem b in an array of
 // nb problems lives at [e * nb + b], so the threads of a warp, one problem
 // each, read neighbouring addresses.

@@ -7,9 +7,10 @@ are the current iterate ``mu``, ``(prec_diag, prec_off)``, the per-problem
 temperature and the factor operands the fused trial kernel takes
 (``kernels/fused_trials.py``), all problem-major as the engine holds them:
 nothing is copied or re-laid per call and every output is allocated in its
-final shape.  Mode ``"full"`` (``csrc/fused_gradient.cu``: a warp per
-problem, the chain in shared memory, or in a global scratch where it is too
-long, :func:`grad_plan`) returns the iterate's covariance blocks and log
+final shape.  Mode ``"full"`` (``csrc/fused_gradient.cu``, at s = 6
+``csrc/fused_gradient_s6.cu``: a warp per problem, the chain in shared
+memory, or in a global scratch where it is too long, :func:`grad_plan`)
+returns the iterate's covariance blocks and log
 det, ``dprec = Vddmu - Lambda``, and the solutions of ``Vddmu dmu = -Vdmu``
 (NaN where Vddmu is indefinite) and of the SPD fallback
 ``Lambda dmu_fb = -Vdmu``.  The linear factors enter through the residual

@@ -49,6 +49,15 @@ K3 (both variants) and K4 at the flagship's shapes, warm and with the L2
 flushed, through the wrappers of the package of ``--tree`` (say the
 parent): alternate the two trees on one card to compare them.
 
+    python3 scripts/torch_profile.py --chain-times [--tree DIR]
+
+the device time of the kernels that take each edge's covariance blocks
+(K1 on 11 x 1024 chains, K5, K6 ``full``, ``accum`` and ``solve``) at the
+flagship's shapes (s = 4) and at dim_x = 1 (s = 2), float32 and float64,
+warm and with the L2 flushed, at the initial iterate, and what ptxas says
+of their instances, through the package of ``--tree``: alternate two trees
+on one card to compare two forms of that step.
+
     python3 scripts/torch_profile.py --planner [--runs 5]
 
 the same profile for the planar planner (``examples.planar_planning``:
@@ -83,7 +92,7 @@ B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
 PLAN_B, PLAN_ITERS = 1024, 30   # the planar planner's restarts, iterations
 
 
-def build(dev, dim_x=DIM_X):
+def build(dev, dim_x=DIM_X, dtype=torch.float32):
     from gaussianvi_tpu_torch import stack_problems
     from gaussianvi_tpu_torch.examples.chain_estimation import (
         build_chain_estimation,
@@ -91,7 +100,7 @@ def build(dev, dim_x=DIM_X):
 
     problems = [build_chain_estimation(num_states=N, dim_x=dim_x,
                                        gh_degree=DEGREE, seed=seed,
-                                       dtype=torch.float32, device=dev)[:2]
+                                       dtype=dtype, device=dev)[:2]
                 for seed in range(B)]
     return stack_problems(*map(list, zip(*problems)))
 
@@ -262,6 +271,58 @@ def kernel_parts(dev):
             f"f32, at the initial iterate)")
 
 
+def chain_times(dev, tree):
+    """Lines: device ms (warm / L2 flushed) of K1, K5 and K6 in its three
+    modes by block size and dtype, then their instances' registers and
+    spills."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import _build, chain
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    lines = []
+    for dim_x in (2, 1):
+        for dt in (torch.float32, torch.float64):
+            graph, state = build(dev, dim_x, dt)
+            nl_specs, lin_specs, nl, lin = fused_operands(graph)
+            mu, pd, po = state.mu, state.precision.diag, state.precision.off
+            temp = torch.ones(B, dtype=dt, device=dev)
+            out = fg.gradient_lanes(mu, pd, po, temp, nl_specs, lin_specs,
+                                    nl, lin)
+            seeds = fg.gradient_accum_lanes(mu, pd, po, temp, nl_specs, nl)
+            trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=dt, device=dev)
+            diag = pd.expand(11, *pd.shape).contiguous()
+            off = po.expand(11, *po.shape).contiguous()
+            calls = {
+                "K1": lambda: chain.gbp_covariance_logdet_lanes(diag, off),
+                "K5": lambda: ft.trial_costs_lanes(
+                    mu, out[6], pd, po, out[3], out[4], trials, nl_specs,
+                    lin_specs, nl, lin),
+                "K6 full": lambda: fg.gradient_lanes(
+                    mu, pd, po, temp, nl_specs, lin_specs, nl, lin),
+                "K6 accum": lambda: fg.gradient_accum_lanes(
+                    mu, pd, po, temp, nl_specs, nl),
+                "K6 solve": lambda: fg.gradient_solve_lanes(
+                    mu, pd, po, temp, seeds, lin_specs, lin),
+            }
+            lines.append(f"[chain times {tree}] s={2 * dim_x} {str(dt)[6:]}: "
+                         + ", ".join(
+                             f"{name} {device_ms(fn):.4f} / "
+                             f"{device_ms(fn, flushed=True):.4f}"
+                             for name, fn in calls.items())
+                         + f" ms warm / flushed (B={B}, N={N})")
+    lines.append(f"[chain ptxas {tree}] " + "; ".join(
+        f"{r['kernel']}{' ' + r['cost'] if r['cost'] else ''} {r['dtype']} "
+        f"s={r['ints'][0]}"
+        + (f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else "")
+        + f": {r['registers']} regs, spill {r['spill_stores']}+"
+        f"{r['spill_loads']} B"
+        for r in _build.ptxas_report()
+        if r["kernel"] in ("gbp_kernel", "trials_kernel", "grad_kernel")
+        and r["ints"][0] in (2, 4)))
+    return lines
+
+
 _BLOCKER = {}
 
 
@@ -407,6 +468,8 @@ def main() -> int:
                         help="print K3 / K4 times by lane group")
     parser.add_argument("--quad-times", action="store_true",
                         help="print K3 / K4 times at the flagship's shapes")
+    parser.add_argument("--chain-times", action="store_true",
+                        help="print K1 / K5 / K6 times at s = 2 and 4")
     parser.add_argument("--planner", action="store_true",
                         help="profile the planar planner's paths")
     parser.add_argument("--s6", action="store_true",
@@ -438,6 +501,10 @@ def main() -> int:
     if args.quad_plans:
         print(card)
         print("\n".join(quad_plans(dev)))
+        return 0
+    if args.chain_times:
+        print(card)
+        print("\n".join(chain_times(dev, args.tree or ".")), flush=True)
         return 0
     if args.quad_times:
         print(card + " " + quad_times(dev, args.tree or "."))

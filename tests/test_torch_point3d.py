@@ -304,11 +304,12 @@ def test_quadrotor_matches_jax_and_clears():
 
 def test_float32_steps_differ_in_jax():
     """Why ``chip_smoke.py`` holds float32 to float64 at s = 6 by the first
-    record and the final-cost median, not by problem 0's history: in the
-    JAX package itself float32 takes other line-search steps than float64
-    there.  Chain estimation at dim_x = 3 (seed 0, N = 32, 10 iterations)
-    parts by more than 1e-2 within its history; the quadrotor's final
-    cost lands more than 1e-3 away; the point planner's nominal problem
+    record, the final-cost median and problem 0's final cost, not by
+    problem 0's history: in the JAX package itself float32 takes other
+    line-search steps than float64 there.  Chain estimation at dim_x = 3
+    (seed 0, N = 32, 10 iterations) parts by more than 1e-2 within its
+    history and ends within 1e-2; the quadrotor's final cost lands more
+    than 1e-3 and less than 1e-2 away; the point planner's nominal problem
     from means nudged by 1e-7 (one float32 ulp) parts by more than 0.1
     within its history on some nudges while its final cost stays within
     1e-3."""
@@ -328,10 +329,11 @@ def test_float32_steps_differ_in_jax():
     c = {dt: costs(*jax_chain(num_states=32, dim_x=3, gh_degree=4, seed=0,
                               dtype=dt)[:2], cfg)
          for dt in (jnp.float32, jnp.float64)}
-    assert rel(c[jnp.float32], c[jnp.float64]).max() > 1e-2
+    r = rel(c[jnp.float32], c[jnp.float64])
+    assert r.max() > 1e-2 and r[-1] < 1e-2
     c = {dt: costs(*jquad.build_quadrotor_planning(dtype=dt)[:3])
          for dt in (jnp.float32, jnp.float64)}
-    assert rel(c[jnp.float32], c[jnp.float64])[-1] > 1e-3
+    assert 1e-3 < rel(c[jnp.float32], c[jnp.float64])[-1] < 1e-2
     g32, i32, cfg32, _ = jp3.build_point3d_planning(dtype=jnp.float32)
     ref = costs(*jp3.build_point3d_planning(dtype=jnp.float64)[:3])
     rng = np.random.default_rng(0)
