@@ -35,7 +35,14 @@ chain estimation at dim_x=3 and of the 3-D point planner (K1, K2, K3 both
 variants, K4, K5, K6 "full"), the point planner fused and separate at
 B=1024 restarts (plain at 64), the planar quadrotor on K1 / K2 at B=1024
 (plain at 64), chain estimation at dim_x=3 fused and block-form at
-B=1024, each counted and held to the plain path.
+B=1024, each counted and held to the plain path.  Then K1 and K2 at
+s = 14 (a warp per chain or pair, ``csrc/chain_wide.cu``) and s = 1 at the
+7-DOF arm planner's and Barfoot's shapes and at the arm's real iterate
+(the layouts and guard cases ride in ``CHAIN_LAYOUTS`` and
+``guard_cases``), the arm planner at B=1024 restarts on K1 / K2 (float32
+and float64, the kernel path against the plain path over all 15
+iterations), and the Barfoot 1-D example in float64 on K1 / K2 at s = 1
+against the reference's golden trajectories.
 
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
@@ -401,20 +408,31 @@ def dense_solve_ms(pair):
 
 
 def guard_cases(dtype, dev):
-    """Pivot-trust and nonneg-band poisoning agree between kernel and plain."""
+    """Pivot-trust and nonneg-band poisoning agree between kernel and plain
+    (the chain cases at s = 2, 1 and 14, with an indefinite pivot too)."""
     from gaussianvi_tpu_torch.kernels import chain, quad
 
     eps = torch.finfo(dtype).eps
-    eye = torch.eye(2, dtype=dtype, device=dev)
-    # chain 0: Schur pivot D1 - B^T D0^-1 B cancels to ~1 ulp; chain 1 healthy
-    diag = torch.stack([torch.stack([eye, (1 + 2 * eps) * eye]),
-                        torch.stack([eye, 2 * eye])])
-    off = torch.stack([eye[None], eye[None]])
-    ld_k = chain.gbp_covariance_logdet_lanes(diag, off)[2]
-    ld_p = chain.gbp_covariance_logdet_plain(diag, off)[2]
-    check(bool(torch.isnan(ld_k[0])) and bool(torch.isnan(ld_p[0])),
-          f"pivot-trust case not poisoned ({dtype})")
-    check(bool(torch.isfinite(ld_k[1])), f"healthy chain poisoned ({dtype})")
+    for s in (2, 1, 14):
+        eye = torch.eye(s, dtype=dtype, device=dev)
+        # chain 0: Schur pivot D1 - B^T D0^-1 B cancels to ~1 ulp; chain 1
+        # healthy
+        diag = torch.stack([torch.stack([eye, (1 + 2 * eps) * eye]),
+                            torch.stack([eye, 2 * eye])])
+        off = torch.stack([eye[None], eye[None]])
+        ld_k = chain.gbp_covariance_logdet_lanes(diag, off)[2]
+        ld_p = chain.gbp_covariance_logdet_plain(diag, off)[2]
+        check(bool(torch.isnan(ld_k[0])) and bool(torch.isnan(ld_p[0])),
+              f"pivot-trust case not poisoned ({dtype}, s={s})")
+        check(bool(torch.isfinite(ld_k[1])),
+              f"healthy chain poisoned ({dtype}, s={s})")
+        # a pivot that is not positive definite: NaN everywhere, as plain
+        diag, off = torch.stack([eye, 0.5 * eye])[None], eye[None, None]
+        for i, (a, b_) in enumerate(zip(
+                chain.gbp_covariance_logdet_lanes(diag, off),
+                chain.gbp_covariance_logdet_plain(diag, off))):
+            check(bool(torch.isnan(a).all()) and bool(torch.isnan(b_).all()),
+                  f"indefinite pivot, output {i}: not NaN ({dtype}, s={s})")
     # every sigma point at the mean: phi constant, the weights alone decide.
     # The weighted sum lands inside the nonneg band but above the 64-ulp
     # cancellation threshold: NaN only under the nonneg contract.
@@ -976,7 +994,13 @@ CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((6,), 2, 4),
                  "(2, B)": ((2, 37), 8, 4), "long chain": ((3,), 1100, 4),
                  "N=1, s=6": ((5,), 1, 6), "N=9, s=6": ((7,), 9, 6),
                  "(11, B), s=6": ((11, 7), 5, 6),
-                 "long chain, s=6": ((3,), 240, 6)}
+                 "long chain, s=6": ((3,), 240, 6),
+                 "N=1, s=1": ((37,), 1, 1), "N=5, s=1": ((21,), 5, 1),
+                 "(11, B), s=1": ((11, 37), 3, 1),
+                 "long chain, s=1": ((3,), 500, 1),
+                 "N=1, s=14": ((5,), 1, 14), "N=9, s=14": ((7,), 9, 14),
+                 "(11, B), s=14": ((11, 3), 4, 14),
+                 "long chain, s=14": ((3,), 70, 14)}
 
 
 def chain_layout_checks(dev):
@@ -994,9 +1018,8 @@ def chain_layout_checks(dev):
         diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
                           for x in spd_chains(count, n, s, rng, dt, dev))
         if name.startswith("long chain"):
-            check(chain.chain_plan(chain.gbp_warp_elems(n, s, 8), 8).scratch
-                  and chain.chain_plan(chain.solve_warp_elems(n, s, 8),
-                                       8).scratch,
+            check(chain.gbp_plan(n, s, 8).scratch
+                  and chain.solve_plan(n, s, 8).scratch,
                   f"N={n} does not take the global-scratch route")
         one = rhs.reshape(-1, n, s)[0].expand(*lead, n, s)
         shifted = diag + torch.eye(s, dtype=dt, device=dev)
@@ -1697,6 +1720,7 @@ def planner_kernel_checks(dev):
             plain_ms=cuda_ms(lambda plain=plain, args=args: plain(*args),
                              reps=1),
             **bound(args, got, flops))
+    out["solve"]["library_ms"] = dense_solve_ms(chains["solve"][2])
     return out
 
 
@@ -2140,6 +2164,7 @@ def s6_kernel_checks(dev):
                 ms=cuda_ms(kern), ms_flushed_l2=cuda_ms_flushed(kern),
                 plain_ms=cuda_ms(plain, reps=1),
                 **bound(inputs[name], kern(), work[name]))
+        out[model, "solve"]["library_ms"] = dense_solve_ms(chains[f32][1])
     return out
 
 
@@ -2356,6 +2381,247 @@ def s6_runs(card, dev):
     return counts, rates
 
 
+ARM_B, ARM_ITERS = 1024, 15     # the arm planner's restarts, iterations
+ARM_B_PLAIN = 64
+# the float32 guard may poison a restart's first E[phi] (NaN from the
+# first record on, as in the JAX package in float32): at most this share
+ARM_POISON_MAX = 0.05
+
+
+def arm_problem(dtype, dev, count=None):
+    """``(graph, restarts, config, (fk, sdf))`` of the 7-DOF arm planner
+    (:func:`restarts`)."""
+    from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
+
+    return restarts(build_arm_planning, dtype, dev, count or ARM_B)
+
+
+def golden_1d():
+    """The reference's golden 1-D trajectories, ``REF_*`` of
+    ``tests/test_golden_1d.py``, read as literals (that module imports the
+    JAX package)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_golden_1d.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {node.targets[0].id: ast.literal_eval(node.value)
+            for node in tree.body if isinstance(node, ast.Assign)
+            and node.targets[0].id.startswith("REF_")}
+
+
+def wide_kernel_checks(dev):
+    """K1 and K2 at s = 14 (the arm planner's shapes: 11 x 1024 chains of
+    N = 10 for K1, the pair of 1024 systems for K2) and at s = 1 (11 x 1024
+    one-state chains and the pair of 1024: a batch of Barfoot problems)
+    against their plain versions on the card: well-conditioned chains
+    (float64 atol 1e-10, float32 rtol 1e-4 / atol 1e-6), and at s = 14 the
+    arm's real iterate too (five plain float64 iterations on the 1024
+    restarts: K1 on its precision, K2 on it and its unit shift against its
+    mean) by :func:`compare_conditioned` / :func:`compare_vs_f64`; each
+    launched twice for the same bits.  Times each in float32 beside its
+    plain version and, for K2, ``torch.linalg.solve_ex`` on the densified
+    pair: ``{(s, name): row}``."""
+    from gaussianvi_tpu_torch.kernels import chain
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 14)
+    g64, inits, cfg, _ = arm_problem(f64, dev)
+    it64 = plain_iterate(g64, inits, cfg)
+    out, errs, held = {}, {}, {}
+    for s, n in ((14, it64[0].shape[1]), (1, 1)):
+        chains = {}
+        for dt in (f64, f32):
+            d1, o1, _ = spd_chains(TRIALS * ARM_B, n, s, rng, dt, dev)
+            d2, o2, rhs = spd_chains(2 * ARM_B, n, s, rng, dt, dev)
+            chains[dt] = ((d1.reshape(TRIALS, ARM_B, n, s, s),
+                           o1.reshape(TRIALS, ARM_B, n - 1, s, s)),
+                          (d2[:ARM_B], o2[:ARM_B], d2[ARM_B:], o2[ARM_B:],
+                           rhs[:ARM_B]))
+        for dt in (f64, f32):
+            tol = (1e-10, 1e-10) if dt == f64 else (1e-4, 1e-6)
+            tol_ld = (0.0, 1e-10) if dt == f64 else (1e-5, 0.0)
+            k1 = check_repeatable(f"s={s} K1 {dt}", lambda dt=dt:
+                                  chain.gbp_covariance_logdet_lanes(
+                                      *chains[dt][0]))
+            p1 = chain.gbp_covariance_logdet_plain(*chains[dt][0])
+            errs[s, "gbp_covariance_logdet", dt] = max(
+                compare(f"s={s} K1 cov_diag {dt}", k1[0], p1[0], *tol),
+                compare(f"s={s} K1 cov_off {dt}", k1[1], p1[1], *tol),
+                compare(f"s={s} K1 logdet {dt}", k1[2], p1[2], *tol_ld))
+            k2 = check_repeatable(f"s={s} K2 {dt}", lambda dt=dt:
+                                  chain.solve_pair_lanes(*chains[dt][1]))
+            errs[s, "solve", dt] = max(
+                compare(f"s={s} K2 x{i} {dt}", a, b_, *tol)
+                for i, (a, b_) in enumerate(zip(
+                    k2, chain.solve_pair_plain(*chains[dt][1]))))
+        work = {"gbp_covariance_logdet": TRIALS * ARM_B * n * chain_flops(s),
+                "solve": 2 * ARM_B * n * solve_flops(s)}
+        calls = {
+            "gbp_covariance_logdet": (
+                lambda c=chains: chain.gbp_covariance_logdet_lanes(*c[f32][0]),
+                lambda c=chains: chain.gbp_covariance_logdet_plain(*c[f32][0]),
+                0),
+            "solve": (lambda c=chains: chain.solve_pair_lanes(*c[f32][1]),
+                      lambda c=chains: chain.solve_pair_plain(*c[f32][1]), 1),
+        }
+        for name, (kern, plain, which) in calls.items():
+            out[s, name] = dict(
+                max_abs_err=errs[s, name, f64], err_dtype="float64",
+                max_abs_err_f32=errs[s, name, f32],
+                ms=cuda_ms(kern), ms_flushed_l2=cuda_ms_flushed(kern),
+                plain_ms=cuda_ms(plain, reps=1),
+                library_ms=(dense_solve_ms(chains[f32][1]) if name == "solve"
+                            else None),
+                **bound(chains[f32][which], kern(), work[name]))
+    # s = 14 at the arm's iterate: ill-conditioned blocks of a real run
+    mu64, pd64, po64 = it64
+    eye = torch.eye(14, dtype=f64, device=dev)
+    args = {f64: ((pd64, po64), (pd64, po64, pd64 + eye, po64, mu64))}
+    args[f32] = tuple(tuple(x.float() for x in a) for a in args[f64])
+    for name, fn, plain, at in (
+            ("gbp_covariance_logdet", chain.gbp_covariance_logdet_lanes,
+             chain.gbp_covariance_logdet_plain, 0),
+            ("solve", chain.solve_pair_lanes, chain.solve_pair_plain, 1)):
+        k = {dt: check_repeatable(f"s=14 {name} at the iterate {dt}",
+                                  lambda dt=dt, fn=fn, at=at:
+                                  fn(*args[dt][at])) for dt in (f64, f32)}
+        p = {dt: plain(*args[dt][at]) for dt in (f64, f32)}
+        held[name] = (
+            max(compare_conditioned(f"s=14 {name}[{i}] at the iterate "
+                                    "float64", a, b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f64], p[f64], p[f32]))),
+            max(compare_vs_f64(f"s=14 {name}[{i}] at the iterate float32",
+                               a, b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f32], p[f32], p[f64]))))
+    print("[s=14 / s=1 kernels] max abs err vs plain, f64 / f32 (two "
+          "launches bit-identical each): " + "; ".join(
+              f"s={s} {nm} {errs[s, nm, f64]:.3e} / {errs[s, nm, f32]:.3e}"
+              for s in (14, 1) for nm in ("gbp_covariance_logdet", "solve"))
+          + "; at the arm's iterate " + "; ".join(
+              f"{nm} {a:.3e} / {b_:.3e}" for nm, (a, b_) in held.items()),
+          flush=True)
+    return out
+
+
+def arm_runs(card, dev):
+    """The 7-DOF arm planner through ``optimize`` under the defaults on
+    the card (K1 / K2 at s = 14 and the plain quadrature: its collision
+    batch is ``cost_fn``-only, as in the JAX package) at B = 1024 restarts
+    in float32, counted: every restart's costs finite and non-increasing,
+    or NaN from the first record on where the float32 guard poisons the
+    first E[phi] (the same restarts the JAX package poisons in float32,
+    ``tests/test_torch_arm.py``; at most ``ARM_POISON_MAX`` of them, never
+    restart 0); the float64 run of the same restarts finite throughout;
+    restart 0's spheres no deeper than -0.05 in the field
+    (``tests/test_arm_planning.py``); float32 against float64 on the
+    unpoisoned restarts; the kernel path against the plain path in float64
+    on 8 restarts over all 15 iterations, beside the plain path's own
+    1e-15 sensitivity; the rate.  Returns ``(launches, rates)``."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+
+    f32, f64 = torch.float32, torch.float64
+    graph32, inits32, cfg, (fk, sdf) = arm_problem(f32, dev)
+    graph64, inits64, _, _ = arm_problem(f64, dev)
+    plain = replace(cfg, chain_impl="seq", quad_impl="xla")
+    (state32, hist32), n = counted(optimize, graph32, inits32, cfg)
+    print(f"[arm path] launches {n}", flush=True)
+    check(n["gbp_covariance_logdet"] > 0 and n["solve"] == ARM_ITERS
+          and all(v == 0 for k, v in n.items()
+                  if k not in ("gbp_covariance_logdet", "solve")),
+          f"arm: not K1 / K2 with the plain quadrature: {n}")
+    _, hist64 = optimize(graph64, inits64, cfg)
+    check_costs("arm path float64", hist64, ARM_B, ARM_ITERS, nonneg=True)
+    poisoned = torch.isnan(hist32.cost[:, 0])
+    kept = int((~poisoned).sum())
+    check(not bool(poisoned[0]), "arm: restart 0's first cost is NaN")
+    check(bool(torch.isnan(hist32.cost[poisoned]).all()),
+          "arm: a poisoned restart took a step")
+    check(kept >= (1 - ARM_POISON_MAX) * ARM_B,
+          f"arm: {ARM_B - kept} restarts poisoned in float32")
+    check_costs("arm path float32", SimpleNamespace(
+        cost=hist32.cost[~poisoned]), kept, ARM_ITERS, nonneg=True)
+    centers = fk.sphere_centers(state32.mu[0, :, :7])
+    clearance = float(sdf.signed_distance(centers).min())
+    cost0 = hist32.cost[0]
+    print(f"[arm path] restart 0: spheres {clearance:.4f} from the obstacle "
+          f"(at worst), cost {float(cost0[0]):.2f} -> {float(cost0[-1]):.2f};"
+          f" {ARM_B - kept}/{ARM_B} restarts poisoned from the first record "
+          f"by the float32 guard", flush=True)
+    check(clearance > -0.05, f"arm: restart 0's spheres {clearance:.3e} "
+          "deep in the obstacle")
+    f32_vs_f64("arm path", SimpleNamespace(cost=hist32.cost[~poisoned]),
+               SimpleNamespace(cost=hist64.cost[~poisoned]), 1e-3)
+    # the kernel path against the plain path (float64, 8 restarts) over
+    # the whole run: the arm keeps rounding in check (its plain path's
+    # costs from means nudged by 1e-15, printed beside)
+    s8 = subset(inits64, 8)
+    hp = optimize(graph64, s8, plain)[1]
+    hk = optimize(graph64, s8, cfg)[1]
+    held_to_plain("arm chain kernels vs plain path", hk, hp, dev,
+                  tag="s=14 end to end")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nudged = GaussianState(s8.mu * (1 + 1e-15 * torch.randn(
+        s8.mu.shape, generator=gen, dtype=f64, device=dev)), s8.precision)
+    hn = optimize(graph64, nudged, plain)[1]
+    for name, a, b_ in (("chain kernels vs plain path", hk, hp),
+                        ("plain path vs itself from means nudged by 1e-15",
+                         hn, hp)):
+        rel = ((a.cost - b_.cost).abs() / b_.cost.abs()).max(0).values
+        steps = int((a.accepted_step != b_.accepted_step).any(0).sum())
+        print(f"[arm end to end] {name} (f64, 8 restarts, {ARM_ITERS} "
+              f"iters): max relative cost difference at iterations 5 / 10 / "
+              f"last {rel[4]:.1e} / {rel[9]:.1e} / {rel[-1]:.1e}, max "
+              f"{rel.max().item():.1e}; steps differ at {steps}/{ARM_ITERS} "
+              f"iterations", flush=True)
+    rates = {"arm": rate(lambda: optimize(graph32, inits32, cfg),
+                         ARM_B * ARM_ITERS),
+             "arm plain": rate(lambda: optimize(
+                 graph32, subset(inits32, ARM_B_PLAIN), plain),
+                 ARM_B_PLAIN * ARM_ITERS, runs=1)}
+    print(f"[throughput] {card}: arm (K1 / K2 at s = 14) {rates['arm']:.1f} "
+          f"prob-iters/s (B={ARM_B}, N={hist32.mu.shape[2]}, {ARM_ITERS} "
+          f"iters), plain {rates['arm plain']:.1f} (B={ARM_B_PLAIN}); f32, "
+          f"median of 3, plain one run", flush=True)
+    return n, rates
+
+
+def barfoot_runs(dev):
+    """The Barfoot 1-D example (N = 1, s = 1) on the card in float64
+    through K1 / K2 at s = 1, NGD and prox, each counted, against the
+    reference's golden trajectories (``tests/test_golden_1d.py``: mean,
+    variance and cost, atol 1e-9).  Returns the launches per method."""
+    from gaussianvi_tpu_torch.examples.barfoot_1d import run_barfoot_1d
+
+    ref = golden_1d()
+    counts = {}
+    for method in ("ngd", "prox"):
+        (_, hist), n = counted(run_barfoot_1d, method, 10, torch.float64,
+                               dev)
+        counts[method] = n
+        check(n["gbp_covariance_logdet"] > 0
+              and (n["solve"] > 0) == (method == "ngd")
+              and all(v == 0 for k, v in n.items()
+                      if k not in ("gbp_covariance_logdet", "solve")),
+              f"barfoot {method}: not K1 / K2: {n}")
+        key = method.upper()
+        err = max(
+            float((got.cpu() - torch.tensor(ref[f"REF_{key}_{name}"],
+                                            dtype=torch.float64)).abs().max())
+            for name, got in (("MEAN", hist.mu[:, 0, 0]),
+                              ("COV", hist.cov_diag[:, 0, 0, 0]),
+                              ("COST", hist.cost)))
+        print(f"[barfoot {method}] launches {n}; max abs difference from the "
+              f"golden mean / variance / cost {err:.3e} (f64, K1 / K2 at "
+              f"s = 1)", flush=True)
+        check(err <= 1e-9, f"barfoot {method}: {err:.3e} off the golden run")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
@@ -2394,7 +2660,8 @@ def main() -> int:
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
         if r["kernel"] in ("grad_kernel", "trials_kernel", "gbp_kernel",
-                           "solve_kernel", "quad_kernel"))), flush=True)
+                           "solve_kernel", "gbp_wide_kernel",
+                           "solve_wide_kernel", "quad_kernel"))), flush=True)
 
     t0 = time.perf_counter()
     graph_b, state_b = {}, {}
@@ -2623,10 +2890,29 @@ def main() -> int:
               f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, B={S6_B}, "
               f"N={N if model == 'dim_x=3' else P3_N})", flush=True)
 
+    # ---- s = 14 and s = 1: K1 / K2 at the arm's and Barfoot's shapes, the
+    # arm planner and the Barfoot example ----
+    wide_kern = wide_kernel_checks(dev)
+    took("s = 14 / s = 1 kernel checks and times")
+    arm_counts, _ = arm_runs(card, dev)
+    took("arm planner path")
+    barfoot_counts = barfoot_runs(dev)
+    took("Barfoot 1-D")
+    for (s, name), r in wide_kern.items():
+        library = ("" if r["library_ms"] is None
+                   else f", library {r['library_ms']:.4f} ms")
+        print(f"[kernel time] {card}: s={s} {name} {r['ms']:.4f} ms "
+              f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
+              f"call), plain {r['plain_ms']:.4f} ms{library}, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, "
+              + ("11 x 1024 chains of N = 10 / the pair of 1024: the arm's"
+                 if s == 14 else "11 x 1024 chains of N = 1 / the pair of "
+                 "1024: a batch of Barfoot problems") + ")", flush=True)
+
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
-        "gbp_covariance_logdet": ("chain.cu", "chain_lanes.py:131", "fused"),
-        "solve": ("chain.cu", "chain_lanes.py:418", "separate"),
+        "gbp_covariance_logdet": ("chain.cuh", "chain_lanes.py:131", "fused"),
+        "solve": ("chain.cuh", "chain_lanes.py:418", "separate"),
         "quad_phi": ("quad.cu", "quad_lanes.py:99", "fused"),
         "quad_moments": ("quad.cu", "quad_lanes.py:99", "separate"),
         "fused_moments": ("fused_moments.cu", "fused_moments.py:35",
@@ -2695,6 +2981,24 @@ def main() -> int:
                              **s6_kern.get((model, name), {}))
         return row
 
+    # the s = 14 and s = 1 instances (csrc/chain_wide.cu): their launches
+    # on the arm planner's path at B = 1024 and on Barfoot's NGD run, their
+    # times and bounds at the shapes of wide_kernel_checks
+    wide_paths = {14: ("arm default", arm_counts),
+                  1: ("barfoot ngd", barfoot_counts["ngd"])}
+
+    def wide_row(s, name):
+        if (s, name) not in wide_kern:
+            return dict(note=f"not on the s = {s} model's path (K1 / K2 and "
+                        "the plain quadrature)")
+        path, n = wide_paths[s]
+        return dict(path=path, launches=n[name],
+                    source=csrc + ("chain_wide.cu" if s == 14
+                                   else "chain.cuh via chain_wide.cu"),
+                    **wide_kern[s, name])
+
+    check(all(wide_row(s, name)["launches"] > 0 for s, name in wide_kern),
+          "an s = 14 or s = 1 chain kernel was launched on none of its paths")
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
@@ -2707,7 +3011,8 @@ def main() -> int:
                  library_ms=kern[name].get("library_ms"),
                  **({} if "library_ms" in kern[name]
                     else {"library_note": note}),
-                 planner=planner_rows[name], s6=s6_row(name))
+                 planner=planner_rows[name], s6=s6_row(name),
+                 s14=wide_row(14, name), s1=wide_row(1, name))
             for name, note in zip(WRAPPERS, no_library)]
     check(all(v["launches"] > 0 for name in s6_path
               for v in s6_row(name).values()),

@@ -505,10 +505,15 @@ __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
 // An s x s block stored contiguously in device memory at a 16-byte
 // aligned address, read through L1 in 16-byte pieces: a warp whose lanes
 // read a few blocks then issues a quarter of the scalar loads (and of the
-// cache-line requests each of them makes).
+// cache-line requests each of them makes).  A block smaller than a piece
+// (s = 1) is read as it is.
 template <typename T, int S>
 __device__ __forceinline__ void load_block_vec(const T* src, T (&a)[S][S]) {
   constexpr int kPer = 16 / sizeof(T);
+  if constexpr (S * S % kPer != 0) {   // s = 1: a block is one value
+    load_mat(src, 1, a);
+    return;
+  }
   T flat[S * S];
 #pragma unroll
   for (int j = 0; j < S * S / kPer; ++j) {

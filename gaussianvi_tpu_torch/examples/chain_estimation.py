@@ -119,3 +119,11 @@ def build_chain_estimation(
         niters=15, niters_lowtemp=15, step_size_base=0.9, niters_backtrack=10
     )
     return graph, init, config
+
+
+def run_chain_estimation(method: str = "ngd", **kwargs):
+    """Build and optimize one problem: ``(final_state, history)``."""
+    from ..inference.optimize import optimize
+
+    graph, init, config = build_chain_estimation(**kwargs)
+    return optimize(graph, init, config, method=method)

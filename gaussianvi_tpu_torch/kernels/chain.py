@@ -2,9 +2,14 @@
 
 Counterpart of ``gaussianvi_tpu/kernels/chain_lanes.py``.  Each wrapper
 takes the JAX shapes with any leading batch axes (problems, or line-search
-trials x problems), launches the CUDA kernel (``csrc/chain.cu``: 2s lanes
-per chain or pair of chains, the warp's chains in shared memory) for GPU
-tensors and runs the plain PyTorch version for CPU tensors.  Operands are
+trials x problems), launches the CUDA kernel for GPU tensors and runs the
+plain PyTorch version for CPU tensors.  Two layouts (``csrc/chain.cuh``):
+up to s = 6, 2s lanes per chain or pair of chains and the warp's chains in
+shared memory (s in {2, 4, 6} in ``csrc/chain.cu``, s = 1 in
+``csrc/chain_wide.cu``); at s = 14 (``WIDE_BLOCK_SIZES``,
+``csrc/chain_wide.cu``) a warp per chain or pair, a half warp per
+recursion or system, a lane per column, beside a fixed work area in
+shared memory.  Operands are
 read problem-major as they are and outputs are allocated in their final
 shape: nothing is copied or re-laid per call.  The kernel's log det is
 Kahan-compensated and its plain version (``ops.blocktridiag``) is not, so
@@ -31,7 +36,8 @@ from ..ops.blocktridiag import solve as _solve_plain
 from . import _build
 from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
 
-BLOCK_SIZES = (2, 4, 6)  # instantiated state-block sizes s
+BLOCK_SIZES = (1, 2, 4, 6, 14)  # instantiated state-block sizes s
+WIDE_BLOCK_SIZES = (14,)         # a warp per chain or pair (chain_wide.cu)
 
 
 def covers(s: int, dtype: torch.dtype) -> str | None:
@@ -47,8 +53,23 @@ def covers(s: int, dtype: torch.dtype) -> str | None:
 
 def chains_per_warp(s: int) -> int:
     """Chains (K1) or pairs (K2) a warp carries: 2s lanes each (at s = 6
-    two, the warp's last 8 lanes repeating its first)."""
-    return 32 // (2 * s)
+    two, the warp's last 8 lanes repeating its first; at s = 1 sixteen),
+    or one in the wide layout."""
+    return 1 if s in WIDE_BLOCK_SIZES else 32 // (2 * s)
+
+
+def wide_mat(s: int) -> int:
+    """Shared-memory words of an s x s block in the wide layout
+    (csrc/chain_wide.cu Wide::kMat): column-major, columns s + 1 apart."""
+    return s * (s + 1)
+
+
+def chain_work_elems(s: int, solve: bool) -> int:
+    """The wide layout's fixed work area of a warp, always in shared memory
+    (Wide::kGbpWork, kSolveWork, both halves); none in the other layout."""
+    if s not in WIDE_BLOCK_SIZES:
+        return 0
+    return 2 * (wide_mat(s) if solve else 4 * wide_mat(s) + s + 1)
 
 
 def slot_pitch(base: int, slots: int, itemsize: int) -> int:
@@ -60,27 +81,46 @@ def slot_pitch(base: int, slots: int, itemsize: int) -> int:
 
 
 def gbp_warp_elems(n: int, s: int, itemsize: int) -> int:
-    """Arena of one K1 warp (csrc/chain.cu gbp_warp_elems): both pivot
-    arrays of its chains."""
+    """Arena of one K1 warp (csrc/chain.cuh gbp_warp_elems, chain_wide.cu
+    gbp_wide_elems): both pivot arrays of its chains."""
+    if s in WIDE_BLOCK_SIZES:
+        return 2 * n * wide_mat(s)
     c = chains_per_warp(s)
     return c * 2 * slot_pitch(n * mat_pitch(s), c, itemsize)
 
 
 def solve_warp_elems(n: int, s: int, itemsize: int) -> int:
-    """Arena of one K2 warp (csrc/chain.cu solve_warp_elems): D, B, the
-    factors, right-hand side and solution of both systems of its pairs."""
+    """Arena of one K2 warp (csrc/chain.cuh solve_warp_elems): D, B, the
+    factors, right-hand side and solution of both systems of its pairs; in
+    the wide layout (chain_wide.cu solve_wide_elems) each system's factors,
+    their reciprocal diagonals and the eliminated right-hand side."""
+    if s in WIDE_BLOCK_SIZES:
+        return 2 * n * (wide_mat(s) + 2 * (s + 1))
     c2, m, v = 2 * chains_per_warp(s), mat_pitch(s), vec_pitch(s)
     return c2 * (2 * slot_pitch(n * m, c2, itemsize)
                  + slot_pitch((n - 1) * m, c2, itemsize)
                  + 2 * slot_pitch(n * v, c2, itemsize))
 
 
-def chain_plan(elems: int, itemsize: int) -> BlockPlan:
+def chain_plan(elems: int, itemsize: int, work: int = 0) -> BlockPlan:
     """One-warp blocks whose arenas of ``elems`` values lie in shared
-    memory, or, for a chain too long for it, in a global scratch."""
-    smem = elems * itemsize
+    memory beside ``work`` values of work area, or, for a chain too long
+    for it, in a global scratch."""
+    smem = (work + elems) * itemsize
     scratch = smem > SMEM_LIMIT
-    return BlockPlan(1, elems, 0 if scratch else smem, scratch)
+    return BlockPlan(1, elems, work * itemsize if scratch else smem, scratch)
+
+
+def gbp_plan(n: int, s: int, itemsize: int) -> BlockPlan:
+    """K1's plan for chains of ``n`` blocks of size ``s``."""
+    return chain_plan(gbp_warp_elems(n, s, itemsize), itemsize,
+                      chain_work_elems(s, False))
+
+
+def solve_plan(n: int, s: int, itemsize: int) -> BlockPlan:
+    """K2's plan for systems of ``n`` blocks of size ``s``."""
+    return chain_plan(solve_warp_elems(n, s, itemsize), itemsize,
+                      chain_work_elems(s, True))
 
 
 def gbp_covariance_logdet_plain(diag, off):
@@ -142,8 +182,7 @@ def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
         memory_format=torch.contiguous_format) for x in (diag, off))
     covd, covo = torch.empty_like(diag), torch.empty_like(off)
     ld = torch.empty(lead, dtype=diag.dtype, device=diag.device)
-    plan = chain_plan(gbp_warp_elems(n, s, diag.element_size()),
-                      diag.element_size())
+    plan = gbp_plan(n, s, diag.element_size())
     scratch = _scratch(plan, nb, s, diag)
     err = _build.load().gvi_gbp(
         _build.DTYPES[diag.dtype], s, diag.data_ptr(), off.data_ptr(),
@@ -160,7 +199,7 @@ def _solve_launch(systems, units, units1, n, s):
     system 1."""
     like = systems[0]
     size = like.element_size()
-    plan = chain_plan(solve_warp_elems(n, s, size), size)
+    plan = solve_plan(n, s, size)
     scratch = _scratch(plan, units, s, like)
     ops = (ctypes.c_void_p * 8)(*(x.data_ptr() for x in systems))
     err = _build.load().gvi_solve(

@@ -19,7 +19,12 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
-from .smallmat import chol_small, spd_inv_small, spd_solve_small
+from .smallmat import (
+    chol_small,
+    logdet_spd_small,
+    spd_inv_small,
+    spd_solve_small,
+)
 
 
 def spd_solve(mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -56,6 +61,10 @@ class BlockTridiag:
     def block_dim(self) -> int:
         return self.diag.shape[-1]
 
+    @property
+    def dim(self) -> int:
+        return self.num_states * self.block_dim
+
     @staticmethod
     def zeros(batch_shape, num_states: int, block_dim: int, dtype,
               device=None) -> "BlockTridiag":
@@ -79,6 +88,21 @@ class BlockTridiag:
             torch.zeros((*batch_shape, max(num_states - 1, 0), s, s),
                         dtype=dtype, device=device),
         )
+
+    @staticmethod
+    def from_dense(mat: torch.Tensor, num_states: int) -> "BlockTridiag":
+        """The diagonal and super-diagonal blocks of a dense ``[..., N s,
+        N s]`` matrix (its other blocks are dropped)."""
+        s = mat.shape[-1] // num_states
+        diag = torch.stack([mat[..., i * s:(i + 1) * s, i * s:(i + 1) * s]
+                            for i in range(num_states)], dim=-3)
+        if num_states > 1:
+            off = torch.stack(
+                [mat[..., i * s:(i + 1) * s, (i + 1) * s:(i + 2) * s]
+                 for i in range(num_states - 1)], dim=-3)
+        else:
+            off = mat.new_zeros((*mat.shape[:-2], 0, s, s))
+        return BlockTridiag(diag, off)
 
     def to_dense(self) -> torch.Tensor:
         """Dense [..., N s, N s] matrix (tests only)."""
@@ -107,6 +131,20 @@ class BlockTridiag:
 
     def symmetrize(self) -> "BlockTridiag":
         return BlockTridiag(0.5 * (self.diag + _t(self.diag)), self.off)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` for ``x`` flat ``[..., N s]`` or blocked ``[..., N,
+        s]`` (the result takes ``x``'s shape)."""
+        n, s = self.num_states, self.block_dim
+        xb = x.reshape(*x.shape[:-1], n, s) if x.shape[-1] == n * s else x
+        y = (self.diag @ xb[..., None])[..., 0]
+        if n > 1:
+            up = (self.off @ xb[..., 1:, :, None])[..., 0]
+            down = (_t(self.off) @ xb[..., :-1, :, None])[..., 0]
+            y = y + torch.cat([up, torch.zeros_like(up[..., :1, :])], dim=-2)
+            y = y + torch.cat([torch.zeros_like(down[..., :1, :]), down],
+                              dim=-2)
+        return y.reshape(x.shape)
 
 
 def _messages(diag, off, forward: bool):
@@ -172,6 +210,13 @@ def gbp_edge_covariance(A: BlockTridiag):
     return spd_inv(joint), ld
 
 
+def gbp_covariance(A: BlockTridiag):
+    """Marginal covariance blocks of ``A^{-1}`` by chain belief propagation:
+    ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s])``."""
+    cov_diag, cov_off, _ = gbp_covariance_logdet(A)
+    return cov_diag, cov_off
+
+
 def gbp_covariance_logdet(A: BlockTridiag):
     """GBP covariance blocks AND log det in one pass:
     ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``
@@ -203,6 +248,13 @@ def block_cholesky(A: BlockTridiag):
     return torch.stack(pivots, dim=-3), gains
 
 
+def logdet(A: BlockTridiag) -> torch.Tensor:
+    """log det of an SPD block-tridiagonal matrix from its Schur pivots,
+    per problem ``[...]`` (no pivot-trust guard, as in the JAX package)."""
+    pivots, _ = block_cholesky(A)
+    return torch.sum(logdet_spd_small(pivots), dim=-1)
+
+
 def solve(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b (SPD block-tridiagonal), b [..., N, s], by the block
     Thomas algorithm."""
@@ -222,3 +274,9 @@ def solve(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
         xs.append(x)
     xs.reverse()
     return torch.stack(xs, dim=-2)
+
+
+def marginal_covariance_dense(A: BlockTridiag) -> torch.Tensor:
+    """Dense ``A^{-1}`` ``[..., N s, N s]`` (test and reference oracle
+    only)."""
+    return torch.linalg.inv(A.to_dense())

@@ -72,6 +72,12 @@ iterations; fused and separate), the planar quadrotor
 (``examples.quadrotor_planning``, B=1024 restarts, N=12, 20 iterations;
 the default path: K1 / K2 and the plain quadrature) and chain estimation
 at dim_x=3 (B=1024, N=32, 10 iterations; fused).
+
+    python3 scripts/torch_profile.py --arm [--runs 5]
+
+the same profile for the 7-DOF arm planner (``examples.arm_planning``,
+s = 14: B=1024 restarts as above, N=10, 15 iterations; the default path:
+K1 / K2 at s = 14 and the plain quadrature).
 """
 
 from __future__ import annotations
@@ -146,6 +152,7 @@ def profile_paths(paths, runs, work=B * NITERS):
         # rank
         shown = ranked[:5] + [e for e in ranked[5:] if any(
             k in e.key for k in ("gbp_kernel", "solve_kernel",
+                                 "gbp_wide_kernel", "solve_wide_kernel",
                                  "quad_kernel", "trials_kernel",
                                  "grad_kernel"))]
         for e in shown:
@@ -216,6 +223,20 @@ def s6_paths(dev):
     out.append(({"dim_x=3 fused": lambda: optimize(graph, state, cfg)},
                 B * NITERS))
     return out
+
+
+def arm_paths(dev):
+    """The arm planner's default path on PLAN_B restarts, float32:
+    ``(name -> callable running the path once, prob-iters per run)``."""
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+
+    graph, init, cfg, _ = build_arm_planning(dtype=torch.float32, device=dev)
+    inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(0),
+                          PLAN_B, mean_scale=0.3)
+    return ({"arm default": lambda: optimize(graph, inits, cfg)},
+            PLAN_B * cfg.niters)
 
 
 def rates(dev, runs, tree):
@@ -474,6 +495,8 @@ def main() -> int:
                         help="profile the planar planner's paths")
     parser.add_argument("--s6", action="store_true",
                         help="profile the s = 6 models' paths")
+    parser.add_argument("--arm", action="store_true",
+                        help="profile the arm planner's default path")
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
@@ -514,6 +537,10 @@ def main() -> int:
     if args.planner:
         print("\n".join(profile_paths(planner_paths(dev), runs,
                                       PLAN_B * PLAN_ITERS)))
+        return 0
+    if args.arm:
+        paths, work = arm_paths(dev)
+        print("\n".join(profile_paths(paths, runs, work)), flush=True)
         return 0
     if args.s6:
         for paths, work in s6_paths(dev):

@@ -39,13 +39,18 @@ def _chains(nb, n, s, seed, dev):
 # multiple of a warp's), the trial batch's and the solve pair's leading
 # shapes, and a chain too long for shared memory (the global-scratch
 # route); s = 6 (two chains a warp, its last 8 lanes repeating its first)
-# at an odd count, N = 1 and on the global-scratch route
+# at an odd count, N = 1 and on the global-scratch route; s = 1 (16 chains
+# a warp) and s = 14 (a warp a chain, a lane a column) the same way
 CHAIN_LAYOUTS = {"N=1": ((7,), 1, 4), "N=2": ((7,), 2, 4),
                  "N=33": ((5,), 33, 4), "N=70, s=2": ((9,), 70, 2),
                  "ragged": ((13,), 6, 4), "(11, B)": ((11, 6), 5, 4),
                  "(2, B), s=2": ((2, 5), 6, 2), "long chain": ((3,), 1100, 4),
                  "s=6": ((5,), 9, 6), "s=6, N=1": ((3,), 1, 6),
-                 "s=6, long chain": ((3,), 700, 6)}
+                 "s=6, long chain": ((3,), 700, 6),
+                 "s=1": ((37,), 5, 1), "s=1, N=1": ((21,), 1, 1),
+                 "s=1, long chain": ((3,), 500, 1),
+                 "s=14": ((5,), 9, 14), "s=14, N=1": ((3,), 1, 14),
+                 "s=14, long chain": ((2,), 70, 14)}
 
 
 def _twice(fn):
@@ -67,9 +72,9 @@ def test_chain_kernels_match_plain(dev, layout):
     count = int(np.prod(lead))
     diag, off, rhs = (x.reshape(*lead, *x.shape[1:])
                       for x in _chains(count, n, s, seed=n, dev=dev))
-    if layout == "long chain":
-        assert chain.chain_plan(chain.gbp_warp_elems(n, s, 8), 8).scratch
-        assert chain.chain_plan(chain.solve_warp_elems(n, s, 8), 8).scratch
+    if layout.endswith("long chain"):
+        assert chain.gbp_plan(n, s, 8).scratch
+        assert chain.solve_plan(n, s, 8).scratch
     before = (chain.gbp_covariance_logdet_lanes.launches,
               chain.solve_lanes.launches)
     got = _twice(lambda: chain.gbp_covariance_logdet_lanes(diag, off))
@@ -1057,3 +1062,45 @@ def test_s6_models_on_kernels_match_plain(dev):
                                                quad_impl="xla"))
         torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
         assert torch.equal(hk.accepted_step, hp.accepted_step)
+
+
+# ---------------------------------------------------------------------------
+# s = 14 and s = 1: the arm planner and the Barfoot 1-D example on K1 / K2
+# ---------------------------------------------------------------------------
+
+def test_s14_s1_models_on_kernels_match_plain(dev):
+    """The arm planner (N = 10, s = 14, four restarts) under the defaults
+    on K1 / K2 and the plain quadrature against the plain path over all 15
+    iterations (f64, rtol 1e-9, the same steps), and the Barfoot example
+    (s = 1) on K1 / K2 against the golden trajectories (atol 1e-9)."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
+    from gaussianvi_tpu_torch.examples.barfoot_1d import run_barfoot_1d
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    graph, init, cfg, _ = build_arm_planning(device=dev)
+    noise = 0.3 * np.random.default_rng(1).standard_normal((4, 10, 14))
+    noise[0] = 0.0
+    prec = init.precision
+    state = GaussianState(
+        init.mu + torch.tensor(noise, device=dev),
+        BlockTridiag(prec.diag.expand(4, 10, 14, 14).clone(),
+                     prec.off.expand(4, 9, 14, 14).clone()))
+    reset_launch_counts()
+    _, hk = optimize(graph, state, cfg)
+    assert {k for k, v in launch_counts().items() if v} == {
+        "gbp_covariance_logdet", "solve"}
+    _, hp = optimize(graph, state, replace(cfg, chain_impl="seq",
+                                           quad_impl="xla"))
+    torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
+    assert torch.equal(hk.accepted_step, hp.accepted_step)
+    # tests/test_golden_1d.py REF_NGD_MEAN[-1], REF_NGD_COST[-1]
+    reset_launch_counts()
+    _, hb = run_barfoot_1d("ngd", device=dev)
+    assert launch_counts()["solve"] == 10
+    assert abs(float(hb.mu[-1, 0, 0]) - 23.798263483531) < 1e-9
+    assert abs(float(hb.cost[-1]) - 1.7901555302211) < 1e-9
