@@ -42,7 +42,17 @@ s = 14 (a warp per chain or pair, ``csrc/chain_wide.cu``) and s = 1 at the
 ``guard_cases``), the arm planner at B=1024 restarts on K1 / K2 (float32
 and float64, the kernel path against the plain path over all 15
 iterations), and the Barfoot 1-D example in float64 on K1 / K2 at s = 1
-against the reference's golden trajectories.
+against the reference's golden trajectories.  Then the loop's further
+options: K3 (both variants), K5 and K6 (``full``, ``accum``, ``solve``)
+with the sigma offsets rounded through bfloat16, at the flagship's and
+the 3-D point planner's shapes, against their plain versions (float64 and
+float32, twice for the same bits, timed beside the unquantized instances);
+the flagship with ``moments_eval_dtype`` (bfloat16 on the fused and the
+separate kernels, float16 on the plain quadrature), counted and held to
+the plain path; resume from a checkpoint on the fused path against the
+uninterrupted run; ``linesearch="seq"`` on the separate kernels and
+``ema_alpha=0.5`` on the fused ones, each held to the plain path; and LTV
+estimation (``examples.ltv_estimation``) at B=1024 restarts on K1 / K2.
 
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
@@ -2622,6 +2632,553 @@ def barfoot_runs(dev):
     return counts
 
 
+# ---- the loop's further options: bfloat16 offsets in K3, K5 and K6, the
+# sequential line search, EMA smoothing, resume, LTV estimation -------------
+BF16 = torch.bfloat16
+# build_ltv_estimation's own config: N = 10 states of dim 2, the 4-node
+# (2, 4) rule, 15 iterations; B = 1024 restarts (perturb_inits, mean_scale
+# 0.3), not cut
+LTV_B, LTV_ITERS = 1024, 15
+RESUME_AT = 4
+
+
+def bf16_case(tag, kern, plain, skip=()):
+    """One kernel with ``eval_dtype=bfloat16`` against its plain version
+    with the same option: float64 by :func:`compare_conditioned`, float32
+    by :func:`compare_vs_f64` (outputs ``skip`` left to the caller), each
+    launched twice for the same bits, and the round trip seen to change
+    the output.  ``kern(dtype, eval_dtype)`` / ``plain(dtype, eval_dtype)``
+    return tuples.  Times the bfloat16 instance beside the unquantized one
+    (float32, warm and with the L2 flushed): ``(row, kernel outputs, plain
+    outputs)`` by dtype."""
+    f32, f64 = torch.float32, torch.float64
+    k = {dt: check_repeatable(f"{tag} bf16 {dt}",
+                              lambda dt=dt: kern(dt, BF16))
+         for dt in (f64, f32)}
+    p = {dt: plain(dt, BF16) for dt in (f64, f32)}
+    keep = [i for i in range(len(k[f64])) if i not in skip]
+    err64 = max(compare_conditioned(f"{tag}[{i}] bf16 float64", k[f64][i],
+                                    p[f64][i], p[f32][i]) for i in keep)
+    err32 = max(compare_vs_f64(f"{tag}[{i}] bf16 float32", k[f32][i],
+                               p[f32][i], p[f64][i]) for i in keep)
+    check(not all(same_bits(a, b_) for a, b_ in zip(k[f32], kern(f32, None))),
+          f"{tag}: the bfloat16 round trip changed nothing")
+    row = dict(max_abs_err=err64, err_dtype="float64", err_f32=err32,
+               ms=cuda_ms(lambda: kern(f32, BF16)),
+               ms_flushed_l2=cuda_ms_flushed(lambda: kern(f32, BF16)),
+               unquantized_ms=cuda_ms(lambda: kern(f32, None)),
+               unquantized_ms_flushed_l2=cuda_ms_flushed(
+                   lambda: kern(f32, None)),
+               plain_ms=cuda_ms(lambda: plain(f32, BF16), reps=1))
+    return row, k, p
+
+
+def bf16_flagship_checks(graph_b, dev, iterate):
+    """K3 (both variants), K5, K6 ``full`` and the split pair with the
+    offsets rounded through bfloat16, at the flagship's iterate and shapes
+    (:func:`bf16_case`): K3 phi on the trial batch (11 x 1024 x 32
+    factors, means jittered), K3 moments on 1024 x 32, K5 / K6 in the
+    direction :func:`fused_checks` takes, ``accum`` on the first half of
+    the factors as a rank of the factor-parallel path holds it, ``solve``
+    on the halves' float64 plain sums.  ``{name: row}``."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+    from gaussianvi_tpu_torch.kernels import quad
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 11)
+    mu64, pd64, po64 = iterate
+    cd64 = gbp_covariance_logdet(BlockTridiag(pd64, po64))[0]
+    jitter = torch.tensor(0.05 * rng.standard_normal((TRIALS, B, N, 4)),
+                          dtype=f64, device=dev)
+    args3, args4, x5, x6, ops, halves, lin = {}, {}, {}, {}, {}, {}, {}
+    for dt in (f64, f32):
+        fb = graph_b[dt].nonlinear[0]
+        mu, pd, po, cd = (x.to(dt) for x in (mu64, pd64, po64, cd64))
+        args3[dt] = ((mu + jitter.to(dt)).contiguous(),
+                     cd.expand(TRIALS, *cd.shape).contiguous(), fb.nodes,
+                     fb.weights, "range", fb.kernel_params)
+        args4[dt] = (mu, cd, fb.nodes, fb.weights, "range", fb.kernel_params)
+        x6[dt] = (mu, pd, po, torch.ones(B, dtype=dt, device=dev))
+        ops[dt] = fused_operands(graph_b[dt])
+        halves[dt] = [half_operands(graph_b[dt], i) for i in (0, 1)]
+        lin[dt] = (ops[dt][1], ops[dt][3])
+    p6 = fg.gradient_plain(*x6[f64], *ops[f64])
+    finite = torch.isfinite(p6[5]).flatten(1).all(1)
+    direction = (torch.where(finite[:, None, None], p6[5], p6[6]), p6[3],
+                 p6[4])
+    trials = 0.9 * 0.75 ** torch.arange(1, TRIALS + 1, dtype=f64, device=dev)
+    for dt in (f64, f32):
+        x5[dt] = (x6[dt][0], *(x.to(dt) for x in direction[:1]), x6[dt][1],
+                  x6[dt][2], *(x.to(dt) for x in direction[1:]),
+                  trials.to(dt))
+
+    def accum_plain(dt, ed, i):
+        specs, arrays = halves[dt][i]
+        return tuple(fg.gradient_plain(*x6[dt], specs, (), arrays, (),
+                                       mode="accum", eval_dtype=ed))
+
+    seeds = {}
+    for ed in (None, BF16):
+        total = tuple(a + b_ for a, b_ in zip(accum_plain(f64, ed, 0),
+                                              accum_plain(f64, ed, 1)))
+        seeds[ed] = {f64: total, f32: tuple(t.to(f32) for t in total)}
+
+    def flat5(o):
+        return (o[0], *o[1])
+
+    cases = {
+        "quad_phi": (
+            lambda dt, ed: (quad.quad_lanes_phi(*args3[dt], nonneg=True,
+                                                eval_dtype=ed),),
+            lambda dt, ed: (quad.quad_phi_plain(*args3[dt], nonneg=True,
+                                                eval_dtype=ed),)),
+        "quad_moments": (
+            lambda dt, ed: quad.quad_lanes_moments(*args4[dt], rdim=DIM_X,
+                                                   eval_dtype=ed),
+            lambda dt, ed: quad.quad_moments_plain(*args4[dt], rdim=DIM_X,
+                                                   eval_dtype=ed)),
+        "fused_trials": (
+            lambda dt, ed: flat5(ft.trial_costs_lanes(*x5[dt], *ops[dt],
+                                                      eval_dtype=ed)),
+            lambda dt, ed: flat5(ft.trial_costs_plain(*x5[dt], *ops[dt],
+                                                      eval_dtype=ed))),
+        "fused_gradient": (
+            lambda dt, ed: fg.gradient_lanes(*x6[dt], *ops[dt],
+                                             eval_dtype=ed),
+            lambda dt, ed: fg.gradient_plain(*x6[dt], *ops[dt],
+                                             eval_dtype=ed)),
+        "fused_gradient_accum": (
+            lambda dt, ed: tuple(fg.gradient_accum_lanes(
+                *x6[dt], *halves[dt][0], eval_dtype=ed)),
+            lambda dt, ed: accum_plain(dt, ed, 0)),
+        "fused_gradient_solve": (
+            lambda dt, ed: fg.gradient_solve_lanes(*x6[dt], seeds[ed][dt],
+                                                   *lin[dt]),
+            lambda dt, ed: fg.gradient_plain(
+                *x6[dt], (), lin[dt][0], (), lin[dt][1], mode="solve",
+                seeds=seeds[ed][dt])),
+    }
+    out = {}
+    for name, (kern, plain) in cases.items():
+        out[name] = bf16_case(f"flagship {name}", kern, plain)[0]
+    print("[bf16 kernels, flagship] max abs err vs plain, f64 / f32; ms "
+          "flushed bf16 / unquantized (f32): " + "; ".join(
+              f"{nm} {r['max_abs_err']:.3e} / {r['err_f32']:.3e}; "
+              f"{r['ms_flushed_l2']:.4f} / {r['unquantized_ms_flushed_l2']:.4f}"
+              for nm, r in out.items()), flush=True)
+    return out
+
+
+def bf16_s6_checks(dev):
+    """K3 (both variants), K5 and K6 ``full`` with bfloat16 offsets at the
+    3-D point planner's iterate (1024 restarts, N = 20, s = 6, the 3-D SDF
+    cost on 25 nodes), as :func:`s6_kernel_checks` holds the unquantized
+    instances (K6's main solve by its backward error).  ``{name: row}``."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+    from gaussianvi_tpu_torch.kernels import quad
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 12)
+    graphs = {dt: _batch_graph(point3d_problem(dt, dev, 1)[0], S6_B)
+              for dt in (f32, f64)}
+    g64, inits, config, _ = point3d_problem(f64, dev)
+    it64 = plain_iterate(g64, inits, config)
+    n = it64[0].shape[1]
+    cd64 = gbp_covariance_logdet(BlockTridiag(*it64[1:]))[0]
+    jitter = torch.tensor(0.05 * rng.standard_normal((TRIALS, S6_B, n, 6)),
+                          dtype=f64, device=dev)
+    args3, args4, x5, x6, ops, fields = {}, {}, {}, {}, {}, {}
+    for dt in (f64, f32):
+        fb = graphs[dt].nonlinear[0]
+        fields[dt] = fb.kernel_field
+        mu, pd, po, cd = (x.to(dt) for x in (*it64, cd64))
+        args3[dt] = ((mu + jitter.to(dt)).contiguous(),
+                     cd.expand(TRIALS, *cd.shape).contiguous(), fb.nodes,
+                     fb.weights, "sdf3d", fb.kernel_params)
+        args4[dt] = (mu, cd, fb.nodes, fb.weights, "sdf3d", fb.kernel_params)
+        ops[dt] = fused_operands(graphs[dt])
+        x6[dt] = (mu, pd, po, torch.full((S6_B,), 0.1, dtype=dt, device=dev))
+    p6 = fg.gradient_plain(*x6[f64], *ops[f64])
+    finite = torch.isfinite(p6[5]).flatten(1).all(1)
+    direction = (torch.where(finite[:, None, None], p6[5], p6[6]), p6[3],
+                 p6[4])
+    for dt in (f64, f32):
+        dmu, dpd, dpo = (x.to(dt) for x in direction)
+        trials = 0.9 * 0.75 ** torch.arange(1, TRIALS + 1, dtype=dt,
+                                            device=dev)
+        mu, pd, po, _ = x6[dt]
+        x5[dt] = (mu, dmu, pd, po, dpd, dpo, trials)
+    rdim = graphs[f64].nonlinear[0].quad_rdim
+
+    def flat5(o):
+        return (o[0], *o[1])
+
+    cases = {
+        "quad_phi": (
+            lambda dt, ed: (quad.quad_lanes_phi(*args3[dt], nonneg=True,
+                                                field=fields[dt],
+                                                eval_dtype=ed),),
+            lambda dt, ed: (quad.quad_phi_plain(*args3[dt], nonneg=True,
+                                                field=fields[dt],
+                                                eval_dtype=ed),)),
+        "quad_moments": (
+            lambda dt, ed: quad.quad_lanes_moments(
+                *args4[dt], rdim=rdim, field=fields[dt], eval_dtype=ed),
+            lambda dt, ed: quad.quad_moments_plain(
+                *args4[dt], rdim=rdim, field=fields[dt], eval_dtype=ed)),
+        "fused_trials": (
+            lambda dt, ed: flat5(ft.trial_costs_lanes(*x5[dt], *ops[dt],
+                                                      eval_dtype=ed)),
+            lambda dt, ed: flat5(ft.trial_costs_plain(*x5[dt], *ops[dt],
+                                                      eval_dtype=ed))),
+        "fused_gradient": (
+            lambda dt, ed: fg.gradient_lanes(*x6[dt], *ops[dt],
+                                             eval_dtype=ed),
+            lambda dt, ed: fg.gradient_plain(*x6[dt], *ops[dt],
+                                             eval_dtype=ed)),
+    }
+    out = {}
+    for name, (kern, plain) in cases.items():
+        skip = (5,) if name == "fused_gradient" else ()
+        out[name], k, p = bf16_case(f"point3d {name}", kern, plain, skip)
+        if name == "fused_gradient":
+            # dmu by its backward error in the float64 plain system
+            vdd = (p[f64][3] + x6[f64][1], p[f64][4] + x6[f64][2])
+            out[name]["dmu_backward_f64"] = compare_backward(
+                "point3d K6 bf16 dmu float64", k[f64][5], p[f64][5], *vdd)[0]
+            out[name]["dmu_backward_f32"] = compare_backward_vs_f64(
+                "point3d K6 bf16 dmu float32", k[f32][5], p[f32][5],
+                p[f64][5], *vdd)
+    print("[bf16 kernels, point3d] max abs err vs plain, f64 / f32; ms "
+          "flushed bf16 / unquantized (f32): " + "; ".join(
+              f"{nm} {r['max_abs_err']:.3e} / {r['err_f32']:.3e}; "
+              f"{r['ms_flushed_l2']:.4f} / {r['unquantized_ms_flushed_l2']:.4f}"
+              for nm, r in out.items()), flush=True)
+    return out
+
+
+def bf16_runs(card, dev, graph_b, state_b, graph_s, state_s):
+    """The flagship with ``moments_eval_dtype``: bfloat16 through the fused
+    kernels at B = 1024 (counted: K1 and K3 at init, K5 and K6 every
+    iteration) and the separate kernels at B = 256 (counted: K3 both
+    variants), the kernel paths against the plain path with the same
+    option (float64, 8 problems), float32 bfloat16 against float64
+    unquantized (the same basin within 10%, the JAX package's pin), the
+    rate; float16: the engine's resolution (plain quadrature, no fused
+    kernel) and a finite run.  Returns the launches by path."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+
+    f32, f64 = torch.float32, torch.float64
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    cfg_b = replace(cfg, moments_eval_dtype="bfloat16")
+    cfg_sep = replace(cfg_b, fused_trials="off", fused_gradient="off")
+    (_, h32), fused = counted(optimize, graph_b[f32], state_b[f32], cfg_b)
+    print(f"[bf16 fused path] launches {fused}", flush=True)
+    check(fused["fused_trials"] == NITERS and fused["fused_gradient"] == NITERS
+          and fused["gbp_covariance_logdet"] > 0 and fused["quad_phi"] > 0,
+          f"bf16: the fused path skipped a kernel: {fused}")
+    check_costs("bf16 fused path", h32, B)
+    (_, hs), sep = counted(optimize, graph_s, state_s, cfg_sep)
+    print(f"[bf16 separate path] launches {sep}", flush=True)
+    check(sep["quad_phi"] > 0 and sep["quad_moments"] == NITERS
+          and sep["fused_trials"] == sep["fused_gradient"] == 0,
+          f"bf16: the separate path skipped a kernel: {sep}")
+    check_costs("bf16 separate path", hs, B_SEPARATE)
+    # float32 with bfloat16 offsets against float64 without: the same basin
+    # (the JAX package pins one problem within 10%); over 1024 problems a
+    # few end their search, and so escalate the temperature, at another
+    # iteration (a discrete decision, as float32 alone takes on some), so
+    # the gate is problem 0 and 99% of the batch within 10%, the median
+    # within JAX's bfloat16 envelope of E[phi] (2e-3)
+    _, h64 = optimize(graph_b[f64], state_b[f64], cfg)
+    rel = ((h32.cost[:, -1].double() - h64.cost[:, -1]).abs()
+           / h64.cost[:, -1].abs())
+    apart = int((rel >= 0.1).sum())
+    print(f"[bf16 fused path] f32 bf16 vs f64 unquantized final cost: "
+          f"median {rel.median().item():.3e}, max {rel.max().item():.3e}, "
+          f"problem 0 {rel[0].item():.3e}; {apart}/{B} problems 10% or more "
+          f"apart", flush=True)
+    check(rel[0].item() < 0.1 and apart <= B // 100
+          and rel.median().item() < 2e-3,
+          f"bf16: final costs off the unquantized float64 run's: problem 0 "
+          f"{rel[0].item():.3e}, {apart}/{B} problems 10% or more apart, "
+          f"median {rel.median().item():.3e}")
+    # the kernel paths against the plain path: a bfloat16 rounding is a
+    # step function, and where the kernels' offsets and the plain path's
+    # differ by their conditioning-amplified rounding (up to 1e-9 relative
+    # on the longest trial steps, fused_checks) about one offset in a
+    # million rounds to the neighbouring bfloat16 value, each moving a
+    # total cost by up to a few 1e-6 relative (measured on this card:
+    # 5.1e-7 fused, 4.5e-6 separate), so the gate is 1e-4 and the same
+    # accepted steps (the unquantized paths: 1e-9)
+    g8, s8 = build_batch(f64, dev, num_problems=8)
+    plain = replace(cfg_b, chain_impl="seq", quad_impl="xla")
+    hp = optimize(g8, s8, plain)[1]
+    for name, c in (("fused", cfg_b), ("separate", cfg_sep)):
+        held_to_plain(f"bf16 {name} kernels vs plain path",
+                      optimize(g8, s8, c)[1], hp, dev, rtol=1e-4,
+                      tag="bf16 end to end")
+    r = rate(lambda: optimize(graph_b[f32], state_b[f32], cfg_b),
+             B * NITERS)
+    print(f"[throughput] {card}: fused kernels with bfloat16 offsets "
+          f"{r:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, f32, median "
+          f"of 3)", flush=True)
+    cfg_h = replace(cfg, moments_eval_dtype="float16")
+    eng = LocalEngine(graph_b[f32], cfg_h, dev)
+    print(f"[fp16 resolution] chain_kernel {eng.chain_kernel}, quad_kernel "
+          f"{eng.quad_kernel} (float16 offsets take the plain quadrature), "
+          f"fused_trials {eng.fused_trials_ready}, fused_gradient "
+          f"{eng.fused_gradient_ready}", flush=True)
+    check(not eng.fused_trials_ready and not eng.fused_gradient_ready,
+          "fp16: a fused kernel was resolved")
+    (_, hh), half = counted(optimize, graph_s, state_s, cfg_h)
+    print(f"[fp16 path] launches {half}", flush=True)
+    check(half["quad_phi"] == half["quad_moments"] == 0
+          and half["fused_trials"] == half["fused_gradient"] == 0
+          and half["gbp_covariance_logdet"] > 0,
+          f"fp16: not K1 / K2 with the plain quadrature: {half}")
+    check(bool(torch.isfinite(hh.cost).all()), "fp16: non-finite cost")
+    return {"bf16 fused": fused, "bf16 separate": sep}
+
+
+def resume_runs(dev, graph_b, state_b):
+    """Checkpoint and resume on the fused path (B = 1024): ten iterations
+    straight through ``optimize_from`` against four, then
+    ``save_checkpoint`` -> ``load_loop_state`` -> ``optimize_from`` from
+    iteration four (the scheduled temperature switch, at six, inside the
+    resumed window).  The resumed run's first carried log det and factor
+    costs come from K1 and K3 at the loaded state, the straight run's from
+    K5 at the accepted trial: apart by their conditioned rounding, so the
+    window's first recorded cost is held to 1e-8 (float64), and every
+    accept decision compares a trial cost with it.  float64: the final state, the loop values, the
+    accepted steps and the recorded means, precisions, covariances and
+    later costs the same bits.  float32, where the costs of problems near
+    convergence decrease by about an ulp an iteration and the guards'
+    float32 thresholds poison a cost in one kernel and not the other,
+    those decide a few searches: at most 5% of the problems take another
+    decision, and every other problem ends on the same bits.  Then the carry's refreshed
+    covariance (``run_gvi_carry``) against K1 on the final precision, bit
+    for bit.  Returns the float32 resumed run's launches."""
+    import tempfile
+
+    from gaussianvi_tpu_torch import GVIConfig
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import (
+        optimize_from,
+        run_gvi_carry,
+    )
+    from gaussianvi_tpu_torch.kernels import chain
+    from gaussianvi_tpu_torch.utils import load_loop_state, save_checkpoint
+
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=6, step_size_base=0.9)
+    names = ("mu", "cov_diag", "cov_off", "prec_diag", "prec_off", "cost",
+             "factor_costs", "accepted_step")
+    for dt in (torch.float64, torch.float32):
+        g, s0 = graph_b[dt], state_b[dt]
+        full_state, full_hist, full_loop = optimize_from(g, s0, cfg)
+        mid, _, mid_loop = optimize_from(g, s0, replace(cfg,
+                                                        niters=RESUME_AT))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = save_checkpoint(os.path.join(tmp, "ck"), mid, RESUME_AT,
+                                   *mid_loop)
+            state, it, loop = load_loop_state(path, device=dev)
+        check(it == RESUME_AT and same_bits(state.mu, mid.mu),
+              "resume: the checkpoint did not read back")
+        (res_state, res_hist, res_loop), n = counted(
+            optimize_from, g, state, cfg, "ngd", it, loop)
+        check(n["fused_trials"] == NITERS - RESUME_AT
+              and n["fused_gradient"] == NITERS - RESUME_AT,
+              f"resume: the fused kernels did not run: {n}")
+        window = [x[:, RESUME_AT:] for x in full_hist]
+        a0, b0 = res_hist.cost[:, 0].double(), window[5][:, 0].double()
+        both = torch.isfinite(a0) & torch.isfinite(b0)
+        first = ((a0 - b0)[both].abs() / b0[both].abs()).max().item()
+        poisoned = int((torch.isnan(a0) != torch.isnan(b0)).sum())
+        same = (res_hist.accepted_step == window[7]).all(1)
+        ends = torch.stack([
+            (a == b_).flatten(1).all(1) | (a.isnan() & b_.isnan()).flatten(
+                1).all(1)
+            for a, b_ in ((res_state.mu, full_state.mu),
+                          (res_state.precision.diag,
+                           full_state.precision.diag))]).all(0)
+        other = int((~same).sum())
+        print(f"[resume {str(dt)[6:]}] {B} problems, fused path: resumed "
+              f"at iteration {RESUME_AT} of {NITERS} (launches {n}); first "
+              f"resumed cost {first:.1e} apart where finite, NaN in one run "
+              f"only on {poisoned}; {other}/{B} problems took another "
+              f"decision; {int((same & ends).sum())}/{int(same.sum())} of "
+              f"the others end on the same bits", flush=True)
+        check(bool(ends[same].all()),
+              "resume: a problem with the same decisions ended elsewhere")
+        if dt == torch.float32:
+            # the first cost's ulps, and the float32 guards that poison a
+            # cost the other kernel leaves finite (K5 at the trial, K3 at
+            # the state), decide a few searches
+            check(other <= B // 20,
+                  f"resume: {other}/{B} problems took another decision")
+            continue
+        check(poisoned == 0, "resume: a first cost NaN in one run only")
+        # K5 holds the float64 plain version at the flagship's iterate only
+        # to its conditioned bound (fused_checks: 4e-7 absolute on costs of
+        # ~1e3 at the longest steps), and so do K1 / K3 at the state
+        check(first < 1e-8, f"resume: first resumed cost {first:.3e} off")
+        check(other == 0 and all(same_bits(a, b_)
+                                 for a, b_ in zip(res_loop, full_loop)),
+              "resume: decisions or loop values differ (float64)")
+        for nm, a, b_ in zip(names, res_hist, window):
+            rows = a[:, 1:] if nm in ("cost", "factor_costs") else a
+            want = b_[:, 1:] if nm in ("cost", "factor_costs") else b_
+            check(same_bits(rows, want), f"resume: history {nm} differs")
+        engine = LocalEngine(g, cfg, dev)
+        carry, _ = run_gvi_carry(engine, s0, cfg)
+        k1 = chain.gbp_covariance_logdet_lanes(carry.state.precision.diag,
+                                               carry.state.precision.off)
+        check(same_bits(carry.cov_diag, k1[0])
+              and same_bits(carry.cov_off, k1[1])
+              and same_bits(carry.logdet, k1[2]),
+              "resume: the refreshed covariance is not K1's on the final "
+              "precision")
+        print("[resume float64] final state, loop values and history the "
+              "same bits (costs from the window's second row); the carry's "
+              "covariance is K1's on the final precision, bit for bit",
+              flush=True)
+    return n
+
+
+def options_runs(dev, graph_s, state_s):
+    """``linesearch="seq"`` on the separate path (K1-K3, fused kernels
+    off) at B = 256 and ``ema_alpha=0.5`` on the fused path (K5 and K6;
+    the blended iterate's covariance by K1 and its costs by K3 every
+    iteration) at B = 256, each counted and held to the plain path with
+    the same option in float64 on 8 problems.  Returns the launches."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    cfg_seq = replace(cfg, linesearch="seq", fused_gradient="off")
+    cfg_ema = replace(cfg, ema_alpha=0.5)
+    (_, h_seq), n_seq = counted(optimize, graph_s, state_s, cfg_seq)
+    print(f"[seq path] launches {n_seq}", flush=True)
+    check(n_seq["gbp_covariance_logdet"] > NITERS and n_seq["solve"] == NITERS
+          and n_seq["quad_phi"] > NITERS and n_seq["quad_moments"] == NITERS
+          and n_seq["fused_trials"] == n_seq["fused_gradient"] == 0,
+          f"seq: the separate path skipped a kernel: {n_seq}")
+    check_costs("seq path", h_seq, B_SEPARATE)
+    (_, h_ema), n_ema = counted(optimize, graph_s, state_s, cfg_ema)
+    print(f"[ema path] launches {n_ema}", flush=True)
+    # K1 and K3: at init, at every blended iterate, and K1 once more for
+    # the carry's covariance at the end of the fused-gradient run
+    check(n_ema["fused_trials"] == NITERS and n_ema["fused_gradient"] == NITERS
+          and n_ema["gbp_covariance_logdet"] == NITERS + 2
+          and n_ema["quad_phi"] == NITERS + 1,
+          f"ema: the fused path skipped a kernel: {n_ema}")
+    check_costs("ema path", h_ema, B_SEPARATE)
+    g8, s8 = build_batch(torch.float64, dev, num_problems=8)
+    for name, c in (("seq", cfg_seq), ("ema", cfg_ema)):
+        hp = optimize(g8, s8, replace(c, chain_impl="seq", quad_impl="xla"))[1]
+        held_to_plain(f"{name} kernels vs plain path",
+                      optimize(g8, s8, c)[1], hp, dev, tag=f"{name} end to end")
+    trials = int(n_seq["quad_phi"]) - 1
+    print(f"[seq path] {trials} trial evaluations in {NITERS} iterations "
+          f"({TRIALS * NITERS} batched)", flush=True)
+    return {"seq": n_seq, "ema": n_ema}
+
+
+def ltv_problem(dtype, dev, count=None):
+    """``(graph, restarts, config)`` of LTV estimation: one problem's graph
+    with a restart axis, ``count`` restarts (``perturb_inits``, drawn in
+    float64 and cast)."""
+    from gaussianvi_tpu_torch.examples.ltv_estimation import (
+        build_ltv_estimation,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    graph, _, config = build_ltv_estimation(dtype=dtype, device=dev)
+    init64 = build_ltv_estimation(device=dev)[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    count = count or LTV_B
+    inits = perturb_inits(init64, gen, count, mean_scale=0.3)
+    prec = inits.precision
+    return _batch_graph(graph, count), GaussianState(
+        inits.mu.to(dtype), BlockTridiag(prec.diag.to(dtype),
+                                         prec.off.to(dtype))), config
+
+
+def ltv_runs(card, dev):
+    """LTV estimation at B = 1024 restarts under the defaults on the card:
+    the engine's resolution printed (its measurement batch is
+    ``cost_fn``-only, as in the JAX package: K1 / K2 at s = 2 and the
+    plain quadrature), float32 counted, costs finite and non-increasing
+    in both dtypes, float32 against float64 (below), the kernel path against the plain path in float64 on 8 restarts, the
+    rate.  Returns the launches."""
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+
+    f32, f64 = torch.float32, torch.float64
+    g32, i32, cfg = ltv_problem(f32, dev)
+    g64, i64, _ = ltv_problem(f64, dev)
+    eng = LocalEngine(g32, cfg, dev)
+    print(f"[ltv resolution] chain_kernel {eng.chain_kernel}, quad_kernel "
+          f"{eng.quad_kernel}, quad_batches {eng.quad_batches}, fused_trials "
+          f"{eng.fused_trials_ready}, fused_gradient "
+          f"{eng.fused_gradient_ready}", flush=True)
+    (s32, h32), n = counted(optimize, g32, i32, cfg)
+    print(f"[ltv path] launches {n}", flush=True)
+    check(n["gbp_covariance_logdet"] > 0 and n["solve"] == LTV_ITERS
+          and all(v == 0 for k, v in n.items()
+                  if k not in ("gbp_covariance_logdet", "solve")),
+          f"ltv: not K1 / K2 with the plain quadrature: {n}")
+    check_costs("ltv path float32", h32, LTV_B, LTV_ITERS)
+    s64, h64 = optimize(g64, i64, cfg)
+    check_costs("ltv path float64", h64, LTV_B, LTV_ITERS)
+    # float32 ends its search, and so escalates the temperature, some
+    # iterations before float64 does (the JAX package's float32 too: at
+    # iteration 9 of its own example where float64 never does): the costs
+    # are held up to each restart's first failed search in either dtype,
+    # and the final means, which the escalation barely moves
+    rel = ((h32.cost.double() - h64.cost).abs()
+           / h64.cost.abs().clamp_min(1e-12))
+    failed = (h32.accepted_step == 0) | (h64.accepted_step == 0)
+    until = torch.where(failed.any(1), failed.int().argmax(1), LTV_ITERS)
+    held = torch.arange(LTV_ITERS, device=dev)[None, :] < until[:, None]
+    pre = rel[held].max().item() if held.any() else 0.0
+    dmu = (s32.mu.double() - s64.mu).abs().max().item()
+    print(f"[ltv path] f32 vs f64: first record max "
+          f"{rel[:, 0].max().item():.3e}, before the first failed search "
+          f"max {pre:.3e} ({int(held.sum())} records), final means max abs "
+          f"{dmu:.3e}; first failed search at iteration median "
+          f"{until.float().median().item():.0f}", flush=True)
+    check(rel[:, 0].max().item() < 1e-4, "ltv: first-record f32 vs f64")
+    check(pre < 1e-4, f"ltv: f32 vs f64 before the first failed search "
+          f"{pre:.3e}")
+    check(dmu < 1e-4, f"ltv: final means f32 vs f64 {dmu:.3e} apart")
+    g8, s8, _ = ltv_problem(f64, dev, 8)
+    hp = optimize(g8, s8, replace(cfg, chain_impl="seq", quad_impl="xla"))[1]
+    held_to_plain("ltv chain kernels vs plain path", optimize(g8, s8, cfg)[1],
+                  hp, dev, tag="ltv end to end")
+    r = rate(lambda: optimize(g32, i32, cfg), LTV_B * LTV_ITERS)
+    print(f"[throughput] {card}: LTV estimation (K1 / K2 at s = 2, plain "
+          f"quadrature) {r:.1f} prob-iters/s (B={LTV_B}, N={h32.mu.shape[2]},"
+          f" {LTV_ITERS} iters, f32, median of 3)", flush=True)
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
@@ -2909,6 +3466,27 @@ def main() -> int:
                  if s == 14 else "11 x 1024 chains of N = 1 / the pair of "
                  "1024: a batch of Barfoot problems") + ")", flush=True)
 
+    # ---- bfloat16 offsets in K3, K5 and K6, their paths; resume; the
+    # sequential line search and EMA; LTV estimation ----
+    bf16_kern = {"flagship": bf16_flagship_checks(graph_b, dev, iterate),
+                 "point3d": bf16_s6_checks(dev)}
+    took("bf16 kernel checks and times")
+    bf16_counts = bf16_runs(card, dev, graph_b, state_b, graph_s, state_s)
+    took("bf16 paths")
+    resume_counts = resume_runs(dev, graph_b, state_b)
+    took("resume")
+    option_counts = options_runs(dev, graph_s, state_s)
+    took("seq and EMA paths")
+    ltv_counts = ltv_runs(card, dev)
+    took("LTV estimation")
+    for model, rows_ in bf16_kern.items():
+        for name, r in rows_.items():
+            print(f"[kernel time] {card}: bf16 {model} {name} {r['ms']:.4f} ms "
+                  f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed), "
+                  f"unquantized {r['unquantized_ms']:.4f} ms "
+                  f"({r['unquantized_ms_flushed_l2']:.4f} ms), plain "
+                  f"{r['plain_ms']:.4f} ms (f32)", flush=True)
+
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
     sources = {
         "gbp_covariance_logdet": ("chain.cuh", "chain_lanes.py:131", "fused"),
@@ -2997,6 +3575,37 @@ def main() -> int:
                                    else "chain.cuh via chain_wide.cu"),
                     **wide_kern[s, name])
 
+    # the bfloat16 instances: their launches on the bfloat16 paths (fused
+    # at B = 1024, separate at B = 256), their times beside the
+    # unquantized instances', the unquantized instances' bounds (the same
+    # bytes and, within two operations an offset, the same work)
+    bf16_path = {"gbp_covariance_logdet": "bf16 fused",
+                 "quad_phi": "bf16 fused", "quad_moments": "bf16 separate",
+                 "fused_trials": "bf16 fused", "fused_gradient": "bf16 fused",
+                 "solve": "bf16 separate"}
+    unquantized = {"flagship": lambda name: kern[name],
+                   "point3d": lambda name: s6_kern["point3d", name]}
+
+    def bf16_row(name):
+        row = {}
+        if name in bf16_path:
+            row["launches"] = {bf16_path[name]:
+                               bf16_counts[bf16_path[name]][name]}
+        for model, rows_ in bf16_kern.items():
+            if name not in rows_:
+                continue
+            ref = unquantized[model](name)
+            row[model] = dict(rows_[name], bound_ms=ref["bound_ms"],
+                              bound_by=ref["bound_by"])
+        if name in ("fused_gradient_accum", "fused_gradient_solve"):
+            row["note"] = ("held and timed, on no path: the factor-parallel "
+                           "path does not take moments_eval_dtype yet")
+        return row
+
+    check(all(bf16_counts[p][name] > 0 for name, p in bf16_path.items()),
+          "a kernel was launched on none of the bf16 paths")
+    option_paths = {"resume": resume_counts, "seq": option_counts["seq"],
+                    "ema": option_counts["ema"], "ltv": ltv_counts}
     check(all(wide_row(s, name)["launches"] > 0 for s, name in wide_kern),
           "an s = 14 or s = 1 chain kernel was launched on none of its paths")
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
@@ -3012,7 +3621,9 @@ def main() -> int:
                  **({} if "library_ms" in kern[name]
                     else {"library_note": note}),
                  planner=planner_rows[name], s6=s6_row(name),
-                 s14=wide_row(14, name), s1=wide_row(1, name))
+                 s14=wide_row(14, name), s1=wide_row(1, name),
+                 bf16=bf16_row(name),
+                 option_launches={p: c[name] for p, c in option_paths.items()})
             for name, note in zip(WRAPPERS, no_library)]
     check(all(v["launches"] > 0 for name in s6_path
               for v in s6_row(name).values()),

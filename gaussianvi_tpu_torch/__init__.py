@@ -14,7 +14,19 @@ Imports PyTorch and numpy, never JAX.
 
 from .batching import stack_problems
 from .device import default_device
-from .inference import FactorGraph, GaussianState, GVIConfig, optimize
+from .factors import LinearFactorBatch, NonlinearFactorBatch, make_nonlinear_batch
+from .inference import (
+    FactorGraph,
+    GaussianState,
+    GVIConfig,
+    GVIHistory,
+    optimize,
+)
+from .ops import BlockTridiag
 
-__all__ = ["FactorGraph", "GaussianState", "GVIConfig", "default_device",
-           "optimize", "stack_problems"]
+__all__ = [
+    "FactorGraph", "GaussianState", "GVIConfig", "GVIHistory", "optimize",
+    "BlockTridiag",
+    "NonlinearFactorBatch", "LinearFactorBatch", "make_nonlinear_batch",
+    "default_device", "stack_problems",
+]

@@ -46,8 +46,8 @@ namespace gvi {
 
 constexpr int kMaxBatches = 4;
 constexpr int kNLPtrs = 6;   // nodes, weights, params, index, fc, field
-// k, m, nonneg, rdim, field rows, field cols, field depth
-constexpr int kNLInts = 7;
+// k, m, nonneg, rdim, field rows, field cols, field depth, quant
+constexpr int kNLInts = 8;
 constexpr int kLinPtrs = 6;  // a, lam, pm, prec, index, fc
 constexpr int kLinInts = 4;  // span, k, ka, r
 constexpr int kWarp = 32;
@@ -72,6 +72,7 @@ struct NLBatch {
   T* fc;              // trial kernel: E[phi] out, [T, B, k]
   Field<T> field;     // the cost's field, shared by every problem
   int k, m, nonneg, rdim;
+  int quant;          // 1: offsets rounded through bfloat16 (sigma.cuh)
   int smem;           // element offset of the rule in shared memory
 };
 
@@ -120,6 +121,7 @@ inline bool parse_factors(int n_nl, void* const* nl_ptrs,
     b.m = q[1];
     b.nonneg = q[2];
     b.rdim = q[3];
+    b.quant = q[7];
     b.smem = off;
     off += b.m * (S + 1);
   }

@@ -103,7 +103,7 @@ __device__ __forceinline__ void state_gradients(
       load_params<T, Cost>(fb, k, b, p);
       sigma_sums<T, S, Cost, true>(l, mu_c, p, fb.field, rules + fb.smem,
                                    rules + fb.smem + fb.m * S, fb.m, e_phi,
-                                   absum, e_x, e_tri);
+                                   absum, e_x, e_tri, fb.quant);
       T exx[S][S];
       int t = 0;
 #pragma unroll

@@ -49,11 +49,11 @@ extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
     return gvi::quad_entry<float, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
         params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
-        k, m, 0, rdim, group_shift, threads, stream);
+        k, m, 0, rdim, 0, group_shift, threads, stream);
   if (dtype == 1)
     return gvi::quad_entry<double, true>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
         params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
-        k, m, 0, rdim, group_shift, threads, stream);
+        k, m, 0, rdim, 0, group_shift, threads, stream);
   return -1;
 }

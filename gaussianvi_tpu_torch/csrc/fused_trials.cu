@@ -135,7 +135,7 @@ __device__ __forceinline__ void state_costs(const Factors<T>& f,
       load_params<T, Cost>(fb, k, b, p);
       sigma_sums<T, S, Cost, false>(l, mu_c, p, fb.field, rules + fb.smem,
                                     rules + fb.smem + fb.m * S, fb.m, acc,
-                                    absum, ax, axx);
+                                    absum, ax, axx, fb.quant);
       fb.fc[tb * fb.k + k] = guard_phi(acc, absum, fb.nonneg);
     });
   }

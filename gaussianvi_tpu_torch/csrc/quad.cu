@@ -7,7 +7,9 @@
 //             nonneg band (line-search cost path);
 //   moments   (with_moments = 1): E[phi], E[(x-mu) phi],
 //             E[(x-mu)(x-mu)^T phi] with the closed-form quad_rdim lift
-//             L[:, r:] L[:, r:]^T E[phi] for marginal rules (gradient path).
+//             L[:, r:] L[:, r:]^T E[phi] for marginal rules (gradient path);
+// either with the TPU kernel's eval_dtype: quant = 1 rounds every sigma
+// offset through bfloat16 and back (sigma.cuh place_node).
 // The kernel body is quad.cuh's, which the block-form moments kernel
 // (fused_moments.cu, K4) shares.
 //
@@ -49,14 +51,14 @@ extern "C" int gvi_quad(int dtype, int d, int cost, int with_moments,
                         const void* field, int rows, int cols, int depth,
                         void* e_phi, void* e_xmu, void* e_xxt,
                         long long count, int k, int m, int np, int nonneg,
-                        int rdim, int group_shift, int threads,
+                        int rdim, int quant, int group_shift, int threads,
                         void* stream) {
   if (count <= 0) return 0;
 #define GVI_QUAD(T, M)                                                       \
   gvi::quad_entry<T, M>(d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, \
                         nodes, weights, params, period, field, rows, cols,   \
                         depth, e_phi, e_xmu, e_xxt, count, k, m, nonneg,     \
-                        rdim, group_shift, threads, stream)
+                        rdim, quant, group_shift, threads, stream)
   if (dtype == 0)
     return with_moments ? GVI_QUAD(float, true) : GVI_QUAD(float, false);
   if (dtype == 1)

@@ -75,6 +75,7 @@ struct QuadOperands {
   int64_t mu_sb, mu_sk, cov_sb, cov_sk;
   unsigned count, k, period;
   int m, group_shift, nonneg, rdim;
+  int quant;         // 1: offsets rounded through bfloat16 (sigma.cuh)
 };
 
 // Internal linkage: quad.cu and fused_moments.cu each build their own
@@ -116,7 +117,7 @@ __global__ void quad_kernel(const QuadOperands<T> op) {
   T acc, absum, acc_x[D], acc_xx[Tri<D>::value];
   group_sigma_sums<T, D, Cost, WithMoments>(l, mu_k, p, op.field, s_nodes,
                                             s_w, op.m, lane, group, acc,
-                                            absum, acc_x, acc_xx);
+                                            absum, acc_x, acc_xx, op.quant);
   acc = group_sum(acc, group);
   if (!WithMoments) {
     absum = group_sum(absum, group);
@@ -183,7 +184,7 @@ int launch_quad(const QuadOperands<T>& op, int threads, cudaStream_t st) {
 // SDF at d = 6), -1 for any other; strides and the params' period in
 // elements / factors; field: the cost's depth x rows x cols field (depth 1
 // for a planar one; null, 0, 0, 0 for a cost without one); rdim = d
-// disables the lift.
+// disables the lift; quant 1 rounds the offsets through bfloat16.
 template <typename T, bool WithMoments>
 int quad_entry(int d, int cost, int np, const void* mu,
                long long mu_sb, long long mu_sk, const void* cov,
@@ -191,8 +192,8 @@ int quad_entry(int d, int cost, int np, const void* mu,
                const void* weights, const void* params, long long period,
                const void* field, int rows, int cols, int depth,
                void* e_phi, void* e_xmu, void* e_xxt, long long count, int k,
-               int m, int nonneg, int rdim, int group_shift, int threads,
-               void* stream) {
+               int m, int nonneg, int rdim, int quant, int group_shift,
+               int threads, void* stream) {
   QuadOperands<T> op;
   op.mu = static_cast<const T*>(mu);
   op.cov = static_cast<const T*>(cov);
@@ -214,6 +215,7 @@ int quad_entry(int d, int cost, int np, const void* mu,
   op.group_shift = group_shift;
   op.nonneg = nonneg;
   op.rdim = rdim;
+  op.quant = quant;
   const auto st = static_cast<cudaStream_t>(stream);
   if (cost == kRangeCost && d == 2 && np == RangeCost<1>::kParams)
     return launch_quad<T, 2, RangeCost<1>, WithMoments>(op, threads, st);

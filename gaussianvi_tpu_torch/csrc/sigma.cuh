@@ -16,11 +16,72 @@
 // j taking nodes j, j + G, ... from a coordinate-major rule [D][m], so the
 // group's lanes read neighbouring words; a butterfly then leaves every lane
 // of the group with the totals (the quadrature kernels).
+//
+// quant (a runtime flag, the same for every thread of a launch): 1 rounds
+// each offset through bfloat16 and back before the point is placed and the
+// moments are summed (centered quantization, moments_eval_dtype; the TPU
+// kernels' `t.astype(eval_dtype).astype(t.dtype)`).  That branch forms the
+// offset with round-to-nearest products and sums, never a fused
+// multiply-add, so that it has the bits of the plain PyTorch version
+// (factors/moments.py kernel_offsets): a one-ulp difference before the
+// round trip would be a bfloat16 ulp (2^-8 relative) after it.  A double
+// rounds through float first, as PyTorch and the JAX package round it.
+// quant = 0 keeps the contracted arithmetic of the unquantized kernels.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "costs.cuh"
 
 namespace gvi {
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ double round_bf16(double x) {
+  return static_cast<double>(
+      __bfloat162float(__float2bfloat16_rn(static_cast<float>(x))));
+}
+
+// Offsets d = L nd of one node (rows summed from column 0 up) and its
+// point x = mu + d; quant as above.
+template <typename T, int D>
+__device__ __forceinline__ void place_node(const T* nd, const T (&l)[D][D],
+                                           const T (&mu)[D], int quant,
+                                           T (&diff)[D], T (&pts)[D]) {
+  if (quant) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      T t = mul_rn(nd[0], l[i][0]);
+#pragma unroll
+      for (int j = 1; j <= i; ++j) t = add_rn(t, mul_rn(nd[j], l[i][j]));
+      t = round_bf16(t);
+      diff[i] = t;
+      pts[i] = t + mu[i];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    T t = nd[0] * l[i][0];
+#pragma unroll
+    for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
+    diff[i] = t;
+    pts[i] = t + mu[i];
+  }
+}
 
 template <int D>
 struct Tri {
@@ -36,7 +97,8 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
                                            int m, T& acc, T& absum,
                                            T (&acc_x)[D],
                                            T (&acc_xx)[Tri<D>::value],
-                                           int first = 0, int step = 1) {
+                                           int quant, int first = 0,
+                                           int step = 1) {
   acc = T(0);
   absum = T(0);
 #pragma unroll
@@ -44,16 +106,8 @@ __device__ __forceinline__ void sigma_sums(const T (&l)[D][D],
 #pragma unroll
   for (int t = 0; t < Tri<D>::value; ++t) acc_xx[t] = T(0);
   for (int mi = first; mi < m; mi += step) {
-    const T* nd = s_nodes + mi * D;
     T diff[D], pts[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T t = nd[0] * l[i][0];
-#pragma unroll
-      for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
-      diff[i] = t;
-      pts[i] = t + mu[i];
-    }
+    place_node(s_nodes + mi * D, l, mu, quant, diff, pts);
     const T wphi = Cost::template eval<T, D>(pts, p, field) * s_w[mi];
     acc = acc + wphi;
     if (WithMoments) {
@@ -79,7 +133,7 @@ __device__ __forceinline__ void group_sigma_sums(
     const T (&l)[D][D], const T (&mu)[D], const T (&p)[Cost::kParams],
     const Field<T>& field, const T* s_nodes, const T* s_w, int m, int lane,
     int group, T& acc, T& absum, T (&acc_x)[D],
-    T (&acc_xx)[Tri<D>::value]) {
+    T (&acc_xx)[Tri<D>::value], int quant) {
   acc = T(0);
   absum = T(0);
 #pragma unroll
@@ -90,14 +144,7 @@ __device__ __forceinline__ void group_sigma_sums(
     T nd[D], diff[D], pts[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) nd[i] = s_nodes[i * m + mi];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T t = nd[0] * l[i][0];
-#pragma unroll
-      for (int j = 1; j <= i; ++j) t = t + nd[j] * l[i][j];
-      diff[i] = t;
-      pts[i] = t + mu[i];
-    }
+    place_node(nd, l, mu, quant, diff, pts);
     const T wphi = Cost::template eval<T, D>(pts, p, field) * s_w[mi];
     acc = acc + wphi;
     if (WithMoments) {

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.blocktridiag import spd_inv
+from ..ops.psd import psd_sqrtm
 from ..ops.smallmat import chol_small
 
 # Rounding-band width (ulps of sum |w phi|) for the nonneg-phi guard; see
@@ -25,28 +26,110 @@ NONNEG_BAND = 4096.0
 # cancellation-trust guard: |sum w phi| below this many ulps of
 # sum |w phi| is poisoned (gaussianvi_tpu/kernels/quad_lanes._cancel_tol)
 CANCEL_ULPS = 64.0
+# the names ``GVIConfig.moments_eval_dtype`` takes
+EVAL_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _eps(t: torch.Tensor) -> float:
     return torch.finfo(t.dtype).eps
 
 
-def _sigma_diffs(nodes, cov):
+def as_eval_dtype(value) -> torch.dtype | None:
+    """A ``moments_eval_dtype`` (None, ``"bfloat16"``, ``"float16"`` or the
+    torch dtype) as a torch dtype or None."""
+    if value is None or value in EVAL_DTYPES.values():
+        return value
+    if value in EVAL_DTYPES:
+        return EVAL_DTYPES[value]
+    raise ValueError(f"unknown moments_eval_dtype {value!r} (one of "
+                     f"{sorted(EVAL_DTYPES)})")
+
+
+def kernel_quantizes(eval_dtype) -> bool:
+    """Whether the quadrature kernels (K3, K5, K6) take ``eval_dtype``:
+    None and bfloat16 (rounded in the kernel); float16 keeps the plain
+    quadrature, as in the JAX package (``moments._lanes_eligible``)."""
+    return as_eval_dtype(eval_dtype) in (None, torch.bfloat16)
+
+
+def quantize(diff: torch.Tensor, eval_dtype) -> torch.Tensor:
+    """Round sigma offsets through ``eval_dtype`` and back (none for None).
+    From float64 PyTorch rounds to bfloat16 through float32, as the JAX
+    package does and as the kernels' float64 instances do."""
+    eval_dtype = as_eval_dtype(eval_dtype)
+    if eval_dtype is None:
+        return diff
+    return diff.to(eval_dtype).to(diff.dtype)
+
+
+def sigma_points(nodes, mu, cov, method: str = "cholesky"):
+    """Zero-mean nodes placed at N(mu_k, cov_k): ``mu + F node`` for a
+    factor F F^T = cov, the lower Cholesky factor (``"cholesky"``) or the
+    symmetric root (``"eigh"``).  ``nodes [M, d]``, ``mu [..., K, d]``,
+    ``cov [..., K, d, d]`` -> ``[M, ..., K, d]`` (sigma axis first; JAX
+    gives ``[K, M, d]``)."""
+    if method == "cholesky":
+        sqrt_p = chol_small(cov)
+    elif method == "eigh":
+        sqrt_p = psd_sqrtm(cov)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return torch.einsum("md,...ed->m...e", nodes, sqrt_p) + mu
+
+
+def eval_phi(cost_fn, pts, params):
+    """phi over the sigma batch: ``pts [M, ..., K, d]`` -> ``[M, ..., K]``
+    (the port's cost functions take the whole batch at once)."""
+    return cost_fn(pts, params)
+
+
+def kernel_offsets(nodes, sqrt_p, eval_dtype=None):
+    """Sigma offsets ``L node`` summed as the kernels sum them
+    (``csrc/sigma.cuh``): ``nd[0] l[i][0]``, then ``+ nd[j] l[i][j]`` for
+    j = 1..i, each product and sum rounded, then the round trip through
+    ``eval_dtype``.  A one-ulp difference before the round trip becomes a
+    bfloat16 ulp after it, so the plain versions of the kernels form a
+    quantized offset this way, not by an einsum.  ``[M, ..., K, d]``."""
+    m, d = nodes.shape
+    nd = nodes.reshape(m, *([1] * (sqrt_p.ndim - 2)), d)
+    rows = []
+    for i in range(d):
+        t = nd[..., 0] * sqrt_p[..., i, 0]
+        for j in range(1, i + 1):
+            t = t + nd[..., j] * sqrt_p[..., i, j]
+        rows.append(t)
+    return quantize(torch.stack(rows, dim=-1), eval_dtype)
+
+
+def _sigma_diffs(nodes, cov, eval_dtype=None, kernel_order=False):
     """Zero-mean sigma offsets ``nodes @ L^T`` with the sigma-point axis
-    FIRST: [M, ..., K, d] (and the lower factor L)."""
+    FIRST: [M, ..., K, d] (and the lower factor L), rounded through
+    ``eval_dtype`` and back where it is set: centered quantization, which
+    keeps the rounding error relative to the offset, not to the point
+    (gaussianvi_tpu/factors/moments._sigma_diffs).  ``kernel_order``: sum
+    in the kernels' order (:func:`kernel_offsets`)."""
     sqrt_p = chol_small(cov)
-    return torch.einsum("md,...ed->m...e", nodes, sqrt_p), sqrt_p
+    if kernel_order:
+        return kernel_offsets(nodes, sqrt_p, eval_dtype), sqrt_p
+    diff = torch.einsum("md,...ed->m...e", nodes, sqrt_p)
+    return quantize(diff, eval_dtype), sqrt_p
 
 
-def _weighted_phi(nodes, weights, mu, cov, cost_fn, params):
-    diff, sqrt_p = _sigma_diffs(nodes, cov)
+def _weighted_phi(nodes, weights, mu, cov, cost_fn, params, eval_dtype=None,
+                  kernel_order=False):
+    diff, sqrt_p = _sigma_diffs(nodes, cov, eval_dtype, kernel_order)
     phi = cost_fn(diff + mu, params)                  # [M, ..., K]
     return phi * weights.reshape(-1, *([1] * (phi.ndim - 1))), diff, sqrt_p
 
 
-def gh_moments(nodes, weights, mu, cov, cost_fn, params, rdim=None):
+def gh_moments(nodes, weights, mu, cov, cost_fn, params, eval_dtype=None,
+               rdim=None, kernel_order=False):
     """(E[phi] [..., K], E[(x-mu)phi] [..., K, d],
     E[(x-mu)(x-mu)^T phi] [..., K, d, d]).
+
+    ``eval_dtype``: centered offset quantization (:func:`_sigma_diffs`);
+    phi and every reduction stay in the working dtype, and the moments
+    accumulate the rounded offsets.
 
     ``cost_fn(pts [M, ..., K, d], params) -> [M, ..., K]``: param leaves
     ``[..., K, *leaf]`` broadcast against the points from the right.
@@ -56,7 +139,7 @@ def gh_moments(nodes, weights, mu, cov, cost_fn, params, rdim=None):
     second moment (derivation in gaussianvi_tpu/factors/moments.gh_moments).
     """
     wphi, diff, sqrt_p = _weighted_phi(nodes, weights, mu, cov, cost_fn,
-                                       params)
+                                       params, eval_dtype, kernel_order)
     e_phi = torch.sum(wphi, dim=0)
     e_xmu = torch.einsum("m...,m...d->...d", wphi, diff)
     e_xxt = torch.einsum("m...,m...d,m...e->...de", wphi, diff, diff)
@@ -80,9 +163,12 @@ def guard_phi(tot, absum, nonneg: bool):
 
 
 def expectation_phi(nodes, weights, mu, cov, cost_fn, params,
-                    nonneg: bool = False):
-    """E[phi] only (the line-search cost path), cancellation-guarded."""
-    wphi, _, _ = _weighted_phi(nodes, weights, mu, cov, cost_fn, params)
+                    eval_dtype=None, nonneg: bool = False,
+                    kernel_order=False):
+    """E[phi] only (the line-search cost path), cancellation-guarded;
+    ``eval_dtype`` as in :func:`gh_moments`."""
+    wphi, _, _ = _weighted_phi(nodes, weights, mu, cov, cost_fn, params,
+                               eval_dtype, kernel_order)
     return guard_phi(torch.sum(wphi, dim=0),
                      torch.sum(torch.abs(wphi), dim=0), nonneg)
 
@@ -112,40 +198,45 @@ def _kernel_cost(fb):
     return fb.kernel_cost, fb.kernel_params
 
 
-def batch_phi(fb, mu_k, cov_k, use_kernel: bool):
+def batch_phi(fb, mu_k, cov_k, use_kernel: bool, eval_dtype=None):
     """E[phi] [..., K] for a NonlinearFactorBatch: the quadrature kernel
-    (``kernels.quad.quad_lanes_phi``) or :func:`expectation_phi`."""
-    if use_kernel:
+    (``kernels.quad.quad_lanes_phi``) or :func:`expectation_phi`.  A
+    float16 ``eval_dtype`` keeps the plain quadrature (the kernel rounds
+    through bfloat16 only), as in the JAX package."""
+    if use_kernel and kernel_quantizes(eval_dtype):
         from ..kernels.quad import quad_lanes_phi
 
         return quad_lanes_phi(mu_k, cov_k, fb.nodes, fb.weights,
                               *_kernel_cost(fb), nonneg=fb.nonneg_cost,
-                              field=fb.kernel_field)
+                              field=fb.kernel_field, eval_dtype=eval_dtype)
     return expectation_phi(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
-                           fb.params, nonneg=fb.nonneg_cost)
+                           fb.params, eval_dtype, nonneg=fb.nonneg_cost)
 
 
 def batch_moments(fb, mu_k, cov_k, use_pallas: bool = False,
-                  use_kernel: bool = False):
+                  use_kernel: bool = False, eval_dtype=None):
     """The three moments for a NonlinearFactorBatch: the block-form kernel
     (``kernels.fused_moments.fused_moments``) when the caller opted in
     (``GVIConfig.use_pallas``) and the batch has a block form, else the
-    quadrature kernel (``kernels.quad.quad_lanes_moments``) or
-    :func:`gh_moments`.  Every route applies the ``quad_rdim`` lift."""
+    quadrature kernel (``kernels.quad.quad_lanes_moments``; not for a
+    float16 ``eval_dtype``) or :func:`gh_moments`.  Every route applies
+    the ``quad_rdim`` lift.  The block-form route ignores ``eval_dtype``,
+    as the JAX package's does: its kernel has no such argument."""
     if use_pallas and fb.block_cost is not None:
         from ..kernels.fused_moments import fused_moments
 
         return fused_moments(fb.nodes, fb.weights, mu_k, cov_k,
                              *_kernel_cost(fb), rdim=fb.quad_rdim,
                              field=fb.kernel_field)
-    if use_kernel:
+    if use_kernel and kernel_quantizes(eval_dtype):
         from ..kernels.quad import quad_lanes_moments
 
         return quad_lanes_moments(mu_k, cov_k, fb.nodes, fb.weights,
                                   *_kernel_cost(fb), rdim=fb.quad_rdim,
-                                  field=fb.kernel_field)
+                                  field=fb.kernel_field,
+                                  eval_dtype=eval_dtype)
     return gh_moments(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
-                      fb.params, rdim=fb.quad_rdim)
+                      fb.params, eval_dtype, rdim=fb.quad_rdim)
 
 
 def ngd_local_gradients(e_phi, e_xmu, e_xxt, cov, temperature):

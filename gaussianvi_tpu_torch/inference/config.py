@@ -35,8 +35,16 @@ What the implementation switches mean in the port:
   itself: pass ``fused_gradient="off"``) and none on ``method="prox"``.
   Unlike the JAX package, the route applies the ``quad_rdim`` lift, so it
   agrees with the other routes on a marginal rule.
-* ``linesearch="seq"``, ``ema_alpha != 1`` and ``moments_eval_dtype``
-  raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+* ``linesearch``: ``"batched"`` (every trial at once) or ``"seq"`` (one
+  trial after another per problem, stopping at the first accepted one;
+  the fused trial kernel needs ``"batched"``).  ``ema_alpha`` < 1 blends
+  the accepted proposal with the current iterate.
+* ``moments_eval_dtype`` (NGD only): ``"bfloat16"`` or ``"float16"``
+  rounds every sigma offset through that dtype and back (centered
+  quantization).  bfloat16 keeps the quadrature kernels and both fused
+  kernels, which round in the kernel; float16 takes the plain quadrature
+  and no fused kernel (``"on"`` raises), as in the JAX package.  The
+  block-form moments (``use_pallas``) ignore it, as the JAX package's do.
 
 ``optimize(..., method="prox")`` runs the proximal (Bures-Wasserstein JKO)
 optimizer: the quadrature kernel's moments, the fused trial kernel when

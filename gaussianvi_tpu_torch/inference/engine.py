@@ -59,22 +59,19 @@ def use_kernel(impl: str, plain: str, field: str, device: torch.device,
 
 
 def check_config(config, method: str) -> None:
-    """Raise for every option the port does not cover yet."""
+    """Raise ``ValueError`` for an unknown method or option value."""
     if method not in ("ngd", "prox"):
         raise ValueError(f"unknown method {method!r}")
     for name in ("fused_trials", "fused_gradient"):
         value = getattr(config, name)
         if value not in ("auto", "on", "off"):
             raise ValueError(f"unknown {name} {value!r}")
+    if config.linesearch not in ("batched", "seq"):
+        raise ValueError(f"unknown linesearch {config.linesearch!r}")
     if config.fused_trials == "on" and config.linesearch != "batched":
         raise ValueError("fused_trials='on' needs linesearch='batched' (the "
                          "kernel evaluates every trial at once)")
-    if config.linesearch != "batched":
-        raise NotImplementedError(f"linesearch={config.linesearch!r} is {_TODO}")
-    if config.ema_alpha != 1.0:
-        raise NotImplementedError(f"ema_alpha != 1 is {_TODO}")
-    if config.moments_eval_dtype is not None:
-        raise NotImplementedError(f"moments_eval_dtype is {_TODO}")
+    mm.as_eval_dtype(config.moments_eval_dtype)
 
 
 def fused_operands(graph: FactorGraph):
@@ -150,11 +147,19 @@ class LocalEngine:
     Resolved routes: ``chain_kernel`` (K1/K2), ``quad_kernel`` (the
     quadrature's route: its kernel family, or the plain version for every
     batch), ``quad_batches`` (per nonlinear batch, whether that batch takes
-    the quadrature kernel), ``fused_trials_ready``, ``fused_gradient_ready``
-    (K6 in the modes of ``gradient_modes``)."""
+    the quadrature kernel where the call's ``eval_dtype`` is None or
+    bfloat16; a float16 call takes the plain quadrature),
+    ``fused_trials_ready``, ``fused_gradient_ready`` (K6 in the modes of
+    ``gradient_modes``), and the ``eval_dtype`` the fused kernels round
+    the offsets through, ``fused_eval_dtype`` / ``fused_grad_eval_dtype``
+    (the config's ``moments_eval_dtype``: the loop takes a fused kernel
+    only where its own eval_dtype matches, so prox, which never
+    quantizes, takes neither under a bfloat16 config)."""
 
     # the modes of K6 the fused gradient step runs
     gradient_modes = ("full",)
+    fused_eval_dtype = None
+    fused_grad_eval_dtype = None
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
@@ -181,6 +186,11 @@ class LocalEngine:
                                          and config.chain_impl == "seq"):
             why_not = ("quad_impl='xla' (or 'auto' with chain_impl='seq') "
                        "forces the plain quadrature")
+        eval_dtype = mm.as_eval_dtype(config.moments_eval_dtype)
+        if why_not is None and not mm.kernel_quantizes(eval_dtype):
+            why_not = (f"moments_eval_dtype={config.moments_eval_dtype!r} "
+                       "keeps the plain quadrature (the kernels round "
+                       "offsets through bfloat16 only)")
         self.fused_trials_ready = _use_fused(
             "fused_trials", config.fused_trials,
             why_not or (None if config.linesearch == "batched"
@@ -190,6 +200,10 @@ class LocalEngine:
             "fused_gradient", config.fused_gradient,
             why_not or fg.covers(graph.state_dim, self.gradient_modes),
             self.quad_kernel)
+        if self.fused_trials_ready:
+            self.fused_eval_dtype = eval_dtype
+        if self.fused_gradient_ready:
+            self.fused_grad_eval_dtype = eval_dtype
         self._fused_ops = ops if why_not is None else None
 
     # -- chain ---------------------------------------------------------------
@@ -200,15 +214,16 @@ class LocalEngine:
         return gbp_plain(prec)
 
     # -- costs ---------------------------------------------------------------
-    def factor_costs_raw(self, mu, cov_diag, cov_off):
+    def factor_costs_raw(self, mu, cov_diag, cov_off, eval_dtype=None):
         """Untempered per-factor E[psi_k], one ``[..., K]`` tensor per batch
-        (nonlinear batches first, then linear)."""
+        (nonlinear batches first, then linear); ``eval_dtype``: the sigma
+        offsets' rounding."""
         g = self.graph
         out = []
         for fb, kernel in zip(g.nonlinear, self.quad_batches):
             mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                            cov_off, fb.slice_offset)
-            out.append(mm.batch_phi(fb, mu_k, cov_k, kernel))
+            out.append(mm.batch_phi(fb, mu_k, cov_k, kernel, eval_dtype))
         for lb in g.linear:
             out.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off))
         return tuple(out)
@@ -230,9 +245,11 @@ class LocalEngine:
         return 0.5 * trial_lds + self.reduce_fc(fc_t, trial_lds)
 
     # -- gradients -----------------------------------------------------------
-    def ngd_gradients(self, mu, cov_diag, cov_off, temperature):
+    def ngd_gradients(self, mu, cov_diag, cov_off, temperature,
+                      eval_dtype=None):
         return ngd_gradients(self.graph, mu, cov_diag, cov_off, temperature,
-                             self.use_pallas, self.quad_batches)
+                             self.use_pallas, self.quad_batches,
+                             eval_dtype=eval_dtype)
 
     def prox_gradients(self, mu, cov_diag, cov_off, step_size):
         return prox_gradients(self.graph, mu, cov_diag, cov_off, step_size,
@@ -278,7 +295,7 @@ class LocalEngine:
         ld, fc = trial_costs_lanes(
             flat(state.mu), flat(dmu), flat(prec.diag), flat(prec.off),
             flat(dprec.diag), flat(dprec.off), trials,
-            *self._flat_operands(batch))
+            *self._flat_operands(batch), eval_dtype=self.fused_eval_dtype)
         t = trials.shape[0]
         return (ld.reshape(t, *batch),
                 tuple(f.reshape(t, *batch, f.shape[-1]) for f in fc))
@@ -294,12 +311,13 @@ class LocalEngine:
             return x.reshape(-1, *x.shape[len(batch):])
 
         def unflat(x):
-            return x.reshape(*batch, *x.shape[1:])
+            return x.reshape(batch + x.shape[1:])
 
         prec = state.precision
         out = gradient_lanes(
             flat(state.mu), flat(prec.diag), flat(prec.off),
-            temperature.reshape(-1), *self._flat_operands(batch))
+            temperature.reshape(-1), *self._flat_operands(batch),
+            eval_dtype=self.fused_grad_eval_dtype)
         cd, co, ld, dpd, dpo, dmu, dfb = (unflat(x) for x in out)
         return cd, co, ld, BlockTridiag(dpd, dpo), dmu, dfb
 

@@ -30,9 +30,10 @@ def _with_kernels(graph: FactorGraph, quad_batches):
 
 
 def factor_costs(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                 temper_costs: bool = True, quad_batches=()):
+                 temper_costs: bool = True, quad_batches=(), eval_dtype=None):
     """Concatenated per-factor expected costs E[psi_k] (optionally / T):
-    ``[..., K_total]``, nonlinear batches first, then linear."""
+    ``[..., K_total]``, nonlinear batches first, then linear;
+    ``eval_dtype``: the sigma offsets' rounding (``factors.moments``)."""
     t = temperature if temper_costs else 1.0
     if isinstance(t, torch.Tensor) and t.ndim:
         t = t[..., None]
@@ -40,7 +41,7 @@ def factor_costs(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
     for fb, kernel in _with_kernels(graph, quad_batches):
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
-        costs.append(mm.batch_phi(fb, mu_k, cov_k, kernel) / t)
+        costs.append(mm.batch_phi(fb, mu_k, cov_k, kernel, eval_dtype) / t)
     for lb in graph.linear:
         costs.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off) / t)
     if not costs:
@@ -58,13 +59,15 @@ def joint_cost(graph: FactorGraph, mu, precision: BlockTridiag, temperature,
 
 
 def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
-                  use_pallas: bool = False, quad_batches=(), onto=None):
+                  use_pallas: bool = False, quad_batches=(), onto=None,
+                  eval_dtype=None):
     """Assemble joint (Vdmu [..., N, s], Vddmu block-tridiag).
 
     The NGD step downstream is d_precision = Vddmu - Lambda and
     d_mu = solve(Vddmu, -Vdmu).  ``onto``: accumulators ``(Vdmu, Vddmu)``
     to add into in place (a sharded engine's summed nonlinear part) in
-    place of zeros."""
+    place of zeros.  ``eval_dtype``: the sigma offsets' rounding (not on
+    the block-form route, as in the JAX package)."""
     n, s = mu.shape[-2:]
     if onto is not None:
         vdmu_joint, vddmu_joint = onto
@@ -76,7 +79,7 @@ def ngd_gradients(graph: FactorGraph, mu, cov_diag, cov_off, temperature,
         mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                        cov_off, fb.slice_offset)
         e_phi, e_xmu, e_xxt = mm.batch_moments(fb, mu_k, cov_k, use_pallas,
-                                               kernel)
+                                               kernel, eval_dtype)
         vdmu, vddmu = mm.ngd_local_gradients(e_phi, e_xmu, e_xxt, cov_k,
                                              temperature)
         scatter_gradients(fb.start, fb.nb, vdmu, vddmu, vdmu_joint,

@@ -51,8 +51,8 @@ SIGNATURES = {
     # units1, n, arena, stream
     "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _L, _P),
     # dtype, d, cost, with_moments, then QUAD_OPERANDS, nonneg, rdim,
-    # group_shift, threads, stream
-    "gvi_quad": (_I, _I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _I, _P),
+    # quant, group_shift, threads, stream
+    "gvi_quad": (_I, _I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _I, _I, _P),
     # dtype, d, cost, then QUAD_OPERANDS, rdim, group_shift, threads, stream
     "gvi_fused_moments": (_I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _P),
     # dtype, s, cost, np, mu, dmu, pd, po, dpd, dpo, trials, ld, scratch,

@@ -137,11 +137,12 @@ class Partials(tuple):
 
 
 def _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
-                lin_arrays, vdmu, vdd):
+                lin_arrays, vdmu, vdd, eval_dtype=None):
     """Add every factor's local gradients into ``vdmu`` / ``vdd`` in place:
-    the sigma-point moments with the marginal-rule lift and the NGD local
-    gradients of the nonlinear batches, the residual-form gradients of the
-    linear ones."""
+    the sigma-point moments with the marginal-rule lift (offsets rounded
+    through ``eval_dtype``, in the kernel's order, where it is set) and the
+    NGD local gradients of the nonlinear batches, the residual-form
+    gradients of the linear ones."""
     b, _, s = mu.shape
     t = temperature[:, None, None]
     for spec, arrays in zip(nl_specs, nl_arrays):
@@ -150,7 +151,8 @@ def _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
         cov_k = take_states(cov_diag, start, off, 2)
         moments = gh_moments(nodes, weights, take_states(mu, start, off, 1),
                              cov_k, cost_form(spec.cost, nl_field(arrays)),
-                             params, rdim=spec.rdim)
+                             params, eval_dtype, rdim=spec.rdim,
+                             kernel_order=eval_dtype is not None)
         vd_k, vdd_k = ngd_local_gradients(*moments, cov_k, temperature)
         scatter_gradients(start, 1, vd_k, vdd_k, vdmu, vdd, off)
     for spec, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
@@ -166,7 +168,8 @@ def _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
 
 
 def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
-                   lin_arrays, mode: str = "full", seeds=None):
+                   lin_arrays, mode: str = "full", seeds=None,
+                   eval_dtype=None):
     """Plain version of K6 in each mode.
 
     ``"full"`` / ``"solve"``: ``(cov_diag, cov_off, logdet, dprec_diag,
@@ -184,7 +187,7 @@ def gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
         for dst, src in zip(acc, seeds):
             dst.copy_(src)
     _accumulate(mu, cov_diag, temperature, nl_specs, lin_specs, nl_arrays,
-                lin_arrays, vdmu, vdd)
+                lin_arrays, vdmu, vdd, eval_dtype)
     if mode == "accum":
         return acc
     dprec = vdd - prec
@@ -216,7 +219,8 @@ def _check_mode(name, mode, seeds, nl_specs, lin_specs, mu):
 
 
 def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
-                   lin_arrays, mode: str = "full", seeds=None):
+                   lin_arrays, mode: str = "full", seeds=None,
+                   eval_dtype=None):
     """K6: ``mu [B, N, s]``, ``pd [B, N, s, s]``, ``po [B, N-1, s, s]``,
     ``temperature [B]`` and the factor operands of
     ``kernels/fused_trials.py``.
@@ -225,20 +229,21 @@ def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     vdo)`` of the ``"accum"`` calls, left untouched; linear operands only)
     -> ``(cov_diag [B, N, s, s], cov_off [B, N-1, s, s], logdet [B],
     dprec_diag, dprec_off, dmu [B, N, s], dmu_fallback [B, N, s])``.  Mode
-    ``"accum"`` (nonlinear operands only) -> :class:`Partials`.  CUDA
-    tensors launch the mode's kernel; CPU tensors run
+    ``"accum"`` (nonlinear operands only) -> :class:`Partials`.
+    ``eval_dtype`` None or bfloat16: the sigma offsets rounded through it
+    and back.  CUDA tensors launch the mode's kernel; CPU tensors run
     :func:`gradient_plain`."""
     name = "gradient_lanes"
     _check_mode(name, mode, seeds, nl_specs, lin_specs, mu)
     if mu.device.type == "cpu":
         return gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs,
-                              nl_arrays, lin_arrays, mode, seeds)
+                              nl_arrays, lin_arrays, mode, seeds, eval_dtype)
     return _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs,
-                            nl_arrays, lin_arrays, mode, seeds)
+                            nl_arrays, lin_arrays, mode, seeds, eval_dtype)
 
 
 def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
-                     lin_arrays, mode, seeds):
+                     lin_arrays, mode, seeds, eval_dtype):
     name = "gradient_lanes"
     b, n, s = check_state(name, mu, pd, po, temperature)
     why = covers(s, (mode,))
@@ -246,7 +251,8 @@ def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
         raise ValueError(f"{name}: {why}")
     if temperature.shape != (b,):
         raise ValueError(f"{name}: temperature must be [{b}]")
-    fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays)
+    fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
+                     eval_dtype=eval_dtype)
     plan = grad_plan(name, n, s, mu.element_size(), fa.fixed_bytes)
     ins = [x.contiguous() for x in (mu, pd, po, temperature)]
     dt, dev = mu.dtype, mu.device
@@ -281,11 +287,12 @@ def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     return acc if mode == "accum" else tuple(outs)
 
 
-def gradient_accum_lanes(mu, pd, po, temperature, nl_specs, nl_arrays):
+def gradient_accum_lanes(mu, pd, po, temperature, nl_specs, nl_arrays,
+                         eval_dtype=None):
     """K6 mode ``"accum"``: the :class:`Partials` of the nonlinear factors
     given (one rank's shard)."""
     return gradient_lanes(mu, pd, po, temperature, nl_specs, (), nl_arrays,
-                          (), mode="accum")
+                          (), mode="accum", eval_dtype=eval_dtype)
 
 
 def gradient_solve_lanes(mu, pd, po, temperature, seeds, lin_specs,

@@ -51,14 +51,14 @@ from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
 from . import _build
-from .quad import KERNEL_COSTS, cost_form, field_covers, field_dims
+from .quad import KERNEL_COSTS, cost_form, field_covers, field_dims, quant_flag
 
 BLOCK_SIZES = (2, 4, 6)  # instantiated state-block sizes s (local dim d = s)
 MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
 # pointers and ints per nonlinear batch (csrc/fused.cuh kNLPtrs, kNLInts):
 # nodes, weights, params, index, fc, field; k, m, nonneg, rdim, field rows,
-# field cols, field depth
-NL_PTRS, NL_INTS = 6, 7
+# field cols, field depth, quant (offsets rounded through bfloat16)
+NL_PTRS, NL_INTS = 6, 8
 SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
 SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
 TRIAL_WARPS = 4          # csrc/fused_trials.cu kTrialWarps
@@ -135,12 +135,14 @@ def edge_means(mu, start, slice_offset):
 
 
 def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                      lin_specs, nl_arrays, lin_arrays):
+                      lin_specs, nl_arrays, lin_arrays, eval_dtype=None):
     """Plain version of K5: ``(ld [T, B], fc tuple of [T, B, K])``.
 
     Trial iterates for all T at once, the plain GBP sweeps, guarded E[phi]
-    on the gathered marginals and the residual-form linear costs, each
-    read from its edge's joint covariance as the kernel reads it."""
+    on the gathered marginals (offsets rounded through ``eval_dtype``, in
+    the kernel's order, where it is set) and the residual-form linear
+    costs, each read from its edge's joint covariance as the kernel reads
+    it."""
     st = trials.reshape(-1, 1, 1, 1)
     t_mu = mu + st * dmu                                   # [T, B, N, s]
     st = st[..., None]
@@ -154,8 +156,8 @@ def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
         out.append(expectation_phi(
             nodes, weights, take_states(t_mu, start, off, 1),
             take_states(cov, start, off, 2),
-            cost_form(spec.cost, nl_field(arrays)), params,
-            nonneg=spec.nonneg))
+            cost_form(spec.cost, nl_field(arrays)), params, eval_dtype,
+            nonneg=spec.nonneg, kernel_order=eval_dtype is not None))
     for spec, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         off = spec.slice_offset
         if spec.nb == 1:
@@ -319,13 +321,15 @@ class FactorArgs(NamedTuple):
 
 
 def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                rows: int | None = None) -> FactorArgs:
+                rows: int | None = None, eval_dtype=None) -> FactorArgs:
     """Check and pack the factor operands for a launch at ``mu [B, N, s]``:
     every per-problem operand as it is (problem-major, contiguous), each
     batch's per-state index, and a nonlinear batch's field (null and
-    0 x 0 x 0 for a cost without one).  ``rows`` (trial kernel, T * B):
-    allocate ``[rows, K]`` cost outputs."""
+    0 x 0 x 0 for a cost without one) and offset rounding (``eval_dtype``
+    None or bfloat16).  ``rows`` (trial kernel, T * B): allocate
+    ``[rows, K]`` cost outputs."""
     b, n, s = mu.shape
+    quant = quant_flag(name, eval_dtype)
     dt, dev = mu.dtype, mu.device
     why = covers(s, dt, nl_specs, lin_specs)
     if why is not None:
@@ -371,7 +375,8 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
         keep += [t for t in ops if t is not None]
         nl_ptrs += [t.data_ptr() if t is not None else None for t in ops]
         nl_ints += [sp.k, sp.m, int(sp.nonneg),
-                    s if sp.rdim is None else sp.rdim, *field_dims(field)]
+                    s if sp.rdim is None else sp.rdim, *field_dims(field),
+                    quant]
     lin_ptrs, lin_ints = [], []
     for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         same(a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")
@@ -398,21 +403,22 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
 
 
 def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                      lin_specs, nl_arrays, lin_arrays):
+                      lin_specs, nl_arrays, lin_arrays, eval_dtype=None):
     """K5: ``mu, dmu [B, N, s]``, ``pd, dpd [B, N, s, s]``, ``po, dpo
     [B, N-1, s, s]``, ``trials [T]`` and the factor operands (module
     docstring) -> ``(ld [T, B], fc tuple of [T, B, K])``, nonlinear batches
-    first.  CUDA tensors launch the kernel; CPU tensors run
+    first.  ``eval_dtype`` None or bfloat16: the sigma offsets rounded
+    through it and back.  CUDA tensors launch the kernel; CPU tensors run
     :func:`trial_costs_plain`."""
     if mu.device.type == "cpu":
         return trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                                 lin_specs, nl_arrays, lin_arrays)
+                                 lin_specs, nl_arrays, lin_arrays, eval_dtype)
     return _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                               lin_specs, nl_arrays, lin_arrays)
+                               lin_specs, nl_arrays, lin_arrays, eval_dtype)
 
 
 def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                        lin_specs, nl_arrays, lin_arrays):
+                        lin_specs, nl_arrays, lin_arrays, eval_dtype):
     name = "trial_costs_lanes"
     b, n, s = check_state(name, mu, pd, po, dmu, dpd, dpo, trials)
     if dmu.shape != mu.shape or dpd.shape != pd.shape or dpo.shape != po.shape:
@@ -421,7 +427,7 @@ def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
         raise ValueError(f"{name}: trials must be [T], T >= 1")
     nt = trials.shape[0]
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                     nt * b)
+                     nt * b, eval_dtype)
     plan = trial_plan(name, n, s, nt, mu.element_size(), fa.fixed_bytes)
     ops = [x.contiguous() for x in (mu, dmu, pd, po, dpd, dpo, trials)]
     ld = torch.empty((nt, b), dtype=mu.dtype, device=mu.device)

@@ -28,7 +28,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..factors.moments import expectation_phi, gh_moments
+from ..factors.moments import (
+    as_eval_dtype,
+    expectation_phi,
+    gh_moments,
+    kernel_quantizes,
+)
 from . import _build
 
 
@@ -126,19 +131,33 @@ _MAX_SMEM = 48 * 1024
 
 
 def quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg=False,
-                   field=None):
+                   field=None, eval_dtype=None):
     """Plain version of the phi-only variant: guarded E[phi] [..., K]
-    (``moments.expectation_phi`` with the named cost's PyTorch form)."""
+    (``moments.expectation_phi`` with the named cost's PyTorch form).  An
+    ``eval_dtype`` rounds each offset, summed in the kernel's order
+    (``moments.kernel_offsets``), through it and back."""
     return expectation_phi(nodes, weights, mu, cov, cost_form(cost, field),
-                           params, nonneg=nonneg)
+                           params, eval_dtype, nonneg=nonneg,
+                           kernel_order=eval_dtype is not None)
 
 
 def quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim=None,
-                       field=None):
+                       field=None, eval_dtype=None):
     """Plain version of the moments variant (``moments.gh_moments`` with
-    the named cost's PyTorch form), marginal-rule lift included."""
+    the named cost's PyTorch form), marginal-rule lift included;
+    ``eval_dtype`` as in :func:`quad_phi_plain`."""
     return gh_moments(nodes, weights, mu, cov, cost_form(cost, field),
-                      params, rdim=rdim)
+                      params, eval_dtype, rdim=rdim,
+                      kernel_order=eval_dtype is not None)
+
+
+def quant_flag(name: str, eval_dtype) -> int:
+    """The kernels' offset rounding as their C entries take it: 0 none,
+    1 bfloat16; ``ValueError`` for what they do not round (float16)."""
+    if not kernel_quantizes(eval_dtype):
+        raise ValueError(f"{name}: the kernels round offsets through "
+                         f"bfloat16 only, not {eval_dtype}")
+    return int(as_eval_dtype(eval_dtype) is not None)
 
 
 def field_dims(field) -> tuple:
@@ -316,14 +335,15 @@ def _operands(name, mu, cov, nodes, weights, cost, params, moments,
 
 
 def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
-            rdim, field=None):
+            rdim, field=None, eval_dtype=None):
     """One K3 launch (``gvi_quad``)."""
     d = mu.shape[-1]
+    quant = quant_flag(name, eval_dtype)
     call = _operands(name, mu, cov, nodes, weights, cost, params, moments,
                      field)
     err = _build.load().gvi_quad(
         _build.DTYPES[mu.dtype], d, call.cost_id, int(moments), *call.args,
-        int(nonneg), d if rdim is None else rdim,
+        int(nonneg), d if rdim is None else rdim, quant,
         call.plan.group.bit_length() - 1, call.plan.threads,
         _build.current_stream(mu.device))
     _build.check(err, "gvi_quad")
@@ -331,30 +351,32 @@ def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
 
 
 def quad_lanes_phi(mu, cov, nodes, weights, cost: str, params,
-                   nonneg: bool = False, field=None):
+                   nonneg: bool = False, field=None, eval_dtype=None):
     """K3, phi-only: ``mu [..., K, d]``, ``cov [..., K, d, d]``,
     ``nodes [M, d]``, ``weights [M]``, packed ``params`` broadcastable to
     ``[..., K, P]`` and the cost's ``field`` where it reads one -> guarded
-    E[phi] ``[..., K]``."""
+    E[phi] ``[..., K]``.  ``eval_dtype`` None or bfloat16: each sigma
+    offset rounded through it and back (centered quantization)."""
     if mu.device.type == "cpu":
         return quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg,
-                              field)
+                              field, eval_dtype)
     out = _launch("quad_lanes_phi", mu, cov, nodes, weights, cost, params,
-                  False, nonneg, None, field)
+                  False, nonneg, None, field, eval_dtype)
     quad_lanes_phi.launches += 1
     return out
 
 
 def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
-                       rdim: int | None = None, field=None):
+                       rdim: int | None = None, field=None, eval_dtype=None):
     """K3, moments: as :func:`quad_lanes_phi` -> (E[phi] ``[..., K]``,
     E[(x-mu)phi] ``[..., K, d]``, E[(x-mu)(x-mu)^T phi] ``[..., K, d, d]``),
-    unguarded, with the marginal-rule lift for ``rdim``."""
+    unguarded, with the marginal-rule lift for ``rdim``; the moments
+    accumulate the rounded offsets."""
     if mu.device.type == "cpu":
         return quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim,
-                                  field)
+                                  field, eval_dtype)
     out = _launch("quad_lanes_moments", mu, cov, nodes, weights, cost,
-                  params, True, False, rdim, field)
+                  params, True, False, rdim, field, eval_dtype)
     quad_lanes_moments.launches += 1
     return out
 

@@ -133,11 +133,12 @@ class FactorShardEngine(LocalEngine):
             total = total + f.sum(-1)
         return total
 
-    def ngd_gradients(self, mu, cov_diag, cov_off, temperature):
+    def ngd_gradients(self, mu, cov_diag, cov_off, temperature,
+                      eval_dtype=None):
         g = self.graph
         vdmu, vddmu = gvi.ngd_gradients(
             replace(g, linear=()), mu, cov_diag, cov_off, temperature,
-            False, self.quad_batches)
+            False, self.quad_batches, eval_dtype=eval_dtype)
         vdmu, diag, off = self.mesh.psum(vdmu, vddmu.diag, vddmu.off)
         return gvi.ngd_gradients(
             replace(g, nonlinear=()), mu, cov_diag, cov_off, temperature,
@@ -168,7 +169,8 @@ class FactorShardEngine(LocalEngine):
         x = (flat(state.mu), flat(prec.diag), flat(prec.off),
              temperature.reshape(-1))
         nl_specs, lin_specs, nl, lin = self._flat_operands(batch)
-        partials = gradient_accum_lanes(*x, nl_specs, nl)
+        partials = gradient_accum_lanes(
+            *x, nl_specs, nl, eval_dtype=self.fused_grad_eval_dtype)
         # the one all-reduce of the step: Vdmu and both parts of Vddmu are
         # views of partials.buffer
         self.mesh.psum_(partials.buffer)
@@ -221,6 +223,13 @@ def optimize_sharded(graph_b: FactorGraph, state_b: GaussianState,
         raise ValueError("optimize_sharded takes a problem-batched state "
                          f"(mu [B, N, s]), got {tuple(state_b.mu.shape)}")
     check_config(config, method)
+    for name, plain in (("linesearch", "batched"), ("ema_alpha", 1.0),
+                        ("moments_eval_dtype", None)):
+        if getattr(config, name) != plain:
+            raise NotImplementedError(
+                f"optimize_sharded: {name}={getattr(config, name)!r} is not "
+                "ported to the factor-parallel path yet (ROADMAP.md, "
+                "Queue A 12)")
     set_precision_policy()
     device = state_b.mu.device
     with torch.no_grad():

@@ -271,3 +271,55 @@ def test_s6_factor_parallel_gradient(fp, want):
         with pytest.raises(ValueError, match="mode 'accum' not instantiated"):
             FactorShardEngine(graph, replace(config, fused_gradient="on"),
                               CARD, mesh)
+
+
+@pytest.mark.parametrize("name,method,want", [
+    # bfloat16 offsets keep both fused kernels, rounded in the kernels
+    (None, "ngd", (True, True)),
+    ("bfloat16", "ngd", (True, True)),
+    # prox never quantizes: the kernels' bfloat16 rounding does not match
+    # its run, so it takes neither fused kernel
+    ("bfloat16", "prox", (False, False)),
+    # float16 keeps the plain quadrature and no fused kernel
+    ("float16", "ngd", (False, False)),
+])
+def test_eval_dtype_resolves_as_jax(graphs, name, method, want):
+    """The fused kernels a run takes under ``moments_eval_dtype``, resolved
+    for the card on the CPU, against the JAX engine's rule
+    (``run_gvi`` takes a fused kernel only where the run's eval_dtype is
+    the one the engine built it with)."""
+    from gaussianvi_tpu.inference.engine import LocalEngine as JaxEngine
+    from gaussianvi_tpu.inference.optimize import _eval_dtype
+    from gaussianvi_tpu_torch.inference.optimize import fused_routes
+
+    cfg = GVIConfig(moments_eval_dtype=name)
+    eng = LocalEngine(graphs["flagship"], cfg, CARD)
+    assert fused_routes(eng, cfg, method) == want
+    assert eng.fused_eval_dtype == (torch.bfloat16 if name == "bfloat16"
+                                    else None)
+    jg = build_chain_estimation(num_states=8, dim_x=2, gh_degree=4,
+                                seed=0)[0]
+    jcfg = JaxConfig(chain_impl="lanes", moments_eval_dtype=name)
+    jeng = JaxEngine(jg, jcfg)
+    jed = _eval_dtype(jcfg, method)
+    jax_routes = (jeng.fused_trials_ready and jed == jeng.fused_eval_dtype,
+                  method == "ngd" and jeng.fused_gradient_ready
+                  and jed == jeng.fused_grad_eval_dtype)
+    assert jax_routes == want
+
+
+@pytest.mark.parametrize("field", ["fused_trials", "fused_gradient"])
+def test_fused_on_with_float16_raises_as_jax(graphs, field):
+    """``"on"`` with float16 offsets raises ``ValueError`` in both
+    packages: the kernels round through bfloat16 only."""
+    from gaussianvi_tpu.inference.engine import LocalEngine as JaxEngine
+
+    with pytest.raises(ValueError, match="bfloat16"):
+        LocalEngine(graphs["flagship"], GVIConfig(
+            moments_eval_dtype="float16", **{field: "on"}), CARD)
+    jg = build_chain_estimation(num_states=8, dim_x=2, gh_degree=4,
+                                seed=0)[0]
+    with pytest.raises(ValueError, match="bfloat16"):
+        JaxEngine(jg, JaxConfig(chain_impl="lanes",
+                                moments_eval_dtype="float16",
+                                **{field: "on"}))

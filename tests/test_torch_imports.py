@@ -23,7 +23,10 @@ for name in names:
 for new in ("ops.psd", "kernels.fused_moments", "parallel.collective",
             "parallel.sharding", "parallel.multiprocess", "parallel.restarts",
             "factors.sdf", "factors.sdf_io", "factors.robots",
-            "examples.planar_planning"):
+            "examples.planar_planning", "examples.ltv_estimation",
+            "examples.plot_1d", "inference.introspect",
+            "inference.validate", "utils.checkpoint", "utils.recorder",
+            "utils.profiling"):
     assert pkg.__name__ + "." + new in names, new
 assert not any(m == "gaussianvi_tpu" or m.startswith("gaussianvi_tpu.")
                for m in sys.modules), "the JAX package was imported"
@@ -47,3 +50,38 @@ def test_no_source_mentions_jax_imports():
         or "import gaussianvi_tpu\n" in p.read_text()
     ]
     assert not offenders, offenders
+
+
+# the JAX package's subpackages the port carries over, and the names of
+# their ``__all__`` it does not (the orbax checkpoint pair: the JAX
+# package's checkpoint library, ROADMAP.md "Not carried over")
+PORTED = ("", ".examples", ".factors", ".ops", ".inference", ".utils")
+NOT_CARRIED = {".utils": {"save_checkpoint_orbax", "load_checkpoint_orbax"}}
+
+
+def _jax_names():
+    import ast
+
+    out = []
+    for sub in PORTED:
+        path = ROOT / "gaussianvi_tpu" / sub.strip(".") / "__init__.py"
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            if (isinstance(node, ast.Assign)
+                    and getattr(node.targets[0], "id", None) == "__all__"):
+                names = ast.literal_eval(node.value)
+        out += [(sub, n) for n in names
+                if n not in NOT_CARRIED.get(sub, set())]
+    return out
+
+
+@pytest.mark.parametrize("sub,name", _jax_names())
+def test_jax_public_name_imports_from_the_same_port_subpackage(sub, name):
+    """Every name of a ported JAX subpackage's ``__all__`` (read from its
+    source, without importing JAX) imports from the port's subpackage of
+    the same name and is in its ``__all__``."""
+    import importlib
+
+    mod = importlib.import_module("gaussianvi_tpu_torch" + sub)
+    assert hasattr(mod, name), f"gaussianvi_tpu_torch{sub} lacks {name}"
+    assert name in mod.__all__

@@ -139,6 +139,32 @@ def test_jax_use_pallas_drops_the_lift_reference_fault():
     _assert_moments(plain, right)
 
 
+def test_use_pallas_ignores_eval_dtype_as_jax_does():
+    """Reference defect, reproduced: K4's body has no ``eval_dtype``, so the
+    JAX ``batch_moments(use_pallas=True)`` branch ignores bfloat16 offset
+    rounding, and the port's block-form route does the same (its other
+    routes round)."""
+    jfb, tfb, mu, cov = _batches(2, marginal=False)
+    jmu, jcov = jnp.asarray(mu), jnp.asarray(cov)
+    bf16 = jnp.bfloat16
+    ignored = jmm.batch_moments(jfb, jmu, jcov, use_pallas=True,
+                                eval_dtype=bf16)
+    full = jmm.batch_moments(jfb, jmu, jcov, use_pallas=True)
+    rounded = jmm.batch_moments(jfb, jmu, jcov, use_pallas=False,
+                                eval_dtype=bf16)
+    for a, b in zip(ignored, full):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert not np.allclose(np.asarray(rounded[0]), np.asarray(full[0]),
+                           rtol=1e-9, atol=0)
+    mu_t, cov_t = torch.as_tensor(mu), torch.as_tensor(cov)
+    got = tmm.batch_moments(tfb, mu_t, cov_t, use_pallas=True,
+                            eval_dtype="bfloat16")
+    _assert_moments(got, full)
+    other = tmm.batch_moments(tfb, mu_t, cov_t, use_pallas=False,
+                              eval_dtype="bfloat16")
+    _assert_moments(other, rounded)
+
+
 def test_use_pallas_needs_a_functor():
     _, tfb, mu, cov = _batches(2, marginal=True)
     with pytest.raises(ValueError, match="kernel_cost"):

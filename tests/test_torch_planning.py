@@ -219,9 +219,9 @@ def test_packed_operands_carry_the_field():
     fa = tft.factor_args("t", state.mu, *ops, rows=3 * 2)
     assert (fa.cost, fa.n_params) == (KERNEL_COSTS["planar_sdf"][0], 7)
     p_field = fa.nl_ptrs[5]
-    k, m, nonneg, rdim, rows, cols, depth = fa.nl_ints[:tft.NL_INTS]
-    assert (k, m, nonneg, rdim, rows, cols, depth) == (N, 13, 1, 2, 100, 100,
-                                                       1)
+    k, m, nonneg, rdim, rows, cols, depth, quant = fa.nl_ints[:tft.NL_INTS]
+    assert (k, m, nonneg, rdim, rows, cols, depth, quant) == (
+        N, 13, 1, 2, 100, 100, 1, 0)
     assert p_field == fb.kernel_field.data_ptr()
     back = np.ctypeslib.as_array(
         (ctypes.c_double * (rows * cols)).from_address(p_field))

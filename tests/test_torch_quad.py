@@ -234,9 +234,10 @@ def test_wrappers_hand_over_the_operands_in_place(entries, problem, moments):
     assert name == "gvi_quad"
     (dtype, d, cost, with_moments, p_mu, mu_sb, mu_sk, p_cov, cov_sb,
      cov_sk, p_nodes, p_w, p_par, period, p_field, rows, cols, depth, p_phi,
-     p_xmu, p_xxt, count, k, m, n_par, nonneg, rdim, shift, threads,
+     p_xmu, p_xxt, count, k, m, n_par, nonneg, rdim, quant, shift, threads,
      _) = args
     assert (dtype, d, cost, with_moments) == (1, 4, 0, int(moments))
+    assert quant == 0    # no eval_dtype: the offsets are not rounded
     # the range cost has no field
     assert (p_field, rows, cols, depth) == (None, 0, 0, 0)
     assert (p_mu, p_cov, p_par) == (mu.data_ptr(), cov.data_ptr(),
