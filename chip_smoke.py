@@ -53,6 +53,20 @@ the plain path; resume from a checkpoint on the fused path against the
 uninterrupted run; ``linesearch="seq"`` on the separate kernels and
 ``ema_alpha=0.5`` on the fused ones, each held to the plain path; and LTV
 estimation (``examples.ltv_estimation``) at B=1024 restarts on K1 / K2.
+Then K6 ``accum`` and ``solve`` at s = 6 at both s = 6 models'
+shapes (beside K6 ``full`` in the s = 6 checks, the pair also against
+``full``); in the factor-parallel phase the 3-D point planner at dp=1 x
+fp=2 (B=1024 float32, counted: accum, solve and K5 30 each a rank; 8
+restarts in float64 against the single-process fused path) and the
+flagship at fp=2 with each of ``moments_eval_dtype="bfloat16"``,
+``linesearch="seq"`` and ``ema_alpha=0.5`` against the single-process run
+with the same option; the sequence-parallel path
+(``parallel.optimize_time_sharded``, chain estimation at N=4096 on two
+ranks of this card: float64 against the single-process run, with K3
+against the plain quadrature, float32), each run's collectives against
+``parallel.comm_model``; and the log-depth chain (``chain_impl="assoc"``)
+against K1 / K2 at the flagship's shape and on one chain of 4096 states,
+and its loop against the default path.
 
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
@@ -72,6 +86,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -890,8 +905,8 @@ def split_checks(graph_b, dev, iterate):
 
 
 # name -> (N, dim_x, problems); no batch is a multiple of K6's four problems
-# per block; s = 6 (dim_x = 3: K5 and K6 "full", the split pair is not
-# instantiated there) at a ragged block and on the global-scratch route
+# per block; s = 6 (dim_x = 3) at a ragged block and on the global-scratch
+# route
 LAYOUTS = {"N=2": (2, 2, 3), "N=5, s=2": (5, 1, 5), "N=33": (33, 2, 3),
            "N=70, s=2": (70, 1, 2), "dynamic starts": (9, 2, 3),
            "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2),
@@ -963,12 +978,6 @@ def layout_checks(dev):
         full = check_repeatable(f"K6 full {name}",
                                 lambda: fg.gradient_lanes(*x6, *ops))
         err = held("K6 full", full, fg.gradient_plain(*x6, *ops))
-        if fg.covers(s, ("accum", "solve")) is not None:
-            k5 = check_repeatable(f"K5 {name}",
-                                  lambda: ft.trial_costs_lanes(*x5, *ops))
-            p5 = ft.trial_costs_plain(*x5, *ops)
-            worst[name] = (err, held("K5", (k5[0], *k5[1]), (p5[0], *p5[1])))
-            continue
         part = check_repeatable(
             f"K6 accum {name}",
             lambda: fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays))
@@ -984,8 +993,8 @@ def layout_checks(dev):
         p5 = ft.trial_costs_plain(*x5, *ops)
         err5 = held("K5", (k5[0], *k5[1]), (p5[0], *p5[1]))
         worst[name] = (err, err5)
-    print("[layouts f64] max abs err vs plain (K6 three modes, at s = 6 "
-          "full only; K5), two launches bit-identical, accum + solve == "
+    print("[layouts f64] max abs err vs plain (K6 three modes; K5), two "
+          "launches bit-identical, accum + solve == "
           "full: " + "; ".join(
               f"{k}: {a:.1e}, {b:.1e}" for k, (a, b) in worst.items()),
           flush=True)
@@ -1204,7 +1213,8 @@ def held_to_plain(name, got, want, dev, rtol=1e-9, tag="end to end"):
     accepted steps."""
     want_cost = want.cost.to(dev)
     rel = ((got.cost - want_cost).abs() / want_cost.abs()).max().item()
-    print(f"[{tag}] {name} (f64, {got.cost.shape[0]} problems, "
+    count = got.cost.shape[0] if got.cost.ndim > 1 else 1
+    print(f"[{tag}] {name} (f64, {count} problems, "
           f"{got.cost.shape[-1]} iters): max relative cost difference "
           f"{rel:.3e}", flush=True)
     check(rel < rtol, f"{name} differ: {rel:.3e}")
@@ -1267,7 +1277,9 @@ def sharded_rank(rank, world, device, cfg):
     * ``small`` (ranks 0, 1): dp=1 x fp=2, 8 problems, float64;
     * ``main`` (ranks 0, 1): dp=1 x fp=2 at B=1024, float32: one warm-up
       run, one run with the launch counters zeroed just before it and read
-      just after, then three timed runs."""
+      just after (with the collectives it ran), then three timed runs;
+    * (ranks 0, 1) :func:`point3d_fp_rank`, :func:`options_fp_rank`
+      on the same mesh and :func:`sp_rank` on an sp = 2 mesh."""
     from gaussianvi_tpu_torch.kernels import (
         launch_counts,
         reset_launch_counts,
@@ -1290,6 +1302,8 @@ def sharded_rank(rank, world, device, cfg):
     out["mixed"] = result(*optimize_sharded(
         *build_batch(torch.float64, device, B_MIXED), cfg, mesh))
     mesh = make_mesh(1, 2)
+    # every rank of the world creates every group, in one order
+    sp_mesh = make_mesh(1, 1, sp=2)
     if not mesh.member:
         return out
     out["small"] = result(*optimize_sharded(
@@ -1298,11 +1312,12 @@ def sharded_rank(rank, world, device, cfg):
     optimize_sharded(graph, state0, cfg, mesh)
     torch.cuda.synchronize()
     reset_launch_counts()
-    reduces = mesh.all_reduces
+    reduces, inv0 = mesh.all_reduces, Counter(mesh.inventory)
     state, hist = optimize_sharded(graph, state0, cfg, mesh)
     torch.cuda.synchronize()
     out["main"] = dict(result(state, hist), launches=launch_counts(),
                        all_reduces=mesh.all_reduces - reduces,
+                       inventory=dict(mesh.inventory - inv0),
                        backend=mesh.backend, device=str(device))
     times = []
     for _ in range(3):
@@ -1312,6 +1327,121 @@ def sharded_rank(rank, world, device, cfg):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     out["main"]["seconds"] = statistics.median(times)
+    out.update(point3d_fp_rank(mesh, device, result))
+    out.update(options_fp_rank(mesh, device, cfg, result))
+    out.update(sp_rank(sp_mesh, device))
+    return out
+
+
+# the loop's options on the factor-parallel path, each held to the
+# single-process run with the same option
+FP_OPTIONS = {"bf16": dict(moments_eval_dtype="bfloat16"),
+              "seq": dict(linesearch="seq"), "ema": dict(ema_alpha=0.5)}
+# the sequence-parallel phase: chain estimation at N = 4096 on sp = 2 ranks
+SP_N, SP_RANKS = 4096, 2
+
+
+def _counted_run(fn, mesh):
+    """``fn()`` with the launch counters zeroed just before it and read
+    just after: ``(result, launches, the collectives it ran, seconds)``."""
+    from gaussianvi_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    inv0 = Counter(mesh.inventory)
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, launch_counts(), dict(mesh.inventory - inv0),
+            time.perf_counter() - t)
+
+
+def point3d_fp_rank(mesh, device, result):
+    """The 3-D point planner at dp = 1 x fp = 2 (K6 accum / solve at
+    s = 6): its 1024 restarts in float32, counted, and 8 restarts in
+    float64."""
+    from gaussianvi_tpu_torch.parallel import optimize_sharded
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    # optimize_sharded takes the problem-batched graph (one per restart,
+    # views of the one problem's)
+    graph, inits, cfg, _ = point3d_problem(torch.float32, device)
+    graph = _batch_graph(graph, S6_B)
+    (state, hist), n, inv, sec = _counted_run(
+        lambda: optimize_sharded(graph, inits, cfg, mesh), mesh)
+    g8, s8, _, _ = point3d_problem(torch.float64, device, 8)
+    return {"p3 main": dict(result(state, hist), launches=n, inventory=inv,
+                            seconds=sec),
+            "p3 small": result(*optimize_sharded(_batch_graph(g8, 8), s8,
+                                                 cfg, mesh))}
+
+
+def options_fp_rank(mesh, device, cfg, result):
+    """The flagship at dp = 1 x fp = 2, 8 problems in float64, once for
+    each of :data:`FP_OPTIONS`, counted."""
+    from gaussianvi_tpu_torch.parallel import optimize_sharded
+
+    g8, s8 = build_batch(torch.float64, device, 8)
+    out = {}
+    for name, fields in FP_OPTIONS.items():
+        res, n, _, _ = _counted_run(lambda fields=fields: optimize_sharded(
+            g8, s8, replace(cfg, **fields), mesh), mesh)
+        out[f"option {name}"] = dict(result(*res), launches=n)
+    return out
+
+
+def sp_rank(mesh, device):
+    """Chain estimation at N = 4096, dim_x = 2, 10 iterations, on this
+    rank's half of the states (``parallel.optimize_time_sharded``): NGD in
+    float64, again with ``quad_impl="lanes"`` (K3), and in float32, each
+    counted with the collectives it ran; then the time of one halo
+    exchange and of one all-reduce at the trial batch's shapes."""
+    from gaussianvi_tpu_torch import GVIConfig
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.parallel import (
+        optimize_time_sharded,
+        to_chain_layout,
+    )
+
+    if not mesh.member:
+        return {}
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    problems = {}
+    for dt in (torch.float64, torch.float32):
+        graph, init, _ = build_chain_estimation(
+            num_states=SP_N, dim_x=DIM_X, gh_degree=DEGREE, seed=SEED,
+            dtype=dt, device=device)
+        problems[dt] = (to_chain_layout(graph), init)
+    out = {}
+    for name, dt, c in (("sp f64", torch.float64, cfg),
+                        ("sp f64 lanes", torch.float64,
+                         replace(cfg, quad_impl="lanes")),
+                        ("sp f32", torch.float32, cfg)):
+        (final, hist), n, inv, sec = _counted_run(
+            lambda dt=dt, c=c: optimize_time_sharded(*problems[dt], c, mesh),
+            mesh)
+        out[name] = dict(cost=hist.cost.cpu().numpy(),
+                         accepted_step=hist.accepted_step.cpu().numpy(),
+                         mu=final.mu.cpu().numpy(), launches=n,
+                         inventory=inv, seconds=sec)
+    mat = torch.ones(TRIALS, 4, 4, dtype=torch.float64, device=device)
+    vec = torch.ones(TRIALS, dtype=torch.float64, device=device)
+    ms = {}
+    for what, fn in (("halo", lambda: mesh.halo(mat, offset=1)),
+                     ("all_reduce", lambda: mesh.psum(vec))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        ms[what] = 1e3 * (time.perf_counter() - t) / 50
+    out["sp collective ms"] = ms
     return out
 
 
@@ -1390,8 +1520,227 @@ def sharded_path(cfg, dev, optimize):
     check(np.isfinite(main0["mu"]).all()
           and np.isfinite(main0["prec_diag"]).all(),
           "factor-parallel path: non-finite final state")
+    # what the counted run's all-reduces carried, as comm_model predicts it
+    from gaussianvi_tpu_torch.parallel import comm_model
+
+    per_iter, report = comm_model.factor_shard_model(
+        N, 4, TRIALS, 29, N, local_batch=B, itemsize=4, fused=True)
+    want = comm_model.expected(per_iter, NITERS, comm_model.factor_shard_setup(
+        N, 4, NITERS, (N // 2,), local_batch=B))
+    check(main0["inventory"] == dict(want),
+          f"factor-parallel path: collectives {main0['inventory']} against "
+          f"comm_model's {dict(want)}")
+    print(f"[factor-parallel path] collectives as comm_model predicts: "
+          f"{report.bytes_per_iter} B an iteration in "
+          f"{sum(per_iter.values())} all-reduces", flush=True)
     rate = B * NITERS / max(main0["seconds"], main1["seconds"])
-    return main0["launches"], rate
+    extra = {"p3": point3d_fp_checks(ranks, dev, same),
+             "options": options_fp_checks(ranks, dev, cfg, same),
+             "sp": sp_checks(ranks, dev)}
+    return main0["launches"], rate, extra
+
+
+def point3d_fp_checks(ranks, dev, same):
+    """The point planner at fp = 2: K6 accum, solve and K5 30 times a rank
+    and full never, the ranks' bits equal, costs finite and non-increasing,
+    the collectives comm_model's; 8 restarts in float64 held to the
+    single-process fused path over all 30 iterations (PERF.md section 2's
+    point-planner gate).  Returns rank 0's launches."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.parallel import comm_model
+
+    main0, main1 = ranks[0]["p3 main"], ranks[1]["p3 main"]
+    same(main0, main1, "point3d fp=2, B=1024")
+    for r, m in enumerate((main0, main1)):
+        n = m["launches"]
+        print(f"[point3d fp=2] rank {r}: launches {n} ({m['seconds']:.2f} s, "
+              f"B={S6_B}, f32)", flush=True)
+        check(n["fused_gradient_accum"] == n["fused_gradient_solve"]
+              == n["fused_trials"] == P3_ITERS and n["fused_gradient"] == 0,
+              f"point3d fp=2 rank {r}: not the split pair and K5 once an "
+              f"iteration: {n}")
+    check_costs("point3d fp=2", SimpleNamespace(cost=torch.as_tensor(
+        main0["cost"])), S6_B, P3_ITERS, nonneg=True)
+    m = point3d_problem(torch.float64, dev, 1)[0].nonlinear[0]
+    k = m.num_factors
+    per_iter, _ = comm_model.factor_shard_model(
+        P3_N, 6, TRIALS, m.nodes.shape[0], k, local_batch=S6_B, itemsize=4,
+        fused=True)
+    want = comm_model.expected(per_iter, P3_ITERS, comm_model.factor_shard_setup(
+        P3_N, 6, P3_ITERS, (k // 2,), local_batch=S6_B))
+    check(main0["inventory"] == dict(want),
+          f"point3d fp=2: collectives {main0['inventory']} against "
+          f"comm_model's {dict(want)}")
+    same(ranks[0]["p3 small"], ranks[1]["p3 small"], "point3d fp=2, f64")
+    g8, s8, cfg, _ = point3d_problem(torch.float64, dev, 8)
+    _, ref = optimize(g8, s8, cfg)
+    held_to_plain("point3d fp=2 vs the single-process fused path",
+                  SimpleNamespace(**{k_: torch.as_tensor(v, device=dev)
+                                     for k_, v in ranks[0]["p3 small"].items()
+                                     if k_ in ("cost", "accepted_step")}),
+                  ref, dev, tag="factor-parallel end to end")
+    return main0["launches"]
+
+
+def options_fp_checks(ranks, dev, cfg, same):
+    """Each option at fp = 2 (8 problems, float64) against the
+    single-process run with the same option: 1e-9 and the same steps;
+    bfloat16 by PERF.md section 2's bf16 gate (1e-4, the same steps: a
+    bfloat16 rounding is a step function).  K6 accum / solve ran once an
+    iteration, K5 only under the batched line search.  Returns rank 0's
+    launches per option."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch import optimize
+
+    g8, s8 = build_batch(torch.float64, dev, 8)
+    out = {}
+    for name, fields in FP_OPTIONS.items():
+        got = ranks[0][f"option {name}"]
+        same(got, ranks[1][f"option {name}"], f"fp=2 with {name}")
+        n = got["launches"]
+        trials = 0 if name == "seq" else NITERS
+        check(n["fused_gradient_accum"] == n["fused_gradient_solve"] == NITERS
+              and n["fused_trials"] == trials and n["fused_gradient"] == 0,
+              f"fp=2 with {name}: launches {n}")
+        _, ref = optimize(g8, s8, replace(cfg, **fields))
+        held_to_plain(f"fp=2 with {name} vs the single-process run with it",
+                      SimpleNamespace(**{k: torch.as_tensor(got[k], device=dev)
+                                         for k in ("cost", "accepted_step")}),
+                      ref, dev, rtol=1e-4 if name == "bf16" else 1e-9,
+                      tag="factor-parallel end to end")
+        out[f"fp {name}"] = n
+    return out
+
+
+def sp_checks(ranks, dev):
+    """The sequence-parallel phase: both ranks the same run; float64 held
+    to the single-process ``optimize`` on the whole chain (1e-9, the same
+    steps), the K3 run to the plain-quadrature one (K3 launched), float32
+    finite and non-increasing; each run's collectives as comm_model
+    predicts them, printed per iteration beside the prediction.  Returns
+    the K3 run's launches (rank 0)."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.parallel import comm_model
+
+    check(all(not r.get("sp f64") for r in ranks[SP_RANKS:]),
+          "ranks outside the sp mesh ran on it")
+    runs = {name: ranks[0][name] for name in ("sp f64", "sp f64 lanes",
+                                              "sp f32")}
+    for name, run in runs.items():
+        other = ranks[1][name]
+        check(all(np.array_equal(run[k], other[k], equal_nan=True)
+                  for k in ("cost", "accepted_step", "mu")),
+              f"{name}: the two sp ranks return other results")
+        print(f"[sequence-parallel] {name}: {run['seconds']:.2f} s on rank 0 "
+              f"(N={SP_N}, {NITERS} iters), launches {run['launches']}",
+              flush=True)
+    mesh = SimpleNamespace(size=SP_RANKS)
+    per_iter = comm_model.time_shard_model(SP_N, 4, TRIALS, mesh)
+    setup = comm_model.time_shard_setup(SP_N, 4, NITERS, mesh)
+    want = comm_model.expected(per_iter, NITERS, setup)
+    for name, run in runs.items():
+        check(run["inventory"] == dict(want),
+              f"{name}: collectives {run['inventory']} against comm_model's "
+              f"{dict(want)}")
+    measured = Counter(runs["sp f64"]["inventory"])
+    measured.subtract(setup)
+    by_op = {op: (sum(c for (o, _, _), c in measured.items() if o == op)
+                  / NITERS,
+                  sum(c for (o, _, _), c in per_iter.items() if o == op))
+             for op in ("all_reduce", "halo", "all_gather")}
+    ms = ranks[0]["sp collective ms"]
+    print("[sequence-parallel] per iteration, measured / comm_model: " +
+          ", ".join(f"{op} {a:g} / {b}" for op, (a, b) in by_op.items())
+          + f"; one halo {ms['halo']:.3f} ms, one all-reduce "
+          f"{ms['all_reduce']:.3f} ms (gloo, both ranks on this card: no "
+          f"scaling figure)", flush=True)
+    check(all(a == b for a, b in by_op.values()),
+          f"sp collectives per iteration differ from comm_model: {by_op}")
+    graph, init, _ = build_chain_estimation(
+        num_states=SP_N, dim_x=DIM_X, gh_degree=DEGREE, seed=SEED,
+        dtype=torch.float64, device=dev)
+    cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
+    t = time.perf_counter()
+    _, ref = optimize(graph, init, cfg)
+    torch.cuda.synchronize()
+    print(f"[sequence-parallel] the single-process run: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    def hist(run):
+        return SimpleNamespace(cost=torch.as_tensor(run["cost"], device=dev),
+                               accepted_step=torch.as_tensor(
+                                   run["accepted_step"], device=dev))
+
+    held_to_plain("sp=2 vs the single-process run", hist(runs["sp f64"]),
+                  ref, dev, tag="sequence-parallel end to end")
+    held_to_plain("sp=2 with K3 vs sp=2 plain quadrature",
+                  hist(runs["sp f64 lanes"]), hist(runs["sp f64"]), dev,
+                  tag="sequence-parallel end to end")
+    n = runs["sp f64 lanes"]["launches"]
+    check(n["quad_phi"] > 0 and n["quad_moments"] > 0,
+          f"sp with quad_impl='lanes' launched no K3: {n}")
+    check(sum(runs["sp f64"]["launches"].values()) == 0,
+          f"sp plain run launched kernels: {runs['sp f64']['launches']}")
+    c32 = runs["sp f32"]["cost"]
+    check(np.isfinite(c32).all() and (np.diff(c32) <= 0).all(),
+          f"sp f32: costs not finite and non-increasing: {c32}")
+    return n
+
+
+def assoc_checks(dev, cfg):
+    """The log-depth chain (``chain_impl="assoc"``, torch ops): at the
+    flagship's shape (B = 1024 chains of N = 32, s = 4, float64)
+    ``gbp_covariance_logdet_assoc`` and ``solve_assoc`` against K1 and K2
+    (atol 1e-10), timed beside them; ``optimize(chain_impl="assoc")``
+    against the default path (8 problems, float64, 1e-9, the same steps),
+    counted (no kernel: the plain quadrature follows the chain); one chain
+    of N = 4096 states against K1, both timed."""
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.kernels import chain
+    from gaussianvi_tpu_torch.ops import parallel_chain as pc
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 12)
+    out = {}
+    for tag, nb, n in (("flagship", B, N), ("one chain", 1, SP_N)):
+        diag, off, rhs = spd_chains(nb, n, 4, rng, f64, dev)
+        a = BlockTridiag(diag, off)
+        got = pc.gbp_covariance_logdet_assoc(a)
+        want = chain.gbp_covariance_logdet_lanes(diag, off)
+        err = max(compare(f"assoc {tag} {what}", g, w, 0.0, 1e-10)
+                  for what, g, w in zip(("cov_diag", "cov_off", "logdet"),
+                                        got, want))
+        err = max(err, compare(f"assoc {tag} solve", pc.solve_assoc(a, rhs),
+                               chain.solve_lanes(diag, off, rhs), 0.0, 1e-10))
+        ms = {"assoc": cuda_ms(lambda: pc.gbp_covariance_logdet_assoc(a),
+                               reps=3),
+              "K1": cuda_ms(lambda: chain.gbp_covariance_logdet_lanes(
+                  diag, off))}
+        if tag == "flagship":
+            ms["solve_assoc"] = cuda_ms(lambda: pc.solve_assoc(a, rhs),
+                                        reps=3)
+            ms["K2"] = cuda_ms(lambda: chain.solve_lanes(diag, off, rhs))
+        print(f"[assoc] {tag} ({nb} x N={n}, s=4, f64): max abs err vs "
+              f"K1 / K2 {err:.3e}; ms per call " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        out[tag] = dict(max_abs_err=err, ms=ms)
+    g8, s8 = build_batch(f64, dev, num_problems=8)
+    (_, h_assoc), n = counted(optimize, g8, s8,
+                              replace(cfg, chain_impl="assoc"))
+    print(f"[assoc path] launches {n}", flush=True)
+    check(sum(n.values()) == 0, f"the assoc path launched kernels: {n}")
+    held_to_plain("assoc path vs the default path", h_assoc,
+                  optimize(g8, s8, cfg)[1], dev, tag="assoc end to end")
+    return out
 
 
 # ---- the planar planner (examples/planar_planning.py) --------------------
@@ -2044,6 +2393,21 @@ def s6_kernel_checks(dev):
         fields = {dt: graphs[dt].nonlinear[0].kernel_field
                   for dt in (f64, f32)}
         rdim = graphs[f64].nonlinear[0].quad_rdim
+        # the split pair as a dp = 1 x fp = 2 mesh's ranks run it: accum on
+        # each half of the factors, solve on the float64 plain sum of the
+        # halves (both dtypes get the same seeds)
+        halves = {dt: [half_operands(graphs[dt], i) for i in (0, 1)]
+                  for dt in (f64, f32)}
+        lin = {dt: (ops[dt][1], ops[dt][3]) for dt in (f64, f32)}
+
+        def accum_plain(dt, i):
+            specs, arrays = halves[dt][i]
+            return fg.gradient_plain(*x6[dt], specs, (), arrays, (),
+                                     mode="accum")
+
+        seeds = {f64: tuple(a + b_ for a, b_ in zip(accum_plain(f64, 0),
+                                                    accum_plain(f64, 1)))}
+        seeds[f32] = tuple(t.to(f32) for t in seeds[f64])
 
         def flat5(o):
             return (o[0], *o[1])
@@ -2081,22 +2445,34 @@ def s6_kernel_checks(dev):
                     got, (mu[..., 0], mu, cd)))
 
             cases["fused_moments"] = (k4, p4)
-        solve = {}
+        cases["fused_gradient_accum"] = (
+            lambda dt: (*fg.gradient_accum_lanes(*x6[dt], *halves[dt][0]),
+                        *fg.gradient_accum_lanes(*x6[dt], *halves[dt][1])),
+            lambda dt: (*accum_plain(dt, 0), *accum_plain(dt, 1)))
+        cases["fused_gradient_solve"] = (
+            lambda dt: fg.gradient_solve_lanes(*x6[dt], seeds[dt], *lin[dt]),
+            lambda dt: fg.gradient_plain(*x6[dt], (), lin[dt][0], (),
+                                         lin[dt][1], mode="solve",
+                                         seeds=seeds[dt]))
+        solve, kept = {}, {}
         for name, (kern, plain) in cases.items():
             k = {dt: check_repeatable(f"{model} {name} {dt}",
                                       lambda dt=dt, kern=kern: kern(dt))
                  for dt in (f64, f32)}
             p = {dt: plain(dt) for dt in (f64, f32)}
+            kept[name] = k, p
             held64 = list(zip(k[f64], p[f64], p[f32]))
             held32 = list(zip(k[f32], p[f32], p[f64]))
-            if name == "fused_gradient":
+            if name in ("fused_gradient", "fused_gradient_solve"):
                 # dmu by its backward error in the float64 plain system
                 # Vddmu = dprec + Lambda
+                tag = "" if name == "fused_gradient" else " solve"
                 vdd = (p[f64][3] + x6[f64][1], p[f64][4] + x6[f64][2])
-                solve["backward"], solve["forward"] = compare_backward(
-                    f"{model} K6 dmu float64", k[f64][5], p[f64][5], *vdd)
-                solve["backward32"] = compare_backward_vs_f64(
-                    f"{model} K6 dmu float32", k[f32][5], p[f32][5],
+                solve["backward" + tag], solve["forward" + tag] = (
+                    compare_backward(f"{model} K6{tag} dmu float64",
+                                     k[f64][5], p[f64][5], *vdd))
+                solve["backward32" + tag] = compare_backward_vs_f64(
+                    f"{model} K6{tag} dmu float32", k[f32][5], p[f32][5],
                     p[f64][5], *vdd)
                 solve["indefinite"] = int((~finite).sum())
                 held64 = held64[:5] + held64[6:]
@@ -2113,7 +2489,9 @@ def s6_kernel_checks(dev):
             errs[name, f32] = max(
                 compare_vs_f64(f"{model} {name}[{i}] float32", a, b_, c)
                 for i, (a, b_, c) in enumerate(held32))
-            if model == "point3d" and name != "fused_gradient":
+            if model == "point3d" and name in ("quad_phi", "quad_moments",
+                                               "fused_trials",
+                                               "fused_moments"):
                 at = 1 if name == "fused_trials" else 0
                 got, want = k[f64][at], p[f64][at]
                 check(torch.equal(got == 0, want == 0)
@@ -2123,14 +2501,39 @@ def s6_kernel_checks(dev):
                       f"{int((want == 0).sum())})")
                 solve[f"zeros {name}"] = (int((want == 0).sum()),
                                           want.numel())
-        names = ("gbp_covariance_logdet", "solve", *cases)
+        # the pair (accum on each half, summed, solve) against the full
+        # kernel: equal up to the reassociation of one sum; dmu by its
+        # backward error
+        for dt in (f64, f32):
+            total = fg.gradient_accum_lanes(*x6[dt], *halves[dt][0])
+            total.buffer.add_(fg.gradient_accum_lanes(
+                *x6[dt], *halves[dt][1]).buffer)
+            kept["pair", dt] = fg.gradient_solve_lanes(*x6[dt], total,
+                                                       *lin[dt])
+        full_k, full_p = kept["fused_gradient"]
+        pair64 = list(zip(kept["pair", f64], full_k[f64], full_p[f32]))
+        errs["pair vs full", f64] = max(
+            compare_conditioned(f"{model} K6 pair vs full[{i}] float64", a,
+                                b_, c)
+            for i, (a, b_, c) in enumerate(pair64) if i != 5)
+        errs["pair vs full", f32] = max(
+            compare_vs_f64(f"{model} K6 pair vs full[{i}] float32", a, b_, c)
+            for i, (a, b_, c) in enumerate(zip(
+                kept["pair", f32], full_k[f32], full_p[f64])) if i != 5)
+        vdd = (full_p[f64][3] + x6[f64][1], full_p[f64][4] + x6[f64][2])
+        solve["backward pair"], _ = compare_backward(
+            f"{model} K6 pair dmu float64", kept["pair", f64][5],
+            full_k[f64][5], *vdd)
+        names = ("gbp_covariance_logdet", "solve", *cases, "pair vs full")
         print(f"[s=6 kernels, {model}] max abs err vs plain, f64 / f32 (two "
               f"launches bit-identical each): " + "; ".join(
                   f"{nm} {errs[nm, f64]:.3e} / {errs[nm, f32]:.3e}"
                   for nm in names)
               + f"; K6 dmu backward error f64 {solve['backward']:.3e} (max "
               f"abs difference {solve['forward']:.3e}), f32 "
-              f"{solve['backward32']:.3e}; Vddmu indefinite on "
+              f"{solve['backward32']:.3e}; K6 solve's {solve['backward solve']:.3e}"
+              f" / {solve['backward32 solve']:.3e}, the pair's (vs full) "
+              f"{solve['backward pair']:.3e}; Vddmu indefinite on "
               f"{solve['indefinite']}/{S6_B}" + "".join(
                   f"; {k} exact {v[0]}/{v[1]}" for k, v in solve.items()
                   if k.startswith("zeros")), flush=True)
@@ -2149,6 +2552,14 @@ def s6_kernel_checks(dev):
             "fused_gradient": S6_B * n * (
                 chain_flops(6) + quad_flops(moments=True, **q) + 12 * 6**3
                 + 2 * solve_flops(6)),
+            # per problem both sweeps with the edge blocks, then the
+            # moments and the assembly of the half's factors; solve: the
+            # sweeps again and both solves
+            "fused_gradient_accum": S6_B * (
+                n * chain_flops(6) + halves[f32][0][0][0].k * (
+                    quad_flops(moments=True, **q) + 12 * 6**3)),
+            "fused_gradient_solve": S6_B * n * (chain_flops(6)
+                                                + 2 * solve_flops(6)),
         }
         extra = () if fields[f32] is None else (fields[f32],)
         inputs = {"gbp_covariance_logdet": chains[f32][0],
@@ -2157,7 +2568,10 @@ def s6_kernel_checks(dev):
                   "quad_moments": args4[f32][:4] + args4[f32][5:] + extra,
                   "fused_moments": args4[f32][:4] + args4[f32][5:],
                   "fused_trials": (x5[f32], ops[f32][2:]),
-                  "fused_gradient": (x6[f32], ops[f32][2:])}
+                  "fused_gradient": (x6[f32], ops[f32][2:]),
+                  "fused_gradient_accum": (x6[f32], halves[f32][0][1]),
+                  "fused_gradient_solve": (x6[f32], seeds[f32],
+                                           lin[f32][1])}
         calls = {
             "gbp_covariance_logdet": (
                 lambda: chain.gbp_covariance_logdet_lanes(*chains[f32][0]),
@@ -2167,6 +2581,10 @@ def s6_kernel_checks(dev):
             **{name: (lambda kern=kern: kern(f32),
                       lambda plain=plain: plain(f32))
                for name, (kern, plain) in cases.items()},
+            # a rank's accum: one half of the factors
+            "fused_gradient_accum": (
+                lambda: fg.gradient_accum_lanes(*x6[f32], *halves[f32][0]),
+                lambda: accum_plain(f32, 0)),
         }
         for name, (kern, plain) in calls.items():
             out[model, name] = dict(
@@ -3341,8 +3759,10 @@ def main() -> int:
 
     took("flagship paths")
     # ---- factor-parallel path: rank processes on this card, counted ----
-    shard_counts, shard_rate = sharded_path(cfg, dev, optimize)
-    took("factor-parallel path")
+    shard_counts, shard_rate, shard_extra = sharded_path(cfg, dev, optimize)
+    took("factor-parallel and sequence-parallel paths")
+    assoc = assoc_checks(dev, cfg)
+    took("log-depth chain")
 
     # ---- kernels against plain versions, end to end (float64) ----
     g8, s8 = build_batch(torch.float64, dev, num_problems=8)
@@ -3439,6 +3859,7 @@ def main() -> int:
     s6_kern = s6_kernel_checks(dev)
     took("s = 6 kernel checks and times")
     s6_counts, _ = s6_runs(card, dev)
+    s6_counts["point3d fp=2"] = shard_extra["p3"]
     took("s = 6 paths")
     for (model, name), r in s6_kern.items():
         print(f"[kernel time] {card}: s=6 {model} {name} {r['ms']:.4f} ms "
@@ -3546,17 +3967,24 @@ def main() -> int:
                "quad_moments": ("point3d separate",),
                "fused_moments": ("dim_x=3 block",),
                "fused_trials": ("point3d fused", "dim_x=3 fused"),
-               "fused_gradient": ("point3d fused", "dim_x=3 fused")}
+               "fused_gradient": ("point3d fused", "dim_x=3 fused"),
+               # the split pair at s = 6: the point planner on a
+               # dp = 1 x fp = 2 mesh, rank 0's launches; dim_x = 3's times
+               # are printed with the [kernel time] lines
+               "fused_gradient_accum": ("point3d fp=2",),
+               "fused_gradient_solve": ("point3d fp=2",)}
+    s6_sources = {"fused_gradient": "fused_gradient_s6.cu",
+                  "fused_gradient_accum": "fused_gradient_accum_s6.cu",
+                  "fused_gradient_solve": "fused_gradient_solve_s6.cu"}
 
     def s6_row(name):
-        if name not in s6_path:
-            return dict(note="not instantiated at s = 6 (the factor-"
-                        "parallel pair; kernels/fused_gradient.py covers)")
         row = {}
         for path in s6_path[name]:
             model = path.split(" ")[0]
             row[path] = dict(launches=s6_counts[path][name],
                              **s6_kern.get((model, name), {}))
+            if name in s6_sources:
+                row[path]["source"] = csrc + s6_sources[name]
         return row
 
     # the s = 14 and s = 1 instances (csrc/chain_wide.cu): their launches
@@ -3598,14 +4026,18 @@ def main() -> int:
             row[model] = dict(rows_[name], bound_ms=ref["bound_ms"],
                               bound_by=ref["bound_by"])
         if name in ("fused_gradient_accum", "fused_gradient_solve"):
-            row["note"] = ("held and timed, on no path: the factor-parallel "
-                           "path does not take moments_eval_dtype yet")
+            row["launches"] = {"bf16 fp=2": fp_bf16[name]}
         return row
+
+    # the factor-parallel path with the loop's options (8 problems, rank
+    # 0) and the sequence-parallel path with K3 (rank 0)
+    fp_bf16 = shard_extra["options"]["fp bf16"]
 
     check(all(bf16_counts[p][name] > 0 for name, p in bf16_path.items()),
           "a kernel was launched on none of the bf16 paths")
     option_paths = {"resume": resume_counts, "seq": option_counts["seq"],
-                    "ema": option_counts["ema"], "ltv": ltv_counts}
+                    "ema": option_counts["ema"], "ltv": ltv_counts,
+                    **shard_extra["options"], "sp lanes": shard_extra["sp"]}
     check(all(wide_row(s, name)["launches"] > 0 for s, name in wide_kern),
           "an s = 14 or s = 1 chain kernel was launched on none of its paths")
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
@@ -3623,7 +4055,12 @@ def main() -> int:
                  planner=planner_rows[name], s6=s6_row(name),
                  s14=wide_row(14, name), s1=wide_row(1, name),
                  bf16=bf16_row(name),
-                 option_launches={p: c[name] for p, c in option_paths.items()})
+                 option_launches={p: c[name] for p, c in option_paths.items()},
+                 assoc=({"note": "chain_impl='assoc' replaces K1 / K2 by "
+                         "torch ops (the JAX package runs it on XLA); held "
+                         "and timed against them", **assoc}
+                        if name in ("gbp_covariance_logdet", "solve")
+                        else None))
             for name, note in zip(WRAPPERS, no_library)]
     check(all(v["launches"] > 0 for name in s6_path
               for v in s6_row(name).values()),

@@ -389,27 +389,54 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Mode "full" at s = 6 (the 3-D planners, chain estimation at dim_x = 3)
-// with the range and the 3-D SDF cost, float32 and float64: built in its
-// own translation unit, fused_gradient_s6.cu, whose four instances take
-// nvcc longer than the rest of the library, so that the build compiles
-// them beside the others.  Arguments and result as launch_grad's.
-int launch_grad_full_s6(int dtype, int cost, int np, const void* mu,
-                        const void* pd, const void* po, const void* temp,
-                        void* covd, void* covo, void* ld, void* dpd,
-                        void* dpo, void* dmu, void* dfb, void* vdmu,
-                        void* vdd, void* vdo, void* scratch, int nb, int n,
-                        int warps, long long chain, int n_nl,
-                        void* const* nl_ptrs, const int* nl_ints, int n_lin,
-                        void* const* lin_ptrs, const int* lin_ints,
-                        cudaStream_t st);
+// s = 6 (the 3-D planners, chain estimation at dim_x = 3) with the range
+// and the 3-D SDF cost, float32 and float64, one function a mode, each in a
+// translation unit of its own (fused_gradient_s6.cu, fused_gradient_accum_s6.cu,
+// fused_gradient_solve_s6.cu): their instances take nvcc longer than the
+// rest of the library, so that the build compiles them beside the others.
+// Arguments and result as launch_grad's.
+#define GVI_GRAD_S6_PARAMS                                                    \
+  int dtype, int cost, int np, const void *mu, const void *pd,              \
+      const void *po, const void *temp, void *covd, void *covo, void *ld,   \
+      void *dpd, void *dpo, void *dmu, void *dfb, void *vdmu, void *vdd,    \
+      void *vdo, void *scratch, int nb, int n, int warps, long long chain,  \
+      int n_nl, void *const *nl_ptrs, const int *nl_ints, int n_lin,        \
+      void *const *lin_ptrs, const int *lin_ints, cudaStream_t st
+int launch_grad_full_s6(GVI_GRAD_S6_PARAMS);
+int launch_grad_accum_s6(GVI_GRAD_S6_PARAMS);
+int launch_grad_solve_s6(GVI_GRAD_S6_PARAMS);
+
+// The body of launch_grad_<mode>_s6, for the translation unit that defines
+// it: the four (dtype, cost) instances of one mode.  Mode "solve" takes no
+// nonlinear factor, so its two cost instances run the same code; the
+// wrapper names the range cost there.
+#define GVI_GRAD_S6_DEFINE(NAME, MODE)                                        \
+  int NAME(GVI_GRAD_S6_PARAMS) {                                              \
+    if (cost == kRangeCost) {                                                 \
+      if (dtype == 0) GVI_GRAD_S6_ONE(float, RangeCost<3>, MODE)              \
+      if (dtype == 1) GVI_GRAD_S6_ONE(double, RangeCost<3>, MODE)             \
+    }                                                                         \
+    if (cost == kSdf3dCost) {                                                 \
+      if (dtype == 0) GVI_GRAD_S6_ONE(float, Sdf3dCost, MODE)                 \
+      if (dtype == 1) GVI_GRAD_S6_ONE(double, Sdf3dCost, MODE)                \
+    }                                                                         \
+    return -1;                                                                \
+  }
+#define GVI_GRAD_S6_ONE(T, COST, MODE)                                        \
+  {                                                                           \
+    if (np != COST::kParams) return -1;                                       \
+    return dispatch_grad<T, 6, COST, MODE>(                                   \
+        mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd, vdo, \
+        scratch, nb, n, warps, chain, n_nl, nl_ptrs, nl_ints, n_lin,          \
+        lin_ptrs, lin_ints, st);                                              \
+  }
 
 // One mode's instantiations (float32 / float64; s = 2 / 4 with the range
-// and the planar SDF cost; in mode "full" s = 6 goes to
-// launch_grad_full_s6).  dtype: 0 = float32, 1 = float64; cost:
-// csrc/costs.cuh CostId with np params (one cost for every nonlinear
-// batch; each batch brings its own field, null for the range cost).  warps problems per block, chain = grad_chain_elems values per
-// problem, scratch = the global arena or null.  Returns the cudaError_t of
+// and the planar SDF cost; s = 6 goes to the mode's launch_grad_<mode>_s6).
+// dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
+// params (one cost for every nonlinear batch; each batch brings its own
+// field, null for the range cost).  warps problems per block, chain =
+// grad_chain_elems values per problem, scratch = the global arena or null.  Returns the cudaError_t of
 // the launch (0 = success) or -1 for sizes that are not instantiated.
 template <int Mode>
 int launch_grad(int dtype, int s, int cost, int np, const void* mu,
@@ -440,15 +467,14 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
     if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarSdfCost) }
   }
-  // s = 6: mode "full" only; the factor-parallel pair waits
-  // (kernels/fused_gradient.py covers)
-  if constexpr (Mode == kGradFull) {
-    if (s == 6)
-      return launch_grad_full_s6(dtype, cost, np, mu, pd, po, temp, covd,
-                                 covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd,
-                                 vdo, scratch, nb, n, warps, chain, n_nl,
-                                 nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints,
-                                 st);
+  // s = 6: each mode's own translation unit
+  if (s == 6) {
+    auto s6 = Mode == kGradFull    ? launch_grad_full_s6
+              : Mode == kGradAccum ? launch_grad_accum_s6
+                                   : launch_grad_solve_s6;
+    return s6(dtype, cost, np, mu, pd, po, temp, covd, covo, ld, dpd, dpo,
+              dmu, dfb, vdmu, vdd, vdo, scratch, nb, n, warps, chain, n_nl,
+              nl_ptrs, nl_ints, n_lin, lin_ptrs, lin_ints, st);
   }
 #undef GVI_GRAD
   return -1;

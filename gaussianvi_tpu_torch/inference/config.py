@@ -6,12 +6,18 @@ What the implementation switches mean in the port:
 * ``chain_impl`` / ``quad_impl``: ``"auto"`` runs the CUDA kernels
   (``kernels/chain.py``, ``kernels/quad.py``) for GPU tensors where they
   cover the shape and the plain PyTorch versions elsewhere: the chain
-  kernels at s in {2, 4}; the quadrature follows the resolved chain, then
-  per nonlinear batch (a batch without a ``kernel_cost`` functor, or
-  spanning two states, takes the plain version).  ``"lanes"`` means the
-  kernel and raises for CPU tensors and for what it does not cover;
-  ``"seq"`` (chain) / ``"xla"`` (quadrature) force the plain PyTorch
-  versions on any device.  ``chain_impl="assoc"`` is not ported.
+  kernels at s in {1, 2, 4, 6, 14}, else the log-depth scans
+  (``ops/parallel_chain.py``) where ``num_states >= assoc_threshold``,
+  else the sequential sweeps (JAX's ``resolve_chain_impl``, with the card
+  in the TPU's place); the quadrature follows the resolved chain (the
+  kernel only where the chain is K1 / K2), then per nonlinear batch (a
+  batch without a ``kernel_cost`` functor, or spanning two states, takes
+  the plain version).  ``"lanes"`` means the kernel and raises for CPU
+  tensors and for what it does not cover; ``"seq"`` (chain) / ``"xla"``
+  (quadrature) force the plain PyTorch versions on any device;
+  ``chain_impl="assoc"`` forces the log-depth scans (Hillis-Steele
+  doubling over the state axis, torch ops: JAX runs them on XLA, not in
+  a Pallas kernel).
 * ``fused_trials`` / ``fused_gradient``: the fused line-search trial
   kernel (``kernels/fused_trials.py``, K5) and the fused gradient kernel
   (``kernels/fused_gradient.py``, K6).  ``"auto"`` takes them where the
@@ -23,9 +29,9 @@ What the implementation switches mean in the port:
   ``linesearch="batched"``), i.e. for GPU tensors: the JAX package's
   static choice, so CPU tensors stay on the separate path.  ``"on"``
   asserts that and raises ``ValueError`` where the JAX package does
-  (``quad_impl="xla"``, or ``"auto"`` with ``chain_impl="seq"``,
-  included; ``chain_impl="seq", quad_impl="lanes"`` builds); on CPU
-  tensors it runs the kernels' plain versions.  ``"off"`` forces the
+  (``quad_impl="xla"``, or ``"auto"`` with ``chain_impl`` ``"seq"`` or
+  ``"assoc"``, included; ``chain_impl="seq", quad_impl="lanes"``
+  builds); on CPU tensors it runs the kernels' plain versions.  ``"off"`` forces the
   separate path.
 * ``use_pallas``: the NGD gradient moments of every nonlinear batch that
   has a block form (``block_cost``) go through the block-form moments

@@ -30,10 +30,9 @@ from ..kernels.fused_trials import (
 )
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as gbp_plain
+from ..ops.parallel_chain import gbp_covariance_logdet_assoc, solve_assoc
 from .gvi import ngd_gradients, prox_gradients
 from .graph import FactorGraph, GaussianState, gather_marginals
-
-_TODO = "not ported yet (ROADMAP.md, Queue A)"
 
 
 def use_kernel(impl: str, plain: str, field: str, device: torch.device,
@@ -55,7 +54,26 @@ def use_kernel(impl: str, plain: str, field: str, device: torch.device,
         return True
     if impl == plain:
         return False
-    raise NotImplementedError(f"{field}={impl!r} is {_TODO}")
+    raise ValueError(f"unknown {field} {impl!r}")
+
+
+def resolve_chain_impl(config, num_states: int, device: torch.device,
+                       why_not: str | None = None) -> str:
+    """The chain's route, ``"lanes"`` (K1 / K2), ``"assoc"`` or ``"seq"``
+    (``resolve_chain_impl`` in the JAX package): ``"auto"`` takes the
+    kernels for GPU tensors they cover (``why_not`` None), else the
+    log-depth scans where ``num_states >= assoc_threshold``, else the
+    sequential sweeps; ``"lanes"`` is the kernels or raises (see
+    :func:`use_kernel`)."""
+    impl = config.chain_impl
+    if impl == "auto":
+        if device.type == "cuda" and why_not is None:
+            return "lanes"
+        return "assoc" if num_states >= config.assoc_threshold else "seq"
+    if impl in ("seq", "assoc"):
+        return impl
+    use_kernel(impl, "seq", "chain_impl", device, why_not)
+    return "lanes"
 
 
 def check_config(config, method: str) -> None:
@@ -144,7 +162,9 @@ class LocalEngine:
     """Single-device hooks: the whole (problem-batched) graph lives on one
     device.
 
-    Resolved routes: ``chain_kernel`` (K1/K2), ``quad_kernel`` (the
+    Resolved routes: ``chain_impl`` (``"lanes"``: K1/K2, ``"assoc"``,
+    ``"seq"``; ``chain_kernel`` is whether it is the kernels),
+    ``quad_kernel`` (the
     quadrature's route: its kernel family, or the plain version for every
     batch), ``quad_batches`` (per nonlinear batch, whether that batch takes
     the quadrature kernel where the call's ``eval_dtype`` is None or
@@ -164,9 +184,10 @@ class LocalEngine:
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
         self.use_pallas = config.use_pallas
-        self.chain_kernel = use_kernel(
-            config.chain_impl, "seq", "chain_impl", device,
+        self.chain_impl = resolve_chain_impl(
+            config, graph.num_states, device,
             chain.covers(graph.state_dim, graph.dtype))
+        self.chain_kernel = self.chain_impl == "lanes"
         # quad_impl="auto" follows the resolved chain (the JAX package's
         # bundle); each batch then takes the kernel where it is covered
         quad_impl = config.quad_impl
@@ -182,10 +203,11 @@ class LocalEngine:
         # config forces the plain quadrature, on any device
         ops = fused_operands(graph)
         why_not = ops if isinstance(ops, str) else None
-        if config.quad_impl == "xla" or (config.quad_impl == "auto"
-                                         and config.chain_impl == "seq"):
-            why_not = ("quad_impl='xla' (or 'auto' with chain_impl='seq') "
-                       "forces the plain quadrature")
+        if config.quad_impl == "xla" or (
+                config.quad_impl == "auto"
+                and config.chain_impl in ("seq", "assoc")):
+            why_not = ("quad_impl='xla' (or 'auto' with chain_impl 'seq' "
+                       "or 'assoc') forces the plain quadrature")
         eval_dtype = mm.as_eval_dtype(config.moments_eval_dtype)
         if why_not is None and not mm.kernel_quantizes(eval_dtype):
             why_not = (f"moments_eval_dtype={config.moments_eval_dtype!r} "
@@ -211,6 +233,8 @@ class LocalEngine:
         """(cov_diag, cov_off, logdet) of the joint precision."""
         if self.chain_kernel:
             return chain.gbp_covariance_logdet_lanes(prec.diag, prec.off)
+        if self.chain_impl == "assoc":
+            return gbp_covariance_logdet_assoc(prec)
         return gbp_plain(prec)
 
     # -- costs ---------------------------------------------------------------
@@ -260,6 +284,8 @@ class LocalEngine:
                    rhs):
         """Solve both systems (main metric + SPD fallback) against the same
         rhs ``[..., N, s]`` in ONE chain call (K2 reads the rhs once)."""
+        if self.chain_impl == "assoc":
+            return solve_assoc(bt_main, rhs), solve_assoc(bt_fallback, rhs)
         solve = (chain.solve_pair_lanes if self.chain_kernel
                  else chain.solve_pair_plain)
         return solve(bt_main.diag, bt_main.off, bt_fallback.diag,

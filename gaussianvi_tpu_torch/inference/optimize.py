@@ -402,9 +402,9 @@ def run_gvi(engine: LocalEngine, init_state: GaussianState,
 def optimize(graph: FactorGraph, init_state: GaussianState,
              config: GVIConfig = GVIConfig(), method: str = "ngd"):
     """Run the full GVI loop on a (problem-batched) graph; returns the final
-    state and iteration history.  Raises ``NotImplementedError`` for the
-    options the port does not cover yet and ``ValueError`` for a fused
-    kernel forced on where it is not eligible (see :mod:`.config`)."""
+    state and iteration history.  Raises ``ValueError`` for an unknown
+    option value and for a kernel forced on where it is not eligible (see
+    :mod:`.config`)."""
     check_config(config, method)
     set_precision_policy()
     with torch.no_grad():

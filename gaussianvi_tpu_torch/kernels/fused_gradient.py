@@ -19,11 +19,13 @@ which equals the separate path for symmetric target precisions (every
 library prior builds them so).
 
 The factor-parallel path (``parallel/sharding.py``) runs the same program
-as a pair: mode ``"accum"`` (``csrc/fused_gradient_accum.cu``) returns the
+as a pair: mode ``"accum"`` (``csrc/fused_gradient_accum.cu``, at s = 6
+``csrc/fused_gradient_accum_s6.cu``) returns the
 partial ``(Vdmu, Vddmu diag, Vddmu off)`` of the nonlinear factors it is
 given, as views of one buffer (:class:`Partials`) so that they are summed
 over the ranks in one all-reduce; mode ``"solve"``
-(``csrc/fused_gradient_solve.cu``) takes that sum as ``seeds``, adds the
+(``csrc/fused_gradient_solve.cu``, at s = 6
+``csrc/fused_gradient_solve_s6.cu``) takes that sum as ``seeds``, adds the
 linear factors and returns what ``"full"`` returns.
 
 Each mode's kernel launches are counted on its own wrapper (never
@@ -71,9 +73,9 @@ def _full_a(a, nb: int):
 
 GRAD_WARPS = 4       # csrc/fused_gradient.cuh kGradWarps
 # block sizes s each mode is instantiated at (csrc/fused_gradient.cuh
-# launch_grad; the dtypes and costs are fused_trials.covers'): the
-# factor-parallel pair not at s = 6 yet
-MODE_BLOCK_SIZES = {"full": (2, 4, 6), "accum": (2, 4), "solve": (2, 4)}
+# launch_grad; the dtypes and costs are fused_trials.covers')
+MODE_BLOCK_SIZES = {"full": (2, 4, 6), "accum": (2, 4, 6),
+                    "solve": (2, 4, 6)}
 
 
 def covers(s: int, modes) -> str | None:

@@ -1,10 +1,14 @@
 """Multi-rank execution of the GVI loop (counterpart of
-``gaussianvi_tpu/parallel``): the (dp, fp) factor-parallel path and parallel
-restarts.  The sequence-parallel chain of the JAX package
-(``time_sharding``, ``chain_seqpar``, ``comm_model``, ``scaling_bench``) is
-not ported: its entry points raise ``NotImplementedError``."""
+``gaussianvi_tpu/parallel``): the (dp, fp) factor-parallel path, the
+sequence-parallel path (the chain's states sharded over ``sp``) and
+parallel restarts."""
 
 from ..batching import stack_problems
+from .chain_seqpar import (
+    gbp_covariance_logdet_seqpar,
+    pad_off_for_seqpar,
+    solve_seqpar,
+)
 from .collective import Mesh, make_mesh
 from .restarts import best_of_restarts, optimize_restarts, perturb_inits
 from .sharding import (
@@ -13,27 +17,11 @@ from .sharding import (
     shard_state,
     sharded_ngd_step,
 )
-
-_SEQPAR = ("the sequence-parallel chain ({name}) is not ported yet "
-           "(ROADMAP.md, Queue A 11: time_sharding, chain_seqpar, "
-           "comm_model, scaling_bench)")
-
-
-def _not_ported(name):
-    def entry(*args, **kwargs):
-        raise NotImplementedError(_SEQPAR.format(name=name))
-
-    entry.__name__ = name
-    entry.__doc__ = "Not ported: raises ``NotImplementedError``."
-    return entry
-
-
-gbp_covariance_logdet_seqpar = _not_ported("gbp_covariance_logdet_seqpar")
-solve_seqpar = _not_ported("solve_seqpar")
-pad_off_for_seqpar = _not_ported("pad_off_for_seqpar")
-sharded_time_ngd_step = _not_ported("sharded_time_ngd_step")
-optimize_time_sharded = _not_ported("optimize_time_sharded")
-to_chain_layout = _not_ported("to_chain_layout")
+from .time_sharding import (
+    optimize_time_sharded,
+    sharded_time_ngd_step,
+    to_chain_layout,
+)
 
 __all__ = [
     "Mesh", "make_mesh", "sharded_ngd_step", "optimize_sharded",

@@ -179,6 +179,27 @@ class FactorShardEngine(LocalEngine):
         return cd, co, ld, BlockTridiag(dpd, dpo), dmu, dfb
 
 
+def _check_batched(graph_b: FactorGraph, b: int) -> None:
+    """Raise where a factor batch's per-problem data lacks the leading
+    problem axis of ``b`` problems (``shard_graph`` would shard the wrong
+    axis): a single problem's graph goes through ``stack_problems``, or
+    ``parallel.restarts`` for restarts of one problem."""
+    def batched(x, k):
+        return x.ndim >= 2 and tuple(x.shape[:2]) == (b, k)
+
+    ok = all(batched(x, fb.num_factors) for fb in graph_b.nonlinear
+             for x in (*(fb.params or {}).values(),
+                       *(() if fb.kernel_params is None
+                         else (fb.kernel_params,))))
+    ok = ok and all(lb.lam.ndim == 4 and lb.lam.shape[0] == b
+                    for lb in graph_b.linear)
+    if not ok:
+        raise ValueError(
+            f"optimize_sharded takes a problem-batched graph (per-factor "
+            f"data [B={b}, K, ...], stack_problems), got a factor batch "
+            "without the problem axis")
+
+
 def _gather_factor_costs(hist: GVIHistory, graph_loc: FactorGraph,
                          mesh: Mesh) -> GVIHistory:
     """The history with every nonlinear batch's K axis reassembled over fp
@@ -188,7 +209,7 @@ def _gather_factor_costs(hist: GVIHistory, graph_loc: FactorGraph,
     sizes = [b.num_factors for b in (*graph_loc.nonlinear, *graph_loc.linear)]
     parts = list(hist.factor_costs.split(sizes, dim=-1))
     for j in range(len(graph_loc.nonlinear)):
-        parts[j] = mesh.all_gather_fp(parts[j], dim=-1)
+        parts[j] = mesh.all_gather_cat(parts[j], dim=-1)
     return hist._replace(factor_costs=torch.cat(parts, dim=-1))
 
 
@@ -199,7 +220,7 @@ def _check_lockstep(mesh: Mesh, state: GaussianState, hist: GVIHistory):
               ("final mean", state.mu),
               ("final precision", state.precision.diag))
     for what, x in checks:
-        if mesh.differs_over_fp(x):
+        if mesh.differs(x):
             raise RuntimeError(
                 f"optimize_sharded: the ranks of fp row {mesh.dp_index} "
                 f"disagree on the {what}: they did not run in lockstep "
@@ -214,22 +235,25 @@ def optimize_sharded(graph_b: FactorGraph, state_b: GaussianState,
     own device) and gets back the final state and history of its dp block
     of problems, with the per-factor costs in global factor order.
     Trajectories match ``optimize`` up to the reassociation of the sums
-    over fp.  ``"auto"`` implementations go by the tensors' device, as in
-    ``optimize`` (the JAX package resolves them by the mesh's platform)."""
+    over fp, with every option of the loop: ``linesearch="seq"`` (each
+    further trial is decided on the all-reduced trial costs, so every rank
+    of a row takes the same branch and issues the same all-reduces),
+    ``ema_alpha`` and ``moments_eval_dtype`` (bfloat16 rounded in K6
+    ``accum`` and K5 where they run, float16 on the plain quadrature).
+    ``"auto"`` implementations go by the tensors' device, as in
+    ``optimize`` (the JAX package resolves them by the mesh's platform):
+    the chain as ``inference.engine.resolve_chain_impl``."""
+    if mesh.sp > 1:
+        raise ValueError("optimize_sharded runs on a (dp, fp) mesh; an sp "
+                         "mesh is optimize_time_sharded's")
     if not mesh.member:
-        raise ValueError(f"rank {mesh.rank} is outside the "
-                         f"{mesh.dp}x{mesh.fp} mesh")
+        raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} "
+                         "mesh")
     if state_b.mu.ndim != 3:
         raise ValueError("optimize_sharded takes a problem-batched state "
                          f"(mu [B, N, s]), got {tuple(state_b.mu.shape)}")
+    _check_batched(graph_b, state_b.mu.shape[0])
     check_config(config, method)
-    for name, plain in (("linesearch", "batched"), ("ema_alpha", 1.0),
-                        ("moments_eval_dtype", None)):
-        if getattr(config, name) != plain:
-            raise NotImplementedError(
-                f"optimize_sharded: {name}={getattr(config, name)!r} is not "
-                "ported to the factor-parallel path yet (ROADMAP.md, "
-                "Queue A 12)")
     set_precision_policy()
     device = state_b.mu.device
     with torch.no_grad():

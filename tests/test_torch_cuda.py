@@ -322,7 +322,7 @@ def test_fused_gradient_kernel_matches_plain(dev, n, dim_x, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,dim_x", [(6, 2), (8, 1)])
+@pytest.mark.parametrize("n,dim_x", [(6, 2), (8, 1), (6, 3)])
 def test_split_gradient_kernels_match_plain(dev, n, dim_x, dtype):
     """K6 ``accum`` on each half of the nonlinear factors against its plain
     version, ``solve`` on their sum against its plain version, and the pair
@@ -972,9 +972,10 @@ def test_sdf3d_quad_kernel_matches_plain(dev, with_moments, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_sdf3d_fused_kernels_match_plain(dev, dtype):
-    """K5 and K6 ``full`` on the 3-D point planner's graph (s = 6) against
-    their plain versions, twice for the same bits; the split pair is not
-    instantiated at s = 6 and says so."""
+    """K5, K6 ``full`` and the split pair (``accum`` on each half of the
+    obstacle factors, ``solve`` on their sum) on the 3-D point planner's
+    graph (s = 6) against their plain versions, twice for the same
+    bits."""
     from gaussianvi_tpu_torch.inference.engine import fused_operands
     from gaussianvi_tpu_torch.kernels import fused_gradient as fg
     from gaussianvi_tpu_torch.kernels import fused_trials as ft
@@ -1011,9 +1012,28 @@ def test_sdf3d_fused_kernels_match_plain(dev, dtype):
     want6 = fg.gradient_plain(*x6, *ops)
     for i, (g, w) in enumerate(zip(got6, want6)):
         _assert_close(g, w, dtype, scaled=i > 2)
-    nl_specs, _, nl_arrays, _ = ops
-    with pytest.raises(ValueError, match="mode 'accum' not instantiated"):
-        fg.gradient_accum_lanes(*x6, nl_specs, nl_arrays)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = ops
+    sp, (start, nodes, weights, params, field) = nl_specs[0], nl_arrays[0]
+    k = sp.k // 2
+    total = None
+    for i in range(2):
+        half = ((sp._replace(k=k, slice_offset=None),),
+                ((start[i * k:(i + 1) * k], nodes, weights,
+                  params[:, i * k:(i + 1) * k], field),))
+        got = _twice(lambda: fg.gradient_accum_lanes(*x6, *half))
+        want = fg.gradient_plain(*x6, half[0], (), half[1], (), mode="accum")
+        for g, w in zip(got, want):
+            _assert_close(g, w, dtype, scaled=True)
+        total = [t.clone() for t in got] if total is None else [
+            a + b for a, b in zip(total, got)]
+    got = _twice(lambda: fg.gradient_solve_lanes(*x6, total, lin_specs,
+                                                 lin_arrays))
+    want = fg.gradient_plain(*x6, (), lin_specs, (), lin_arrays,
+                             mode="solve", seeds=total)
+    for i, (g, w, f) in enumerate(zip(got, want, got6)):
+        _assert_close(g, w, dtype, scaled=i > 2)
+        if dtype == torch.float64:
+            _assert_close(g, f, dtype, scaled=i > 2)
 
 
 def test_s6_models_on_kernels_match_plain(dev):
@@ -1104,3 +1124,62 @@ def test_s14_s1_models_on_kernels_match_plain(dev):
     assert launch_counts()["solve"] == 10
     assert abs(float(hb.mu[-1, 0, 0]) - 23.798263483531) < 1e-9
     assert abs(float(hb.cost[-1]) - 1.7901555302211) < 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the log-depth chain and the sequence-parallel loop on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [2, 4, 6])
+def test_assoc_matches_chain_kernels(dev, s):
+    """``gbp_covariance_logdet_assoc`` and ``solve_assoc`` (torch ops on
+    the card) against K1 and K2 on the same chains, float64."""
+    from gaussianvi_tpu_torch.kernels import chain
+    from gaussianvi_tpu_torch.ops import parallel_chain as pc
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    diag, off, rhs = _chains(64, 33, s, seed=s, dev=dev)
+    got = pc.gbp_covariance_logdet_assoc(BlockTridiag(diag, off))
+    want = chain.gbp_covariance_logdet_lanes(diag, off)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    x = pc.solve_assoc(BlockTridiag(diag, off), rhs)
+    torch.testing.assert_close(x, chain.solve_lanes(diag, off, rhs), rtol=0,
+                               atol=ATOL)
+
+
+def test_one_rank_sp_mesh_on_the_card(dev):
+    """``optimize_time_sharded`` on a one-rank sp mesh on the card: no
+    collective, the same bits twice, and the local run with the log-depth
+    chain (``chain_impl="assoc"``) to 1e-9 with the same accepted steps
+    (the segment's scan composes one more, padded, element than the local
+    scan: the two differ by reassociation).  With ``quad_impl="lanes"`` it
+    launches K3 and agrees with the plain quadrature's run."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize, parallel
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.kernels import quad
+
+    graph, init, _ = build_chain_estimation(num_states=64, dim_x=2,
+                                            gh_degree=4, seed=0, device=dev)
+    chain_graph = parallel.to_chain_layout(graph)
+    cfg = GVIConfig(niters=6, step_size_base=0.9)
+    mesh = parallel.make_mesh(1, 1, sp=1)
+    runs = [parallel.optimize_time_sharded(chain_graph, init, cfg, mesh)
+            for _ in range(2)]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    assert not mesh.inventory
+    _, local = optimize(graph, init, GVIConfig(niters=6, step_size_base=0.9,
+                                               chain_impl="assoc"))
+    hist = runs[0][1]
+    torch.testing.assert_close(hist.cost, local.cost, rtol=1e-9, atol=0)
+    assert torch.equal(hist.accepted_step, local.accepted_step)
+    before = quad.quad_lanes_phi.launches
+    _, lanes = parallel.optimize_time_sharded(
+        chain_graph, init, GVIConfig(niters=6, step_size_base=0.9,
+                                     quad_impl="lanes"), mesh)
+    assert quad.quad_lanes_phi.launches > before
+    torch.testing.assert_close(lanes.cost, hist.cost, rtol=1e-9, atol=0)
+    assert torch.equal(lanes.accepted_step, hist.accepted_step)

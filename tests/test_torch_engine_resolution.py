@@ -253,12 +253,12 @@ def test_s6_models_resolve(name, want):
                 LocalEngine(graph, replace(config, **fields), CARD)
 
 
-@pytest.mark.parametrize("fp,want", [(1, True), (2, False)])
+@pytest.mark.parametrize("fp,want", [(1, ("full",)), (2, ("accum", "solve"))])
 def test_s6_factor_parallel_gradient(fp, want):
-    """K6's split pair (``accum`` / ``solve``) is not instantiated at
-    s = 6: a factor-parallel engine with fp >= 2 takes the separate
-    gradient there under ``"auto"`` (K5 stays on) and raises for
-    ``fused_gradient="on"``; with fp = 1 it runs K6 ``full``."""
+    """K6's split pair (``accum`` / ``solve``) is instantiated at s = 6: a
+    factor-parallel engine with fp >= 2 takes it there under ``"auto"``
+    beside K5, as the JAX engine builds the pair for any s, and
+    ``fused_gradient="on"`` builds; with fp = 1 it runs K6 ``full``."""
     from types import SimpleNamespace
 
     from gaussianvi_tpu_torch.parallel.sharding import FactorShardEngine
@@ -266,11 +266,11 @@ def test_s6_factor_parallel_gradient(fp, want):
     graph, config = _s6_model("point3d")
     mesh = SimpleNamespace(fp=fp)
     eng = FactorShardEngine(graph, config, CARD, mesh)
-    assert eng.fused_trials_ready and eng.fused_gradient_ready == want
-    if not want:
-        with pytest.raises(ValueError, match="mode 'accum' not instantiated"):
-            FactorShardEngine(graph, replace(config, fused_gradient="on"),
-                              CARD, mesh)
+    assert eng.fused_trials_ready and eng.fused_gradient_ready
+    assert eng.gradient_modes == want
+    on = FactorShardEngine(graph, replace(config, fused_gradient="on"), CARD,
+                           mesh)
+    assert on.fused_gradient_ready and on.gradient_modes == want
 
 
 @pytest.mark.parametrize("name,method,want", [

@@ -26,7 +26,9 @@ for new in ("ops.psd", "kernels.fused_moments", "parallel.collective",
             "examples.planar_planning", "examples.ltv_estimation",
             "examples.plot_1d", "inference.introspect",
             "inference.validate", "utils.checkpoint", "utils.recorder",
-            "utils.profiling"):
+            "utils.profiling", "ops.parallel_chain", "parallel.chain_seqpar",
+            "parallel.time_sharding", "parallel.comm_model",
+            "parallel.scaling_bench"):
     assert pkg.__name__ + "." + new in names, new
 assert not any(m == "gaussianvi_tpu" or m.startswith("gaussianvi_tpu.")
                for m in sys.modules), "the JAX package was imported"
@@ -55,7 +57,8 @@ def test_no_source_mentions_jax_imports():
 # the JAX package's subpackages the port carries over, and the names of
 # their ``__all__`` it does not (the orbax checkpoint pair: the JAX
 # package's checkpoint library, ROADMAP.md "Not carried over")
-PORTED = ("", ".examples", ".factors", ".ops", ".inference", ".utils")
+PORTED = ("", ".examples", ".factors", ".ops", ".inference", ".utils",
+          ".parallel")
 NOT_CARRIED = {".utils": {"save_checkpoint_orbax", "load_checkpoint_orbax"}}
 
 

@@ -230,6 +230,8 @@ def test_block_plans_at_s6():
         assert plan.smem <= tft.SMEM_LIMIT
     assert tfg.grad_plan("g", 20, 6, 4, 700).warps == 2
     assert tfg.grad_plan("g", 32, 6, 8, 3864).warps == 1
-    assert tfg.covers(6, ("full",)) is None
-    for mode in ("accum", "solve"):
-        assert "s=6" in tfg.covers(6, (mode,))
+    # every mode of K6 at s = 6, the split pair too (since the factor-
+    # parallel path's s = 6 instances); not at s = 8
+    for mode in ("full", "accum", "solve"):
+        assert tfg.covers(6, (mode,)) is None
+        assert "s=8" in tfg.covers(8, (mode,))

@@ -2,8 +2,9 @@
 gradient pair (K6 ``accum`` / ``solve``) against the JAX kernels in Pallas
 interpret mode, ``optimize_sharded`` / ``sharded_ngd_step`` on gloo ranks
 against the JAX package's ``optimize_sharded`` on its 8-virtual-device CPU
-mesh and against the port's ``optimize``, and ``joint_cost`` and the
-restarts' best-of selection against the JAX package (CPU, f64).
+mesh and against the port's ``optimize`` (the loop's options included),
+and ``joint_cost`` and the restarts' best-of selection against the JAX
+package (CPU, f64).
 
 Every sharded run of this file happens in ONE group of four rank processes
 (``ranks`` fixture); the tests read its results.  The rank processes import
@@ -45,8 +46,13 @@ VARIANTS = {
     "ngd-separate": ("ngd", _BENCH, {}, {}),
     "prox": ("prox", dict(_BENCH, step_size_base=0.1), {}, {}),
 }
+# the loop's options on the (2, 2) mesh, NGD, held to JAX
+# ``optimize_sharded`` with the same option and to the port's ``optimize``
+OPTIONS = {"bf16": dict(moments_eval_dtype="bfloat16"),
+           "seq": dict(linesearch="seq"), "ema": dict(ema_alpha=0.5)}
 # problem sets: (num_states, dim_x, gh_degree, problems)
-SETS = {"flagship": (8, 2, 4, 4), "split": (8, 1, 3, 1), "odd": (6, 1, 3, 4)}
+SETS = {"flagship": (8, 2, 4, 4), "split": (8, 1, 3, 1), "odd": (6, 1, 3, 4),
+        "s6": (6, 3, 4, 1)}
 
 
 def _jax_problems(key):
@@ -140,7 +146,13 @@ def _jobs():
         for mesh in MESHES:
             jobs.append((f"{variant}-{mesh}", "optimize", "flagship", mesh,
                          {**base, **extra}, method))
+    for name, fields in OPTIONS.items():
+        jobs.append((f"option-{name}", "optimize", "flagship", (2, 2),
+                     {**_BENCH, **fields}, "ngd"))
     fused = dict(fused_trials="on", fused_gradient="on")
+    # bfloat16 offsets in K6 accum's and K5's plain versions
+    jobs.append(("option-bf16-fused", "optimize", "flagship", (2, 2),
+                 {**_BENCH, **OPTIONS["bf16"], **fused}, "ngd"))
     jobs += [
         ("step", "step", "flagship", (2, 2), dict(step_size_base=0.9), "ngd"),
         ("split-2", "split", "split", (1, 2), fused, "ngd"),
@@ -282,6 +294,41 @@ def test_optimize_sharded_matches_jax_and_local(ranks, port_runs, jax_runs,
         assert all_reduces == 0
     else:
         assert all_reduces == 3 * _BENCH["niters"] + 3
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS) + ["bf16-fused"])
+def test_optimize_sharded_options_match_jax_and_local(ranks, jax_sets, descs,
+                                                      name):
+    """``moments_eval_dtype="bfloat16"``, ``linesearch="seq"`` and
+    ``ema_alpha=0.5`` on the (2, 2) mesh against the port's ``optimize``
+    with the same option and against JAX ``optimize_sharded`` with it on
+    the (2, 2) CPU mesh (its separate path: bf16 on the fused plain
+    versions is held to the port's own fused run)."""
+    from gaussianvi_tpu.inference import GVIConfig as JaxConfig
+    from gaussianvi_tpu.parallel import sharding as js
+
+    option = OPTIONS[name.split("-")[0]]
+    fused = (dict(fused_trials="on", fused_gradient="on")
+             if name.endswith("fused") else {})
+    got, _ = _assemble(ranks, f"option-{name}", 2, 2)
+    graph_b, state_b = _port_batch(descs["flagship"])
+    state, hist = optimize(graph_b, state_b,
+                           GVIConfig(**_BENCH, **option, **fused))
+    _assert_same_run(got, _run_result(state, hist, parallel.make_mesh(1, 1)),
+                     "vs the port's optimize")
+    if fused:
+        return
+    ps = jax_sets["flagship"]
+    jg, jst = js.stack_problems([p[0] for p in ps], [p[1] for p in ps])
+    jstate, jhist = js.optimize_sharded(jg, jst, JaxConfig(**_BENCH, **option),
+                                        js.make_mesh(2, 2))
+    _assert_same_run(got, dict(
+        cost=np.asarray(jhist.cost),
+        factor_costs=np.asarray(jhist.factor_costs),
+        accepted_step=np.asarray(jhist.accepted_step),
+        mu=np.asarray(jstate.mu), prec_diag=np.asarray(jstate.precision.diag),
+        prec_off=np.asarray(jstate.precision.off)),
+        "vs JAX optimize_sharded on (2, 2)")
 
 
 def test_factor_costs_come_back_in_global_order(ranks, port_runs):
@@ -446,6 +493,17 @@ def test_split_modes_plain_match_jax_kernels(jax_sets, descs, key="flagship"):
     ``solve`` (on their sum) against the JAX kernel in interpret mode in
     the same mode on the same shard operands (four flagship problems, s=4,
     the marginal-rule lift on), rtol 1e-9."""
+    _split_modes_vs_jax(jax_sets, descs, key)
+
+
+def test_split_modes_plain_match_jax_kernels_s6(jax_sets, descs):
+    """The same at s = 6 (chain estimation at dim_x = 3, one problem, the
+    3-D marginal rule on the range cost): the shapes of the pair's new
+    CUDA instances."""
+    _split_modes_vs_jax(jax_sets, descs, "s6")
+
+
+def _split_modes_vs_jax(jax_sets, descs, key):
     import jax.numpy as jnp
 
     from gaussianvi_tpu.inference import GVIConfig as JaxConfig
@@ -526,7 +584,7 @@ def test_accum_and_solve_refuse_the_other_factor_kind(descs):
 
 
 # ---------------------------------------------------------------------------
-# single process: the 1 x 1 mesh, impl resolution, unported entry points
+# single process: the 1 x 1 mesh, impl resolution
 # ---------------------------------------------------------------------------
 
 def test_one_by_one_mesh_is_the_local_run_to_the_bit(descs):
@@ -550,6 +608,23 @@ def test_one_by_one_mesh_is_the_local_run_to_the_bit(descs):
             state_from_arrays(descs["split"][0][1], device=CPU), cfg, mesh)
 
 
+def test_a_graph_without_the_problem_axis_raises(descs):
+    """A batched state with one problem's graph (restarts sharing it) would
+    shard the wrong axis of the factors' data: ``optimize_sharded`` refuses
+    it, and takes the graph the restarts module batches for it."""
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    graph_b, state_b = _port_batch(descs["flagship"])
+    one = graph_from_arrays(descs["flagship"][0][0], device=CPU)
+    mesh, cfg = parallel.make_mesh(1, 1), GVIConfig(niters=1)
+    with pytest.raises(ValueError, match="problem-batched graph"):
+        parallel.optimize_sharded(one, state_b, cfg, mesh)
+    _, hist = parallel.optimize_sharded(_batch_graph(one, 4), state_b, cfg,
+                                        mesh)
+    _, ref = optimize(one, state_b, cfg)
+    assert torch.equal(hist.cost, ref.cost)
+
+
 def test_auto_impls_go_by_the_device(descs):
     """``"auto"`` on CPU tensors is the plain chain and quadrature (the JAX
     package resolves it by the mesh's platform), the fused kernels stay off
@@ -564,21 +639,6 @@ def test_auto_impls_go_by_the_device(descs):
         parallel.optimize_sharded(graph_b, state_b,
                                   GVIConfig(niters=1, chain_impl="lanes"),
                                   mesh)
-
-
-@pytest.mark.parametrize("name", [
-    "gbp_covariance_logdet_seqpar", "solve_seqpar", "pad_off_for_seqpar",
-    "sharded_time_ngd_step", "optimize_time_sharded", "to_chain_layout",
-])
-def test_sequence_parallel_entry_points_raise(name):
-    """The JAX package's other ``parallel`` exports exist and say where
-    their port is queued."""
-    import gaussianvi_tpu.parallel as jax_parallel
-
-    assert name in jax_parallel.__all__ and name in parallel.__all__
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        getattr(parallel, name)()
-    assert set(jax_parallel.__all__) <= set(parallel.__all__)
 
 
 def test_nccl_without_a_gpu_raises():

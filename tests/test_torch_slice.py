@@ -112,15 +112,6 @@ def test_slice_matches_jax(problems, name):
         assert (acc[:, 2:] == 0).any()
 
 
-@pytest.mark.parametrize("field,value", [("chain_impl", "assoc")])
-def test_unported_options_raise(problems, field, value):
-    g, s = problems[0]
-    d, st = describe(g, s)
-    with pytest.raises(NotImplementedError):
-        optimize(graph_from_arrays(d, device=CPU), state_from_arrays(st, device=CPU),
-                 GVIConfig(niters=1, **{field: value}))
-
-
 @pytest.mark.parametrize("field", ["chain_impl", "quad_impl"])
 def test_kernel_impl_on_cpu_raises(problems, field):
     g, s = problems[0]
