@@ -66,7 +66,13 @@ ranks of this card: float64 against the single-process run, with K3
 against the plain quadrature, float32), each run's collectives against
 ``parallel.comm_model``; and the log-depth chain (``chain_impl="assoc"``)
 against K1 / K2 at the flagship's shape and on one chain of 4096 states,
-and its loop against the default path.
+and its loop against the default path.  Then the samplers at the
+flagship's width (N = 32, s = 4, D = 128; no CUDA kernel of their own):
+GVI and ``validate_posterior`` on a linear-Gaussian chain, ``run_chains``
+(512 chains) and ``nuts_chains`` (128) held to its exact posterior,
+``nuts_chains`` and ``smc_adaptive`` (1024 particles) on the flagship,
+their rates and the device's busy share, and the card against the CPU on
+the same draws (float64).
 
 Each path's launch counters are zeroed just before it and read just after.
 Checks the results: NGD costs finite, non-increasing and positive, prox
@@ -3597,6 +3603,496 @@ def ltv_runs(card, dev):
     return n
 
 
+# ---- the samplers: HMC, NUTS and SMC with the chains batched on the card,
+# at the flagship's width (N = 32 states of s = 4, D = 128) ----
+SAMPLER_N = 32
+# transitions cut to keep the phase near a minute: the host's launch pace
+# sets it (1.7-4 ms a batched gradient evaluation or NUTS leaf on an H100,
+# PERF.md section 6, the samplers' finding); first planned: 300 + 400
+# (run_chains), 150 + 250 (nuts_chains), 500 + 1000 (validate_posterior),
+# 100 + 100 (the flagship's NUTS)
+HMC_C, HMC_WARMUP, HMC_SAMPLES, LEAPFROG = 512, 100, 150, 12
+NUTS_C, NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 128, 50, 75, 6
+FLAG_NUTS_WARMUP, FLAG_NUTS_SAMPLES = 30, 30
+SMC_P, SMC_STAGES = 1024, 50
+VALIDATE_WARMUP, VALIDATE_SAMPLES = 100, 200
+RAW_WARMUP, RAW_SAMPLES = 30, 30
+# JAX's posterior-validation thresholds, set for the N = 4 graph of
+# tests/test_validation_harness.py: printed beside the report, not gated
+# at D = 128 (a single chain's error there scales with the posterior)
+JAX_MEAN_ABS, JAX_COV_REL = 0.1, 0.25
+# step sizes the stiff GP prior takes (its precision's largest eigenvalue
+# is ~4.8e4: the leapfrog is stable below 2 / sqrt(4.8e4) = 0.009)
+SAMPLER_EPS0, SMC_EPS = 0.002, 0.003
+
+
+def sampler_problems(dtype, dev):
+    """``(linear, flagship, flagship_init)``: the flagship at N = 32,
+    dim_x = 2, and its linear part with a second anchor at the last state
+    (a linear-Gaussian chain, on which GVI is exact)."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+        simulate_trajectory,
+    )
+    from gaussianvi_tpu_torch.factors.priors import fixed_prior
+    from gaussianvi_tpu_torch.inference.graph import FactorGraph
+
+    flag, flag_init, _ = build_chain_estimation(
+        num_states=SAMPLER_N, dim_x=DIM_X, gh_degree=DEGREE, dtype=dtype,
+        device=dev)
+    anchor, gp = flag.linear
+    pos, v0, *_ = simulate_trajectory(SAMPLER_N, DIM_X, 0.1, SEED)
+    tail = fixed_prior(SAMPLER_N - 1, np.concatenate([pos[-1], v0]),
+                       0.01 * np.eye(2 * DIM_X), dtype=dtype, device=dev)
+    linear = FactorGraph(num_states=SAMPLER_N, state_dim=2 * DIM_X,
+                         linear=(anchor, tail, gp))
+    return linear, flag, flag_init
+
+
+def split_graph(graph):
+    """(linear part, nonlinear part) of a one-problem graph."""
+    from gaussianvi_tpu_torch.inference.graph import FactorGraph
+
+    return (FactorGraph(num_states=graph.num_states,
+                        state_dim=graph.state_dim, linear=graph.linear),
+            FactorGraph(num_states=graph.num_states,
+                        state_dim=graph.state_dim,
+                        nonlinear=graph.nonlinear))
+
+
+def gaussian_of(log_density, dim, dtype, dev):
+    """Mean and precision of a Gaussian log density (its gradient is
+    -H (x - m): at 0 it gives H m, at the unit vectors the columns of H),
+    in float64."""
+    from gaussianvi_tpu_torch.samplers.hmc import value_and_grad
+
+    eye = torch.eye(dim, dtype=dtype, device=dev)
+    _, g = value_and_grad(log_density, torch.cat([torch.zeros_like(eye[:1]),
+                                                  eye]))
+    g = g.double()
+    prec = g[0] - g[1:]
+    prec = 0.5 * (prec + prec.T)
+    return torch.linalg.solve(prec, g[0]), prec
+
+
+def exact_draws(mean, prec, count, seed):
+    """``count`` draws of N(mean, prec^-1) through the Cholesky of prec."""
+    gen = torch.Generator(device=mean.device).manual_seed(seed)
+    z = torch.randn(count, mean.shape[0], generator=gen, dtype=mean.dtype,
+                    device=mean.device)
+    chol = torch.linalg.cholesky(prec)
+    x = torch.linalg.solve_triangular(chol.T, z.T, upper=True).T
+    return mean + x
+
+
+class Whitened:
+    """A log density in the coordinates a Gaussian ``(mean, prec)``
+    whitens: ``x = mean + L^-T z`` with ``L L^T = prec`` (the dense mass
+    matrix ``prec``; JAX's ``inv_mass`` spells only a diagonal one).  Counts
+    its batched evaluations (one gradient of every chain each)."""
+
+    def __init__(self, log_density, mean, prec, dtype):
+        prec = prec.double()
+        chol = torch.linalg.cholesky(0.5 * (prec + prec.T))
+        self.a64 = torch.linalg.solve_triangular(
+            chol.T, torch.eye(chol.shape[0], dtype=chol.dtype,
+                              device=chol.device), upper=True)
+        self.mean64 = mean.double()
+        self.a, self.mean = self.a64.to(dtype), mean.to(dtype)
+        self.log_density, self.calls = log_density, 0
+
+    def __call__(self, z):
+        self.calls += 1
+        return self.log_density(self.mean + z @ self.a.T)
+
+    def x64(self, z):
+        """Samples ``z [..., D]`` in the graph's coordinates, float64."""
+        return self.mean64 + z.double() @ self.a64.T
+
+
+def pooled_gates(name, samples, mu, var):
+    """The three gates on pooled chains ``samples [C, T, D]`` against the
+    exact posterior ``(mu, var)``: every coordinate's mean within
+    5 sd / sqrt(ESS), the variance's relative error (the repo's
+    ``cov_rel_err``: max |error| over the largest variance) <= 10%, the
+    rank-normalized R-hat <= 1.05.  Returns the ESS per coordinate."""
+    from gaussianvi_tpu_torch.samplers import ess, rank_normalized_rhat
+
+    s = samples.double().cpu().numpy()
+    check(np.isfinite(s).all(), f"{name}: non-finite samples")
+    flat = s.reshape(-1, s.shape[-1])
+    n_eff = ess(s)
+    rhat = rank_normalized_rhat(s)
+    z = np.abs(flat.mean(0) - mu) / np.sqrt(var / n_eff)
+    rel = np.abs(flat.var(0, ddof=1) - var).max() / var.max()
+    print(f"[samplers] {name}: mean within {z.max():.2f} sd/sqrt(ESS) "
+          f"(gate 5), variance relative error {rel:.4f} (gate 0.10), "
+          f"rank R-hat max {rhat.max():.4f} (gate 1.05), ESS min "
+          f"{n_eff.min():.0f} median {np.median(n_eff):.0f} of "
+          f"{flat.shape[0]} draws", flush=True)
+    check(z.max() <= 5.0, f"{name}: a mean off by {z.max():.2f} sd/sqrt(ESS)")
+    check(rel <= 0.10, f"{name}: variance relative error {rel:.4f}")
+    check(rhat.max() <= 1.05, f"{name}: rank R-hat {rhat.max():.4f}")
+    return n_eff
+
+
+def report_rates(card, name, seconds, transitions, evals, chains, n_eff):
+    print(f"[samplers] {card}: {name}: {seconds:.2f} s, "
+          f"{chains * transitions / seconds:.1f} chain-transitions/s, "
+          f"{evals / seconds:.1f} batched gradient evaluations/s "
+          f"({chains * evals / seconds:.1f} chain-gradients/s), ESS/s min "
+          f"{n_eff.min() / seconds:.1f} median "
+          f"{np.median(n_eff) / seconds:.1f}", flush=True)
+
+
+class SharedDraws:
+    """A draw source that serves the same draws on any device: each
+    request is filled once from a CPU generator (float64), kept, and handed
+    over on ``device``; the card's run and the CPU's thus take the same
+    draws."""
+
+    def __init__(self, chains, dim, seed):
+        from gaussianvi_tpu_torch.samplers._draws import GeneratorDraws
+
+        self.src = GeneratorDraws(torch.Generator().manual_seed(seed), chains,
+                                  dim, torch.float64, torch.device("cpu"))
+        self.kept, self.device = {}, torch.device("cpu")
+
+    def _serve(self, key, make):
+        if key not in self.kept:
+            self.kept[key] = make()
+        return tuple(x.to(self.device) for x in self.kept[key])
+
+    def hmc(self, t):
+        return self._serve(("hmc", t), lambda: self.src.hmc(t))
+
+    def nuts_momentum(self, t):
+        return self._serve(("p", t), lambda: (self.src.nuts_momentum(t),))[0]
+
+    def nuts_depth(self, t, depth, count):
+        return self._serve(("depth", t, depth),
+                           lambda: self.src.nuts_depth(t, depth, count))
+
+    def smc_stage(self, stage, moves):
+        return self._serve(("smc", stage),
+                           lambda: self.src.smc_stage(stage, moves))
+
+
+def card_vs_cpu(dev):
+    """The card's samplers against the CPU's on the same draws (float64):
+    HMC 20 transitions, NUTS 10 at max_depth 4, SMC 2 stages, the samples
+    within 1e-10 and the same accept decisions."""
+    from gaussianvi_tpu_torch.samplers import make_log_density
+    from gaussianvi_tpu_torch.samplers.hmc import _run_hmc
+    from gaussianvi_tpu_torch.samplers.nuts import _run_nuts
+    from gaussianvi_tpu_torch.samplers.smc import _run_smc
+
+    cpu = torch.device("cpu")
+    out = {}
+    runs = {
+        "HMC": lambda ld, x0, d: _run_hmc(ld, x0, d, 15, 5, LEAPFROG,
+                                          SAMPLER_EPS0, 0.8, 1.0),
+        "NUTS": lambda ld, x0, d: _run_nuts(ld, x0, d, 7, 3, 4, SAMPLER_EPS0,
+                                            0.8, "iterative"),
+    }
+    # the chains' start, drawn once on the CPU
+    linear, _, _ = sampler_problems(torch.float64, cpu)
+    mean, prec = gaussian_of(make_log_density(linear, SAMPLER_N, 4),
+                             4 * SAMPLER_N, torch.float64, cpu)
+    init = exact_draws(mean, prec, 4, seed=3)
+    for name, run in runs.items():
+        draws = SharedDraws(4, 4 * SAMPLER_N, seed=7)
+        res = {}
+        for where in (cpu, dev):
+            linear, _, _ = sampler_problems(torch.float64, where)
+            draws.device = where
+            res[where.type] = run(make_log_density(linear, SAMPLER_N, 4),
+                                  init.to(where), draws)
+        a, b = res["cpu"], res[dev.type]
+        err = (a.samples - b.samples.cpu()).abs().max().item()
+        moved = [torch.diff(r.samples.cpu(), dim=1).abs().amax(-1) > 0
+                 for r in (a, b)]
+        same = torch.equal(*moved)
+        print(f"[samplers] card vs CPU, {name}, same draws (f64): samples "
+              f"max abs difference {err:.3e}, the same accept decisions "
+              f"{same}", flush=True)
+        check(err <= 1e-10 and same, f"card vs CPU {name}: {err:.3e}, "
+              f"decisions equal {same}")
+        out[name] = err
+    _, flag, _ = sampler_problems(torch.float64, cpu)
+    ref, _ = split_graph(flag)
+    mean, prec = gaussian_of(make_log_density(ref, SAMPLER_N, 4),
+                             4 * SAMPLER_N, torch.float64, cpu)
+    init = exact_draws(mean, prec, 256, seed=4)
+    draws = SharedDraws(256, 4 * SAMPLER_N, seed=8)
+    res = {}
+    for where in (cpu, dev):
+        _, flag, _ = sampler_problems(torch.float64, where)
+        ref, delta = split_graph(flag)
+        draws.device = where
+        res[where.type] = _run_smc(
+            make_log_density(ref, SAMPLER_N, 4),
+            make_log_density(delta, SAMPLER_N, 4), init.to(where), draws,
+            0.5, SMC_EPS, 8, 2, 2)
+    a, b = res["cpu"], res[dev.type]
+    err = (a.particles - b.particles.cpu()).abs().max().item()
+    lz = abs(float(a.log_evidence) - float(b.log_evidence))
+    print(f"[samplers] card vs CPU, SMC 2 stages, same draws (f64): particles "
+          f"max abs difference {err:.3e}, log evidence {lz:.3e}", flush=True)
+    check(err <= 1e-10 and lz <= 1e-10
+          and int(a.num_stages) == int(b.num_stages) == 2,
+          f"card vs CPU SMC: {err:.3e}, {lz:.3e}")
+    out["SMC"] = err
+    return out
+
+
+def busy_share(run):
+    """Profiler device time over the unprofiled wall of one call of
+    ``run`` (after one warm call): ``(busy, wall s, device s, ops)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall()
+    seconds = wall()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and e.count > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.device_time_total for e in events) / 1e6
+    return device / seconds, seconds, device, sum(e.count for e in events)
+
+
+def samplers_runs(card, dev):
+    """The samplers on the card (float32; the card-vs-CPU check float64).
+    The linear-Gaussian chain, where GVI is exact: GVI on the card, then
+    ``validate_posterior`` (one HMC chain in the graph's coordinates, as in
+    JAX), ``run_chains`` (512 chains) and ``nuts_chains`` (128) in the
+    coordinates GVI whitens, each held to the exact posterior, and a short
+    unit-mass ``run_chains`` in the graph's own coordinates (reported: the
+    GP prior's condition number ~2e5 keeps such chains near their starts).
+    The flagship with its 32 range factors: ``nuts_chains`` (128 from the
+    GVI mean, whitened by GVI) and ``smc_adaptive`` (1024 particles from
+    the exact linear part).  The device's busy share over one short
+    ``run_chains`` call; then the card against the CPU on the same
+    draws."""
+    from gaussianvi_tpu_torch import GVIConfig, optimize
+    from gaussianvi_tpu_torch.ops.blocktridiag import gbp_covariance
+    from gaussianvi_tpu_torch.samplers import (
+        ess,
+        make_log_density,
+        nuts_chains,
+        rank_normalized_rhat,
+        run_chains,
+        smc_adaptive,
+        validate_posterior,
+    )
+    from gaussianvi_tpu_torch.samplers import validate as sv
+
+    dtype, dim = torch.float32, 4 * SAMPLER_N
+    linear, flag, flag_init = sampler_problems(dtype, dev)
+    # the exact posteriors from float64 copies (kappa ~ 2e5)
+    linear64, flag64, _ = sampler_problems(torch.float64, dev)
+
+    # GVI on the card, then the exact posterior it must equal
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops import BlockTridiag
+
+    cfg = GVIConfig(niters=25, niters_lowtemp=25, step_size_base=0.9,
+                    high_temperature=1.0)
+    init = GaussianState(flag_init.mu.clone(), BlockTridiag.identity(
+        (), SAMPLER_N, 4, 2.0, dtype, dev))
+    (gvi, _), launches = counted(optimize, linear, init, cfg)
+    ld = make_log_density(linear, SAMPLER_N, 4)
+    mean, prec = gaussian_of(make_log_density(linear64, SAMPLER_N, 4), dim,
+                             torch.float64, dev)
+    cov_diag, _ = gbp_covariance(gvi.precision)
+    gvi_mu = gvi.mu.reshape(-1).double()
+    gvi_var = torch.diagonal(cov_diag, dim1=-2, dim2=-1).reshape(-1).double()
+    exact_var = torch.diagonal(torch.linalg.inv(prec))
+    mu_err = ((gvi_mu - mean).abs() / exact_var.sqrt()).max().item()
+    var_err = ((gvi_var - exact_var).abs() / exact_var).max().item()
+    print(f"[samplers] GVI on the linear chain (f32, launches {launches}): "
+          f"mean within {mu_err:.3e} sd of the exact posterior, variances "
+          f"within {var_err:.3e} (relative)", flush=True)
+    check(mu_err < 0.05 and var_err < 0.05,
+          f"GVI is not exact on the linear chain: {mu_err:.3e}, {var_err:.3e}")
+    mu_np, var_np = gvi_mu.cpu().numpy(), gvi_var.cpu().numpy()
+
+    # validate_posterior: one HMC chain, as in JAX
+    gen = torch.Generator(device=dev).manual_seed(1)
+    seen = {}
+    hmc = sv.hmc
+    sv.hmc = lambda *a, **k: seen.setdefault("result", hmc(*a, **k))
+    try:
+        t = time.perf_counter()
+        report = validate_posterior(linear, gvi, gen, sampler="hmc",
+                                    num_samples=VALIDATE_SAMPLES,
+                                    num_warmup=VALIDATE_WARMUP,
+                                    num_leapfrog=LEAPFROG,
+                                    init_step_size=SAMPLER_EPS0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+    finally:
+        sv.hmc = hmc
+    one = seen["result"].samples.double().cpu().numpy()
+    n_eff = ess(one[None])
+    z = np.abs(report.sampler_mean - mu_np) / np.sqrt(var_np / n_eff)
+    vz = (np.abs(report.sampler_cov_diag - var_np)
+          / (var_np * np.sqrt(2.0 / n_eff)))
+    print(f"[samplers] validate_posterior (one HMC chain, D = {dim}, "
+          f"{VALIDATE_WARMUP} + {VALIDATE_SAMPLES}, {LEAPFROG} leapfrog "
+          f"steps): mean_abs_err {report.mean_abs_err:.4f} (JAX's N = 4 "
+          f"threshold {JAX_MEAN_ABS}), cov_rel_err {report.cov_rel_err:.4f} "
+          f"(JAX's {JAX_COV_REL}); by ESS (min {n_eff.min():.1f}): means "
+          f"within {z.max():.2f} sd/sqrt(ESS), variances within "
+          f"{vz.max():.2f} of their sd sqrt(2/ESS) (gates 5 and 5)",
+          flush=True)
+    check(np.isfinite(one).all() and z.max() <= 5.0 and vz.max() <= 5.0,
+          f"validate_posterior: {z.max():.2f}, {vz.max():.2f}")
+    report_rates(card, "validate_posterior (1 chain)", sec,
+                 VALIDATE_WARMUP + VALIDATE_SAMPLES,
+                 1 + LEAPFROG * (VALIDATE_WARMUP + VALIDATE_SAMPLES), 1,
+                 n_eff)
+    took("samplers: GVI, validate_posterior")
+
+    # run_chains and nuts_chains sample the chain in the coordinates GVI
+    # whitens; in the graph's own coordinates the GP prior's condition
+    # number (~2e5) keeps unit-mass chains near their starts (measured on
+    # a short run after them)
+    white = Whitened(ld, gvi.mu.reshape(-1), gvi.precision.to_dense(), dtype)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    z0 = 2.0 * torch.randn(HMC_C, dim, generator=gen, dtype=dtype, device=dev)
+    t = time.perf_counter()
+    # 12 steps of size eps move each whitened mode by x cos T + p sin T,
+    # T = 12 eps.  At the default 0.8 dual averaging settles near eps =
+    # 0.5, T ~ 2 pi: trajectories end where they began (ESS 22k of 205k
+    # draws at 300 + 400); at 0.9-0.95, T ~ pi maps x to -x and freezes
+    # each chain's radius (the folded R-hat: 1.06-1.49 on the CPU at these
+    # counts); 0.99 gives T ~ pi / 2, near-independent draws (R-hat 1.005)
+    res = run_chains(white, z0, gen, num_samples=HMC_SAMPLES,
+                     num_warmup=HMC_WARMUP, num_leapfrog=LEAPFROG,
+                     target_accept=0.99)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    n_eff = pooled_gates(f"run_chains C={HMC_C}", white.x64(res.samples),
+                         mu_np, var_np)
+    print(f"[samplers] run_chains: step sizes {res.step_size.min().item():.4f}"
+          f"-{res.step_size.max().item():.4f}, mean accept "
+          f"{res.accept_prob.mean().item():.3f}", flush=True)
+    report_rates(card, f"run_chains C={HMC_C}", sec, HMC_WARMUP + HMC_SAMPLES,
+                 white.calls, HMC_C, n_eff)
+
+    white.calls = 0
+    z0 = 2.0 * torch.randn(NUTS_C, dim, generator=gen, dtype=dtype,
+                           device=dev)
+    t = time.perf_counter()
+    res = nuts_chains(white, z0, gen, num_samples=NUTS_SAMPLES,
+                      num_warmup=NUTS_WARMUP, max_depth=NUTS_DEPTH)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    n_eff = pooled_gates(f"nuts_chains C={NUTS_C}", white.x64(res.samples),
+                         mu_np, var_np)
+    report_rates(card, f"nuts_chains C={NUTS_C}", sec,
+                 NUTS_WARMUP + NUTS_SAMPLES, white.calls, NUTS_C, n_eff)
+
+    # the same chain in its own coordinates, unit mass, from exact draws
+    res = run_chains(ld, exact_draws(mean, prec, HMC_C, seed=2).to(dtype),
+                     gen, num_samples=RAW_SAMPLES, num_warmup=RAW_WARMUP,
+                     num_leapfrog=LEAPFROG, init_step_size=SAMPLER_EPS0)
+    s = res.samples.double().cpu().numpy()
+    check(np.isfinite(s).all(), "run_chains, own coordinates: non-finite")
+    n_eff, rhat = ess(s), rank_normalized_rhat(s)
+    print(f"[samplers] run_chains C={HMC_C} in the chain's own coordinates "
+          f"(unit mass, {RAW_WARMUP} + {RAW_SAMPLES}, not gated): rank R-hat "
+          f"max {rhat.max():.3f}, ESS min {n_eff.min():.0f} median "
+          f"{np.median(n_eff):.0f} of {s.shape[0] * s.shape[1]} draws, step "
+          f"sizes {res.step_size.min().item():.5f}-"
+          f"{res.step_size.max().item():.5f}", flush=True)
+
+    took("samplers: the linear chain's run_chains and nuts_chains")
+
+    # the flagship: NUTS from the GVI mean (whitened by GVI), SMC from the
+    # exact linear part
+    cfg_flag = GVIConfig(niters=30, niters_lowtemp=30, step_size_base=0.9)
+    flag_gvi, _ = optimize(flag, flag_init, cfg_flag)
+    fcov, _ = gbp_covariance(flag_gvi.precision)
+    f_mu = flag_gvi.mu.reshape(-1).double().cpu().numpy()
+    f_sd = torch.diagonal(fcov, dim1=-2, dim2=-1).reshape(-1).double().sqrt()
+    f_sd = f_sd.cpu().numpy()
+    white = Whitened(make_log_density(flag, SAMPLER_N, 4),
+                     flag_gvi.mu.reshape(-1), flag_gvi.precision.to_dense(),
+                     dtype)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t = time.perf_counter()
+    res = nuts_chains(white, torch.zeros(NUTS_C, dim, dtype=dtype, device=dev),
+                      gen, num_samples=FLAG_NUTS_SAMPLES,
+                      num_warmup=FLAG_NUTS_WARMUP, max_depth=NUTS_DEPTH)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    s = white.x64(res.samples).cpu().numpy()
+    check(np.isfinite(s).all(), "flagship NUTS: non-finite samples")
+    n_eff, rhat = ess(s), rank_normalized_rhat(s)
+    dist = np.abs(s.reshape(-1, dim).mean(0) - f_mu) / f_sd
+    print(f"[samplers] flagship nuts_chains C={NUTS_C} ({FLAG_NUTS_WARMUP} "
+          f"+ {FLAG_NUTS_SAMPLES}, max_depth {NUTS_DEPTH}): rank R-hat max "
+          f"{rhat.max():.4f}, ESS min {n_eff.min():.0f} median "
+          f"{np.median(n_eff):.0f}, the mean from GVI's by max "
+          f"{dist.max():.3f} / median {np.median(dist):.3f} GVI sd, step "
+          f"sizes {res.step_size.min().item():.4f}-"
+          f"{res.step_size.max().item():.4f}", flush=True)
+    report_rates(card, f"flagship nuts_chains C={NUTS_C}", sec,
+                 FLAG_NUTS_WARMUP + FLAG_NUTS_SAMPLES, white.calls,
+                 NUTS_C, n_eff)
+
+    ref, delta = split_graph(flag)
+    ld_ref = make_log_density(ref, SAMPLER_N, 4)
+    r_mean, r_prec = gaussian_of(
+        make_log_density(split_graph(flag64)[0], SAMPLER_N, 4), dim,
+        torch.float64, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t = time.perf_counter()
+    res = smc_adaptive(ld_ref, make_log_density(delta, SAMPLER_N, 4),
+                       exact_draws(r_mean, r_prec, SMC_P, seed=5).to(dtype),
+                       gen, num_particles=SMC_P, mutation_step_size=SMC_EPS,
+                       max_stages=SMC_STAGES)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    stages, log_z = int(res.num_stages), float(res.log_evidence)
+    p_mean = res.particles.double().mean(0).cpu().numpy()
+    print(f"[samplers] {card}: flagship smc_adaptive P={SMC_P}: {stages} "
+          f"stages (lambda reaches 1 below {SMC_STAGES}: "
+          f"{stages < SMC_STAGES}), log evidence {log_z:.4f}, the particles' "
+          f"mean from GVI's by max {(np.abs(p_mean - f_mu) / f_sd).max():.3f} "
+          f"GVI sd, {sec:.2f} s, "
+          f"{stages / sec:.2f} stages/s", flush=True)
+    check(stages < SMC_STAGES and np.isfinite(log_z)
+          and bool(torch.isfinite(res.particles).all()),
+          f"flagship SMC: {stages} stages, log evidence {log_z}")
+
+    took("samplers: the flagship's NUTS and SMC")
+
+    # the device's busy share over one short run_chains call (short: the
+    # profiler's own cost grows with the events it records)
+    busy, wall, device, ops = busy_share(lambda: run_chains(
+        ld, exact_draws(mean, prec, HMC_C, seed=6).to(dtype),
+        torch.Generator(device=dev).manual_seed(6), num_samples=3,
+        num_warmup=2, num_leapfrog=LEAPFROG, init_step_size=SAMPLER_EPS0))
+    print(f"[samplers] {card}: one run_chains call (C={HMC_C}, 5 "
+          f"transitions x {LEAPFROG} leapfrog steps, f32): wall {wall:.3f} s, "
+          f"{ops} device ops, device time {device:.4f} s, busy {busy:.1%}",
+          flush=True)
+    took("samplers: busy share")
+    card_vs_cpu(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs only on "
@@ -3900,6 +4396,8 @@ def main() -> int:
     took("seq and EMA paths")
     ltv_counts = ltv_runs(card, dev)
     took("LTV estimation")
+    samplers_runs(card, dev)
+    took("samplers: card vs CPU")
     for model, rows_ in bf16_kern.items():
         for name, r in rows_.items():
             print(f"[kernel time] {card}: bf16 {model} {name} {r['ms']:.4f} ms "

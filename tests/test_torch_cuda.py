@@ -1183,3 +1183,99 @@ def test_one_rank_sp_mesh_on_the_card(dev):
     assert quad.quad_lanes_phi.launches > before
     torch.testing.assert_close(lanes.cost, hist.cost, rtol=1e-9, atol=0)
     assert torch.equal(lanes.accepted_step, hist.accepted_step)
+
+
+class _SameDraws:
+    """One set of sampler draws (``samplers/_draws.py``), made with numpy
+    from a seed and handed over on any device."""
+
+    def __init__(self, seed, chains, dim, transitions, depth, moves):
+        rng = np.random.default_rng(seed)
+        width = 1 << max(depth - 1, 0)
+        self.arrays = dict(
+            normal=rng.standard_normal((chains, transitions, dim)),
+            uniform=rng.uniform(size=(chains, transitions)),
+            forward=rng.uniform(size=(chains, transitions, depth)) < 0.5,
+            swap=rng.uniform(size=(chains, transitions, depth)),
+            tree=rng.uniform(size=(chains, transitions, depth, width)),
+            res=rng.uniform(size=transitions),
+            momenta=rng.standard_normal((transitions, moves, chains, dim)),
+            accept=rng.uniform(size=(transitions, moves, chains)))
+        self.device = torch.device("cpu")
+
+    def __getattr__(self, name):
+        return torch.as_tensor(self.__dict__["arrays"][name],
+                               device=self.__dict__["device"])
+
+    def hmc(self, t):
+        return self.normal[:, t], self.uniform[:, t]
+
+    def nuts_momentum(self, t):
+        return self.normal[:, t]
+
+    def nuts_depth(self, t, depth, count):
+        return (self.forward[:, t, depth], self.swap[:, t, depth],
+                self.tree[:, t, depth, :count])
+
+    def smc_stage(self, stage, moves):
+        return self.res[stage], self.momenta[stage], self.accept[stage]
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "nuts iterative", "nuts unrolled",
+                                     "smc"])
+def test_samplers_on_the_card_match_the_cpu(dev, sampler):
+    """The samplers on the flagship (N = 8) on the card against the CPU on
+    the same draws (float64): samples within 1e-10, the same accept
+    decisions; the entry points keep the card's tensors on the card."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.inference.graph import FactorGraph
+    from gaussianvi_tpu_torch.samplers import make_log_density, run_chains
+    from gaussianvi_tpu_torch.samplers.hmc import _run_hmc
+    from gaussianvi_tpu_torch.samplers.nuts import _run_nuts
+    from gaussianvi_tpu_torch.samplers.smc import _run_smc
+
+    chains, n = (64, 8) if sampler == "smc" else (4, 8)
+    draws = _SameDraws(1, chains, 4 * n, 20, 4, 2)
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        graph, init, _ = build_chain_estimation(num_states=n, dim_x=2,
+                                                device=where)
+        x0 = init.mu.reshape(1, -1) + 0.01 * torch.as_tensor(
+            np.random.default_rng(2).standard_normal((chains, 4 * n)),
+            device=where)
+        ld = make_log_density(graph, n, 4)
+        draws.device = where
+        if sampler == "hmc":
+            # a short warmup from a small step: longer ones feed rounding
+            # through dual averaging (10 from 0.01: a 1e-15 nudge of x0
+            # moves the CPU run by 5e-9; 5 from 0.003: 2e-15)
+            out[where.type] = _run_hmc(ld, x0, draws, 15, 5, 12, 0.003, 0.8,
+                                       1.0)
+        elif sampler.startswith("nuts"):
+            out[where.type] = _run_nuts(ld, x0, draws, 5, 5, 4, 0.01, 0.8,
+                                        sampler.split()[1])
+        else:
+            ref = FactorGraph(num_states=n, state_dim=4, linear=graph.linear)
+            delta = FactorGraph(num_states=n, state_dim=4,
+                                nonlinear=graph.nonlinear)
+            out[where.type] = _run_smc(make_log_density(ref, n, 4),
+                                       make_log_density(delta, n, 4), x0,
+                                       draws, 0.9, 0.003, 8, 2, 2)
+    cpu, card = out["cpu"], out["cuda"]
+    got, want = (card.particles, cpu.particles) if sampler == "smc" else (
+        card.samples, cpu.samples)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+    if sampler == "smc":
+        assert int(card.num_stages) == int(cpu.num_stages) == 2
+        assert abs(float(card.log_evidence) - float(cpu.log_evidence)) < 1e-10
+    else:
+        def moved(s):
+            return torch.diff(s.cpu(), dim=1).abs().amax(-1) > 0
+        assert torch.equal(moved(got), moved(want))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = run_chains(ld, x0[:2], gen, num_samples=3, num_warmup=2,
+                     num_leapfrog=2, init_step_size=0.01)
+    assert res.samples.device.type == "cuda" and res.samples.shape[:2] == (2, 3)

@@ -28,7 +28,11 @@ for new in ("ops.psd", "kernels.fused_moments", "parallel.collective",
             "inference.validate", "utils.checkpoint", "utils.recorder",
             "utils.profiling", "ops.parallel_chain", "parallel.chain_seqpar",
             "parallel.time_sharding", "parallel.comm_model",
-            "parallel.scaling_bench"):
+            "parallel.scaling_bench", "quadrature.gauss_hermite",
+            "quadrature.smolyak", "quadrature.table", "quadrature.native",
+            "quadrature.cli", "samplers.target", "samplers.hmc",
+            "samplers.nuts", "samplers.smc", "samplers.diagnostics",
+            "samplers.validate", "samplers._draws"):
     assert pkg.__name__ + "." + new in names, new
 assert not any(m == "gaussianvi_tpu" or m.startswith("gaussianvi_tpu.")
                for m in sys.modules), "the JAX package was imported"
@@ -58,7 +62,7 @@ def test_no_source_mentions_jax_imports():
 # their ``__all__`` it does not (the orbax checkpoint pair: the JAX
 # package's checkpoint library, ROADMAP.md "Not carried over")
 PORTED = ("", ".examples", ".factors", ".ops", ".inference", ".utils",
-          ".parallel")
+          ".parallel", ".quadrature", ".samplers")
 NOT_CARRIED = {".utils": {"save_checkpoint_orbax", "load_checkpoint_orbax"}}
 
 
