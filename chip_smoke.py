@@ -66,7 +66,18 @@ ranks of this card: float64 against the single-process run, with K3
 against the plain quadrature, float32), each run's collectives against
 ``parallel.comm_model``; and the log-depth chain (``chain_impl="assoc"``)
 against K1 / K2 at the flagship's shape and on one chain of 4096 states,
-and its loop against the default path.  Then the samplers at the
+and its loop against the default path.  Then the planners' patch mode
+(``patch_size``: 16 for the planar planner, 8 for the point planner):
+K3 (both variants) and K6 (``full``, and ``accum`` on each half of the
+factors) with the window functors against their plain versions at the
+planners' shapes, with sigma points outside their windows, on a window's
+upper edge and windows flush with both ends of the field; both planners
+at B=1024 restarts under the defaults, counted (K5 never runs: the
+windows follow the trials' means), float32 against float64, 8 restarts
+in float64 against the same routes' plain versions on the CPU, their
+rates and busy shares beside the default path; and, in the
+factor-parallel phase, the point planner's patch mode at fp=2 against
+one process.  Then the samplers at the
 flagship's width (N = 32, s = 4, D = 128; no CUDA kernel of their own):
 GVI and ``validate_posterior`` on a linear-Gaussian chain, ``run_chains``
 (512 chains) and ``nuts_chains`` (128) held to its exact posterior,
@@ -1334,6 +1345,7 @@ def sharded_rank(rank, world, device, cfg):
         times.append(time.perf_counter() - t)
     out["main"]["seconds"] = statistics.median(times)
     out.update(point3d_fp_rank(mesh, device, result))
+    out.update(patch_fp_rank(mesh, device, result))
     out.update(options_fp_rank(mesh, device, cfg, result))
     out.update(sp_rank(sp_mesh, device))
     return out
@@ -1541,6 +1553,7 @@ def sharded_path(cfg, dev, optimize):
           f"{sum(per_iter.values())} all-reduces", flush=True)
     rate = B * NITERS / max(main0["seconds"], main1["seconds"])
     extra = {"p3": point3d_fp_checks(ranks, dev, same),
+             "patch": patch_fp_checks(ranks, dev, same),
              "options": options_fp_checks(ranks, dev, cfg, same),
              "sp": sp_checks(ranks, dev)}
     return main0["launches"], rate, extra
@@ -3603,6 +3616,408 @@ def ltv_runs(card, dev):
     return n
 
 
+# ---- the planners' patch mode: the window functors in K3 and K6, the
+# window prep on the local and factor-parallel engines ----
+# The windows the JAX package runs: the point planner's patch_size=8
+# (gaussianvi_tpu/examples/point3d_planning.py:70-74, "RECOMMENDED on
+# TPU") and the planar planner's 16 (its tests, tests/test_sdf_lanes.py).
+# Both planners at their own shapes (B = 1024 restarts, N = 20, 30
+# iterations), the full-state rule of the patch mode (41 / 85 nodes).
+PATCH = {"planar": 16, "point3d": 8}
+# operations of one window-cost evaluation: the whole-field cost's, plus a
+# subtraction, a clip and the corner clamps per axis
+PATCH_COST_OPS = {"planar": PLANAR_COST_OPS + 12,
+                  "point3d": SDF3D_COST_OPS + 18}
+
+
+def patch_problem(name, dtype, dev, count=None):
+    """``(graph, restarts, config, sdf)`` of a planner in the patch mode
+    (:func:`restarts`)."""
+    from functools import partial
+
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+
+    build = (build_planar_planning if name == "planar"
+             else build_point3d_planning)
+    return restarts(partial(build, patch_size=PATCH[name]), dtype, dev,
+                    count or PLAN_B)
+
+
+def patch_operands(name, dev):
+    """Operands for K3 and K6 at a planner's shapes in the patch mode, per
+    dtype (float64, cast to float32): ``(graph, mu, pd, po, cov_diag)``.
+    The 1024 restarts' means, restart 1 on the field's last column (its
+    windows end there: the centre node lands on a window's upper edge),
+    restart 2 on its last row, restart 3 (3-D) on its last plane, restart
+    4 off the field, restart 5 on its first column; the precision a
+    sixteenth of the initial one, so that the covariances are 16 times
+    wider and a share of the sigma points leaves its window."""
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    graph, inits, _, sdf = patch_problem(name, f64, dev)
+    mu = inits.mu.clone()
+    dims = 2 if name == "planar" else 3
+    extent = sdf.origin + (torch.tensor(sdf.data.shape[::-1], dtype=f64,
+                                        device=dev) - 1) * sdf.cell_size
+    for r, axis in enumerate(range(dims), start=1):
+        mu[r, :, axis] = extent[axis]
+    mu[4, :, :dims] += torch.tensor([-15.0, 14.0, 3.0][:dims], dtype=f64,
+                                    device=dev)
+    mu[5, :, 0] = sdf.origin[0]
+    pd, po = inits.precision.diag / 16, inits.precision.off / 16
+    cd = gbp_covariance_logdet(BlockTridiag(pd, po))[0]
+    out = {f64: (graph, mu, pd, po, cd)}
+    out[f32] = (patch_problem(name, f32, dev, 1)[0],
+                *(x.to(f32) for x in (mu, pd, po, cd)))
+    return out
+
+
+def window_coverage(name, fb, mu, cov):
+    """Where the sigma points of factors at ``(mu, cov)`` fall against
+    their windows (float64): the share outside, those exactly on a
+    window's upper edge, and the windows flush with the field's first and
+    last cells; fails where a kind is missing."""
+    from gaussianvi_tpu_torch.factors.moments import sigma_points
+
+    dims = 2 if fb.kernel_cost == "planar_patch" else 3
+    patch, field = PATCH[name], fb.kernel_field
+    origin = fb.kernel_params[0, 4:4 + dims]
+    cell = fb.kernel_params[0, 4 + dims]
+    first = fb.kernel_prep(mu)[..., -dims:]
+    pts = sigma_points(fb.nodes, mu, cov)[..., :dims]
+    q = (pts - origin) / cell - first
+    outside = float(((q < 0) | (q > patch - 1)).any(-1).double().mean())
+    upper = int((q == patch - 1).any(-1).sum())
+    last = torch.tensor(field.shape[::-1], device=mu.device) - patch
+    low, high = int((first == 0).sum()), int((first == last).sum())
+    print(f"[patch kernels] {name}: {100 * outside:.2f}% of the sigma "
+          f"points outside their window, {upper} exactly on its upper edge; "
+          f"{low} / {high} window axes flush with the field's first / last "
+          f"cell", flush=True)
+    check(outside > 0.01 and upper > 0 and low > 0 and high > 0,
+          f"patch {name}: the operands miss a case of the window clamp")
+
+
+def patch_kernel_checks(dev):
+    """K3 (both variants), K6 ``full`` and K6 ``accum`` (each half of the
+    obstacle factors: one rank's shard at fp = 2) with the window functors
+    (``PlanarPatchCost`` at s = 4, ``Sdf3dPatchCost`` at s = 6) against
+    their plain versions at the planners' shapes: the trial batch [11,
+    1024, 20] and the gradient batch [1024, 20] of :func:`patch_operands`,
+    each factor's window formed by the batch's prep from its means.
+    float64 by :func:`compare_conditioned`, float32 by
+    :func:`compare_vs_f64`, K6's main solve by its backward error, each
+    kernel twice for the same bits, exact zeros where the plain version
+    has them.  Times each in float32 beside its plain version and bound:
+    ``{(planner, name): row}``."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.inference.graph import take_states
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import quad
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f32, f64 = torch.float32, torch.float64
+    rows = {}
+    for name in PATCH:
+        s = 4 if name == "planar" else 6
+        ops_in = patch_operands(name, dev)
+        graph64, mu64, _, _, cd64 = ops_in[f64]
+        window_coverage(name, graph64.nonlinear[0], mu64, cd64)
+        rng = np.random.default_rng(SEED + 3)
+        jitter = torch.tensor(0.05 * rng.standard_normal(
+            (TRIALS, PLAN_B, PLAN_N, s)), dtype=f64, device=dev)
+        args3, args4, x6, ops, halves = {}, {}, {}, {}, {}
+        for dt in (f64, f32):
+            graph, mu, pd, po, cd = ops_in[dt]
+            fb = graph.nonlinear[0]
+            mu_t = (mu + jitter.to(dt)).contiguous()
+            args3[dt] = (mu_t, cd.expand(TRIALS, *cd.shape).contiguous(),
+                         fb.nodes, fb.weights, fb.kernel_cost,
+                         fb.kernel_prep(mu_t))
+            args4[dt] = (mu, cd, fb.nodes, fb.weights, fb.kernel_cost,
+                         fb.kernel_prep(mu))
+            nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(
+                _batch_graph(graph, PLAN_B), trials=False)
+            start, nodes, weights, _, field = nl_arrays[0]
+            params = fb.kernel_prep(take_states(mu, start, fb.slice_offset,
+                                                1))
+            ops[dt] = (nl_specs, lin_specs,
+                       ((start, nodes, weights, params, field),), lin_arrays)
+            x6[dt] = (mu, pd, po, torch.full((PLAN_B,), 0.1, dtype=dt,
+                                             device=dev))
+            sp, k = nl_specs[0], nl_specs[0].k // 2
+            halves[dt] = [
+                ((sp._replace(k=k, slice_offset=None),),
+                 ((start[i * k:(i + 1) * k], nodes, weights,
+                   params[:, i * k:(i + 1) * k], field),))
+                for i in range(2)]
+
+        def field_of(dt):
+            return ops_in[dt][0].nonlinear[0].kernel_field
+
+        # case -> (kernel, plain version), each of (dtype, part); K6 accum
+        # runs on each half of the factors (parts 0 and 1)
+        cases = {
+            "quad_phi": (
+                lambda dt, _: (quad.quad_lanes_phi(*args3[dt], nonneg=True,
+                                                   field=field_of(dt)),),
+                lambda dt, _: (quad.quad_phi_plain(*args3[dt], nonneg=True,
+                                                   field=field_of(dt)),)),
+            "quad_moments": (
+                lambda dt, _: quad.quad_lanes_moments(*args4[dt],
+                                                      field=field_of(dt)),
+                lambda dt, _: quad.quad_moments_plain(*args4[dt],
+                                                      field=field_of(dt))),
+            "fused_gradient": (
+                lambda dt, _: fg.gradient_lanes(*x6[dt], *ops[dt]),
+                lambda dt, _: fg.gradient_plain(*x6[dt], *ops[dt])),
+            "fused_gradient_accum": (
+                lambda dt, i: fg.gradient_accum_lanes(*x6[dt],
+                                                      *halves[dt][i]),
+                lambda dt, i: fg.gradient_plain(
+                    *x6[dt], halves[dt][i][0], (), halves[dt][i][1], (),
+                    mode="accum")),
+        }
+        errs, solve = {}, {}
+        for case, (kern, plain) in cases.items():
+            for i in range(2 if case == "fused_gradient_accum" else 1):
+                tag = f"patch {name} {case} part {i}"
+                k = {dt: check_repeatable(f"{tag} {dt}",
+                                          lambda dt=dt: kern(dt, i))
+                     for dt in (f64, f32)}
+                p = {dt: plain(dt, i) for dt in (f64, f32)}
+                held64 = list(zip(k[f64], p[f64], p[f32]))
+                held32 = list(zip(k[f32], p[f32], p[f64]))
+                if case == "fused_gradient":
+                    # output 5, dmu, by its backward error in the float64
+                    # plain system Vddmu = dprec + Lambda
+                    _, pd, po, _ = x6[f64]
+                    vdd = (p[f64][3] + pd, p[f64][4] + po)
+                    solve["backward"], _ = compare_backward(
+                        f"{tag} dmu float64", k[f64][5], p[f64][5], *vdd)
+                    solve["backward32"] = compare_backward_vs_f64(
+                        f"{tag} dmu float32", k[f32][5], p[f32][5],
+                        p[f64][5], *vdd)
+                    held64 = held64[:5] + held64[6:]
+                    held32 = held32[:5] + held32[6:]
+                errs[case, f64] = max([errs.get((case, f64), 0.0)] + [
+                    compare_conditioned(f"{tag}[{j}] float64", a, b_, c)
+                    for j, (a, b_, c) in enumerate(held64)])
+                errs[case, f32] = max([errs.get((case, f32), 0.0)] + [
+                    compare_vs_f64(f"{tag}[{j}] float32", a, b_, c)
+                    for j, (a, b_, c) in enumerate(held32)])
+                if case.startswith("quad"):
+                    got, want = k[f64][0], p[f64][0]
+                    check(torch.equal(got == 0, want == 0)
+                          and bool((want == 0).any())
+                          and bool((want > 0).any()),
+                          f"{tag}: exact zeros differ from the plain "
+                          f"version's")
+        print(f"[patch kernels] {name}: max abs err vs plain, f64 / f32 "
+              "(two launches bit-identical each): " + "; ".join(
+                  f"{c} {errs[c, f64]:.3e} / {errs[c, f32]:.3e}"
+                  for c in cases)
+              + f"; K6 dmu backward error f64 {solve['backward']:.3e}, f32 "
+              f"{solve['backward32']:.3e}", flush=True)
+        fb = ops_in[f32][0].nonlinear[0]
+        m, cost = fb.nodes.shape[0], dict(cost=PATCH_COST_OPS[name])
+        # the patch mode's rule is the full-state one: no marginal lift
+        work = {
+            "quad_phi": TRIALS * PLAN_B * PLAN_N * quad_flops(s, m, s, False,
+                                                              **cost),
+            "quad_moments": PLAN_B * PLAN_N * quad_flops(s, m, s, True,
+                                                         **cost),
+            "fused_gradient": PLAN_B * PLAN_N * (
+                chain_flops(s) + quad_flops(s, m, s, True, **cost)
+                + 12 * s**3 + 2 * solve_flops(s)),
+            "fused_gradient_accum": PLAN_B * PLAN_N // 2 * (
+                chain_flops(s) + quad_flops(s, m, s, True, **cost)
+                + 12 * s**3),
+        }
+        inputs = {"quad_phi": args3[f32][:4] + args3[f32][5:]
+                  + (fb.kernel_field,),
+                  "quad_moments": args4[f32][:4] + args4[f32][5:]
+                  + (fb.kernel_field,),
+                  "fused_gradient": (x6[f32], ops[f32][2:]),
+                  "fused_gradient_accum": (x6[f32], halves[f32][0][1])}
+        for case, (kern, plain) in cases.items():
+            rows[name, case] = dict(
+                max_abs_err=errs[case, f64], err_dtype="float64",
+                ms=cuda_ms(lambda: kern(f32, 0)),
+                ms_flushed_l2=cuda_ms_flushed(lambda: kern(f32, 0)),
+                plain_ms=cuda_ms(lambda: plain(f32, 0), reps=1),
+                **bound(inputs[case], kern(f32, 0), work[case]))
+    return rows
+
+
+def nudge_horizon(run, state, rtol=1e-9):
+    """How many leading iterations the float64 run ``run(state)`` keeps
+    within ``rtol`` of itself, with the same steps, from means nudged by
+    1e-15 of their size: the horizon over which two correct orders of the
+    same sums can be held to ``rtol`` (PERF.md section 2's gate; a
+    kernel's rounding departs less than such a nudge).  Returns
+    ``(horizon, relative cost differences per iteration)``."""
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+
+    gen = torch.Generator(device=state.mu.device).manual_seed(SEED + 1)
+    nudged = GaussianState(state.mu * (1 + 1e-15 * torch.randn(
+        state.mu.shape, generator=gen, dtype=state.mu.dtype,
+        device=state.mu.device)), state.precision)
+    a, b_ = run(state), run(nudged)
+    rel = ((a.cost - b_.cost).abs() / b_.cost.abs()).max(0).values
+    apart = (rel > rtol) | (a.accepted_step != b_.accepted_step).any(0)
+    horizon = int(apart.int().argmax()) if apart.any() else rel.numel()
+    return horizon, rel
+
+
+def held_over(name, got, want, horizon, dev, tag):
+    """:func:`held_to_plain` over the first ``horizon`` iterations."""
+    from types import SimpleNamespace
+
+    def cut(h):
+        return SimpleNamespace(cost=h.cost[:, :horizon],
+                               accepted_step=h.accepted_step[:, :horizon])
+
+    held_to_plain(f"{name} (first {horizon} iterations)", cut(got),
+                  cut(want), dev, tag=tag)
+
+
+def patch_runs(card, dev):
+    """Both planners in the patch mode under the defaults on the card:
+    the fused trial kernel off (K1 and K3 phi take the trials, each
+    trial's windows formed from its means), K6 ``full`` once an iteration
+    with the current means' windows; costs finite and non-increasing;
+    float32 against float64 by the s = 6 gates; 8 restarts in float64
+    against the same routes' plain versions on the CPU (rtol 1e-9, the
+    same steps, over the iterations a 1e-15 nudge allows); the rate and
+    busy share beside the default (whole-field, fused) path.  Returns
+    ``{planner: launches}``."""
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.inference.optimize import run_gvi
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    counts = {}
+    for name in PATCH:
+        graph32, inits32, cfg, sdf = patch_problem(name, f32, dev)
+        graph64, inits64, _, _ = patch_problem(name, f64, dev)
+        (state32, hist32), n = counted(optimize, graph32, inits32, cfg)
+        counts[name] = n
+        print(f"[patch {name}] launches {n}", flush=True)
+        check(n["fused_trials"] == 0 and n["fused_gradient"] == PLAN_ITERS
+              and n["quad_phi"] == PLAN_ITERS + 1
+              and n["gbp_covariance_logdet"] > PLAN_ITERS
+              and n["quad_moments"] == n["solve"] == 0,
+              f"patch {name}: not K1 + K3 phi for the trials and K6 for the "
+              f"gradient: {n}")
+        check_costs(f"patch {name}", hist32, PLAN_B, PLAN_ITERS, nonneg=True)
+        dims = 2 if name == "planar" else 3
+        clear = int((sdf.signed_distance(state32.mu[..., :dims]).amin(-1)
+                     > 0).sum())
+        print(f"[patch {name}] {clear}/{PLAN_B} restarts end clear of the "
+              f"obstacle; final cost median "
+              f"{float(hist32.cost[:, -1].median()):.4f}", flush=True)
+        f32_vs_f64(f"patch {name}", hist32, optimize(graph64, inits64,
+                                                     cfg)[1], 1e-3)
+        s8 = subset(inits64, 8)
+        g8c = _batch_graph(patch_problem(name, f64, cpu, 1)[0], 8)
+        s8c = GaussianState(s8.mu.cpu(), BlockTridiag(
+            s8.precision.diag.cpu(), s8.precision.off.cpu()))
+        hk = optimize(graph64, s8, cfg)[1]
+        horizon, rel_n = nudge_horizon(
+            lambda s: optimize(graph64, s, cfg)[1], s8)
+        hp = run_gvi(LocalEngine(g8c, cfg, dev), s8c, cfg)[1]
+        rel = ((hk.cost - hp.cost.to(dev)).abs() / hp.cost.to(dev).abs()
+               ).max(0).values
+        print(f"[patch end to end] {name}: kernels vs the same routes' plain "
+              f"versions (CPU) max relative cost difference {rel.max():.1e} "
+              f"over {PLAN_ITERS} iterations; a 1e-15 nudge of the means "
+              f"moves the kernel run {rel_n.max():.1e} (within 1e-9 for "
+              f"{horizon})", flush=True)
+        check(horizon >= 6, f"patch {name}: rounding grows within "
+              f"{horizon} iterations")
+        held_over(f"patch {name} kernels vs plain versions (CPU)", hk, hp,
+                  horizon, dev, "patch end to end")
+        default = (planner_problem if name == "planar"
+                   else point3d_problem)(f32, dev)
+        runs = {"patch": lambda: optimize(graph32, inits32, cfg),
+                "default": lambda: optimize(default[0], default[1],
+                                            default[2])}
+        line = []
+        for path, run in runs.items():
+            r = rate(run, PLAN_B * PLAN_ITERS)
+            busy, wall, device, ops = busy_share(run)
+            line.append(f"{path} {r:.1f} prob-iters/s, busy {100 * busy:.1f}%"
+                        f" ({device * 1e3:.2f} ms of device time in a "
+                        f"{wall * 1e3:.2f} ms call, {ops} device ops)")
+        print(f"[throughput] {card}: {name} planner, patch mode "
+              f"(patch_size={PATCH[name]}) vs default: " + "; ".join(line)
+              + f" (B={PLAN_B}, N={PLAN_N}, {PLAN_ITERS} iters, f32, rate "
+              f"median of 3)", flush=True)
+    return counts
+
+
+def patch_fp_rank(mesh, device, result):
+    """The point planner in the patch mode at dp = 1 x fp = 2 (each rank
+    forms its shard's windows; K3 phi for the trials, K6 accum / solve),
+    8 restarts in float64, counted."""
+    from gaussianvi_tpu_torch.parallel import optimize_sharded
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    g8, s8, cfg, _ = patch_problem("point3d", torch.float64, device, 8)
+    (state, hist), n, inv, sec = _counted_run(
+        lambda: optimize_sharded(_batch_graph(g8, 8), s8, cfg, mesh), mesh)
+    return {"patch fp": dict(result(state, hist), launches=n, inventory=inv,
+                             seconds=sec)}
+
+
+def patch_fp_checks(ranks, dev, same):
+    """The point planner's patch mode at fp = 2 against one process on the
+    card (K6 ``full``): the ranks' bits equal, K6 accum / solve 30 times a
+    rank and K5 never, 1e-9 and the same steps over the iterations a
+    1e-15 nudge allows.  Returns rank 0's launches."""
+    from types import SimpleNamespace
+
+    from gaussianvi_tpu_torch import optimize
+
+    got = ranks[0]["patch fp"]
+    same(got, ranks[1]["patch fp"], "patch point3d fp=2")
+    for r in (0, 1):
+        n = ranks[r]["patch fp"]["launches"]
+        print(f"[patch point3d fp=2] rank {r}: launches {n}", flush=True)
+        check(n["fused_gradient_accum"] == n["fused_gradient_solve"]
+              == P3_ITERS and n["fused_trials"] == n["fused_gradient"] == 0
+              and n["quad_phi"] == P3_ITERS + 1,
+              f"patch point3d fp=2 rank {r}: not K3 phi and the split pair "
+              f"once an iteration: {n}")
+    g8, s8, cfg, _ = patch_problem("point3d", torch.float64, dev, 8)
+    horizon, rel_n = nudge_horizon(lambda s: optimize(g8, s, cfg)[1], s8)
+    ref = optimize(g8, s8, cfg)[1]
+    hist = SimpleNamespace(**{k: torch.as_tensor(got[k], device=dev)
+                              for k in ("cost", "accepted_step")})
+    rel = ((hist.cost - ref.cost).abs() / ref.cost.abs()).max().item()
+    print(f"[patch point3d fp=2] vs one process: max relative cost "
+          f"difference {rel:.1e} over {P3_ITERS} iterations (a 1e-15 nudge: "
+          f"{rel_n.max():.1e}, within 1e-9 for {horizon})", flush=True)
+    check(horizon >= 6, f"patch point3d: rounding grows within {horizon} "
+          "iterations")
+    held_over("patch point3d fp=2 vs one process", hist, ref, horizon, dev,
+              "factor-parallel end to end")
+    return got["launches"]
+
+
 # ---- the samplers: HMC, NUTS and SMC with the chains batched on the card,
 # at the flagship's width (N = 32 states of s = 4, D = 128) ----
 SAMPLER_N = 32
@@ -4396,6 +4811,16 @@ def main() -> int:
     took("seq and EMA paths")
     ltv_counts = ltv_runs(card, dev)
     took("LTV estimation")
+    patch_kern = patch_kernel_checks(dev)
+    took("patch_runs: window functors in K3 / K6")
+    patch_counts = patch_runs(card, dev)
+    took("patch_runs: the planners")
+    for (planner, name), r in patch_kern.items():
+        print(f"[kernel time] {card}: patch {planner} {name} {r['ms']:.4f} ms "
+              f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} (f32, B={PLAN_B}, N={PLAN_N}, patch_size="
+              f"{PATCH[planner]}; accum: half the factors)", flush=True)
     samplers_runs(card, dev)
     took("samplers: card vs CPU")
     for model, rows_ in bf16_kern.items():
@@ -4533,6 +4958,31 @@ def main() -> int:
 
     check(all(bf16_counts[p][name] > 0 for name, p in bf16_path.items()),
           "a kernel was launched on none of the bf16 paths")
+
+    # the patch mode's instances: launches on each planner's patch-mode
+    # path at B = 1024 (and the point planner's at fp = 2, rank 0), times
+    # and bounds of the window functors' instances at those shapes
+    patch_sources = {
+        "quad_phi": ("quad.cu", "quad.cu"),
+        "quad_moments": ("quad.cu", "quad.cu"),
+        "fused_gradient": ("fused_gradient.cu", "fused_gradient_s6.cu"),
+        "fused_gradient_accum": ("fused_gradient_accum.cu",
+                                 "fused_gradient_accum_s6.cu")}
+
+    def patch_row(name):
+        row = {}
+        for planner, src in zip(PATCH, patch_sources.get(name, (None,) * 2)):
+            row[planner] = dict(launches=patch_counts[planner][name],
+                                **patch_kern.get((planner, name), {}))
+            if src:
+                row[planner]["source"] = csrc + src
+        row["point3d fp=2"] = dict(launches=shard_extra["patch"][name])
+        return row
+
+    check(all(patch_counts[p][name] > 0 for p in PATCH
+              for name in ("quad_phi", "fused_gradient"))
+          and shard_extra["patch"]["fused_gradient_accum"] > 0,
+          "a window functor's instance was launched on none of its paths")
     option_paths = {"resume": resume_counts, "seq": option_counts["seq"],
                     "ema": option_counts["ema"], "ltv": ltv_counts,
                     **shard_extra["options"], "sp lanes": shard_extra["sp"]}
@@ -4552,7 +5002,7 @@ def main() -> int:
                     else {"library_note": note}),
                  planner=planner_rows[name], s6=s6_row(name),
                  s14=wide_row(14, name), s1=wide_row(1, name),
-                 bf16=bf16_row(name),
+                 bf16=bf16_row(name), patch=patch_row(name),
                  option_launches={p: c[name] for p, c in option_paths.items()},
                  assoc=({"note": "chain_impl='assoc' replaces K1 / K2 by "
                          "torch ops (the JAX package runs it on XLA); held "

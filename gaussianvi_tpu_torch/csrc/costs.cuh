@@ -19,7 +19,13 @@
 
 namespace gvi {
 
-enum CostId : int { kRangeCost = 0, kPlanarSdfCost = 1, kSdf3dCost = 2 };
+enum CostId : int {
+  kRangeCost = 0,
+  kPlanarSdfCost = 1,
+  kSdf3dCost = 2,
+  kPlanarPatchCost = 3,
+  kSdf3dPatchCost = 4,
+};
 
 // A batch's field: nz x rows x cols values, row-major (data[z, row, col]),
 // in device memory, shared by every factor and problem of the batch and
@@ -188,6 +194,112 @@ struct Sdf3dCost {
     const T c0 = (T(1) - wc) * c00 + wc * c10;
     const T c1 = (T(1) - wc) * c01 + wc * c11;
     const T sd = (T(1) - wz) * c0 + wz * c1;
+    const T e = p[0] + p[1] - sd;
+    const T err = (e < T(0) ? T(0) : e) * p[3];
+    return err * err * p[2];
+  }
+};
+
+// The patch mode's lookup along one axis of a window of P cells that
+// starts at cell o (gaussianvi_tpu/factors/robots.py make_patch_cost_2d /
+// _3d): the coordinate relative to the window, q = (v - v0) / cell - o,
+// clipped to [0, P - 1], so a point outside the window takes the value at
+// its edge.  The TPU kernel sums P hat functions max(0, 1 - |q - j|) over
+// a pre-gathered copy of the window; at most two of them are nonzero, at
+// j = floor(q) and floor(q) + 1, and this keeps those two, with their
+// weights taken as the hat sum takes them (1 - (q - j) and
+// 1 - ((j + 1) - q)), and reads the field in place.  The high corner is
+// clamped to the window (at q = P - 1 its weight is exactly 0), and both
+// corners to the field, so that no params can make a read leave it.  A
+// NaN coordinate converts to corner 0 with NaN weights and stays NaN.
+template <typename T>
+struct WindowAxis {
+  int lo, hi;  // field indices of the two corners
+  T w0, w1;    // their weights
+
+  __device__ __forceinline__ WindowAxis(T v, T v0, T cell, T o, T patch,
+                                        int extent) {
+    const T q = clip((v - v0) / cell - o, T(0), patch - T(1));
+    const T l = dfloor(q);
+    const int last = static_cast<int>(patch) - 1;
+    const int li = min(max(static_cast<int>(l), 0), last);
+    const int hi_w = min(li + 1, last);
+    const int base = static_cast<int>(o);
+    lo = min(max(base + li, 0), extent - 1);
+    hi = min(max(base + hi_w, 0), extent - 1);
+    w0 = T(1) - (q - l);
+    w1 = T(1) - ((l + T(1)) - q);
+  }
+};
+
+// Planar point robot, patch mode (make_planar_obstacle_factor with
+// patch_size, gaussianvi_tpu/factors/robots.py make_patch_cost_2d): the
+// bilinear lookup of PlanarSdfCost with the clip bounds set to the
+// factor's window of P x P cells, then the hinge.  The window's origin
+// follows the factor's marginal mean; the batch's kernel_prep
+// (factors/robots.py) forms it per call, so it rides in the params.
+// Params: eps, radius, sigma, slope, x0, y0, cell, P, then the window's
+// first column and row (cell units).  The blend is the hat sum's order:
+// along the row (columns) first, then across the two rows.
+//
+// What it costs: PlanarSdfCost's two divisions, two floors and four
+// gathers a point, from a window that P x P cells bound.
+struct PlanarPatchCost {
+  static constexpr int kParams = 10;
+  static constexpr bool kField = true;
+  static constexpr int kFieldDims = 2;
+
+  template <typename T, int D>
+  __device__ __forceinline__ static T eval(const T (&x)[D],
+                                           const T (&p)[kParams],
+                                           const Field<T>& f) {
+    static_assert(D >= 2, "the planar SDF cost reads (x[0], x[1])");
+    const WindowAxis<T> c(x[0], p[4], p[6], p[8], p[7], f.cols);
+    const WindowAxis<T> r(x[1], p[5], p[6], p[9], p[7], f.rows);
+    const T* row0 = f.data + (int64_t)r.lo * f.cols;
+    const T* row1 = f.data + (int64_t)r.hi * f.cols;
+    const T sd = r.w0 * (c.w0 * __ldg(row0 + c.lo) + c.w1 * __ldg(row0 + c.hi)) +
+                 r.w1 * (c.w0 * __ldg(row1 + c.lo) + c.w1 * __ldg(row1 + c.hi));
+    const T e = p[0] + p[1] - sd;
+    const T err = (e < T(0) ? T(0) : e) * p[3];
+    return err * err * p[2];
+  }
+};
+
+// 3-D point robot, patch mode (make_point3d_obstacle_factor with
+// patch_size, make_patch_cost_3d): the trilinear lookup of Sdf3dCost with
+// the clip bounds set to the factor's window of P^3 voxels, then the
+// hinge.  Params: eps, radius, sigma, slope, x0, y0, z0, cell, P, then the
+// window's first column, row and plane.  The blend is the hat sum's
+// order: along the row (columns), across rows, across planes.
+//
+// What it costs: Sdf3dCost's three divisions, three floors and eight
+// gathers a point.
+struct Sdf3dPatchCost {
+  static constexpr int kParams = 12;
+  static constexpr bool kField = true;
+  static constexpr int kFieldDims = 3;
+
+  template <typename T, int D>
+  __device__ __forceinline__ static T eval(const T (&x)[D],
+                                           const T (&p)[kParams],
+                                           const Field<T>& f) {
+    static_assert(D >= 3, "the 3-D SDF cost reads (x[0], x[1], x[2])");
+    const WindowAxis<T> c(x[0], p[4], p[7], p[9], p[8], f.cols);
+    const WindowAxis<T> r(x[1], p[5], p[7], p[10], p[8], f.rows);
+    const WindowAxis<T> z(x[2], p[6], p[7], p[11], p[8], f.nz);
+    const int64_t plane = (int64_t)f.rows * f.cols;
+    T planes[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const T* zp = f.data + (k == 0 ? z.lo : z.hi) * plane;
+      const T* row0 = zp + (int64_t)r.lo * f.cols;
+      const T* row1 = zp + (int64_t)r.hi * f.cols;
+      planes[k] =
+          r.w0 * (c.w0 * __ldg(row0 + c.lo) + c.w1 * __ldg(row0 + c.hi)) +
+          r.w1 * (c.w0 * __ldg(row1 + c.lo) + c.w1 * __ldg(row1 + c.hi));
+    }
+    const T sd = z.w0 * planes[0] + z.w1 * planes[1];
     const T e = p[0] + p[1] - sd;
     const T err = (e < T(0) ? T(0) : e) * p[3];
     return err * err * p[2];

@@ -390,7 +390,8 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
 }
 
 // s = 6 (the 3-D planners, chain estimation at dim_x = 3) with the range
-// and the 3-D SDF cost, float32 and float64, one function a mode, each in a
+// and the 3-D SDF cost, and in modes "full" and "accum" the 3-D SDF's
+// patch mode, float32 and float64, one function a mode, each in a
 // translation unit of its own (fused_gradient_s6.cu, fused_gradient_accum_s6.cu,
 // fused_gradient_solve_s6.cu): their instances take nvcc longer than the
 // rest of the library, so that the build compiles them beside the others.
@@ -407,18 +408,30 @@ int launch_grad_accum_s6(GVI_GRAD_S6_PARAMS);
 int launch_grad_solve_s6(GVI_GRAD_S6_PARAMS);
 
 // The body of launch_grad_<mode>_s6, for the translation unit that defines
-// it: the four (dtype, cost) instances of one mode.  Mode "solve" takes no
+// it: the (dtype, cost) instances of one mode.  Mode "solve" takes no
 // nonlinear factor, so its two cost instances run the same code; the
-// wrapper names the range cost there.
+// wrapper names the range cost there.  Modes "full" and "accum" also take
+// the 3-D SDF's patch mode (GVI_GRAD_S6_DEFINE_WINDOWS).
+#define GVI_GRAD_S6_COSTS(MODE)                                               \
+  if (cost == kRangeCost) {                                                   \
+    if (dtype == 0) GVI_GRAD_S6_ONE(float, RangeCost<3>, MODE)                \
+    if (dtype == 1) GVI_GRAD_S6_ONE(double, RangeCost<3>, MODE)               \
+  }                                                                           \
+  if (cost == kSdf3dCost) {                                                   \
+    if (dtype == 0) GVI_GRAD_S6_ONE(float, Sdf3dCost, MODE)                   \
+    if (dtype == 1) GVI_GRAD_S6_ONE(double, Sdf3dCost, MODE)                  \
+  }
 #define GVI_GRAD_S6_DEFINE(NAME, MODE)                                        \
   int NAME(GVI_GRAD_S6_PARAMS) {                                              \
-    if (cost == kRangeCost) {                                                 \
-      if (dtype == 0) GVI_GRAD_S6_ONE(float, RangeCost<3>, MODE)              \
-      if (dtype == 1) GVI_GRAD_S6_ONE(double, RangeCost<3>, MODE)             \
-    }                                                                         \
-    if (cost == kSdf3dCost) {                                                 \
-      if (dtype == 0) GVI_GRAD_S6_ONE(float, Sdf3dCost, MODE)                 \
-      if (dtype == 1) GVI_GRAD_S6_ONE(double, Sdf3dCost, MODE)                \
+    GVI_GRAD_S6_COSTS(MODE)                                                   \
+    return -1;                                                                \
+  }
+#define GVI_GRAD_S6_DEFINE_WINDOWS(NAME, MODE)                                \
+  int NAME(GVI_GRAD_S6_PARAMS) {                                              \
+    GVI_GRAD_S6_COSTS(MODE)                                                   \
+    if (cost == kSdf3dPatchCost) {                                            \
+      if (dtype == 0) GVI_GRAD_S6_ONE(float, Sdf3dPatchCost, MODE)            \
+      if (dtype == 1) GVI_GRAD_S6_ONE(double, Sdf3dPatchCost, MODE)           \
     }                                                                         \
     return -1;                                                                \
   }
@@ -432,7 +445,8 @@ int launch_grad_solve_s6(GVI_GRAD_S6_PARAMS);
   }
 
 // One mode's instantiations (float32 / float64; s = 2 / 4 with the range
-// and the planar SDF cost; s = 6 goes to the mode's launch_grad_<mode>_s6).
+// and the planar SDF cost, and at s = 4 in modes "full" and "accum" the
+// planar SDF's patch mode; s = 6 goes to the mode's launch_grad_<mode>_s6).
 // dtype: 0 = float32, 1 = float64; cost: csrc/costs.cuh CostId with np
 // params (one cost for every nonlinear batch; each batch brings its own
 // field, null for the range cost).  warps problems per block, chain =
@@ -466,6 +480,12 @@ int launch_grad(int dtype, int s, int cost, int np, const void* mu,
     if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, PlanarSdfCost) }
     if (dtype == 1 && s == 2) { GVI_GRAD(double, 2, PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarSdfCost) }
+  }
+  if constexpr (Mode != kGradSolve) {
+    if (cost == kPlanarPatchCost) {
+      if (dtype == 0 && s == 4) { GVI_GRAD(float, 4, PlanarPatchCost) }
+      if (dtype == 1 && s == 4) { GVI_GRAD(double, 4, PlanarPatchCost) }
+    }
   }
   // s = 6: each mode's own translation unit
   if (s == 6) {

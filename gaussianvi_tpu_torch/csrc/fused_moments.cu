@@ -31,7 +31,8 @@
 // disables the lift).  The field passes through to the shared body: no
 // batch with a field reaches this kernel today (the planners' obstacle
 // batches have no block form, as in the JAX package), but every cost the
-// body is instantiated for takes its operands here too.
+// body is instantiated for takes its operands here too, except the two
+// patch-mode costs (no batch of theirs has a block form either).
 // Returns the cudaError_t of the launch (0 = success) or -1 for a
 // (dtype, d, cost, np) combination that is not instantiated.
 extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
@@ -46,12 +47,12 @@ extern "C" int gvi_fused_moments(int dtype, int d, int cost, const void* mu,
                                  int group_shift, int threads, void* stream) {
   if (count <= 0) return 0;
   if (dtype == 0)
-    return gvi::quad_entry<float, true>(
+    return gvi::quad_entry<float, true, false>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
         params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
         k, m, 0, rdim, 0, group_shift, threads, stream);
   if (dtype == 1)
-    return gvi::quad_entry<double, true>(
+    return gvi::quad_entry<double, true, false>(
         d, cost, np, mu, mu_sb, mu_sk, cov, cov_sb, cov_sk, nodes, weights,
         params, period, field, rows, cols, depth, e_phi, e_xmu, e_xxt, count,
         k, m, 0, rdim, 0, group_shift, threads, stream);

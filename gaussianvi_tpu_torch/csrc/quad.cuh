@@ -180,12 +180,14 @@ int launch_quad(const QuadOperands<T>& op, int threads, cudaStream_t st) {
 }
 
 // The C entries' common body: the instantiated (d, cost, np)
-// combinations (range at d = 2, 4, 6; the planar SDF at d = 2, 4; the 3-D
-// SDF at d = 6), -1 for any other; strides and the params' period in
-// elements / factors; field: the cost's depth x rows x cols field (depth 1
-// for a planar one; null, 0, 0, 0 for a cost without one); rdim = d
-// disables the lift; quant 1 rounds the offsets through bfloat16.
-template <typename T, bool WithMoments>
+// combinations (range at d = 2, 4, 6; the planar SDF and its patch mode at
+// d = 2, 4; the 3-D SDF and its patch mode at d = 6; Windows = false
+// leaves the two patch-mode costs out), -1 for any other; strides and the
+// params' period in elements / factors; field: the cost's depth x rows x
+// cols field (depth 1 for a planar one; null, 0, 0, 0 for a cost without
+// one); rdim = d disables the lift; quant 1 rounds the offsets through
+// bfloat16.
+template <typename T, bool WithMoments, bool Windows = true>
 int quad_entry(int d, int cost, int np, const void* mu,
                long long mu_sb, long long mu_sk, const void* cov,
                long long cov_sb, long long cov_sk, const void* nodes,
@@ -226,6 +228,21 @@ int quad_entry(int d, int cost, int np, const void* mu,
   if (cost == kSdf3dCost && d == 6 && np == Sdf3dCost::kParams &&
       field_ok<Sdf3dCost>(op.field))
     return launch_quad<T, 6, Sdf3dCost, WithMoments>(op, threads, st);
+  if constexpr (Windows) {
+    if (cost == kSdf3dPatchCost && d == 6 &&
+        np == Sdf3dPatchCost::kParams && field_ok<Sdf3dPatchCost>(op.field))
+      return launch_quad<T, 6, Sdf3dPatchCost, WithMoments>(op, threads, st);
+    if (cost == kPlanarPatchCost && np == PlanarPatchCost::kParams &&
+        field_ok<PlanarPatchCost>(op.field)) {
+      if (d == 2)
+        return launch_quad<T, 2, PlanarPatchCost, WithMoments>(op, threads,
+                                                               st);
+      if (d == 4)
+        return launch_quad<T, 4, PlanarPatchCost, WithMoments>(op, threads,
+                                                               st);
+      return -1;
+    }
+  }
   if (cost != kPlanarSdfCost || np != PlanarSdfCost::kParams ||
       !field_ok<PlanarSdfCost>(op.field))
     return -1;

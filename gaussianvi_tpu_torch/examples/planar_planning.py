@@ -69,9 +69,10 @@ def build_planar_planning(
 
     ``interp="matmul"``: the hat-function SDF interpolation, a
     ``cost_fn``-only collision batch on the plain quadrature.
-    ``patch_size`` raises (``factors/robots.py``).  ``device=None`` is the
-    card (``device.default_device``); ``device="cpu"`` builds CPU
-    tensors."""
+    ``patch_size``: the patch mode (``factors/robots.py``), windows of
+    that many cells a side (on the card the default is faster, PERF.md
+    section 5).  ``device=None`` is the card (``device.default_device``);
+    ``device="cpu"`` builds CPU tensors."""
     device = resolve_device(device)
     dim_x, state_dim = 2, 4
     dt = total_time / (num_states - 1)

@@ -67,8 +67,10 @@ def build_point3d_planning(
     ``map_file``: the generated SDF is saved there and loaded back (the
     map IO path).  ``interp="matmul"``: the hat-function interpolation, a
     ``cost_fn``-only collision batch on the plain quadrature.
-    ``patch_size`` raises (``factors/robots.py``).  ``device=None`` is the
-    card; ``device="cpu"`` builds CPU tensors."""
+    ``patch_size``: the patch mode (``factors/robots.py``), windows of
+    that many voxels a side (the JAX package runs ``patch_size=8`` on a
+    TPU; on the card the default is faster, PERF.md section 5).
+    ``device=None`` is the card; ``device="cpu"`` builds CPU tensors."""
     device = resolve_device(device)
     dim_x, state_dim = 3, 6
     dt = total_time / (num_states - 1)

@@ -37,6 +37,16 @@ class NonlinearFactorBatch:
     shared by every factor and problem, like the rule.  The kernel path
     raises for a batch that names no functor.
 
+    ``kernel_prep`` (the patch mode's planner batches, counterpart of the
+    JAX package's ``lanes_prep``): ``kernel_prep(mu_k [..., K, d]) ->
+    kernel_params [..., K, P]``, the params for factors whose marginal
+    means are ``mu_k``, for a functor whose params carry a window that
+    follows the mean; the kernel routes call it before every launch
+    (``moments.kernel_params_at``), with the trial means on the line
+    search's cost path and the current means on the gradient path.  Such
+    a batch's ``kernel_params`` hold the same row with every window at the
+    field's origin.
+
     ``block_cost`` says the batch has a block form, which the block-form
     moments kernel (``kernels/fused_moments.py``, ``GVIConfig.use_pallas``)
     integrates: on the card that is the functor ``kernel_cost`` names; the
@@ -54,6 +64,7 @@ class NonlinearFactorBatch:
     kernel_cost: str | None = None
     kernel_params: torch.Tensor | None = None   # [B, K, P]
     kernel_field: torch.Tensor | None = None    # shared, e.g. [rows, cols]
+    kernel_prep: Callable | None = None
     block_cost: Callable | None = None
     # start == slice_offset + arange(K): gathers/scatters become slices
     slice_offset: int | None = None

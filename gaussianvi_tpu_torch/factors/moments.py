@@ -189,25 +189,36 @@ def kernel_covers(fb) -> str | None:
                   fb.nodes.shape[0], fb.nodes.dtype, fb.kernel_field)
 
 
-def _kernel_cost(fb):
+def kernel_params_at(fb, mu_k):
+    """The kernel params of factors whose marginal means are ``mu_k
+    [..., K, d]``: the batch's own, or, for a batch with a ``kernel_prep``
+    (the patch mode), the ones it forms from ``mu_k`` (the JAX package's
+    ``_lanes_leaves``)."""
+    if fb.kernel_prep is not None:
+        return fb.kernel_prep(mu_k)
+    return fb.kernel_params
+
+
+def _kernel_cost(fb, mu_k):
     if fb.kernel_cost is None or fb.kernel_params is None:
         raise ValueError(
             "the quadrature kernels need a factor batch with kernel_cost and "
             "kernel_params set (a CUDA cost functor in csrc/costs.cuh)"
         )
-    return fb.kernel_cost, fb.kernel_params
+    return fb.kernel_cost, kernel_params_at(fb, mu_k)
 
 
 def batch_phi(fb, mu_k, cov_k, use_kernel: bool, eval_dtype=None):
     """E[phi] [..., K] for a NonlinearFactorBatch: the quadrature kernel
     (``kernels.quad.quad_lanes_phi``) or :func:`expectation_phi`.  A
     float16 ``eval_dtype`` keeps the plain quadrature (the kernel rounds
-    through bfloat16 only), as in the JAX package."""
+    through bfloat16 only), as in the JAX package.  A patch-mode batch's
+    windows follow ``mu_k`` (the trials' means on the line search)."""
     if use_kernel and kernel_quantizes(eval_dtype):
         from ..kernels.quad import quad_lanes_phi
 
         return quad_lanes_phi(mu_k, cov_k, fb.nodes, fb.weights,
-                              *_kernel_cost(fb), nonneg=fb.nonneg_cost,
+                              *_kernel_cost(fb, mu_k), nonneg=fb.nonneg_cost,
                               field=fb.kernel_field, eval_dtype=eval_dtype)
     return expectation_phi(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,
                            fb.params, eval_dtype, nonneg=fb.nonneg_cost)
@@ -220,19 +231,20 @@ def batch_moments(fb, mu_k, cov_k, use_pallas: bool = False,
     (``GVIConfig.use_pallas``) and the batch has a block form, else the
     quadrature kernel (``kernels.quad.quad_lanes_moments``; not for a
     float16 ``eval_dtype``) or :func:`gh_moments`.  Every route applies
-    the ``quad_rdim`` lift.  The block-form route ignores ``eval_dtype``,
+    the ``quad_rdim`` lift; a patch-mode batch's windows follow ``mu_k``
+    on the kernel route.  The block-form route ignores ``eval_dtype``,
     as the JAX package's does: its kernel has no such argument."""
     if use_pallas and fb.block_cost is not None:
         from ..kernels.fused_moments import fused_moments
 
         return fused_moments(fb.nodes, fb.weights, mu_k, cov_k,
-                             *_kernel_cost(fb), rdim=fb.quad_rdim,
+                             *_kernel_cost(fb, mu_k), rdim=fb.quad_rdim,
                              field=fb.kernel_field)
     if use_kernel and kernel_quantizes(eval_dtype):
         from ..kernels.quad import quad_lanes_moments
 
         return quad_lanes_moments(mu_k, cov_k, fb.nodes, fb.weights,
-                                  *_kernel_cost(fb), rdim=fb.quad_rdim,
+                                  *_kernel_cost(fb, mu_k), rdim=fb.quad_rdim,
                                   field=fb.kernel_field,
                                   eval_dtype=eval_dtype)
     return gh_moments(fb.nodes, fb.weights, mu_k, cov_k, fb.cost_fn,

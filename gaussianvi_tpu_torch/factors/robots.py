@@ -19,11 +19,18 @@ What differs from the JAX package:
   device memory; ``interp="matmul"`` and the other robots (the quadrotor's
   five balls, the arm) give a ``cost_fn``-only batch, which the plain
   routes take.
-* ``patch_size`` raises ``NotImplementedError``: the pre-gathered window
-  mode exists in the JAX package because a TPU kernel has no per-lane
-  gather (ROADMAP.md, Queue A 9); whether the port wants it is a
-  measurement for later.  Its functions (``make_patch_prep_*``,
-  ``make_patch_cost_*``) are ported as plain tensor functions.
+* ``patch_size`` (the patch mode) names the window functors
+  ``"planar_patch"`` / ``"sdf3d_patch"`` (``PlanarPatchCost``,
+  ``Sdf3dPatchCost``): the same lookup with each coordinate clipped to a
+  P-cell window around the factor's marginal mean, which a TPU kernel
+  reads from a pre-gathered copy (it has no per-lane gather) and the CUDA
+  functors read in place.  The window's origin rides in the params, which
+  the batch's ``kernel_prep`` (:func:`make_window_prep`) forms from the
+  means before every kernel call; the rule is the full-state one, and
+  ``cost_fn`` stays the whole-field lookup, which the plain routes take,
+  as in the JAX package.  The window functions of the TPU kernels
+  (``make_patch_prep_*``, ``make_patch_cost_*``) are ported as plain
+  tensor functions.
 * Like the JAX factors these batches have no block form, so
   ``GVIConfig.use_pallas`` never routes them to the block-form moments
   kernel.
@@ -40,10 +47,6 @@ from ..device import resolve_device
 from ..quadrature.table import get_rule
 from .base import NonlinearFactorBatch, detect_slice_offset, marginal_rule
 from .sdf import SDF3D, PlanarSDF, hinge_obstacle_cost
-
-_PATCH = ("patch_size (the pre-gathered SDF window mode) is not ported: "
-          "the port's kernels read the whole field (ROADMAP.md, Queue A 9)")
-
 
 def planar_point_balls(pose: torch.Tensor) -> torch.Tensor:
     """Planar point robot: one ball at (x, y): ``[..., 1, 2]``."""
@@ -233,6 +236,43 @@ def make_patch_cost_3d(sdf: SDF3D, patch: int, epsilon, radius, sigma,
     return cost
 
 
+def make_window_prep(row: torch.Tensor, origin: torch.Tensor, cell,
+                     extents, patch: int):
+    """The patch mode's ``kernel_prep``: ``prep(mu_k [..., K, d]) ->
+    [..., K, len(row) + len(extents)]``, the static params ``row`` followed
+    by each factor's window origin along x, y (, z), in cell units:
+    ``floor((mu - origin) / cell) - (patch // 2 - 1)`` clipped to
+    ``[0, extent - patch]``, the arithmetic of the JAX package's
+    ``make_patch_prep_2d`` / ``_3d`` (a division, not a reciprocal)."""
+
+    def prep(mu_k):
+        first = []
+        for axis, extent in enumerate(extents):
+            cells = torch.floor((mu_k[..., axis] - origin[axis]) / cell)
+            first.append(torch.clamp(cells.long() - (patch // 2 - 1), 0,
+                                     extent - patch).to(mu_k.dtype))
+        lead = mu_k.shape[:-1]
+        return torch.cat([row.expand(*lead, row.shape[0]),
+                          torch.stack(first, dim=-1)], dim=-1)
+
+    return prep
+
+
+def _window_kernel(name, row, sdf, extents, patch, k):
+    """The batch fields of the patch mode's functor ``name``: its params
+    with every window at the field's origin, the field and the prep."""
+    if patch < 1 or patch > min(extents):
+        raise ValueError(f"patch_size={patch} does not fit the field "
+                         f"{tuple(sdf.data.shape)}")
+    row = torch.cat([row, row.new_tensor([float(patch)])])
+    width = row.shape[0] + len(extents)
+    prep = make_window_prep(row, sdf.origin, sdf.cell_size, extents, patch)
+    return dict(kernel_cost=name,
+                kernel_params=torch.cat([row, row.new_zeros(len(extents))])
+                .expand(k, width).contiguous(),
+                kernel_field=sdf.data, kernel_prep=prep)
+
+
 def _obstacle_batch(cost_fn, start_indices, state_dim, rdim, gh_degree,
                     dtype, device, **kernel):
     """A hinge-cost factor batch (nonnegative cost) on the marginal rule
@@ -281,9 +321,10 @@ def make_planar_obstacle_factor(
     over the configuration marginal (2 dims for the point robot, 3 for the
     quadrotor; other ``balls_fn`` keep the full-state rule).  The point
     robot with the gather also names the kernel cost ``"planar_sdf"``.
-    ``device=None`` is the card."""
-    if patch_size is not None:
-        raise NotImplementedError(_PATCH)
+    ``patch_size`` (the point robot only; other ``balls_fn`` ignore it, as
+    in the JAX package): the patch mode, the kernel cost
+    ``"planar_patch"`` on a window of that many cells a side, on the
+    full-state rule.  ``device=None`` is the card."""
     device = resolve_device(device)
     sdf = sdf.to(dtype, device)
     gather = _resolve_interp(interp) != "matmul"
@@ -294,17 +335,23 @@ def make_planar_obstacle_factor(
         sd = lookup(balls_fn(x))
         return hinge_obstacle_cost(sd, epsilon, radius, cost_sigma, slope)
 
+    patch = patch_size if balls_fn is planar_point_balls else None
     rdim = None
-    if marginal_quad:
+    if marginal_quad and patch is None:
         rdim = (2 if balls_fn is planar_point_balls
                 else 3 if balls_fn is planar_quad_balls else None)
+    # PlanarSdfCost's params: eps, radius, sigma, slope, x0, y0, cell;
+    # PlanarPatchCost's add P and the window's first column and row
+    row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
+                                  dtype=dtype, device=device),
+                     sdf.origin, sdf.cell_size[None]])
+    k = len(np.atleast_1d(start_indices))
     kernel = {}
-    if gather and balls_fn is planar_point_balls:
-        # PlanarSdfCost's params: eps, radius, sigma, slope, x0, y0, cell
-        row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
-                                      dtype=dtype, device=device),
-                         sdf.origin, sdf.cell_size[None]])
-        k = len(np.atleast_1d(start_indices))
+    if patch is not None:
+        rows, cols = sdf.data.shape
+        kernel = _window_kernel("planar_patch", row, sdf, (cols, rows),
+                                patch, k)
+    elif gather and balls_fn is planar_point_balls:
         kernel = dict(kernel_cost="planar_sdf",
                       kernel_params=row.expand(k, 7).contiguous(),
                       kernel_field=sdf.data)
@@ -331,9 +378,9 @@ def make_point3d_obstacle_factor(
     SDF lookup -> hinge (state = [pos3; vel3]); position-marginal rule.
     With the gather (``interp`` "auto" or "gather") the batch also names
     the kernel cost ``"sdf3d"``; ``interp="matmul"`` gives a
-    ``cost_fn``-only batch.  ``device=None`` is the card."""
-    if patch_size is not None:
-        raise NotImplementedError(_PATCH)
+    ``cost_fn``-only batch.  ``patch_size``: the patch mode, the kernel
+    cost ``"sdf3d_patch"`` on a window of that many voxels a side, on the
+    full-state rule.  ``device=None`` is the card."""
     device = resolve_device(device)
     sdf = sdf.to(dtype, device)
     gather = _resolve_interp(interp) != "matmul"
@@ -344,19 +391,24 @@ def make_point3d_obstacle_factor(
         sd = lookup(point3d_balls(x))
         return hinge_obstacle_cost(sd, epsilon, radius, cost_sigma, slope)
 
+    # Sdf3dCost's params: eps, radius, sigma, slope, x0, y0, z0, cell;
+    # Sdf3dPatchCost's add P and the window's first column, row and plane
+    row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
+                                  dtype=dtype, device=device),
+                     sdf.origin, sdf.cell_size[None]])
+    k = len(np.atleast_1d(start_indices))
     kernel = {}
-    if gather:
-        # Sdf3dCost's params: eps, radius, sigma, slope, x0, y0, z0, cell
-        row = torch.cat([torch.tensor([epsilon, radius, cost_sigma, slope],
-                                      dtype=dtype, device=device),
-                         sdf.origin, sdf.cell_size[None]])
-        k = len(np.atleast_1d(start_indices))
+    if patch_size is not None:
+        nz, rows, cols = sdf.data.shape
+        kernel = _window_kernel("sdf3d_patch", row, sdf, (cols, rows, nz),
+                                patch_size, k)
+    elif gather:
         kernel = dict(kernel_cost="sdf3d",
                       kernel_params=row.expand(k, 8).contiguous(),
                       kernel_field=sdf.data)
-    return _obstacle_batch(cost_fn, start_indices, state_dim,
-                           3 if marginal_quad else None, gh_degree, dtype,
-                           device, **kernel)
+    rdim = 3 if marginal_quad and patch_size is None else None
+    return _obstacle_batch(cost_fn, start_indices, state_dim, rdim,
+                           gh_degree, dtype, device, **kernel)
 
 
 def make_arm_obstacle_factor(

@@ -32,7 +32,7 @@ from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as gbp_plain
 from ..ops.parallel_chain import gbp_covariance_logdet_assoc, solve_assoc
 from .gvi import ngd_gradients, prox_gradients
-from .graph import FactorGraph, GaussianState, gather_marginals
+from .graph import FactorGraph, GaussianState, gather_marginals, take_states
 
 
 def use_kernel(impl: str, plain: str, field: str, device: torch.device,
@@ -92,14 +92,19 @@ def check_config(config, method: str) -> None:
     mm.as_eval_dtype(config.moments_eval_dtype)
 
 
-def fused_operands(graph: FactorGraph):
+def fused_operands(graph: FactorGraph, trials: bool = True):
     """Static eligibility and operand prep shared by the fused trial and
     gradient kernels (``engine._build_fused_specs`` in the JAX package):
     ``(nl_specs, lin_specs, nl_arrays, lin_arrays)`` as
     ``kernels/fused_trials.py`` describes them, or a string saying why the
     kernels do not cover the graph (checked before any call:
-    ``fused_trials.covers``).  Per-problem leaves keep the graph's leading
-    axes; a batch's field is shared by all problems, as its rule is."""
+    ``fused_trials.covers``, for K5 or, ``trials=False``, for K6, which
+    also takes the patch mode's batches, the JAX package's
+    ``allow_prep``).  Per-problem leaves keep the graph's leading axes; a
+    batch's field is shared by all problems, as its rule is; a patch-mode
+    batch's params are its static row, which the engine replaces before
+    each call by the ones its ``kernel_prep`` forms from the means
+    (:meth:`LocalEngine._flat_operands`)."""
     s = graph.state_dim
     if graph.num_states < 2:
         return "the fused kernels need N >= 2 states"
@@ -137,7 +142,7 @@ def fused_operands(graph: FactorGraph):
         lin_specs.append(LinTrialSpec(lb.nb, lb.num_factors, a.shape[-4],
                                       lam.shape[-2], lb.slice_offset))
         lin_arrays.append((lb.start, a, lam, pm, prec_c))
-    why = ft.covers(s, graph.dtype, nl_specs, lin_specs)
+    why = ft.covers(s, graph.dtype, nl_specs, lin_specs, trials)
     if why is not None:
         return why
     return (tuple(nl_specs), tuple(lin_specs), tuple(nl_arrays),
@@ -200,8 +205,10 @@ class LocalEngine:
             for fb in graph.nonlinear)
         # the fused kernels are gated on the quadrature alone
         # (gaussianvi_tpu/inference/engine.py): "on" is refused where the
-        # config forces the plain quadrature, on any device
-        ops = fused_operands(graph)
+        # config forces the plain quadrature, on any device.  K6 takes the
+        # patch mode's batches, K5 does not (its trial means exist only
+        # in the kernel, and the windows follow the means)
+        ops = fused_operands(graph, trials=False)
         why_not = ops if isinstance(ops, str) else None
         if config.quad_impl == "xla" or (
                 config.quad_impl == "auto"
@@ -216,11 +223,13 @@ class LocalEngine:
         self.fused_trials_ready = _use_fused(
             "fused_trials", config.fused_trials,
             why_not or (None if config.linesearch == "batched"
-                        else "linesearch must be 'batched'"),
+                        else "linesearch must be 'batched'")
+            or ft.covers(graph.state_dim, graph.dtype, *ops[:2]),
             self.quad_kernel)
         self.fused_gradient_ready = _use_fused(
             "fused_gradient", config.fused_gradient,
-            why_not or fg.covers(graph.state_dim, self.gradient_modes),
+            why_not or fg.covers(graph.state_dim, self.gradient_modes,
+                                 {fb.kernel_cost for fb in graph.nonlinear}),
             self.quad_kernel)
         if self.fused_trials_ready:
             self.fused_eval_dtype = eval_dtype
@@ -292,17 +301,22 @@ class LocalEngine:
                      bt_fallback.off, rhs)
 
     # -- fused kernels ---------------------------------------------------------
-    def _flat_operands(self, batch):
+    def _flat_operands(self, batch, mu):
         """The fused operands with the problem axes flattened to one
-        ``[B, ...]`` axis (B = prod(batch))."""
+        ``[B, ...]`` axis (B = prod(batch)); a patch-mode batch's params
+        formed from the means ``mu [*batch, N, s]`` (the JAX package's
+        ``_splice_preps``)."""
         nl_specs, lin_specs, nl_arrays, lin_arrays = self._fused_ops
 
         def flat(x, tail):
             return x.expand(*batch, *x.shape[x.ndim - tail:]).reshape(
                 -1, *x.shape[x.ndim - tail:])
 
-        nl = tuple((st, nd, w, flat(p, 2), *field)
-                   for st, nd, w, p, *field in nl_arrays)
+        nl = tuple(
+            (st, nd, w, flat(p if fb.kernel_prep is None else fb.kernel_prep(
+                take_states(mu, fb.start, fb.slice_offset, 1)), 2), *field)
+            for fb, (st, nd, w, p, *field) in zip(self.graph.nonlinear,
+                                                   nl_arrays))
         lin = tuple((st, flat(a, 4), flat(lam, 3), flat(pm, 2), flat(pc, 3))
                     for st, a, lam, pm, pc in lin_arrays)
         return nl_specs, lin_specs, nl, lin
@@ -321,14 +335,16 @@ class LocalEngine:
         ld, fc = trial_costs_lanes(
             flat(state.mu), flat(dmu), flat(prec.diag), flat(prec.off),
             flat(dprec.diag), flat(dprec.off), trials,
-            *self._flat_operands(batch), eval_dtype=self.fused_eval_dtype)
+            *self._flat_operands(batch, state.mu),
+            eval_dtype=self.fused_eval_dtype)
         t = trials.shape[0]
         return (ld.reshape(t, *batch),
                 tuple(f.reshape(t, *batch, f.shape[-1]) for f in fc))
 
     def fused_gradient(self, state: GaussianState, temperature):
         """The whole NGD gradient step in one kernel (K6): covariance of
-        the current iterate, joint (Vdmu, Vddmu), both solves.  Returns
+        the current iterate, joint (Vdmu, Vddmu), both solves; a
+        patch-mode batch's windows follow the current means.  Returns
         ``(cov_diag, cov_off, logdet, dprec BlockTridiag, dmu,
         dmu_fallback)``."""
         batch = state.mu.shape[:-2]
@@ -342,7 +358,7 @@ class LocalEngine:
         prec = state.precision
         out = gradient_lanes(
             flat(state.mu), flat(prec.diag), flat(prec.off),
-            temperature.reshape(-1), *self._flat_operands(batch),
+            temperature.reshape(-1), *self._flat_operands(batch, state.mu),
             eval_dtype=self.fused_grad_eval_dtype)
         cd, co, ld, dpd, dpo, dmu, dfb = (unflat(x) for x in out)
         return cd, co, ld, BlockTridiag(dpd, dpo), dmu, dfb

@@ -147,7 +147,8 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I([fd])")
 # the cost functor a kernel instance was built for (csrc/costs.cuh)
 _COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf",
-          "Sdf3dCost": "sdf3d"}
+          "Sdf3dCost": "sdf3d", "PlanarPatchCost": "planar_patch",
+          "Sdf3dPatchCost": "sdf3d_patch"}
 
 
 def ptxas_report() -> list[dict]:

@@ -76,18 +76,28 @@ GRAD_WARPS = 4       # csrc/fused_gradient.cuh kGradWarps
 # launch_grad; the dtypes and costs are fused_trials.covers')
 MODE_BLOCK_SIZES = {"full": (2, 4, 6), "accum": (2, 4, 6),
                     "solve": (2, 4, 6)}
+# the patch mode's costs (quad.WINDOW_COSTS) are instantiated in modes
+# "full" and "accum" only, at the planners' block sizes
+WINDOW_BLOCK_SIZES = {"planar_patch": (4,), "sdf3d_patch": (6,)}
 
 
-def covers(s: int, modes) -> str | None:
+def covers(s: int, modes, costs=()) -> str | None:
     """Why K6 in every mode of ``modes`` does not cover chains of block
-    size ``s``, or None where it does (beside ``fused_trials.covers``,
-    which both fused kernels share).  The engine resolves
-    ``fused_gradient`` by it for the modes it runs, the wrapper checks
-    it before a launch."""
+    size ``s`` with the nonlinear batches' kernel ``costs``, or None where
+    it does (beside ``fused_trials.covers``, which both fused kernels
+    share).  The engine resolves ``fused_gradient`` by it for the modes it
+    runs, the wrapper checks it before a launch."""
     for mode in modes:
         if s not in MODE_BLOCK_SIZES[mode]:
             return (f"K6 mode {mode!r} not instantiated for s={s} (have "
                     f"{MODE_BLOCK_SIZES[mode]})")
+        if mode == "solve":
+            continue
+        for cost in costs:
+            if s not in WINDOW_BLOCK_SIZES.get(cost, (s,)):
+                return (f"K6 mode {mode!r} not instantiated for cost "
+                        f"{cost!r} at s={s} (have "
+                        f"{WINDOW_BLOCK_SIZES[cost]})")
     return None
 
 
@@ -248,13 +258,13 @@ def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
                      lin_arrays, mode, seeds, eval_dtype):
     name = "gradient_lanes"
     b, n, s = check_state(name, mu, pd, po, temperature)
-    why = covers(s, (mode,))
+    why = covers(s, (mode,), {sp.cost for sp in nl_specs})
     if why is not None:
         raise ValueError(f"{name}: {why}")
     if temperature.shape != (b,):
         raise ValueError(f"{name}: temperature must be [{b}]")
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                     eval_dtype=eval_dtype)
+                     eval_dtype=eval_dtype, trials=False)
     plan = grad_plan(name, n, s, mu.element_size(), fa.fixed_bytes)
     ins = [x.contiguous() for x in (mu, pd, po, temperature)]
     dt, dev = mu.dtype, mu.device

@@ -51,7 +51,14 @@ from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
 from . import _build
-from .quad import KERNEL_COSTS, cost_form, field_covers, field_dims, quant_flag
+from .quad import (
+    KERNEL_COSTS,
+    WINDOW_COSTS,
+    cost_form,
+    field_covers,
+    field_dims,
+    quant_flag,
+)
 
 BLOCK_SIZES = (2, 4, 6)  # instantiated state-block sizes s (local dim d = s)
 MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
@@ -272,12 +279,17 @@ def check_state(name, mu, pd, po, *same):
     return b, n, s
 
 
-def covers(s: int, dtype: torch.dtype, nl_specs, lin_specs) -> str | None:
-    """Why the fused kernels (K5, K6) do not cover factor batches of these
-    specs on chains of block size ``s`` in ``dtype``, or None where they
-    do.  The engine checks it before any call (``fused_operands``), the
-    wrappers before a launch; the global-scratch route takes any chain
-    length, so the rules are the one size that can fail."""
+def covers(s: int, dtype: torch.dtype, nl_specs, lin_specs,
+           trials: bool = True) -> str | None:
+    """Why the fused kernels (K5, or K6 for ``trials=False``) do not cover
+    factor batches of these specs on chains of block size ``s`` in
+    ``dtype``, or None where they do.  The engine checks it before any call
+    (``fused_operands``), the wrappers before a launch; the global-scratch
+    route takes any chain length, so the rules are the one size that can
+    fail.  K5 refuses the patch mode's costs (``quad.WINDOW_COSTS``), as
+    the JAX package's trial kernel refuses its prep batches: a window
+    follows the factor's mean, and the trials' means exist only inside
+    the kernel."""
     if dtype not in _build.DTYPES:
         return f"dtype {dtype} not supported (float32 or float64)"
     if s not in BLOCK_SIZES:
@@ -290,6 +302,10 @@ def covers(s: int, dtype: torch.dtype, nl_specs, lin_specs) -> str | None:
         return (f"the nonlinear batches must share one kernel cost of "
                 f"{sorted(KERNEL_COSTS)}, got {sorted(costs)}")
     cost = costs.pop()
+    if trials and cost in WINDOW_COSTS:
+        return (f"cost {cost!r} reads windows that follow the factors' "
+                "means; the trial kernel forms the trial means in-kernel "
+                "(the patch mode takes the separate trial costs)")
     if s not in KERNEL_COSTS[cost][2]:
         return f"cost {cost!r} not instantiated for d={s}"
     for sp in lin_specs:
@@ -321,17 +337,18 @@ class FactorArgs(NamedTuple):
 
 
 def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
-                rows: int | None = None, eval_dtype=None) -> FactorArgs:
+                rows: int | None = None, eval_dtype=None,
+                trials: bool = True) -> FactorArgs:
     """Check and pack the factor operands for a launch at ``mu [B, N, s]``:
     every per-problem operand as it is (problem-major, contiguous), each
     batch's per-state index, and a nonlinear batch's field (null and
     0 x 0 x 0 for a cost without one) and offset rounding (``eval_dtype``
     None or bfloat16).  ``rows`` (trial kernel, T * B): allocate
-    ``[rows, K]`` cost outputs."""
+    ``[rows, K]`` cost outputs; ``trials``: for K5 (else K6)."""
     b, n, s = mu.shape
     quant = quant_flag(name, eval_dtype)
     dt, dev = mu.dtype, mu.device
-    why = covers(s, dt, nl_specs, lin_specs)
+    why = covers(s, dt, nl_specs, lin_specs, trials)
     if why is not None:
         raise ValueError(f"{name}: {why}")
     cost = nl_specs[0].cost if nl_specs else "range"

@@ -111,6 +111,67 @@ def _sdf3d_cost_packed(x, p, field):
     return err * err * p[..., 2]
 
 
+def _window_axis(v, v0, cell, o, patch, extent):
+    """One axis of the patch mode's lookup (``WindowAxis`` in
+    csrc/costs.cuh), step for step: the coordinate relative to the window
+    of ``patch`` cells from cell ``o``, clipped to ``[0, patch - 1]``; the
+    two corners' field indices (the high one clamped to the window, both to
+    the field) and their weights as the hat sum takes them."""
+    q = torch.minimum(torch.clamp_min((v - v0) / cell - o, 0.0), patch - 1.0)
+    low = torch.floor(q)
+    last = patch.long() - 1
+    li = torch.minimum(torch.clamp_min(low.long(), 0), last)
+    hi = torch.minimum(li + 1, last)
+    base = o.long()
+    lo_f = torch.clamp(base + li, 0, extent - 1)
+    hi_f = torch.clamp(base + hi, 0, extent - 1)
+    return lo_f, hi_f, 1.0 - (q - low), 1.0 - ((low + 1.0) - q)
+
+
+def _planar_patch_cost_packed(x, p, field):
+    """The patch mode's planar cost (``PlanarPatchCost`` in csrc/costs.cuh):
+    the bilinear lookup with each coordinate clipped to the factor's window
+    of P x P cells, blended along the row first, as the JAX package's hat
+    sum (``make_patch_cost_2d``) adds its terms, then the hinge.  ``p =
+    [eps, radius, sigma, slope, x0, y0, cell, P, c0, r0]`` (the window's
+    first column and row, ``NonlinearFactorBatch.kernel_prep``); ``x
+    [M, ..., d]``, ``p [..., 10]``."""
+    rows, cols = field.shape
+    cl, ch, wc0, wc1 = _window_axis(x[..., 0], p[..., 4], p[..., 6],
+                                    p[..., 8], p[..., 7], cols)
+    rl, rh, wr0, wr1 = _window_axis(x[..., 1], p[..., 5], p[..., 6],
+                                    p[..., 9], p[..., 7], rows)
+    sd = (wr0 * (wc0 * field[rl, cl] + wc1 * field[rl, ch])
+          + wr1 * (wc0 * field[rh, cl] + wc1 * field[rh, ch]))
+    err = torch.clamp_min(p[..., 0] + p[..., 1] - sd, 0.0) * p[..., 3]
+    return err * err * p[..., 2]
+
+
+def _sdf3d_patch_cost_packed(x, p, field):
+    """The patch mode's 3-D cost (``Sdf3dPatchCost`` in csrc/costs.cuh):
+    the trilinear lookup with each coordinate clipped to the factor's
+    window of P^3 voxels, blended along rows, across rows, across planes
+    (``make_patch_cost_3d``'s order), then the hinge.  ``p = [eps, radius,
+    sigma, slope, x0, y0, z0, cell, P, c0, r0, z0w]``; ``x [M, ..., d]``,
+    ``p [..., 12]``."""
+    nz, rows, cols = field.shape
+    cell, patch = p[..., 7], p[..., 8]
+    cl, ch, wc0, wc1 = _window_axis(x[..., 0], p[..., 4], cell, p[..., 9],
+                                    patch, cols)
+    rl, rh, wr0, wr1 = _window_axis(x[..., 1], p[..., 5], cell, p[..., 10],
+                                    patch, rows)
+    zl, zh, wz0, wz1 = _window_axis(x[..., 2], p[..., 6], cell, p[..., 11],
+                                    patch, nz)
+
+    def plane(z):
+        return (wr0 * (wc0 * field[z, rl, cl] + wc1 * field[z, rl, ch])
+                + wr1 * (wc0 * field[z, rh, cl] + wc1 * field[z, rh, ch]))
+
+    sd = wz0 * plane(zl) + wz1 * plane(zh)
+    err = torch.clamp_min(p[..., 0] + p[..., 1] - sd, 0.0) * p[..., 3]
+    return err * err * p[..., 2]
+
+
 # name -> (functor id in csrc/costs.cuh, plain PyTorch form
 # ``form(x, p, field)``, instantiated local dims d with their param counts
 # P, the dims of the field the cost reads or None)
@@ -118,7 +179,13 @@ KERNEL_COSTS = {
     "range": (0, _range_cost_packed, {2: 3, 4: 4, 6: 5}, None),
     "planar_sdf": (1, _planar_sdf_cost_packed, {2: 7, 4: 7}, 2),
     "sdf3d": (2, _sdf3d_cost_packed, {6: 8}, 3),
+    "planar_patch": (3, _planar_patch_cost_packed, {2: 10, 4: 10}, 2),
+    "sdf3d_patch": (4, _sdf3d_patch_cost_packed, {6: 12}, 3),
 }
+# the patch mode's costs: their params carry each factor's window, which
+# follows its marginal mean (``NonlinearFactorBatch.kernel_prep`` forms
+# them before every call); K3 and K6 take them, K4 and K5 do not
+WINDOW_COSTS = frozenset({"planar_patch", "sdf3d_patch"})
 
 
 def cost_form(cost: str, field=None):

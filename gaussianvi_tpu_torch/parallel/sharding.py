@@ -168,7 +168,7 @@ class FactorShardEngine(LocalEngine):
         prec = state.precision
         x = (flat(state.mu), flat(prec.diag), flat(prec.off),
              temperature.reshape(-1))
-        nl_specs, lin_specs, nl, lin = self._flat_operands(batch)
+        nl_specs, lin_specs, nl, lin = self._flat_operands(batch, state.mu)
         partials = gradient_accum_lanes(
             *x, nl_specs, nl, eval_dtype=self.fused_grad_eval_dtype)
         # the one all-reduce of the step: Vdmu and both parts of Vddmu are

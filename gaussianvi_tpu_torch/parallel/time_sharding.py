@@ -188,6 +188,11 @@ def _scatter_edge(vd, vdd, vdmu, vddmu_d, vddmu_o, s, mesh: Mesh):
     return vdmu, vddmu_d, vddmu_o
 
 
+_WINDOWS = ("a patch-mode batch (kernel_prep) takes its cost_fn on the "
+            "sequence-parallel engine, as in the JAX package: the window "
+            "functor is another function")
+
+
 class TimeShardEngine:
     """Engine hooks (those ``inference.optimize.run_gvi`` calls) with the
     trajectory axis sharded over the mesh's ``sp`` axis.
@@ -201,7 +206,11 @@ class TimeShardEngine:
     quadrature on every segment whatever ``quad_impl`` says; ``"lanes"``
     takes the quadrature kernel (K3) for every nonlinear batch, raising
     where the tensors are not on the card or a batch is not covered, as
-    ``"lanes"`` does on the local engine.  No fused kernel."""
+    ``"lanes"`` does on the local engine.  A patch-mode batch
+    (``kernel_prep``) is not covered: the JAX engine evaluates its
+    ``cost_fn``, the whole-field lookup, and the window functor is another
+    function, so ``"lanes"`` raises for it and ``"auto"`` / ``"xla"`` take
+    its ``cost_fn``.  No fused kernel."""
 
     chain_kernel = False
     fused_trials_ready = False
@@ -215,7 +224,9 @@ class TimeShardEngine:
         self.mesh = mesh
         impl = config.quad_impl if config.quad_impl == "lanes" else "xla"
         self.quad_batches = tuple(
-            use_kernel(impl, "xla", "quad_impl", device, mm.kernel_covers(fb))
+            use_kernel(impl, "xla", "quad_impl", device,
+                       _WINDOWS if fb.kernel_prep is not None
+                       else mm.kernel_covers(fb))
             for fb in graph.nonlinear)
 
     # -- chain ---------------------------------------------------------------

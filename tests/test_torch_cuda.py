@@ -1279,3 +1279,220 @@ def test_samplers_on_the_card_match_the_cpu(dev, sampler):
     res = run_chains(ld, x0[:2], gen, num_samples=3, num_warmup=2,
                      num_leapfrog=2, init_step_size=0.01)
     assert res.samples.device.type == "cuda" and res.samples.shape[:2] == (2, 3)
+
+
+# ---------------------------------------------------------------------------
+# the planners' patch mode: the window functors in K3 and K6
+# ---------------------------------------------------------------------------
+
+def _patch_planner(name, dtype, dev, patch=4):
+    """The planar (``name="planar"``) or 3-D point planner in the patch
+    mode with the restarts of :func:`_planner` / :func:`_point3d`, windows
+    of ``patch`` cells so that the clamp bites: ``(graph_b, state_b)``."""
+    from gaussianvi_tpu_torch.examples.planar_planning import (
+        build_planar_planning,
+    )
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    _, state = (_planner if name == "planar" else _point3d)(dtype, dev)
+    build = (build_planar_planning if name == "planar"
+             else build_point3d_planning)
+    graph = build(num_states=state.mu.shape[1], patch_size=patch,
+                  dtype=dtype, device=dev)[0]
+    return _batch_graph(graph, state.mu.shape[0]), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_moments", [False, True])
+@pytest.mark.parametrize("name", ["planar", "point3d"])
+def test_window_quad_kernel_matches_plain(dev, name, with_moments, dtype):
+    """K3 (both variants) with the patch mode's functors
+    (``PlanarPatchCost``, ``Sdf3dPatchCost``) on params their prep forms
+    from the means, against the plain forms, twice for the same bits;
+    exact zeros in the same places, never NaN; K4 has no instance of
+    them (the patch mode's batches have no block form, as in the JAX
+    package)."""
+    from gaussianvi_tpu_torch.kernels import fused_moments, quad
+
+    graph, _ = _patch_planner(name, dtype, dev)
+    fb = graph.nonlinear[0]
+    mu, cov = (_planner_marginals if name == "planar"
+               else _point3d_marginals)(5, dtype, dev)
+    cov = 25.0 * cov       # sigma points well outside 4-cell windows
+    args = (mu, cov, fb.nodes, fb.weights, fb.kernel_cost,
+            fb.kernel_prep(mu))
+    if with_moments:
+        got = _twice(lambda: quad.quad_lanes_moments(
+            *args, field=fb.kernel_field))
+        want = quad.quad_moments_plain(*args, field=fb.kernel_field)
+    else:
+        got = _twice(lambda: (quad.quad_lanes_phi(
+            *args, nonneg=True, field=fb.kernel_field),))
+        want = (quad.quad_phi_plain(*args, nonneg=True,
+                                    field=fb.kernel_field),)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_close(g, w, dtype, scaled=i > 0)
+    assert torch.equal(got[0] == 0, want[0] == 0)
+    assert not torch.isnan(got[0]).any() and (want[0] > 0).any()
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        fused_moments.fused_moments(fb.nodes, fb.weights, mu, cov,
+                                    fb.kernel_cost, args[-1],
+                                    field=fb.kernel_field)
+
+
+def _backward_error(x, ref, diag, off):
+    """Backward error of a solution ``x`` of the block-tridiagonal system
+    ``A = (diag, off)`` whose solution is ``ref``, per problem, in float64:
+    ``||A (x - ref)|| / (||A|| ||x|| + ||A ref||)`` (Frobenius norms of
+    the blocks); the largest over the problems where both are finite."""
+    x, ref, diag, off = (t.double() for t in (x, ref, diag, off))
+
+    def matvec(v):
+        y = torch.einsum("bnij,bnj->bni", diag, v)
+        y[:, :-1] += torch.einsum("bnij,bnj->bni", off, v[:, 1:])
+        y[:, 1:] += torch.einsum("bnji,bnj->bni", off, v[:, :-1])
+        return y
+
+    rows = (torch.isfinite(x).flatten(1).all(1)
+            & torch.isfinite(ref).flatten(1).all(1))
+    norm_a = (diag.flatten(1).norm(dim=1) ** 2
+              + 2 * off.flatten(1).norm(dim=1) ** 2).sqrt()
+    err = (matvec(x - ref).flatten(1).norm(dim=1)
+           / (norm_a * x.flatten(1).norm(dim=1)
+              + matvec(ref).flatten(1).norm(dim=1)))
+    return float(err[rows].max()) if rows.any() else 0.0
+
+
+def _to64(tree):
+    """Every floating-point tensor of a nested tuple in float64 (the
+    specs, named tuples of ints, as they are)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return tuple(_to64(x) for x in tree)
+    return tree
+
+
+def _close_vs_f64(got, want, want64):
+    """A float32 kernel output held to the float64 plain version on the
+    same inputs as well as the float32 plain version is (``chip_smoke.py``
+    ``compare_vs_f64``): no more NaNs that differ from float64's, and an
+    error against float64 at most 4 times the plain version's plus 1e-6
+    of the output's range (sums over the 41- and 85-node rules cancel)."""
+    nan64 = torch.isnan(want64)
+    assert int((torch.isnan(got) != nan64).sum()) <= int(
+        (torch.isnan(want) != nan64).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want) & torch.isfinite(want64)
+    ref = want64[fin]
+    err_k = float((got.double()[fin] - ref).abs().max())
+    err_p = float((want.double()[fin] - ref).abs().max())
+    assert err_k <= 4 * err_p + 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["planar", "point3d"])
+def test_window_gradient_kernels_match_plain(dev, name, dtype):
+    """K6 ``full`` and ``accum`` (each half of the obstacle factors) with
+    the patch mode's functors, the windows formed from the iterate's
+    means as the engine forms them, against the plain versions, twice for
+    the same bits; K5 refuses the window costs.  float32 is held as
+    ``chip_smoke.py`` holds it (:func:`_close_vs_f64`; the main solve's
+    ``dmu`` by its backward error in the float64 plain version's system:
+    on the rows where ``Vddmu`` is nearly singular a forward bound says
+    nothing in float32)."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.inference.graph import take_states
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    graph, state = _patch_planner(name, dtype, dev)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(
+        graph, trials=False)
+    fb = graph.nonlinear[0]
+    start, nodes, weights, _, field = nl_arrays[0]
+    params = fb.kernel_prep(take_states(state.mu, start, fb.slice_offset, 1))
+    nl_arrays = ((start, nodes, weights, params, field),)
+    b, n, s = state.mu.shape
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((b, n, s, s))
+    pd = torch.tensor(10.0 * np.eye(s) + 0.5 * q @ np.swapaxes(q, -1, -2),
+                      dtype=dtype, device=dev)
+    po = torch.tensor(0.5 * rng.standard_normal((b, n - 1, s, s)),
+                      dtype=dtype, device=dev)
+    x6 = (state.mu, pd, po, torch.full((b,), 0.5, dtype=dtype, device=dev))
+    ops = (nl_specs, lin_specs, nl_arrays, lin_arrays)
+    sp, k = nl_specs[0], nl_specs[0].k // 2
+    halves = [((sp._replace(k=k, slice_offset=None),),
+               ((start[i * k:(i + 1) * k], nodes, weights,
+                 params[:, i * k:(i + 1) * k], field),)) for i in range(2)]
+    runs = [(lambda: fg.gradient_lanes(*x6, *ops),
+             lambda x, o: fg.gradient_plain(*x, *o), ops)]
+    runs += [(lambda h=h: fg.gradient_accum_lanes(*x6, *h),
+              lambda x, h: fg.gradient_plain(*x, h[0], (), h[1], (),
+                                             mode="accum"), h)
+             for h in halves]
+    for kern, plain, operands in runs:
+        got = _twice(kern)
+        want = plain(x6, operands)
+        want64 = plain(_to64(x6), _to64(operands))
+        for i, (g, w, w64) in enumerate(zip(got, want, want64)):
+            if dtype == torch.float64:
+                _assert_close(g, w, dtype)
+            elif len(got) == 7 and i == 5:
+                assert torch.equal(torch.isnan(g), torch.isnan(w64))
+                assert _backward_error(g, w64, want64[3] + pd.double(),
+                                       want64[4] + po.double()) < 1e-5
+            else:
+                _close_vs_f64(g, w, w64)
+    x5 = (state.mu, torch.zeros_like(state.mu), pd, po, torch.zeros_like(pd),
+          torch.zeros_like(po), torch.ones(2, dtype=dtype, device=dev))
+    with pytest.raises(ValueError, match="trial kernel"):
+        ft.trial_costs_lanes(*x5, *ops)
+
+
+def test_patch_planner_on_kernels_matches_plain(dev):
+    """The 3-D point planner in the patch mode under the defaults on the
+    card (K3 phi and K6 ``full`` once an iteration, K5 never) against the
+    same routes' plain versions on the CPU (float64, rtol 1e-9, the same
+    accepted steps)."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.inference.optimize import run_gvi
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        graph, init, cfg, _ = build_point3d_planning(
+            num_states=8, patch_size=4, device=where)
+        cfg = replace(cfg, niters=8, niters_lowtemp=6)
+        prec = init.precision
+        rng = np.random.default_rng(4)
+        state = GaussianState(
+            init.mu + torch.tensor(0.3 * rng.standard_normal((3, 8, 6)),
+                                   device=where),
+            BlockTridiag(prec.diag.expand(3, 8, 6, 6).clone(),
+                         prec.off.expand(3, 7, 6, 6).clone()))
+        graph = _batch_graph(graph, 3)
+        if where.type == "cuda":
+            reset_launch_counts()
+            runs["cuda"] = optimize(graph, state, cfg)[1]
+            counts = launch_counts()
+        else:
+            runs["cpu"] = run_gvi(LocalEngine(graph, cfg, dev), state,
+                                  cfg)[1]
+    assert counts["fused_gradient"] == 8 and counts["fused_trials"] == 0
+    assert counts["quad_phi"] > 8 and counts["gbp_covariance_logdet"] > 8
+    got, want = runs["cuda"], runs["cpu"]
+    torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-9, atol=0)
+    assert torch.equal(got.accepted_step.cpu(), want.accepted_step)

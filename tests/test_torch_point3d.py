@@ -183,8 +183,12 @@ def test_map_files_cross_packages(tmp_path, fields):
         num_states=N, map_file=tmp_path / "map.npz", device=CPU)
     np.testing.assert_array_equal(sdf.data.numpy(), np.asarray(jf.data))
     assert graph.nonlinear[0].kernel_field is sdf.data
-    with pytest.raises(NotImplementedError, match="patch_size"):
-        tp3.build_point3d_planning(num_states=N, patch_size=8, device=CPU)
+    graph, _, _, sdf = tp3.build_point3d_planning(
+        num_states=N, map_file=tmp_path / "map.npz", patch_size=8,
+        device=CPU)
+    fb = graph.nonlinear[0]
+    assert fb.kernel_cost == "sdf3d_patch" and fb.kernel_field is sdf.data
+    assert fb.quad_rdim is None and fb.nodes.shape == (85, 6)
 
 
 def _restarts(init, seed=0):

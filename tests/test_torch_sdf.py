@@ -240,14 +240,34 @@ def test_patch_functions_match_jax():
 
 
 def test_patch_mode_raises():
+    """The patch mode raises for a window wider than the field (the JAX
+    package's ``dynamic_slice`` fails at trace time) and builds the window
+    functors' batches at every width that fits: the full-state rule, the
+    static row with the windows at the field's origin, the field, and a
+    prep whose windows follow the means."""
     rng = np.random.default_rng(14)
     _, (tf2, tf3) = _fields(rng)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        trob.make_planar_obstacle_factor(tf2, np.arange(3), 4, patch_size=4,
+    with pytest.raises(ValueError, match="patch_size=8 does not fit"):
+        trob.make_planar_obstacle_factor(tf2, np.arange(3), 4, patch_size=8,
                                          device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        trob.make_point3d_obstacle_factor(tf3, np.arange(3), 6, patch_size=3,
+    with pytest.raises(ValueError, match="patch_size=5 does not fit"):
+        trob.make_point3d_obstacle_factor(tf3, np.arange(3), 6, patch_size=5,
                                           device=CPU)
+    fb2 = trob.make_planar_obstacle_factor(tf2, np.arange(3), 4, patch_size=4,
+                                           device=CPU)
+    fb3 = trob.make_point3d_obstacle_factor(tf3, np.arange(3), 6,
+                                            patch_size=3, device=CPU)
+    for fb, cost, width, d in ((fb2, "planar_patch", 10, 4),
+                               (fb3, "sdf3d_patch", 12, 6)):
+        assert fb.kernel_cost == cost and fb.quad_rdim is None
+        assert fb.nodes.shape == (41 if d == 4 else 85, d)
+        assert fb.kernel_params.shape == (3, width)
+        assert (fb.kernel_params[:, -(d // 2):] == 0).all()
+        mu = t(rng.uniform(0.0, 2.0, (3, d)))
+        row = fb.kernel_prep(mu)
+        assert torch.equal(row[:, :-(d // 2)], fb.kernel_params[:, :-(d // 2)])
+    assert torch.equal(fb2.kernel_field, tf2.data)
+    assert torch.equal(fb3.kernel_field, tf3.data)
 
 
 # ---------------------------------------------------------------------------

@@ -94,6 +94,11 @@ def _rank_jobs(rank, world, device, descs, jobs):
     batches = {key: _port_batch(d) for key, d in descs.items()}
     out = {}
     for name, kind, key, (dp, fp), fields, method in jobs:
+        if kind == "patch":
+            mesh = parallel.make_mesh(dp, fp)
+            out[name] = (_patch_run(mesh, torch.device("cuda"), fields)
+                         if mesh.member else None)
+            continue
         graph_b, state_b = batches[key]
         cfg = GVIConfig(**fields)
         if kind == "raises":
@@ -140,6 +145,53 @@ def _rank_jobs(rank, world, device, descs, jobs):
     return out
 
 
+PATCH_RESTARTS = 2
+
+
+def _patch_run(mesh, device, fields):
+    """The 3-D point planner in the patch mode (N = 8, windows of 4
+    voxels, two restarts) on the routes the engines resolve for ``device``
+    (for the card: K1, K2, K3 with the trials' windows and K6 with the
+    current means' windows; here on CPU tensors, the kernels' plain
+    versions), on ``mesh`` (None: the single-process engine)."""
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import run_gvi
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+    from gaussianvi_tpu_torch.parallel.sharding import (
+        _gather_factor_costs,
+    )
+
+    graph, init, cfg, _ = build_point3d_planning(num_states=8, patch_size=4,
+                                                 device=CPU)
+    cfg = replace(cfg, **fields)
+    graph_b = _batch_graph(graph, PATCH_RESTARTS)
+    noise = 0.3 * torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (PATCH_RESTARTS, *init.mu.shape)))
+    noise[0] = 0.0
+    prec = init.precision
+    state_b = type(init)(init.mu + noise, type(prec)(
+        prec.diag.expand(PATCH_RESTARTS, *prec.diag.shape).clone(),
+        prec.off.expand(PATCH_RESTARTS, *prec.off.shape).clone()))
+    if mesh is None:
+        engine = LocalEngine(graph_b, cfg, device)
+        state, hist = run_gvi(engine, state_b, cfg)
+        return dict(cost=hist.cost.numpy(),
+                    factor_costs=hist.factor_costs.numpy(),
+                    accepted_step=hist.accepted_step.numpy(),
+                    mu=state.mu.numpy(),
+                    prec_diag=state.precision.diag.numpy(),
+                    prec_off=state.precision.off.numpy())
+    graph_loc = parallel.shard_graph(graph_b, mesh)
+    engine = FactorShardEngine(graph_loc, cfg, device, mesh)
+    assert engine.fused_gradient_ready and not engine.fused_trials_ready
+    state, hist = run_gvi(engine, parallel.shard_state(state_b, mesh), cfg)
+    return _run_result(state, _gather_factor_costs(hist, graph_loc, mesh),
+                       mesh)
+
+
 def _jobs():
     jobs = []
     for variant, (method, base, extra, _) in VARIANTS.items():
@@ -162,6 +214,8 @@ def _jobs():
         ("big-mesh", "raises", "flagship", (4, 2), _BENCH, "ngd"),
         ("lockstep", "lockstep", "flagship", (1, 4),
          dict(_BENCH, fused_trials="on", fused_gradient="on"), "ngd"),
+        ("patch-fp2", "patch", None, (1, 2), dict(niters=5, niters_lowtemp=3),
+         "ngd"),
     ]
     return jobs
 
@@ -294,6 +348,21 @@ def test_optimize_sharded_matches_jax_and_local(ranks, port_runs, jax_runs,
         assert all_reduces == 0
     else:
         assert all_reduces == 3 * _BENCH["niters"] + 3
+
+
+def test_patch_mode_at_fp2_matches_one_process(ranks):
+    """The point planner's patch mode at dp = 1 x fp = 2 on the card's
+    routes (each rank forms its own shard's windows: K3 for the trials,
+    K6 ``accum`` then ``solve``) against the single-process run on the
+    same routes (K6 ``full``): 1e-9 and the same steps."""
+    job = next(j for j in _jobs() if j[0] == "patch-fp2")
+    got, all_reduces = _assemble(ranks, "patch-fp2", 1, 2)
+    want = _patch_run(None, torch.device("cuda"), job[4])
+    _assert_same_run(got, want, "patch mode at fp = 2 vs one process")
+    assert (got["accepted_step"] > 0).any()
+    # per iteration the cost, the accumulators and the trial costs (run_gvi
+    # on the engine: no lockstep checks of optimize_sharded)
+    assert all_reduces == 3 * job[4]["niters"]
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS) + ["bf16-fused"])
