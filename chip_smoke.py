@@ -922,12 +922,18 @@ def split_checks(graph_b, dev, iterate):
 
 
 # name -> (N, dim_x, problems); no batch is a multiple of K6's four problems
-# per block; s = 6 (dim_x = 3) at a ragged block and on the global-scratch
-# route
+# per block; s = 6 (dim_x = 3), whose edges sit on lane groups of eight:
+# one edge, more edges than a warp's four groups take at once (K6) and a
+# ragged last turn of the block's sixteen (K5), dynamic starts, two
+# nonlinear batches, a ragged block, the global-scratch route
 LAYOUTS = {"N=2": (2, 2, 3), "N=5, s=2": (5, 1, 5), "N=33": (33, 2, 3),
            "N=70, s=2": (70, 1, 2), "dynamic starts": (9, 2, 3),
            "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2),
-           "N=5, s=6": (5, 3, 3), "long chain, s=6": (160, 3, 2)}
+           "N=5, s=6": (5, 3, 3), "long chain, s=6": (160, 3, 2),
+           "N=2, s=6": (2, 3, 3), "N=33, s=6": (33, 3, 3),
+           "dynamic starts, s=6": (9, 3, 3),
+           "two nonlinear batches, s=6": (8, 3, 5),
+           "ragged, s=6": (12, 3, 6)}
 
 
 def layout_checks(dev):
@@ -936,7 +942,8 @@ def layout_checks(dev):
     the warp-per-chain layout can get wrong: chains shorter and longer than
     a warp, s = 2, a nonlinear batch with dynamic starts in another order
     than its states, two nonlinear batches, a ragged last block, and a
-    chain too long for shared memory (the global-scratch route).  Each
+    chain too long for shared memory (the global-scratch route); at s = 6,
+    where an edge sits on a lane group, the same cases for its turns.  Each
     kernel is launched twice for identical bits, and ``accum`` + ``solve``
     must give the ``full`` kernel's bits."""
     from gaussianvi_tpu_torch import stack_problems
@@ -956,11 +963,11 @@ def layout_checks(dev):
             for i in range(count)))))
         nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
         sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
-        if name == "dynamic starts":
+        if name.startswith("dynamic starts"):
             keep = torch.tensor([7, 2, 5, 0, 3], device=dev)
             nl_specs = (sp._replace(k=len(keep), slice_offset=None),)
             nl_arrays = ((start[keep], nodes, weights, params[:, keep]),)
-        elif name == "two nonlinear batches":
+        elif name.startswith("two nonlinear batches"):
             halves = [torch.arange(h, n, 2, device=dev) for h in (0, 1)]
             nl_specs = tuple(sp._replace(k=len(h), slice_offset=None)
                              for h in halves)
@@ -2612,7 +2619,54 @@ def s6_kernel_checks(dev):
                 plain_ms=cuda_ms(plain, reps=1),
                 **bound(inputs[name], kern(), work[name]))
         out[model, "solve"]["library_ms"] = dense_solve_ms(chains[f32][1])
+        print(f"[s=6 ptxas] {model}: " + "; ".join(
+            f"{name} {out[model, name]['ms']:.4f} ms "
+            f"({out[model, name]['ms_flushed_l2']:.4f} flushed), "
+            + s6_ptxas(name, cost) for name in (
+                "fused_trials", "fused_gradient", "fused_gradient_accum",
+                "fused_gradient_solve"))
+            + " (f32 times; registers, spill stores + loads, f32 / f64)",
+            flush=True)
     return out
+
+
+# K6's modes as its kernels' template argument (csrc/fused_gradient.cuh
+# GradMode)
+GRAD_MODES = {"full": 0, "accum": 1, "solve": 2}
+# K5 / K6 at s = 6: the wrapper and its K6 mode (None: K5)
+S6_MODES = {"fused_trials": None, "fused_gradient": "full",
+            "fused_gradient_accum": "accum", "fused_gradient_solve": "solve"}
+
+
+def s6_ptxas(name, cost):
+    """``"layout R / R regs, spill a+b / a+b B"``: the layout (lane
+    ``groups`` or a ``lane`` an edge) and what ptxas says of the s = 6
+    instance of K5 or a mode of K6 with ``cost`` (mode "solve" runs the
+    range cost's instance whatever the model's), float32 / float64."""
+    from gaussianvi_tpu_torch.kernels import _build
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+
+    mode = S6_MODES[name]
+    cost = "range" if mode == "solve" else cost
+    report = _build.ptxas_report()
+    found = []
+    for size, dtype in ((4, "float32"), (8, "float64")):
+        if mode is None:    # K5 at s = 6: always the lane groups
+            groups, kernel = True, "trials_s6_kernel"
+        else:
+            groups = fg.grad_groups(6, size, cost, mode)
+            kernel = "grad_s6_kernel" if groups else "grad_kernel"
+        rows = [r for r in report
+                if r["kernel"] == kernel and r["dtype"] == dtype
+                and r["cost"] == cost and r["ints"][0] == 6
+                and (mode is None or r["ints"][-1] == GRAD_MODES[mode])]
+        check(len(rows) == 1, f"ptxas lists {len(rows)} {kernel} {cost} "
+              f"{dtype} instances at s = 6, not one")
+        found.append(("groups" if groups else "lane", rows[0]))
+    (lf, f), (ld, d) = found
+    return (f"{lf} / {ld}, {f['registers']} / {d['registers']} regs, spill "
+            f"{f['spill_stores']}+{f['spill_loads']} / "
+            f"{d['spill_stores']}+{d['spill_loads']} B")
 
 
 def f32_vs_f64(name, hist32, hist64, final0):
@@ -4533,7 +4587,7 @@ def main() -> int:
     # kernel evaluates one; grad_kernel's modes: 0 full, 1 accum, 2 solve;
     # quad_kernel's variants: 0 phi, 1 moments (K3 and K4)
     def instance(r):
-        if r["kernel"] in ("grad_kernel", "quad_kernel"):
+        if r["kernel"] in ("grad_kernel", "grad_s6_kernel", "quad_kernel"):
             return f" mode {r['ints'][-1]}"
         return ""
 
@@ -4547,7 +4601,9 @@ def main() -> int:
         for r in _build.ptxas_report()
         if r["kernel"] in ("grad_kernel", "trials_kernel", "gbp_kernel",
                            "solve_kernel", "gbp_wide_kernel",
-                           "solve_wide_kernel", "quad_kernel"))), flush=True)
+                           "solve_wide_kernel", "quad_kernel",
+                           "trials_s6_kernel", "grad_s6_kernel"))),
+        flush=True)
 
     t0 = time.perf_counter()
     graph_b, state_b = {}, {}
@@ -4896,7 +4952,8 @@ def main() -> int:
                # are printed with the [kernel time] lines
                "fused_gradient_accum": ("point3d fp=2",),
                "fused_gradient_solve": ("point3d fp=2",)}
-    s6_sources = {"fused_gradient": "fused_gradient_s6.cu",
+    s6_sources = {"fused_trials": "fused_trials_s6.cu",
+                  "fused_gradient": "fused_gradient_s6.cu",
                   "fused_gradient_accum": "fused_gradient_accum_s6.cu",
                   "fused_gradient_solve": "fused_gradient_solve_s6.cu"}
 

@@ -328,12 +328,21 @@ __device__ __forceinline__ void zero_mat(T (&a)[S][S]) {
     for (int c = 0; c < S; ++c) a[r][c] = T(0);
 }
 
+// 1 / sqrt(x): the hardware's approximation (float32, 2 ulp) or the math
+// library's (float64, 1 ulp).
+__device__ __forceinline__ float drsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double drsqrt(double x) { return rsqrt(x); }
+
 // Cholesky factor with the reciprocals of its diagonal (chol forms them
 // anyway).  In a chain sweep every operation waits for the one before
 // it, and an IEEE division is a dozen dependent operations: the fused
 // kernels divide once per pivot entry and multiply from then on.  The
 // result differs from smallmat.cuh's chol_solve_vec by rounding only.
-template <typename T, int S>
+// Fast (the s = 6 instances of K5 and K6): each column takes the
+// reciprocal square root of its pivot and L_jj = x / sqrt(x) from it, so
+// that no IEEE square root or division waits in the column's chain; the
+// factor differs from the IEEE one by a few ulps.
+template <typename T, int S, bool Fast = false>
 __device__ __forceinline__ void chol_r(const T (&a)[S][S], T (&l)[S][S],
                                        T (&rd)[S]) {
 #pragma unroll
@@ -341,9 +350,15 @@ __device__ __forceinline__ void chol_r(const T (&a)[S][S], T (&l)[S][S],
     T acc = a[j][j];
 #pragma unroll
     for (int k = 0; k < j; ++k) acc = acc - l[j][k] * l[j][k];
-    const T ljj = dsqrt(acc);
+    T ljj, inv;
+    if constexpr (Fast) {
+      inv = drsqrt(acc);
+      ljj = acc * inv;
+    } else {
+      ljj = dsqrt(acc);
+      inv = T(1) / ljj;
+    }
     l[j][j] = ljj;
-    const T inv = T(1) / ljj;
     rd[j] = inv;
 #pragma unroll
     for (int i = j + 1; i < S; ++i) {
@@ -401,7 +416,7 @@ __device__ __forceinline__ void inv_from_chol_r(const T (&l)[S][S],
 //   Sig_jj = G^{-1} + X Sig_ii X^T = G^{-1} - X Sig_ij.
 // Two s x s factorizations instead of one 2s x 2s one: at s = 6 the joint
 // and its factor would hold about 300 values in one lane's registers.
-template <typename T, int S>
+template <typename T, int S, bool Fast = false>
 __device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
                                                       const T (&g)[S][S],
                                                       const T (&bo)[S][S],
@@ -409,7 +424,7 @@ __device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
                                                       T (&cjj)[S][S],
                                                       T (&cij)[S][S]) {
   T lg[S][S], rg[S], x[S][S];
-  chol_r(g, lg, rg);
+  chol_r<T, S, Fast>(g, lg, rg);
 #pragma unroll
   for (int c = 0; c < S; ++c) {
     T rhs[S], sol[S];
@@ -430,7 +445,7 @@ __device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
         for (int k = 0; k < S; ++k) acc = acc - bo[a][k] * x[k][c];
         p[a][c] = acc;
       }
-    chol_r(p, lp, rp);
+    chol_r<T, S, Fast>(p, lp, rp);
     inv_from_chol_r(lp, rp, cii);
   }
 #pragma unroll
@@ -463,7 +478,7 @@ __device__ __forceinline__ void edge_covariance_schur(const T (&f)[S][S],
 // The Schur form there ran K5 5% faster at s = 4 but put K6's float32
 // gradient off the plain version's beyond that tolerance (PERF.md,
 // section 6).
-template <typename T, int S>
+template <typename T, int S, bool Fast = false>
 __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
                                                   const T (&g)[S][S],
                                                   const T (&bo)[S][S],
@@ -471,7 +486,7 @@ __device__ __forceinline__ void edge_covariance_r(const T (&f)[S][S],
                                                   T (&cjj)[S][S],
                                                   T (&cij)[S][S]) {
   if constexpr (S > 4) {
-    edge_covariance_schur(f, g, bo, cii, cjj, cij);
+    edge_covariance_schur<T, S, Fast>(f, g, bo, cii, cjj, cij);
   } else {
     constexpr int S2 = 2 * S;
     T joint[S2][S2], l[S2][S2], rd[S2];
@@ -644,8 +659,9 @@ __device__ __forceinline__ void message(const T (&l)[S][S],
 // group).  Returns, on the lanes of
 // side 0, the Kahan-compensated log det poisoned by the pivot-trust guard;
 // the statistic is a running nan_min in one lane's registers, so no
-// reduction can drop a NaN.  All 32 lanes must call.
-template <typename T, int S, bool WithLogdet, typename Blocks>
+// reduction can drop a NaN.  All 32 lanes must call.  Fast: chol_r's.
+template <typename T, int S, bool WithLogdet, bool Fast = false,
+          typename Blocks>
 __device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
                                           int lane, T* fpiv, T* gpiv) {
   constexpr int M = Pitch<S>::kMat;
@@ -660,7 +676,7 @@ __device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
     blocks.diag(i, d);
     add_mat(d, m, piv);
     store_rows(piv_out + i * M, piv, g.col);
-    chol_r(piv, l, rd);
+    chol_r<T, S, Fast>(piv, l, rd);
     if (WithLogdet) {
       trust = pivot_trust(l, piv, d, m, trust);
       kahan_add(ld, comp, logdet_from_chol(l));
@@ -683,8 +699,8 @@ __device__ __forceinline__ T pivot_sweeps(const Blocks& blocks, int n,
 // the eliminated right-hand side until the back sweep overwrites it.  A
 // pivot that is not positive definite gives NaN.  All 32 lanes must call
 // (each group on its own system, or groups on the same one writing the same
-// values).
-template <typename T, int S, bool Negate>
+// values).  Fast: chol_r's.
+template <typename T, int S, bool Negate, bool Fast = false>
 __device__ __forceinline__ void thomas(const T* diag, const T* off,
                                        const T* v, T* lfac, T* x, int n,
                                        const Lanes<S>& g) {
@@ -697,7 +713,7 @@ __device__ __forceinline__ void thomas(const T* diag, const T* off,
     T d[S][S], piv[S][S], l[S][S], rd[S];
     load_mat(diag + i * M, 1, d);
     add_mat(d, m, piv);
-    chol_r(piv, l, rd);
+    chol_r<T, S, Fast>(piv, l, rd);
     T lr[S][S];   // the factor with its diagonal as reciprocals
 #pragma unroll
     for (int r = 0; r < S; ++r)
@@ -757,13 +773,13 @@ __device__ __forceinline__ void thomas(const T* diag, const T* off,
 // x = A^{-1} (-v) for two block-tridiagonal systems at once: the lane
 // groups of side 0 solve (diag0, off0) into x0, those of side 1 (diag1,
 // off1) into x1, with the same code (thomas).  All 32 lanes must call.
-template <typename T, int S>
+template <typename T, int S, bool Fast = false>
 __device__ __forceinline__ void thomas_pair(const T* diag0, const T* off0,
                                             const T* diag1, const T* off1,
                                             const T* v, T* lfac0, T* lfac1,
                                             T* x0, T* x1, int n, int lane) {
   const Lanes<S> g(lane);
-  thomas<T, S, true>(g.side ? diag1 : diag0, g.side ? off1 : off0, v,
+  thomas<T, S, true, Fast>(g.side ? diag1 : diag0, g.side ? off1 : off0, v,
                      g.side ? lfac1 : lfac0, g.side ? x1 : x0, n, g);
 }
 

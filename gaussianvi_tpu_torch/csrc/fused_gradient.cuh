@@ -54,6 +54,14 @@
 //     same time, one per lane-group parity with the same code
 //     (thomas_pair); each solve factors each of its pivots once and keeps
 //     the factor in the arena for the back substitution.
+// Where the time goes at B = 1024 (one wave of warps, so a problem's
+// latency is the kernel's): the two serial sweeps of phase A and the
+// solves of phase C, each step a chain of dependent s x s operations;
+// phase B is one turn of the lanes.  At s = 6 (fused_gradient_s6.cuh)
+// every factorization takes chol_r's Fast factor, which drops the IEEE
+// square root and division from each column's chain, and phase B runs on
+// lane groups (an edge on eight lanes, the quadrature's nodes over them)
+// at the instances where that is faster.
 #pragma once
 
 #include "fused.cuh"
@@ -86,7 +94,8 @@ __device__ __forceinline__ void accumulate(T* acc, const T (&a)[S][S],
 // Joint gradient contributions of every nonlinear (not in mode "solve")
 // and span-1 linear (not in mode "accum") factor at state i of problem b,
 // marginal N(mu_c, cov).  vdmu_i / vdd_i point at state i in the arena.
-template <typename T, int S, typename Cost, int Mode>
+// Fast: chol_r's.
+template <typename T, int S, bool Fast, typename Cost, int Mode>
 __device__ __forceinline__ void state_gradients(
     const Factors<T>& f, const T* rules, int n, int i,
     const T (&cov)[S][S], const T (&mu_c)[S], int64_t b, T inv_t, T* vdmu_i,
@@ -99,7 +108,7 @@ __device__ __forceinline__ void state_gradients(
     for_factors_at(fb.index, n, i, [&](int k) {
       T l[S][S], rd[S], p[Cost::kParams], e_phi, absum, e_x[S];
       T e_tri[Tri<S>::value];
-      chol_r(cov, l, rd);
+      chol_r<T, S, Fast>(cov, l, rd);
       load_params<T, Cost>(fb, k, b, p);
       sigma_sums<T, S, Cost, true>(l, mu_c, p, fb.field, rules + fb.smem,
                                    rules + fb.smem + fb.m * S, fb.m, e_phi,
@@ -214,8 +223,9 @@ __device__ __forceinline__ void edge_gradients(
 // Mode "accum" takes null pointers for covd .. dfb and writes vdmu, vdd,
 // vdo; mode "solve" reads them (the summed partial gradients); mode "full"
 // takes null pointers for them.  scratch: the arena of every block where
-// the chains do not fit shared memory, else null.
-template <typename T, int S, typename Cost, int Mode>
+// the chains do not fit shared memory, else null.  Fast: the s = 6
+// instances' chol_r (fused.cuh).
+template <typename T, int S, bool Fast, typename Cost, int Mode>
 __global__ void __launch_bounds__(kGradWarps * kWarp)
 grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
             const T* __restrict__ po_g, const T* __restrict__ temp,
@@ -278,8 +288,8 @@ grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
 
   // ---- phase A: both pivot recursions, log det --------------------------
   const ChainBlocks<T, S> lambda{pd, po};
-  const T ld = pivot_sweeps<T, S, Mode != kGradAccum>(lambda, n, lane, fpiv,
-                                                      gpiv);
+  const T ld = pivot_sweeps<T, S, Mode != kGradAccum, Fast>(lambda, n, lane,
+                                                            fpiv, gpiv);
   if constexpr (Mode != kGradAccum)
     if (lane == 0) ld_out[b] = ld;
   async_wait<0>();
@@ -297,7 +307,7 @@ grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
       load_mat(fpiv + i * M, 1, fp);
       load_mat(gpiv + (i + 1) * M, 1, g);
       load_mat(po + i * M, 1, bo);
-      edge_covariance_r(fp, g, bo, cii, cjj, cij);
+      edge_covariance_r<T, S, Fast>(fp, g, bo, cii, cjj, cij);
       if constexpr (Mode != kGradAccum) {
         // the record, staged where this lane's pivots were (no other lane
         // reads F_i or G_{i+1}): covd in fpiv, covo[i] in gpiv[i + 1]
@@ -310,12 +320,14 @@ grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
         mu_i[r] = mu[i * V + r];
         mu_j[r] = mu[(i + 1) * V + r];
       }
-      state_gradients<T, S, Cost, Mode>(f, rules, n, i, cii, mu_i, b,
-                                        inv_t, vdmu + i * V, vdd + i * M);
+      state_gradients<T, S, Fast, Cost, Mode>(f, rules, n, i, cii, mu_i, b,
+                                              inv_t, vdmu + i * V,
+                                              vdd + i * M);
       if (i == edges - 1)
-        state_gradients<T, S, Cost, Mode>(f, rules, n, n - 1, cjj, mu_j,
-                                          b, inv_t, vdmu + (n - 1) * V,
-                                          vdd + (n - 1) * M);
+        state_gradients<T, S, Fast, Cost, Mode>(f, rules, n, n - 1, cjj,
+                                                mu_j, b, inv_t,
+                                                vdmu + (n - 1) * V,
+                                                vdd + (n - 1) * M);
       if constexpr (Mode != kGradAccum)
         edge_gradients<T, S, 0>(f, n, i, mu_i, mu_j, b, inv_t, vdmu,
                                 vdd, vdo);
@@ -351,12 +363,13 @@ grad_kernel(const T* __restrict__ mu_g, const T* __restrict__ pd_g,
   __syncwarp();
 
   // ---- phase C: Vddmu dmu = -Vdmu and Lambda dmu_fb = -Vdmu at once -----
-  thomas_pair<T, S>(vdd, vdo, pd, po, vdmu, gpiv, fpiv, x0, x1, n, lane);
+  thomas_pair<T, S, Fast>(vdd, vdo, pd, po, vdmu, gpiv, fpiv, x0, x1, n,
+                          lane);
   copy_out<T, S>(dmu + b * vecs, x0, V, n, lane, kWarp);
   copy_out<T, S>(dfb + b * vecs, x1, V, n, lane, kWarp);
 }
 
-template <typename T, int S, typename Cost, int Mode>
+template <typename T, int S, typename Cost, int Mode, bool Fast = false>
 int dispatch_grad(const void* mu, const void* pd, const void* po,
                   const void* temp, void* covd, void* covo, void* ld,
                   void* dpd, void* dpo, void* dmu, void* dfb, void* vdmu,
@@ -375,7 +388,7 @@ int dispatch_grad(const void* mu, const void* pd, const void* po,
   const size_t smem =
       smem_bytes(f, scratch == nullptr ? (size_t)warps * chain : 0);
   if (smem > kMaxSmem) return -1;
-  auto kernel = grad_kernel<T, S, Cost, Mode>;
+  auto kernel = grad_kernel<T, S, Fast, Cost, Mode>;
   const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int blocks = (nb + warps - 1) / warps;
@@ -408,7 +421,8 @@ int launch_grad_accum_s6(GVI_GRAD_S6_PARAMS);
 int launch_grad_solve_s6(GVI_GRAD_S6_PARAMS);
 
 // The body of launch_grad_<mode>_s6, for the translation unit that defines
-// it: the (dtype, cost) instances of one mode.  Mode "solve" takes no
+// it (including fused_gradient_s6.cuh, the s = 6 layout): the (dtype,
+// cost) instances of one mode.  Mode "solve" takes no
 // nonlinear factor, so its two cost instances run the same code; the
 // wrapper names the range cost there.  Modes "full" and "accum" also take
 // the 3-D SDF's patch mode (GVI_GRAD_S6_DEFINE_WINDOWS).
@@ -438,7 +452,7 @@ int launch_grad_solve_s6(GVI_GRAD_S6_PARAMS);
 #define GVI_GRAD_S6_ONE(T, COST, MODE)                                        \
   {                                                                           \
     if (np != COST::kParams) return -1;                                       \
-    return dispatch_grad<T, 6, COST, MODE>(                                   \
+    return dispatch_grad_s6_pick<T, COST, MODE>(                              \
         mu, pd, po, temp, covd, covo, ld, dpd, dpo, dmu, dfb, vdmu, vdd, vdo, \
         scratch, nb, n, warps, chain, n_nl, nl_ptrs, nl_ints, n_lin,          \
         lin_ptrs, lin_ints, st);                                              \

@@ -3,7 +3,7 @@
 // with the range and the 3-D SDF cost and the 3-D SDF's patch mode:
 // fused_gradient.cuh launch_grad sends s = 6 here, a translation unit of
 // its own as fused_gradient_s6.cu is.
-#include "fused_gradient.cuh"
+#include "fused_gradient_s6.cuh"
 
 namespace gvi {
 

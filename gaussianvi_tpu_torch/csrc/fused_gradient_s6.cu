@@ -4,7 +4,7 @@
 // here.  A translation unit of its own, so that nvcc compiles these six
 // instances, which take it longer than the rest of the library, beside the
 // others.
-#include "fused_gradient.cuh"
+#include "fused_gradient_s6.cuh"
 
 namespace gvi {
 

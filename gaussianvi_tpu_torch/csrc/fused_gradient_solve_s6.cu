@@ -2,7 +2,7 @@
 // partial gradients to the step, at the shapes of fused_gradient_accum_s6.cu):
 // fused_gradient.cuh launch_grad sends s = 6 here, a translation unit of its
 // own as fused_gradient_s6.cu is.
-#include "fused_gradient.cuh"
+#include "fused_gradient_s6.cuh"
 
 namespace gvi {
 

@@ -19,104 +19,41 @@
 // What bounds it on the card: as the gradient kernel (fused_gradient.cuh),
 // the latency and the sheer count of dependent s x s operations along
 // T * B chains, at the occupancy the edge inverse's registers leave; bytes
-// and operations would take microseconds.  The design:
-//   - a block per problem: the problem's precision and its direction are
-//     staged in the arena once (shared memory; a global scratch for a
-//     chain too long for it) and read for all T trials; the means, read
-//     once per item, stay where they are;
-//   - phase A, the serial part, for all trials at once: 2s lanes per trial
-//     (both pivot recursions at the same time, the s columns of a message
-//     on s lanes: fused.cuh pivot_sweeps), so a warp walks 32 / 2s chains
-//     and T = 11 trials at s = 4 take three warps, not eleven (at s = 6,
-//     two trials a warp, six warp turns over the block's four warps); each
-//     trial's forward and backward pivots stay in the arena;
-//   - phase B, behind one block barrier: the T * (N - 1) (trial, edge)
-//     items spread over all threads of the block: the joint inverse, the
-//     guarded E[phi] of the state's factors, the span-1 and span-2 linear
-//     costs, each written where the caller reads it ([T, B, K]:
-//     neighbouring items write neighbouring words);
-//   - more trials than the arena holds go in chunks through the same two
-//     phases.
+// and operations would take microseconds.  Two layouts answer it, both
+// with this entry and the same arena (fused_trials.cuh):
+//   - s in {2, 4}: trials_kernel below, a block per problem:
+//     the problem's precision and its direction are staged in the arena
+//     once (shared memory; a global scratch for a chain too long for it)
+//     and read for all T trials; the means, read once per item, stay where
+//     they are.  Phase A, the serial part, for all trials at once: 2s
+//     lanes per trial (both pivot recursions at the same time, the s
+//     columns of a message on s lanes: fused.cuh pivot_sweeps), so a warp
+//     walks 32 / 2s chains and T = 11 trials at s = 4 take three warps,
+//     not eleven; each trial's forward and backward pivots stay in the
+//     arena.  Phase B, behind one block barrier: the T * (N - 1) (trial,
+//     edge) items spread over all threads of the block, one a thread: the
+//     joint inverse, the guarded E[phi] of the state's factors, the span-1
+//     and span-2 linear costs, each written where the caller reads it
+//     ([T, B, K]: neighbouring items write neighbouring words).  More
+//     trials than the arena holds go in chunks through the same two
+//     phases;
+//   - s = 6: fused_trials_s6.cu, the same phase A and arena, but a (trial,
+//     edge) item on a group of eight lanes in phase B (a column of each
+//     s x s block a lane, the state's quadrature nodes over the lanes), and
+//     fewer trials held at once so that four blocks share an SM.  A thread
+//     that holds a whole s = 6 item needs all 255 registers and spills;
+//     the group's lanes hold about a column each.
 // Factor operands (params, the linear rows) are read in place through L1:
 // they are a few hundred bytes per problem and shared by the T trials.
-#include "fused.cuh"
+#include "fused_trials.cuh"
 
 namespace gvi {
 
-// Warps of a block, and blocks the compiler is to fit on an SM: at the
-// flagship (N = 32, s = 4, T = 11, float32) a block's arena takes 56 KB, so
-// four share an SM if each thread keeps to 128 registers; the serial
-// sweeps are latency-bound, and the warps of other blocks are what hides it.
-constexpr int kTrialWarps = 4;
+// Blocks the compiler is to fit on an SM: at the flagship (N = 32, s = 4,
+// T = 11, float32) a block's arena takes 56 KB, so four share an SM if
+// each thread keeps to 128 registers; the serial sweeps are
+// latency-bound, and the warps of other blocks are what hide it.
 constexpr int kTrialBlocksPerSM = 4;
-
-// Blocks per SM the launch bounds ask for at block size S: four above cap
-// a thread at 128 registers, where s = 6 (its s x s Schur complements and
-// the 12-row linear residuals) would spill most of its working set; two
-// leave it 255.  At s = 6 a block's arena takes 77-123 KB in float32 at
-// the planners' and chain estimation's shapes, so no more than two blocks
-// share an SM anyway.
-template <int S>
-struct TrialBlocksPerSM {
-  static constexpr int value = S > 4 ? 2 : kTrialBlocksPerSM;
-};
-
-// Arena of one block that holds `chunk` trials at once, in values of T: pd,
-// dpd, po, dpo as n blocks each, then per trial F and G as n blocks each
-// (kernels/fused_trials.py trial_arena_elems is the wrapper's copy).
-template <int S>
-__host__ __device__ constexpr int64_t trial_stage_elems(int64_t n) {
-  return n * 4 * Pitch<S>::kMat;
-}
-
-template <int S>
-__host__ __device__ constexpr int64_t trial_arena_elems(int64_t n,
-                                                        int64_t chunk) {
-  return trial_stage_elems<S>(n) + chunk * 2 * n * Pitch<S>::kMat;
-}
-
-// The blocks of the trial precision sym(Lambda + st dLambda), formed from
-// the staged iterate and direction as pivot_sweeps asks for them.
-template <typename T, int S>
-struct TrialBlocks {
-  const T* pd;
-  const T* dpd;
-  const T* po;
-  const T* dpo;
-  T st;
-  __device__ __forceinline__ void diag(int i, T (&d)[S][S]) const {
-    const T* x = pd + i * Pitch<S>::kMat;
-    const T* dx = dpd + i * Pitch<S>::kMat;
-    T a[S][S];
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-#pragma unroll
-      for (int c = 0; c < S; ++c) a[r][c] = x[r * S + c] + st * dx[r * S + c];
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-#pragma unroll
-      for (int c = 0; c < S; ++c) d[r][c] = T(0.5) * (a[r][c] + a[c][r]);
-  }
-  // B_e, or B_e^T on side 1
-  __device__ __forceinline__ void off(int e, int side, T (&bd)[S][S]) const {
-    const T* x = po + e * Pitch<S>::kMat;
-    const T* dx = dpo + e * Pitch<S>::kMat;
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-#pragma unroll
-      for (int c = 0; c < S; ++c) {
-        const int at = side ? c * S + r : r * S + c;
-        bd[r][c] = x[at] + st * dx[at];
-      }
-  }
-};
-
-// A negative closed-form linear cost is rounding garbage (the cost is
-// <A, Sig> + a weighted square >= 0): NaN, as moments.guard_linear_cost.
-template <typename T>
-__device__ __forceinline__ T guard_linear(T cost) {
-  return cost < T(0) ? quiet_nan<T>() : cost;
-}
 
 // Guarded E[phi] of every nonlinear factor and cost of every span-1
 // linear factor at state i of problem b, marginal N(mu_c, cov); tb is the
@@ -164,8 +101,7 @@ __device__ __forceinline__ void state_costs(const Factors<T>& f,
 // arena of every block where the chain does not fit shared memory, else
 // null.
 template <typename T, int S, typename Cost>
-__global__ void __launch_bounds__(kTrialWarps * kWarp,
-                                  TrialBlocksPerSM<S>::value)
+__global__ void __launch_bounds__(kTrialWarps * kWarp, kTrialBlocksPerSM)
 trials_kernel(const T* __restrict__ mu_g, const T* __restrict__ dmu_g,
               const T* __restrict__ pd_g, const T* __restrict__ po_g,
               const T* __restrict__ dpd_g, const T* __restrict__ dpo_g,
@@ -340,6 +276,12 @@ extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
   if (nb <= 0 || nt <= 0) return 0;
   if (n < 2) return -1;
   auto st = static_cast<cudaStream_t>(stream);
+  // s = 6: its own layout and translation unit (fused_trials_s6.cu)
+  if (s == 6)
+    return gvi::launch_trials_s6(dtype, cost, np, mu, dmu, pd, po, dpd, dpo,
+                                 trials, ld, scratch, nb, n, nt, warps, chunk,
+                                 arena, n_nl, nl_ptrs, nl_ints, n_lin,
+                                 lin_ptrs, lin_ints, st);
 #define GVI_TRIALS(T, S, COST)                                                \
   if (np != COST::kParams) return -1;                                        \
   return gvi::dispatch_trials<T, S, COST>(                                   \
@@ -348,20 +290,14 @@ extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
   if (cost == gvi::kRangeCost) {
     if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::RangeCost<1>) }
     if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::RangeCost<2>) }
-    if (dtype == 0 && s == 6) { GVI_TRIALS(float, 6, gvi::RangeCost<3>) }
     if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::RangeCost<1>) }
     if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::RangeCost<2>) }
-    if (dtype == 1 && s == 6) { GVI_TRIALS(double, 6, gvi::RangeCost<3>) }
   }
   if (cost == gvi::kPlanarSdfCost) {
     if (dtype == 0 && s == 2) { GVI_TRIALS(float, 2, gvi::PlanarSdfCost) }
     if (dtype == 0 && s == 4) { GVI_TRIALS(float, 4, gvi::PlanarSdfCost) }
     if (dtype == 1 && s == 2) { GVI_TRIALS(double, 2, gvi::PlanarSdfCost) }
     if (dtype == 1 && s == 4) { GVI_TRIALS(double, 4, gvi::PlanarSdfCost) }
-  }
-  if (cost == gvi::kSdf3dCost) {
-    if (dtype == 0 && s == 6) { GVI_TRIALS(float, 6, gvi::Sdf3dCost) }
-    if (dtype == 1 && s == 6) { GVI_TRIALS(double, 6, gvi::Sdf3dCost) }
   }
 #undef GVI_TRIALS
   return -1;

@@ -144,7 +144,7 @@ def build() -> Path:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_KERNEL = re.compile(r"\d+([a-z_]+_kernel)I([fd])")
+_KERNEL = re.compile(r"\d+([a-z_]+(?:_s6)?_kernel)I([fd])")
 # the cost functor a kernel instance was built for (csrc/costs.cuh)
 _COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf",
           "Sdf3dCost": "sdf3d", "PlanarPatchCost": "planar_patch",
@@ -155,7 +155,9 @@ def ptxas_report() -> list[dict]:
     """Registers and spill bytes of every kernel of the built library, from
     the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints, cost,
     registers, spill_stores, spill_loads}]`` with ``ints`` the integer
-    and bool template arguments as mangled (block size, mode, ...) and
+    and bool template arguments as mangled (block size, mode, ...; the
+    block size 6 put first for a kernel of the s = 6 layout, which takes
+    none) and
     ``cost`` the cost functor's name in ``KERNEL_COSTS`` (None for a
     kernel without one)."""
     log = build().with_suffix(".ptxas").read_text()
@@ -165,10 +167,14 @@ def ptxas_report() -> list[dict]:
         if m:
             name = m.group(1)
             k = _KERNEL.search(name)
+            kernel = k.group(1) if k else name
+            ints = [int(x) for x in re.findall(r"L[ib](\d+)E", name)]
+            if kernel.endswith("_s6_kernel"):   # its block size is no argument
+                ints = [6, *ints]
             row = dict(
-                kernel=k.group(1) if k else name,
+                kernel=kernel,
                 dtype={"f": "float32", "d": "float64"}[k.group(2)] if k else "",
-                ints=[int(x) for x in re.findall(r"L[ib](\d+)E", name)],
+                ints=ints,
                 cost=next((v for c, v in _COSTS.items() if c in name), None),
                 registers=None, spill_stores=None, spill_loads=None)
             rows.append(row)

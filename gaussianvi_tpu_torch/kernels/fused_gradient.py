@@ -108,21 +108,52 @@ def grad_chain_elems(n: int, s: int) -> int:
     return n * (6 * mat_pitch(s) + 4 * vec_pitch(s))
 
 
+# the K6 instances at s = 6 that run the lane-group layout, (itemsize,
+# kernel cost, mode) (csrc/fused_gradient_s6.cuh GradS6Groups; the others
+# run the lane-per-edge layout; "full" and "accum" of one (itemsize, cost)
+# alike, so that "accum" + "solve" give "full"'s bits); mode "solve" runs
+# the range cost's instance whatever the model
+GRAD_S6_GROUPS = frozenset({
+    (4, "sdf3d_patch", "full"), (8, "sdf3d_patch", "full"),
+    (4, "sdf3d_patch", "accum"), (8, "sdf3d_patch", "accum"),
+    (4, "sdf3d", "full"), (4, "sdf3d", "accum"), (4, "range", "solve"),
+    (8, "range", "solve")})
+
+
+def grad_groups(s: int, itemsize: int, cost: str, mode: str) -> bool:
+    """Whether the K6 instance for ``(s, itemsize, cost, mode)`` runs the
+    lane-group layout (``GRAD_S6_GROUPS``); ``cost`` the nonlinear
+    batches' kernel cost, the range cost where there is none."""
+    return s == 6 and (itemsize, cost, mode) in GRAD_S6_GROUPS
+
+
+def grad_work_elems(s: int) -> int:
+    """Shared work area of one K6 warp in the lane-group layout
+    (csrc/fused_gradient_s6.cuh grad_s6_work_elems): an s x (s + 1) block
+    for each of the warp's four lane groups."""
+    return 4 * s * (s + 1)
+
+
 def grad_plan(name: str, n: int, s: int, itemsize: int,
-              fixed_bytes: int) -> BlockPlan:
-    """K6's block: 4, 2 or 1 problems (warps) whose chains fit
-    ``SMEM_TARGET`` beside the rules (``fixed_bytes``), else one
-    problem in all of shared memory, else (a chain too long for that) the
-    arena in a global scratch."""
+              fixed_bytes: int, cost: str = "range",
+              mode: str = "full") -> BlockPlan:
+    """K6's block for the instance of ``(cost, mode)``: 4, 2 or 1
+    problems (warps) whose chains (with their work areas, in the
+    lane-group layout) fit ``SMEM_TARGET`` beside the rules
+    (``fixed_bytes``), else one problem in all of shared memory, else (a
+    chain too long for that) the arena in a global scratch, the work
+    areas staying in shared memory."""
     if fixed_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: rules of {fixed_bytes} bytes "
                          f"exceed the {SMEM_LIMIT} bytes of shared memory")
     chain = grad_chain_elems(n, s)
+    work = grad_work_elems(s) if grad_groups(s, itemsize, cost, mode) else 0
     for warps in (GRAD_WARPS, 2, 1):
-        smem = fixed_bytes + warps * chain * itemsize
+        smem = fixed_bytes + warps * (chain + work) * itemsize
         if smem <= (SMEM_TARGET if warps > 1 else SMEM_LIMIT):
             return BlockPlan(warps, chain, smem, False)
-    return BlockPlan(GRAD_WARPS, chain, fixed_bytes, True)
+    return BlockPlan(GRAD_WARPS, chain,
+                     fixed_bytes + GRAD_WARPS * work * itemsize, True)
 
 
 # mode -> C entry point
@@ -265,7 +296,8 @@ def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
         raise ValueError(f"{name}: temperature must be [{b}]")
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                      eval_dtype=eval_dtype, trials=False)
-    plan = grad_plan(name, n, s, mu.element_size(), fa.fixed_bytes)
+    plan = grad_plan(name, n, s, mu.element_size(), fa.fixed_bytes,
+                     nl_specs[0].cost if nl_specs else "range", mode)
     ins = [x.contiguous() for x in (mu, pd, po, temperature)]
     dt, dev = mu.dtype, mu.device
     # the accumulators reach device memory only as the outputs of "accum"

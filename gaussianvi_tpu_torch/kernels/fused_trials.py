@@ -68,7 +68,12 @@ MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
 NL_PTRS, NL_INTS = 6, 8
 SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
 SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
-TRIAL_WARPS = 4          # csrc/fused_trials.cu kTrialWarps
+SM_SMEM = 233472         # shared memory of an SM on sm_90, bytes
+BLOCK_RESERVED = 1024    # of it reserved per resident block
+TRIAL_WARPS = 4          # csrc/fused_trials.cuh kTrialWarps
+# K5 blocks an SM is to hold at s = 6 (the lane-group layout), by itemsize
+# (csrc/fused_trials_s6.cu TrialS6Blocks, which caps the registers to match)
+TRIAL_S6_BLOCKS = {4: 4, 8: 2}
 
 
 class NLTrialSpec(NamedTuple):
@@ -211,16 +216,26 @@ class BlockPlan(NamedTuple):
 
 
 def trial_arena_elems(n: int, s: int, chunk: int) -> int:
-    """Arena of one K5 block (csrc/fused_trials.cu trial_arena_elems): the
+    """Arena of one K5 block (csrc/fused_trials.cuh trial_arena_elems): the
     staged pd, dpd, po, dpo, then F and G per trial held."""
     return (4 + 2 * chunk) * n * mat_pitch(s)
+
+
+def trial_smem_target(s: int, itemsize: int) -> int:
+    """Shared memory a K5 block may take so that its layout's blocks per
+    SM fit (at s = 6, lane groups: ``TRIAL_S6_BLOCKS``; below, one block
+    may take it all)."""
+    if s != 6:
+        return SMEM_LIMIT
+    return SM_SMEM // TRIAL_S6_BLOCKS[itemsize] - BLOCK_RESERVED
 
 
 def trial_plan(name: str, n: int, s: int, nt: int, itemsize: int,
                fixed_bytes: int) -> BlockPlan:
     """K5's block of ``TRIAL_WARPS`` warps: as many of the T trials at
-    once as fit shared memory beside the rules (``fixed_bytes``); a chain
-    that does not fit with one trial goes to a global scratch."""
+    once as fit :func:`trial_smem_target` beside the rules
+    (``fixed_bytes``), else as many as fit shared memory; a chain that
+    does not fit with one trial goes to a global scratch."""
     if fixed_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: rules of {fixed_bytes} bytes "
                          f"exceed the {SMEM_LIMIT} bytes of shared memory")
@@ -230,10 +245,11 @@ def trial_plan(name: str, n: int, s: int, nt: int, itemsize: int,
         smem = fixed_bytes + (0 if scratch else arena * itemsize)
         return BlockPlan(TRIAL_WARPS, arena, smem, scratch, chunk)
 
-    for chunk in range(nt, 0, -1):
-        found = plan(chunk, False)
-        if found.smem <= SMEM_LIMIT:
-            return found
+    for limit in dict.fromkeys((trial_smem_target(s, itemsize), SMEM_LIMIT)):
+        for chunk in range(nt, 0, -1):
+            found = plan(chunk, False)
+            if found.smem <= limit:
+                return found
     return plan(nt, True)
 
 

@@ -26,12 +26,14 @@ no profiler).  ``--tree DIR`` measures the package of another checkout
 (say the parent commit unpacked beside this one): to compare two trees,
 alternate the two commands on one card, several times in a row.
 
-    python3 scripts/torch_profile.py --parts
+    python3 scripts/torch_profile.py --parts [--tree DIR]
 
 the device time of the fused kernels K5 and K6 ``full`` at the flagship's
-shapes with all factors, the nonlinear or the linear ones only, none, and
-K5 with a single trial: what the chain alone costs and what the factors
-add (CUDA events around 20 calls queued behind a matrix product).
+shapes and at s = 6 (chain estimation at dim_x = 3, the point planner)
+with all factors, the nonlinear or the linear ones only, none, K5 with a
+single trial, and K6 ``accum`` and ``solve`` with none: what the chain
+alone costs, what the solves cost and what the factors add (CUDA events
+around 20 calls queued behind a matrix product).
 
     python3 scripts/torch_profile.py --quad-plans
 
@@ -49,14 +51,23 @@ K3 (both variants) and K4 at the flagship's shapes, warm and with the L2
 flushed, through the wrappers of the package of ``--tree`` (say the
 parent): alternate the two trees on one card to compare them.
 
-    python3 scripts/torch_profile.py --chain-times [--tree DIR]
+    python3 scripts/torch_profile.py --chain-times [--tree DIR] [--save FILE]
 
 the device time of the kernels that take each edge's covariance blocks
 (K1 on 11 x 1024 chains, K5, K6 ``full``, ``accum`` and ``solve``) at the
-flagship's shapes (s = 4) and at dim_x = 1 (s = 2), float32 and float64,
-warm and with the L2 flushed, at the initial iterate, and what ptxas says
-of their instances, through the package of ``--tree``: alternate two trees
-on one card to compare two forms of that step.
+flagship's shapes (s = 4) and at dim_x = 1 (s = 2), then K5 and K6 at
+s = 6 at the shapes of chain estimation at dim_x = 3 (B = 1024, N = 32),
+of the 3-D point planner (1024 restarts, N = 20) and of its patch mode
+(K6 ``full`` and ``accum``), float32 and float64, warm and with the L2
+flushed, at the initial iterate, and what ptxas says of their instances,
+through the package of ``--tree``: alternate two trees on one card to
+compare two forms of that step.  ``--save FILE`` keeps every instance's
+outputs (one call each), and
+
+    python3 scripts/torch_profile.py --compare-outputs FILE FILE
+
+prints, instance by instance, whether two such files hold the same bits
+(and the largest difference where not).
 
     python3 scripts/torch_profile.py --planner [--runs 5]
 
@@ -263,84 +274,175 @@ def rates(dev, runs, tree):
             f"{runs})")
 
 
-def kernel_parts(dev):
-    """One line: device ms of K5 and K6 ``full`` by what they are given."""
-    from gaussianvi_tpu_torch.inference.engine import fused_operands
-    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
-    from gaussianvi_tpu_torch.kernels import fused_trials as ft
-
-    graph, state = build(dev)
-    nl_specs, lin_specs, nl, lin = fused_operands(graph)
-    mu, pd, po = state.mu, state.precision.diag, state.precision.off
-    temp = torch.ones(B, dtype=mu.dtype, device=dev)
-    out = fg.gradient_lanes(mu, pd, po, temp, nl_specs, lin_specs, nl, lin)
-    trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=mu.dtype, device=dev)
-    subsets = {"all factors": (nl_specs, lin_specs, nl, lin),
-               "nonlinear only": (nl_specs, (), nl, ()),
-               "linear only": ((), lin_specs, (), lin),
-               "no factor": ((), (), (), ())}
-    parts = []
-    for name, ops in subsets.items():
-        k5 = device_ms(lambda: ft.trial_costs_lanes(
-            mu, out[6], pd, po, out[3], out[4], trials, *ops))
-        k6 = device_ms(lambda: fg.gradient_lanes(mu, pd, po, temp, *ops))
-        parts.append(f"{name}: K5 {k5:.4f}, K6 full {k6:.4f}")
-    one = device_ms(lambda: ft.trial_costs_lanes(
-        mu, out[6], pd, po, out[3], out[4], trials[:1], (), (), (), ()))
-    parts.append(f"no factor, one trial: K5 {one:.4f}")
-    return ("[parts] " + "; ".join(parts) + f" ms (B={B}, N={N}, 11 trials, "
-            f"f32, at the initial iterate)")
-
-
-def chain_times(dev, tree):
-    """Lines: device ms (warm / L2 flushed) of K1, K5 and K6 in its three
-    modes by block size and dtype, then their instances' registers and
-    spills."""
-    from gaussianvi_tpu_torch.inference.engine import fused_operands
-    from gaussianvi_tpu_torch.kernels import _build, chain
+def kernel_parts(dev, tree="."):
+    """Lines: device ms of K5 and K6 by what they are given, at the
+    flagship's shapes and at s = 6 (chain estimation at dim_x = 3, the
+    point planner), float32, through the package of ``tree``: K5 and K6
+    ``full`` with all factors, the nonlinear or the linear ones only and
+    none, K5 with a single trial, K6 ``accum`` (phases A and B: no solves)
+    and ``solve`` (no quadrature) with none."""
     from gaussianvi_tpu_torch.kernels import fused_gradient as fg
     from gaussianvi_tpu_torch.kernels import fused_trials as ft
 
     lines = []
-    for dim_x in (2, 1):
-        for dt in (torch.float32, torch.float64):
-            graph, state = build(dev, dim_x, dt)
-            nl_specs, lin_specs, nl, lin = fused_operands(graph)
-            mu, pd, po = state.mu, state.precision.diag, state.precision.off
-            temp = torch.ones(B, dtype=dt, device=dev)
-            out = fg.gradient_lanes(mu, pd, po, temp, nl_specs, lin_specs,
-                                    nl, lin)
-            seeds = fg.gradient_accum_lanes(mu, pd, po, temp, nl_specs, nl)
-            trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=dt, device=dev)
+    for (shape, s), case in chain_cases(dev, torch.float32).items():
+        if shape not in ("chain dim_x=2", "chain dim_x=3", "point3d"):
+            continue
+        mu, pd, po, temp, ops, seeds, (dmu, dpd, dpo), trials, _ = case
+        nl_specs, lin_specs, nl, lin = ops
+        subsets = {"all factors": ops,
+                   "nonlinear only": (nl_specs, (), nl, ()),
+                   "linear only": ((), lin_specs, (), lin),
+                   "no factor": ((), (), (), ())}
+        parts = []
+        for name, sub in subsets.items():
+            k5 = device_ms(lambda: ft.trial_costs_lanes(
+                mu, dmu, pd, po, dpd, dpo, trials, *sub))
+            k6 = device_ms(lambda: fg.gradient_lanes(mu, pd, po, temp, *sub))
+            parts.append(f"{name}: K5 {k5:.4f}, K6 full {k6:.4f}")
+        one = device_ms(lambda: ft.trial_costs_lanes(
+            mu, dmu, pd, po, dpd, dpo, trials[:1], (), (), (), ()))
+        acc = device_ms(lambda: fg.gradient_accum_lanes(
+            mu, pd, po, temp, (), ()))
+        zero = fg.Partials(mu.shape[0], mu.shape[1], s, mu.dtype, dev,
+                           zero=True)
+        sol = device_ms(lambda: fg.gradient_solve_lanes(
+            mu, pd, po, temp, zero, (), ()))
+        parts.append(f"no factor, one trial: K5 {one:.4f}; no factor: K6 "
+                     f"accum {acc:.4f}, K6 solve {sol:.4f}")
+        lines.append(f"[parts {tree}] {shape} s={s}: " + "; ".join(parts)
+                     + f" ms (B={mu.shape[0]}, N={mu.shape[1]}, 11 trials, "
+                       f"f32, at the initial iterate)")
+    return lines
+
+
+def chain_cases(dev, dt):
+    """``{(shape, block size): (K5 / K6 operands)}`` at the initial
+    iterate of each model whose K5 and K6 ``--chain-times`` measures:
+    ``(mu, pd, po, temp, ops, seeds, direction, trials, modes)``."""
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.inference.graph import take_states
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.parallel import perturb_inits
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    cases = {}
+    for dim_x in (2, 1, 3):
+        graph, state = build(dev, dim_x, dt)
+        cases[f"chain dim_x={dim_x}", 2 * dim_x] = (
+            graph, state.mu, state.precision.diag, state.precision.off,
+            fused_operands(graph))
+    for patch in (None, 8):
+        graph, init, _, _ = build_point3d_planning(
+            dtype=torch.float64, device=dev, patch_size=patch)
+        inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(
+            0), PLAN_B, mean_scale=0.3)
+        graph = _batch_graph(build_point3d_planning(
+            dtype=dt, device=dev, patch_size=patch)[0], PLAN_B)
+        mu = inits.mu.to(dt)
+        ops = fused_operands(graph, trials=patch is None)
+        if patch is not None:   # the windows of this iterate, as the loop
+            fb = graph.nonlinear[0]
+            nl_specs, lin_specs, nl, lin = ops
+            start, nodes, weights, _, field = nl[0]
+            params = fb.kernel_prep(take_states(mu, start, fb.slice_offset,
+                                                1))
+            ops = (nl_specs, lin_specs,
+                   ((start, nodes, weights, params, field),), lin)
+        cases["point3d" + (" patch" if patch else ""), 6] = (
+            graph, mu, inits.precision.diag.to(dt),
+            inits.precision.off.to(dt), ops)
+    out = {}
+    for key, (graph, mu, pd, po, ops) in cases.items():
+        nl_specs, lin_specs, nl, lin = ops
+        temp = torch.ones(mu.shape[0], dtype=dt, device=dev)
+        full = fg.gradient_lanes(mu, pd, po, temp, *ops)
+        seeds = fg.gradient_accum_lanes(mu, pd, po, temp, nl_specs, nl)
+        trials = 0.9 * 0.75 ** torch.arange(1, 12, dtype=dt, device=dev)
+        modes = (("full", "accum") if "patch" in key[0]
+                 else ("K1", "K5", "full", "accum", "solve") if key[1] < 6
+                 else ("K5", "full", "accum", "solve"))
+        out[key] = (mu, pd, po, temp, ops, seeds,
+                    (full[6], full[3], full[4]), trials, modes)
+    return out
+
+
+def chain_times(dev, tree, save=None):
+    """Lines: device ms (warm / L2 flushed) of K1, K5 and K6 in its three
+    modes by shape, block size and dtype, then their instances' registers
+    and spills; ``save``: a file for every instance's outputs."""
+    from gaussianvi_tpu_torch.kernels import _build, chain
+    from gaussianvi_tpu_torch.kernels import fused_gradient as fg
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    lines, kept = [], {}
+    for dt in (torch.float32, torch.float64):
+        for (shape, s), case in chain_cases(dev, dt).items():
+            mu, pd, po, temp, ops, seeds, (dmu, dpd, dpo), trials, modes = (
+                case)
+            nl_specs, lin_specs, nl, lin = ops
             diag = pd.expand(11, *pd.shape).contiguous()
             off = po.expand(11, *po.shape).contiguous()
             calls = {
                 "K1": lambda: chain.gbp_covariance_logdet_lanes(diag, off),
                 "K5": lambda: ft.trial_costs_lanes(
-                    mu, out[6], pd, po, out[3], out[4], trials, nl_specs,
-                    lin_specs, nl, lin),
-                "K6 full": lambda: fg.gradient_lanes(
-                    mu, pd, po, temp, nl_specs, lin_specs, nl, lin),
-                "K6 accum": lambda: fg.gradient_accum_lanes(
+                    mu, dmu, pd, po, dpd, dpo, trials, *ops),
+                "full": lambda: fg.gradient_lanes(mu, pd, po, temp, *ops),
+                "accum": lambda: fg.gradient_accum_lanes(
                     mu, pd, po, temp, nl_specs, nl),
-                "K6 solve": lambda: fg.gradient_solve_lanes(
+                "solve": lambda: fg.gradient_solve_lanes(
                     mu, pd, po, temp, seeds, lin_specs, lin),
             }
-            lines.append(f"[chain times {tree}] s={2 * dim_x} {str(dt)[6:]}: "
-                         + ", ".join(
-                             f"{name} {device_ms(fn):.4f} / "
-                             f"{device_ms(fn, flushed=True):.4f}"
-                             for name, fn in calls.items())
-                         + f" ms warm / flushed (B={B}, N={N})")
+            times = []
+            for name in modes:
+                fn = calls[name]
+                times.append(f"{name if name in ('K1', 'K5') else 'K6 ' + name}"
+                             f" {device_ms(fn):.4f} / "
+                             f"{device_ms(fn, flushed=True):.4f}")
+                if save is not None:
+                    got = fn()
+                    got = (got[0], *got[1]) if name == "K5" else tuple(got)
+                    kept[f"{shape} s={s} {str(dt)[6:]} {name}"] = tuple(
+                        t.cpu() for t in got)
+            lines.append(f"[chain times {tree}] {shape} s={s} "
+                         f"{str(dt)[6:]}: " + ", ".join(times)
+                         + f" ms warm / flushed (B={mu.shape[0]}, "
+                           f"N={mu.shape[1]})")
     lines.append(f"[chain ptxas {tree}] " + "; ".join(
         f"{r['kernel']}{' ' + r['cost'] if r['cost'] else ''} {r['dtype']} "
         f"s={r['ints'][0]}"
-        + (f" mode {r['ints'][-1]}" if r["kernel"] == "grad_kernel" else "")
+        + (f" mode {r['ints'][-1]}" if "grad" in r["kernel"] else "")
         + f": {r['registers']} regs, spill {r['spill_stores']}+"
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
-        if r["kernel"] in ("gbp_kernel", "trials_kernel", "grad_kernel")
-        and r["ints"][0] in (2, 4)))
+        if r["kernel"] in ("gbp_kernel", "trials_kernel", "grad_kernel",
+                           "trials_s6_kernel", "grad_s6_kernel")
+        and r["ints"][0] in (2, 4, 6)))
+    if save is not None:
+        torch.save(kept, save)
+    return lines
+
+
+def compare_outputs(path_a, path_b):
+    """Lines: per instance, whether the two files' outputs have the same
+    bits (NaNs where the other has them), else the largest difference."""
+    a, b = torch.load(path_a), torch.load(path_b)
+    lines = []
+    for key in a:
+        if key not in b:
+            lines.append(f"[compare] {key}: only in {path_a}")
+            continue
+        same = all(x.shape == y.shape and torch.equal(
+            x.nan_to_num(7.0, 8.0, -8.0), y.nan_to_num(7.0, 8.0, -8.0))
+            and torch.equal(x.isnan(), y.isnan())
+            for x, y in zip(a[key], b[key]))
+        worst = max(float((x.double() - y.double()).nan_to_num(0.0).abs().max())
+                    for x, y in zip(a[key], b[key]))
+        lines.append(f"[compare] {key}: "
+                     + ("same bits" if same else f"differ, max {worst:.3e}"))
     return lines
 
 
@@ -490,7 +592,11 @@ def main() -> int:
     parser.add_argument("--quad-times", action="store_true",
                         help="print K3 / K4 times at the flagship's shapes")
     parser.add_argument("--chain-times", action="store_true",
-                        help="print K1 / K5 / K6 times at s = 2 and 4")
+                        help="print K1 / K5 / K6 times at s = 2, 4 and 6")
+    parser.add_argument("--save", default=None,
+                        help="with --chain-times: keep the outputs here")
+    parser.add_argument("--compare-outputs", nargs=2, default=None,
+                        help="compare two files --save wrote")
     parser.add_argument("--planner", action="store_true",
                         help="profile the planar planner's paths")
     parser.add_argument("--s6", action="store_true",
@@ -500,6 +606,9 @@ def main() -> int:
     parser.add_argument("--tree", default=None,
                         help="measure the package of this checkout instead")
     args = parser.parse_args()
+    if args.compare_outputs:
+        print("\n".join(compare_outputs(*args.compare_outputs)))
+        return 0
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
         return 1
@@ -519,7 +628,8 @@ def main() -> int:
         print(card + " " + rates(dev, args.runs or 7, args.tree or "."))
         return 0
     if args.parts:
-        print(card + " " + kernel_parts(dev))
+        print(card)
+        print("\n".join(kernel_parts(dev, args.tree or ".")), flush=True)
         return 0
     if args.quad_plans:
         print(card)
@@ -527,7 +637,8 @@ def main() -> int:
         return 0
     if args.chain_times:
         print(card)
-        print("\n".join(chain_times(dev, args.tree or ".")), flush=True)
+        print("\n".join(chain_times(dev, args.tree or ".", args.save)),
+              flush=True)
         return 0
     if args.quad_times:
         print(card + " " + quad_times(dev, args.tree or "."))

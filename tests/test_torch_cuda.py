@@ -390,22 +390,30 @@ def test_split_gradient_kernels_match_plain(dev, n, dim_x, dtype):
 def _layout_case(name, dtype, dev):
     """Operands at shapes the warp-per-chain layout can get wrong:
     ``(x6, x5, nl_specs, lin_specs, nl_arrays, lin_arrays)``.  The batch is
-    never a multiple of the gradient kernel's problems per block."""
+    never a multiple of the gradient kernel's problems per block.  The
+    ``_s6`` cases (dim_x = 3) hold the s = 6 layout, an edge on a lane
+    group: one edge, more edges than K6's four groups and K5's sixteen
+    take in a turn, dynamic starts, two nonlinear batches, a ragged block,
+    a chain long enough for the global scratch (float64)."""
     from gaussianvi_tpu_torch.inference.engine import fused_operands
 
     n, dim_x, count = {"n2": (2, 2, 3), "n5_s2": (5, 1, 5), "n33": (33, 2, 3),
                        "n70_s2": (70, 1, 2), "dynamic": (9, 2, 3),
                        "two_batches": (8, 2, 5),
-                       "long_chain": (520, 2, 2)}[name]
+                       "long_chain": (520, 2, 2),
+                       "n2_s6": (2, 3, 3), "n33_s6": (33, 3, 3),
+                       "dynamic_s6": (9, 3, 3), "two_batches_s6": (8, 3, 5),
+                       "ragged_s6": (12, 3, 6),
+                       "long_chain_s6": (160, 3, 2)}[name]
     graph, state = _flagship(n, dim_x, dtype, dev, count=count)
     nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
     sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
-    if name == "dynamic":
+    if name.startswith("dynamic"):
         # the factors in another order than the states, some states bare
         keep = torch.tensor([7, 2, 5, 0, 3], device=dev)
         nl_specs = (sp._replace(k=len(keep), slice_offset=None),)
         nl_arrays = ((start[keep], nodes, weights, params[:, keep]),)
-    elif name == "two_batches":
+    elif name.startswith("two_batches"):
         halves = [torch.arange(0, n, 2, device=dev),
                   torch.arange(1, n, 2, device=dev)]
         nl_specs = tuple(sp._replace(k=len(h), slice_offset=None)
@@ -436,7 +444,8 @@ def _same_bits(a, b):
 
 
 LAYOUT_CASES = ["n2", "n5_s2", "n33", "n70_s2", "dynamic", "two_batches",
-                "long_chain"]
+                "long_chain", "n2_s6", "n33_s6", "dynamic_s6",
+                "two_batches_s6", "ragged_s6", "long_chain_s6"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -462,6 +471,13 @@ def test_fused_kernels_at_awkward_layouts(dev, name, dtype):
         assert fg.grad_plan("t", n, s, size, 0).scratch
         plan = ft.trial_plan("t", n, s, 11, size, 0)
         assert plan.scratch if f64 else plan.chunk < 11
+    if name == "long_chain_s6":
+        # float64 on the global scratch (both kernels); float32 in shared
+        # memory, one K6 problem a block and K5 in chunks of trials
+        g6, t6 = (fg.grad_plan("t", n, s, size, 0),
+                  ft.trial_plan("t", n, s, 11, size, 0))
+        assert (g6.scratch, t6.scratch) == (f64, f64)
+        assert f64 or (g6.warps == 1 and t6.chunk < 11)
     if not f64:
         # float32 rounding grows along a chain and through the solves: the
         # kernel must take the float32 plain version's NaN decisions and be

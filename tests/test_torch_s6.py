@@ -221,13 +221,15 @@ def test_block_plans_at_s6():
     assert k1 == 2 * 2 * tchain.slot_pitch(32 * 37, 2, 4)
     assert not tchain.chain_plan(k1, 4).scratch
     assert tchain.chain_plan(tchain.gbp_warp_elems(1100, 6, 8), 8).scratch
-    for n, itemsize, rules, chunk in ((20, 4, 25 * 7 * 4, 11),
-                                      (20, 8, 25 * 7 * 8, 11),
-                                      (32, 4, 69 * 7 * 4, 11),
-                                      (32, 8, 69 * 7 * 8, 10)):
+    # K5 holds as many trials as let its blocks per SM (four in float32,
+    # two in float64) share an SM's shared memory
+    for n, itemsize, rules, chunk in ((20, 4, 25 * 7 * 4, 7),
+                                      (20, 8, 25 * 7 * 8, 7),
+                                      (32, 4, 69 * 7 * 4, 3),
+                                      (32, 8, 69 * 7 * 8, 3)):
         plan = tft.trial_plan("t", n, 6, 11, itemsize, rules)
         assert (plan.chunk, plan.scratch) == (chunk, False)
-        assert plan.smem <= tft.SMEM_LIMIT
+        assert plan.smem <= tft.trial_smem_target(6, itemsize)
     assert tfg.grad_plan("g", 20, 6, 4, 700).warps == 2
     assert tfg.grad_plan("g", 32, 6, 8, 3864).warps == 1
     # every mode of K6 at s = 6, the split pair too (since the factor-
