@@ -1,0 +1,4 @@
+"""The device's idle share of the profiled calls, in an interactive
+cell."""
+
+from benchmark.metrics._device import idle_pct as read  # noqa: F401
