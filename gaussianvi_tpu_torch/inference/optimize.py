@@ -50,6 +50,11 @@ accepted step (the kernel's own blocks are recorded), so they lag; the
 end of :func:`run_gvi_carry` refreshes them.  A fused kernel is taken only
 where the run's ``eval_dtype`` is the one the engine resolved it with.
 
+Under a profiler each call and each of its phases is a named span
+(``utils.profiling.span``): ``gvi.optimize`` holding ``gvi.engine``,
+``gvi.init``, a ``gvi.iter`` an iteration (``gvi.gradient``,
+``gvi.trials``, ``gvi.select``) and ``gvi.finish``.
+
 A run resumes exactly from ``(state, iteration, LoopState)``
 (:func:`optimize_from`, ``utils/checkpoint.py``): the covariance, log det
 and factor costs are recomputed from the state by :func:`make_gvi_init`,
@@ -66,6 +71,7 @@ import torch
 from ..factors.moments import as_eval_dtype
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.precision import set_precision_policy
+from ..utils.profiling import span
 from .config import GVIConfig
 from .engine import LocalEngine, check_config
 from .graph import FactorGraph, GaussianState
@@ -206,29 +212,35 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
         cost_iter = engine.reduce_fc(fc_iter, carry.logdet) + 0.5 * carry.logdet
 
         powers = torch.arange(1, n_trials + 1, dtype=dtype, device=device)
-        cov_diag, cov_off = carry.cov_diag, carry.cov_off
-        if not ngd:
+        if ngd:
+            # trial schedule: base * decay^t, t = 1..niters_backtrack+1
+            trials = config.step_size_base * config.step_decay ** powers
+        else:
             # the JKO step is taken at base^1; trial schedule base^t
             trials = torch.as_tensor(config.step_size_base, dtype=dtype,
                                      device=device) ** powers
-            dmu, dprec = engine.prox_gradients(mu, cov_diag, cov_off,
-                                               config.step_size_base)
-        else:
-            # trial schedule: base * decay^t, t = 1..niters_backtrack+1
-            trials = config.step_size_base * config.step_decay ** powers
-            if use_fused_grad:
-                # one kernel: the iterate's covariance (recorded in place of
-                # the carried blocks), gradients, dprec and both solves
-                (cov_diag, cov_off, _, dprec, dmu,
-                 fallback) = engine.fused_gradient(state, temperature)
+        cov_diag, cov_off = carry.cov_diag, carry.cov_off
+        with span("gvi.gradient"):
+            if not ngd:
+                dmu, dprec = engine.prox_gradients(mu, cov_diag, cov_off,
+                                                   config.step_size_base)
             else:
-                vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
-                                                   temperature, eval_dtype)
-                dprec = vddmu - prec
-                dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
-            # an indefinite Vddmu NaNs the Cholesky-based solve: fall back to
-            # the current precision (SPD) as the metric, per problem
-            dmu = _where(engine.all_finite(dmu), dmu, fallback)
+                if use_fused_grad:
+                    # one kernel: the iterate's covariance (recorded in place
+                    # of the carried blocks), gradients, dprec and both
+                    # solves
+                    (cov_diag, cov_off, _, dprec, dmu,
+                     fallback) = engine.fused_gradient(state, temperature)
+                else:
+                    vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
+                                                       temperature,
+                                                       eval_dtype)
+                    dprec = vddmu - prec
+                    dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
+                # an indefinite Vddmu NaNs the Cholesky-based solve: fall
+                # back to the current precision (SPD) as the metric, per
+                # problem
+                dmu = _where(engine.all_finite(dmu), dmu, fallback)
 
         def trial_costs(steps):
             """Cost, covariance, log det and untempered factor costs of the
@@ -241,114 +253,118 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
             return cost, t_cd, t_co, t_ld, t_fc
 
         # ---- backtracking line search ----
-        if config.linesearch == "seq":
-            # do-while per problem: trial 1 for all, then trial t + 1 while
-            # a problem has accepted none, has trials left and has not
-            # converged; every problem searching is at the same trial
-            batch = cost_iter.shape
-            c_sel, cd_sel, co_sel, ld_sel, fc_sel = trial_costs(
-                trials[0].expand(batch))
-            accepted = c_sel < cost_iter
-            sel = torch.zeros(batch, dtype=torch.long, device=device)
-            t = 1
-            while t < n_trials:
-                searching = ~accepted & ~carry.converged
-                if not bool(searching.any()):
-                    break
-                ci, cdi, coi, ldi, fci = trial_costs(trials[t].expand(batch))
-                c_sel = _where(searching, ci, c_sel)
-                cd_sel = _where(searching, cdi, cd_sel)
-                co_sel = _where(searching, coi, co_sel)
-                ld_sel = _where(searching, ldi, ld_sel)
-                fc_sel = tuple(_where(searching, a, b)
-                               for a, b in zip(fci, fc_sel))
-                sel = torch.where(searching, t, sel)
-                accepted = torch.where(searching, ci < cost_iter, accepted)
-                t += 1
-        else:
-            if use_fused:
-                t_ld, t_fc = engine.fused_trial_costs(state, dmu, dprec,
-                                                      trials)
-                t_cost = engine.reduce_trial_costs(
-                    t_ld, temper(t_fc, temperature))          # [T, B]
+        with span("gvi.trials"):
+            if config.linesearch == "seq":
+                # do-while per problem: trial 1 for all, then trial t + 1
+                # while a problem has accepted none, has trials left and has
+                # not converged; every problem searching is at the same trial
+                batch = cost_iter.shape
+                c_sel, cd_sel, co_sel, ld_sel, fc_sel = trial_costs(
+                    trials[0].expand(batch))
+                accepted = c_sel < cost_iter
+                sel = torch.zeros(batch, dtype=torch.long, device=device)
+                t = 1
+                while t < n_trials:
+                    searching = ~accepted & ~carry.converged
+                    if not bool(searching.any()):
+                        break
+                    ci, cdi, coi, ldi, fci = trial_costs(
+                        trials[t].expand(batch))
+                    c_sel = _where(searching, ci, c_sel)
+                    cd_sel = _where(searching, cdi, cd_sel)
+                    co_sel = _where(searching, coi, co_sel)
+                    ld_sel = _where(searching, ldi, ld_sel)
+                    fc_sel = tuple(_where(searching, a, b)
+                                   for a, b in zip(fci, fc_sel))
+                    sel = torch.where(searching, t, sel)
+                    accepted = torch.where(searching, ci < cost_iter,
+                                           accepted)
+                    t += 1
             else:
-                steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
-                t_cost, t_cd, t_co, t_ld, t_fc = trial_costs(steps)
-            ok = t_cost < cost_iter
-            accepted = ok.any(0)
-            # the first decreasing trial, or the last one when the search
-            # is exhausted (where the sequential loop halts)
-            sel = torch.where(accepted, ok.to(dtype).argmax(0),
-                              torch.full_like(accepted, n_trials - 1,
-                                              dtype=torch.long))
-            c_sel = _pick(t_cost, sel)
-            ld_sel = _pick(t_ld, sel)
-            fc_sel = tuple(_pick(f, sel) for f in t_fc)
-            if not use_fused:
-                cd_sel, co_sel = _pick(t_cd, sel), _pick(t_co, sel)
-        step_f = trials[sel]
+                if use_fused:
+                    t_ld, t_fc = engine.fused_trial_costs(state, dmu, dprec,
+                                                          trials)
+                    t_cost = engine.reduce_trial_costs(
+                        t_ld, temper(t_fc, temperature))          # [T, B]
+                else:
+                    steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
+                    t_cost, t_cd, t_co, t_ld, t_fc = trial_costs(steps)
+                ok = t_cost < cost_iter
+                accepted = ok.any(0)
+                # the first decreasing trial, or the last one when the
+                # search is exhausted (where the sequential loop halts)
+                sel = torch.where(accepted, ok.to(dtype).argmax(0),
+                                  torch.full_like(accepted, n_trials - 1,
+                                                  dtype=torch.long))
+                c_sel = _pick(t_cost, sel)
+                ld_sel = _pick(t_ld, sel)
+                fc_sel = tuple(_pick(f, sel) for f in t_fc)
+                if not use_fused:
+                    cd_sel, co_sel = _pick(t_cd, sel), _pick(t_co, sel)
+            step_f = trials[sel]
 
-        # prox adopts the last trial of an exhausted search, unless its
-        # cost is non-finite; NGD keeps the old iterate
-        take = accepted if ngd else accepted | torch.isfinite(c_sel)
-        # EMA-smoothed proposal alpha * new + (1 - alpha) * current (alpha
-        # = 1: plain), accepted on the unblended trial cost above
-        acc_mu = _where(take, mu + (alpha * step_f)[..., None, None] * dmu,
-                        mu)
-        sel_prec = (prec + dprec.scale(step_f)).symmetrize()
-        if alpha != 1.0:
-            sel_prec = BlockTridiag(
-                alpha * sel_prec.diag + (1.0 - alpha) * prec.diag,
-                alpha * sel_prec.off + (1.0 - alpha) * prec.off)
-        acc_prec = BlockTridiag(_where(take, sel_prec.diag, prec.diag),
-                                _where(take, sel_prec.off, prec.off))
+        with span("gvi.select"):
+            # prox adopts the last trial of an exhausted search, unless its
+            # cost is non-finite; NGD keeps the old iterate
+            take = accepted if ngd else accepted | torch.isfinite(c_sel)
+            # EMA-smoothed proposal alpha * new + (1 - alpha) * current
+            # (alpha = 1: plain), accepted on the unblended trial cost above
+            acc_mu = _where(take, mu + (alpha * step_f)[..., None, None] * dmu,
+                            mu)
+            sel_prec = (prec + dprec.scale(step_f)).symmetrize()
+            if alpha != 1.0:
+                sel_prec = BlockTridiag(
+                    alpha * sel_prec.diag + (1.0 - alpha) * prec.diag,
+                    alpha * sel_prec.off + (1.0 - alpha) * prec.off)
+            acc_prec = BlockTridiag(_where(take, sel_prec.diag, prec.diag),
+                                    _where(take, sel_prec.off, prec.off))
 
-        # exhausted line search: escalate temperature once, then converge
-        # (NGD only: prox neither escalates nor flags convergence)
-        failed = ~accepted if ngd else torch.zeros_like(accepted)
-        esc_temp = failed & is_lowtemp
-        new_temperature = torch.where(esc_temp, high, temperature)
-        new_is_lowtemp = is_lowtemp & ~esc_temp
-        new_converged = carry.converged | (failed & ~is_lowtemp)
+            # exhausted line search: escalate temperature once, then converge
+            # (NGD only: prox neither escalates nor flags convergence)
+            failed = ~accepted if ngd else torch.zeros_like(accepted)
+            esc_temp = failed & is_lowtemp
+            new_temperature = torch.where(esc_temp, high, temperature)
+            new_is_lowtemp = is_lowtemp & ~esc_temp
+            new_converged = carry.converged | (failed & ~is_lowtemp)
 
-        # freeze the state once converged
-        keep = ~carry.converged
-        new_state = GaussianState(
-            _where(keep, acc_mu, mu),
-            BlockTridiag(_where(keep, acc_prec.diag, prec.diag),
-                         _where(keep, acc_prec.off, prec.off)),
-        )
-        upd = keep & take
-        if alpha != 1.0:
-            # the blended iterate is none of the trials: its covariance and
-            # factor costs are computed fresh
-            new_cd, new_co, new_ld = engine.cov_logdet(new_state.precision)
-            new_fc = engine.factor_costs_raw(new_state.mu, new_cd, new_co,
-                                             eval_dtype)
-        else:
-            # carry the accepted trial's log det + factor costs forward, and
-            # its covariance: the trial blocks of the separate path, one
-            # chain call at the updated state after the fused trial kernel
-            # (which returns none), or nothing on the fused-gradient path
-            # (recomputed next iteration)
-            if not use_fused:
-                new_cd = _where(upd, cd_sel, cov_diag)
-                new_co = _where(upd, co_sel, cov_off)
-            elif use_fused_grad:
-                new_cd, new_co = cov_diag, cov_off
+            # freeze the state once converged
+            keep = ~carry.converged
+            new_state = GaussianState(
+                _where(keep, acc_mu, mu),
+                BlockTridiag(_where(keep, acc_prec.diag, prec.diag),
+                             _where(keep, acc_prec.off, prec.off)),
+            )
+            upd = keep & take
+            if alpha != 1.0:
+                # the blended iterate is none of the trials: its covariance
+                # and factor costs are computed fresh
+                new_cd, new_co, new_ld = engine.cov_logdet(new_state.precision)
+                new_fc = engine.factor_costs_raw(new_state.mu, new_cd, new_co,
+                                                 eval_dtype)
             else:
-                new_cd, new_co, _ = engine.cov_logdet(new_state.precision)
-            new_ld = _where(upd, ld_sel, carry.logdet)
-            new_fc = tuple(_where(upd, f, f0)
-                           for f, f0 in zip(fc_sel, carry.fc_raw))
-        new_carry = _Carry(new_state, new_cd, new_co, new_ld, new_fc,
-                           new_temperature, new_is_lowtemp, new_converged)
-        record = (
-            mu, cov_diag, cov_off, prec.diag, prec.off,
-            cost_iter, torch.cat(fc_iter, dim=-1),
-            torch.where(accepted, step_f, torch.zeros_like(step_f)),
-        )
-        return new_carry, record
+                # carry the accepted trial's log det + factor costs forward,
+                # and its covariance: the trial blocks of the separate path,
+                # one chain call at the updated state after the fused trial
+                # kernel (which returns none), or nothing on the
+                # fused-gradient path (recomputed next iteration)
+                if not use_fused:
+                    new_cd = _where(upd, cd_sel, cov_diag)
+                    new_co = _where(upd, co_sel, cov_off)
+                elif use_fused_grad:
+                    new_cd, new_co = cov_diag, cov_off
+                else:
+                    new_cd, new_co, _ = engine.cov_logdet(new_state.precision)
+                new_ld = _where(upd, ld_sel, carry.logdet)
+                new_fc = tuple(_where(upd, f, f0)
+                               for f, f0 in zip(fc_sel, carry.fc_raw))
+            new_carry = _Carry(new_state, new_cd, new_co, new_ld, new_fc,
+                               new_temperature, new_is_lowtemp, new_converged)
+            record = (
+                mu, cov_diag, cov_off, prec.diag, prec.off,
+                cost_iter, torch.cat(fc_iter, dim=-1),
+                torch.where(accepted, step_f, torch.zeros_like(step_f)),
+            )
+            return new_carry, record
 
     return iteration
 
@@ -376,20 +392,23 @@ def run_gvi_carry(engine: LocalEngine, init_state: GaussianState,
     recomputed here from the final precision, so the returned carry's
     covariance is always that of ``carry.state``."""
     iteration = make_gvi_step(engine, config, method)
-    carry = make_gvi_init(engine, init_state, config, method, loop)
-    template = (init_state.mu, carry.cov_diag, carry.cov_off,
-                init_state.precision.diag, init_state.precision.off,
-                carry.logdet, torch.cat(carry.fc_raw, dim=-1),
-                carry.temperature)
+    with span("gvi.init"):
+        carry = make_gvi_init(engine, init_state, config, method, loop)
+        template = (init_state.mu, carry.cov_diag, carry.cov_off,
+                    init_state.precision.diag, init_state.precision.off,
+                    carry.logdet, torch.cat(carry.fc_raw, dim=-1),
+                    carry.temperature)
     records = []
     for i in range(start_iteration, config.niters):
-        carry, record = iteration(carry, i)
+        with span("gvi.iter"):
+            carry, record = iteration(carry, i)
         records.append(record)
-    if method == "ngd" and engine.fused_gradient_ready:
-        carry.cov_diag, carry.cov_off, carry.logdet = engine.cov_logdet(
-            carry.state.precision)
-    axis = init_state.mu.ndim - 2   # after the problem axes
-    return carry, _stack_records(records, template, axis)
+    with span("gvi.finish"):
+        if method == "ngd" and engine.fused_gradient_ready:
+            carry.cov_diag, carry.cov_off, carry.logdet = engine.cov_logdet(
+                carry.state.precision)
+        axis = init_state.mu.ndim - 2   # after the problem axes
+        return carry, _stack_records(records, template, axis)
 
 
 def run_gvi(engine: LocalEngine, init_state: GaussianState,
@@ -405,11 +424,13 @@ def optimize(graph: FactorGraph, init_state: GaussianState,
     state and iteration history.  Raises ``ValueError`` for an unknown
     option value and for a kernel forced on where it is not eligible (see
     :mod:`.config`)."""
-    check_config(config, method)
-    set_precision_policy()
-    with torch.no_grad():
-        engine = LocalEngine(graph, config, init_state.mu.device)
-        return run_gvi(engine, init_state, config, method)
+    with span("gvi.optimize"):
+        check_config(config, method)
+        set_precision_policy()
+        with torch.no_grad():
+            with span("gvi.engine"):
+                engine = LocalEngine(graph, config, init_state.mu.device)
+            return run_gvi(engine, init_state, config, method)
 
 
 def optimize_from(graph: FactorGraph, init_state: GaussianState,
@@ -423,11 +444,14 @@ def optimize_from(graph: FactorGraph, init_state: GaussianState,
     mid-trajectory (across a temperature escalation or a convergence freeze
     too) and resumed here follows the uninterrupted trajectory exactly.
     The history covers the resumed window only."""
-    check_config(config, method)
-    set_precision_policy()
-    with torch.no_grad():
-        engine = LocalEngine(graph, config, init_state.mu.device)
-        carry, history = run_gvi_carry(engine, init_state, config, method,
-                                       start_iteration, loop_state)
+    with span("gvi.optimize"):
+        check_config(config, method)
+        set_precision_policy()
+        with torch.no_grad():
+            with span("gvi.engine"):
+                engine = LocalEngine(graph, config, init_state.mu.device)
+            carry, history = run_gvi_carry(engine, init_state, config,
+                                           method, start_iteration,
+                                           loop_state)
     return carry.state, history, LoopState(carry.temperature,
                                            carry.is_lowtemp, carry.converged)

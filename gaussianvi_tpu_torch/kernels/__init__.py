@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` and,
+while a profiler records, marks each launch with its host-side prep as the
+span ``gvi.kernel.<key>``, ``<key>`` its name in :data:`WRAPPERS`
+(``utils.profiling.span``).
 """
 
 from .chain import gbp_covariance_logdet_lanes, solve_lanes

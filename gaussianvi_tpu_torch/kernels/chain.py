@@ -33,6 +33,7 @@ import torch
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.blocktridiag import gbp_covariance_logdet as _gbp_plain
 from ..ops.blocktridiag import solve as _solve_plain
+from ..utils.profiling import span
 from . import _build
 from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
 
@@ -175,6 +176,11 @@ def gbp_covariance_logdet_lanes(diag: torch.Tensor, off: torch.Tensor):
     ``(cov_diag [..., N, s, s], cov_off [..., N-1, s, s], logdet [...])``."""
     if diag.device.type == "cpu":
         return gbp_covariance_logdet_plain(diag, off)
+    with span("gvi.kernel.gbp_covariance_logdet"):
+        return _gbp_kernel(diag, off)
+
+
+def _gbp_kernel(diag, off):
     lead, n, s = _check("gbp_covariance_logdet_lanes", diag, off)
     nb = math.prod(lead)
     # the blocks are read in 16-byte pieces where they stay in device memory
@@ -214,6 +220,11 @@ def solve_lanes(diag: torch.Tensor, off: torch.Tensor, b: torch.Tensor):
     s]``."""
     if diag.device.type == "cpu":
         return solve_plain(diag, off, b)
+    with span("gvi.kernel.solve"):
+        return _solve_kernel(diag, off, b)
+
+
+def _solve_kernel(diag, off, b):
     # the flattened chains go to the kernel as two halves, pair u solving
     # chain u and chain u + ceil(count / 2)
     lead, n, s = _check("solve_lanes", diag, off, b)
@@ -237,6 +248,11 @@ def solve_pair_lanes(d0, o0, d1, o1, b):
     side ``b [..., N, s]`` -> ``(x0, x1)``, one launch, ``b`` read once."""
     if d0.device.type == "cpu":
         return solve_pair_plain(d0, o0, d1, o1, b)
+    with span("gvi.kernel.solve"):
+        return _solve_pair_kernel(d0, o0, d1, o1, b)
+
+
+def _solve_pair_kernel(d0, o0, d1, o1, b):
     lead, n, s = _check("solve_pair_lanes", d0, o0, d1, o1, b)
     if d1.shape != d0.shape or b.shape != (*lead, n, s):
         raise ValueError(f"solve_pair_lanes: shapes {tuple(d0.shape)}, "

@@ -43,6 +43,7 @@ import torch
 from ..factors.moments import gh_moments, ngd_local_gradients
 from ..inference.graph import scatter_gradients, take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance, solve
+from ..utils.profiling import span
 from . import _build
 from .fused_trials import (
     SMEM_LIMIT,
@@ -281,8 +282,10 @@ def gradient_lanes(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
     if mu.device.type == "cpu":
         return gradient_plain(mu, pd, po, temperature, nl_specs, lin_specs,
                               nl_arrays, lin_arrays, mode, seeds, eval_dtype)
-    return _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs,
-                            nl_arrays, lin_arrays, mode, seeds, eval_dtype)
+    with span(_SPANS[mode]):
+        return _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs,
+                                nl_arrays, lin_arrays, mode, seeds,
+                                eval_dtype)
 
 
 def _gradient_kernel(mu, pd, po, temperature, nl_specs, lin_specs, nl_arrays,
@@ -349,5 +352,9 @@ def gradient_solve_lanes(mu, pd, po, temperature, seeds, lin_specs,
 
 _COUNTED = {"full": gradient_lanes, "accum": gradient_accum_lanes,
             "solve": gradient_solve_lanes}
+# each mode's span is named after the wrapper that counts its launches
+_SPANS = {"full": "gvi.kernel.fused_gradient",
+          "accum": "gvi.kernel.fused_gradient_accum",
+          "solve": "gvi.kernel.fused_gradient_solve"}
 for _fn in _COUNTED.values():
     _fn.launches = 0

@@ -30,6 +30,7 @@ import math
 import torch
 
 from ..ops.smallmat import chol_small
+from ..utils.profiling import span
 from . import _build
 from .quad import _operands, cost_form
 
@@ -93,10 +94,11 @@ def fused_moments(nodes, weights, mu, cov, kernel_cost, kernel_params,
         raise ValueError(f"fused_moments: shape mismatch mu {tuple(mu.shape)},"
                          f" cov {tuple(cov.shape)}")
     if mu.device.type != "cpu":
-        out = _launch(nodes, weights, mu, cov, kernel_cost, kernel_params,
-                      rdim, field)
-        fused_moments.launches += 1
-        return out
+        with span("gvi.kernel.fused_moments"):
+            out = _launch(nodes, weights, mu, cov, kernel_cost, kernel_params,
+                          rdim, field)
+            fused_moments.launches += 1
+            return out
     count = math.prod(lead)
     p = kernel_params.shape[-1]
     par_f = kernel_params.expand(*lead, p).reshape(count, p)

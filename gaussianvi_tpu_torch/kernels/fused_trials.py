@@ -50,6 +50,7 @@ import torch
 from ..factors.moments import expectation_phi, guard_linear_cost
 from ..inference.graph import take_states
 from ..ops.blocktridiag import BlockTridiag, gbp_edge_covariance
+from ..utils.profiling import span
 from . import _build
 from .quad import (
     KERNEL_COSTS,
@@ -446,8 +447,10 @@ def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     if mu.device.type == "cpu":
         return trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
                                  lin_specs, nl_arrays, lin_arrays, eval_dtype)
-    return _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
-                               lin_specs, nl_arrays, lin_arrays, eval_dtype)
+    with span("gvi.kernel.fused_trials"):
+        return _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials,
+                                   nl_specs, lin_specs, nl_arrays, lin_arrays,
+                                   eval_dtype)
 
 
 def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,

@@ -34,6 +34,7 @@ from ..factors.moments import (
     gh_moments,
     kernel_quantizes,
 )
+from ..utils.profiling import span
 from . import _build
 
 
@@ -427,10 +428,11 @@ def quad_lanes_phi(mu, cov, nodes, weights, cost: str, params,
     if mu.device.type == "cpu":
         return quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg,
                               field, eval_dtype)
-    out = _launch("quad_lanes_phi", mu, cov, nodes, weights, cost, params,
-                  False, nonneg, None, field, eval_dtype)
-    quad_lanes_phi.launches += 1
-    return out
+    with span("gvi.kernel.quad_phi"):
+        out = _launch("quad_lanes_phi", mu, cov, nodes, weights, cost, params,
+                      False, nonneg, None, field, eval_dtype)
+        quad_lanes_phi.launches += 1
+        return out
 
 
 def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
@@ -442,10 +444,11 @@ def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
     if mu.device.type == "cpu":
         return quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim,
                                   field, eval_dtype)
-    out = _launch("quad_lanes_moments", mu, cov, nodes, weights, cost,
-                  params, True, False, rdim, field, eval_dtype)
-    quad_lanes_moments.launches += 1
-    return out
+    with span("gvi.kernel.quad_moments"):
+        out = _launch("quad_lanes_moments", mu, cov, nodes, weights, cost,
+                      params, True, False, rdim, field, eval_dtype)
+        quad_lanes_moments.launches += 1
+        return out
 
 
 quad_lanes_phi.launches = 0

@@ -2,7 +2,7 @@
 orbax checkpoint pair is not carried over)."""
 
 from .checkpoint import load_checkpoint, load_loop_state, save_checkpoint
-from .profiling import Timer, time_fn, trace
+from .profiling import Timer, span, time_fn, trace
 from .recorder import (
     cost_map_1d,
     history_to_arrays,
@@ -13,7 +13,7 @@ from .recorder import (
 
 __all__ = [
     "save_checkpoint", "load_checkpoint", "load_loop_state",
-    "Timer", "time_fn", "trace",
+    "Timer", "time_fn", "trace", "span",
     "history_to_arrays", "save_history_csv", "cost_map_1d", "save_costmap",
     "save_factor_expectations",
 ]

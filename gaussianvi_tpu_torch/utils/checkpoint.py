@@ -14,14 +14,16 @@ port's loads there.
 from __future__ import annotations
 
 import os
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..inference.graph import GaussianState
-from ..inference.optimize import LoopState
 from ..ops.blocktridiag import BlockTridiag
+
+if TYPE_CHECKING:
+    from ..inference.graph import GaussianState
 
 
 def _numpy(x):
@@ -60,6 +62,11 @@ def load_loop_state(path: str, dtype=None, device=None):
     """``(state, iteration, LoopState)``; pass the last two to
     ``optimize_from(..., start_iteration=it, loop_state=loop)``.
     ``dtype=None`` keeps the file's; ``device=None`` is the card."""
+    # the loop imports the package's span helper from utils, so utils
+    # reaches the loop's types at call time
+    from ..inference.graph import GaussianState
+    from ..inference.optimize import LoopState
+
     device = resolve_device(device)
     if not path.endswith(".npz"):
         path = path + ".npz"

@@ -2,8 +2,30 @@
 
 Counterpart of ``gaussianvi_tpu/utils/profiling.py``: a wall-clock timer
 and a best-of-N timing that wait for the card (``torch.cuda.synchronize``)
-so that queued kernels are counted, and a ``torch.profiler`` trace
-exported for Perfetto / ``chrome://tracing``.
+so that queued kernels are counted, a ``torch.profiler`` trace
+exported for Perfetto / ``chrome://tracing``, and the program's named
+spans in that trace.
+
+Spans.  The loop, its entry points and the kernel wrappers mark their
+phases with :func:`span`; under :func:`trace` (or any ``torch.profiler``
+recording) each is a ``user_annotation`` event named ``gvi.<phase>`` on the
+host's timeline, on the same clock as the device's kernels.  A call's
+spans nest under its ``gvi.optimize``:
+
+* ``gvi.engine``: the engine's construction (routes, fused operands);
+* ``gvi.init``: the initial iterate's covariance, log det and factor costs;
+* ``gvi.iter``, one per iteration, holding ``gvi.gradient`` (the step
+  direction), ``gvi.trials`` (the line search's trial costs up to the
+  pick) and ``gvi.select`` (accept, escalate, freeze, the new carry);
+  its own time is the head: temper, the iterate's cost, the trial
+  schedule;
+* ``gvi.finish``: the final covariance refresh and the stacked history;
+* ``gvi.kernel.<name>``: one hand-written kernel's launch with its host
+  prep, ``<name>`` its wrapper's key in ``kernels.WRAPPERS``; these sit
+  where the wrappers count ``launches``, so a profiled call holds as many
+  as ``kernels.launch_counts()`` grows by.
+
+With no profiler recording a span is one shared null context.
 """
 
 from __future__ import annotations
@@ -55,6 +77,19 @@ def trace(log_dir: str):
         yield prof
         _sync()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """``with span("gvi.<phase>"):`` names the block in a profiler trace
+    (``torch.profiler.record_function``) while a profiler records, and
+    costs one flag check otherwise."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def time_fn(fn, *args, repeats: int = 5, warmup: int = 1) -> float:

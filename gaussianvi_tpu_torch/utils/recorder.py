@@ -10,12 +10,15 @@ first (``GVIHistory(*(x[b] for x in hist))``).
 from __future__ import annotations
 
 import os
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
-from ..inference.optimize import GVIHistory
 from .checkpoint import _numpy
+
+if TYPE_CHECKING:
+    from ..inference.optimize import GVIHistory
 
 
 def _dense_joint(diag: np.ndarray, off: np.ndarray) -> np.ndarray:

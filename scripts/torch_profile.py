@@ -2,29 +2,24 @@
 
 For each path of ``gaussianvi_tpu_torch.optimize`` on the flagship
 (B=1024 problems, N=32 states, dim_x=2, degree 4, 10 iterations, float32)
-this prints the median wall time of interleaved unprofiled runs, then, from
-one ``torch.profiler`` run, the number of device operations, their summed
-device time, the busy share (summed device time over the unprofiled wall
-time), the five device operations that take most of it and the chain
-kernels K1 and K2 wherever they rank.  Paths: the
-fused kernels (default), the separate kernels, block-form moments
-(``use_pallas``), the proximal optimizer, and the factor-parallel path
-(``parallel.optimize_sharded``, dp=1 x fp=2: two rank processes sharing the
-card over gloo; rank 0 is profiled, so its busy share counts its own device
-operations only, while the other rank's kernels take turns on the card).
+this prints, from one ``torch.profiler`` run after a warm-up run, the
+number of device operations, their summed device time, the five device
+operations that take most of it and the chain kernels K1 and K2 wherever
+they rank.  Paths: the fused kernels (default), the separate kernels,
+block-form moments (``use_pallas``), the proximal optimizer, and the
+factor-parallel path (``parallel.optimize_sharded``, dp=1 x fp=2: two rank
+processes sharing the card over gloo; rank 0 is profiled, so its numbers
+are its own device operations only, while the other rank's kernels take
+turns on the card).  Rates, latencies and the device's idle share are the
+benchmark's (``benchmark/run.py``).
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 scripts/torch_profile.py [--runs 5]
+    python3 scripts/torch_profile.py
 
-Two shorter modes, each printing one line:
-
-    python3 scripts/torch_profile.py --rates [--runs 7] [--tree DIR]
-
-the five paths' prob-iters/s only (median of ``--runs`` interleaved runs,
-no profiler).  ``--tree DIR`` measures the package of another checkout
-(say the parent commit unpacked beside this one): to compare two trees,
-alternate the two commands on one card, several times in a row.
+Other modes (``--tree DIR`` measures the package of another checkout, say
+the parent commit unpacked beside this one: to compare two trees,
+alternate the two commands on one card, several times in a row):
 
     python3 scripts/torch_profile.py --parts [--tree DIR]
 
@@ -69,13 +64,13 @@ outputs (one call each), and
 prints, instance by instance, whether two such files hold the same bits
 (and the largest difference where not).
 
-    python3 scripts/torch_profile.py --planner [--runs 5]
+    python3 scripts/torch_profile.py --planner
 
 the same profile for the planar planner (``examples.planar_planning``:
 B=1024 restarts from ``parallel.perturb_inits`` with mean_scale 0.3, N=20,
 build_planar_planning's 30 iterations, float32), fused and separate paths.
 
-    python3 scripts/torch_profile.py --s6 [--runs 5]
+    python3 scripts/torch_profile.py --s6
 
 the same profile for the s = 6 models: the 3-D point planner
 (``examples.point3d_planning``, B=1024 restarts as above, N=20, 30
@@ -84,7 +79,7 @@ iterations; fused and separate), the planar quadrotor
 the default path: K1 / K2 and the plain quadrature) and chain estimation
 at dim_x=3 (B=1024, N=32, 10 iterations; fused).
 
-    python3 scripts/torch_profile.py --arm [--runs 5]
+    python3 scripts/torch_profile.py --arm
 
 the same profile for the 7-DOF arm planner (``examples.arm_planning``,
 s = 14: B=1024 restarts as above, N=10, 15 iterations; the default path:
@@ -95,10 +90,8 @@ from __future__ import annotations
 
 import argparse
 import os
-import statistics
 import subprocess
 import sys
-import time
 from dataclasses import replace
 
 import torch
@@ -106,7 +99,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
-PLAN_B, PLAN_ITERS = 1024, 30   # the planar planner's restarts, iterations
+PLAN_B = 1024   # the restarts of the planners
 
 
 def build(dev, dim_x=DIM_X, dtype=torch.float32):
@@ -122,29 +115,19 @@ def build(dev, dim_x=DIM_X, dtype=torch.float32):
     return stack_problems(*map(list, zip(*problems)))
 
 
-def profile_paths(paths, runs, work=B * NITERS):
-    """``paths``: name -> callable running the path once (``work``
-    prob-iters).  Returns the report lines: per path the median wall time
-    of ``runs`` interleaved unprofiled runs, then one profiled run's
-    device operations."""
+def profile_paths(paths):
+    """``paths``: name -> callable running the path once.  Returns the
+    report lines: per path one profiled run's device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     def run(name):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         paths[name]()
         torch.cuda.synchronize()
-        return time.perf_counter() - t
 
     for name in paths:          # builds the kernels, warms every path up
         run(name)
-    walls = {name: [] for name in paths}
-    for _ in range(runs):
-        for name in paths:
-            walls[name].append(run(name))
     lines = []
     for name in paths:
-        wall = statistics.median(walls[name])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(name)
@@ -153,11 +136,8 @@ def profile_paths(paths, runs, work=B * NITERS):
                   and e.device_type == torch.autograd.DeviceType.CUDA]
         device_us = sum(e.device_time_total for e in events)
         ops = sum(e.count for e in events)
-        lines.append(
-            f"[{name}] wall {1e3 * wall:.2f} ms (median of {runs}), "
-            f"{work / wall:.1f} prob-iters/s; {ops} device ops, "
-            f"{device_us / 1e3:.2f} ms device time, busy "
-            f"{device_us / 1e6 / wall:.0%}")
+        lines.append(f"[{name}] {ops} device ops, "
+                     f"{device_us / 1e3:.2f} ms device time")
         ranked = sorted(events, key=lambda e: -e.device_time_total)
         # the five largest, then the chain kernels K1 and K2 wherever they
         # rank
@@ -205,8 +185,8 @@ def planner_paths(dev):
 
 
 def s6_paths(dev):
-    """The s = 6 models' paths, float32: ``[(name -> callable running
-    the path once, prob-iters per run)]``, one entry per model."""
+    """The s = 6 models' paths, float32: ``[name -> callable running
+    the path once]``, one entry per model."""
     from gaussianvi_tpu_torch import GVIConfig, optimize
     from gaussianvi_tpu_torch.examples.point3d_planning import (
         build_point3d_planning,
@@ -226,19 +206,18 @@ def s6_paths(dev):
         configs = {"fused": cfg, "default": cfg,
                    "separate": replace(cfg, fused_trials="off",
                                        fused_gradient="off")}
-        out.append(({f"{label} {name}": (
+        out.append({f"{label} {name}": (
             lambda c=configs[name], g=graph, i=inits: optimize(g, i, c))
-            for name in names}, PLAN_B * cfg.niters))
+            for name in names})
     graph, state = build(dev, dim_x=3)
     cfg = GVIConfig(niters=NITERS, niters_lowtemp=NITERS, step_size_base=0.9)
-    out.append(({"dim_x=3 fused": lambda: optimize(graph, state, cfg)},
-                B * NITERS))
+    out.append({"dim_x=3 fused": lambda: optimize(graph, state, cfg)})
     return out
 
 
 def arm_paths(dev):
     """The arm planner's default path on PLAN_B restarts, float32:
-    ``(name -> callable running the path once, prob-iters per run)``."""
+    name -> callable running the path once."""
     from gaussianvi_tpu_torch import optimize
     from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
     from gaussianvi_tpu_torch.parallel import perturb_inits
@@ -246,32 +225,7 @@ def arm_paths(dev):
     graph, init, cfg, _ = build_arm_planning(dtype=torch.float32, device=dev)
     inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(0),
                           PLAN_B, mean_scale=0.3)
-    return ({"arm default": lambda: optimize(graph, inits, cfg)},
-            PLAN_B * cfg.niters)
-
-
-def rates(dev, runs, tree):
-    """One line: the paths' prob-iters/s, median of interleaved runs."""
-    from gaussianvi_tpu_torch import optimize
-
-    graph, state = build(dev)
-    _, paths = path_configs()
-    paths["block_separate_trials"] = (
-        replace(paths["block_moments"][0], fused_trials="off"), "ngd")
-    walls = {name: [] for name in paths}
-    for i in range(runs + 1):           # the first round warms up
-        for name, (cfg, method) in paths.items():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            optimize(graph, state, cfg, method)
-            torch.cuda.synchronize()
-            if i:
-                walls[name].append(time.perf_counter() - t)
-    return f"[rates {tree}] " + ", ".join(
-        f"{name} {B * NITERS / statistics.median(w):.1f}"
-        for name, w in walls.items()) + (
-            f" prob-iters/s (B={B}, N={N}, {NITERS} iters, f32, median of "
-            f"{runs})")
+    return {"arm default": lambda: optimize(graph, inits, cfg)}
 
 
 def kernel_parts(dev, tree="."):
@@ -566,7 +520,7 @@ def quad_plans(dev):
     return lines
 
 
-def sharded_rank(rank, world, device, cfg, runs):
+def sharded_rank(rank, world, device, cfg):
     """One of the two ranks of the factor-parallel path; both run the same
     sequence, each profiles itself, rank 0's report is printed."""
     from gaussianvi_tpu_torch.parallel import make_mesh, optimize_sharded
@@ -575,16 +529,11 @@ def sharded_rank(rank, world, device, cfg, runs):
     graph, state = build(device)
     return profile_paths(
         {"factor_parallel": lambda: optimize_sharded(graph, state, cfg,
-                                                     mesh)}, runs)
+                                                     mesh)})
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--runs", type=int, default=None,
-                        help="unprofiled runs per path, interleaved "
-                             "(default 5; 7 with --rates)")
-    parser.add_argument("--rates", action="store_true",
-                        help="print the paths' rates only")
     parser.add_argument("--parts", action="store_true",
                         help="print K5 / K6 times by the factors given")
     parser.add_argument("--quad-plans", action="store_true",
@@ -624,9 +573,6 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     set_precision_policy()
     dev = torch.device("cuda", 0)
-    if args.rates:
-        print(card + " " + rates(dev, args.runs or 7, args.tree or "."))
-        return 0
     if args.parts:
         print(card)
         print("\n".join(kernel_parts(dev, args.tree or ".")), flush=True)
@@ -644,27 +590,24 @@ def main() -> int:
         print(card + " " + quad_times(dev, args.tree or "."))
         return 0
     print(card)
-    runs = args.runs or 5
     if args.planner:
-        print("\n".join(profile_paths(planner_paths(dev), runs,
-                                      PLAN_B * PLAN_ITERS)))
+        print("\n".join(profile_paths(planner_paths(dev))))
         return 0
     if args.arm:
-        paths, work = arm_paths(dev)
-        print("\n".join(profile_paths(paths, runs, work)), flush=True)
+        print("\n".join(profile_paths(arm_paths(dev))), flush=True)
         return 0
     if args.s6:
-        for paths, work in s6_paths(dev):
-            print("\n".join(profile_paths(paths, runs, work)), flush=True)
+        for paths in s6_paths(dev):
+            print("\n".join(profile_paths(paths)), flush=True)
         return 0
     graph, state = build(dev)
     cfg, paths = path_configs()
     print("\n".join(profile_paths(
         {name: (lambda c=c, m=m: optimize(graph, state, c, m))
-         for name, (c, m) in paths.items()}, runs)))
+         for name, (c, m) in paths.items()})))
     # the ranks load the library this process has built
     _build.load()
-    ranks = spawn_ranks(sharded_rank, 2, (cfg, runs), backend="gloo",
+    ranks = spawn_ranks(sharded_rank, 2, (cfg,), backend="gloo",
                         device=str(dev), timeout_s=600.0)
     print("\n".join(ranks[0]))
     return 0
