@@ -1262,13 +1262,24 @@ def check_costs(name, hist, batch, iters=NITERS, nonneg=False):
 
 def counted(optimize_fn, *args):
     """Run one path with every launch counter zeroed just before it and
-    read just after: ``(result, launches)``."""
-    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+    read just after: ``(result, launches)``.  The loop graphs kept from
+    earlier calls are dropped first, so the path's loop runs eager and
+    the counts are its launches."""
+    from gaussianvi_tpu_torch.inference import loop_graph
+    from gaussianvi_tpu_torch.kernels import (
+        launch_counts,
+        loop_graph_counts,
+        reset_launch_counts,
+    )
 
     torch.cuda.synchronize()
+    loop_graph.clear()
     reset_launch_counts()
     out = optimize_fn(*args)
     torch.cuda.synchronize()
+    kinds = loop_graph_counts()
+    check(kinds["captured"] == kinds["replayed"] == 0,
+          f"a counted path took a loop graph: {kinds}")
     return out, launch_counts()
 
 

@@ -188,6 +188,7 @@ class LocalEngine:
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
+        self.device = device
         self.use_pallas = config.use_pallas
         self.chain_impl = resolve_chain_impl(
             config, graph.num_states, device,

@@ -63,16 +63,18 @@ the same functions of the same inputs as in the uninterrupted run.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from ..factors.moments import as_eval_dtype
+from ..factors.moments import as_eval_dtype, kernel_quantizes
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.precision import set_precision_policy
 from ..utils.profiling import span
 from .config import GVIConfig
+from . import loop_graph
 from .engine import LocalEngine, check_config
 from .graph import FactorGraph, GaussianState
 
@@ -141,9 +143,20 @@ def _eval_dtype(config: GVIConfig, method: str):
 
 
 def _per_problem(value, batch, dtype, device) -> torch.Tensor:
-    """A loop scalar, or one value per problem, as a ``batch`` tensor."""
+    """A loop scalar, or one value per problem, as a ``batch`` tensor (a
+    Python scalar filled on the device: a copy from the host would wait
+    for the device, which a CUDA graph's capture forbids)."""
+    if isinstance(value, (bool, int, float)):
+        return torch.full(batch, value, dtype=dtype, device=device)
     x = torch.as_tensor(value, dtype=dtype, device=device)
     return torch.broadcast_to(x, batch).clone()
+
+
+def _loop_values(loop: LoopState, batch, dtype, device) -> LoopState:
+    """``loop``'s values as per-problem ``batch`` tensors."""
+    return LoopState(_per_problem(loop.temperature, batch, dtype, device),
+                     _per_problem(loop.is_lowtemp, batch, torch.bool, device),
+                     _per_problem(loop.converged, batch, torch.bool, device))
 
 
 def make_gvi_init(engine: LocalEngine, init_state: GaussianState,
@@ -159,12 +172,8 @@ def make_gvi_init(engine: LocalEngine, init_state: GaussianState,
     fc = engine.factor_costs_raw(mu, cd, co, _eval_dtype(config, method))
     if loop is None:
         loop = LoopState(config.temperature, True, False)
-    return _Carry(
-        init_state, cd, co, ld, fc,
-        _per_problem(loop.temperature, batch, mu.dtype, dev),
-        _per_problem(loop.is_lowtemp, batch, torch.bool, dev),
-        _per_problem(loop.converged, batch, torch.bool, dev),
-    )
+    return _Carry(init_state, cd, co, ld, fc,
+                  *_loop_values(loop, batch, mu.dtype, dev))
 
 
 def fused_routes(engine: LocalEngine, config: GVIConfig,
@@ -380,17 +389,12 @@ def _stack_records(records, template, axis: int) -> GVIHistory:
                         for x in template))
 
 
-def run_gvi_carry(engine: LocalEngine, init_state: GaussianState,
-                  config: GVIConfig, method: str = "ngd",
-                  start_iteration: int = 0, loop: LoopState | None = None):
-    """The GVI loop over an engine: ``(final carry, GVIHistory)``.
-
-    ``start_iteration`` / ``loop`` resume a run: iterations
-    ``start_iteration..niters-1`` run (the scheduled temperature switch
-    lands on the same global index), from ``loop``'s values.  On the
-    fused-gradient path the carried covariance lags one update; it is
-    recomputed here from the final precision, so the returned carry's
-    covariance is always that of ``carry.state``."""
+def _gvi_loop(engine: LocalEngine, init_state: GaussianState,
+              config: GVIConfig, method: str, start_iteration: int,
+              loop: LoopState | None, finish):
+    """``gvi.init``, iterations ``start_iteration..niters-1`` and
+    ``gvi.finish``: ``finish(carry, records, template)`` (``template``: a
+    record of the run's shapes), after the final covariance refresh."""
     iteration = make_gvi_step(engine, config, method)
     with span("gvi.init"):
         carry = make_gvi_init(engine, init_state, config, method, loop)
@@ -407,8 +411,92 @@ def run_gvi_carry(engine: LocalEngine, init_state: GaussianState,
         if method == "ngd" and engine.fused_gradient_ready:
             carry.cov_diag, carry.cov_off, carry.logdet = engine.cov_logdet(
                 carry.state.precision)
-        axis = init_state.mu.ndim - 2   # after the problem axes
-        return carry, _stack_records(records, template, axis)
+        return finish(carry, records, template)
+
+
+def run_gvi_carry(engine: LocalEngine, init_state: GaussianState,
+                  config: GVIConfig, method: str = "ngd",
+                  start_iteration: int = 0, loop: LoopState | None = None):
+    """The GVI loop over an engine: ``(final carry, GVIHistory)``.
+
+    ``start_iteration`` / ``loop`` resume a run: iterations
+    ``start_iteration..niters-1`` run (the scheduled temperature switch
+    lands on the same global index), from ``loop``'s values.  On the
+    fused-gradient path the carried covariance lags one update; it is
+    recomputed here from the final precision, so the returned carry's
+    covariance is always that of ``carry.state``."""
+    axis = init_state.mu.ndim - 2   # after the problem axes
+    return _gvi_loop(engine, init_state, config, method, start_iteration,
+                     loop, lambda carry, records, template: (
+                         carry, _stack_records(records, template, axis)))
+
+
+def _graph_call(engine: LocalEngine, init_state: GaussianState,
+                config: GVIConfig, method: str, start_iteration: int,
+                loop: LoopState | None):
+    """``(key, tree, starts)`` of a call whose loop may replay as a CUDA
+    graph (``loop_graph.run``), else None.  That is the NGD loop with the
+    batched line search (the sequential one reads every trial's decision
+    on the host; prox stays eager) on a ``LocalEngine`` on the card over a
+    window of at least one iteration, whose every nonlinear batch takes the
+    quadrature kernel (the plain quadrature calls the graph's ``cost_fn``)
+    and none has a ``kernel_prep`` (a function of the graph, called in the
+    loop).  The tree: the initial state, the graph, the fused operands and
+    ``loop``'s values as device tensors."""
+    if not (type(engine) is LocalEngine and engine.device.type == "cuda"
+            and method == "ngd"
+            and config.linesearch == "batched"
+            and start_iteration < config.niters
+            and all(engine.quad_batches)
+            and kernel_quantizes(_eval_dtype(config, method))
+            and all(fb.kernel_prep is None for fb in engine.graph.nonlinear)):
+        return None
+    mu = init_state.mu
+    if loop is not None:
+        loop = _loop_values(loop, mu.shape[:-2], mu.dtype, mu.device)
+    routes = (engine.chain_impl, engine.quad_kernel, engine.quad_batches,
+              engine.fused_trials_ready, engine.fused_gradient_ready,
+              engine.fused_eval_dtype, engine.fused_grad_eval_dtype,
+              engine.gradient_modes)
+    key = (config, method, start_iteration, loop is None, routes)
+    ops = engine._fused_ops
+    starts = ([] if ops is None else
+              [(arrays[0], engine.graph.num_states)
+               for arrays in (*ops[2], *ops[3])])
+    return key, (init_state, engine.graph, ops, loop), starts
+
+
+def _run_call(engine: LocalEngine, init_state: GaussianState,
+              config: GVIConfig, method: str, start_iteration: int = 0,
+              loop: LoopState | None = None):
+    """:func:`run_gvi_carry`, or, for a call on the card that
+    :func:`_graph_call` admits, its replay as one CUDA graph
+    (``inference/loop_graph.py``): the same bits."""
+
+    def eager():
+        return run_gvi_carry(engine, init_state, config, method,
+                             start_iteration, loop)
+
+    call = _graph_call(engine, init_state, config, method, start_iteration,
+                       loop)
+    if call is None:
+        return loop_graph.run(None, None, eager)
+    key, tree, starts = call
+    axis = init_state.mu.ndim - 2   # after the problem axes
+
+    def region(static):
+        state, graph, ops, lp = static
+        local = copy.copy(engine)
+        local.graph, local._fused_ops = graph, ops
+        return _gvi_loop(local, state, config, method, start_iteration, lp,
+                         lambda carry, records, template: (carry, records))
+
+    def finish(out):
+        carry, records = out
+        return (loop_graph.map_tensors(carry, torch.clone),
+                _stack_records(records, None, axis))
+
+    return loop_graph.run(key, tree, eager, region, finish, starts)
 
 
 def run_gvi(engine: LocalEngine, init_state: GaussianState,
@@ -424,13 +512,8 @@ def optimize(graph: FactorGraph, init_state: GaussianState,
     state and iteration history.  Raises ``ValueError`` for an unknown
     option value and for a kernel forced on where it is not eligible (see
     :mod:`.config`)."""
-    with span("gvi.optimize"):
-        check_config(config, method)
-        set_precision_policy()
-        with torch.no_grad():
-            with span("gvi.engine"):
-                engine = LocalEngine(graph, config, init_state.mu.device)
-            return run_gvi(engine, init_state, config, method)
+    state, history, _ = optimize_from(graph, init_state, config, method)
+    return state, history
 
 
 def optimize_from(graph: FactorGraph, init_state: GaussianState,
@@ -450,8 +533,7 @@ def optimize_from(graph: FactorGraph, init_state: GaussianState,
         with torch.no_grad():
             with span("gvi.engine"):
                 engine = LocalEngine(graph, config, init_state.mu.device)
-            carry, history = run_gvi_carry(engine, init_state, config,
-                                           method, start_iteration,
-                                           loop_state)
+            carry, history = _run_call(engine, init_state, config, method,
+                                       start_iteration, loop_state)
     return carry.state, history, LoopState(carry.temperature,
                                            carry.is_lowtemp, carry.converged)

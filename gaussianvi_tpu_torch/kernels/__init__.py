@@ -3,7 +3,9 @@
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and,
 while a profiler records, marks each launch with its host-side prep as the
 span ``gvi.kernel.<key>``, ``<key>`` its name in :data:`WRAPPERS`
-(``utils.profiling.span``).
+(``utils.profiling.span``).  A call whose loop replays as a CUDA graph
+(``inference/loop_graph.py``) counts the launches its captured run made;
+:func:`loop_graph_counts` counts the calls by how their loop ran.
 """
 
 from .chain import gbp_covariance_logdet_lanes, solve_lanes
@@ -34,6 +36,21 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+# ``optimize`` / ``optimize_from`` calls by how their loop ran, counted by
+# ``inference/loop_graph.py`` and reset with the launch counts
+LOOP_GRAPH_COUNTS = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def loop_graph_counts() -> dict[str, int]:
+    """``optimize`` / ``optimize_from`` calls since the last reset by how
+    their loop ran: ``eager``, ``captured`` into a CUDA graph (and that
+    graph run once), ``replayed``."""
+    return dict(LOOP_GRAPH_COUNTS)
+
+
 def reset_launch_counts() -> None:
+    """Zero the launch counts and the loop graph counts."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for key in LOOP_GRAPH_COUNTS:
+        LOOP_GRAPH_COUNTS[key] = 0

@@ -1512,3 +1512,384 @@ def test_patch_planner_on_kernels_matches_plain(dev):
     got, want = runs["cuda"], runs["cpu"]
     torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-9, atol=0)
     assert torch.equal(got.accepted_step.cpu(), want.accepted_step)
+
+
+# ---------------------------------------------------------------------------
+# the loop replayed as a CUDA graph (inference/loop_graph.py)
+# ---------------------------------------------------------------------------
+
+def _graph_chain(k, dev):
+    """Problem set ``k`` of ``chain_est``'s shape: 64 range chains of N =
+    32, s = 4, float32, 10 iterations."""
+    from gaussianvi_tpu_torch import GVIConfig, stack_problems
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+
+    problems = [build_chain_estimation(num_states=32, dim_x=2, gh_degree=4,
+                                       seed=64 * k + i, dtype=torch.float32,
+                                       device=dev)[:2] for i in range(64)]
+    graph, state = stack_problems(*map(list, zip(*problems)))
+    return graph, state, GVIConfig(niters=10, niters_lowtemp=10,
+                                   step_size_base=0.9)
+
+
+def _graph_plan(k, dev):
+    """Problem set ``k`` of ``point3d_plan``'s shape: one plan request
+    (endpoints moved by set), 64 restarts of N = 20, s = 6, float32, 30
+    iterations across the scheduled switch at 20."""
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    shift = 0.25 * k
+    graph, init, cfg, _ = build_point3d_planning(
+        num_states=20, start=(1.0 + shift, 1.0, 4.5),
+        goal=(8.5, 8.5 - shift, 4.5), dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(k)
+    noise = 0.4 * rng.standard_normal((64, 20, 6))
+    noise[0] = 0.0
+    prec = init.precision
+    state = GaussianState(
+        init.mu + torch.tensor(noise, dtype=torch.float32, device=dev),
+        BlockTridiag(prec.diag.expand(64, 20, 6, 6).clone(),
+                     prec.off.expand(64, 19, 6, 6).clone()))
+    return _batch_graph(graph, 64), state, cfg
+
+
+def _graph_resumed(k, dev):
+    """``chain_est``'s shape over 24 iterations, resumed at iteration 1
+    from the per-problem loop values there: the window holds the late
+    escalations and the convergence freezes."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import run_gvi_carry
+
+    graph, state, cfg = _graph_chain(k, dev)
+    cfg = replace(cfg, niters=24, niters_lowtemp=24)
+    with torch.no_grad():
+        carry, _ = run_gvi_carry(LocalEngine(graph, cfg, dev), state,
+                                 replace(cfg, niters=1))
+    loop = (carry.temperature, carry.is_lowtemp, carry.converged)
+    return graph, carry.state, cfg, 1, loop
+
+
+def _graph_with(make, **fields):
+    """``make``'s problem sets under ``fields`` of their config."""
+    from dataclasses import replace
+
+    def made(k, dev):
+        graph, state, cfg, *rest = make(k, dev)
+        return (graph, state, replace(cfg, **fields), *rest)
+
+    return made
+
+
+_SEPARATE = {"fused_trials": "off", "fused_gradient": "off"}
+LOOP_GRAPH_CASES = {
+    "chain_est": _graph_chain, "point3d_plan": _graph_plan,
+    "resumed": _graph_resumed,
+    "separate": _graph_with(_graph_chain, **_SEPARATE),
+    "point3d separate": _graph_with(_graph_plan, **_SEPARATE),
+    "block-form K4": _graph_with(_graph_chain, use_pallas=True,
+                                 fused_gradient="off"),
+    "bfloat16 offsets": _graph_with(_graph_chain,
+                                    moments_eval_dtype="bfloat16"),
+    "ema": _graph_with(_graph_chain, ema_alpha=0.7),
+    "assoc chain": _graph_with(_graph_chain, chain_impl="assoc",
+                               quad_impl="lanes"),
+    "seq chain": _graph_with(_graph_chain, chain_impl="seq",
+                             quad_impl="lanes"),
+}
+# the kernels each case's route launches, and those it does not
+_FUSED = {"fused_trials", "fused_gradient"}
+LOOP_GRAPH_ROUTES = {
+    "separate": ({"quad_phi", "quad_moments", "solve"}, _FUSED),
+    "point3d separate": ({"quad_phi", "quad_moments", "solve"}, _FUSED),
+    "block-form K4": ({"fused_moments", "fused_trials"}, {"fused_gradient"}),
+    "assoc chain": (_FUSED, {"gbp_covariance_logdet", "solve"}),
+    "seq chain": (_FUSED, {"gbp_covariance_logdet", "solve"}),
+}
+
+
+def _bits(x):
+    """``x``'s bits as integers (NaNs compare by their bits)."""
+    return x if x.dtype == torch.bool else x.view(
+        {4: torch.int32, 8: torch.int64}[x.element_size()])
+
+
+def _assert_same_bits(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def _flat_outputs(out):
+    state, hist, loop = out
+    return (state.mu, state.precision.diag, state.precision.off, *hist,
+            *loop)
+
+
+@pytest.mark.parametrize("case", list(LOOP_GRAPH_CASES))
+def test_loop_graph_replays_the_eager_loop_to_the_bit(dev, case):
+    """Three calls on problem sets A, B, A: the first runs eager, the
+    second captures the loop into a CUDA graph and replays it, the third
+    replays it.  Each call's outputs (every history field, the final
+    state, the loop values) equal the eager loop's on its own set bit for
+    bit, the first call's are unchanged by the later replays, and the
+    launch counts grow by the eager loop's launches on every call."""
+    from gaussianvi_tpu_torch.inference import loop_graph
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import (
+        LoopState,
+        optimize_from,
+        run_gvi_carry,
+    )
+    from gaussianvi_tpu_torch.kernels import (
+        launch_counts,
+        loop_graph_counts,
+        reset_launch_counts,
+    )
+    from gaussianvi_tpu_torch.ops.precision import set_precision_policy
+
+    sets = []
+    for k in (0, 1):
+        made = LOOP_GRAPH_CASES[case](k, dev)
+        graph, state, cfg = made[:3]
+        start, loop = made[3:] if len(made) > 3 else (0, None)
+        sets.append((graph, state, cfg, start,
+                     None if loop is None else LoopState(*loop)))
+    set_precision_policy()
+    eager, grown = [], []
+    for graph, state, cfg, start, loop in sets:
+        before = launch_counts()
+        with torch.no_grad():
+            carry, hist = run_gvi_carry(LocalEngine(graph, cfg, dev), state,
+                                        cfg, "ngd", start, loop)
+        after = launch_counts()
+        grown.append({n: after[n] - before[n] for n in after})
+        eager.append(_flat_outputs((carry.state, hist, LoopState(
+            carry.temperature, carry.is_lowtemp, carry.converged))))
+    if case == "resumed":
+        # an escalation and a convergence freeze inside the window
+        loop, (_, is_lowtemp, converged) = sets[0][4], eager[0][-3:]
+        assert (loop.is_lowtemp & ~is_lowtemp).any()
+        assert not loop.converged.any() and converged.any()
+        assert not converged.all()
+    if case == "point3d_plan":
+        assert sets[0][2].niters_lowtemp < sets[0][2].niters
+    launched, idle = LOOP_GRAPH_ROUTES.get(case, (_FUSED, set()))
+    assert all(grown[0][n] > 0 for n in launched), grown[0]
+    assert not any(grown[0][n] for n in idle), grown[0]
+
+    loop_graph.clear()
+    reset_launch_counts()
+    kinds, outs, first = [], [], None
+    for k in (0, 1, 0):
+        graph, state, cfg, start, loop = sets[k]
+        before, seen = launch_counts(), loop_graph_counts()
+        out = _flat_outputs(optimize_from(graph, state, cfg, "ngd", start,
+                                          loop))
+        after, now = launch_counts(), loop_graph_counts()
+        kinds += [n for n in now if now[n] > seen[n]]
+        assert {n: after[n] - before[n] for n in after} == grown[k]
+        _assert_same_bits(out, eager[k])
+        outs.append(out)
+        if first is None:
+            first = tuple(x.clone() for x in out)
+    assert kinds == ["eager", "captured", "replayed"]
+    _assert_same_bits(outs[0], first)
+    _assert_same_bits(outs[1], eager[1])
+
+
+def _graph_sets(dev, *configs):
+    """``chain_est``'s problem set 0 under each config of ``configs`` (a
+    signature each) and the eager loop's outputs and launches on each."""
+    from dataclasses import replace
+
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import LoopState, run_gvi_carry
+    from gaussianvi_tpu_torch.kernels import launch_counts
+    from gaussianvi_tpu_torch.ops.precision import set_precision_policy
+
+    set_precision_policy()
+    graph, state, base = _graph_chain(0, dev)
+    out = []
+    for fields in configs:
+        cfg = replace(base, **fields)
+        before = launch_counts()
+        with torch.no_grad():
+            carry, hist = run_gvi_carry(LocalEngine(graph, cfg, dev), state,
+                                        cfg)
+        after = launch_counts()
+        out.append((cfg, _flat_outputs((carry.state, hist, LoopState(
+            carry.temperature, carry.is_lowtemp, carry.converged))),
+            {n: after[n] - before[n] for n in after}))
+    return graph, state, out
+
+
+def _graph_calls(graph, state, cfg, n):
+    """``n`` ``optimize_from`` calls: each one's outputs, launches and
+    kind (``loop_graph_counts()``' growth)."""
+    from gaussianvi_tpu_torch.inference.optimize import optimize_from
+    from gaussianvi_tpu_torch.kernels import launch_counts, loop_graph_counts
+
+    calls = []
+    for _ in range(n):
+        before, seen = launch_counts(), loop_graph_counts()
+        out = _flat_outputs(optimize_from(graph, state, cfg))
+        after, now = launch_counts(), loop_graph_counts()
+        calls.append((out, {k: after[k] - before[k] for k in after},
+                      [k for k in now if now[k] > seen[k]]))
+    return calls
+
+
+def test_loop_graph_capture_that_raises_runs_eager(dev, monkeypatch):
+    """A loop that waits for the card (an ``item()`` at its start) cannot
+    be captured: the capturing call and every later one of its signature
+    run eager, with the eager loop's bits and launches, and after it
+    another signature captures and replays to the bit."""
+    import importlib
+    import warnings
+
+    from gaussianvi_tpu_torch.inference import loop_graph
+    from gaussianvi_tpu_torch.kernels import reset_launch_counts
+
+    opt = importlib.import_module("gaussianvi_tpu_torch.inference.optimize")
+
+    graph, state, ((cfg, want, grown), (cfg2, want2, grown2)) = _graph_sets(
+        dev, {}, {"step_decay": 0.7})
+    loop = opt._gvi_loop
+
+    def waits(engine, init_state, *args):
+        float(init_state.mu.sum())
+        return loop(engine, init_state, *args)
+
+    loop_graph.clear()
+    reset_launch_counts()
+    monkeypatch.setattr(opt, "_gvi_loop", waits)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        calls = _graph_calls(graph, state, cfg, 3)
+    assert [w.category for w in caught] == [RuntimeWarning]
+    for out, launches, kinds in calls:
+        assert kinds == ["eager"] and launches == grown
+        _assert_same_bits(out, want)
+    monkeypatch.setattr(opt, "_gvi_loop", loop)
+    calls = _graph_calls(graph, state, cfg2, 3)
+    assert [k for _, _, (k,) in calls] == ["eager", "captured", "replayed"]
+    for out, launches, _ in calls:
+        assert launches == grown2
+        _assert_same_bits(out, want2)
+    loop_graph.clear()
+
+
+def _graph_restarts(b, dev):
+    """``b`` restarts of one problem of ``chain_est``'s shape (N = 32,
+    s = 4, float32), their means drawn apart."""
+    from gaussianvi_tpu_torch.examples.chain_estimation import (
+        build_chain_estimation,
+    )
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+    from gaussianvi_tpu_torch.parallel.restarts import _batch_graph
+
+    graph, init = build_chain_estimation(num_states=32, dim_x=2, gh_degree=4,
+                                         seed=0, dtype=torch.float32,
+                                         device=dev)[:2]
+    gen = torch.Generator(device=dev).manual_seed(b)
+    mu = init.mu + 0.1 * torch.randn((b, *init.mu.shape), generator=gen,
+                                     dtype=torch.float32, device=dev)
+    prec = init.precision
+    return _batch_graph(graph, b), GaussianState(mu, BlockTridiag(
+        prec.diag.expand(b, *prec.diag.shape).clone(),
+        prec.off.expand(b, *prec.off.shape).clone()))
+
+
+def _out_of_memory_scenario(dev):
+    """The card part of
+    ``test_loop_graph_out_of_memory_frees_the_kept_graphs``."""
+    import warnings
+
+    from gaussianvi_tpu_torch import GVIConfig
+    from gaussianvi_tpu_torch.inference import loop_graph
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.optimize import LoopState, run_gvi_carry
+    from gaussianvi_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gaussianvi_tpu_torch.ops.precision import set_precision_policy
+
+    set_precision_policy()
+    cfg = GVIConfig(niters=10, niters_lowtemp=10, step_size_base=0.9)
+    big, small = _graph_restarts(8192, dev), _graph_restarts(1024, dev)
+    before = launch_counts()
+    with torch.no_grad():
+        carry, hist = run_gvi_carry(LocalEngine(small[0], cfg, dev),
+                                    small[1], cfg)
+    after = launch_counts()
+    grown = {n: after[n] - before[n] for n in after}
+    want = _flat_outputs((carry.state, hist, LoopState(
+        carry.temperature, carry.is_lowtemp, carry.converged)))
+    del carry, hist
+    loop_graph.clear()
+    reset_launch_counts()
+    kept = _graph_calls(*big, cfg, 2)
+    assert [k for _, _, (k,) in kept] == ["eager", "captured"]
+    del kept
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(
+        torch.cuda.memory_reserved(dev) / total, dev)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            calls = _graph_calls(*small, cfg, 3)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    kinds = [k for _, _, (k,) in calls]
+    assert kinds in (["eager", "captured", "replayed"],
+                     ["eager", "eager", "eager"])
+    assert sum(w.category is RuntimeWarning
+               for w in caught) == (kinds[1] == "eager")
+    assert not any(isinstance(g, loop_graph._Graph) and
+                   g.static[0].shape[0] == 8192
+                   for g in loop_graph._GRAPHS.values())
+    loop_graph.clear()
+    calls += _graph_calls(*small, cfg, 3)
+    assert [k for _, _, (k,) in calls[3:]] == ["eager", "captured",
+                                                "replayed"]
+    for out, launches, _ in calls:
+        assert launches == grown
+        _assert_same_bits(out, want)
+    loop_graph.clear()
+    torch.cuda.empty_cache()
+
+
+def test_loop_graph_out_of_memory_frees_the_kept_graphs(dev):
+    """A large signature's graph kept (8,192 restarts) while the process
+    is held to the card memory it has: a smaller signature's eager call
+    (1,024 restarts) runs out of memory, the kept graph is dropped and
+    the call runs again.  Its later calls under that limit either capture
+    and replay, or, where the capture itself runs out (the memory given
+    back may lie in segments the graph's pool cannot take), fall back to
+    eager with one warning; with the limit lifted the signature captures
+    and replays.  Every call the eager loop's bits and launches.
+    The scenario runs in a process of its own: the memory earlier tests
+    leave reserved in part-used segments would hold the eager call.
+    """
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys, torch; sys.path[:0] = [sys.argv[1], sys.argv[1] + "
+            "'/tests']; import test_torch_cuda as t; "
+            "t._out_of_memory_scenario(torch.device('cuda', 0))")
+    run = subprocess.run([sys.executable, "-c", code, str(root)], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
