@@ -39,8 +39,9 @@ B=1024, each counted and held to the plain path.  Then K1 and K2 at
 s = 14 (a warp per chain or pair, ``csrc/chain_wide.cu``) and s = 1 at the
 7-DOF arm planner's and Barfoot's shapes and at the arm's real iterate
 (the layouts and guard cases ride in ``CHAIN_LAYOUTS`` and
-``guard_cases``), the arm planner at B=1024 restarts on K1 / K2 (float32
-and float64, the kernel path against the plain path over all 15
+``guard_cases``), the arm planner at B=1024 restarts on K1 / K2 and its
+K3 instance (float32 and float64, the kernel path against the plain path
+over all 15
 iterations), and the Barfoot 1-D example in float64 on K1 / K2 at s = 1
 against the reference's golden trajectories.  Then the loop's further
 options: K3 (both variants), K5 and K6 (``full``, ``accum``, ``solve``)
@@ -2895,6 +2896,10 @@ def s6_runs(card, dev):
 
 ARM_B, ARM_ITERS = 1024, 15     # the arm planner's restarts, iterations
 ARM_B_PLAIN = 64
+# operations of one arm cost evaluation (csrc/costs.cuh ArmSdfCost): a
+# joint 66 (the angle's sine and cosine, the transform's products), a
+# sphere 75 (its center 18, the 3-D lookup and hinge 55, the sum 2)
+ARM_COST_OPS = 7 * 66 + 7 * 75
 # the float32 guard may poison a restart's first E[phi] (NaN from the
 # first record on, as in the JAX package in float32): at most this share
 ARM_POISON_MAX = 0.05
@@ -3014,13 +3019,117 @@ def wide_kernel_checks(dev):
           + "; at the arm's iterate " + "; ".join(
               f"{nm} {a:.3e} / {b_:.3e}" for nm, (a, b_) in held.items()),
           flush=True)
+    out.update(arm_quad_checks(dev, it64))
+    return out
+
+
+def arm_quad_checks(dev, it64):
+    """The arm's K3 instance (``"arm_sdf"``, ``csrc/quad_arm.cu``) at the
+    shapes ``optimize`` gives it on the arm planner, against the plain
+    form on the same inputs: phi on the trial batch, 11 x 1024 restarts x
+    10 factors (means jittered by 0.05 about the arm's iterate ``it64``,
+    the iterate's covariances), and the moments on the 1024 x 10 factors
+    at the iterate; float64 by :func:`compare_conditioned`, float32 by
+    :func:`compare_vs_f64` (no more guard decisions apart from float64's
+    than the plain form takes); each wrapper counted once a call and
+    launched twice for the same bits.  Times each in float32 beside the
+    plain form, with its bound and ptxas registers: ``{(14, name): row}``
+    for ``quad_phi`` / ``quad_moments``."""
+    from gaussianvi_tpu_torch.kernels import _build, launch_counts, quad
+    from gaussianvi_tpu_torch.ops.blocktridiag import (
+        BlockTridiag,
+        gbp_covariance_logdet,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 15)
+    mu64, pd64, po64 = it64
+    cov64 = gbp_covariance_logdet(BlockTridiag(pd64, po64))[0]
+    b, n, d = mu64.shape
+    jitter = torch.tensor(0.05 * rng.standard_normal((TRIALS, b, n, d)),
+                          dtype=f64, device=dev)
+    fbs = {dt: arm_problem(dt, dev, 1)[0].nonlinear[0] for dt in (f64, f32)}
+    check(all(fb.kernel_cost == "arm_sdf" for fb in fbs.values()),
+          "arm K3: the arm's batch names no kernel cost")
+    args3, args4 = {}, {}
+    for dt, fb in fbs.items():
+        mu, cov = mu64.to(dt), cov64.to(dt)
+        rule = (fb.nodes, fb.weights, "arm_sdf", fb.kernel_params)
+        args3[dt] = ((mu + jitter.to(dt)).contiguous(),
+                     cov.expand(TRIALS, *cov.shape).contiguous(), *rule)
+        args4[dt] = (mu, cov, *rule)
+    rdim = fbs[f64].quad_rdim
+    cases = {
+        "quad_phi": ("quad_arm_phi", args3, lambda dt, fn: (fn(
+            *args3[dt], nonneg=True, field=fbs[dt].kernel_field),)),
+        "quad_moments": ("quad_arm_moments", args4, lambda dt, fn: fn(
+            *args4[dt], rdim=rdim, field=fbs[dt].kernel_field)),
+    }
+    wrappers = {"quad_phi": (quad.quad_lanes_phi, quad.quad_phi_plain),
+                "quad_moments": (quad.quad_lanes_moments,
+                                 quad.quad_moments_plain)}
+    m = fbs[f32].nodes.shape[0]
+    work = {name: (TRIALS if name == "quad_phi" else 1) * b * n * quad_flops(
+        d, m, rdim, name == "quad_moments", cost=ARM_COST_OPS)
+        for name in cases}
+    regs = {(r["dtype"], bool(r["ints"][-1])): r for r in _build.ptxas_report()
+            if r["kernel"] == "quad_arm_kernel"}
+    out, errs = {}, {}
+    for name, (key, args, call) in cases.items():
+        kern, plain = wrappers[name]
+
+        def launched(dt, kern=kern, key=key, call=call):
+            before = launch_counts()[key]
+            got = call(dt, kern)
+            check(launch_counts()[key] == before + 1,
+                  f"arm K3 {name} {dt}: not one {key} launch")
+            return got
+
+        k = {dt: check_repeatable(f"arm K3 {name} {dt}",
+                                  lambda dt=dt: launched(dt))
+             for dt in (f64, f32)}
+        p = {dt: call(dt, plain) for dt in (f64, f32)}
+        errs[name] = (
+            max(compare_conditioned(f"arm K3 {name}[{i}] float64", a, b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f64], p[f64], p[f32]))),
+            max(compare_vs_f64(f"arm K3 {name}[{i}] float32", a, b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f32], p[f32], p[f64]))),
+            int(torch.isnan(k[f32][0]).sum()), int(torch.isnan(p[f32][0]).sum()))
+        # bytes: every operand read once, the params (one row every factor
+        # reads) and the field once, the outputs written once
+        fb = fbs[f32]
+        ops = (*args[f32][:4], fb.kernel_params.reshape(-1, quad.ARM_NP)[:1],
+               fb.kernel_field)
+        with_moments = name == "quad_moments"
+        r32, r64 = (regs.get((dt, with_moments), {})
+                    for dt in ("float32", "float64"))
+        out[14, name] = dict(
+            max_abs_err=errs[name][0], err_dtype="float64",
+            max_abs_err_f32=errs[name][1],
+            ms=cuda_ms(lambda call=call, kern=kern: call(f32, kern)),
+            ms_flushed_l2=cuda_ms_flushed(
+                lambda call=call, kern=kern: call(f32, kern)),
+            plain_ms=cuda_ms(lambda call=call, plain=plain: call(f32, plain),
+                             reps=1),
+            library_ms=None, kernel="quad_arm_kernel",
+            registers=(r32.get("registers"), r64.get("registers")),
+            spills=((r32.get("spill_stores"), r32.get("spill_loads")),
+                    (r64.get("spill_stores"), r64.get("spill_loads"))),
+            **bound(ops, k[f32], work[name]))
+    print("[s=14 arm K3] max abs err vs plain at the cell's shapes, f64 / "
+          "f32 (two launches bit-identical each, one launch a call): "
+          + "; ".join(f"{nm} {e64:.3e} / {e32:.3e}, f32 NaN {nk} (plain "
+                      f"{np_})" for nm, (e64, e32, nk, np_) in errs.items())
+          + "; registers f32 / f64 " + "; ".join(
+              f"{nm} {out[14, nm]['registers']}" for nm in cases),
+          flush=True)
     return out
 
 
 def arm_runs(card, dev):
     """The 7-DOF arm planner through ``optimize`` under the defaults on
-    the card (K1 / K2 at s = 14 and the plain quadrature: its collision
-    batch is ``cost_fn``-only, as in the JAX package) at B = 1024 restarts
+    the card (K1 / K2 at s = 14 and the arm's K3 instance, ``"arm_sdf"``,
+    ``csrc/quad_arm.cu``) at B = 1024 restarts
     in float32, counted: every restart's costs finite and non-increasing,
     or NaN from the first record on where the float32 guard poisons the
     first E[phi] (the same restarts the JAX package poisons in float32,
@@ -3042,10 +3151,13 @@ def arm_runs(card, dev):
     plain = replace(cfg, chain_impl="seq", quad_impl="xla")
     (state32, hist32), n = counted(optimize, graph32, inits32, cfg)
     print(f"[arm path] launches {n}", flush=True)
+    arm_keys = ("gbp_covariance_logdet", "solve", "quad_arm_phi",
+                "quad_arm_moments")
     check(n["gbp_covariance_logdet"] > 0 and n["solve"] == ARM_ITERS
-          and all(v == 0 for k, v in n.items()
-                  if k not in ("gbp_covariance_logdet", "solve")),
-          f"arm: not K1 / K2 with the plain quadrature: {n}")
+          and n["quad_arm_phi"] == ARM_ITERS + 1
+          and n["quad_arm_moments"] == ARM_ITERS
+          and all(v == 0 for k, v in n.items() if k not in arm_keys),
+          f"arm: not K1 / K2 with the arm's K3: {n}")
     _, hist64 = optimize(graph64, inits64, cfg)
     check_costs("arm path float64", hist64, ARM_B, ARM_ITERS, nonneg=True)
     poisoned = torch.isnan(hist32.cost[:, 0])
@@ -3074,13 +3186,13 @@ def arm_runs(card, dev):
     s8 = subset(inits64, 8)
     hp = optimize(graph64, s8, plain)[1]
     hk = optimize(graph64, s8, cfg)[1]
-    held_to_plain("arm chain kernels vs plain path", hk, hp, dev,
+    held_to_plain("arm kernels vs plain path", hk, hp, dev,
                   tag="s=14 end to end")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     nudged = GaussianState(s8.mu * (1 + 1e-15 * torch.randn(
         s8.mu.shape, generator=gen, dtype=f64, device=dev)), s8.precision)
     hn = optimize(graph64, nudged, plain)[1]
-    for name, a, b_ in (("chain kernels vs plain path", hk, hp),
+    for name, a, b_ in (("kernels vs plain path", hk, hp),
                         ("plain path vs itself from means nudged by 1e-15",
                          hn, hp)):
         rel = ((a.cost - b_.cost).abs() / b_.cost.abs()).max(0).values
@@ -3095,7 +3207,7 @@ def arm_runs(card, dev):
              "arm plain": rate(lambda: optimize(
                  graph32, subset(inits32, ARM_B_PLAIN), plain),
                  ARM_B_PLAIN * ARM_ITERS, runs=1)}
-    print(f"[throughput] {card}: arm (K1 / K2 at s = 14) {rates['arm']:.1f} "
+    print(f"[throughput] {card}: arm (K1 / K2 at s = 14, K3) {rates['arm']:.1f} "
           f"prob-iters/s (B={ARM_B}, N={hist32.mu.shape[2]}, {ARM_ITERS} "
           f"iters), plain {rates['arm plain']:.1f} (B={ARM_B_PLAIN}); f32, "
           f"median of 3, plain one run", flush=True)
@@ -4857,13 +4969,16 @@ def main() -> int:
     for (s, name), r in wide_kern.items():
         library = ("" if r["library_ms"] is None
                    else f", library {r['library_ms']:.4f} ms")
+        shapes = ("11 x 1024 x 10 factors / 1024 x 10: the arm's K3"
+                  if name.startswith("quad") else
+                  "11 x 1024 chains of N = 10 / the pair of 1024: the arm's"
+                  if s == 14 else "11 x 1024 chains of N = 1 / the pair of "
+                  "1024: a batch of Barfoot problems")
         print(f"[kernel time] {card}: s={s} {name} {r['ms']:.4f} ms "
               f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
               f"call), plain {r['plain_ms']:.4f} ms{library}, bound "
-              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, "
-              + ("11 x 1024 chains of N = 10 / the pair of 1024: the arm's"
-                 if s == 14 else "11 x 1024 chains of N = 1 / the pair of "
-                 "1024: a batch of Barfoot problems") + ")", flush=True)
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (f32, {shapes})",
+              flush=True)
 
     # ---- bfloat16 offsets in K3, K5 and K6, their paths; resume; the
     # sequential line search and EMA; LTV estimation ----
@@ -4899,6 +5014,9 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms (f32)", flush=True)
 
     csrc, jk = "gaussianvi_tpu_torch/csrc/", "gaussianvi_tpu/kernels/"
+    # the table's rows: the wrappers of the JAX package's kernels (the
+    # arm's K3 wrappers, quad_arm_*, are K3's instance: the s14 entries of
+    # quad_phi / quad_moments)
     sources = {
         "gbp_covariance_logdet": ("chain.cuh", "chain_lanes.py:131", "fused"),
         "solve": ("chain.cuh", "chain_lanes.py:418", "separate"),
@@ -4945,7 +5063,7 @@ def main() -> int:
                   + ("selected blocks of the inverse and the log det "
                      "together" if name == "gbp_covariance_logdet" else
                      "a custom fused or quadrature function")
-                  for name in WRAPPERS)
+                  for name in sources)
     # the s = 6 instances: each model's launches (the point planner's
     # fused path at B = 1024, its separate path for K2 and K3 moments, the
     # quadrotor's K1 / K2, chain estimation at dim_x = 3 fused, and
@@ -4978,21 +5096,24 @@ def main() -> int:
                 row[path]["source"] = csrc + s6_sources[name]
         return row
 
-    # the s = 14 and s = 1 instances (csrc/chain_wide.cu): their launches
-    # on the arm planner's path at B = 1024 and on Barfoot's NGD run, their
-    # times and bounds at the shapes of wide_kernel_checks
+    # the s = 14 and s = 1 instances (csrc/chain_wide.cu, and the arm's K3
+    # in csrc/quad_arm.cu): their launches on the arm planner's path at
+    # B = 1024 and on Barfoot's NGD run, their times and bounds at the
+    # shapes of wide_kernel_checks
     wide_paths = {14: ("arm default", arm_counts),
                   1: ("barfoot ngd", barfoot_counts["ngd"])}
+    arm_quad = {"quad_phi": "quad_arm_phi", "quad_moments": "quad_arm_moments"}
 
     def wide_row(s, name):
         if (s, name) not in wide_kern:
             return dict(note=f"not on the s = {s} model's path (K1 / K2 and "
-                        "the plain quadrature)")
+                        + ("the arm's K3)" if s == 14
+                           else "the plain quadrature)"))
         path, n = wide_paths[s]
-        return dict(path=path, launches=n[name],
-                    source=csrc + ("chain_wide.cu" if s == 14
-                                   else "chain.cuh via chain_wide.cu"),
-                    **wide_kern[s, name])
+        source = ("quad_arm.cu" if name in arm_quad else "chain_wide.cu"
+                  if s == 14 else "chain.cuh via chain_wide.cu")
+        return dict(path=path, launches=n[arm_quad.get(name, name)],
+                    source=csrc + source, **wide_kern[s, name])
 
     # the bfloat16 instances: their launches on the bfloat16 paths (fused
     # at B = 1024, separate at B = 256), their times beside the
@@ -5055,7 +5176,7 @@ def main() -> int:
                     "ema": option_counts["ema"], "ltv": ltv_counts,
                     **shard_extra["options"], "sp lanes": shard_extra["sp"]}
     check(all(wide_row(s, name)["launches"] > 0 for s, name in wide_kern),
-          "an s = 14 or s = 1 chain kernel was launched on none of its paths")
+          "an s = 14 or s = 1 kernel was launched on none of its paths")
     rows = [dict(name=name, route="cuda", source=csrc + sources[name][0],
                  replaces=jk + sources[name][1], path=sources[name][2],
                  launches=counts[sources[name][2]][name],
@@ -5077,7 +5198,7 @@ def main() -> int:
                          "and timed against them", **assoc}
                         if name in ("gbp_covariance_logdet", "solve")
                         else None))
-            for name, note in zip(WRAPPERS, no_library)]
+            for name, note in zip(sources, no_library)]
     check(all(v["launches"] > 0 for name in s6_path
               for v in s6_row(name).values()),
           "an s = 6 kernel was launched on none of its paths")

@@ -12,7 +12,8 @@
 // Contract: ``kParams`` is P; ``kField`` says whether the cost reads a
 // field; ``eval(x, p, field)`` returns phi at the point x of the factor's
 // local dimension D given the factor's P params and the batch's field (a
-// cost that reads none ignores it).
+// cost that reads none ignores it).  ArmSdfCost, with 77 params, takes a
+// pointer to the factor's row instead of a copy in registers.
 #pragma once
 
 #include "smallmat.cuh"
@@ -25,6 +26,7 @@ enum CostId : int {
   kSdf3dCost = 2,
   kPlanarPatchCost = 3,
   kSdf3dPatchCost = 4,
+  kArmSdfCost = 5,
 };
 
 // A batch's field: nz x rows x cols values, row-major (data[z, row, col]),
@@ -136,6 +138,52 @@ struct PlanarSdfCost {
   }
 };
 
+__device__ __forceinline__ void sincos_of(float v, float& s, float& c) {
+  sincosf(v, &s, &c);
+}
+__device__ __forceinline__ void sincos_of(double v, double& s, double& c) {
+  sincos(v, &s, &c);
+}
+
+// The clamped trilinear lookup of SDF3D.signed_distance
+// (gaussianvi_tpu/factors/sdf.py) at (x, y, z) in a field with origin
+// (x0, y0, z0) and cubic cells: the clip to the extent, the division by
+// the cell, floor, the corner indices clamped, the blend along rows, then
+// columns, then z (kernels/quad.py _trilinear).  A NaN coordinate stays
+// NaN: its corner index converts to 0 and its weights are NaN.
+template <typename T>
+__device__ __forceinline__ T trilinear(const Field<T>& f, T x, T y, T z,
+                                       T x0, T y0, T z0, T cell) {
+  const T px = clip(x, x0, x0 + T(f.cols - 1) * cell);
+  const T py = clip(y, y0, y0 + T(f.rows - 1) * cell);
+  const T pz = clip(z, z0, z0 + T(f.nz - 1) * cell);
+  const T c = (px - x0) / cell;
+  const T r = (py - y0) / cell;
+  const T zz = (pz - z0) / cell;
+  const T lr = dfloor(r), lc = dfloor(c), lz = dfloor(zz);
+  const int lri = min(max(static_cast<int>(lr), 0), f.rows - 1);
+  const int lci = min(max(static_cast<int>(lc), 0), f.cols - 1);
+  const int lzi = min(max(static_cast<int>(lz), 0), f.nz - 1);
+  const int hri = min(lri + 1, f.rows - 1);
+  const int hci = min(lci + 1, f.cols - 1);
+  const int hzi = min(lzi + 1, f.nz - 1);
+  const T wr = r - lr, wc = c - lc, wz = zz - lz;
+  const int64_t plane = (int64_t)f.rows * f.cols;
+  const T* lo = f.data + lzi * plane;
+  const T* hi = f.data + hzi * plane;
+  const int64_t l_l = (int64_t)lri * f.cols + lci;
+  const int64_t h_l = (int64_t)hri * f.cols + lci;
+  const int64_t l_h = (int64_t)lri * f.cols + hci;
+  const int64_t h_h = (int64_t)hri * f.cols + hci;
+  const T c00 = (T(1) - wr) * __ldg(lo + l_l) + wr * __ldg(lo + h_l);
+  const T c01 = (T(1) - wr) * __ldg(hi + l_l) + wr * __ldg(hi + h_l);
+  const T c10 = (T(1) - wr) * __ldg(lo + l_h) + wr * __ldg(lo + h_h);
+  const T c11 = (T(1) - wr) * __ldg(hi + l_h) + wr * __ldg(hi + h_h);
+  const T c0 = (T(1) - wc) * c00 + wc * c10;
+  const T c1 = (T(1) - wc) * c01 + wc * c11;
+  return (T(1) - wz) * c0 + wz * c1;
+}
+
 // 3-D point robot against a 3-D signed-distance field
 // (gaussianvi_tpu/factors/robots.py make_point3d_obstacle_factor: one ball
 // at (x[0], x[1], x[2])): the clamped trilinear lookup of
@@ -144,9 +192,8 @@ struct PlanarSdfCost {
 // data[z, row, col], row <-> y, col <-> x, origin (x0, y0, z0), cubic
 // cells.  Params: eps, radius, sigma, slope, x0, y0, z0, cell.
 //
-// The plain version's arithmetic step for step: the clip to the extent,
-// the division by the cell, floor, the corner indices clamped, the blend
-// along rows, then columns, then z; a NaN coordinate stays NaN.
+// The plain version's arithmetic step for step (trilinear above), then
+// the hinge; a NaN coordinate stays NaN.
 //
 // What it costs: three divisions, three floors and eight gathers a point.
 // The point planner's 50^3 field is 500 KB in float32 (1 MB in float64):
@@ -165,38 +212,96 @@ struct Sdf3dCost {
                                            const T (&p)[kParams],
                                            const Field<T>& f) {
     static_assert(D >= 3, "the 3-D SDF cost reads (x[0], x[1], x[2])");
-    const T x0 = p[4], y0 = p[5], z0 = p[6], cell = p[7];
-    const T px = clip(x[0], x0, x0 + T(f.cols - 1) * cell);
-    const T py = clip(x[1], y0, y0 + T(f.rows - 1) * cell);
-    const T pz = clip(x[2], z0, z0 + T(f.nz - 1) * cell);
-    const T c = (px - x0) / cell;
-    const T r = (py - y0) / cell;
-    const T zz = (pz - z0) / cell;
-    const T lr = dfloor(r), lc = dfloor(c), lz = dfloor(zz);
-    const int lri = min(max(static_cast<int>(lr), 0), f.rows - 1);
-    const int lci = min(max(static_cast<int>(lc), 0), f.cols - 1);
-    const int lzi = min(max(static_cast<int>(lz), 0), f.nz - 1);
-    const int hri = min(lri + 1, f.rows - 1);
-    const int hci = min(lci + 1, f.cols - 1);
-    const int hzi = min(lzi + 1, f.nz - 1);
-    const T wr = r - lr, wc = c - lc, wz = zz - lz;
-    const int64_t plane = (int64_t)f.rows * f.cols;
-    const T* lo = f.data + lzi * plane;
-    const T* hi = f.data + hzi * plane;
-    const int64_t l_l = (int64_t)lri * f.cols + lci;
-    const int64_t h_l = (int64_t)hri * f.cols + lci;
-    const int64_t l_h = (int64_t)lri * f.cols + hci;
-    const int64_t h_h = (int64_t)hri * f.cols + hci;
-    const T c00 = (T(1) - wr) * __ldg(lo + l_l) + wr * __ldg(lo + h_l);
-    const T c01 = (T(1) - wr) * __ldg(hi + l_l) + wr * __ldg(hi + h_l);
-    const T c10 = (T(1) - wr) * __ldg(lo + l_h) + wr * __ldg(lo + h_h);
-    const T c11 = (T(1) - wr) * __ldg(hi + l_h) + wr * __ldg(hi + h_h);
-    const T c0 = (T(1) - wc) * c00 + wc * c10;
-    const T c1 = (T(1) - wc) * c01 + wc * c11;
-    const T sd = (T(1) - wz) * c0 + wz * c1;
+    const T sd = trilinear(f, x[0], x[1], x[2], p[4], p[5], p[6], p[7]);
     const T e = p[0] + p[1] - sd;
     const T err = (e < T(0) ? T(0) : e) * p[3];
     return err * err * p[2];
+  }
+};
+
+// 7-DOF arm against a 3-D signed-distance field
+// (gaussianvi_tpu/factors/robots.py make_arm_obstacle_factor, the
+// reference's CudaOperation_3dArm): Denavit-Hartenberg forward kinematics
+// over the 7 joint angles x[0..6] (the state's leading half), one
+// collision sphere in each listed frame, the 3-D field's trilinear lookup
+// at each sphere's center (trilinear above, Sdf3dCost's) and the hinge
+// summed over the spheres,
+//   phi = sum_s sigma * (slope * max(0, eps + radius_s - sd(center_s)))^2.
+// Joint j's transform is [[ct, -st ca, st sa, a ct], [st, ct ca, -ct sa,
+// a st], [0, sa, ca, d]] at theta = x[j] + theta_bias[j]; frame j is the
+// product of joints 0..j (DHForwardKinematics.joint_transforms).  Params
+// (kParams, the offsets below): a, cos alpha, sin alpha, d, theta_bias
+// (7 each), each sphere's frame index (non-decreasing, checked where the
+// factor is built), centers in their frames (7 x 3), radii (7), eps,
+// sigma, slope, x0, y0, z0, cell.  Every factor of a problem shares them;
+// they are read in place through the read-only path, not copied into
+// registers first, since a lane takes each value once a node.
+//
+// The arithmetic is the plain version's (kernels/quad.py
+// _arm_sdf_cost_packed) step for step: the rotation and the origin
+// updated row by row as T @ A adds its terms, a sphere's center as
+// origin + R c, the spheres' terms summed in order.  A NaN angle gives
+// NaN sines, centers, weights and cost, as in Sdf3dCost.
+//
+// What it costs, a node: 7 sines and cosines, 7 x 27 products for the
+// frames, 7 x (9 + 55) for the spheres and their lookups: about 700
+// operations and 56 gathers of a 40^3 field that stays in L2 (256 KB in
+// float32).  The kernel that takes it is csrc/quad_arm.cu.
+struct ArmSdfCost {
+  static constexpr int kJoints = 7;
+  static constexpr int kSpheres = 7;
+  static constexpr int kA = 0, kCosAlpha = 7, kSinAlpha = 14, kD = 21,
+                       kBias = 28, kFrames = 35, kCenters = 42, kRadii = 63,
+                       kEps = 70, kSigma = 71, kSlope = 72, kOrigin = 73,
+                       kCell = 76;
+  static constexpr int kParams = 77;
+  static constexpr bool kField = true;
+  static constexpr int kFieldDims = 3;
+
+  template <typename T, int D>
+  __device__ __forceinline__ static T eval(const T (&x)[D], const T* p,
+                                           const Field<T>& f) {
+    static_assert(D >= kJoints, "the arm cost reads the 7 joint angles");
+    const T eps = __ldg(p + kEps), sigma = __ldg(p + kSigma);
+    const T slope = __ldg(p + kSlope), cell = __ldg(p + kCell);
+    const T x0 = __ldg(p + kOrigin), y0 = __ldg(p + kOrigin + 1);
+    const T z0 = __ldg(p + kOrigin + 2);
+    T r[3][3] = {{T(1), T(0), T(0)}, {T(0), T(1), T(0)}, {T(0), T(0), T(1)}};
+    T o[3] = {T(0), T(0), T(0)};
+    T total = T(0);
+    int s = 0;
+#pragma unroll
+    for (int j = 0; j < kJoints; ++j) {
+      T st, ct;
+      sincos_of(x[j] + __ldg(p + kBias + j), st, ct);
+      const T ca = __ldg(p + kCosAlpha + j), sa = __ldg(p + kSinAlpha + j);
+      const T a = __ldg(p + kA + j), d = __ldg(p + kD + j);
+      const T a01 = -st * ca, a02 = st * sa, a11 = ct * ca, a12 = -ct * sa;
+      const T a03 = a * ct, a13 = a * st;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const T r0 = r[i][0], r1 = r[i][1], r2 = r[i][2];
+        r[i][0] = r0 * ct + r1 * st;
+        r[i][1] = r0 * a01 + r1 * a11 + r2 * sa;
+        r[i][2] = r0 * a02 + r1 * a12 + r2 * ca;
+        o[i] = r0 * a03 + r1 * a13 + r2 * d + o[i];
+      }
+#pragma unroll 1
+      for (; s < kSpheres && static_cast<int>(__ldg(p + kFrames + s)) == j;
+           ++s) {
+        const T cx = __ldg(p + kCenters + 3 * s);
+        const T cy = __ldg(p + kCenters + 3 * s + 1);
+        const T cz = __ldg(p + kCenters + 3 * s + 2);
+        const T px = o[0] + (r[0][0] * cx + r[0][1] * cy + r[0][2] * cz);
+        const T py = o[1] + (r[1][0] * cx + r[1][1] * cy + r[1][2] * cz);
+        const T pz = o[2] + (r[2][0] * cx + r[2][1] * cy + r[2][2] * cz);
+        const T sd = trilinear(f, px, py, pz, x0, y0, z0, cell);
+        const T e = eps + __ldg(p + kRadii + s) - sd;
+        const T err = (e < T(0) ? T(0) : e) * slope;
+        total = total + err * err * sigma;
+      }
+    }
+    return total;
   }
 };
 

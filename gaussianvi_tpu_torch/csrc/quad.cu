@@ -11,7 +11,8 @@
 // either with the TPU kernel's eval_dtype: quant = 1 rounds every sigma
 // offset through bfloat16 and back (sigma.cuh place_node).
 // The kernel body is quad.cuh's, which the block-form moments kernel
-// (fused_moments.cu, K4) shares.
+// (fused_moments.cu, K4) shares; the 7-DOF arm's cost (kArmSdfCost, d =
+// 14) takes quad_arm.cu's layout through the same entry.
 //
 // What bounds it on the card: bytes and the arithmetic per node are both
 // small.  The phi variant on the line-search batch (11 x 1024 x 32

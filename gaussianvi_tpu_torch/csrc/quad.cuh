@@ -78,6 +78,12 @@ struct QuadOperands {
   int quant;         // 1: offsets rounded through bfloat16 (sigma.cuh)
 };
 
+// K3 at the 7-DOF arm's shapes (d = 14, ArmSdfCost, the joint-marginal
+// rule): a factor on a group of 16 lanes, built in quad_arm.cu; -1 for a
+// layout or rule it is not built for.
+template <typename T, bool WithMoments>
+int launch_quad_arm(const QuadOperands<T>& op, int threads, cudaStream_t st);
+
 // Internal linkage: quad.cu and fused_moments.cu each build their own
 // instances, so no kernel is registered twice.
 namespace {
@@ -181,8 +187,9 @@ int launch_quad(const QuadOperands<T>& op, int threads, cudaStream_t st) {
 
 // The C entries' common body: the instantiated (d, cost, np)
 // combinations (range at d = 2, 4, 6; the planar SDF and its patch mode at
-// d = 2, 4; the 3-D SDF and its patch mode at d = 6; Windows = false
-// leaves the two patch-mode costs out), -1 for any other; strides and the
+// d = 2, 4; the 3-D SDF and its patch mode at d = 6; the arm at d = 14,
+// quad_arm.cu; Windows = false, K4's, leaves the two patch-mode costs and
+// the arm out), -1 for any other; strides and the
 // params' period in elements / factors; field: the cost's depth x rows x
 // cols field (depth 1 for a planar one; null, 0, 0, 0 for a cost without
 // one); rdim = d disables the lift; quant 1 rounds the offsets through
@@ -229,6 +236,11 @@ int quad_entry(int d, int cost, int np, const void* mu,
       field_ok<Sdf3dCost>(op.field))
     return launch_quad<T, 6, Sdf3dCost, WithMoments>(op, threads, st);
   if constexpr (Windows) {
+    if (cost == kArmSdfCost)
+      return d == 14 && np == ArmSdfCost::kParams &&
+                     field_ok<ArmSdfCost>(op.field)
+                 ? launch_quad_arm<T, WithMoments>(op, threads, st)
+                 : -1;
     if (cost == kSdf3dPatchCost && d == 6 &&
         np == Sdf3dPatchCost::kParams && field_ok<Sdf3dPatchCost>(op.field))
       return launch_quad<T, 6, Sdf3dPatchCost, WithMoments>(op, threads, st);

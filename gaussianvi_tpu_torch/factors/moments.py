@@ -186,7 +186,8 @@ def kernel_covers(fb) -> str | None:
     if fb.kernel_params is None:
         return covers(None, fb.dim, 0, fb.nodes.shape[0], fb.nodes.dtype)
     return covers(fb.kernel_cost, fb.dim, fb.kernel_params.shape[-1],
-                  fb.nodes.shape[0], fb.nodes.dtype, fb.kernel_field)
+                  fb.nodes.shape[0], fb.nodes.dtype, fb.kernel_field,
+                  fb.quad_rdim)
 
 
 def kernel_params_at(fb, mu_k):

@@ -16,9 +16,12 @@ What differs from the JAX package:
   ``PlanarSdfCost``, ``Sdf3dCost``) and carry their packed params
   ``[eps, radius, sigma, slope, x0, y0, (z0,) cell]`` and the field, which
   the quadrature kernels (K3, and K5 / K6 on the fused path) read from
-  device memory; ``interp="matmul"`` and the other robots (the quadrotor's
-  five balls, the arm) give a ``cost_fn``-only batch, which the plain
-  routes take.
+  device memory.  The 7-DOF arm's factor with the gather names
+  ``"arm_sdf"`` (``ArmSdfCost``: the DH chain, its spheres and the 3-D
+  field; K3 alone, ``csrc/quad_arm.cu``) and carries the chain's constants
+  as its params, one row every factor shares (an expanded view, not a
+  copy).  ``interp="matmul"`` and the other robots (the quadrotor's five
+  balls) give a ``cost_fn``-only batch, which the plain routes take.
 * ``patch_size`` (the patch mode) names the window functors
   ``"planar_patch"`` / ``"sdf3d_patch"`` (``PlanarPatchCost``,
   ``Sdf3dPatchCost``): the same lookup with each coordinate clipped to a
@@ -46,6 +49,7 @@ import torch
 from ..device import resolve_device
 from ..quadrature.table import get_rule
 from .base import NonlinearFactorBatch, detect_slice_offset, marginal_rule
+from ..kernels.quad import ARM_JOINTS, ARM_NP, ARM_SPHERES
 from .sdf import SDF3D, PlanarSDF, hinge_obstacle_cost
 
 def planar_point_balls(pose: torch.Tensor) -> torch.Tensor:
@@ -429,15 +433,17 @@ def make_arm_obstacle_factor(
 ) -> NonlinearFactorBatch:
     """Arm collision factor: DH forward kinematics -> sphere centers -> 3-D
     SDF -> hinge (state = [theta; theta_dot], the first ``n_joints``
-    entries are joint angles); joint-angle-marginal rule.  A
-    ``cost_fn``-only batch, on the plain routes.  ``device=None`` is the
-    card."""
+    entries are joint angles); joint-angle-marginal rule.  With the gather
+    a 7-joint chain of 7 spheres whose frames do not decrease, on the
+    marginal rule, also names the kernel cost ``"arm_sdf"``
+    (:func:`_arm_kernel_params`); any other arm is a ``cost_fn``-only
+    batch, on the plain routes.  ``device=None`` is the card."""
     device = resolve_device(device)
     sdf = sdf.to(dtype, device)
     radii = torch.as_tensor(radii, dtype=dtype, device=device)
     nj = n_joints if n_joints is not None else state_dim // 2
-    lookup = (sdf.signed_distance_matmul
-              if _resolve_interp(interp) == "matmul" else sdf.signed_distance)
+    gather = _resolve_interp(interp) != "matmul"
+    lookup = sdf.signed_distance if gather else sdf.signed_distance_matmul
 
     def cost_fn(x, params):
         del params
@@ -445,5 +451,41 @@ def make_arm_obstacle_factor(
         return hinge_obstacle_cost(sd, epsilon, radii, cost_sigma, slope)
 
     rdim = nj if (marginal_quad and nj < state_dim) else None
+    kernel = {}
+    row = (_arm_kernel_params(fk, radii, sdf, cost_sigma, epsilon, slope)
+           if gather and rdim == ARM_JOINTS else None)
+    if row is not None:
+        kernel = dict(kernel_cost="arm_sdf",
+                      kernel_params=row.expand(
+                          len(np.atleast_1d(start_indices)), ARM_NP),
+                      kernel_field=sdf.data)
     return _obstacle_batch(cost_fn, start_indices, state_dim, rdim,
-                           gh_degree, dtype, device)
+                           gh_degree, dtype, device, **kernel)
+
+
+def _arm_kernel_params(fk: DHForwardKinematics, radii, sdf: SDF3D,
+                      cost_sigma, epsilon, slope):
+    """``ArmSdfCost``'s params (``kernels.quad.ARM_PARAMS``: the DH chain
+    with its alphas as cosine and sine, the spheres' frames, centers and
+    radii, the hinge's constants, the field's origin and cell) in the
+    field's dtype and device, or None for a chain the functor does not
+    take: other than 7 joints and 7 spheres, or frames that decrease or
+    leave the chain."""
+    frames = fk.frames.detach().cpu().tolist()
+    if (fk.a.shape[0] != ARM_JOINTS or len(frames) != ARM_SPHERES
+            or frames != sorted(frames) or frames[0] < 0
+            or frames[-1] >= ARM_JOINTS):
+        return None
+    dtype, device = sdf.data.dtype, sdf.data.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device).reshape(-1)
+
+    alpha = t(fk.alpha)
+    row = torch.cat([t(fk.a), torch.cos(alpha), torch.sin(alpha), t(fk.d),
+                     t(fk.theta_bias), t(fk.frames), t(fk.centers),
+                     t(radii).expand(ARM_SPHERES),
+                     t([epsilon, cost_sigma, slope]), t(sdf.origin),
+                     t(sdf.cell_size)])
+    assert row.shape[0] == ARM_NP
+    return row

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..factors import moments as mm
-from ..kernels import chain
+from ..kernels import QUAD_ROUTE_COUNTS, chain
 from ..kernels import fused_trials as ft
 from ..kernels import fused_gradient as fg
 from ..kernels.fused_gradient import gradient_lanes
@@ -204,6 +204,8 @@ class LocalEngine:
             self.quad_kernel and use_kernel(quad_impl, "xla", "quad_impl",
                                             device, mm.kernel_covers(fb))
             for fb in graph.nonlinear)
+        for kernel in self.quad_batches:
+            QUAD_ROUTE_COUNTS["kernel" if kernel else "plain"] += 1
         # the fused kernels are gated on the quadrature alone
         # (gaussianvi_tpu/inference/engine.py): "on" is refused where the
         # config forces the plain quadrature, on any device.  K6 takes the

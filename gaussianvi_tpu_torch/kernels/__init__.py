@@ -5,7 +5,9 @@ while a profiler records, marks each launch with its host-side prep as the
 span ``gvi.kernel.<key>``, ``<key>`` its name in :data:`WRAPPERS`
 (``utils.profiling.span``).  A call whose loop replays as a CUDA graph
 (``inference/loop_graph.py``) counts the launches its captured run made;
-:func:`loop_graph_counts` counts the calls by how their loop ran.
+:func:`loop_graph_counts` counts the calls by how their loop ran, and
+:func:`quad_route_counts` the nonlinear batches by the quadrature route
+the engine resolved them to.
 """
 
 from .chain import gbp_covariance_logdet_lanes, solve_lanes
@@ -16,13 +18,20 @@ from .fused_gradient import (
 )
 from . import fused_moments as _fused_moments  # the name stays the module
 from .fused_trials import trial_costs_lanes
-from .quad import quad_lanes_moments, quad_lanes_phi
+from .quad import (
+    quad_arm_moments,
+    quad_arm_phi,
+    quad_lanes_moments,
+    quad_lanes_phi,
+)
 
 WRAPPERS = {
     "gbp_covariance_logdet": gbp_covariance_logdet_lanes,
     "solve": solve_lanes,
     "quad_phi": quad_lanes_phi,
     "quad_moments": quad_lanes_moments,
+    "quad_arm_phi": quad_arm_phi,
+    "quad_arm_moments": quad_arm_moments,
     "fused_moments": _fused_moments.fused_moments,
     "fused_trials": trial_costs_lanes,
     "fused_gradient": gradient_lanes,
@@ -48,9 +57,24 @@ def loop_graph_counts() -> dict[str, int]:
     return dict(LOOP_GRAPH_COUNTS)
 
 
+# nonlinear batches by the quadrature route ``inference.engine.LocalEngine``
+# resolved them to, one count a batch an engine: ``kernel`` (K3) or
+# ``plain``, reset with the launch counts
+QUAD_ROUTE_COUNTS = {"kernel": 0, "plain": 0}
+
+
+def quad_route_counts() -> dict[str, int]:
+    """Nonlinear batches since the last reset by the quadrature route the
+    engine resolved them to: ``kernel`` or ``plain`` (a batch the kernels
+    do not cover falls back to the plain quadrature here)."""
+    return dict(QUAD_ROUTE_COUNTS)
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts and the loop graph counts."""
+    """Zero the launch counts, the loop graph counts and the quadrature
+    route counts."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for key in LOOP_GRAPH_COUNTS:
-        LOOP_GRAPH_COUNTS[key] = 0
+    for counts in (LOOP_GRAPH_COUNTS, QUAD_ROUTE_COUNTS):
+        for key in counts:
+            counts[key] = 0

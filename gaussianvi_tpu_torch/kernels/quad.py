@@ -12,7 +12,11 @@ evaluate.
 Each wrapper launches the kernel (``csrc/quad.cu`` -> ``csrc/quad.cuh``:
 a group of lanes per factor, sized by :func:`quad_plan`) for GPU tensors
 and runs the plain version for CPU tensors; ``<wrapper>.launches`` counts
-kernel launches only.  The kernel reads the operands where they lie: mu
+kernel launches only.  The 7-DOF arm's cost (``"arm_sdf"``,
+:data:`GROUP_COSTS`) takes a layout of its own (``csrc/quad_arm.cu``: a
+factor on 16 lanes, the moments staged through shared memory), launched
+through the same entry and counted apart (:func:`quad_arm_phi`,
+:func:`quad_arm_moments`).  The kernel reads the operands where they lie: mu
 and cov at their batch and factor strides, the params through their
 broadcast (a period over the flat factor index), and writes outputs
 allocated in their final shapes; an operand is copied only where the
@@ -77,19 +81,15 @@ def _planar_sdf_cost_packed(x, p, field):
     return err * err * p[..., 2]
 
 
-def _sdf3d_cost_packed(x, p, field):
-    """``sigma * (slope * max(0, eps + radius - sd(x[0], x[1], x[2])))^2``
-    with ``sd`` the clamped trilinear lookup of ``field [nz, rows, cols]``
-    (z, row <-> y, col <-> x): ``factors.sdf.SDF3D.signed_distance``
-    followed by ``factors.sdf.hinge_obstacle_cost`` for one ball, step for
-    step (``Sdf3dCost`` in csrc/costs.cuh): blended along rows, then
-    columns, then z.  ``p = [eps, radius, sigma, slope, x0, y0, z0,
-    cell]``; ``x [M, ..., d]``, ``p [..., P]``."""
+def _trilinear(field, x, y, z, x0, y0, z0, cell):
+    """The clamped trilinear lookup of ``field [nz, rows, cols]`` (z, row
+    <-> y, col <-> x) at ``(x, y, z)``: ``factors.sdf.SDF3D.signed_distance``
+    step for step (``trilinear`` in csrc/costs.cuh), blended along rows,
+    then columns, then z."""
     nz, rows, cols = field.shape
-    x0, y0, z0, cell = p[..., 4], p[..., 5], p[..., 6], p[..., 7]
-    px = torch.clamp(x[..., 0], x0, x0 + (cols - 1.0) * cell)
-    py = torch.clamp(x[..., 1], y0, y0 + (rows - 1.0) * cell)
-    pz = torch.clamp(x[..., 2], z0, z0 + (nz - 1.0) * cell)
+    px = torch.clamp(x, x0, x0 + (cols - 1.0) * cell)
+    py = torch.clamp(y, y0, y0 + (rows - 1.0) * cell)
+    pz = torch.clamp(z, z0, z0 + (nz - 1.0) * cell)
     c = (px - x0) / cell
     r = (py - y0) / cell
     zz = (pz - z0) / cell
@@ -107,9 +107,82 @@ def _sdf3d_cost_packed(x, p, field):
     c11 = (1 - wr) * field[hzi, lri, hci] + wr * field[hzi, hri, hci]
     c0 = (1 - wc) * c00 + wc * c10
     c1 = (1 - wc) * c01 + wc * c11
-    sd = (1 - wz) * c0 + wz * c1
+    return (1 - wz) * c0 + wz * c1
+
+
+def _sdf3d_cost_packed(x, p, field):
+    """``sigma * (slope * max(0, eps + radius - sd(x[0], x[1], x[2])))^2``
+    with ``sd`` the clamped trilinear lookup of ``field [nz, rows, cols]``
+    (:func:`_trilinear`) followed by ``factors.sdf.hinge_obstacle_cost``
+    for one ball, step for step (``Sdf3dCost`` in csrc/costs.cuh).  ``p =
+    [eps, radius, sigma, slope, x0, y0, z0, cell]``; ``x [M, ..., d]``,
+    ``p [..., P]``."""
+    sd = _trilinear(field, x[..., 0], x[..., 1], x[..., 2], p[..., 4],
+                    p[..., 5], p[..., 6], p[..., 7])
     err = torch.clamp_min(p[..., 0] + p[..., 1] - sd, 0.0) * p[..., 3]
     return err * err * p[..., 2]
+
+
+# ``ArmSdfCost``'s params (csrc/costs.cuh): a, cos alpha, sin alpha, d,
+# theta_bias (a value a joint each), each sphere's frame, its center in
+# that frame (x, y, z), its radius, then eps, sigma, slope, the field's
+# origin (x0, y0, z0) and cell
+ARM_JOINTS = ARM_SPHERES = 7
+ARM_PARAMS = {"a": 0, "cos_alpha": 7, "sin_alpha": 14, "d": 21, "bias": 28,
+              "frames": 35, "centers": 42, "radii": 63, "eps": 70,
+              "sigma": 71, "slope": 72, "origin": 73, "cell": 76}
+ARM_NP = 77
+
+
+def _arm_sdf_cost_packed(x, p, field):
+    """The 7-DOF arm's collision cost (``ArmSdfCost`` in csrc/costs.cuh),
+    step for step: DH forward kinematics over the joint angles ``x[..., :7]``
+    (``factors.robots.DHForwardKinematics``: frame j is the product of the
+    joints' transforms up to j, each ``[[ct, -st ca, st sa, a ct], [st,
+    ct ca, -ct sa, a st], [0, sa, ca, d]]``), each sphere's center as its
+    frame's origin plus its rotation times the center, the trilinear
+    lookup (:func:`_trilinear`) and the hinge summed over the spheres in
+    order.  ``p`` as :data:`ARM_PARAMS` lays it out; ``x [M, ..., d]``,
+    ``p [..., 77]``."""
+    o = ARM_PARAMS
+
+    def at(name, i=0):
+        return p[..., o[name] + i]
+
+    one, zero = torch.ones_like(x[..., 0]), torch.zeros_like(x[..., 0])
+    r = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
+    org = [zero, zero, zero]
+    frames = []
+    for j in range(ARM_JOINTS):
+        theta = x[..., j] + at("bias", j)
+        st, ct = torch.sin(theta), torch.cos(theta)
+        ca, sa = at("cos_alpha", j), at("sin_alpha", j)
+        a, d = at("a", j), at("d", j)
+        a01, a02, a11, a12 = -st * ca, st * sa, ct * ca, -ct * sa
+        a03, a13 = a * ct, a * st
+        new_r, new_o = [], []
+        for r0, r1, r2 in r:
+            new_r.append([r0 * ct + r1 * st, r0 * a01 + r1 * a11 + r2 * sa,
+                          r0 * a02 + r1 * a12 + r2 * ca])
+        for (r0, r1, r2), oi in zip(r, org):
+            new_o.append(r0 * a03 + r1 * a13 + r2 * d + oi)
+        r, org = new_r, new_o
+        frames.append((r, org))
+    total = 0.0
+    for s in range(ARM_SPHERES):
+        frame = at("frames", s)
+        c = [at("centers", 3 * s + k) for k in range(3)]
+        pos = [zero] * 3
+        for j, (rj, oj) in enumerate(frames):
+            here = [oj[i] + (rj[i][0] * c[0] + rj[i][1] * c[1]
+                             + rj[i][2] * c[2]) for i in range(3)]
+            pos = [torch.where(frame == j, h, q) for h, q in zip(here, pos)]
+        sd = _trilinear(field, *pos, at("origin"), at("origin", 1),
+                        at("origin", 2), at("cell"))
+        err = torch.clamp_min(at("eps") + at("radii", s) - sd, 0.0) \
+            * at("slope")
+        total = total + err * err * at("sigma")
+    return total
 
 
 def _window_axis(v, v0, cell, o, patch, extent):
@@ -182,7 +255,12 @@ KERNEL_COSTS = {
     "sdf3d": (2, _sdf3d_cost_packed, {6: 8}, 3),
     "planar_patch": (3, _planar_patch_cost_packed, {2: 10, 4: 10}, 2),
     "sdf3d_patch": (4, _sdf3d_patch_cost_packed, {6: 12}, 3),
+    "arm_sdf": (5, _arm_sdf_cost_packed, {14: ARM_NP}, 3),
 }
+# costs with a K3 layout of their own (csrc/quad_arm.cu: a factor on a
+# group of lanes), K3 only, on a marginal rule over the leading r dims
+# (the moments' lift), r by name
+GROUP_COSTS = {"arm_sdf": ARM_JOINTS}
 # the patch mode's costs: their params carry each factor's window, which
 # follows its marginal mean (``NonlinearFactorBatch.kernel_prep`` forms
 # them before every call); K3 and K6 take them, K4 and K5 do not
@@ -260,12 +338,13 @@ def field_covers(cost: str, field, dtype: torch.dtype) -> str | None:
 
 
 def covers(cost: str | None, d: int, p: int, m: int,
-           dtype: torch.dtype, field=None) -> str | None:
+           dtype: torch.dtype, field=None, rdim=None) -> str | None:
     """Why K3 does not cover a batch with the kernel cost ``cost`` (P =
     ``p`` packed params, the field ``field`` where the cost reads one) at
     local dim ``d`` on an ``m``-node rule in ``dtype``, or None where it
-    does.  The engine resolves ``quad_impl="auto"`` per batch by it; the
-    wrappers check it."""
+    does; a cost of :data:`GROUP_COSTS` also needs its marginal rule,
+    ``rdim`` (the batch's ``quad_rdim``).  The engine resolves
+    ``quad_impl="auto"`` per batch by it; the wrappers check it."""
     if cost is None:
         return ("the quadrature kernels need a factor batch with kernel_cost "
                 "and kernel_params set (a CUDA cost functor in "
@@ -280,7 +359,10 @@ def covers(cost: str | None, d: int, p: int, m: int,
     why = field_covers(cost, field, dtype)
     if why is not None:
         return why
-    if quad_plan(m, d, True, dtype).smem > _MAX_SMEM:
+    if cost in GROUP_COSTS and rdim != GROUP_COSTS[cost]:
+        return (f"cost {cost!r} takes the marginal rule over the leading "
+                f"{GROUP_COSTS[cost]} dims (quad_rdim), got {rdim}")
+    if quad_plan(m, d, True, dtype, cost).smem > _MAX_SMEM:
         return f"rule of {m} nodes exceeds shared memory"
     return None
 
@@ -304,11 +386,23 @@ class QuadPlan(NamedTuple):
 PHI_GROUP = 1
 MOMENTS_GROUP = 2
 QUAD_THREADS = 128
+# The arm's layout (csrc/quad_arm.cu, compiled in): a factor on 16 lanes,
+# a node a lane on the (7, 2) rule; the moments stage each factor's L21
+# and a round's nodes (14 offsets, 1, w phi a node) in shared memory.
+ARM_GROUP = 16
 
 
-def quad_plan(m: int, d: int, moments: bool, dtype: torch.dtype) -> QuadPlan:
+def quad_plan(m: int, d: int, moments: bool, dtype: torch.dtype,
+              cost: str | None = None) -> QuadPlan:
     """The layout of a launch over an ``m``-node rule at local dim ``d``:
-    phi only (``moments=False``) or the moments (K3 moments and K4)."""
+    phi only (``moments=False``) or the moments (K3 moments and K4); a
+    cost of :data:`GROUP_COSTS` takes its own (``csrc/quad_arm.cu``)."""
+    if cost in GROUP_COSTS:
+        r = GROUP_COSTS[cost]
+        stage = (QUAD_THREADS // ARM_GROUP * (r * r + ARM_GROUP * (d + 2))
+                 if moments else 0)
+        return QuadPlan(ARM_GROUP, QUAD_THREADS,
+                        (m * (r + 1) + stage) * dtype.itemsize)
     group = MOMENTS_GROUP if moments else PHI_GROUP
     staged = QUAD_THREADS // group * (1 + d + d * d) if moments else 0
     return QuadPlan(group, QUAD_THREADS,
@@ -344,11 +438,15 @@ def _param_rows(params: torch.Tensor, full: tuple, name: str):
     if torch.broadcast_shapes(params.shape, (*full, p)) != (*full, p):
         raise ValueError(f"{name}: params {tuple(params.shape)} do not "
                          f"broadcast to {(*full, p)}")
-    own = list(params.shape[:-1])
-    while own and own[0] == 1:
-        own.pop(0)
-    if tuple(own) == full[len(full) - len(own):]:
-        return params.contiguous(), math.prod(own)
+    # leading axes of one entry or of stride 0 (an expanded view) are the
+    # broadcast itself
+    lead = 0
+    while lead < params.ndim - 1 and (params.shape[lead] == 1
+                                      or params.stride(lead) == 0):
+        lead += 1
+    own = tuple(params.shape[lead:-1])
+    if own == full[len(full) - len(own):]:
+        return params[(0,) * lead].contiguous(), math.prod(own)
     return params.expand(*full, p).contiguous(), math.prod(full)
 
 
@@ -363,14 +461,18 @@ class QuadCall(NamedTuple):
 
 
 def _operands(name, mu, cov, nodes, weights, cost, params, moments,
-              field=None):
+              field=None, rdim=None):
     """Check a launch's operands and lay them out as the C entries take
-    them.  Nothing is copied that the kernel can read in place."""
+    them.  Nothing is copied that the kernel can read in place.  The phi
+    variant reads the points' leading coordinates alone, so a
+    :data:`GROUP_COSTS` cost's rule is checked for the moments only."""
     if mu.ndim < 2:
         raise ValueError(f"{name}: mu {tuple(mu.shape)} is not [..., K, d]")
     d, k, lead = mu.shape[-1], mu.shape[-2], tuple(mu.shape[:-2])
     m = nodes.shape[0]
-    why = covers(cost, d, params.shape[-1], m, mu.dtype, field)
+    if not moments:
+        rdim = GROUP_COSTS.get(cost)
+    why = covers(cost, d, params.shape[-1], m, mu.dtype, field, rdim)
     if why is not None:
         raise ValueError(f"{name}: {why}")
     for t in (cov, nodes, weights, params,
@@ -380,7 +482,7 @@ def _operands(name, mu, cov, nodes, weights, cost, params, moments,
     if cov.shape != (*lead, k, d, d) or nodes.ndim != 2 or nodes.shape[1] != d:
         raise ValueError(f"{name}: shape mismatch mu {tuple(mu.shape)}, "
                          f"cov {tuple(cov.shape)}, nodes {tuple(nodes.shape)}")
-    plan = quad_plan(m, d, moments, mu.dtype)
+    plan = quad_plan(m, d, moments, mu.dtype, cost)
     count = math.prod(lead) * k
     if count * plan.group >= 2**31:
         raise ValueError(f"{name}: {count} factors exceed the kernel's "
@@ -408,7 +510,7 @@ def _launch(name, mu, cov, nodes, weights, cost, params, moments, nonneg,
     d = mu.shape[-1]
     quant = quant_flag(name, eval_dtype)
     call = _operands(name, mu, cov, nodes, weights, cost, params, moments,
-                     field)
+                     field, rdim)
     err = _build.load().gvi_quad(
         _build.DTYPES[mu.dtype], d, call.cost_id, int(moments), *call.args,
         int(nonneg), d if rdim is None else rdim, quant,
@@ -428,6 +530,9 @@ def quad_lanes_phi(mu, cov, nodes, weights, cost: str, params,
     if mu.device.type == "cpu":
         return quad_phi_plain(mu, cov, nodes, weights, cost, params, nonneg,
                               field, eval_dtype)
+    if cost in GROUP_COSTS:
+        return quad_arm_phi(mu, cov, nodes, weights, cost, params, nonneg,
+                            field, eval_dtype)
     with span("gvi.kernel.quad_phi"):
         out = _launch("quad_lanes_phi", mu, cov, nodes, weights, cost, params,
                       False, nonneg, None, field, eval_dtype)
@@ -444,6 +549,9 @@ def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
     if mu.device.type == "cpu":
         return quad_moments_plain(mu, cov, nodes, weights, cost, params, rdim,
                                   field, eval_dtype)
+    if cost in GROUP_COSTS:
+        return quad_arm_moments(mu, cov, nodes, weights, cost, params, rdim,
+                                field, eval_dtype)
     with span("gvi.kernel.quad_moments"):
         out = _launch("quad_lanes_moments", mu, cov, nodes, weights, cost,
                       params, True, False, rdim, field, eval_dtype)
@@ -451,5 +559,31 @@ def quad_lanes_moments(mu, cov, nodes, weights, cost: str, params,
         return out
 
 
+def quad_arm_phi(mu, cov, nodes, weights, cost: str, params,
+                 nonneg: bool = False, field=None, eval_dtype=None):
+    """K3, phi-only, for a cost of :data:`GROUP_COSTS` (the arm,
+    ``csrc/quad_arm.cu``): :func:`quad_lanes_phi`'s operands and result,
+    its launches counted apart."""
+    with span("gvi.kernel.quad_arm_phi"):
+        out = _launch("quad_arm_phi", mu, cov, nodes, weights, cost, params,
+                      False, nonneg, None, field, eval_dtype)
+        quad_arm_phi.launches += 1
+        return out
+
+
+def quad_arm_moments(mu, cov, nodes, weights, cost: str, params,
+                     rdim: int | None = None, field=None, eval_dtype=None):
+    """K3, moments, for a cost of :data:`GROUP_COSTS` on its marginal rule
+    (``rdim``): :func:`quad_lanes_moments`' operands and results, its
+    launches counted apart."""
+    with span("gvi.kernel.quad_arm_moments"):
+        out = _launch("quad_arm_moments", mu, cov, nodes, weights, cost,
+                      params, True, False, rdim, field, eval_dtype)
+        quad_arm_moments.launches += 1
+        return out
+
+
 quad_lanes_phi.launches = 0
 quad_lanes_moments.launches = 0
+quad_arm_phi.launches = 0
+quad_arm_moments.launches = 0

@@ -77,8 +77,13 @@ def chol_solve_small(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve (L L^T) x = b given the lower factor; b [..., s] or [..., s, m]."""
     s = l.shape[-1]
     if s > _MAX_UNROLL:
-        return torch.cholesky_solve(b if b.ndim == l.ndim else b[..., None],
-                                    l).reshape(b.shape)
+        # two triangular solves, not cholesky_solve: the card's batched
+        # cholesky_solve (MAGMA's potrs) cannot be captured into a CUDA
+        # graph (inference/loop_graph.py); cuBLAS's triangular solves can
+        y = torch.linalg.solve_triangular(
+            l, b if b.ndim == l.ndim else b[..., None], upper=False)
+        return torch.linalg.solve_triangular(
+            l.transpose(-1, -2), y, upper=True).reshape(b.shape)
     le = _entries(l, s)
     if b.ndim == l.ndim:  # matrix rhs [..., s, m]
         m = b.shape[-1]

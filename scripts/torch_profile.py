@@ -83,7 +83,9 @@ at dim_x=3 (B=1024, N=32, 10 iterations; fused).
 
 the same profile for the 7-DOF arm planner (``examples.arm_planning``,
 s = 14: B=1024 restarts as above, N=10, 15 iterations; the default path:
-K1 / K2 at s = 14 and the plain quadrature).
+K1 / K2 at s = 14 and the arm's K3 instance), then one line of the arm's
+K3 device ms (phi on the line-search batch of 11 x 1024 x 10 factors,
+the moments on 1024 x 10; float32, warm and with the L2 flushed).
 """
 
 from __future__ import annotations
@@ -144,7 +146,8 @@ def profile_paths(paths):
         shown = ranked[:5] + [e for e in ranked[5:] if any(
             k in e.key for k in ("gbp_kernel", "solve_kernel",
                                  "gbp_wide_kernel", "solve_wide_kernel",
-                                 "quad_kernel", "trials_kernel",
+                                 "quad_kernel", "quad_arm_kernel",
+                                 "trials_kernel",
                                  "grad_kernel"))]
         for e in shown:
             lines.append(f"    {e.device_time_total / 1e3:8.2f} ms  "
@@ -226,6 +229,41 @@ def arm_paths(dev):
     inits = perturb_inits(init, torch.Generator(device=dev).manual_seed(0),
                           PLAN_B, mean_scale=0.3)
     return {"arm default": lambda: optimize(graph, inits, cfg)}
+
+
+def arm_quad_times(dev):
+    """One line: the arm's K3 (``csrc/quad_arm.cu``) device ms, float32,
+    warm / L2 flushed: phi on the line-search batch (11 x PLAN_B x 10
+    factors) and the moments on PLAN_B x 10, at marginals near the
+    straight line with covariances of an iterate's size."""
+    from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
+    from gaussianvi_tpu_torch.kernels import quad
+
+    f32 = torch.float32
+    graph, init, _, _ = build_arm_planning(dtype=f32, device=dev)
+    fb = graph.nonlinear[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def marginals(*lead):
+        mu = init.mu + 0.3 * torch.randn(*lead, 10, 14, generator=gen,
+                                         device=dev, dtype=f32)
+        a = 0.1 * torch.randn(*lead, 10, 14, 14, generator=gen, device=dev,
+                              dtype=f32)
+        eye = torch.eye(14, device=dev, dtype=f32)
+        return mu, a @ a.transpose(-1, -2) + 0.02 * eye
+
+    trial, batch = marginals(11, PLAN_B), marginals(PLAN_B)
+    par = fb.kernel_params
+    calls = {
+        "phi": lambda: quad.quad_lanes_phi(
+            *trial, fb.nodes, fb.weights, "arm_sdf", par, nonneg=True,
+            field=fb.kernel_field),
+        "moments": lambda: quad.quad_lanes_moments(
+            *batch, fb.nodes, fb.weights, "arm_sdf", par, rdim=7,
+            field=fb.kernel_field)}
+    return "[kernel time] arm K3 " + ", ".join(
+        f"{name} {device_ms(fn):.4f} ({device_ms(fn, flushed=True):.4f}) ms"
+        for name, fn in calls.items())
 
 
 def kernel_parts(dev, tree="."):
@@ -595,6 +633,7 @@ def main() -> int:
         return 0
     if args.arm:
         print("\n".join(profile_paths(arm_paths(dev))), flush=True)
+        print(arm_quad_times(dev), flush=True)
         return 0
     if args.s6:
         for paths in s6_paths(dev):

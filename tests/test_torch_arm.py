@@ -4,8 +4,8 @@ kinematics' sphere centers, the sphere-obstacle SDF, the built graph and
 initial state, ``optimize`` over the whole 15-iteration run at N = 4 (the
 planner keeps rounding in check: the nudge test), the JAX arm test's end
 checks, float32's guard poisoning the same restarts as the JAX package in
-float32, and ``"auto"`` resolving the arm to the chain kernels on the
-card."""
+float32, and ``"auto"`` resolving the arm to the chain kernels and its
+quadrature kernel on the card."""
 
 from dataclasses import replace
 
@@ -70,7 +70,7 @@ def test_graph_matches_jax_builder():
     assert (tg.num_states, tg.state_dim) == (jg.num_states, jg.state_dim) == (
         10, 14)
     jb, tb = jg.nonlinear[0], tg.nonlinear[0]
-    assert tb.nodes.shape == (15, 14) and tb.kernel_cost is None
+    assert tb.nodes.shape == (15, 14) and tb.kernel_cost == "arm_sdf"
     np.testing.assert_array_equal(tb.nodes.numpy(), np.asarray(jb.nodes))
     np.testing.assert_array_equal(tb.weights.numpy(), np.asarray(jb.weights))
     np.testing.assert_array_equal(tb.start.numpy(), np.asarray(jb.start))
@@ -193,12 +193,12 @@ def test_float32_guard_poisons_the_same_restarts_as_jax():
 
 
 def test_auto_resolves_the_arm_to_the_chain_kernels():
-    """On a card ``"auto"`` takes K1 / K2 at s = 14 and the plain
-    quadrature for the ``cost_fn``-only collision batch, no fused kernel;
-    ``"lanes"`` accepts the graph on the card."""
+    """On a card ``"auto"`` takes K1 / K2 at s = 14 and the arm's K3
+    (``"arm_sdf"``) for the collision batch, no fused kernel; ``"lanes"``
+    accepts the graph on the card."""
     graph, _, config, _ = tarm.build_arm_planning(num_states=N, device=CPU)
     card = LocalEngine(graph, config, torch.device("cuda"))
-    assert card.chain_kernel and card.quad_batches == (False,)
+    assert card.chain_kernel and card.quad_batches == (True,)
     assert not card.fused_trials_ready and not card.fused_gradient_ready
     assert not LocalEngine(graph, config, CPU).chain_kernel
     assert LocalEngine(graph, GVIConfig(chain_impl="lanes"),

@@ -603,7 +603,8 @@ def test_optimize_on_kernels_matches_plain(dev):
     counts = launch_counts()
     assert (counts.pop("fused_trials") == counts.pop("fused_gradient")
             == counts.pop("fused_moments") == counts.pop("fused_gradient_accum")
-            == counts.pop("fused_gradient_solve") == 0)
+            == counts.pop("fused_gradient_solve") == counts.pop("quad_arm_phi")
+            == counts.pop("quad_arm_moments") == 0)
     assert all(n > 0 for n in counts.values())
     _, hp = optimize(graph, state,
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
@@ -1106,7 +1107,7 @@ def test_s6_models_on_kernels_match_plain(dev):
 
 def test_s14_s1_models_on_kernels_match_plain(dev):
     """The arm planner (N = 10, s = 14, four restarts) under the defaults
-    on K1 / K2 and the plain quadrature against the plain path over all 15
+    on K1 / K2 and its K3 instance against the plain path over all 15
     iterations (f64, rtol 1e-9, the same steps), and the Barfoot example
     (s = 1) on K1 / K2 against the golden trajectories (atol 1e-9)."""
     from dataclasses import replace
@@ -1129,7 +1130,7 @@ def test_s14_s1_models_on_kernels_match_plain(dev):
     reset_launch_counts()
     _, hk = optimize(graph, state, cfg)
     assert {k for k, v in launch_counts().items() if v} == {
-        "gbp_covariance_logdet", "solve"}
+        "gbp_covariance_logdet", "solve", "quad_arm_phi", "quad_arm_moments"}
     _, hp = optimize(graph, state, replace(cfg, chain_impl="seq",
                                            quad_impl="xla"))
     torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
