@@ -3020,7 +3020,133 @@ def wide_kernel_checks(dev):
               f"{nm} {a:.3e} / {b_:.3e}" for nm, (a, b_) in held.items()),
           flush=True)
     out.update(arm_quad_checks(dev, it64))
+    out.update(arm_trial_checks(dev, g64, cfg, it64))
     return out
+
+
+def arm_direction(graph, cfg, it, dev):
+    """The NGD step's direction at the arm's iterate ``it`` as the loop
+    forms it on the kernel route: ``(state, dmu, dprec)``."""
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    mu, pd, po = it
+    state = GaussianState(mu, BlockTridiag(pd, po))
+    engine = LocalEngine(graph, cfg, dev)
+    cd, co, _ = engine.cov_logdet(state.precision)
+    temp = torch.full(mu.shape[:1], cfg.temperature, dtype=mu.dtype,
+                      device=dev)
+    vdmu, vddmu = engine.ngd_gradients(mu, cd, co, temp)
+    dmu, fallback = engine.solve_pair(vddmu, state.precision, -vdmu)
+    dmu = torch.where(engine.all_finite(dmu)[:, None, None], dmu, fallback)
+    return state, dmu, vddmu - state.precision
+
+
+def arm_trial_checks(dev, g64, cfg, it64):
+    """K1's trial form (``gbp_trials``, ``csrc/chain_wide.cu``
+    ``gbp_wide_kernel<.., true>``) at the arm's shapes, 11 trials x 1024
+    restarts of N = 10, along the NGD direction at the arm's iterate
+    ``it64``: its covariance and log det against K1 on the separate
+    route's trial precisions, bit for bit; its linear costs against the
+    separate route's (``moments.batch_linear_cost`` on K1's blocks),
+    float64 by :func:`compare_conditioned` and float32 by
+    :func:`compare_vs_f64`; one launch a call, twice for the same bits.
+    Times it in float32 beside the separate route's chain and linear
+    costs (K1 and the glue it replaces), with its bound (the iterate, the
+    direction and the linear operands read once, the trial batch's
+    covariance, log det and costs written once; the sweeps'
+    ``chain_flops``) and ptxas registers: ``{(14, "gbp_trials"): row}``."""
+    from gaussianvi_tpu_torch.factors.moments import batch_linear_cost
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
+    from gaussianvi_tpu_torch.inference.graph import GaussianState
+    from gaussianvi_tpu_torch.kernels import _build, chain, launch_counts
+    from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
+
+    f32, f64 = torch.float32, torch.float64
+    it32 = tuple(x.float() for x in it64)
+    graphs = {f64: g64, f32: arm_problem(f32, dev)[0]}
+    cases = {}
+    for dt, it in ((f64, it64), (f32, it32)):
+        engine = LocalEngine(graphs[dt], cfg, dev)
+        check(engine.gbp_trials_ready, f"arm trial form {dt}: not resolved")
+        state, dmu, dprec = arm_direction(graphs[dt], cfg, it, dev)
+        trials = cfg.step_size_base * cfg.step_decay ** torch.arange(
+            1, TRIALS + 1, dtype=dt, device=dev)
+        cases[dt] = (engine, state, dmu, dprec, trials)
+
+    def trial_form(dt):
+        before = launch_counts()["gbp_trials"]
+        cd, co, ld, fc = cases[dt][0].gbp_trials(*cases[dt][1:])
+        check(launch_counts()["gbp_trials"] == before + 1,
+              f"arm trial form {dt}: not one gbp_trials launch")
+        return (cd, co, ld, *fc)
+
+    def separate(dt, up=False):
+        engine, state, dmu, dprec, trials = cases[dt]
+        if up:
+            engine = cases[f64][0]
+            prec = state.precision
+            state = GaussianState(state.mu.double(), BlockTridiag(
+                prec.diag.double(), prec.off.double()))
+            dmu, trials = dmu.double(), trials.double()
+            dprec = BlockTridiag(dprec.diag.double(), dprec.off.double())
+        steps = trials.reshape(-1, 1)
+        t_prec = (state.precision + dprec.scale(steps)).symmetrize()
+        cd, co, ld = engine.cov_logdet(t_prec)
+        t_mu = state.mu + steps[..., None, None] * dmu
+        return (cd, co, ld, *(batch_linear_cost(lb, t_mu, cd, co)
+                              for lb in engine.graph.linear))
+
+    k = {dt: check_repeatable(f"arm trial form {dt}",
+                              lambda dt=dt: trial_form(dt))
+         for dt in (f64, f32)}
+    p = {dt: separate(dt) for dt in (f64, f32)}
+    for dt in (f64, f32):
+        check(all(same_bits(a, b) for a, b in zip(k[dt][:3], p[dt][:3])),
+              f"arm trial form {dt}: covariance or log det not K1's bits on "
+              "the separate route's trial precisions")
+    p64_up = separate(f32, up=True)
+    err64 = max(compare_conditioned(f"arm trial form cost[{i}] float64", a,
+                                    b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f64][3:], p[f64][3:],
+                                                   p[f32][3:])))
+    err32 = max(compare_vs_f64(f"arm trial form cost[{i}] float32", a, b_, c)
+                for i, (a, b_, c) in enumerate(zip(k[f32][3:], p[f32][3:],
+                                                   p64_up[3:])))
+    regs = {r["dtype"]: r for r in _build.ptxas_report()
+            if r["kernel"] == "gbp_wide_kernel" and r["ints"][-1] == 1}
+    engine, state, dmu, dprec, trials = cases[f32]
+    n, s = state.mu.shape[1:]
+    prec = state.precision
+    _, lin_specs, _, lin = engine._flat_operands(state.mu.shape[:1],
+                                                 state.mu)
+    ops = (state.mu, dmu, prec.diag, prec.off, dprec.diag, dprec.off, trials,
+           *(x for arrays in lin for x in arrays[1:]))
+    row = dict(
+        max_abs_err=err64, err_dtype="float64", max_abs_err_f32=err32,
+        ms=cuda_ms(lambda: trial_form(f32)),
+        ms_flushed_l2=cuda_ms_flushed(lambda: trial_form(f32)),
+        separate_ms=cuda_ms(lambda: separate(f32)),
+        plain_ms=cuda_ms(lambda: chain.gbp_trials_plain(
+            prec.diag, prec.off, dprec.diag, dprec.off, state.mu, dmu,
+            trials, lin_specs, lin), reps=1),
+        library_ms=None, kernel="gbp_wide_kernel<.., true>",
+        registers=(regs.get("float32", {}).get("registers"),
+                   regs.get("float64", {}).get("registers")),
+        spills=tuple((regs.get(d, {}).get("spill_stores"),
+                      regs.get(d, {}).get("spill_loads"))
+                     for d in ("float32", "float64")),
+        **bound(ops, k[f32], TRIALS * ARM_B * n * chain_flops(s)))
+    print(f"[s=14 K1 trial form] 11 x {ARM_B} chains of N = {n} at the "
+          f"arm's iterate: covariance and log det K1's bits on the separate "
+          f"route's trial precisions (f64, f32); linear costs vs the "
+          f"separate route's {err64:.3e} / {err32:.3e} (f64 / f32); two "
+          f"launches bit-identical, one a call; {row['ms']:.4f} ms "
+          f"({row['ms_flushed_l2']:.4f} flushed), the separate route's K1 + "
+          f"glue {row['separate_ms']:.4f} ms; registers f32 / f64 "
+          f"{row['registers']}, spills {row['spills']}", flush=True)
+    return {(14, "gbp_trials"): row}
 
 
 def arm_quad_checks(dev, it64):
@@ -3151,13 +3277,15 @@ def arm_runs(card, dev):
     plain = replace(cfg, chain_impl="seq", quad_impl="xla")
     (state32, hist32), n = counted(optimize, graph32, inits32, cfg)
     print(f"[arm path] launches {n}", flush=True)
-    arm_keys = ("gbp_covariance_logdet", "solve", "quad_arm_phi",
-                "quad_arm_moments")
-    check(n["gbp_covariance_logdet"] > 0 and n["solve"] == ARM_ITERS
+    arm_keys = ("gbp_covariance_logdet", "gbp_trials", "solve",
+                "quad_arm_phi", "quad_arm_moments")
+    check(n["gbp_covariance_logdet"] == 1 and n["gbp_trials"] == ARM_ITERS
+          and n["solve"] == ARM_ITERS
           and n["quad_arm_phi"] == ARM_ITERS + 1
           and n["quad_arm_moments"] == ARM_ITERS
           and all(v == 0 for k, v in n.items() if k not in arm_keys),
-          f"arm: not K1 / K2 with the arm's K3: {n}")
+          f"arm: not K1 at init, its trial form and K2 an iteration, with "
+          f"the arm's K3: {n}")
     _, hist64 = optimize(graph64, inits64, cfg)
     check_costs("arm path float64", hist64, ARM_B, ARM_ITERS, nonneg=True)
     poisoned = torch.isnan(hist32.cost[:, 0])
@@ -4712,6 +4840,8 @@ def main() -> int:
     def instance(r):
         if r["kernel"] in ("grad_kernel", "grad_s6_kernel", "quad_kernel"):
             return f" mode {r['ints'][-1]}"
+        if r["kernel"] == "gbp_wide_kernel":   # 1: K1's trial form
+            return f" trials {r['ints'][-1]}"
         return ""
 
     # (K4 builds its own instances of quad_kernel's moments variant: each
@@ -4974,6 +5104,9 @@ def main() -> int:
                   "11 x 1024 chains of N = 10 / the pair of 1024: the arm's"
                   if s == 14 else "11 x 1024 chains of N = 1 / the pair of "
                   "1024: a batch of Barfoot problems")
+        if "separate_ms" in r:
+            library += (f", the separate route's K1 and glue "
+                        f"{r['separate_ms']:.4f} ms")
         print(f"[kernel time] {card}: s={s} {name} {r['ms']:.4f} ms "
               f"({r['ms_flushed_l2']:.4f} ms with the L2 flushed before each "
               f"call), plain {r['plain_ms']:.4f} ms{library}, bound "
@@ -5112,8 +5245,13 @@ def main() -> int:
         path, n = wide_paths[s]
         source = ("quad_arm.cu" if name in arm_quad else "chain_wide.cu"
                   if s == 14 else "chain.cuh via chain_wide.cu")
-        return dict(path=path, launches=n[arm_quad.get(name, name)],
-                    source=csrc + source, **wide_kern[s, name])
+        row = dict(path=path, launches=n[arm_quad.get(name, name)],
+                   source=csrc + source, **wide_kern[s, name])
+        if (s, name) == (14, "gbp_covariance_logdet"):
+            # K1's trial form: the line search's chains on the arm's path
+            row["trial_form"] = dict(launches=n["gbp_trials"],
+                                     **wide_kern[14, "gbp_trials"])
+        return row
 
     # the bfloat16 instances: their launches on the bfloat16 paths (fused
     # at B = 1024, separate at B = 256), their times beside the

@@ -40,6 +40,18 @@
 // edge), or in a global scratch for a chain too long for it; the work area
 // stays in shared memory.  No atomics and a fixed order: the same bits on
 // every launch.
+//
+// K1's trial form (gvi_gbp_trials; gbp_wide_kernel<.., true>) runs the
+// NGD step's batched line search where no fused kernel covers the chain
+// (the arm): T x B chains from the iterate's blocks, the step's and the T
+// steps, each trial's precision formed element by element as the sweeps
+// and edges read it (wide_elem, wide_diag: the [T, B, N, s, s] batch never
+// exists, and a problem's blocks serve its T trials from L2), then, after
+// the edges, each linear factor's residual-form cost from the covariance
+// blocks the warp has written, a half warp a factor (wide_linear_costs).
+// On 11 x 1024 chains of N = 10 (H100, f32) it takes ~1.41 ms where K1
+// alone takes ~1.04 ms on the formed batch: ~0.11 ms the forming (four
+// reads and three roundings a diagonal element), ~0.27 ms the costs.
 #include "chain.cuh"
 
 namespace gvi {
@@ -164,6 +176,35 @@ __device__ __forceinline__ void message_col(const T* lb, const T* rd,
   }
 }
 
+// Element `at` of a chain's block: in place, or, in the trial form (K1
+// over the line search's trial precisions, WideTrials), formed from the
+// iterate's block x and the step's dx as the separate route forms it
+// (inference/optimize.py: prec + dprec.scale(steps), no product
+// contracted into a sum), and on the diagonal blocks symmetrized as it
+// symmetrizes them (0.5 (x + x^T); `tr`: the transposed element), so that
+// the chain's covariance and log det are K1's on the trial batch that
+// route forms, bit for bit.
+template <typename T, bool Trials>
+__device__ __forceinline__ T wide_elem(const T* __restrict__ x,
+                                       const T* __restrict__ dx, T st,
+                                       int at) {
+  if constexpr (Trials)
+    return add_rn(x[at], mul_rn(dx[at], st));
+  else
+    return x[at];
+}
+
+template <typename T, bool Trials>
+__device__ __forceinline__ T wide_diag(const T* __restrict__ x,
+                                       const T* __restrict__ dx, T st, int at,
+                                       int tr) {
+  if constexpr (Trials)
+    return mul_rn(T(0.5), add_rn(wide_elem<T, true>(x, dx, st, at),
+                                 wide_elem<T, true>(x, dx, st, tr)));
+  else
+    return x[at];
+}
+
 // One pivot recursion per half, the two at once: half 0 walks up (F_i =
 // D_i + f_i, f_{i+1} = -B_i^T F_i^{-1} B_i), half 1 down (G_i = D_i + g_i,
 // g_{i-1} = -B_{i-1} G_i^{-1} B_{i-1}^T), the same code on mirrored data
@@ -171,11 +212,14 @@ __device__ __forceinline__ void message_col(const T* lb, const T* rd,
 // pivots go to piv (kMat apart).  Returns the half's Kahan-compensated log
 // det of its pivots, NaN-poisoned by the pivot-trust guard (the forward
 // one, half 0's, is the chain's).  diag, off: the chain's blocks in device
-// memory (row-major s x s).
-template <typename T, int S>
+// memory (row-major s x s); the trial form's, with ddiag, doff and st
+// (wide_elem, wide_diag).
+template <typename T, int S, bool Trials>
 __device__ __forceinline__ T wide_sweep(const T* __restrict__ diag,
-                                        const T* __restrict__ off, int n,
-                                        T* piv, T* lb, T* rd, T* bs,
+                                        const T* __restrict__ off,
+                                        const T* __restrict__ ddiag,
+                                        const T* __restrict__ doff, T st,
+                                        int n, T* piv, T* lb, T* rd, T* bs,
                                         const HalfLanes<S>& g) {
   constexpr int P = Wide<S>::kCol, M = Wide<S>::kMat, SS = S * S;
   T m[S];
@@ -187,7 +231,8 @@ __device__ __forceinline__ T wide_sweep(const T* __restrict__ diag,
     T d[S], a[S];
 #pragma unroll
     for (int r = 0; r < S; ++r) {
-      d[r] = diag[i * SS + r * S + g.c];
+      d[r] = wide_diag<T, Trials>(diag, ddiag, st, i * SS + r * S + g.c,
+                                  i * SS + g.c * S + r);
       a[r] = d[r] + m[r];
     }
     if (g.active) {
@@ -213,11 +258,12 @@ __device__ __forceinline__ T wide_sweep(const T* __restrict__ diag,
     for (int j = 1; j < S; ++j) acc = acc + dlog(lb[j * P + j]);
     kahan_add(ld, comp, T(2) * acc);
     if (t < n - 1) {
-      const T* b = off + (g.half ? i - 1 : i) * SS;
+      const int at = (g.half ? i - 1 : i) * SS;
       T bcol[S];
 #pragma unroll
       for (int r = 0; r < S; ++r)
-        bcol[r] = g.half ? b[g.c * S + r] : b[r * S + g.c];
+        bcol[r] = wide_elem<T, Trials>(off + at, doff + at, st,
+                                       g.half ? g.c * S + r : r * S + g.c);
       if (g.active) {
 #pragma unroll
         for (int r = 0; r < S; ++r) bs[g.c * P + r] = bcol[r];
@@ -234,10 +280,149 @@ __device__ __forceinline__ T wide_sweep(const T* __restrict__ diag,
   return trust >= pivot_trust_tol<T>() ? ld : quiet_nan<T>();
 }
 
-// K1 at s = 14: one chain per one-warp block (see the note at the top).
+// What K1's trial form reads beside the blocks (Trials true): chain u is
+// trial t of problem b (u = b nt + t, so the nt trials of a problem run
+// side by side and re-read its blocks from L2), written as chain t nb + b
+// of the [nt, nb] batch; its linear factors' costs (f.lin, the residual
+// form of kernels/fused_trials.py; no nonlinear batch) go to their [nt,
+// nb, k] outputs (wide_linear_costs).  K1 as the wrappers call it (Trials
+// false) reads none of it: chain u is block u.
+template <typename T, bool Trials>
+struct WideTrials {};
+
+template <typename T>
+struct WideTrials<T, true> {
+  const T* mu;      // [nb, n, S]
+  const T* dmu;
+  const T* trials;  // [nt]
+  int nb, nt;
+  Factors<T> f;
+};
+
+// Cost of factor k (row kk) of linear batch lb, on Span states from state
+// i, of a trial chain (the residual form, fused_trials.linear_residual_form):
+//   <A, Sig_e> + (lam mu_e - pm)^T prec_c (lam mu_e - pm),
+// Sig_e read back from the chain's covariance blocks (cd, co: what the
+// warp has just stored, read from L2, where they are coherent), mu_e the
+// trial means mu + st dmu of the factor's states, formed as the separate
+// route forms them.  The half's lanes call together: lane c takes column c
+// of each block (A11.Sig_ii + A22.Sig_jj + 2 A12.Sig_ij on two states,
+// A.Sig_ii on one) and residual rows l and l + 16 (l its lane in the half;
+// the rows through res_s, the half's own words in shared memory), and the
+// half sums the lanes' parts in lane order, so every lane holds the same
+// bits.  Both halves call at once, each on its own factor of the same
+// batch: the warp stays converged.  Unguarded.
+template <typename T, int S, int Span>
+__device__ __forceinline__ T wide_linear_cost(
+    const LinBatch<T>& lb, int kk, int64_t b, int i, const T* mu,
+    const T* dmu, T st, const T* cd, const T* co, T* res_s,
+    const HalfLanes<S>& g) {
+  constexpr int SS = S * S, DE = Span * S;
+  const int l = threadIdx.x & 15;
+  T part = T(0);
+  if (g.active) {
+    const T* a = lb.a + (b * lb.ka + kk) * (Span == 2 ? 3 : 1) * SS;
+    const T* sii = cd + i * SS;
+    T s11 = T(0);
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+      s11 = s11 + a[r * S + g.c] * __ldcg(sii + r * S + g.c);
+    part = s11;
+    if constexpr (Span == 2) {
+      const T* sjj = sii + SS;
+      const T* sij = co + i * SS;
+      T s22 = T(0), s12 = T(0);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        s22 = s22 + a[SS + r * S + g.c] * __ldcg(sjj + r * S + g.c);
+        s12 = s12 + a[2 * SS + r * S + g.c] * __ldcg(sij + r * S + g.c);
+      }
+      part = s11 + s22 + T(2) * s12;
+    }
+  }
+  // residual rows l and l + 16: lam mu_e - pm, then prec_c's rows against it
+  const int64_t row0 = (b * lb.ka + kk) * lb.r;
+  const bool h0 = l < lb.r, h1 = l + 16 < lb.r;
+  const T* lam0 = lb.lam + (row0 + min(l, lb.r - 1)) * DE;
+  const T* lam1 = lb.lam + (row0 + min(l + 16, lb.r - 1)) * DE;
+  const T* m = mu + i * S;
+  const T* dm = dmu + i * S;
+  T r0 = -lb.pm[row0 + min(l, lb.r - 1)];
+  T r1 = -lb.pm[row0 + min(l + 16, lb.r - 1)];
+#pragma unroll
+  for (int d = 0; d < DE; ++d) {
+    const T me = add_rn(m[d], mul_rn(st, dm[d]));
+    r0 = r0 + lam0[d] * me;
+    r1 = r1 + lam1[d] * me;
+  }
+  r0 = h0 ? r0 : T(0);
+  r1 = h1 ? r1 : T(0);
+  res_s[l] = r0;
+  res_s[l + 16] = r1;
+  __syncwarp();
+  const T* p0 = lb.prec + (row0 + min(l, lb.r - 1)) * lb.r;
+  const T* p1 = lb.prec + (row0 + min(l + 16, lb.r - 1)) * lb.r;
+  T w0 = T(0), w1 = T(0);
+#pragma unroll
+  for (int cc = 0; cc < 2 * S; ++cc) {
+    if (cc < lb.r) {
+      w0 = w0 + p0[cc] * res_s[cc];
+      w1 = w1 + p1[cc] * res_s[cc];
+    }
+  }
+  part = part + (r0 * w0 + r1 * w1);
+  const int first = 16 * g.half;
+  T total = __shfl_sync(kFullMask, part, first);
+#pragma unroll
+  for (int j = 1; j < 16; ++j)
+    total = total + __shfl_sync(kFullMask, part, first + j);
+  __syncwarp();   // res_s is free again
+  return total;
+}
+
+// The trial form's epilogue: the guarded cost of every factor of every
+// linear batch, two at a time, one a half (lane 0 of the half stores; on
+// an odd count half 1 repeats the last and stores nothing).  The factors
+// go in the order of the batch's per-state index (for_factors_at), each
+// half finding its factor's state in the index's offsets.  The residual
+// rows use the half's work area, free after the edges.
 template <typename T, int S>
+__device__ __forceinline__ void wide_linear_costs(
+    const WideTrials<T, true>& tr, int64_t b, int64_t row, T st,
+    const T* covd, const T* covo, int n, T* work, const HalfLanes<S>& g) {
+  T* res_s = work + g.half * Wide<S>::kGbpWork;
+  const T* m = tr.mu + b * n * S;
+  const T* dm = tr.dmu + b * n * S;
+  for (int j = 0; j < tr.f.n_lin; ++j) {
+    const LinBatch<T>& lb = tr.f.lin[j];
+    const int* offs = lb.index;
+    const int* order = lb.index + n + 1;
+    int i = 0;
+    for (int q0 = 0; q0 < lb.k; q0 += 2) {
+      const int q = min(q0 + g.half, lb.k - 1);
+      while (offs[i + 1] <= q) ++i;
+      const int k = order[q];
+      const int kk = min(k, lb.ka - 1);
+      const T cost =
+          lb.span == 2
+              ? wide_linear_cost<T, S, 2>(lb, kk, b, i, m, dm, st, covd, covo,
+                                          res_s, g)
+              : wide_linear_cost<T, S, 1>(lb, kk, b, i, m, dm, st, covd, covo,
+                                          res_s, g);
+      if ((threadIdx.x & 15) == 0 && q0 + g.half < lb.k)
+        lb.fc[row * lb.k + k] = guard_linear(cost);
+    }
+  }
+}
+
+// K1 at s = 14: one chain per one-warp block (see the note at the top);
+// the trial form (Trials): the blocks diag, off and their steps ddiag,
+// doff of problem b, and `tr`.
+template <typename T, int S, bool Trials>
 __global__ void __launch_bounds__(kWarp)
 gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
+                const T* __restrict__ ddiag, const T* __restrict__ doff,
+                const __grid_constant__ WideTrials<T, Trials> tr,
                 T* __restrict__ covd, T* __restrict__ covo,
                 T* __restrict__ ld_out, T* __restrict__ scratch, int n) {
   constexpr int P = Wide<S>::kCol, M = Wide<S>::kMat, SS = S * S;
@@ -245,9 +430,19 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* work = reinterpret_cast<T*>(smem_raw);
   const HalfLanes<S> g(threadIdx.x);
-  const int64_t b = blockIdx.x;
+  const int64_t u = blockIdx.x;
+  int64_t b = u, row = u;   // the chain's problem, its row in the outputs
+  T st = T(0);
+  if constexpr (Trials) {
+    const int64_t t = u % tr.nt;
+    b = u / tr.nt;
+    row = t * tr.nb + b;
+    st = tr.trials[t];
+    ddiag += b * n * SS;
+    doff += b * (n - 1) * SS;
+  }
   T* fpiv = scratch == nullptr ? work + 2 * W
-                               : scratch + b * gbp_wide_elems<S>(n);
+                               : scratch + u * gbp_wide_elems<S>(n);
   T* gpiv = fpiv + (int64_t)n * M;
   T* lb = work + g.half * W;
   T* rd = lb + M;
@@ -256,12 +451,12 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
   T* ss = xs + M;
   diag += b * n * SS;
   off += b * (n - 1) * SS;
-  covd += b * n * SS;
-  covo += b * (n - 1) * SS;
+  covd += row * n * SS;
+  covo += row * (n - 1) * SS;
 
-  const T ld = wide_sweep<T, S>(diag, off, n, g.half ? gpiv : fpiv, lb, rd,
-                                bs, g);
-  if (threadIdx.x == 0) ld_out[b] = ld;
+  const T ld = wide_sweep<T, S, Trials>(diag, off, ddiag, doff, st, n,
+                                        g.half ? gpiv : fpiv, lb, rd, bs, g);
+  if (threadIdx.x == 0) ld_out[row] = ld;
   __syncwarp();   // both halves' pivots are stored
 
   // ---- the edges (N = 1: the one block), one a half and round; a half
@@ -285,6 +480,7 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
     }
     const bool last = e == n - 2;
     const T* bo = off + e * SS;
+    const T* dbo = doff + e * SS;
     T x[S], ginv[S];
 #pragma unroll
     for (int r = 0; r < S; ++r) a[r] = gpiv[(e + 1) * M + g.c * P + r];
@@ -292,7 +488,8 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
     {
       T rhs[S];   // column c of B^T
 #pragma unroll
-      for (int r = 0; r < S; ++r) rhs[r] = bo[g.c * S + r];
+      for (int r = 0; r < S; ++r)
+        rhs[r] = wide_elem<T, Trials>(bo, dbo, st, g.c * S + r);
       solve_cols(lb, rd, rhs, x);   // column c of X = G^{-1} B^T
     }
     if (last) solve_cols(lb, rd, ec, ginv);
@@ -300,7 +497,7 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
 #pragma unroll
       for (int r = 0; r < S; ++r) {
         xs[g.c * P + r] = x[r];
-        bs[g.c * P + r] = bo[r * S + g.c];
+        bs[g.c * P + r] = wide_elem<T, Trials>(bo, dbo, st, r * S + g.c);
       }
     }
     __syncwarp();
@@ -344,6 +541,10 @@ gbp_wide_kernel(const T* __restrict__ diag, const T* __restrict__ off,
         if (out) covd[((e + 1) * S + r) * S + g.c] = acc;
       }
     }
+  }
+  if constexpr (Trials) {
+    __syncwarp();   // every covariance block is stored
+    wide_linear_costs<T, S>(tr, b, row, st, covd, covo, n, work, g);
   }
 }
 
@@ -458,23 +659,63 @@ solve_wide_kernel(const T* __restrict__ d0, const T* __restrict__ o0,
   thomas_wide<T, S>(d, o, v, xo, !g.half || sys1, lf, rdf, y, bs, n, g);
 }
 
-template <typename T, int S>
-int launch_gbp_wide(const void* diag, const void* off, void* covd,
-                    void* covo, void* ld, void* scratch, int nb, int n,
-                    long long arena, cudaStream_t st) {
-  if (n < 1 || arena != gbp_wide_elems<S>(n)) return -1;
+// K1 at s = 14 over `count` chains (a one-warp block each): blk the
+// blocks diag, off, ddiag, doff (the last two null in place).
+template <typename T, int S, bool Trials>
+int launch_wide(const void* const* blk, const WideTrials<T, Trials>& tr,
+                void* covd, void* covo, void* ld, void* scratch,
+                int64_t count, int n, long long arena, cudaStream_t st) {
+  if (n < 1 || arena != gbp_wide_elems<S>(n) || count > 0x7fffffff)
+    return -1;
   const size_t smem = sizeof(T) * (2 * Wide<S>::kGbpWork +
                                    (scratch == nullptr ? arena : 0));
   if (smem > kMaxSmem) return -1;
   static std::atomic<uint64_t> smem_allowed{0};
-  const cudaError_t prep = allow_smem_once(gbp_wide_kernel<T, S>,
+  const cudaError_t prep = allow_smem_once(gbp_wide_kernel<T, S, Trials>,
                                            smem_allowed);
   if (prep != cudaSuccess) return static_cast<int>(prep);
-  gbp_wide_kernel<T, S><<<nb, kWarp, smem, st>>>(
-      static_cast<const T*>(diag), static_cast<const T*>(off),
-      static_cast<T*>(covd), static_cast<T*>(covo), static_cast<T*>(ld),
-      static_cast<T*>(scratch), n);
+  const T* const* b = reinterpret_cast<const T* const*>(blk);
+  gbp_wide_kernel<T, S, Trials><<<static_cast<int>(count), kWarp, smem, st>>>(
+      b[0], b[1], b[2], b[3], tr, static_cast<T*>(covd),
+      static_cast<T*>(covo), static_cast<T*>(ld), static_cast<T*>(scratch),
+      n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int S>
+int launch_gbp_wide(const void* diag, const void* off, void* covd,
+                    void* covo, void* ld, void* scratch, int nb, int n,
+                    long long arena, cudaStream_t st) {
+  const void* const blk[4] = {diag, off, nullptr, nullptr};
+  return launch_wide<T, S, false>(blk, WideTrials<T, false>{}, covd, covo, ld,
+                                  scratch, nb, n, arena, st);
+}
+
+// ops: pd, po, dpd, dpo, mu, dmu, trials (the trial form's).
+template <typename T, int S>
+int launch_gbp_trials(const void* const* ops, void* covd, void* covo,
+                      void* ld, void* scratch, int nb, int nt, int n,
+                      long long arena, int n_lin, void* const* lin_ptrs,
+                      const int* lin_ints, cudaStream_t st) {
+  WideTrials<T, true> tr;
+  if (!parse_factors<T, S>(0, nullptr, nullptr, n_lin, lin_ptrs, lin_ints,
+                           tr.f))
+    return -1;
+  for (int j = 0; j < n_lin; ++j) {
+    const LinBatch<T>& lb = tr.f.lin[j];
+    if (lb.span < 1 || lb.span > 2 || lb.r < 1 || lb.r > 2 * S ||
+        (n == 1 && lb.span == 2 && lb.k > 0))
+      return -1;
+  }
+  const T* const* p = reinterpret_cast<const T* const*>(ops);
+  tr.mu = p[4];
+  tr.dmu = p[5];
+  tr.trials = p[6];
+  tr.nb = nb;
+  tr.nt = nt;
+  const void* const blk[4] = {ops[0], ops[1], ops[2], ops[3]};
+  return launch_wide<T, S, true>(blk, tr, covd, covo, ld, scratch,
+                                 (int64_t)nb * nt, n, arena, st);
 }
 
 template <typename T, int S>
@@ -532,3 +773,27 @@ int launch_solve_s1_s14(int dtype, int s, const void* const* ops,
 }
 
 }  // namespace gvi
+
+// K1's trial form at s = 14 (gbp_wide_kernel<.., true>): ops pd, po, dpd, dpo
+// (the iterate's precision and the step's direction, [nb, n, s, s] and
+// [nb, n - 1, s, s]), mu, dmu ([nb, n, s]), trials [nt]; covd, covo, ld
+// the [nt, nb] batch's, as gvi_gbp's; the linear batches as
+// gvi_fused_trials takes them (each with its [nt, nb, k] cost output).
+// Returns as gvi_gbp.
+extern "C" int gvi_gbp_trials(int dtype, int s, const void* const* ops,
+                              void* covd, void* covo, void* ld, void* scratch,
+                              int nb, int nt, int n, long long arena,
+                              int n_lin, void* const* lin_ptrs,
+                              const int* lin_ints, void* stream) {
+  if (nb <= 0 || nt <= 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && s == 14)
+    return gvi::launch_gbp_trials<float, 14>(ops, covd, covo, ld, scratch,
+                                             nb, nt, n, arena, n_lin,
+                                             lin_ptrs, lin_ints, st);
+  if (dtype == 1 && s == 14)
+    return gvi::launch_gbp_trials<double, 14>(ops, covd, covo, ld, scratch,
+                                              nb, nt, n, arena, n_lin,
+                                              lin_ptrs, lin_ints, st);
+  return -1;
+}

@@ -240,6 +240,13 @@ __device__ __forceinline__ void lin_residual(const LinBatch<T>& lb, int kk,
   }
 }
 
+// A negative closed-form linear cost is rounding garbage (the cost is
+// <A, Sig> + a weighted square >= 0): NaN, as moments.guard_linear_cost.
+template <typename T>
+__device__ __forceinline__ T guard_linear(T cost) {
+  return cost < T(0) ? quiet_nan<T>() : cost;
+}
+
 // Row rr of Lam of row kk of problem b: span * S values.
 template <typename T, int S>
 __device__ __forceinline__ const T* lam_row(const LinBatch<T>& lb, int kk,

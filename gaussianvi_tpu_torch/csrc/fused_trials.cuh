@@ -62,13 +62,6 @@ struct TrialBlocks {
   }
 };
 
-// A negative closed-form linear cost is rounding garbage (the cost is
-// <A, Sig> + a weighted square >= 0): NaN, as moments.guard_linear_cost.
-template <typename T>
-__device__ __forceinline__ T guard_linear(T cost) {
-  return cost < T(0) ? quiet_nan<T>() : cost;
-}
-
 // K5 at s = 6 (fused_trials_s6.cu), gvi_fused_trials's arguments.
 int launch_trials_s6(int dtype, int cost, int np, const void* mu,
                      const void* dmu, const void* pd, const void* po,

@@ -124,6 +124,23 @@ def fused_operands(graph: FactorGraph, trials: bool = True):
         nl_arrays.append((fb.start, fb.nodes, fb.weights, fb.kernel_params,
                           *(() if fb.kernel_field is None
                             else (fb.kernel_field,))))
+    lin = linear_operands(graph)
+    if isinstance(lin, str):
+        return lin
+    lin_specs, lin_arrays = lin
+    why = ft.covers(s, graph.dtype, nl_specs, lin_specs, trials)
+    if why is not None:
+        return why
+    return tuple(nl_specs), lin_specs, tuple(nl_arrays), lin_arrays
+
+
+def linear_operands(graph: FactorGraph):
+    """The linear half of :func:`fused_operands`, which K1's trial form
+    takes too: ``(lin_specs, lin_arrays)`` in the residual form of
+    ``kernels/fused_trials.py``, or a string saying why the batches are
+    not covered (nb > 2, per-problem starts, ``fused_trials.linear_covers``)."""
+    s = graph.state_dim
+    lin_specs, lin_arrays = [], []
     for lb in graph.linear:
         if lb.nb not in (1, 2):
             return "every linear batch needs nb <= 2"
@@ -142,11 +159,8 @@ def fused_operands(graph: FactorGraph, trials: bool = True):
         lin_specs.append(LinTrialSpec(lb.nb, lb.num_factors, a.shape[-4],
                                       lam.shape[-2], lb.slice_offset))
         lin_arrays.append((lb.start, a, lam, pm, prec_c))
-    why = ft.covers(s, graph.dtype, nl_specs, lin_specs, trials)
-    if why is not None:
-        return why
-    return (tuple(nl_specs), tuple(lin_specs), tuple(nl_arrays),
-            tuple(lin_arrays))
+    return ft.linear_covers(s, lin_specs) or (tuple(lin_specs),
+                                              tuple(lin_arrays))
 
 
 def _use_fused(field: str, value: str, why_not: str | None,
@@ -175,7 +189,11 @@ class LocalEngine:
     the quadrature kernel where the call's ``eval_dtype`` is None or
     bfloat16; a float16 call takes the plain quadrature),
     ``fused_trials_ready``, ``fused_gradient_ready`` (K6 in the modes of
-    ``gradient_modes``), and the ``eval_dtype`` the fused kernels round
+    ``gradient_modes``), ``gbp_trials_ready`` (K1's trial form for the
+    batched line search: the chain on K1 at a block size of the wide
+    layout, which no fused kernel covers, and every linear batch in
+    residual form; its operands are ``_fused_ops``' linear half), and the
+    ``eval_dtype`` the fused kernels round
     the offsets through, ``fused_eval_dtype`` / ``fused_grad_eval_dtype``
     (the config's ``moments_eval_dtype``: the loop takes a fused kernel
     only where its own eval_dtype matches, so prox, which never
@@ -239,6 +257,13 @@ class LocalEngine:
         if self.fused_gradient_ready:
             self.fused_grad_eval_dtype = eval_dtype
         self._fused_ops = ops if why_not is None else None
+        lin = (linear_operands(graph) if self.chain_kernel
+               and graph.state_dim in chain.WIDE_BLOCK_SIZES
+               and not self.fused_trials_ready
+               else "the trial form is K1's at s = 14, where K5 is not")
+        self.gbp_trials_ready = not isinstance(lin, str)
+        if self.gbp_trials_ready and self._fused_ops is None:
+            self._fused_ops = ((), lin[0], (), lin[1])
 
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
@@ -254,14 +279,17 @@ class LocalEngine:
         """Untempered per-factor E[psi_k], one ``[..., K]`` tensor per batch
         (nonlinear batches first, then linear); ``eval_dtype``: the sigma
         offsets' rounding."""
-        g = self.graph
+        return (*self.nonlinear_costs_raw(mu, cov_diag, cov_off, eval_dtype),
+                *(mm.batch_linear_cost(lb, mu, cov_diag, cov_off)
+                  for lb in self.graph.linear))
+
+    def nonlinear_costs_raw(self, mu, cov_diag, cov_off, eval_dtype=None):
+        """The nonlinear batches' part of :meth:`factor_costs_raw`."""
         out = []
-        for fb, kernel in zip(g.nonlinear, self.quad_batches):
+        for fb, kernel in zip(self.graph.nonlinear, self.quad_batches):
             mu_k, cov_k = gather_marginals(fb.start, fb.nb, mu, cov_diag,
                                            cov_off, fb.slice_offset)
             out.append(mm.batch_phi(fb, mu_k, cov_k, kernel, eval_dtype))
-        for lb in g.linear:
-            out.append(mm.batch_linear_cost(lb, mu, cov_diag, cov_off))
         return tuple(out)
 
     def reduce_fc(self, fc_tuple, like: torch.Tensor) -> torch.Tensor:
@@ -343,6 +371,29 @@ class LocalEngine:
         t = trials.shape[0]
         return (ld.reshape(t, *batch),
                 tuple(f.reshape(t, *batch, f.shape[-1]) for f in fc))
+
+    def gbp_trials(self, state: GaussianState, dmu, dprec: BlockTridiag,
+                   trials):
+        """Every line-search trial's chain in one launch of K1's trial form
+        (``kernels/chain.py`` ``gbp_trials_lanes``): ``(cov_diag [T, ...,
+        N, s, s], cov_off, logdet [T, ...], linear fc tuple of [T, ...,
+        K])``, the linear batches' untempered costs in
+        :meth:`factor_costs_raw`'s order."""
+        batch = state.mu.shape[:-2]
+
+        def flat(x):   # an N = 1 chain has no off-diagonal blocks
+            return x.reshape(batch.numel(), *x.shape[len(batch):])
+
+        def unflat(x):
+            return x.reshape(x.shape[0], *batch, *x.shape[2:])
+
+        _, lin_specs, _, lin = self._flat_operands(batch, state.mu)
+        prec = state.precision
+        out = chain.gbp_trials_lanes(
+            flat(prec.diag), flat(prec.off), flat(dprec.diag), flat(dprec.off),
+            flat(state.mu), flat(dmu), trials, lin_specs, lin)
+        cd, co, ld, fc = out
+        return unflat(cd), unflat(co), unflat(ld), tuple(unflat(f) for f in fc)
 
     def fused_gradient(self, state: GaussianState, temperature):
         """The whole NGD gradient step in one kernel (K6): covariance of

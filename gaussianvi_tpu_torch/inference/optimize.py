@@ -49,6 +49,10 @@ With K6 the carried covariance blocks are never read again after an
 accepted step (the kernel's own blocks are recorded), so they lag; the
 end of :func:`run_gvi_carry` refreshes them.  A fused kernel is taken only
 where the run's ``eval_dtype`` is the one the engine resolved it with.
+Where no fused kernel covers the chain (s = 14), NGD's batched trials take
+K1's trial form (``engine.gbp_trials``): one launch forms every trial's
+precision, its covariance and log det and the linear factors' costs, and
+only the nonlinear batches run apart, on its covariance blocks.
 
 Under a profiler each call and each of its phases is a named span
 (``utils.profiling.span``): ``gvi.optimize`` holding ``gvi.engine``,
@@ -201,6 +205,10 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
     alpha = config.ema_alpha
     eval_dtype = _eval_dtype(config, method)
     use_fused, use_fused_grad = fused_routes(engine, config, method)
+    # K1's trial form: the NGD step's batched trials where no fused kernel
+    # covers the chain (the arm's s = 14)
+    use_gbp_trials = (ngd and config.linesearch == "batched" and not use_fused
+                      and engine.gbp_trials_ready)
 
     def temper(fc_raw, temperature):
         return _temper(fc_raw, temperature) if ngd else fc_raw
@@ -290,13 +298,23 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
                                            accepted)
                     t += 1
             else:
+                steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
                 if use_fused:
                     t_ld, t_fc = engine.fused_trial_costs(state, dmu, dprec,
                                                           trials)
                     t_cost = engine.reduce_trial_costs(
                         t_ld, temper(t_fc, temperature))          # [T, B]
+                elif use_gbp_trials:
+                    # one launch: every trial's chain and linear costs; the
+                    # nonlinear batches read its blocks at the trial means
+                    t_cd, t_co, t_ld, t_lin = engine.gbp_trials(
+                        state, dmu, dprec, trials)
+                    t_fc = (*engine.nonlinear_costs_raw(
+                        mu + steps[..., None, None] * dmu, t_cd, t_co,
+                        eval_dtype), *t_lin)
+                    t_cost = engine.reduce_trial_costs(
+                        t_ld, temper(t_fc, temperature))
                 else:
-                    steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
                     t_cost, t_cd, t_co, t_ld, t_fc = trial_costs(steps)
                 ok = t_cost < cost_iter
                 accepted = ok.any(0)
@@ -457,7 +475,7 @@ def _graph_call(engine: LocalEngine, init_state: GaussianState,
     routes = (engine.chain_impl, engine.quad_kernel, engine.quad_batches,
               engine.fused_trials_ready, engine.fused_gradient_ready,
               engine.fused_eval_dtype, engine.fused_grad_eval_dtype,
-              engine.gradient_modes)
+              engine.gradient_modes, engine.gbp_trials_ready)
     key = (config, method, start_iteration, loop is None, routes)
     ops = engine._fused_ops
     starts = ([] if ops is None else

@@ -10,7 +10,7 @@ span ``gvi.kernel.<key>``, ``<key>`` its name in :data:`WRAPPERS`
 the engine resolved them to.
 """
 
-from .chain import gbp_covariance_logdet_lanes, solve_lanes
+from .chain import gbp_covariance_logdet_lanes, gbp_trials_lanes, solve_lanes
 from .fused_gradient import (
     gradient_accum_lanes,
     gradient_lanes,
@@ -28,6 +28,7 @@ from .quad import (
 WRAPPERS = {
     "gbp_covariance_logdet": gbp_covariance_logdet_lanes,
     "solve": solve_lanes,
+    "gbp_trials": gbp_trials_lanes,
     "quad_phi": quad_lanes_phi,
     "quad_moments": quad_lanes_moments,
     "quad_arm_phi": quad_arm_phi,

@@ -50,6 +50,10 @@ SIGNATURES = {
     # dtype, s, ops (d0, o0, v0, x0, d1, o1, v1, x1), scratch, units,
     # units1, n, arena, stream
     "gvi_solve": (_I, _I, _P, _P, _I, _I, _I, _L, _P),
+    # dtype, s, ops (pd, po, dpd, dpo, mu, dmu, trials), covd, covo, ld,
+    # scratch, nb, nt, n, arena, n_lin, lin_ptrs, lin_ints, stream
+    "gvi_gbp_trials": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P,
+                       _P, _P),
     # dtype, d, cost, with_moments, then QUAD_OPERANDS, nonneg, rdim,
     # quant, group_shift, threads, stream
     "gvi_quad": (_I, _I, _I, _I, *QUAD_OPERANDS, _I, _I, _I, _I, _I, _P),

@@ -21,6 +21,13 @@ main system and its SPD fallback against one right-hand side, which the
 kernel reads once).  Both count their launches on ``solve_lanes.launches``;
 ``gbp_covariance_logdet_lanes.launches`` counts K1's (never plain-version
 calls).
+
+K1 has a trial form at s = 14, :func:`gbp_trials_lanes`: the batched line
+search's T x B chains from the iterate, its direction and the T steps,
+each trial's precision formed inside the kernel (the ``[T, B, N, s, s]``
+batch never exists) and the linear factors' costs read from the
+covariance blocks it has just written; its launches count on
+``gbp_trials_lanes.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +42,14 @@ from ..ops.blocktridiag import gbp_covariance_logdet as _gbp_plain
 from ..ops.blocktridiag import solve as _solve_plain
 from ..utils.profiling import span
 from . import _build
-from .fused_trials import SMEM_LIMIT, BlockPlan, mat_pitch, vec_pitch
+from .fused_trials import (
+    SMEM_LIMIT,
+    BlockPlan,
+    linear_args,
+    linear_costs_plain,
+    mat_pitch,
+    vec_pitch,
+)
 
 BLOCK_SIZES = (1, 2, 4, 6, 14)  # instantiated state-block sizes s
 WIDE_BLOCK_SIZES = (14,)         # a warp per chain or pair (chain_wide.cu)
@@ -264,5 +278,75 @@ def _solve_pair_kernel(d0, o0, d1, o1, b):
     return x0, x1
 
 
+def gbp_trials_plain(pd, po, dpd, dpo, mu, dmu, trials, lin_specs,
+                     lin_arrays):
+    """Plain version of K1's trial form: the trial precisions formed as
+    the separate route forms them (``inference/optimize.py``: ``(prec +
+    dprec.scale(steps)).symmetrize()``), the plain K1 on them and the
+    residual-form linear costs from its blocks
+    (``fused_trials.linear_costs_plain``)."""
+    steps = trials.reshape(-1, 1)
+    t_prec = (BlockTridiag(pd, po)
+              + BlockTridiag(dpd, dpo).scale(steps)).symmetrize()
+    cd, co, ld = gbp_covariance_logdet_plain(t_prec.diag, t_prec.off)
+    t_mu = mu + steps[..., None, None] * dmu
+    fc = linear_costs_plain(t_mu, cd, cd[..., :-1, :, :], cd[..., 1:, :, :],
+                            co, lin_specs, lin_arrays)
+    return cd, co, ld, fc
+
+
+def gbp_trials_lanes(pd, po, dpd, dpo, mu, dmu, trials, lin_specs,
+                     lin_arrays):
+    """K1's trial form at s = 14: the iterate's precision ``pd [B, N, s,
+    s]``, ``po [B, N-1, s, s]``, the step's ``dpd``, ``dpo``, the means
+    ``mu``, ``dmu [B, N, s]``, the steps ``trials [T]`` and the linear
+    batches' operands in residual form (``kernels/fused_trials.py``) ->
+    ``(cov_diag [T, B, N, s, s], cov_off [T, B, N-1, s, s], logdet [T,
+    B], fc tuple of [T, B, K])``.  The covariance and log det are K1's on
+    the trial precisions ``sym(Lambda + s_t dLambda)``, bit for bit; the
+    costs are the linear batches' at the trial means ``mu + s_t dmu``.
+    CUDA tensors launch the kernel (s in ``WIDE_BLOCK_SIZES``); CPU
+    tensors run :func:`gbp_trials_plain`."""
+    if pd.device.type == "cpu":
+        return gbp_trials_plain(pd, po, dpd, dpo, mu, dmu, trials, lin_specs,
+                                lin_arrays)
+    with span("gvi.kernel.gbp_trials"):
+        return _gbp_trials_kernel(pd, po, dpd, dpo, mu, dmu, trials,
+                                  lin_specs, lin_arrays)
+
+
+def _gbp_trials_kernel(pd, po, dpd, dpo, mu, dmu, trials, lin_specs,
+                       lin_arrays):
+    name = "gbp_trials_lanes"
+    lead, n, s = _check(name, pd, po, dpd, dpo, mu, dmu, trials)
+    if s not in WIDE_BLOCK_SIZES or len(lead) != 1:
+        raise ValueError(f"{name}: the trial form takes [B, N, s, s] chains "
+                         f"at s in {WIDE_BLOCK_SIZES}, got {tuple(pd.shape)}")
+    b = lead[0]
+    if (dpd.shape != pd.shape or dpo.shape != po.shape
+            or mu.shape != (b, n, s) or dmu.shape != mu.shape
+            or trials.ndim != 1 or trials.shape[0] < 1):
+        raise ValueError(f"{name}: direction, means or trials do not match "
+                         f"the iterate {tuple(pd.shape)}")
+    nt = trials.shape[0]
+    ops = [x.contiguous() for x in (pd, po, dpd, dpo, mu, dmu, trials)]
+    lin = linear_args(name, ops[4], lin_specs, lin_arrays, nt * b)
+    covd = torch.empty((nt, *pd.shape), dtype=pd.dtype, device=pd.device)
+    covo = torch.empty((nt, *po.shape), dtype=pd.dtype, device=pd.device)
+    ld = torch.empty((nt, b), dtype=pd.dtype, device=pd.device)
+    plan = gbp_plan(n, s, pd.element_size())
+    scratch = _scratch(plan, nt * b, s, pd)
+    err = _build.load().gvi_gbp_trials(
+        _build.DTYPES[pd.dtype], s,
+        (ctypes.c_void_p * 7)(*(x.data_ptr() for x in ops)),
+        covd.data_ptr(), covo.data_ptr(), ld.data_ptr(), _ptr(scratch), b, nt,
+        n, plan.arena, lin.n, lin.ptrs, lin.ints,
+        _build.current_stream(pd.device))
+    _build.check(err, "gvi_gbp_trials")
+    gbp_trials_lanes.launches += 1
+    return covd, covo, ld, tuple(f.view(nt, b, -1) for f in lin.fc)
+
+
 gbp_covariance_logdet_lanes.launches = 0
 solve_lanes.launches = 0
+gbp_trials_lanes.launches = 0

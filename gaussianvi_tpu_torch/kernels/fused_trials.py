@@ -171,6 +171,18 @@ def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
             take_states(cov, start, off, 2),
             cost_form(spec.cost, nl_field(arrays)), params, eval_dtype,
             nonneg=spec.nonneg, kernel_order=eval_dtype is not None))
+    return ld, (*out, *linear_costs_plain(t_mu, cov, cii, cjj, cij,
+                                          lin_specs, lin_arrays))
+
+
+def linear_costs_plain(t_mu, cov, cii, cjj, cij, lin_specs, lin_arrays):
+    """The guarded residual-form costs of the linear batches, one ``[...,
+    K]`` tensor each, at the means ``t_mu [..., N, s]``: an anchor's from
+    its state's block of ``cov [..., N, s, s]``, an edge's from its
+    ``Sig_ii``, ``Sig_jj``, ``Sig_ij`` (``cii``, ``cjj``, ``cij`` ``[...,
+    N-1, s, s]``: the edges' joint covariances, or the chain's
+    neighbouring blocks)."""
+    out = []
     for spec, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
         off = spec.slice_offset
         if spec.nb == 1:
@@ -188,7 +200,7 @@ def trial_costs_plain(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
                                     dim=(-2, -1)))
         res, w = residual_weights(lam, pm, prec_c, mu_e)
         out.append(guard_linear_cost(torch.sum(res * w, dim=-1) + tr))
-    return ld, tuple(out)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -325,15 +337,27 @@ def covers(s: int, dtype: torch.dtype, nl_specs, lin_specs,
                 "(the patch mode takes the separate trial costs)")
     if s not in KERNEL_COSTS[cost][2]:
         return f"cost {cost!r} not instantiated for d={s}"
+    why = linear_covers(s, lin_specs)
+    if why is not None:
+        return why
+    rules = sum(sp.m * (s + 1) for sp in nl_specs) * dtype.itemsize
+    if rules > SMEM_LIMIT:
+        return (f"rules of {rules} bytes exceed the {SMEM_LIMIT} bytes of "
+                "shared memory")
+    return None
+
+
+def linear_covers(s: int, lin_specs) -> str | None:
+    """Why the kernels that take linear batches in residual form (K5, K6,
+    K1's trial form) do not cover batches of these specs on chains of
+    block size ``s``, or None where they do."""
+    if len(lin_specs) > MAX_BATCHES:
+        return f"at most {MAX_BATCHES} linear batches"
     for sp in lin_specs:
         if sp.nb not in (1, 2) or not 1 <= sp.r <= 2 * s or sp.ka not in (
                 1, sp.k):
             return (f"linear batch {sp} not supported (nb 1 or 2, "
                     "1 <= r <= 2s, ka 1 or k)")
-    rules = sum(sp.m * (s + 1) for sp in nl_specs) * dtype.itemsize
-    if rules > SMEM_LIMIT:
-        return (f"rules of {rules} bytes exceed the {SMEM_LIMIT} bytes of "
-                "shared memory")
     return None
 
 
@@ -362,7 +386,7 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
     0 x 0 x 0 for a cost without one) and offset rounding (``eval_dtype``
     None or bfloat16).  ``rows`` (trial kernel, T * B): allocate
     ``[rows, K]`` cost outputs; ``trials``: for K5 (else K6)."""
-    b, n, s = mu.shape
+    b, _, s = mu.shape
     quant = quant_flag(name, eval_dtype)
     dt, dev = mu.dtype, mu.device
     why = covers(s, dt, nl_specs, lin_specs, trials)
@@ -372,25 +396,13 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
     cost_id, _, dims, _ = KERNEL_COSTS[cost]
     n_params = dims[s]
 
-    def same(t, shape, what):
-        if t.device != dev or t.dtype != dt:
-            raise ValueError(f"{name}: {what} on another device/dtype")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {what} shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-
-    def index_of(sp, start):
-        if start.shape != (sp.k,) or start.device != dev:
-            raise ValueError(f"{name}: start must be [{sp.k}] on {dev}")
-        return state_index(start, n)
-
     keep, fc, nl_ptrs, nl_ints, fixed = [], [], [], [], 0
     for sp, arrays in zip(nl_specs, nl_arrays):
         start, nodes, weights, params = arrays[:4]
         field = nl_field(arrays)
-        same(nodes, (sp.m, s), "nodes")
-        same(weights, (sp.m,), "weights")
-        same(params, (b, sp.k, n_params), "kernel_params")
+        _same(name, mu, nodes, (sp.m, s), "nodes")
+        _same(name, mu, weights, (sp.m,), "weights")
+        _same(name, mu, params, (b, sp.k, n_params), "kernel_params")
         why = field_covers(sp.cost, field, dt)
         if why is not None:
             raise ValueError(f"{name}: {why}")
@@ -400,7 +412,7 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                 raise ValueError(f"{name}: field on another device")
         fixed += sp.m * (s + 1) * mu.element_size()
         ops = [nodes.contiguous(), weights.contiguous(), params.contiguous(),
-               index_of(sp, start)]
+               _index_of(name, mu, sp, start)]
         ops.append(None if rows is None else
                    torch.empty((rows, sp.k), dtype=dt, device=dev))
         if rows is not None:
@@ -411,29 +423,69 @@ def factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
         nl_ints += [sp.k, sp.m, int(sp.nonneg),
                     s if sp.rdim is None else sp.rdim, *field_dims(field),
                     quant]
-    lin_ptrs, lin_ints = [], []
-    for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
-        same(a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")
-        same(lam, (b, sp.ka, sp.r, sp.nb * s), "lam")
-        same(pm, (b, sp.ka, sp.r), "pm")
-        same(prec_c, (b, sp.ka, sp.r, sp.r), "prec_c")
-        ops = [a.contiguous(), lam.contiguous(), pm.contiguous(),
-               prec_c.contiguous(), index_of(sp, start)]
-        if rows is not None:
-            ops.append(torch.empty((rows, sp.k), dtype=dt, device=dev))
-            fc.append(ops[-1])
-        keep += [t for t in ops if t is not None]
-        lin_ptrs += [t.data_ptr() if t is not None else None for t in ops]
-        lin_ptrs += [None] * (6 - len(ops))
-        lin_ints += [sp.nb, sp.k, sp.ka, sp.r]
-
-    def arr(ctype, values):
-        return (ctype * max(len(values), 1))(*values)
-
+    lin = linear_args(name, mu, lin_specs, lin_arrays, rows)
     return FactorArgs(cost_id, n_params, len(nl_specs),
-                      arr(ctypes.c_void_p, nl_ptrs), arr(ctypes.c_int, nl_ints),
-                      len(lin_specs), arr(ctypes.c_void_p, lin_ptrs),
-                      arr(ctypes.c_int, lin_ints), keep, tuple(fc), fixed)
+                      _array(ctypes.c_void_p, nl_ptrs),
+                      _array(ctypes.c_int, nl_ints), lin.n, lin.ptrs,
+                      lin.ints, keep + lin.keep, (*fc, *lin.fc), fixed)
+
+
+class LinearArgs(NamedTuple):
+    """The linear batches' operands as the C entry points take them."""
+
+    n: int
+    ptrs: ctypes.Array
+    ints: ctypes.Array
+    keep: list           # tensors the pointers refer to
+    fc: tuple            # per batch [rows, K] cost outputs, where asked for
+
+
+def _array(ctype, values):
+    return (ctype * max(len(values), 1))(*values)
+
+
+def _same(name, mu, t, shape, what):
+    """``t`` has ``shape`` and ``mu``'s device and dtype, or raise."""
+    if t.device != mu.device or t.dtype != mu.dtype:
+        raise ValueError(f"{name}: {what} on another device/dtype")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: {what} shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+
+
+def _index_of(name, mu, sp, start):
+    """The per-state index of a batch's ``start [K]`` on ``mu``'s
+    chains."""
+    if start.shape != (sp.k,) or start.device != mu.device:
+        raise ValueError(f"{name}: start must be [{sp.k}] on {mu.device}")
+    return state_index(start, mu.shape[1])
+
+
+def linear_args(name, mu, lin_specs, lin_arrays,
+                rows: int | None = None) -> LinearArgs:
+    """Check and pack the linear batches' operands (residual form) for a
+    launch at ``mu [B, N, s]``: each operand as it is (problem-major,
+    contiguous) and the batch's per-state index; ``rows``: allocate
+    ``[rows, K]`` cost outputs."""
+    b, _, s = mu.shape
+    keep, fc, ptrs, ints = [], [], [], []
+    for sp, (start, a, lam, pm, prec_c) in zip(lin_specs, lin_arrays):
+        _same(name, mu, a, (b, sp.ka, 3 if sp.nb == 2 else 1, s, s), "A")
+        _same(name, mu, lam, (b, sp.ka, sp.r, sp.nb * s), "lam")
+        _same(name, mu, pm, (b, sp.ka, sp.r), "pm")
+        _same(name, mu, prec_c, (b, sp.ka, sp.r, sp.r), "prec_c")
+        ops = [a.contiguous(), lam.contiguous(), pm.contiguous(),
+               prec_c.contiguous(), _index_of(name, mu, sp, start)]
+        if rows is not None:
+            ops.append(torch.empty((rows, sp.k), dtype=mu.dtype,
+                                   device=mu.device))
+            fc.append(ops[-1])
+        keep += ops
+        ptrs += [t.data_ptr() for t in ops]
+        ptrs += [None] * (6 - len(ops))
+        ints += [sp.nb, sp.k, sp.ka, sp.r]
+    return LinearArgs(len(lin_specs), _array(ctypes.c_void_p, ptrs),
+                      _array(ctypes.c_int, ints), keep, tuple(fc))
 
 
 def trial_costs_lanes(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,

@@ -210,11 +210,12 @@ class TimeShardEngine:
     (``kernel_prep``) is not covered: the JAX engine evaluates its
     ``cost_fn``, the whole-field lookup, and the window functor is another
     function, so ``"lanes"`` raises for it and ``"auto"`` / ``"xla"`` take
-    its ``cost_fn``.  No fused kernel."""
+    its ``cost_fn``.  No fused kernel, nor K1's trial form."""
 
     chain_kernel = False
     fused_trials_ready = False
     fused_gradient_ready = False
+    gbp_trials_ready = False
     fused_eval_dtype = None
     fused_grad_eval_dtype = None
 

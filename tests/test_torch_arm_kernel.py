@@ -283,8 +283,9 @@ def test_arm_optimize_runs_on_the_kernels(dev):
     """``optimize`` on the arm (64 restarts, float64, all 15 iterations)
     under the defaults resolves its batch to K3, never calls the plain
     quadrature's ``cost_fn`` (so no forward kinematics of 4 x 4 products),
-    launches K1 / K2 and the arm's K3 (phi at init and on every trial
-    batch, the moments every iteration) and nothing fused, and follows the
+    launches K1 at init, its trial form and K2 every iteration and the
+    arm's K3 (phi at init and on every trial batch, the moments every
+    iteration) and nothing fused, and follows the
     plain path (``chain_impl="seq"``, ``quad_impl="xla"``): costs within
     1e-9, the same steps."""
     from gaussianvi_tpu_torch import optimize
@@ -297,7 +298,8 @@ def test_arm_optimize_runs_on_the_kernels(dev):
     _, hk = optimize(_no_plain_cost(graph), states, cfg)
     counts = {k: v for k, v in launch_counts().items() if v}
     assert quad_route_counts() == {"kernel": 1, "plain": 0}
-    assert counts == {"gbp_covariance_logdet": cfg.niters + 1,
+    assert counts == {"gbp_covariance_logdet": 1,
+                      "gbp_trials": cfg.niters,
                       "solve": cfg.niters,
                       "quad_arm_phi": cfg.niters + 1,
                       "quad_arm_moments": cfg.niters}, counts
@@ -314,7 +316,8 @@ def test_arm_loop_graph_replays_the_eager_loop_to_the_bit(dev, dtype):
     (256 restarts each): eager, captured and replayed, replayed
     (``loop_graph_counts()``); each call's history, final state and loop
     values equal the eager loop's (``run_gvi_carry``) on its set bit for
-    bit, and the launch counts grow by the eager loop's each call."""
+    bit, and the launch counts grow by the eager loop's each call: K1's
+    trial form once an iteration, K1 once, at init."""
     from gaussianvi_tpu_torch.inference import loop_graph
     from gaussianvi_tpu_torch.inference.optimize import (
         optimize_from,
@@ -341,7 +344,9 @@ def test_arm_loop_graph_replays_the_eager_loop_to_the_bit(dev, dtype):
         eager.append(flat(carry.state, hist, (carry.temperature,
                                               carry.is_lowtemp,
                                               carry.converged)))
-    assert grown[0]["quad_arm_moments"] == sets[0][2].niters
+    niters = sets[0][2].niters
+    assert grown[0]["quad_arm_moments"] == grown[0]["gbp_trials"] == niters
+    assert grown[0]["gbp_covariance_logdet"] == 1
     loop_graph.clear()
     reset_launch_counts()
     kinds, outs = [], []

@@ -604,7 +604,7 @@ def test_optimize_on_kernels_matches_plain(dev):
     assert (counts.pop("fused_trials") == counts.pop("fused_gradient")
             == counts.pop("fused_moments") == counts.pop("fused_gradient_accum")
             == counts.pop("fused_gradient_solve") == counts.pop("quad_arm_phi")
-            == counts.pop("quad_arm_moments") == 0)
+            == counts.pop("quad_arm_moments") == counts.pop("gbp_trials") == 0)
     assert all(n > 0 for n in counts.values())
     _, hp = optimize(graph, state,
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
@@ -1130,7 +1130,8 @@ def test_s14_s1_models_on_kernels_match_plain(dev):
     reset_launch_counts()
     _, hk = optimize(graph, state, cfg)
     assert {k for k, v in launch_counts().items() if v} == {
-        "gbp_covariance_logdet", "solve", "quad_arm_phi", "quad_arm_moments"}
+        "gbp_covariance_logdet", "gbp_trials", "solve", "quad_arm_phi",
+        "quad_arm_moments"}
     _, hp = optimize(graph, state, replace(cfg, chain_impl="seq",
                                            quad_impl="xla"))
     torch.testing.assert_close(hk.cost, hp.cost, rtol=1e-9, atol=0)
