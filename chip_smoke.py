@@ -33,8 +33,8 @@ Then the planar planner (its kernels at its shapes, its fused, separate
 and plain paths), and the s = 6 models: every kernel at the shapes of
 chain estimation at dim_x=3 and of the 3-D point planner (K1, K2, K3 both
 variants, K4, K5, K6 "full"), the point planner fused and separate at
-B=1024 restarts (plain at 64), the planar quadrotor on K1 / K2 at B=1024
-(plain at 64), chain estimation at dim_x=3 fused and block-form at
+B=1024 restarts, the planar quadrotor on K1 / K2 at B=1024, chain
+estimation at dim_x=3 fused and block-form at
 B=1024, each counted and held to the plain path.  Then K1 and K2 at
 s = 14 (a warp per chain or pair, ``csrc/chain_wide.cu``) and s = 1 at the
 7-DOF arm planner's and Barfoot's shapes and at the arm's real iterate
@@ -75,9 +75,8 @@ planners' shapes, with sigma points outside their windows, on a window's
 upper edge and windows flush with both ends of the field; both planners
 at B=1024 restarts under the defaults, counted (K5 never runs: the
 windows follow the trials' means), float32 against float64, 8 restarts
-in float64 against the same routes' plain versions on the CPU, their
-rates and busy shares beside the default path; and, in the
-factor-parallel phase, the point planner's patch mode at fp=2 against
+in float64 against the same routes' plain versions on the CPU; and, in
+the factor-parallel phase, the point planner's patch mode at fp=2 against
 one process.  Then the samplers at the
 flagship's width (N = 32, s = 4, D = 128; no CUDA kernel of their own):
 GVI and ``validate_posterior`` on a linear-Gaussian chain, ``run_chains``
@@ -91,10 +90,12 @@ Checks the results: NGD costs finite, non-increasing and positive, prox
 costs finite, float32 close to float64 (see ``main``), and the kernel
 paths equal to the plain paths on a small batch; the ranks of the
 factor-parallel path end bit-identical and agree with the single-process
-fused path.  Prints the timings with
-the card's name and power limit (both ``sqrtm_product`` methods included),
-one JSON line of per-kernel results with each kernel's roofline bound,
-and, last, ``{"ok": true, "device": {...}}``.  Any failure raises.
+fused path.  Prints the kernels' timings with the card's name and power
+limit (both ``sqrtm_product`` methods included), one JSON line of
+per-kernel results with each kernel's roofline bound (the operation
+counts of ``benchmark/work.py``), and, last, ``{"ok": true, "device":
+{...}}``.  Any failure raises.  The paths' throughput is the benchmark's
+to measure (``benchmark/run.py``), not this program's.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -103,7 +104,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 from collections import Counter
 import subprocess
 import sys
@@ -113,11 +113,16 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from benchmark.work import chain_flops, quad_flops, solve_flops
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 B, N, DIM_X, DEGREE, NITERS = 1024, 32, 2, 4, 10
 B_SEPARATE = 256                # the separate-kernel path's batch
 TRIALS = 11                     # niters_backtrack + 1 line-search trials
+# operations of one range cost evaluation at dim_x = dx, 3 dx + 8 (as
+# benchmark/families/range_chain.py counts them)
+RANGE_COST_OPS = 3 * DIM_X + 8
 SEED = 0
 # one H100 SXM, published peaks: device memory rate and float32 rate
 # outside the tensor cores (the kernels' arithmetic is plain float32)
@@ -249,40 +254,9 @@ def bound(inputs, outputs, flops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-# Operation counts, leading terms, per unit of work (s = block size, d =
-# factor dim, m = rule nodes, dx = the rule's marginal dim, the position
-# the cost reads): a Cholesky is s^3/3, a pair of triangular solves
-# against s columns 2 s^3, a product 2 s^3.
-def chain_flops(s):
-    """Per state of a covariance sweep: forward and backward message (a
-    Cholesky, a solve pair, a product each) and the edge's blocks as
-    fused.cuh edge_covariance_r takes them: the 2s x 2s joint's inverse
-    up to s = 4, above it s x s Schur complements (two Choleskys, three
-    solve pairs against s columns, three products)."""
-    edge = ((2 * s) ** 3 / 3 + 2 * (2 * s) ** 3 if s <= 4
-            else (2 / 3 + 12) * s**3)
-    return 2 * (s**3 / 3 + 4 * s**3) + edge
-
-
-def solve_flops(s):
-    """Per state of a block-Thomas solve: a Cholesky, a solve pair, a
-    product and the vector updates."""
-    return s**3 / 3 + 4 * s**3 + 6 * s**2
-
-
-def quad_flops(d, m, dx, moments, cost=None):
-    """Per factor of a marginal rule over the leading ``dx`` of ``d``
-    dims: the Cholesky, then per node the placement, the cost (``cost``
-    operations; the range cost's ~3 dx + 8 by default) and the weighted
-    sums.  E[phi] needs the leading dx x dx factor and dx rows of the
-    placement; the moments need every row of the offset (from the dx
-    nonzero node coordinates) and the whole factor, whose trailing
-    columns the marginal-rule lift reads."""
-    cost = 3 * dx + 8 if cost is None else cost
-    if not moments:
-        return dx**3 / 3 + m * (dx * (dx + 1) + cost + 4)
-    place = 2 * sum(min(i + 1, dx) for i in range(d))
-    return d**3 / 3 + m * (place + cost + 2 + 2 * d + d * (d + 1))
+# Operation counts, leading terms, per unit of work: ``benchmark/work.py``'s
+# (a covariance sweep and a block-Thomas solve per state, the quadrature
+# per factor), the counts the benchmark's rooflines use.
 
 
 def compare(name, got, want, rtol, atol):
@@ -394,9 +368,11 @@ def kernel_checks(graph_b, state_b, dev):
                 (diag, off), k1, TRIALS * B * N * chain_flops(4)),
             "solve": bound(pair, k2, 2 * B * N * solve_flops(4)),
             "quad_phi": bound(args3[:4] + args3[5:], mu[..., 0],
-                              TRIALS * B * N * quad_flops(4, m, DIM_X, False)),
+                              TRIALS * B * N * quad_flops(
+                                  4, m, DIM_X, False, RANGE_COST_OPS)),
             "quad_moments": bound(args4[:4] + args4[5:], km,
-                                  B * N * quad_flops(4, m, DIM_X, True)),
+                                  B * N * quad_flops(4, m, DIM_X, True,
+                                                     RANGE_COST_OPS)),
         }
         for name, (ms, plain_ms) in times.items():
             results[name] = dict(max_abs_err=errs[name],
@@ -643,7 +619,8 @@ def moments_checks(graph_b, iterate, dev):
                 quad.KERNEL_COSTS["range"][1], (flat[2],), 2)),
             k3_moments_ms=k3_ms,
             **bound(args[:4] + args[5:], fm.fused_moments(*args, rdim=2),
-                    B * N * quad_flops(4, fb.nodes.shape[0], DIM_X, True)))
+                    B * N * quad_flops(4, fb.nodes.shape[0], DIM_X, True,
+                                       RANGE_COST_OPS)))
     return out
 
 
@@ -754,10 +731,12 @@ def fused_checks(graph_b, state_b, dev, iterate):
     # K5: per (trial, problem) a covariance sweep, E[phi] per state and the
     # linear costs; K6: per problem a sweep, the moments, the assembly
     # (six products per state) and both solves
-    flops5 = TRIALS * B * N * (chain_flops(4) + quad_flops(4, m, DIM_X, False)
-                               + 16 * 4**2)
-    flops6 = B * N * (chain_flops(4) + quad_flops(4, m, DIM_X, True)
-                      + 12 * 4**3 + 2 * solve_flops(4))
+    flops5 = TRIALS * B * N * (
+        chain_flops(4) + quad_flops(4, m, DIM_X, False, RANGE_COST_OPS)
+        + 16 * 4**2)
+    flops6 = B * N * (
+        chain_flops(4) + quad_flops(4, m, DIM_X, True, RANGE_COST_OPS)
+        + 12 * 4**3 + 2 * solve_flops(4))
     return {
         "fused_trials": dict(
             **bound((x5[f32], arrays), k5[f32], flops5),
@@ -895,11 +874,11 @@ def split_checks(graph_b, dev, iterate):
               flush=True)
     m = graph_b[f32].nonlinear[0].nodes.shape[0]
     specs0, arrays0 = halves[f32][0]
-    # accum: per problem both sweeps with the edge inverse, the moments and
-    # the assembly (six products) of the shard's factors; solve: the sweeps
-    # again and both solves
+    # accum: per problem a covariance sweep, the moments and the assembly
+    # (six products) of the shard's factors; solve: the sweep again and
+    # both solves
     flops_a = B * (N * chain_flops(4) + specs0[0].k * (
-        quad_flops(4, m, DIM_X, True) + 12 * 4**3))
+        quad_flops(4, m, DIM_X, True, RANGE_COST_OPS) + 12 * 4**3))
     flops_s = B * N * (chain_flops(4) + 2 * solve_flops(4))
     return {
         "fused_gradient_accum": dict(
@@ -1284,22 +1263,6 @@ def counted(optimize_fn, *args):
     return out, launch_counts()
 
 
-def rate(run, work, runs=3):
-    """``work`` prob-iters over the median wall time of ``runs`` calls of
-    ``run`` (host clock around ``synchronize``).  Taken late in this long
-    process, it reads up to 2x below a fresh process and shows that a path
-    runs, no more: the rates to quote are scripts/torch_profile.py's
-    interleaved medians (PERF.md section 5)."""
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    return work / statistics.median(times)
-
-
 B_MIXED = 64                    # the dp=2 x fp=2 mesh's batch
 RANKS = 4                       # rank processes of the factor-parallel phase
 
@@ -1355,14 +1318,6 @@ def sharded_rank(rank, world, device, cfg):
                        all_reduces=mesh.all_reduces - reduces,
                        inventory=dict(mesh.inventory - inv0),
                        backend=mesh.backend, device=str(device))
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        optimize_sharded(graph, state0, cfg, mesh)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    out["main"]["seconds"] = statistics.median(times)
     out.update(point3d_fp_rank(mesh, device, result))
     out.update(patch_fp_rank(mesh, device, result))
     out.update(options_fp_rank(mesh, device, cfg, result))
@@ -1486,7 +1441,7 @@ def sharded_path(cfg, dev, optimize):
     """The factor-parallel path on this card: four rank processes (spawned
     after the kernel library is built, so none of them compiles), checked
     against the single-process fused path.  Returns rank 0's launch counts
-    of its counted B=1024 run and the path's rate."""
+    of its counted B=1024 run and the further paths' results."""
     from gaussianvi_tpu_torch.parallel.multiprocess import spawn_ranks
 
     t0 = time.perf_counter()
@@ -1570,12 +1525,11 @@ def sharded_path(cfg, dev, optimize):
     print(f"[factor-parallel path] collectives as comm_model predicts: "
           f"{report.bytes_per_iter} B an iteration in "
           f"{sum(per_iter.values())} all-reduces", flush=True)
-    rate = B * NITERS / max(main0["seconds"], main1["seconds"])
     extra = {"p3": point3d_fp_checks(ranks, dev, same),
              "patch": patch_fp_checks(ranks, dev, same),
              "options": options_fp_checks(ranks, dev, cfg, same),
              "sp": sp_checks(ranks, dev)}
-    return main0["launches"], rate, extra
+    return main0["launches"], extra
 
 
 def point3d_fp_checks(ranks, dev, same):
@@ -1788,7 +1742,6 @@ def assoc_checks(dev, cfg):
 # mean_scale 0.3, the batch the JAX package's planning bench ran
 PLAN_B, PLAN_N, PLAN_ITERS = 1024, 20, 30
 PLAN_B_SEPARATE = 256
-PLAN_B_PLAIN = 64
 # operations of one planar SDF cost evaluation (clip, two divisions, two
 # floors, the four-corner blend, the hinge); its four gathers hit L1 / L2
 PLANAR_COST_OPS = 35
@@ -2140,10 +2093,10 @@ def check_plan(name, hist, state, sdf, batch):
     return clearance, clear
 
 
-def planner_runs(card, dev):
+def planner_runs(dev):
     """The planner's paths, each counted: fused (the default) and
-    separate, against the plain path and float64; throughput.  Returns
-    ``(counts per path, rates)``."""
+    separate, against the plain path and float64.  Returns the counts per
+    path."""
     from gaussianvi_tpu_torch import optimize
 
     f32, f64 = torch.float32, torch.float64
@@ -2257,19 +2210,7 @@ def planner_runs(card, dev):
               f"{rel[-1]:.1e}, max {rel.max().item():.1e}; steps differ at "
               f"{steps}/{PLAN_ITERS} iterations", flush=True)
 
-    plain = subset(inits32, PLAN_B_PLAIN)
-    rates = {"fused": rate(lambda: optimize(graph32, inits32, cfg),
-                           PLAN_B * PLAN_ITERS),
-             "separate": rate(lambda: optimize(graph32, inits32, cfg_sep),
-                              PLAN_B * PLAN_ITERS),
-             "plain": rate(lambda: optimize(graph32, plain, cfg_plain),
-                           PLAN_B_PLAIN * PLAN_ITERS, runs=1)}
-    print(f"[throughput] {card}: planar planner fused {rates['fused']:.1f}, "
-          f"separate {rates['separate']:.1f} prob-iters/s (B={PLAN_B}, "
-          f"N={PLAN_N}, {PLAN_ITERS} iters, f32, median of 3); plain PyTorch "
-          f"{rates['plain']:.1f} prob-iters/s (B={PLAN_B_PLAIN}, one run)",
-          flush=True)
-    return {"fused": fused_counts, "separate": sep_counts}, rates
+    return {"fused": fused_counts, "separate": sep_counts}
 
 
 # ---- s = 6: the 3-D point and quadrotor planners, chain estimation at
@@ -2282,9 +2223,8 @@ def planner_runs(card, dev):
 # degree 4 (the 69-node (3, 4) marginal rule), 10 iterations.  B = 1024
 # restarts (perturb_inits, mean_scale 0.3) or problems; not cut.
 S6_B = 1024
-S6_B_PLAIN = 64
 P3_N, P3_ITERS = 20, 30
-QR_N, QR_ITERS = 12, 20
+QR_ITERS = 20
 # operations of one 3-D SDF cost evaluation (clip, three divisions, three
 # floors, the eight-corner blend, the hinge); its eight gathers hit L2
 SDF3D_COST_OPS = 55
@@ -2577,8 +2517,9 @@ def s6_kernel_checks(dev):
                   if k.startswith("zeros")), flush=True)
 
         m = graphs[f32].nonlinear[0].nodes.shape[0]
-        cost_kw = {} if cost_ops is None else dict(cost=cost_ops)
-        q = dict(d=6, m=m, dx=3, **cost_kw)
+        # the range cost at dim_x = 3 where the model names no other
+        q = dict(d=6, m=m, dx=3,
+                 cost=3 * 3 + 8 if cost_ops is None else cost_ops)
         work = {
             "gbp_covariance_logdet": TRIALS * S6_B * n * chain_flops(6),
             "solve": 2 * S6_B * n * solve_flops(6),
@@ -2705,26 +2646,21 @@ def f32_vs_f64(name, hist32, hist64, final0):
     check(last0 < final0, f"{name}: problem-0 final f32 vs f64 {last0:.3e}")
 
 
-def s6_runs(card, dev):
+def s6_runs(dev):
     """The three s = 6 models through ``optimize`` under the defaults on
     the card, each path counted: the point planner fused and separate at
-    B = 1024 (plain at B = 64), the quadrotor on K1 / K2 at B = 1024
-    (plain at B = 64), chain estimation at dim_x = 3 fused and block-form
-    at B = 1024; float32 against float64; the kernel paths against the
+    B = 1024, the quadrotor on K1 / K2 at B = 1024, chain estimation at
+    dim_x = 3 fused and block-form at B = 1024; float32 against float64; the kernel paths against the
     plain path on 8 problems in float64; the planners' own checks
-    (``tests/test_sdf_io.py``, ``tests/test_quadrotor.py``); throughput.
-    Returns ``(counts per path, rates)``."""
+    (``tests/test_sdf_io.py``, ``tests/test_quadrotor.py``).  Returns the
+    counts per path."""
     from gaussianvi_tpu_torch import GVIConfig, optimize
     from gaussianvi_tpu_torch.factors.robots import planar_quad_balls
     from gaussianvi_tpu_torch.inference.graph import GaussianState
     from gaussianvi_tpu_torch.ops.blocktridiag import BlockTridiag
 
     f32, f64 = torch.float32, torch.float64
-    counts, rates = {}, {}
-
-    def path_rate(graph, state, config, iters, runs=3):
-        return rate(lambda: optimize(graph, state, config),
-                    state.mu.shape[0] * iters, runs)
+    counts = {}
 
     def plain_of(config):
         return replace(config, chain_impl="seq", quad_impl="xla")
@@ -2804,11 +2740,6 @@ def s6_runs(card, dev):
               f"{rel[-1]:.1e}, max {rel.max().item():.1e}; steps differ at "
               f"{steps}/{P3_ITERS} iterations", flush=True)
     took("point planner end to end")
-    rates["point3d fused"] = path_rate(graph32, inits32, cfg, P3_ITERS)
-    rates["point3d separate"] = path_rate(graph32, inits32, cfg_sep,
-                                          P3_ITERS)
-    rates["point3d plain"] = path_rate(graph32, subset(inits32, S6_B_PLAIN),
-                                       plain_of(cfg), P3_ITERS, runs=1)
 
     took("point planner paths")
     # ---- the planar quadrotor ----
@@ -2839,9 +2770,6 @@ def s6_runs(card, dev):
                   optimize(graph64, s8, qcfg)[1],
                   optimize(graph64, s8, plain_of(qcfg))[1], dev,
                   tag="s=6 end to end")
-    rates["quadrotor"] = path_rate(graph32, inits32, qcfg, QR_ITERS)
-    rates["quadrotor plain"] = path_rate(graph32, subset(inits32, S6_B_PLAIN),
-                                         plain_of(qcfg), QR_ITERS, runs=1)
 
     took("quadrotor path")
     # ---- chain estimation at dim_x = 3 ----
@@ -2882,20 +2810,10 @@ def s6_runs(card, dev):
              optimize(g8c, s8c, replace(cfg, fused_trials="on",
                                         fused_gradient="on"))[1])):
         held_to_plain(name, got, want, dev, tag="s=6 end to end")
-    rates["dim_x=3 fused"] = path_rate(graph32, state32, cfg, NITERS)
-    print(f"[throughput] {card}: point3d fused {rates['point3d fused']:.1f}, "
-          f"separate {rates['point3d separate']:.1f} prob-iters/s (B={S6_B}, "
-          f"N={P3_N}, {P3_ITERS} iters), plain {rates['point3d plain']:.1f} "
-          f"(B={S6_B_PLAIN}); quadrotor (K1 / K2) {rates['quadrotor']:.1f} "
-          f"(B={S6_B}, N={QR_N}, {QR_ITERS} iters), plain "
-          f"{rates['quadrotor plain']:.1f} (B={S6_B_PLAIN}); dim_x=3 fused "
-          f"{rates['dim_x=3 fused']:.1f} (B={S6_B}, N={N}, {NITERS} iters); "
-          f"f32, median of 3, plain one run", flush=True)
-    return counts, rates
+    return counts
 
 
 ARM_B, ARM_ITERS = 1024, 15     # the arm planner's restarts, iterations
-ARM_B_PLAIN = 64
 # operations of one arm cost evaluation (csrc/costs.cuh ArmSdfCost): a
 # joint 66 (the angle's sine and cosine, the transform's products), a
 # sphere 75 (its center 18, the 3-D lookup and hinge 55, the sum 2)
@@ -3069,7 +2987,8 @@ def arm_trial_checks(dev, g64, cfg, it64):
     cases = {}
     for dt, it in ((f64, it64), (f32, it32)):
         engine = LocalEngine(graphs[dt], cfg, dev)
-        check(engine.gbp_trials_ready, f"arm trial form {dt}: not resolved")
+        check(engine.plan(cfg, "ngd").trials == "chain",
+              f"arm trial form {dt}: not resolved")
         state, dmu, dprec = arm_direction(graphs[dt], cfg, it, dev)
         trials = cfg.step_size_base * cfg.step_decay ** torch.arange(
             1, TRIALS + 1, dtype=dt, device=dev)
@@ -3119,8 +3038,7 @@ def arm_trial_checks(dev, g64, cfg, it64):
     engine, state, dmu, dprec, trials = cases[f32]
     n, s = state.mu.shape[1:]
     prec = state.precision
-    _, lin_specs, _, lin = engine._flat_operands(state.mu.shape[:1],
-                                                 state.mu)
+    lin_specs, lin = engine._flat_linear(state.mu.shape[:1])
     ops = (state.mu, dmu, prec.diag, prec.off, dprec.diag, dprec.off, trials,
            *(x for arrays in lin for x in arrays[1:]))
     row = dict(
@@ -3252,7 +3170,7 @@ def arm_quad_checks(dev, it64):
     return out
 
 
-def arm_runs(card, dev):
+def arm_runs(dev):
     """The 7-DOF arm planner through ``optimize`` under the defaults on
     the card (K1 / K2 at s = 14 and the arm's K3 instance, ``"arm_sdf"``,
     ``csrc/quad_arm.cu``) at B = 1024 restarts
@@ -3265,7 +3183,7 @@ def arm_runs(card, dev):
     (``tests/test_arm_planning.py``); float32 against float64 on the
     unpoisoned restarts; the kernel path against the plain path in float64
     on 8 restarts over all 15 iterations, beside the plain path's own
-    1e-15 sensitivity; the rate.  Returns ``(launches, rates)``."""
+    1e-15 sensitivity.  Returns the launches."""
     from types import SimpleNamespace
 
     from gaussianvi_tpu_torch import optimize
@@ -3330,16 +3248,7 @@ def arm_runs(card, dev):
               f"last {rel[4]:.1e} / {rel[9]:.1e} / {rel[-1]:.1e}, max "
               f"{rel.max().item():.1e}; steps differ at {steps}/{ARM_ITERS} "
               f"iterations", flush=True)
-    rates = {"arm": rate(lambda: optimize(graph32, inits32, cfg),
-                         ARM_B * ARM_ITERS),
-             "arm plain": rate(lambda: optimize(
-                 graph32, subset(inits32, ARM_B_PLAIN), plain),
-                 ARM_B_PLAIN * ARM_ITERS, runs=1)}
-    print(f"[throughput] {card}: arm (K1 / K2 at s = 14, K3) {rates['arm']:.1f} "
-          f"prob-iters/s (B={ARM_B}, N={hist32.mu.shape[2]}, {ARM_ITERS} "
-          f"iters), plain {rates['arm plain']:.1f} (B={ARM_B_PLAIN}); f32, "
-          f"median of 3, plain one run", flush=True)
-    return n, rates
+    return n
 
 
 def barfoot_runs(dev):
@@ -3612,15 +3521,15 @@ def bf16_s6_checks(dev):
     return out
 
 
-def bf16_runs(card, dev, graph_b, state_b, graph_s, state_s):
+def bf16_runs(dev, graph_b, state_b, graph_s, state_s):
     """The flagship with ``moments_eval_dtype``: bfloat16 through the fused
     kernels at B = 1024 (counted: K1 and K3 at init, K5 and K6 every
     iteration) and the separate kernels at B = 256 (counted: K3 both
     variants), the kernel paths against the plain path with the same
     option (float64, 8 problems), float32 bfloat16 against float64
-    unquantized (the same basin within 10%, the JAX package's pin), the
-    rate; float16: the engine's resolution (plain quadrature, no fused
-    kernel) and a finite run.  Returns the launches by path."""
+    unquantized (the same basin within 10%, the JAX package's pin);
+    float16: the engine's resolution (plain quadrature, no fused kernel)
+    and a finite run.  Returns the launches by path."""
     from gaussianvi_tpu_torch import GVIConfig, optimize
     from gaussianvi_tpu_torch.inference.engine import LocalEngine
 
@@ -3674,17 +3583,11 @@ def bf16_runs(card, dev, graph_b, state_b, graph_s, state_s):
         held_to_plain(f"bf16 {name} kernels vs plain path",
                       optimize(g8, s8, c)[1], hp, dev, rtol=1e-4,
                       tag="bf16 end to end")
-    r = rate(lambda: optimize(graph_b[f32], state_b[f32], cfg_b),
-             B * NITERS)
-    print(f"[throughput] {card}: fused kernels with bfloat16 offsets "
-          f"{r:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, f32, median "
-          f"of 3)", flush=True)
     cfg_h = replace(cfg, moments_eval_dtype="float16")
     eng = LocalEngine(graph_b[f32], cfg_h, dev)
-    print(f"[fp16 resolution] chain_kernel {eng.chain_kernel}, quad_kernel "
-          f"{eng.quad_kernel} (float16 offsets take the plain quadrature), "
-          f"fused_trials {eng.fused_trials_ready}, fused_gradient "
-          f"{eng.fused_gradient_ready}", flush=True)
+    print(f"[fp16 resolution] chain {eng.chain_impl}, quad_batches "
+          f"{eng.quad_batches} (float16 offsets take the plain quadrature), "
+          f"plan {eng.plan(cfg_h, 'ngd')}", flush=True)
     check(not eng.fused_trials_ready and not eng.fused_gradient_ready,
           "fp16: a fused kernel was resolved")
     (_, hh), half = counted(optimize, graph_s, state_s, cfg_h)
@@ -3862,13 +3765,14 @@ def ltv_problem(dtype, dev, count=None):
                                          prec.off.to(dtype))), config
 
 
-def ltv_runs(card, dev):
+def ltv_runs(dev):
     """LTV estimation at B = 1024 restarts under the defaults on the card:
     the engine's resolution printed (its measurement batch is
     ``cost_fn``-only, as in the JAX package: K1 / K2 at s = 2 and the
     plain quadrature), float32 counted, costs finite and non-increasing
-    in both dtypes, float32 against float64 (below), the kernel path against the plain path in float64 on 8 restarts, the
-    rate.  Returns the launches."""
+    in both dtypes, float32 against float64 (below), the kernel path
+    against the plain path in float64 on 8 restarts.  Returns the
+    launches."""
     from gaussianvi_tpu_torch import optimize
     from gaussianvi_tpu_torch.inference.engine import LocalEngine
 
@@ -3876,10 +3780,8 @@ def ltv_runs(card, dev):
     g32, i32, cfg = ltv_problem(f32, dev)
     g64, i64, _ = ltv_problem(f64, dev)
     eng = LocalEngine(g32, cfg, dev)
-    print(f"[ltv resolution] chain_kernel {eng.chain_kernel}, quad_kernel "
-          f"{eng.quad_kernel}, quad_batches {eng.quad_batches}, fused_trials "
-          f"{eng.fused_trials_ready}, fused_gradient "
-          f"{eng.fused_gradient_ready}", flush=True)
+    print(f"[ltv resolution] chain {eng.chain_impl}, quad_batches "
+          f"{eng.quad_batches}, plan {eng.plan(cfg, 'ngd')}", flush=True)
     (s32, h32), n = counted(optimize, g32, i32, cfg)
     print(f"[ltv path] launches {n}", flush=True)
     check(n["gbp_covariance_logdet"] > 0 and n["solve"] == LTV_ITERS
@@ -3914,10 +3816,6 @@ def ltv_runs(card, dev):
     hp = optimize(g8, s8, replace(cfg, chain_impl="seq", quad_impl="xla"))[1]
     held_to_plain("ltv chain kernels vs plain path", optimize(g8, s8, cfg)[1],
                   hp, dev, tag="ltv end to end")
-    r = rate(lambda: optimize(g32, i32, cfg), LTV_B * LTV_ITERS)
-    print(f"[throughput] {card}: LTV estimation (K1 / K2 at s = 2, plain "
-          f"quadrature) {r:.1f} prob-iters/s (B={LTV_B}, N={h32.mu.shape[2]},"
-          f" {LTV_ITERS} iters, f32, median of 3)", flush=True)
     return n
 
 
@@ -4196,15 +4094,14 @@ def held_over(name, got, want, horizon, dev, tag):
                   cut(want), dev, tag=tag)
 
 
-def patch_runs(card, dev):
+def patch_runs(dev):
     """Both planners in the patch mode under the defaults on the card:
     the fused trial kernel off (K1 and K3 phi take the trials, each
     trial's windows formed from its means), K6 ``full`` once an iteration
     with the current means' windows; costs finite and non-increasing;
     float32 against float64 by the s = 6 gates; 8 restarts in float64
     against the same routes' plain versions on the CPU (rtol 1e-9, the
-    same steps, over the iterations a 1e-15 nudge allows); the rate and
-    busy share beside the default (whole-field, fused) path.  Returns
+    same steps, over the iterations a 1e-15 nudge allows).  Returns
     ``{planner: launches}``."""
     from gaussianvi_tpu_torch import optimize
     from gaussianvi_tpu_torch.inference.engine import LocalEngine
@@ -4255,22 +4152,6 @@ def patch_runs(card, dev):
               f"{horizon} iterations")
         held_over(f"patch {name} kernels vs plain versions (CPU)", hk, hp,
                   horizon, dev, "patch end to end")
-        default = (planner_problem if name == "planar"
-                   else point3d_problem)(f32, dev)
-        runs = {"patch": lambda: optimize(graph32, inits32, cfg),
-                "default": lambda: optimize(default[0], default[1],
-                                            default[2])}
-        line = []
-        for path, run in runs.items():
-            r = rate(run, PLAN_B * PLAN_ITERS)
-            busy, wall, device, ops = busy_share(run)
-            line.append(f"{path} {r:.1f} prob-iters/s, busy {100 * busy:.1f}%"
-                        f" ({device * 1e3:.2f} ms of device time in a "
-                        f"{wall * 1e3:.2f} ms call, {ops} device ops)")
-        print(f"[throughput] {card}: {name} planner, patch mode "
-              f"(patch_size={PATCH[name]}) vs default: " + "; ".join(line)
-              + f" (B={PLAN_B}, N={PLAN_N}, {PLAN_ITERS} iters, f32, rate "
-              f"median of 3)", flush=True)
     return counts
 
 
@@ -4979,7 +4860,7 @@ def main() -> int:
 
     took("flagship paths")
     # ---- factor-parallel path: rank processes on this card, counted ----
-    shard_counts, shard_rate, shard_extra = sharded_path(cfg, dev, optimize)
+    shard_counts, shard_extra = sharded_path(cfg, dev, optimize)
     took("factor-parallel and sequence-parallel paths")
     assoc = assoc_checks(dev, cfg)
     took("log-depth chain")
@@ -5025,26 +4906,6 @@ def main() -> int:
         held_to_plain(name, got, want, dev, rtol)
     took("flagship end to end")
 
-    # ---- throughput: fused, separate and plain paths (float32) ----
-    def flagship(config, method="ngd", runs=3):
-        return rate(lambda: optimize(graph_b[torch.float32],
-                                     state_b[torch.float32], config, method),
-                    B * NITERS, runs)
-
-    rates = {"fused": flagship(cfg), "separate": flagship(cfg_sep),
-             "plain": flagship(cfg_plain, runs=1), "block": flagship(cfg_block),
-             "block_sep": flagship(replace(cfg_block, fused_trials="off")),
-             "prox": flagship(cfg_prox, "prox")}
-    print(f"[throughput] {card}: fused kernels {rates['fused']:.1f}, "
-          f"separate kernels {rates['separate']:.1f}, plain PyTorch "
-          f"{rates['plain']:.1f}, block-form moments {rates['block']:.1f} "
-          f"(with separate trials {rates['block_sep']:.1f}), prox "
-          f"{rates['prox']:.1f} prob-iters/s (B={B}, N={N}, {NITERS} iters, "
-          f"f32, median of 3, plain one run)", flush=True)
-    print(f"[throughput] {card}: factor-parallel dp=1 x fp=2 "
-          f"{shard_rate:.1f} prob-iters/s: two ranks time-slicing one card "
-          f"over gloo, no scaling number (B={B}, N={N}, {NITERS} iters, f32, "
-          f"median of 3, the slower rank)", flush=True)
     for name, r in kern.items():
         flushed = (f" ({r['ms_flushed_l2']:.4f} ms with the L2 flushed "
                    f"before each call)" if "ms_flushed_l2" in r else "")
@@ -5061,11 +4922,11 @@ def main() -> int:
         f"{shape} {method} {ms:.3f} ms"
         for (shape, method), ms in sqrtm_ms.items()) + " (f32)", flush=True)
 
-    took("flagship throughput")
+    took("flagship kernel times")
     # ---- the planar planner: kernels at its shapes, its paths ----
     plan_kern = planner_kernel_checks(dev)
     took("planner kernel checks and times")
-    plan_counts, _ = planner_runs(card, dev)
+    plan_counts = planner_runs(dev)
     took("planner paths")
     for name, r in plan_kern.items():
         print(f"[kernel time] {card}: planner {name} {r['ms']:.4f} ms "
@@ -5078,7 +4939,7 @@ def main() -> int:
     # ---- s = 6: kernels at the models' shapes, their paths ----
     s6_kern = s6_kernel_checks(dev)
     took("s = 6 kernel checks and times")
-    s6_counts, _ = s6_runs(card, dev)
+    s6_counts = s6_runs(dev)
     s6_counts["point3d fp=2"] = shard_extra["p3"]
     took("s = 6 paths")
     for (model, name), r in s6_kern.items():
@@ -5092,7 +4953,7 @@ def main() -> int:
     # arm planner and the Barfoot example ----
     wide_kern = wide_kernel_checks(dev)
     took("s = 14 / s = 1 kernel checks and times")
-    arm_counts, _ = arm_runs(card, dev)
+    arm_counts = arm_runs(dev)
     took("arm planner path")
     barfoot_counts = barfoot_runs(dev)
     took("Barfoot 1-D")
@@ -5118,17 +4979,17 @@ def main() -> int:
     bf16_kern = {"flagship": bf16_flagship_checks(graph_b, dev, iterate),
                  "point3d": bf16_s6_checks(dev)}
     took("bf16 kernel checks and times")
-    bf16_counts = bf16_runs(card, dev, graph_b, state_b, graph_s, state_s)
+    bf16_counts = bf16_runs(dev, graph_b, state_b, graph_s, state_s)
     took("bf16 paths")
     resume_counts = resume_runs(dev, graph_b, state_b)
     took("resume")
     option_counts = options_runs(dev, graph_s, state_s)
     took("seq and EMA paths")
-    ltv_counts = ltv_runs(card, dev)
+    ltv_counts = ltv_runs(dev)
     took("LTV estimation")
     patch_kern = patch_kernel_checks(dev)
     took("patch_runs: window functors in K3 / K6")
-    patch_counts = patch_runs(card, dev)
+    patch_counts = patch_runs(dev)
     took("patch_runs: the planners")
     for (planner, name), r in patch_kern.items():
         print(f"[kernel time] {card}: patch {planner} {name} {r['ms']:.4f} ms "

@@ -8,12 +8,17 @@ kernel where the device is the card and the kernel covers the shape (the
 chain's block size and dtype, each nonlinear batch's cost functor and
 support, the fused kernels' operands), and the plain version elsewhere;
 ``quad_impl="auto"`` follows the resolved chain, and the fused kernels are
-gated on the resolved quadrature alone.  It exposes the loop's hooks over
+gated on the resolved quadrature alone.  The loop reads which route each
+of its stages takes from one :class:`LoopPlan` the engine resolves for a
+method (:meth:`LocalEngine.plan`).  It exposes the loop's hooks over
 problem-batched tensors: every result is per problem, never reduced over a
 leading axis.
 """
 
 from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
 
 import torch
 
@@ -104,7 +109,7 @@ def fused_operands(graph: FactorGraph, trials: bool = True):
     batch's field is shared by all problems, as its rule is; a patch-mode
     batch's params are its static row, which the engine replaces before
     each call by the ones its ``kernel_prep`` forms from the means
-    (:meth:`LocalEngine._flat_operands`)."""
+    (:meth:`LocalEngine._flat_nonlinear`)."""
     s = graph.state_dim
     if graph.num_states < 2:
         return "the fused kernels need N >= 2 states"
@@ -177,32 +182,93 @@ def _use_fused(field: str, value: str, why_not: str | None,
     return value == "auto" and why_not is None and quad_kernel
 
 
+@dataclass(frozen=True)
+class LoopPlan:
+    """Which route each stage of the GVI loop takes for one method on one
+    engine, resolved once (:meth:`LocalEngine.plan`).
+
+    * ``trials``, the line search: ``"seq"`` (one trial after another, on
+      the separate route), ``"fused"`` (K5: every trial's cost, log det
+      and factor costs in one kernel, no covariance), ``"chain"`` (K1's
+      trial form: every trial's chain and linear costs in one launch, the
+      nonlinear batches on its blocks) or ``"separate"`` (the chain and
+      the quadrature over all trials at once);
+    * ``gradient``: ``"prox"`` (the JKO pseudo-gradient), ``"fused"`` (K6
+      in the engine's ``gradient_modes``, which also forms the iterate's
+      covariance: the carried blocks lag and ``gvi.finish`` refreshes
+      them) or ``"separate"``;
+    * ``eval_dtype``: the sigma offsets' rounding (the config's for NGD;
+      prox never quantizes);
+    * ``captured``: whether a call's loop may replay as a CUDA graph
+      (``inference/loop_graph.py``)."""
+
+    trials: str
+    gradient: str
+    eval_dtype: torch.dtype | None
+    captured: bool
+
+
+def resolve_plan(config, method: str, fused_trials: bool = False,
+                 chain_trials: bool = False, fused_gradient: bool = False,
+                 capture: bool = False) -> LoopPlan:
+    """The :class:`LoopPlan` of ``method`` on an engine that resolved K5
+    (``fused_trials``), K1's trial form (``chain_trials``) and K6
+    (``fused_gradient``) for ``config``, and whose hooks a CUDA graph may
+    capture (``capture``); by default the separate routes, never
+    captured.  A fused kernel rounds the offsets as the config says, so a
+    run takes K5 only where it rounds them the same way (prox, which never
+    quantizes, keeps the separate trials under a bfloat16 config); K6 and
+    K1's trial form are NGD's.  A captured loop is NGD's batched search on
+    offsets the kernels round."""
+    ngd = method == "ngd"
+    config_dtype = mm.as_eval_dtype(config.moments_eval_dtype)
+    eval_dtype = config_dtype if ngd else None
+    trials = ("seq" if config.linesearch == "seq"
+              else "fused" if fused_trials and eval_dtype == config_dtype
+              else "chain" if chain_trials and ngd else "separate")
+    gradient = ("prox" if not ngd else "fused" if fused_gradient
+                else "separate")
+    return LoopPlan(trials, gradient, eval_dtype,
+                    capture and ngd and trials != "seq"
+                    and mm.kernel_quantizes(eval_dtype))
+
+
+def fold(x: torch.Tensor, batch) -> torch.Tensor:
+    """``x [*batch, ...]`` with the problem axes ``batch`` as one."""
+    return x.reshape(batch.numel(), *x.shape[len(batch):])
+
+
+def unfold(x: torch.Tensor, batch, lead: int = 0) -> torch.Tensor:
+    """``x [*lead axes, prod(batch), ...]`` with the problem axes back."""
+    return x.reshape((*x.shape[:lead], *batch, *x.shape[lead + 1:]))
+
+
+def _flat(x: torch.Tensor, batch, tail: int) -> torch.Tensor:
+    """``x [..., *rest]`` (``tail`` trailing axes) broadcast over the
+    problem axes ``batch`` and flattened to ``[prod(batch), *rest]``."""
+    rest = x.shape[x.ndim - tail:]
+    return x.expand(*batch, *rest).reshape(-1, *rest)
+
+
 class LocalEngine:
     """Single-device hooks: the whole (problem-batched) graph lives on one
     device.
 
     Resolved routes: ``chain_impl`` (``"lanes"``: K1/K2, ``"assoc"``,
-    ``"seq"``; ``chain_kernel`` is whether it is the kernels),
-    ``quad_kernel`` (the
-    quadrature's route: its kernel family, or the plain version for every
-    batch), ``quad_batches`` (per nonlinear batch, whether that batch takes
-    the quadrature kernel where the call's ``eval_dtype`` is None or
+    ``"seq"``), ``quad_batches`` (per nonlinear batch, whether that batch
+    takes the quadrature kernel where the call's ``eval_dtype`` is None or
     bfloat16; a float16 call takes the plain quadrature),
-    ``fused_trials_ready``, ``fused_gradient_ready`` (K6 in the modes of
-    ``gradient_modes``), ``gbp_trials_ready`` (K1's trial form for the
-    batched line search: the chain on K1 at a block size of the wide
-    layout, which no fused kernel covers, and every linear batch in
-    residual form; its operands are ``_fused_ops``' linear half), and the
-    ``eval_dtype`` the fused kernels round
-    the offsets through, ``fused_eval_dtype`` / ``fused_grad_eval_dtype``
-    (the config's ``moments_eval_dtype``: the loop takes a fused kernel
-    only where its own eval_dtype matches, so prox, which never
-    quantizes, takes neither under a bfloat16 config)."""
+    ``fused_trials_ready`` (K5) and ``fused_gradient_ready`` (K6 in the
+    modes of ``gradient_modes``), for the config's ``moments_eval_dtype``;
+    and, where no fused kernel covers the chain, K1's trial form (the
+    chain on K1 at a block size of the wide layout and every linear batch
+    in residual form).  The loop reads them through :meth:`plan` only."""
 
     # the modes of K6 the fused gradient step runs
     gradient_modes = ("full",)
-    fused_eval_dtype = None
-    fused_grad_eval_dtype = None
+    # whether a call's loop may replay as a CUDA graph (where the card runs
+    # every nonlinear batch's quadrature kernel)
+    captures = True
 
     def __init__(self, graph: FactorGraph, config, device: torch.device):
         self.graph = graph
@@ -211,16 +277,16 @@ class LocalEngine:
         self.chain_impl = resolve_chain_impl(
             config, graph.num_states, device,
             chain.covers(graph.state_dim, graph.dtype))
-        self.chain_kernel = self.chain_impl == "lanes"
+        chain_kernel = self.chain_impl == "lanes"
         # quad_impl="auto" follows the resolved chain (the JAX package's
         # bundle); each batch then takes the kernel where it is covered
         quad_impl = config.quad_impl
-        if quad_impl == "auto" and not self.chain_kernel:
+        if quad_impl == "auto" and not chain_kernel:
             quad_impl = "xla"
-        self.quad_kernel = use_kernel(quad_impl, "xla", "quad_impl", device)
+        quad_kernel = use_kernel(quad_impl, "xla", "quad_impl", device)
         self.quad_batches = tuple(
-            self.quad_kernel and use_kernel(quad_impl, "xla", "quad_impl",
-                                            device, mm.kernel_covers(fb))
+            quad_kernel and use_kernel(quad_impl, "xla", "quad_impl",
+                                       device, mm.kernel_covers(fb))
             for fb in graph.nonlinear)
         for kernel in self.quad_batches:
             QUAD_ROUTE_COUNTS["kernel" if kernel else "plain"] += 1
@@ -236,8 +302,8 @@ class LocalEngine:
                 and config.chain_impl in ("seq", "assoc")):
             why_not = ("quad_impl='xla' (or 'auto' with chain_impl 'seq' "
                        "or 'assoc') forces the plain quadrature")
-        eval_dtype = mm.as_eval_dtype(config.moments_eval_dtype)
-        if why_not is None and not mm.kernel_quantizes(eval_dtype):
+        if why_not is None and not mm.kernel_quantizes(
+                mm.as_eval_dtype(config.moments_eval_dtype)):
             why_not = (f"moments_eval_dtype={config.moments_eval_dtype!r} "
                        "keeps the plain quadrature (the kernels round "
                        "offsets through bfloat16 only)")
@@ -246,29 +312,55 @@ class LocalEngine:
             why_not or (None if config.linesearch == "batched"
                         else "linesearch must be 'batched'")
             or ft.covers(graph.state_dim, graph.dtype, *ops[:2]),
-            self.quad_kernel)
+            quad_kernel)
         self.fused_gradient_ready = _use_fused(
             "fused_gradient", config.fused_gradient,
             why_not or fg.covers(graph.state_dim, self.gradient_modes,
                                  {fb.kernel_cost for fb in graph.nonlinear}),
-            self.quad_kernel)
-        if self.fused_trials_ready:
-            self.fused_eval_dtype = eval_dtype
-        if self.fused_gradient_ready:
-            self.fused_grad_eval_dtype = eval_dtype
-        self._fused_ops = ops if why_not is None else None
-        lin = (linear_operands(graph) if self.chain_kernel
+            quad_kernel)
+        lin = (linear_operands(graph) if chain_kernel
                and graph.state_dim in chain.WIDE_BLOCK_SIZES
                and not self.fused_trials_ready
                else "the trial form is K1's at s = 14, where K5 is not")
-        self.gbp_trials_ready = not isinstance(lin, str)
-        if self.gbp_trials_ready and self._fused_ops is None:
-            self._fused_ops = ((), lin[0], (), lin[1])
+        self._chain_trials = not isinstance(lin, str)
+        # the kernels' operands, (specs, arrays) each: both halves where the
+        # fused kernels cover the graph, the linear half for K1's trial form
+        self._nl_ops, self._lin_ops = (
+            ((ops[0], ops[2]), (ops[1], ops[3])) if why_not is None
+            else (None, lin if self._chain_trials else None))
+
+    def plan(self, config, method: str) -> LoopPlan:
+        """The loop's routes for ``method`` under ``config`` (the config
+        the engine was built with)."""
+        return resolve_plan(
+            config, method, self.fused_trials_ready, self._chain_trials,
+            self.fused_gradient_ready,
+            self.captures and self.device.type == "cuda"
+            and all(self.quad_batches)
+            and all(fb.kernel_prep is None for fb in self.graph.nonlinear))
+
+    def operands(self):
+        """``(tree, starts)``: the tensors the hooks read (the graph and
+        the kernels' operands), of which a captured loop reads static
+        copies (:meth:`over`), and ``[(start, N)]``, each kernel batch's
+        start on the chain of N states, whose per-state index the kernels
+        read."""
+        starts = [(arrays[0], self.graph.num_states)
+                  for ops in (self._nl_ops, self._lin_ops) if ops is not None
+                  for arrays in ops[1]]
+        return (self.graph, self._nl_ops, self._lin_ops), starts
+
+    def over(self, tree) -> LocalEngine:
+        """This engine's hooks on ``tree`` (:meth:`operands`' tree with
+        other tensors of the same layout)."""
+        local = copy.copy(self)
+        local.graph, local._nl_ops, local._lin_ops = tree
+        return local
 
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
         """(cov_diag, cov_off, logdet) of the joint precision."""
-        if self.chain_kernel:
+        if self.chain_impl == "lanes":
             return chain.gbp_covariance_logdet_lanes(prec.diag, prec.off)
         if self.chain_impl == "assoc":
             return gbp_covariance_logdet_assoc(prec)
@@ -326,51 +418,45 @@ class LocalEngine:
         rhs ``[..., N, s]`` in ONE chain call (K2 reads the rhs once)."""
         if self.chain_impl == "assoc":
             return solve_assoc(bt_main, rhs), solve_assoc(bt_fallback, rhs)
-        solve = (chain.solve_pair_lanes if self.chain_kernel
+        solve = (chain.solve_pair_lanes if self.chain_impl == "lanes"
                  else chain.solve_pair_plain)
         return solve(bt_main.diag, bt_main.off, bt_fallback.diag,
                      bt_fallback.off, rhs)
 
     # -- fused kernels ---------------------------------------------------------
-    def _flat_operands(self, batch, mu):
-        """The fused operands with the problem axes flattened to one
-        ``[B, ...]`` axis (B = prod(batch)); a patch-mode batch's params
-        formed from the means ``mu [*batch, N, s]`` (the JAX package's
-        ``_splice_preps``)."""
-        nl_specs, lin_specs, nl_arrays, lin_arrays = self._fused_ops
-
-        def flat(x, tail):
-            return x.expand(*batch, *x.shape[x.ndim - tail:]).reshape(
-                -1, *x.shape[x.ndim - tail:])
-
-        nl = tuple(
-            (st, nd, w, flat(p if fb.kernel_prep is None else fb.kernel_prep(
-                take_states(mu, fb.start, fb.slice_offset, 1)), 2), *field)
+    def _flat_nonlinear(self, batch, mu):
+        """The nonlinear operands ``(specs, arrays)`` with the problem axes
+        flattened to one ``[B, ...]`` axis (B = prod(batch)); a patch-mode
+        batch's params formed from the means ``mu [*batch, N, s]`` (the
+        JAX package's ``_splice_preps``)."""
+        nl_specs, nl_arrays = self._nl_ops
+        return nl_specs, tuple(
+            (st, nd, w, _flat(p if fb.kernel_prep is None else fb.kernel_prep(
+                take_states(mu, fb.start, fb.slice_offset, 1)), batch, 2),
+             *field)
             for fb, (st, nd, w, p, *field) in zip(self.graph.nonlinear,
                                                    nl_arrays))
-        lin = tuple((st, flat(a, 4), flat(lam, 3), flat(pm, 2), flat(pc, 3))
-                    for st, a, lam, pm, pc in lin_arrays)
-        return nl_specs, lin_specs, nl, lin
+
+    def _flat_linear(self, batch):
+        """The linear operands ``(specs, arrays)``, flattened likewise."""
+        lin_specs, lin_arrays = self._lin_ops
+        return lin_specs, tuple(
+            (st, _flat(a, batch, 4), _flat(lam, batch, 3), _flat(pm, batch, 2),
+             _flat(pc, batch, 3)) for st, a, lam, pm, pc in lin_arrays)
 
     def fused_trial_costs(self, state: GaussianState, dmu,
-                          dprec: BlockTridiag, trials):
+                          dprec: BlockTridiag, trials, eval_dtype=None):
         """All line-search trials in one kernel (K5): ``(ld [T, ...],
         fc tuple of [T, ..., K])``, nonlinear batches first, then linear
         (the order of :meth:`factor_costs_raw`)."""
-        batch = state.mu.shape[:-2]
-
-        def flat(x):
-            return x.reshape(-1, *x.shape[len(batch):])
-
-        prec = state.precision
-        ld, fc = trial_costs_lanes(
-            flat(state.mu), flat(dmu), flat(prec.diag), flat(prec.off),
-            flat(dprec.diag), flat(dprec.off), trials,
-            *self._flat_operands(batch, state.mu),
-            eval_dtype=self.fused_eval_dtype)
-        t = trials.shape[0]
-        return (ld.reshape(t, *batch),
-                tuple(f.reshape(t, *batch, f.shape[-1]) for f in fc))
+        batch, prec = state.mu.shape[:-2], state.precision
+        x = [fold(x, batch) for x in (state.mu, dmu, prec.diag, prec.off,
+                                      dprec.diag, dprec.off)]
+        nl_specs, nl = self._flat_nonlinear(batch, state.mu)
+        lin_specs, lin = self._flat_linear(batch)
+        ld, fc = trial_costs_lanes(*x, trials, nl_specs, lin_specs, nl, lin,
+                                   eval_dtype=eval_dtype)
+        return unfold(ld, batch, 1), tuple(unfold(f, batch, 1) for f in fc)
 
     def gbp_trials(self, state: GaussianState, dmu, dprec: BlockTridiag,
                    trials):
@@ -379,42 +465,30 @@ class LocalEngine:
         N, s, s], cov_off, logdet [T, ...], linear fc tuple of [T, ...,
         K])``, the linear batches' untempered costs in
         :meth:`factor_costs_raw`'s order."""
-        batch = state.mu.shape[:-2]
+        batch, prec = state.mu.shape[:-2], state.precision
+        lin_specs, lin = self._flat_linear(batch)
+        cd, co, ld, fc = chain.gbp_trials_lanes(
+            *(fold(x, batch) for x in (prec.diag, prec.off, dprec.diag,
+                                       dprec.off, state.mu, dmu)),
+            trials, lin_specs, lin)
+        return (*(unfold(x, batch, 1) for x in (cd, co, ld)),
+                tuple(unfold(f, batch, 1) for f in fc))
 
-        def flat(x):   # an N = 1 chain has no off-diagonal blocks
-            return x.reshape(batch.numel(), *x.shape[len(batch):])
-
-        def unflat(x):
-            return x.reshape(x.shape[0], *batch, *x.shape[2:])
-
-        _, lin_specs, _, lin = self._flat_operands(batch, state.mu)
-        prec = state.precision
-        out = chain.gbp_trials_lanes(
-            flat(prec.diag), flat(prec.off), flat(dprec.diag), flat(dprec.off),
-            flat(state.mu), flat(dmu), trials, lin_specs, lin)
-        cd, co, ld, fc = out
-        return unflat(cd), unflat(co), unflat(ld), tuple(unflat(f) for f in fc)
-
-    def fused_gradient(self, state: GaussianState, temperature):
+    def fused_gradient(self, state: GaussianState, temperature,
+                       eval_dtype=None):
         """The whole NGD gradient step in one kernel (K6): covariance of
         the current iterate, joint (Vdmu, Vddmu), both solves; a
         patch-mode batch's windows follow the current means.  Returns
         ``(cov_diag, cov_off, logdet, dprec BlockTridiag, dmu,
         dmu_fallback)``."""
-        batch = state.mu.shape[:-2]
-
-        def flat(x):
-            return x.reshape(-1, *x.shape[len(batch):])
-
-        def unflat(x):
-            return x.reshape(batch + x.shape[1:])
-
-        prec = state.precision
-        out = gradient_lanes(
-            flat(state.mu), flat(prec.diag), flat(prec.off),
-            temperature.reshape(-1), *self._flat_operands(batch, state.mu),
-            eval_dtype=self.fused_grad_eval_dtype)
-        cd, co, ld, dpd, dpo, dmu, dfb = (unflat(x) for x in out)
+        batch, prec = state.mu.shape[:-2], state.precision
+        x = (*(fold(x, batch) for x in (state.mu, prec.diag, prec.off)),
+             temperature.reshape(-1))
+        nl_specs, nl = self._flat_nonlinear(batch, state.mu)
+        lin_specs, lin = self._flat_linear(batch)
+        out = gradient_lanes(*x, nl_specs, lin_specs, nl, lin,
+                             eval_dtype=eval_dtype)
+        cd, co, ld, dpd, dpo, dmu, dfb = (unfold(x, batch) for x in out)
         return cd, co, ld, BlockTridiag(dpd, dpo), dmu, dfb
 
     @staticmethod

@@ -8,16 +8,17 @@ the host between them.  Here the part of a call after its engine is built
 ``torch.cuda.CUDAGraph`` and replayed by later calls of that signature:
 the same kernels in the same order on the same operands, so the same bits
 as the eager loop (``optimize.run_gvi_carry``).  Which calls may take it
-is the caller's decision (``optimize._graph_call``); this module keeps the
-graphs.
+is the engine's plan (``LoopPlan.captured``) and the caller's window
+(``optimize._graph_call``); this module keeps the graphs.
 
-* Signature: the call's parameters (``key``: config, method, the engine's
-  routes, the window) and the tree of tensors the region reads (initial
-  state, graph, fused operands, loop values), each tensor as its shape,
-  dtype, strides, device and address modulo ``ALIGN`` bytes (the kernels
-  and PyTorch's vectorized loads branch on alignment), each other leaf by
-  value, a function or a dict by its presence alone: the region calls no
-  function of the graph and reads no dict (the caller's eligibility).
+* Signature: the call's parameters (``key``: config, the window, the
+  engine's plan) and the tree of tensors the region reads (initial state,
+  the engine's operands: graph and kernel operands; loop values), each
+  tensor as its shape, dtype, strides, device and address modulo
+  ``ALIGN`` bytes (the kernels and PyTorch's vectorized loads branch on
+  alignment), each other leaf by value, a function or a dict by its
+  presence alone: the region calls no function of the graph and reads no
+  dict (the plan's eligibility).
 * A signature's first call runs eager, its second captures and replays,
   later ones replay; ``MAX_GRAPHS`` signatures are kept, the least
   recently used dropped first.  While the last graph dropped for room had

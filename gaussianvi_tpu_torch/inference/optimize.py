@@ -40,17 +40,20 @@ more leading axis, ``[T, B, ...]``, so the chain and quadrature run once
 over all T x B trial iterates.  The iterations are a Python loop
 (``lax.scan`` in JAX).
 
-Where the engine takes the fused kernels, the fused gradient kernel (K6)
-replaces the gradient quadrature, assembly and solves and recomputes the
-iterate's covariance itself, and the fused trial kernel (K5) replaces the
-trial chain and cost evaluation, returning no covariance: with K5 alone
-the accepted iterate's covariance is recomputed by one width-B chain call.
-With K6 the carried covariance blocks are never read again after an
-accepted step (the kernel's own blocks are recorded), so they lag; the
-end of :func:`run_gvi_carry` refreshes them.  A fused kernel is taken only
-where the run's ``eval_dtype`` is the one the engine resolved it with.
-Where no fused kernel covers the chain (s = 14), NGD's batched trials take
-K1's trial form (``engine.gbp_trials``): one launch forms every trial's
+Which route each stage takes is the engine's :class:`~.engine.LoopPlan`
+(``engine.plan(config, method)``), resolved once a call; an iteration is
+the gradient stage, the trial stage of ``plan.trials`` and the selection.
+Every trial route gives the same record (cost, log det, untempered factor
+costs, and the covariance blocks where it forms them).  The fused
+gradient kernel (K6) replaces the gradient quadrature, assembly and
+solves and recomputes the iterate's covariance itself; the fused trial
+kernel (K5) replaces the trial chain and cost evaluation and forms no
+covariance.  The accepted iterate's covariance is the selected trial's
+blocks where the route formed them; after K5 it lags with K6 (the
+kernel's own blocks are recorded, and the end of :func:`run_gvi_carry`
+refreshes them) and is one width-B chain call without it.  Where no
+fused kernel covers the chain (s = 14), NGD's batched trials take K1's
+trial form (``engine.gbp_trials``): one launch forms every trial's
 precision, its covariance and log det and the linear factors' costs, and
 only the nonlinear batches run apart, on its covariance blocks.
 
@@ -67,19 +70,17 @@ the same functions of the same inputs as in the uninterrupted run.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from ..factors.moments import as_eval_dtype, kernel_quantizes
 from ..ops.blocktridiag import BlockTridiag
 from ..ops.precision import set_precision_policy
 from ..utils.profiling import span
 from .config import GVIConfig
 from . import loop_graph
-from .engine import LocalEngine, check_config
+from .engine import LocalEngine, LoopPlan, check_config
 from .graph import FactorGraph, GaussianState
 
 
@@ -136,16 +137,6 @@ def _pick(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 0, idx.expand(1, *x.shape[1:]))[0]
 
 
-def _temper(fc_raw, temperature):
-    t = temperature[..., None]
-    return tuple(f / t for f in fc_raw)
-
-
-def _eval_dtype(config: GVIConfig, method: str):
-    """The sigma offsets' rounding of a run: NGD only."""
-    return as_eval_dtype(config.moments_eval_dtype) if method == "ngd" else None
-
-
 def _per_problem(value, batch, dtype, device) -> torch.Tensor:
     """A loop scalar, or one value per problem, as a ``batch`` tensor (a
     Python scalar filled on the device: a copy from the host would wait
@@ -164,54 +155,145 @@ def _loop_values(loop: LoopState, batch, dtype, device) -> LoopState:
 
 
 def make_gvi_init(engine: LocalEngine, init_state: GaussianState,
-                  config: GVIConfig, method: str = "ngd",
+                  config: GVIConfig, plan: LoopPlan,
                   loop: LoopState | None = None) -> _Carry:
     """The initial carry: covariance, logdet and untempered factor costs of
     the initial iterate, and the loop values: a fresh start's, or
     ``loop``'s to resume a run (scalars, as the JAX package writes them,
     apply to every problem)."""
     mu = init_state.mu
-    batch, dev = mu.shape[:-2], mu.device
     cd, co, ld = engine.cov_logdet(init_state.precision)
-    fc = engine.factor_costs_raw(mu, cd, co, _eval_dtype(config, method))
+    fc = engine.factor_costs_raw(mu, cd, co, plan.eval_dtype)
     if loop is None:
         loop = LoopState(config.temperature, True, False)
     return _Carry(init_state, cd, co, ld, fc,
-                  *_loop_values(loop, batch, mu.dtype, dev))
+                  *_loop_values(loop, mu.shape[:-2], mu.dtype, mu.device))
 
 
-def fused_routes(engine: LocalEngine, config: GVIConfig,
-                 method: str = "ngd") -> tuple[bool, bool]:
-    """Whether a run of ``method`` takes the fused trial kernel (K5) and
-    the fused gradient kernel (K6).  A fused kernel rounds the offsets as
-    the engine resolved it, so it is taken only where the run rounds them
-    the same way: prox never quantizes, so under a bfloat16 config it
-    takes the separate trials; the fused gradient kernel is the NGD step
-    only."""
-    eval_dtype = _eval_dtype(config, method)
-    trials = (config.linesearch == "batched" and engine.fused_trials_ready
-              and eval_dtype == engine.fused_eval_dtype)
-    gradient = (method == "ngd" and engine.fused_gradient_ready
-                and eval_dtype == engine.fused_grad_eval_dtype)
-    return trials, gradient
+class _Trials(NamedTuple):
+    """What a trial route gives for each trial (``[T, ...]``) or for the
+    one selected (``[...]``): the cost, the log det, the untempered
+    factor costs and the covariance blocks ``(cov_diag, cov_off)``, None
+    where the route forms none (K5)."""
+
+    cost: torch.Tensor
+    logdet: torch.Tensor
+    fc: tuple
+    cov: tuple | None
 
 
-def make_gvi_step(engine: LocalEngine, config: GVIConfig,
-                  method: str = "ngd"):
-    """The iteration body ``(carry, i_iter) -> (carry, record)`` of
-    ``method`` ``"ngd"`` or ``"prox"`` (validated by ``check_config``)."""
-    ngd = method == "ngd"
+def _each(fn, *trees):
+    """``fn`` over the tensors of like trees of tuples (named or not)."""
+    head = trees[0]
+    if head is None or isinstance(head, torch.Tensor):
+        return head if head is None else fn(*trees)
+    parts = [_each(fn, *xs) for xs in zip(*trees)]
+    return type(head)(*parts) if hasattr(head, "_fields") else tuple(parts)
+
+
+def make_gvi_step(engine: LocalEngine, config: GVIConfig, plan: LoopPlan):
+    """The iteration body ``(carry, i_iter) -> (carry, record)`` of the
+    engine's ``plan`` (:meth:`LocalEngine.plan`): the gradient stage, the
+    trial stage of ``plan.trials``, the selection."""
+    ngd = plan.gradient != "prox"
     n_trials = config.niters_backtrack + 1
     alpha = config.ema_alpha
-    eval_dtype = _eval_dtype(config, method)
-    use_fused, use_fused_grad = fused_routes(engine, config, method)
-    # K1's trial form: the NGD step's batched trials where no fused kernel
-    # covers the chain (the arm's s = 14)
-    use_gbp_trials = (ngd and config.linesearch == "batched" and not use_fused
-                      and engine.gbp_trials_ready)
+    eval_dtype = plan.eval_dtype
 
     def temper(fc_raw, temperature):
-        return _temper(fc_raw, temperature) if ngd else fc_raw
+        """NGD's costs tempered; prox's never are."""
+        if not ngd:
+            return fc_raw
+        t = temperature[..., None]
+        return tuple(f / t for f in fc_raw)
+
+    def gradient(state, cov_diag, cov_off, temperature):
+        """``(cov_diag, cov_off, dmu, dprec)``: the direction, and the
+        covariance the iteration records (K6's own where it runs)."""
+        mu, prec = state.mu, state.precision
+        if plan.gradient == "prox":
+            return (cov_diag, cov_off, *engine.prox_gradients(
+                mu, cov_diag, cov_off, config.step_size_base))
+        if plan.gradient == "fused":
+            # one kernel: the iterate's covariance, gradients, dprec and
+            # both solves
+            (cov_diag, cov_off, _, dprec, dmu,
+             fallback) = engine.fused_gradient(state, temperature, eval_dtype)
+        else:
+            vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
+                                               temperature, eval_dtype)
+            dprec = vddmu - prec
+            dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
+        # an indefinite Vddmu NaNs the Cholesky-based solve: fall back to
+        # the current precision (SPD) as the metric, per problem
+        dmu = _where(engine.all_finite(dmu), dmu, fallback)
+        return cov_diag, cov_off, dmu, dprec
+
+    # ---- the trial routes: (log det, untempered factor costs, covariance
+    # blocks or None) of the trials at ``steps`` (``trials [T]`` against
+    # the problem axes; one step a problem in the sequential search) ----
+    def separate(state, dmu, dprec, trials, steps):
+        """The chain and the quadrature over every trial iterate."""
+        t_mu = state.mu + steps[..., None, None] * dmu
+        t_prec = (state.precision + dprec.scale(steps)).symmetrize()
+        t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
+        return (t_ld, engine.factor_costs_raw(t_mu, t_cd, t_co, eval_dtype),
+                (t_cd, t_co))
+
+    def fused(state, dmu, dprec, trials, steps):
+        """K5: every trial in one kernel, no covariance."""
+        return (*engine.fused_trial_costs(state, dmu, dprec, trials,
+                                          eval_dtype), None)
+
+    def chain(state, dmu, dprec, trials, steps):
+        """K1's trial form: every trial's chain and linear costs in one
+        launch; the nonlinear batches read its blocks at the trial means."""
+        t_cd, t_co, t_ld, t_lin = engine.gbp_trials(state, dmu, dprec,
+                                                    trials)
+        return t_ld, (*engine.nonlinear_costs_raw(
+            state.mu + steps[..., None, None] * dmu, t_cd, t_co, eval_dtype),
+            *t_lin), (t_cd, t_co)
+
+    routes = {"separate": separate, "fused": fused, "chain": chain}
+
+    def evaluate(route, state, dmu, dprec, trials, steps, temperature):
+        """The :class:`_Trials` of ``route`` at ``steps``."""
+        ld, fc, cov = routes[route](state, dmu, dprec, trials, steps)
+        return _Trials(engine.reduce_trial_costs(
+            ld, temper(fc, temperature)), ld, fc, cov)
+
+    def search(carry, dmu, dprec, trials, cost_iter, temperature):
+        """``(selected _Trials, sel, accepted)``: the first decreasing
+        trial, or the last one where the search is exhausted."""
+        state = carry.state
+        if plan.trials != "seq":
+            steps = trials.reshape(n_trials, *([1] * (state.mu.ndim - 2)))
+            t = evaluate(plan.trials, state, dmu, dprec, trials, steps,
+                         temperature)
+            ok = t.cost < cost_iter
+            accepted = ok.any(0)
+            sel = torch.where(accepted, ok.to(trials.dtype).argmax(0),
+                              torch.full_like(accepted, n_trials - 1,
+                                              dtype=torch.long))
+            return _each(lambda x: _pick(x, sel), t), sel, accepted
+        # do-while per problem: trial 1 for all, then trial t + 1 while a
+        # problem has accepted none, has trials left and has not
+        # converged; every problem searching is at the same trial
+        batch = cost_iter.shape
+        best = evaluate("separate", state, dmu, dprec, None,
+                        trials[0].expand(batch), temperature)
+        accepted = best.cost < cost_iter
+        sel = torch.zeros(batch, dtype=torch.long, device=trials.device)
+        for t in range(1, n_trials):
+            searching = ~accepted & ~carry.converged
+            if not bool(searching.any()):
+                break
+            now = evaluate("separate", state, dmu, dprec, None,
+                           trials[t].expand(batch), temperature)
+            best = _each(lambda a, b: _where(searching, a, b), now, best)
+            sel = torch.where(searching, t, sel)
+            accepted = torch.where(searching, now.cost < cost_iter, accepted)
+        return best, sel, accepted
 
     def iteration(carry: _Carry, i_iter: int):
         state = carry.state
@@ -236,104 +318,20 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
             # the JKO step is taken at base^1; trial schedule base^t
             trials = torch.as_tensor(config.step_size_base, dtype=dtype,
                                      device=device) ** powers
-        cov_diag, cov_off = carry.cov_diag, carry.cov_off
         with span("gvi.gradient"):
-            if not ngd:
-                dmu, dprec = engine.prox_gradients(mu, cov_diag, cov_off,
-                                                   config.step_size_base)
-            else:
-                if use_fused_grad:
-                    # one kernel: the iterate's covariance (recorded in place
-                    # of the carried blocks), gradients, dprec and both
-                    # solves
-                    (cov_diag, cov_off, _, dprec, dmu,
-                     fallback) = engine.fused_gradient(state, temperature)
-                else:
-                    vdmu, vddmu = engine.ngd_gradients(mu, cov_diag, cov_off,
-                                                       temperature,
-                                                       eval_dtype)
-                    dprec = vddmu - prec
-                    dmu, fallback = engine.solve_pair(vddmu, prec, -vdmu)
-                # an indefinite Vddmu NaNs the Cholesky-based solve: fall
-                # back to the current precision (SPD) as the metric, per
-                # problem
-                dmu = _where(engine.all_finite(dmu), dmu, fallback)
-
-        def trial_costs(steps):
-            """Cost, covariance, log det and untempered factor costs of the
-            trial iterates at ``steps`` (leading axes over the problems')."""
-            t_mu = mu + steps[..., None, None] * dmu
-            t_prec = (prec + dprec.scale(steps)).symmetrize()
-            t_cd, t_co, t_ld = engine.cov_logdet(t_prec)
-            t_fc = engine.factor_costs_raw(t_mu, t_cd, t_co, eval_dtype)
-            cost = engine.reduce_trial_costs(t_ld, temper(t_fc, temperature))
-            return cost, t_cd, t_co, t_ld, t_fc
+            cov_diag, cov_off, dmu, dprec = gradient(
+                state, carry.cov_diag, carry.cov_off, temperature)
 
         # ---- backtracking line search ----
         with span("gvi.trials"):
-            if config.linesearch == "seq":
-                # do-while per problem: trial 1 for all, then trial t + 1
-                # while a problem has accepted none, has trials left and has
-                # not converged; every problem searching is at the same trial
-                batch = cost_iter.shape
-                c_sel, cd_sel, co_sel, ld_sel, fc_sel = trial_costs(
-                    trials[0].expand(batch))
-                accepted = c_sel < cost_iter
-                sel = torch.zeros(batch, dtype=torch.long, device=device)
-                t = 1
-                while t < n_trials:
-                    searching = ~accepted & ~carry.converged
-                    if not bool(searching.any()):
-                        break
-                    ci, cdi, coi, ldi, fci = trial_costs(
-                        trials[t].expand(batch))
-                    c_sel = _where(searching, ci, c_sel)
-                    cd_sel = _where(searching, cdi, cd_sel)
-                    co_sel = _where(searching, coi, co_sel)
-                    ld_sel = _where(searching, ldi, ld_sel)
-                    fc_sel = tuple(_where(searching, a, b)
-                                   for a, b in zip(fci, fc_sel))
-                    sel = torch.where(searching, t, sel)
-                    accepted = torch.where(searching, ci < cost_iter,
-                                           accepted)
-                    t += 1
-            else:
-                steps = trials.reshape(n_trials, *([1] * (mu.ndim - 2)))
-                if use_fused:
-                    t_ld, t_fc = engine.fused_trial_costs(state, dmu, dprec,
-                                                          trials)
-                    t_cost = engine.reduce_trial_costs(
-                        t_ld, temper(t_fc, temperature))          # [T, B]
-                elif use_gbp_trials:
-                    # one launch: every trial's chain and linear costs; the
-                    # nonlinear batches read its blocks at the trial means
-                    t_cd, t_co, t_ld, t_lin = engine.gbp_trials(
-                        state, dmu, dprec, trials)
-                    t_fc = (*engine.nonlinear_costs_raw(
-                        mu + steps[..., None, None] * dmu, t_cd, t_co,
-                        eval_dtype), *t_lin)
-                    t_cost = engine.reduce_trial_costs(
-                        t_ld, temper(t_fc, temperature))
-                else:
-                    t_cost, t_cd, t_co, t_ld, t_fc = trial_costs(steps)
-                ok = t_cost < cost_iter
-                accepted = ok.any(0)
-                # the first decreasing trial, or the last one when the
-                # search is exhausted (where the sequential loop halts)
-                sel = torch.where(accepted, ok.to(dtype).argmax(0),
-                                  torch.full_like(accepted, n_trials - 1,
-                                                  dtype=torch.long))
-                c_sel = _pick(t_cost, sel)
-                ld_sel = _pick(t_ld, sel)
-                fc_sel = tuple(_pick(f, sel) for f in t_fc)
-                if not use_fused:
-                    cd_sel, co_sel = _pick(t_cd, sel), _pick(t_co, sel)
+            picked, sel, accepted = search(carry, dmu, dprec, trials,
+                                           cost_iter, temperature)
             step_f = trials[sel]
 
         with span("gvi.select"):
             # prox adopts the last trial of an exhausted search, unless its
             # cost is non-finite; NGD keeps the old iterate
-            take = accepted if ngd else accepted | torch.isfinite(c_sel)
+            take = accepted if ngd else accepted | torch.isfinite(picked.cost)
             # EMA-smoothed proposal alpha * new + (1 - alpha) * current
             # (alpha = 1: plain), accepted on the unblended trial cost above
             acc_mu = _where(take, mu + (alpha * step_f)[..., None, None] * dmu,
@@ -370,20 +368,19 @@ def make_gvi_step(engine: LocalEngine, config: GVIConfig,
                                                  eval_dtype)
             else:
                 # carry the accepted trial's log det + factor costs forward,
-                # and its covariance: the trial blocks of the separate path,
-                # one chain call at the updated state after the fused trial
-                # kernel (which returns none), or nothing on the
-                # fused-gradient path (recomputed next iteration)
-                if not use_fused:
-                    new_cd = _where(upd, cd_sel, cov_diag)
-                    new_co = _where(upd, co_sel, cov_off)
-                elif use_fused_grad:
+                # and its covariance: the trial's blocks where the route
+                # formed them; else nothing after K6 (recomputed next
+                # iteration), one chain call at the updated state otherwise
+                if picked.cov is not None:
+                    new_cd = _where(upd, picked.cov[0], cov_diag)
+                    new_co = _where(upd, picked.cov[1], cov_off)
+                elif plan.gradient == "fused":
                     new_cd, new_co = cov_diag, cov_off
                 else:
                     new_cd, new_co, _ = engine.cov_logdet(new_state.precision)
-                new_ld = _where(upd, ld_sel, carry.logdet)
+                new_ld = _where(upd, picked.logdet, carry.logdet)
                 new_fc = tuple(_where(upd, f, f0)
-                               for f, f0 in zip(fc_sel, carry.fc_raw))
+                               for f, f0 in zip(picked.fc, carry.fc_raw))
             new_carry = _Carry(new_state, new_cd, new_co, new_ld, new_fc,
                                new_temperature, new_is_lowtemp, new_converged)
             record = (
@@ -408,14 +405,14 @@ def _stack_records(records, template, axis: int) -> GVIHistory:
 
 
 def _gvi_loop(engine: LocalEngine, init_state: GaussianState,
-              config: GVIConfig, method: str, start_iteration: int,
+              config: GVIConfig, plan: LoopPlan, start_iteration: int,
               loop: LoopState | None, finish):
     """``gvi.init``, iterations ``start_iteration..niters-1`` and
     ``gvi.finish``: ``finish(carry, records, template)`` (``template``: a
     record of the run's shapes), after the final covariance refresh."""
-    iteration = make_gvi_step(engine, config, method)
+    iteration = make_gvi_step(engine, config, plan)
     with span("gvi.init"):
-        carry = make_gvi_init(engine, init_state, config, method, loop)
+        carry = make_gvi_init(engine, init_state, config, plan, loop)
         template = (init_state.mu, carry.cov_diag, carry.cov_off,
                     init_state.precision.diag, init_state.precision.off,
                     carry.logdet, torch.cat(carry.fc_raw, dim=-1),
@@ -426,7 +423,7 @@ def _gvi_loop(engine: LocalEngine, init_state: GaussianState,
             carry, record = iteration(carry, i)
         records.append(record)
     with span("gvi.finish"):
-        if method == "ngd" and engine.fused_gradient_ready:
+        if plan.gradient == "fused":
             carry.cov_diag, carry.cov_off, carry.logdet = engine.cov_logdet(
                 carry.state.precision)
         return finish(carry, records, template)
@@ -444,44 +441,28 @@ def run_gvi_carry(engine: LocalEngine, init_state: GaussianState,
     recomputed here from the final precision, so the returned carry's
     covariance is always that of ``carry.state``."""
     axis = init_state.mu.ndim - 2   # after the problem axes
-    return _gvi_loop(engine, init_state, config, method, start_iteration,
-                     loop, lambda carry, records, template: (
+    return _gvi_loop(engine, init_state, config, engine.plan(config, method),
+                     start_iteration, loop,
+                     lambda carry, records, template: (
                          carry, _stack_records(records, template, axis)))
 
 
-def _graph_call(engine: LocalEngine, init_state: GaussianState,
-                config: GVIConfig, method: str, start_iteration: int,
-                loop: LoopState | None):
+def _graph_call(engine: LocalEngine, plan: LoopPlan,
+                init_state: GaussianState, config: GVIConfig,
+                start_iteration: int, loop: LoopState | None):
     """``(key, tree, starts)`` of a call whose loop may replay as a CUDA
-    graph (``loop_graph.run``), else None.  That is the NGD loop with the
-    batched line search (the sequential one reads every trial's decision
-    on the host; prox stays eager) on a ``LocalEngine`` on the card over a
-    window of at least one iteration, whose every nonlinear batch takes the
-    quadrature kernel (the plain quadrature calls the graph's ``cost_fn``)
-    and none has a ``kernel_prep`` (a function of the graph, called in the
-    loop).  The tree: the initial state, the graph, the fused operands and
-    ``loop``'s values as device tensors."""
-    if not (type(engine) is LocalEngine and engine.device.type == "cuda"
-            and method == "ngd"
-            and config.linesearch == "batched"
-            and start_iteration < config.niters
-            and all(engine.quad_batches)
-            and kernel_quantizes(_eval_dtype(config, method))
-            and all(fb.kernel_prep is None for fb in engine.graph.nonlinear)):
+    graph (``loop_graph.run``): one the plan admits (``plan.captured``)
+    over a window of at least one iteration; else None.  The tree: the
+    initial state, the engine's operands (:meth:`LocalEngine.operands`)
+    and ``loop``'s values as device tensors."""
+    if not (plan.captured and start_iteration < config.niters):
         return None
     mu = init_state.mu
     if loop is not None:
         loop = _loop_values(loop, mu.shape[:-2], mu.dtype, mu.device)
-    routes = (engine.chain_impl, engine.quad_kernel, engine.quad_batches,
-              engine.fused_trials_ready, engine.fused_gradient_ready,
-              engine.fused_eval_dtype, engine.fused_grad_eval_dtype,
-              engine.gradient_modes, engine.gbp_trials_ready)
-    key = (config, method, start_iteration, loop is None, routes)
-    ops = engine._fused_ops
-    starts = ([] if ops is None else
-              [(arrays[0], engine.graph.num_states)
-               for arrays in (*ops[2], *ops[3])])
-    return key, (init_state, engine.graph, ops, loop), starts
+    operands, starts = engine.operands()
+    return ((config, start_iteration, loop is None, plan),
+            (init_state, operands, loop), starts)
 
 
 def _run_call(engine: LocalEngine, init_state: GaussianState,
@@ -490,12 +471,12 @@ def _run_call(engine: LocalEngine, init_state: GaussianState,
     """:func:`run_gvi_carry`, or, for a call on the card that
     :func:`_graph_call` admits, its replay as one CUDA graph
     (``inference/loop_graph.py``): the same bits."""
-
     def eager():
         return run_gvi_carry(engine, init_state, config, method,
                              start_iteration, loop)
 
-    call = _graph_call(engine, init_state, config, method, start_iteration,
+    plan = engine.plan(config, method)
+    call = _graph_call(engine, plan, init_state, config, start_iteration,
                        loop)
     if call is None:
         return loop_graph.run(None, None, eager)
@@ -503,10 +484,9 @@ def _run_call(engine: LocalEngine, init_state: GaussianState,
     axis = init_state.mu.ndim - 2   # after the problem axes
 
     def region(static):
-        state, graph, ops, lp = static
-        local = copy.copy(engine)
-        local.graph, local._fused_ops = graph, ops
-        return _gvi_loop(local, state, config, method, start_iteration, lp,
+        state, operands, lp = static
+        return _gvi_loop(engine.over(operands), state, config, plan,
+                         start_iteration, lp,
                          lambda carry, records, template: (carry, records))
 
     def finish(out):

@@ -27,7 +27,7 @@ import torch
 
 from ..inference import gvi
 from ..inference.config import GVIConfig
-from ..inference.engine import LocalEngine, check_config
+from ..inference.engine import LocalEngine, check_config, fold, unfold
 from ..inference.graph import FactorGraph, GaussianState
 from ..inference.optimize import GVIHistory, run_gvi
 from ..kernels.fused_gradient import (
@@ -108,6 +108,10 @@ class FactorShardEngine(LocalEngine):
     the sums over fp are no-ops.  The block-form moments (``use_pallas``)
     are never taken, as in the JAX package."""
 
+    # its plan: never captured (the mesh's collectives run from the host),
+    # K6 in the modes of gradient_modes
+    captures = False
+
     def __init__(self, graph: FactorGraph, config, device: torch.device,
                  mesh: Mesh):
         self.mesh = mesh
@@ -154,28 +158,22 @@ class FactorShardEngine(LocalEngine):
             replace(g, nonlinear=()), mu, cov_diag, cov_off, step_size)
         return dmu + dmu_l, BlockTridiag(diag, off) + dprec_l
 
-    def fused_gradient(self, state: GaussianState, temperature):
+    def fused_gradient(self, state: GaussianState, temperature,
+                       eval_dtype=None):
         if self.mesh.fp == 1:
-            return super().fused_gradient(state, temperature)
-        batch = state.mu.shape[:-2]
-
-        def flat(x):
-            return x.reshape(-1, *x.shape[len(batch):])
-
-        def unflat(x):
-            return x.reshape(*batch, *x.shape[1:])
-
-        prec = state.precision
-        x = (flat(state.mu), flat(prec.diag), flat(prec.off),
+            return super().fused_gradient(state, temperature, eval_dtype)
+        batch, prec = state.mu.shape[:-2], state.precision
+        x = (*(fold(t, batch) for t in (state.mu, prec.diag, prec.off)),
              temperature.reshape(-1))
-        nl_specs, lin_specs, nl, lin = self._flat_operands(batch, state.mu)
-        partials = gradient_accum_lanes(
-            *x, nl_specs, nl, eval_dtype=self.fused_grad_eval_dtype)
+        nl_specs, nl = self._flat_nonlinear(batch, state.mu)
+        lin_specs, lin = self._flat_linear(batch)
+        partials = gradient_accum_lanes(*x, nl_specs, nl,
+                                        eval_dtype=eval_dtype)
         # the one all-reduce of the step: Vdmu and both parts of Vddmu are
         # views of partials.buffer
         self.mesh.psum_(partials.buffer)
         out = gradient_solve_lanes(*x, partials, lin_specs, lin)
-        cd, co, ld, dpd, dpo, dmu, dfb = (unflat(t) for t in out)
+        cd, co, ld, dpd, dpo, dmu, dfb = (unfold(t, batch) for t in out)
         return cd, co, ld, BlockTridiag(dpd, dpo), dmu, dfb
 
 

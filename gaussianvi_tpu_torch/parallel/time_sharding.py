@@ -42,7 +42,7 @@ import torch
 
 from ..factors import moments as mm
 from ..inference.config import GVIConfig
-from ..inference.engine import check_config, use_kernel
+from ..inference.engine import check_config, resolve_plan, use_kernel
 from ..inference.graph import FactorGraph, GaussianState
 from ..inference.gvi import _bw_jko_step
 from ..inference.optimize import GVIHistory, run_gvi
@@ -210,14 +210,7 @@ class TimeShardEngine:
     (``kernel_prep``) is not covered: the JAX engine evaluates its
     ``cost_fn``, the whole-field lookup, and the window functor is another
     function, so ``"lanes"`` raises for it and ``"auto"`` / ``"xla"`` take
-    its ``cost_fn``.  No fused kernel, nor K1's trial form."""
-
-    chain_kernel = False
-    fused_trials_ready = False
-    fused_gradient_ready = False
-    gbp_trials_ready = False
-    fused_eval_dtype = None
-    fused_grad_eval_dtype = None
+    its ``cost_fn``."""
 
     def __init__(self, graph: FactorGraph, config, mesh: Mesh,
                  device: torch.device):
@@ -230,6 +223,11 @@ class TimeShardEngine:
                        else mm.kernel_covers(fb))
             for fb in graph.nonlinear)
 
+    def plan(self, config, method: str):
+        """The separate routes, never captured: no fused kernel, nor K1's
+        trial form."""
+        return resolve_plan(config, method)
+
     # -- chain ---------------------------------------------------------------
     def cov_logdet(self, prec: BlockTridiag):
         return gbp_covariance_logdet_seqpar(prec.diag, prec.off, self.mesh)
@@ -240,15 +238,20 @@ class TimeShardEngine:
         out = []
         for fb, kernel in zip(g.nonlinear, self.quad_batches):
             out.append(mm.batch_phi(fb, mu_l, cov_diag, kernel, eval_dtype))
-        mu_e = cov_e = None
-        for lb in g.linear:
-            if lb.nb == 2 and mu_e is None:
-                mu_e, cov_e = _edge_marginals(mu_l, cov_diag, cov_off,
-                                              self.mesh)
-            mk, ck = (mu_l, cov_diag) if lb.nb == 1 else (mu_e, cov_e)
+        for lb, mk, ck in self._linear_marginals(mu_l, cov_diag, cov_off):
             out.append(mm.linear_cost(lb.lam, lb.psi, lb.target_mu,
                                       lb.target_prec, lb.constant, mk, ck))
         return tuple(out)
+
+    def _linear_marginals(self, mu_l, cov_diag, cov_off):
+        """Each linear batch with its marginals ``(mu, cov)``: the states',
+        or a binary batch's edges' (one halo exchange, at the first binary
+        batch)."""
+        edge = None
+        for lb in self.graph.linear:
+            if lb.nb == 2 and edge is None:
+                edge = _edge_marginals(mu_l, cov_diag, cov_off, self.mesh)
+            yield (lb, mu_l, cov_diag) if lb.nb == 1 else (lb, *edge)
 
     def reduce_fc(self, fc_tuple, like: torch.Tensor) -> torch.Tensor:
         """The segments' summed factor costs, all-reduced over sp."""
@@ -280,24 +283,18 @@ class TimeShardEngine:
                                              temperature)
             vdmu = vdmu + vd
             vddmu_d = vddmu_d + vdd
-        mu_e = cov_e = None
-        for lb in g.linear:
-            if lb.nb == 1:
-                vd, vdd = mm.linear_local_gradients(
-                    lb.lam, lb.psi, lb.target_mu, lb.target_prec,
-                    lb.constant, mu_l, temperature)
-                vdmu = vdmu + vd
-                vddmu_d = vddmu_d + vdd
-                continue
-            if mu_e is None:
-                mu_e, cov_e = _edge_marginals(mu_l, cov_diag, cov_off,
-                                              self.mesh)
-            # vd [..., Nl, 2s], vdd [..., Nl, 2s, 2s]; padded rows exact zero
+        for lb, mk, _ in self._linear_marginals(mu_l, cov_diag, cov_off):
+            # on an edge vd [..., Nl, 2s], vdd [..., Nl, 2s, 2s]; padded
+            # rows exact zero
             vd, vdd = mm.linear_local_gradients(
                 lb.lam, lb.psi, lb.target_mu, lb.target_prec, lb.constant,
-                mu_e, temperature)
-            vdmu, vddmu_d, vddmu_o = _scatter_edge(vd, vdd, vdmu, vddmu_d,
-                                                   vddmu_o, s, self.mesh)
+                mk, temperature)
+            if lb.nb == 1:
+                vdmu = vdmu + vd
+                vddmu_d = vddmu_d + vdd
+            else:
+                vdmu, vddmu_d, vddmu_o = _scatter_edge(
+                    vd, vdd, vdmu, vddmu_d, vddmu_o, s, self.mesh)
         return vdmu, BlockTridiag(vddmu_d, vddmu_o)
 
     def prox_gradients(self, mu_l, cov_diag, cov_off, step_size):
@@ -316,12 +313,7 @@ class TimeShardEngine:
             vd, vdd = _bw_jko_step(b_k, s_k, cov_diag, step_size)
             dmu = dmu + vd
             dpd = dpd + vdd
-        mu_e = cov_e = None
-        for lb in g.linear:
-            if lb.nb == 2 and mu_e is None:
-                mu_e, cov_e = _edge_marginals(mu_l, cov_diag, cov_off,
-                                              self.mesh)
-            mk, ck = (mu_l, cov_diag) if lb.nb == 1 else (mu_e, cov_e)
+        for lb, mk, ck in self._linear_marginals(mu_l, cov_diag, cov_off):
             # closed-form BW gradients, without the constant factor
             resid = (torch.einsum("...rd,...d->...r", lb.lam, mk)
                      - torch.einsum("...rt,...t->...r", lb.psi, lb.target_mu))

@@ -2,7 +2,8 @@
 
 For each path of ``gaussianvi_tpu_torch.optimize`` on the flagship
 (B=1024 problems, N=32 states, dim_x=2, degree 4, 10 iterations, float32)
-this prints, from one ``torch.profiler`` run after a warm-up run, the
+this prints the engine's loop plan (the route of each stage) and, from
+one ``torch.profiler`` run after a warm-up run, the
 number of device operations, their summed device time, the five device
 operations that take most of it and the chain kernels K1 and K2 wherever
 they rank.  Paths: the fused kernels (default), the separate kernels,
@@ -602,6 +603,7 @@ def main() -> int:
     if args.tree is not None:
         sys.path.insert(0, os.path.abspath(args.tree))
     from gaussianvi_tpu_torch import optimize
+    from gaussianvi_tpu_torch.inference.engine import LocalEngine
     from gaussianvi_tpu_torch.kernels import _build
     from gaussianvi_tpu_torch.ops.precision import set_precision_policy
     from gaussianvi_tpu_torch.parallel.multiprocess import spawn_ranks
@@ -641,6 +643,11 @@ def main() -> int:
         return 0
     graph, state = build(dev)
     cfg, paths = path_configs()
+    for name, (c, m) in paths.items():
+        # the routes each path takes (an older tree's engine has no plan)
+        engine = LocalEngine(graph, c, dev)
+        if hasattr(engine, "plan"):
+            print(f"[{name}] {engine.plan(c, m)}")
     print("\n".join(profile_paths(
         {name: (lambda c=c, m=m: optimize(graph, state, c, m))
          for name, (c, m) in paths.items()})))

@@ -198,8 +198,8 @@ def test_auto_resolves_the_arm_to_the_chain_kernels():
     accepts the graph on the card."""
     graph, _, config, _ = tarm.build_arm_planning(num_states=N, device=CPU)
     card = LocalEngine(graph, config, torch.device("cuda"))
-    assert card.chain_kernel and card.quad_batches == (True,)
+    assert card.chain_impl == "lanes" and card.quad_batches == (True,)
     assert not card.fused_trials_ready and not card.fused_gradient_ready
-    assert not LocalEngine(graph, config, CPU).chain_kernel
+    assert LocalEngine(graph, config, CPU).chain_impl != "lanes"
     assert LocalEngine(graph, GVIConfig(chain_impl="lanes"),
-                       torch.device("cuda")).chain_kernel
+                       torch.device("cuda")).chain_impl == "lanes"

@@ -129,7 +129,7 @@ def test_auto_resolves_the_arm_batch_to_the_kernel():
     graph, _, config, _ = _arm(num_states=4)
     reset_launch_counts()
     card = LocalEngine(graph, config, torch.device("cuda"))
-    assert card.chain_kernel and card.quad_batches == (True,)
+    assert card.chain_impl == "lanes" and card.quad_batches == (True,)
     assert not card.fused_trials_ready and not card.fused_gradient_ready
     assert quad_route_counts() == {"kernel": 1, "plain": 0}
     assert LocalEngine(graph, config, CPU).quad_batches == (False,)

@@ -196,10 +196,11 @@ def test_auto_resolves_barfoot_to_the_chain_kernels():
     card and refuses the CPU."""
     graph, _, config = build_barfoot_1d(device=CPU)
     card = LocalEngine(graph, config, torch.device("cuda"))
-    assert card.chain_kernel and card.quad_batches == (False,)
+    assert card.chain_impl == "lanes" and card.quad_batches == (False,)
     assert not card.fused_trials_ready and not card.fused_gradient_ready
-    assert not LocalEngine(graph, config, CPU).chain_kernel
+    assert LocalEngine(graph, config, CPU).chain_impl != "lanes"
     lanes = GVIConfig(chain_impl="lanes")
-    assert LocalEngine(graph, lanes, torch.device("cuda")).chain_kernel
+    assert LocalEngine(graph, lanes,
+                       torch.device("cuda")).chain_impl == "lanes"
     with pytest.raises(ValueError, match="CUDA kernels"):
         LocalEngine(graph, lanes, CPU)

@@ -161,7 +161,7 @@ def test_plain_trial_form_equals_the_separate_route(n):
     within 1e-12 of their terms' size, NaN where the trial is indefinite."""
     graph = _linear_graph(n, 3, torch.float64, CPU)
     engine = LocalEngine(graph, GVIConfig(), CARD)
-    assert engine.gbp_trials_ready
+    assert engine.plan(GVIConfig(), "ngd").trials == "chain"
     state, dmu, dprec = _iterate(n, 3, torch.float64, CPU)
     trials = torch.tensor(TRIALS)
     cd, co, ld, fc = engine.gbp_trials(state, dmu, dprec, trials)
@@ -189,24 +189,29 @@ def test_arm_loop_on_the_trial_form_follows_the_separate_route():
     graph = _batch_graph(graph, 3)
     cfg = replace(cfg, niters=4, niters_lowtemp=4)
     engine = LocalEngine(graph, cfg, CARD)
-    assert engine.gbp_trials_ready
+    plan = engine.plan(cfg, "ngd")
+    assert plan.trials == "chain"
     hist = {}
     with torch.no_grad():
-        for route in (True, False):
-            engine.gbp_trials_ready = route
+        for route in ("chain", "separate"):
+            # the engine's plan with the trial route forced
+            engine.plan = lambda config, method, route=route: replace(
+                plan, trials=route)
             hist[route] = run_gvi_carry(engine, states, cfg)[1]
-    torch.testing.assert_close(hist[True].cost, hist[False].cost, rtol=1e-12,
-                               atol=0)
-    assert torch.equal(hist[True].accepted_step, hist[False].accepted_step)
+    torch.testing.assert_close(hist["chain"].cost, hist["separate"].cost,
+                               rtol=1e-12, atol=0)
+    assert torch.equal(hist["chain"].accepted_step,
+                       hist["separate"].accepted_step)
 
 
 def test_the_engine_takes_the_trial_form_only_at_s14_on_k1():
-    """``gbp_trials_ready`` follows the shape and the batches: the arm on
-    the card's K1 takes it, with its linear operands as ``_fused_ops``'
-    linear half; not on the CPU, not on the plain chain, not where a linear
-    batch's starts are per problem, not at s = 1 (Barfoot, K1 of the other
-    layout), nor where K5 is taken (chain estimation at s = 4, the point
-    planner at s = 6)."""
+    """The plan's ``"chain"`` trials follow the shape and the batches: the
+    arm on the card's K1 takes them, with its linear operands as the
+    engine's operands' linear half (and no nonlinear half); not on the
+    CPU, not on the plain chain, not where a linear batch's starts are per
+    problem, not at s = 1 (Barfoot, K1 of the other layout), nor where K5
+    is taken (chain estimation at s = 4, the point planner at s = 6), nor
+    for prox."""
     from gaussianvi_tpu_torch.examples.barfoot_1d import build_barfoot_1d
     from gaussianvi_tpu_torch.examples.chain_estimation import (
         build_chain_estimation,
@@ -215,34 +220,38 @@ def test_the_engine_takes_the_trial_form_only_at_s14_on_k1():
         build_point3d_planning,
     )
 
+    def trials(graph, cfg, device=CARD, method="ngd"):
+        return LocalEngine(graph, cfg, device).plan(cfg, method).trials
+
     graph, _, cfg, _ = arm.build_arm_planning(num_states=4, device=CPU)
     card = LocalEngine(graph, cfg, CARD)
-    assert card.chain_kernel and card.gbp_trials_ready
+    assert card.chain_impl == "lanes" and trials(graph, cfg) == "chain"
     assert not card.fused_trials_ready and not card.fused_gradient_ready
-    nl, lin_specs, nl_arrays, lin_arrays = card._fused_ops
-    assert nl == nl_arrays == () and lin_specs == linear_operands(graph)[0]
+    (_, nl, lin), starts = card.operands()
+    lin_specs, lin_arrays = lin
+    assert nl is None and lin_specs == linear_operands(graph)[0]
     assert len(lin_arrays) == len(graph.linear)
-    assert not LocalEngine(graph, cfg, CPU).gbp_trials_ready
+    assert [id(t) for t, _ in starts] == [id(a[0]) for a in lin_arrays]
+    assert trials(graph, cfg, CPU) == "separate"
+    assert trials(graph, cfg, method="prox") == "separate"
     for plain in ("seq", "assoc"):
-        assert not LocalEngine(graph, replace(cfg, chain_impl=plain),
-                               CARD).gbp_trials_ready
+        assert trials(graph, replace(cfg, chain_impl=plain)) == "separate"
     gp = graph.linear[-1]
     own = replace(gp, start=gp.start.expand(2, -1), shared_start=False,
                   slice_offset=None)
     two = replace(_batch_graph(graph, 2), linear=(*graph.linear[:-1], own))
     assert isinstance(linear_operands(two), str)
-    assert not LocalEngine(two, cfg, CARD).gbp_trials_ready
+    assert trials(two, cfg) == "separate"
     barfoot, _, bcfg = build_barfoot_1d(device=CPU)
-    assert LocalEngine(barfoot, bcfg, CARD).chain_kernel
-    assert not LocalEngine(barfoot, bcfg, CARD).gbp_trials_ready
+    assert LocalEngine(barfoot, bcfg, CARD).chain_impl == "lanes"
+    assert trials(barfoot, bcfg) == "separate"
     chain_graph = build_chain_estimation(num_states=8, dim_x=2, gh_degree=4,
                                          device=CPU)[0]
     point3d = build_point3d_planning(device=CPU)[0]
     for g in (chain_graph, point3d):
         engine = LocalEngine(g, GVIConfig(), CARD)
-        assert engine.fused_trials_ready and not engine.gbp_trials_ready
-        off = LocalEngine(g, GVIConfig(fused_trials="off"), CARD)
-        assert not off.gbp_trials_ready
+        assert engine.fused_trials_ready and trials(g, GVIConfig()) == "fused"
+        assert trials(g, GVIConfig(fused_trials="off")) == "separate"
 
 
 def _residual_operands(graph):
@@ -321,7 +330,7 @@ def test_trial_form_matches_k1_and_the_separate_route(dev, n, dtype):
     b = 64
     graph = _cast(_linear_graph(n, b, torch.float64, dev), dtype)
     engine = LocalEngine(graph, GVIConfig(), dev)
-    assert engine.chain_kernel and engine.gbp_trials_ready
+    assert engine.plan(GVIConfig(), "ngd").trials == "chain"
     state, dmu, dprec = _iterate(n, b, dtype, dev)
     trials = torch.tensor(TRIALS, dtype=dtype, device=dev)
 

@@ -29,7 +29,10 @@ from gaussianvi_tpu_torch.convert import (  # noqa: E402
     graph_from_arrays,
     state_from_arrays,
 )
-from gaussianvi_tpu_torch.inference.engine import LocalEngine  # noqa: E402
+from gaussianvi_tpu_torch.inference.engine import (  # noqa: E402
+    LocalEngine,
+    LoopPlan,
+)
 from test_torch_slice import (  # noqa: E402
     CPU,
     assert_same_run,
@@ -64,44 +67,84 @@ def _six_dim_problem(n, seed, dim_x=3):
 @pytest.fixture(scope="module")
 def graphs():
     """The port's flagship (N = 8), its cost_fn-only variant, an s = 6
-    graph and an s = 8 graph (no kernel instance), on the CPU."""
+    graph and an s = 8 graph (no kernel instance), and the models of the
+    benchmark's other cells, the point planner (s = 6) and the arm
+    (s = 14), and Barfoot's s = 1 example with their configs, on the
+    CPU."""
+    from gaussianvi_tpu_torch.examples.arm_planning import build_arm_planning
+    from gaussianvi_tpu_torch.examples.barfoot_1d import build_barfoot_1d
+    from gaussianvi_tpu_torch.examples.point3d_planning import (
+        build_point3d_planning,
+    )
+
     flag = graph_from_arrays(describe(*build_chain_estimation(
         num_states=8, dim_x=2, gh_degree=4, seed=0)[:2])[0], device=CPU)
     six = graph_from_arrays(describe(*_six_dim_problem(8, 0))[0], device=CPU)
     eight = graph_from_arrays(describe(*_six_dim_problem(8, 0, 4))[0],
                               device=CPU)
+    point3d, _, point3d_cfg, _ = build_point3d_planning(num_states=6,
+                                                        device=CPU)
+    arm, _, arm_cfg, _ = build_arm_planning(num_states=4, device=CPU)
+    barfoot, _, barfoot_cfg = build_barfoot_1d(device=CPU)
     return {"flagship": flag, "cost_fn only": _without_kernel_cost(flag),
-            "s=6": six, "s=8": eight}
+            "s=6": six, "s=8": eight, "point3d": (point3d, point3d_cfg),
+            "arm": (arm, arm_cfg), "barfoot": (barfoot, barfoot_cfg)}
 
 
-def _routes(eng):
-    return (eng.chain_kernel, eng.quad_kernel, eng.quad_batches,
-            eng.fused_trials_ready, eng.fused_gradient_ready)
+def _routes(eng, config, method="ngd"):
+    """Whether the chain takes its kernels, each nonlinear batch's
+    quadrature route and the loop's plan."""
+    return (eng.chain_impl == "lanes", eng.quad_batches,
+            eng.plan(config, method))
 
 
-@pytest.mark.parametrize("name,fields,want", [
-    # every kernel covers the flagship
-    ("flagship", {}, (True, True, (True,), True, True)),
+KERNELS = LoopPlan("fused", "fused", None, True)
+PLAIN = LoopPlan("separate", "separate", None, False)
+
+
+@pytest.mark.parametrize("name,fields,method,want", [
+    # every kernel covers the flagship: K5, K6, the loop captured
+    ("flagship", {}, "ngd", (True, (True,), KERNELS)),
     # no functor: the batch takes the plain quadrature, the fused kernels
     # (which need one) stay off; the chain keeps its kernels
-    ("cost_fn only", {}, (True, True, (False,), False, False)),
+    ("cost_fn only", {}, "ngd", (True, (False,), PLAIN)),
     # s = 6: the chain kernels and, without a nonlinear batch, both fused
     # kernels (K5, K6 "full") cover it
-    ("s=6", {}, (True, True, (), True, True)),
+    ("s=6", {}, "ngd", (True, (), KERNELS)),
     # the fused kernels are gated on the quadrature alone
     ("flagship", dict(chain_impl="seq", quad_impl="lanes",
-                      fused_gradient="on"),
-     (False, True, (True,), True, True)),
-    ("flagship", dict(chain_impl="seq"), (False, False, (False,), False,
-                                          False)),
-    ("flagship", dict(quad_impl="xla"), (True, False, (False,), False,
-                                         False)),
+                      fused_gradient="on"), "ngd",
+     (False, (True,), KERNELS)),
+    ("flagship", dict(chain_impl="seq"), "ngd", (False, (False,), PLAIN)),
+    ("flagship", dict(quad_impl="xla"), "ngd", (True, (False,), PLAIN)),
+    # the cells' models under their own configs: the point planner takes
+    # K5 and K6 at s = 6; the arm at s = 14 K1's trial form and the
+    # separate gradient, both captured
+    ("point3d", {}, "ngd", (True, (True,), KERNELS)),
+    ("arm", {}, "ngd",
+     (True, (True,), LoopPlan("chain", "separate", None, True))),
+    # Barfoot at s = 1: K1 / K2, the plain quadrature (no functor), eager
+    ("barfoot", {}, "ngd", (True, (False,), PLAIN)),
+    # prox: K5 where the run rounds as the config, the JKO gradient, eager
+    ("flagship", {}, "prox",
+     (True, (True,), LoopPlan("fused", "prox", None, False))),
+    # the sequential search: the separate trials one after another, eager
+    ("flagship", dict(linesearch="seq"), "ngd",
+     (True, (True,), LoopPlan("seq", "fused", None, False))),
+    # float16 offsets: the plain quadrature's rounding, no fused kernel
+    ("flagship", dict(moments_eval_dtype="float16"), "ngd",
+     (True, (True,), LoopPlan("separate", "separate", torch.float16,
+                              False))),
 ])
-def test_auto_resolves_per_shape_and_batch(graphs, name, fields, want):
+def test_auto_resolves_per_shape_and_batch(graphs, name, fields, method,
+                                           want):
     """``LocalEngine`` for the card resolves each kernel family where it
-    covers the graph, without launching anything."""
-    eng = LocalEngine(graphs[name], GVIConfig(**fields), CARD)
-    assert _routes(eng) == want
+    covers the graph, and the loop's plan from them, without launching
+    anything."""
+    graph, config = (graphs[name] if isinstance(graphs[name], tuple)
+                     else (graphs[name], GVIConfig()))
+    config = replace(config, **fields)
+    assert _routes(LocalEngine(graph, config, CARD), config, method) == want
 
 
 def test_nonlinear_pair_batches_take_the_plain_quadrature(graphs):
@@ -110,7 +153,7 @@ def test_nonlinear_pair_batches_take_the_plain_quadrature(graphs):
     g = graphs["flagship"]
     pair = replace(g, nonlinear=(replace(g.nonlinear[0], nb=2),))
     eng = LocalEngine(pair, GVIConfig(), CARD)
-    assert eng.quad_batches == (False,) and eng.chain_kernel
+    assert _routes(eng, GVIConfig()) == (True, (False,), PLAIN)
     assert not eng.fused_trials_ready and not eng.fused_gradient_ready
     with pytest.raises(ValueError, match="nb=2"):
         LocalEngine(pair, GVIConfig(quad_impl="lanes"), CARD)
@@ -133,8 +176,10 @@ def test_lanes_and_on_raise_for_what_no_kernel_covers(graphs, name, fields,
 def test_fused_trials_need_the_batched_search(graphs):
     """``fused_trials="auto"`` with the sequential search keeps the
     separate trials (``"on"`` raises: ``check_config``)."""
-    eng = LocalEngine(graphs["flagship"], GVIConfig(linesearch="seq"), CARD)
+    cfg = GVIConfig(linesearch="seq")
+    eng = LocalEngine(graphs["flagship"], cfg, CARD)
     assert not eng.fused_trials_ready and eng.fused_gradient_ready
+    assert eng.plan(cfg, "ngd").trials == "seq"
 
 
 CFG = dict(niters=4, niters_lowtemp=2, step_size_base=0.9)
@@ -173,11 +218,11 @@ def test_six_dim_chain_matches_jax():
 
 @pytest.mark.parametrize("interp,want", [
     # the gather names the planar SDF functor: every kernel covers it
-    ("auto", (True, True, (True,), True, True)),
-    ("gather", (True, True, (True,), True, True)),
+    ("auto", (True, (True,), KERNELS)),
+    ("gather", (True, (True,), KERNELS)),
     # the hat-function matmul is a cost_fn-only batch: the plain
     # quadrature, the fused kernels off, the chain kernels on
-    ("matmul", (True, True, (False,), False, False)),
+    ("matmul", (True, (False,), PLAIN)),
 ])
 def test_planner_resolves_per_batch(interp, want):
     """The planar planner built for the card resolves to the chain kernels
@@ -190,7 +235,7 @@ def test_planner_resolves_per_batch(interp, want):
 
     graph, _, config, _ = build_planar_planning(num_states=6, interp=interp,
                                                 device=CPU)
-    assert _routes(LocalEngine(graph, config, CARD)) == want
+    assert _routes(LocalEngine(graph, config, CARD), config) == want
     if interp == "matmul":
         for fields in (dict(quad_impl="lanes"), dict(fused_trials="on")):
             with pytest.raises(ValueError, match="kernel_cost"):
@@ -200,8 +245,8 @@ def test_planner_resolves_per_batch(interp, want):
         bad = replace(graph, nonlinear=(replace(
             graph.nonlinear[0],
             kernel_field=graph.nonlinear[0].kernel_field.float()),))
-        assert _routes(LocalEngine(bad, config, CARD)) == (
-            True, True, (False,), False, False)
+        assert _routes(LocalEngine(bad, config, CARD), config) == (
+            True, (False,), PLAIN)
 
 
 def _s6_model(name):
@@ -233,19 +278,19 @@ def _s6_model(name):
 
 @pytest.mark.parametrize("name,want", [
     # the 3-D point planner names the "sdf3d" functor: every kernel
-    ("point3d", (True, True, (True,), True, True)),
+    ("point3d", (True, (True,), KERNELS)),
     # chain estimation at dim_x = 3: the range functor at d = 6
-    ("dim_x=3", (True, True, (True,), True, True)),
+    ("dim_x=3", (True, (True,), KERNELS)),
     # the quadrotor's five balls are cost_fn only, as in JAX: the chain
     # kernels (K1 / K2) and the plain quadrature, no fused kernel
-    ("quadrotor", (True, True, (False,), False, False)),
+    ("quadrotor", (True, (False,), PLAIN)),
 ])
 def test_s6_models_resolve(name, want):
     """``"auto"`` on the card at s = 6: the planners and chain estimation
     at dim_x = 3 take every kernel that covers them; ``"lanes"`` / ``"on"``
     raise for the quadrotor's cost_fn-only batch with the reason."""
     graph, config = _s6_model(name)
-    assert _routes(LocalEngine(graph, config, CARD)) == want
+    assert _routes(LocalEngine(graph, config, CARD), config) == want
     if name == "quadrotor":
         for fields in (dict(quad_impl="lanes"), dict(fused_trials="on"),
                        dict(fused_gradient="on")):
@@ -284,24 +329,24 @@ def test_s6_factor_parallel_gradient(fp, want):
     ("float16", "ngd", (False, False)),
 ])
 def test_eval_dtype_resolves_as_jax(graphs, name, method, want):
-    """The fused kernels a run takes under ``moments_eval_dtype``, resolved
-    for the card on the CPU, against the JAX engine's rule
-    (``run_gvi`` takes a fused kernel only where the run's eval_dtype is
-    the one the engine built it with)."""
+    """The fused kernels a run takes under ``moments_eval_dtype`` (the
+    engine's plan), resolved for the card on the CPU, against the JAX
+    engine's rule (``run_gvi`` takes a fused kernel only where the run's
+    eval_dtype is the one the engine built it with), and the rounding the
+    run takes, the JAX loop's."""
     from gaussianvi_tpu.inference.engine import LocalEngine as JaxEngine
     from gaussianvi_tpu.inference.optimize import _eval_dtype
-    from gaussianvi_tpu_torch.inference.optimize import fused_routes
 
     cfg = GVIConfig(moments_eval_dtype=name)
-    eng = LocalEngine(graphs["flagship"], cfg, CARD)
-    assert fused_routes(eng, cfg, method) == want
-    assert eng.fused_eval_dtype == (torch.bfloat16 if name == "bfloat16"
-                                    else None)
+    plan = LocalEngine(graphs["flagship"], cfg, CARD).plan(cfg, method)
+    assert (plan.trials == "fused", plan.gradient == "fused") == want
     jg = build_chain_estimation(num_states=8, dim_x=2, gh_degree=4,
                                 seed=0)[0]
     jcfg = JaxConfig(chain_impl="lanes", moments_eval_dtype=name)
     jeng = JaxEngine(jg, jcfg)
     jed = _eval_dtype(jcfg, method)
+    assert plan.eval_dtype == (None if jed is None
+                               else getattr(torch, jnp.dtype(jed).name))
     jax_routes = (jeng.fused_trials_ready and jed == jeng.fused_eval_dtype,
                   method == "ngd" and jeng.fused_gradient_ready
                   and jed == jeng.fused_grad_eval_dtype)

@@ -53,7 +53,8 @@ def _signature(graph, state, cfg=CFG, method="ngd", start=0, loop=None):
     # arrays, which the builders wrap, are aligned to fewer bytes)
     graph, state = loop_graph.map_tensors((graph, state), torch.clone)
     engine = LocalEngine(graph, cfg, CARD)
-    call = _graph_call(engine, state, cfg, method, start, loop)
+    call = _graph_call(engine, engine.plan(cfg, method), state, cfg, start,
+                       loop)
     assert call is not None
     key, tree, _ = call
     sig, _ = loop_graph.signature(key, tree)
@@ -96,7 +97,8 @@ def test_the_tree_holds_the_operands_and_the_starts():
     operands, each tensor once; every fused batch's start is refreshed."""
     graph, state = _chain()
     engine = LocalEngine(graph, CFG, CARD)
-    key, tree, starts = _graph_call(engine, state, CFG, "ngd", 0, None)
+    key, tree, starts = _graph_call(engine, engine.plan(CFG, "ngd"), state,
+                                    CFG, 0, None)
     _, leaves = loop_graph.signature(key, tree)
     ids = {id(t) for t in leaves}
     assert len(ids) == len(leaves)
@@ -104,9 +106,9 @@ def test_the_tree_holds_the_operands_and_the_starts():
             id(graph.nonlinear[0].kernel_params)} <= ids
     # a dict (the params cost_fn reads) is not read by the region
     assert id(next(iter(graph.nonlinear[0].params.values()))) not in ids
-    ops = engine._fused_ops
+    (_, (_, nl_arrays), (_, lin_arrays)), _ = engine.operands()
     assert [id(t) for t, _ in starts] == [id(a[0])
-                                          for a in (*ops[2], *ops[3])]
+                                          for a in (*nl_arrays, *lin_arrays)]
     assert all(n == graph.num_states and id(t) in ids for t, n in starts)
 
 
@@ -149,7 +151,8 @@ def test_ineligible_calls_take_no_graph(case):
         engine = FactorShardEngine(graph, cfg, device, make_mesh(1, 1))
     else:
         engine = LocalEngine(graph, cfg, device)
-    assert _graph_call(engine, state, cfg, method, start, None) is None
+    assert _graph_call(engine, engine.plan(cfg, method), state, cfg, start,
+                       None) is None
 
 
 def test_the_point_planner_is_eligible():

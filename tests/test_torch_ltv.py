@@ -101,8 +101,8 @@ def test_example_graph_matches_jax():
         _same_batch(got, want)
     np.testing.assert_array_equal(init.mu.numpy(), np.asarray(jinit.mu))
     eng = LocalEngine(graph, config, torch.device("cuda"))
-    assert (eng.chain_kernel, eng.quad_batches, eng.fused_trials_ready,
-            eng.fused_gradient_ready) == (True, (False,), False, False)
+    assert (eng.chain_impl, eng.quad_batches, eng.fused_trials_ready,
+            eng.fused_gradient_ready) == ("lanes", (False,), False, False)
 
 
 @pytest.mark.parametrize("method", ["ngd", "prox"])

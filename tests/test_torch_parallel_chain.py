@@ -215,8 +215,10 @@ def test_auto_chain_resolution(problems, device, threshold, block, want):
     cfg = GVIConfig(assoc_threshold=threshold)
     eng = LocalEngine(graph, cfg, torch.device(device))
     assert eng.chain_impl == want
-    assert eng.chain_kernel == (want == "lanes")
-    assert eng.quad_kernel == (want == "lanes" and block is None)
+    # the quadrature follows the chain, and the fused kernels it
+    assert eng.quad_batches == (want == "lanes",) * len(graph.nonlinear)
+    assert (eng.plan(cfg, "ngd").trials == "fused") == (
+        want == "lanes" and block is None)
     shard = FactorShardEngine(graph, cfg, torch.device(device),
                               SimpleNamespace(fp=2))
     assert shard.chain_impl == want
@@ -231,8 +233,9 @@ def test_assoc_keeps_the_plain_quadrature_and_refuses_fused_on(problems):
     implementation raises ``ValueError``."""
     graph = _graph(problems)
     eng = LocalEngine(graph, GVIConfig(chain_impl="assoc"), CARD)
-    assert (eng.chain_impl, eng.quad_kernel, eng.fused_trials_ready,
-            eng.fused_gradient_ready) == ("assoc", False, False, False)
+    assert (eng.chain_impl, eng.quad_batches, eng.fused_trials_ready,
+            eng.fused_gradient_ready) == (
+                "assoc", (False,) * len(graph.nonlinear), False, False)
     for field in ("fused_trials", "fused_gradient"):
         with pytest.raises(ValueError, match="'assoc'"):
             LocalEngine(graph, GVIConfig(chain_impl="assoc", **{field: "on"}),

@@ -387,7 +387,7 @@ def test_point_planner_matches_jax_lanes_run():
         _jax_states(jinit, mu))
     cfg = replace(built[2], **ITERS)
     state, hist, engine = _card_routes(built, cfg, mu)
-    assert engine.quad_batches == (True,) and engine.chain_kernel
+    assert engine.quad_batches == (True,) and engine.chain_impl == "lanes"
     assert engine.fused_gradient_ready and not engine.fused_trials_ready
     np.testing.assert_allclose(hist.cost.numpy(), np.asarray(jhist.cost),
                                rtol=1e-9)

@@ -701,7 +701,7 @@ def test_auto_impls_go_by_the_device(descs):
     graph_b, state_b = _port_batch(descs["flagship"])
     mesh, cpu = parallel.make_mesh(1, 1), torch.device("cpu")
     eng = FactorShardEngine(graph_b, GVIConfig(use_pallas=True), cpu, mesh)
-    assert not eng.chain_kernel and not eng.quad_kernel
+    assert eng.chain_impl != "lanes" and not any(eng.quad_batches)
     assert not eng.fused_trials_ready and not eng.fused_gradient_ready
     assert not eng.use_pallas
     with pytest.raises(ValueError, match="CUDA"):
