@@ -902,14 +902,15 @@ def split_checks(graph_b, dev, iterate):
 
 
 # name -> (N, dim_x, problems); no batch is a multiple of K6's four problems
-# per block; s = 6 (dim_x = 3), whose edges sit on lane groups of eight:
-# one edge, more edges than a warp's four groups take at once (K6) and a
-# ragged last turn of the block's sixteen (K5), dynamic starts, two
-# nonlinear batches, a ragged block, the global-scratch route
+# per block; s = 6 (dim_x = 3; K6's edges on lane groups of eight, K5 in
+# two passes): one edge, more edges than a warp's four groups take at once
+# (K6), an odd count of K5's trial chains (two a warp), dynamic starts, two
+# nonlinear batches, a ragged block, the global-scratch route (both kernels
+# from N = 197 in float64)
 LAYOUTS = {"N=2": (2, 2, 3), "N=5, s=2": (5, 1, 5), "N=33": (33, 2, 3),
            "N=70, s=2": (70, 1, 2), "dynamic starts": (9, 2, 3),
            "two nonlinear batches": (8, 2, 5), "long chain": (520, 2, 2),
-           "N=5, s=6": (5, 3, 3), "long chain, s=6": (160, 3, 2),
+           "N=5, s=6": (5, 3, 3), "long chain, s=6": (400, 3, 2),
            "N=2, s=6": (2, 3, 3), "N=33, s=6": (33, 3, 3),
            "dynamic starts, s=6": (9, 3, 3),
            "two nonlinear batches, s=6": (8, 3, 5),
@@ -922,8 +923,8 @@ def layout_checks(dev):
     the warp-per-chain layout can get wrong: chains shorter and longer than
     a warp, s = 2, a nonlinear batch with dynamic starts in another order
     than its states, two nonlinear batches, a ragged last block, and a
-    chain too long for shared memory (the global-scratch route); at s = 6,
-    where an edge sits on a lane group, the same cases for its turns.  Each
+    chain too long for shared memory (the global-scratch route); at s = 6
+    (K6's edges on lane groups, K5's two passes) the same cases.  Each
     kernel is launched twice for identical bits, and ``accum`` + ``solve``
     must give the ``full`` kernel's bits."""
     from gaussianvi_tpu_torch import stack_problems
@@ -2593,33 +2594,40 @@ S6_MODES = {"fused_trials": None, "fused_gradient": "full",
 
 def s6_ptxas(name, cost):
     """``"layout R / R regs, spill a+b / a+b B"``: the layout (lane
-    ``groups`` or a ``lane`` an edge) and what ptxas says of the s = 6
-    instance of K5 or a mode of K6 with ``cost`` (mode "solve" runs the
-    range cost's instance whatever the model's), float32 / float64."""
+    ``groups`` or a ``lane`` an edge; K5's two passes, ``sweep`` and
+    ``costs``, each) and what ptxas says of the s = 6 instance of K5 or a
+    mode of K6 with ``cost`` (mode "solve" runs the range cost's instance
+    whatever the model's; K5's sweep takes no cost), float32 /
+    float64."""
     from gaussianvi_tpu_torch.kernels import _build
     from gaussianvi_tpu_torch.kernels import fused_gradient as fg
 
     mode = S6_MODES[name]
     cost = "range" if mode == "solve" else cost
     report = _build.ptxas_report()
-    found = []
-    for size, dtype in ((4, "float32"), (8, "float64")):
-        if mode is None:    # K5 at s = 6: always the lane groups
-            groups, kernel = True, "trials_s6_kernel"
-        else:
-            groups = fg.grad_groups(6, size, cost, mode)
-            kernel = "grad_s6_kernel" if groups else "grad_kernel"
-        rows = [r for r in report
-                if r["kernel"] == kernel and r["dtype"] == dtype
-                and r["cost"] == cost and r["ints"][0] == 6
-                and (mode is None or r["ints"][-1] == GRAD_MODES[mode])]
-        check(len(rows) == 1, f"ptxas lists {len(rows)} {kernel} {cost} "
-              f"{dtype} instances at s = 6, not one")
-        found.append(("groups" if groups else "lane", rows[0]))
-    (lf, f), (ld, d) = found
-    return (f"{lf} / {ld}, {f['registers']} / {d['registers']} regs, spill "
-            f"{f['spill_stores']}+{f['spill_loads']} / "
-            f"{d['spill_stores']}+{d['spill_loads']} B")
+    layouts = ({"sweep": ("trials_s6_kernel_sweep", None),
+                "costs": ("trials_s6_kernel_costs", cost)}
+               if mode is None else {None: (None, cost)})
+    out = []
+    for layout, (kernel, want_cost) in layouts.items():
+        found = []
+        for size, dtype in ((4, "float32"), (8, "float64")):
+            if mode is not None:
+                groups = fg.grad_groups(6, size, cost, mode)
+                kernel = "grad_s6_kernel" if groups else "grad_kernel"
+                layout = "groups" if groups else "lane"
+            rows = [r for r in report
+                    if r["kernel"] == kernel and r["dtype"] == dtype
+                    and r["cost"] == want_cost and r["ints"][0] == 6
+                    and (mode is None or r["ints"][-1] == GRAD_MODES[mode])]
+            check(len(rows) == 1, f"ptxas lists {len(rows)} {kernel} "
+                  f"{want_cost} {dtype} instances at s = 6, not one")
+            found.append((layout, rows[0]))
+        (lf, f), (ld, d) = found
+        out.append(f"{lf} / {ld}, {f['registers']} / {d['registers']} regs, "
+                   f"spill {f['spill_stores']}+{f['spill_loads']} / "
+                   f"{d['spill_stores']}+{d['spill_loads']} B")
+    return "; ".join(out)
 
 
 def f32_vs_f64(name, hist32, hist64, final0):
@@ -2678,6 +2686,7 @@ def s6_runs(dev):
     n = counts["point3d fused"]
     print(f"[point3d fused path] launches {n}", flush=True)
     check(n["fused_trials"] == n["fused_gradient"] == P3_ITERS
+          == n["trials_s6_sweep"] == n["trials_s6_costs"]
           and n["gbp_covariance_logdet"] > 0 and n["quad_phi"] > 0,
           f"point3d: the fused path skipped its kernels: {n}")
     check_costs("point3d fused path", hist32, S6_B, P3_ITERS, nonneg=True)
@@ -2782,6 +2791,7 @@ def s6_runs(dev):
     n = counts["dim_x=3 fused"]
     print(f"[dim_x=3 fused path] launches {n}", flush=True)
     check(n["fused_trials"] == n["fused_gradient"] == NITERS
+          == n["trials_s6_sweep"] == n["trials_s6_costs"]
           and n["gbp_covariance_logdet"] > 0 and n["quad_phi"] > 0,
           f"dim_x=3: the fused path skipped its kernels: {n}")
     check_costs("dim_x=3 fused path", hist32, S6_B, NITERS)
@@ -4736,7 +4746,8 @@ def main() -> int:
         if r["kernel"] in ("grad_kernel", "trials_kernel", "gbp_kernel",
                            "solve_kernel", "gbp_wide_kernel",
                            "solve_wide_kernel", "quad_kernel",
-                           "trials_s6_kernel", "grad_s6_kernel"))),
+                           "trials_s6_kernel_sweep", "trials_s6_kernel_costs",
+                           "grad_s6_kernel"))),
         flush=True)
 
     t0 = time.perf_counter()
@@ -4781,7 +4792,9 @@ def main() -> int:
         optimize, graph_b[torch.float32], state_b[torch.float32], cfg)
     print(f"[fused path] launches {fused_counts}", flush=True)
     check(fused_counts["fused_trials"] == NITERS
-          and fused_counts["fused_gradient"] == NITERS,
+          and fused_counts["fused_gradient"] == NITERS
+          and fused_counts["trials_s6_sweep"]
+          == fused_counts["trials_s6_costs"] == 0,
           f"the fused kernels did not run once per iteration: {fused_counts}")
     check(fused_counts["gbp_covariance_logdet"] > 0
           and fused_counts["quad_phi"] > 0,

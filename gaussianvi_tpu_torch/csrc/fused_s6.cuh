@@ -1,6 +1,6 @@
-// The lane-group layout of the fused kernels' parallel phase at s = 6: K5
-// (fused_trials_s6.cu) and, at the instances where it is the faster one,
-// K6 (fused_gradient_s6.cuh) take each chain edge on a group of eight lanes
+// The lane-group layout of the fused gradient kernel's parallel phase at
+// s = 6: at the instances where it is the faster one, K6
+// (fused_gradient_s6.cuh) takes each chain edge on a group of eight lanes
 // instead of one thread.
 //
 // At s = 6 one lane that holds an edge's six blocks (F_i, G_{i+1}, B_i and
@@ -13,7 +13,7 @@
 //     group from the block in shared memory (a broadcast read; the factor
 //     is 27 values), and each lane then solves for its own column, in the
 //     operation order of fused.cuh edge_covariance_schur (with chol_r's
-//     Fast factor, as every s = 6 instance of K5 and K6 takes it), so that
+//     Fast factor, as every s = 6 instance of K6 takes it), so that
 //     the covariance blocks have that function's bits.  The group publishes
 //     what its lanes need whole (the Schur complement, then Sig_ii; X) in
 //     the edge's own pivot slots of the arena, F_i and G_{i+1}, which no
@@ -72,23 +72,12 @@ __device__ __forceinline__ void unit_vec(int c, T (&e)[S]) {
   for (int r = 0; r < S; ++r) e[r] = r == c ? T(1) : T(0);
 }
 
-// The edge's coupling B_e read from the arena (row-major), or the trial's
-// B_e + st dB_e (fused_trials.cuh TrialBlocks::off's arithmetic).
+// The edge's coupling B_e read from the arena (row-major).
 template <typename T, int S>
 struct ArenaCoupling {
   const T* b;
   __device__ __forceinline__ T operator()(int r, int c) const {
     return b[r * S + c];
-  }
-};
-
-template <typename T, int S>
-struct TrialCoupling {
-  const T* b;
-  const T* db;
-  T st;
-  __device__ __forceinline__ T operator()(int r, int c) const {
-    return b[r * S + c] + st * db[r * S + c];
   }
 };
 

@@ -37,12 +37,12 @@
 //     ([T, B, K]: neighbouring items write neighbouring words).  More
 //     trials than the arena holds go in chunks through the same two
 //     phases;
-//   - s = 6: fused_trials_s6.cu, the same phase A and arena, but a (trial,
-//     edge) item on a group of eight lanes in phase B (a column of each
-//     s x s block a lane, the state's quadrature nodes over the lanes), and
-//     fewer trials held at once so that four blocks share an SM.  A thread
-//     that holds a whole s = 6 item needs all 255 registers and spills;
-//     the group's lanes hold about a column each.
+//   - s = 6: fused_trials_s6.cu, two passes: K1's s = 6 layout over the
+//     T x B trial chains (one-warp blocks, no block barrier), the
+//     covariance blocks through a scratch, then a lane a (trial, problem,
+//     state) item for the costs.  A thread that holds a whole s = 6 edge
+//     item beside a rule's sums needs all 255 registers and spills; the
+//     passes split the two.
 // Factor operands (params, the linear rows) are read in place through L1:
 // they are a few hundred bytes per problem and shared by the T trials.
 #include "fused_trials.cuh"
@@ -146,9 +146,8 @@ trials_kernel(const T* __restrict__ mu_g, const T* __restrict__ dmu_g,
     const int held = min(chunk, nt - t0);
 
     // ---- phase A: both pivot recursions and the log det of every trial
-    // held, 2s lanes each; a lane past the last trial, or past the warp's
-    // whole lane groups (s = 6), repeats another (same values to the same
-    // words) so that the warp stays whole ----------------------------------
+    // held, 2s lanes each; a lane past the last trial repeats another (same
+    // values to the same words) so that the warp stays whole ---------------
     const int gl = group_lane<S>(lane);
     for (int first = warp * kPerWarp; first < held;
          first += warps * kPerWarp) {
@@ -261,7 +260,10 @@ int dispatch_trials(const void* mu, const void* dmu, const void* pd,
 // planar SDF at s = 2, 4, the 3-D SDF at s = 6.  A block has `warps`
 // warps and holds `chunk` trials at once;
 // arena = trial_arena_elems values per block, scratch = the global arena
-// or null.  Returns the cudaError_t of the launch (0 = success) or -1
+// or null.  s = 6 (fused_trials_s6.cu): one-warp blocks over all trials
+// at once (warps 1, chunk nt), arena = K1's gbp_warp_elems, scratch = the
+// covariance blocks' scratch, then the arenas where they do not fit
+// shared memory.  Returns the cudaError_t of the launch (0 = success) or -1
 // for sizes that are not instantiated.
 extern "C" int gvi_fused_trials(int dtype, int s, int cost, int np,
                                 const void* mu, const void* dmu,

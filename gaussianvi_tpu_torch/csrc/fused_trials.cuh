@@ -1,15 +1,15 @@
-// What the fused trial kernel's two layouts share (fused_trials.cu says
-// what K5 computes and how each layout answers the card): trials_kernel at
-// s in {2, 4} (fused_trials.cu) and the lane groups at s = 6
-// (fused_trials_s6.cu) stage a problem and its direction in an arena of
-// the same size and form the trial precision alike.
+// What the fused trial kernel's layouts share (fused_trials.cu says what
+// K5 computes and how each layout answers the card): trials_kernel at
+// s in {2, 4} (fused_trials.cu) stages a problem and its direction in an
+// arena and forms the trial precision from it (TrialBlocks); the two
+// passes at s = 6 (fused_trials_s6.cu) take the entry's arguments.
 #pragma once
 
 #include "fused.cuh"
 
 namespace gvi {
 
-// Warps of a block (both layouts).
+// Warps of a block of trials_kernel.
 constexpr int kTrialWarps = 4;
 
 // Arena of one block that holds `chunk` trials at once, in values of T: pd,

@@ -3,8 +3,11 @@
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and,
 while a profiler records, marks each launch with its host-side prep as the
 span ``gvi.kernel.<key>``, ``<key>`` its name in :data:`WRAPPERS`
-(``utils.profiling.span``).  A call whose loop replays as a CUDA graph
-(``inference/loop_graph.py``) counts the launches its captured run made;
+(``utils.profiling.span``).  Two keys count passes, not wrappers:
+``trials_s6_sweep`` and ``trials_s6_costs``, the two kernels K5 launches
+at s = 6, one each a ``fused_trials`` launch and under its span.  A call
+whose loop replays as a CUDA graph (``inference/loop_graph.py``) counts
+the launches its captured run made;
 :func:`loop_graph_counts` counts the calls by how their loop ran, and
 :func:`quad_route_counts` the nonlinear batches by the quadrature route
 the engine resolved them to.
@@ -17,7 +20,7 @@ from .fused_gradient import (
     gradient_solve_lanes,
 )
 from . import fused_moments as _fused_moments  # the name stays the module
-from .fused_trials import trial_costs_lanes
+from .fused_trials import trial_costs_lanes, trials_s6_costs, trials_s6_sweep
 from .quad import (
     quad_arm_moments,
     quad_arm_phi,
@@ -35,6 +38,8 @@ WRAPPERS = {
     "quad_arm_moments": quad_arm_moments,
     "fused_moments": _fused_moments.fused_moments,
     "fused_trials": trial_costs_lanes,
+    "trials_s6_sweep": trials_s6_sweep,
+    "trials_s6_costs": trials_s6_costs,
     "fused_gradient": gradient_lanes,
     "fused_gradient_accum": gradient_accum_lanes,
     "fused_gradient_solve": gradient_solve_lanes,

@@ -148,7 +148,7 @@ def build() -> Path:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_KERNEL = re.compile(r"\d+([a-z_]+(?:_s6)?_kernel)I([fd])")
+_KERNEL = re.compile(r"\d+([a-z_]+(?:_s6)?_kernel(?:_[a-z]+)?)I([fd])")
 # the cost functor a kernel instance was built for (csrc/costs.cuh)
 _COSTS = {"RangeCost": "range", "PlanarSdfCost": "planar_sdf",
           "Sdf3dCost": "sdf3d", "PlanarPatchCost": "planar_patch",
@@ -160,8 +160,8 @@ def ptxas_report() -> list[dict]:
     the ``-Xptxas -v`` output of its build: ``[{kernel, dtype, ints, cost,
     registers, spill_stores, spill_loads}]`` with ``ints`` the integer
     and bool template arguments as mangled (block size, mode, ...; the
-    block size 6 put first for a kernel of the s = 6 layout, which takes
-    none) and
+    block size 6 put first for a kernel of the s = 6 layouts, ``*_s6_kernel``
+    and its passes ``*_s6_kernel_<pass>``, which take none) and
     ``cost`` the cost functor's name in ``KERNEL_COSTS`` (None for a
     kernel without one)."""
     log = build().with_suffix(".ptxas").read_text()
@@ -173,7 +173,7 @@ def ptxas_report() -> list[dict]:
             k = _KERNEL.search(name)
             kernel = k.group(1) if k else name
             ints = [int(x) for x in re.findall(r"L[ib](\d+)E", name)]
-            if kernel.endswith("_s6_kernel"):   # its block size is no argument
+            if "_s6_kernel" in kernel:   # its block size is no argument
                 ints = [6, *ints]
             row = dict(
                 kernel=kernel,

@@ -4,19 +4,23 @@ iteration, chain + quadrature + linear costs, in one kernel.
 Counterpart of ``gaussianvi_tpu/kernels/fused_trials.py``.  The inputs are
 the current iterate and the step direction at width B; the T trial
 iterates ``mu + s_t dmu``, ``sym(Lambda + s_t dLambda)`` exist only inside
-the kernel (``csrc/fused_trials.cu``: a block per problem, the chain in
-shared memory, the trials' serial sweeps side by side in a few warps, the
-(trial, edge) items over all threads).  Each edge's covariance blocks go
-straight to the factors of that state and edge, so nothing covariance-sized
-is written: the outputs are the log det ``[T, B]`` and one ``[T, B, K]``
-cost array per factor batch, nonlinear batches first, then linear.
+the kernel.  Below s = 6 (``csrc/fused_trials.cu``) a block takes a
+problem: the chain in shared memory, the trials' serial sweeps side by
+side in a few warps, the (trial, edge) items over all threads, each edge's
+covariance blocks going straight to the factors of that state and edge.
+At s = 6 (``csrc/fused_trials_s6.cu``) the entry launches two passes: K1's
+layout over the T x B trial chains with the linear factors' costs, whose
+marginal covariances go to a scratch (:func:`trial_s6_block_elems`), then
+a lane a (trial, problem, state) item for E[phi].  The outputs are the log
+det ``[T, B]`` and one ``[T, B, K]`` cost array per factor batch,
+nonlinear batches first, then linear.
 
 The kernels take every operand problem-major, as the engine holds it: no
 operand is copied or re-laid per call.  What a call adds is the block plan
 (:func:`trial_plan`: trials held at once, the arena's size, shared memory
-or, for a chain too long for it, a global scratch) and each batch's
-per-state index (:func:`state_index`, built once and kept on the start
-tensor).
+or, for a chain too long for it, a global scratch, whose size
+:func:`trial_scratch_elems` gives) and each batch's per-state index
+(:func:`state_index`, built once and kept on the start tensor).
 
 Factor operands (built once per graph by ``inference.engine.LocalEngine``,
 shared with the fused gradient kernel):
@@ -37,12 +41,14 @@ for every batch, a slice of states too: one code path finds the factors at
 a state.  Every cost carries the guards of the separate path
 (``factors/moments.py``); the JAX kernel guards only the log det.
 ``trial_costs_lanes.launches`` counts kernel launches (never plain-version
-calls).
+calls); at s = 6 :data:`trials_s6_sweep` and :data:`trials_s6_costs`
+count its two passes, one each a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -69,12 +75,10 @@ MAX_BATCHES = 4          # per kind (csrc/fused.cuh kMaxBatches)
 NL_PTRS, NL_INTS = 6, 8
 SMEM_LIMIT = 232448      # dynamic shared memory of a block on sm_90, bytes
 SMEM_TARGET = 72 * 1024  # per block, so that three blocks share an SM
-SM_SMEM = 233472         # shared memory of an SM on sm_90, bytes
-BLOCK_RESERVED = 1024    # of it reserved per resident block
 TRIAL_WARPS = 4          # csrc/fused_trials.cuh kTrialWarps
-# K5 blocks an SM is to hold at s = 6 (the lane-group layout), by itemsize
-# (csrc/fused_trials_s6.cu TrialS6Blocks, which caps the registers to match)
-TRIAL_S6_BLOCKS = {4: 4, 8: 2}
+# threads of a block of K5's second pass at s = 6 (csrc/fused_trials_s6.cu
+# kTrialCostThreads)
+TRIAL_COST_THREADS = 128
 
 
 class NLTrialSpec(NamedTuple):
@@ -234,36 +238,59 @@ def trial_arena_elems(n: int, s: int, chunk: int) -> int:
     return (4 + 2 * chunk) * n * mat_pitch(s)
 
 
-def trial_smem_target(s: int, itemsize: int) -> int:
-    """Shared memory a K5 block may take so that its layout's blocks per
-    SM fit (at s = 6, lane groups: ``TRIAL_S6_BLOCKS``; below, one block
-    may take it all)."""
-    if s != 6:
-        return SMEM_LIMIT
-    return SM_SMEM // TRIAL_S6_BLOCKS[itemsize] - BLOCK_RESERVED
-
-
 def trial_plan(name: str, n: int, s: int, nt: int, itemsize: int,
                fixed_bytes: int) -> BlockPlan:
-    """K5's block of ``TRIAL_WARPS`` warps: as many of the T trials at
-    once as fit :func:`trial_smem_target` beside the rules
-    (``fixed_bytes``), else as many as fit shared memory; a chain that
-    does not fit with one trial goes to a global scratch."""
+    """K5's blocks.  Below s = 6, a block of ``TRIAL_WARPS`` warps a
+    problem holds as many of the T trials at once as fit shared memory
+    beside the rules (``fixed_bytes``); a chain that does not fit with one
+    trial goes to a global scratch.  At s = 6, the first pass's plan: K1's
+    one-warp blocks (``chain.gbp_plan``) over all T trials at once; the
+    second pass takes the rules alone."""
     if fixed_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: rules of {fixed_bytes} bytes "
                          f"exceed the {SMEM_LIMIT} bytes of shared memory")
+    if s == 6:
+        from .chain import gbp_plan   # chain.py imports this module
+
+        return gbp_plan(n, s, itemsize)._replace(chunk=nt)
 
     def plan(chunk, scratch):
         arena = trial_arena_elems(n, s, chunk)
         smem = fixed_bytes + (0 if scratch else arena * itemsize)
         return BlockPlan(TRIAL_WARPS, arena, smem, scratch, chunk)
 
-    for limit in dict.fromkeys((trial_smem_target(s, itemsize), SMEM_LIMIT)):
-        for chunk in range(nt, 0, -1):
-            found = plan(chunk, False)
-            if found.smem <= limit:
-                return found
+    for chunk in range(nt, 0, -1):
+        found = plan(chunk, False)
+        if found.smem <= SMEM_LIMIT:
+            return found
     return plan(nt, True)
+
+
+def trial_s6_block_elems(chains: int, n: int) -> int:
+    """The scratch that carries K5's marginal covariances from its first
+    pass to its second at s = 6 (csrc/fused_trials_s6.cu
+    trial_s6_block_elems): per trial chain, Sig_ii of its ``n`` states."""
+    return chains * n * 36
+
+
+def trial_s6_grids(b: int, n: int, nt: int) -> tuple[int, int]:
+    """Blocks of K5's two passes at s = 6: one-warp blocks of two trial
+    chains each (csrc/chain.cuh chain_blocks), then the ``nt * b * n``
+    (trial, problem, state) items over blocks of ``TRIAL_COST_THREADS``."""
+    return -(-nt * b // 2), -(-nt * b * n // TRIAL_COST_THREADS)
+
+
+def trial_scratch_elems(plan: BlockPlan, b: int, n: int, s: int,
+                        nt: int) -> int:
+    """Values of the global scratch a K5 launch over ``b`` problems takes
+    (0: none): below s = 6 the blocks' arenas where ``plan.scratch``; at
+    s = 6 the marginal covariances, then the first pass's arenas where
+    ``plan.scratch``."""
+    if s != 6:
+        return b * plan.arena if plan.scratch else 0
+    warps = trial_s6_grids(b, n, nt)[0]
+    return (trial_s6_block_elems(nt * b, n)
+            + (warps * plan.arena if plan.scratch else 0))
 
 
 def state_index(start: torch.Tensor, n: int) -> torch.Tensor:
@@ -517,10 +544,15 @@ def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     fa = factor_args(name, mu, nl_specs, lin_specs, nl_arrays, lin_arrays,
                      nt * b, eval_dtype)
     plan = trial_plan(name, n, s, nt, mu.element_size(), fa.fixed_bytes)
-    ops = [x.contiguous() for x in (mu, dmu, pd, po, dpd, dpo, trials)]
+    # at s = 6 the blocks are read in 16-byte pieces (csrc/fused.cuh
+    # load_block_vec)
+    ops = [x.contiguous() if s != 6 or x.data_ptr() % 16 == 0 else
+           x.clone(memory_format=torch.contiguous_format)
+           for x in (mu, dmu, pd, po, dpd, dpo, trials)]
     ld = torch.empty((nt, b), dtype=mu.dtype, device=mu.device)
-    scratch = (torch.empty((b * plan.arena,), dtype=mu.dtype,
-                           device=mu.device) if plan.scratch else None)
+    elems = trial_scratch_elems(plan, b, n, s, nt)
+    scratch = (torch.empty((elems,), dtype=mu.dtype, device=mu.device)
+               if elems else None)
     err = _build.load().gvi_fused_trials(
         _build.DTYPES[mu.dtype], s, fa.cost, fa.n_params,
         *(x.data_ptr() for x in ops), ld.data_ptr(),
@@ -530,7 +562,14 @@ def _trial_costs_kernel(mu, dmu, pd, po, dpd, dpo, trials, nl_specs,
     )
     _build.check(err, "gvi_fused_trials")
     trial_costs_lanes.launches += 1
+    if s == 6:
+        trials_s6_sweep.launches += 1
+        trials_s6_costs.launches += 1
     return ld, tuple(f.view(nt, b, -1) for f in fa.fc)
 
 
 trial_costs_lanes.launches = 0
+# K5's two passes at s = 6, counted beside its launches
+# (``kernels.WRAPPERS``; both run under its span)
+trials_s6_sweep = SimpleNamespace(launches=0)
+trials_s6_costs = SimpleNamespace(launches=0)

@@ -23,7 +23,9 @@ spans nest under its ``gvi.optimize``:
 * ``gvi.kernel.<name>``: one hand-written kernel's launch with its host
   prep, ``<name>`` its wrapper's key in ``kernels.WRAPPERS``; these sit
   where the wrappers count ``launches``, so a profiled call holds as many
-  as ``kernels.launch_counts()`` grows by.
+  as ``kernels.launch_counts()`` grows by, less the two pass counts of
+  K5 at s = 6 (``trials_s6_sweep``, ``trials_s6_costs``), whose kernels
+  run under ``gvi.kernel.fused_trials``.
 
 With no profiler recording a span is one shared null context.
 """

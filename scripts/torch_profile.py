@@ -412,7 +412,8 @@ def chain_times(dev, tree, save=None):
         f"{r['spill_loads']} B"
         for r in _build.ptxas_report()
         if r["kernel"] in ("gbp_kernel", "trials_kernel", "grad_kernel",
-                           "trials_s6_kernel", "grad_s6_kernel")
+                           "trials_s6_kernel", "trials_s6_kernel_sweep",
+                           "trials_s6_kernel_costs", "grad_s6_kernel")
         and r["ints"][0] in (2, 4, 6)))
     if save is not None:
         torch.save(kept, save)

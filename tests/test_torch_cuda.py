@@ -391,10 +391,11 @@ def _layout_case(name, dtype, dev):
     """Operands at shapes the warp-per-chain layout can get wrong:
     ``(x6, x5, nl_specs, lin_specs, nl_arrays, lin_arrays)``.  The batch is
     never a multiple of the gradient kernel's problems per block.  The
-    ``_s6`` cases (dim_x = 3) hold the s = 6 layout, an edge on a lane
-    group: one edge, more edges than K6's four groups and K5's sixteen
-    take in a turn, dynamic starts, two nonlinear batches, a ragged block,
-    a chain long enough for the global scratch (float64)."""
+    ``_s6`` cases (dim_x = 3) hold the s = 6 layouts (K6: an edge on a
+    lane group; K5: two passes): one edge, more edges than K6's four
+    groups take in a turn, dynamic starts, two nonlinear batches, a ragged
+    block, a chain long enough for K6's global scratch (float64), and one
+    long enough for K5's (``scratch_s6``, both dtypes)."""
     from gaussianvi_tpu_torch.inference.engine import fused_operands
 
     n, dim_x, count = {"n2": (2, 2, 3), "n5_s2": (5, 1, 5), "n33": (33, 2, 3),
@@ -404,7 +405,8 @@ def _layout_case(name, dtype, dev):
                        "n2_s6": (2, 3, 3), "n33_s6": (33, 3, 3),
                        "dynamic_s6": (9, 3, 3), "two_batches_s6": (8, 3, 5),
                        "ragged_s6": (12, 3, 6),
-                       "long_chain_s6": (160, 3, 2)}[name]
+                       "long_chain_s6": (160, 3, 2),
+                       "scratch_s6": (400, 3, 3)}[name]
     graph, state = _flagship(n, dim_x, dtype, dev, count=count)
     nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
     sp, (start, nodes, weights, params) = nl_specs[0], nl_arrays[0]
@@ -443,9 +445,33 @@ def _same_bits(a, b):
         a.nan_to_num(), b.nan_to_num())
 
 
+def _check_kernel(got, want, ref):
+    """Kernel outputs against their plain version's: float64 within ATOL
+    of the output's range; float32 (``ref`` the float64 plain outputs)
+    with the float32 plain version's NaN decisions and no further from the
+    float64 plain version than 4x the float32 plain version is, plus 1e-6
+    of the output's range (float32 rounding grows along a chain and
+    through the solves)."""
+    for g, w, r in zip(got, want, ref):
+        if g.dtype == torch.float64:
+            fin = w[torch.isfinite(w)]
+            scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+            torch.testing.assert_close(g, w, rtol=0, atol=ATOL * scale,
+                                       equal_nan=True)
+            continue
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        fin = torch.isfinite(g) & torch.isfinite(r)
+        if not fin.any():
+            continue
+        err_k = (g.double() - r)[fin].abs().max()
+        err_p = (w.double() - r)[fin].abs().max()
+        floor = 1e-6 * max(1.0, float(r[fin].abs().max()))
+        assert err_k <= 4 * err_p + floor, (err_k, err_p)
+
+
 LAYOUT_CASES = ["n2", "n5_s2", "n33", "n70_s2", "dynamic", "two_batches",
                 "long_chain", "n2_s6", "n33_s6", "dynamic_s6",
-                "two_batches_s6", "ragged_s6", "long_chain_s6"]
+                "two_batches_s6", "ragged_s6", "long_chain_s6", "scratch_s6"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -472,12 +498,18 @@ def test_fused_kernels_at_awkward_layouts(dev, name, dtype):
         plan = ft.trial_plan("t", n, s, 11, size, 0)
         assert plan.scratch if f64 else plan.chunk < 11
     if name == "long_chain_s6":
-        # float64 on the global scratch (both kernels); float32 in shared
-        # memory, one K6 problem a block and K5 in chunks of trials
+        # K6: float64 on the global scratch, float32 in shared memory, one
+        # problem a block; K5's first pass holds its warps' two chains in
+        # shared memory in both dtypes
         g6, t6 = (fg.grad_plan("t", n, s, size, 0),
                   ft.trial_plan("t", n, s, 11, size, 0))
-        assert (g6.scratch, t6.scratch) == (f64, f64)
-        assert f64 or (g6.warps == 1 and t6.chunk < 11)
+        assert (g6.scratch, t6.scratch) == (f64, False)
+        assert f64 or g6.warps == 1
+    if name == "scratch_s6":
+        # K5's first pass on the global scratch in both dtypes, its warps
+        # ragged (33 trial chains)
+        t6 = ft.trial_plan("t", n, s, 11, size, 0)
+        assert t6.scratch and ft.trial_s6_grids(b, n, 11)[0] * 2 == 11 * b + 1
     if not f64:
         # float32 rounding grows along a chain and through the solves: the
         # kernel must take the float32 plain version's NaN decisions and be
@@ -489,21 +521,7 @@ def test_fused_kernels_at_awkward_layouts(dev, name, dtype):
         ops_ref = _as_f64(ops)
 
     def check(got, want, ref):
-        for g, w, r in zip(got, want, want if f64 else ref()):
-            if f64:     # atol 1e-10 of the output's range
-                fin = w[torch.isfinite(w)]
-                scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
-                torch.testing.assert_close(g, w, rtol=0, atol=ATOL * scale,
-                                           equal_nan=True)
-                continue
-            assert torch.equal(torch.isnan(g), torch.isnan(w))
-            fin = torch.isfinite(g) & torch.isfinite(r)
-            if not fin.any():
-                continue
-            err_k = (g.double() - r)[fin].abs().max()
-            err_p = (w.double() - r)[fin].abs().max()
-            floor = 1e-6 * max(1.0, float(r[fin].abs().max()))
-            assert err_k <= 4 * err_p + floor, (err_k, err_p)
+        _check_kernel(got, want, want if f64 else ref())
 
     full = fg.gradient_lanes(*x6, *ops)
     again = fg.gradient_lanes(*x6, *ops)
@@ -604,7 +622,9 @@ def test_optimize_on_kernels_matches_plain(dev):
     assert (counts.pop("fused_trials") == counts.pop("fused_gradient")
             == counts.pop("fused_moments") == counts.pop("fused_gradient_accum")
             == counts.pop("fused_gradient_solve") == counts.pop("quad_arm_phi")
-            == counts.pop("quad_arm_moments") == counts.pop("gbp_trials") == 0)
+            == counts.pop("quad_arm_moments") == counts.pop("gbp_trials")
+            == counts.pop("trials_s6_sweep") == counts.pop("trials_s6_costs")
+            == 0)
     assert all(n > 0 for n in counts.values())
     _, hp = optimize(graph, state,
                      GVIConfig(chain_impl="seq", quad_impl="xla", **cfg))
@@ -1051,6 +1071,118 @@ def test_sdf3d_fused_kernels_match_plain(dev, dtype):
         _assert_close(g, w, dtype, scaled=i > 2)
         if dtype == torch.float64:
             _assert_close(g, f, dtype, scaled=i > 2)
+
+
+def _s6_trials(cost, n, dtype, dev, count=5):
+    """K5's operands at s = 6 on ``count`` problems of ``n`` states, the 3-D
+    point planner (``"sdf3d"``) or chain estimation at dim_x = 3
+    (``"range"``): ``(x5, ops)`` with a random SPD iterate, a random
+    direction and the 11 trial steps of the loop."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+
+    graph, state = (_point3d(dtype, dev, n=n, count=count) if cost == "sdf3d"
+                    else _flagship(n, 3, dtype, dev, count=count))
+    b, s = state.mu.shape[0], 6
+    rng = np.random.default_rng(n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    q = rng.standard_normal((b, n, s, s))
+    dq = rng.standard_normal((b, n, s, s))
+    x5 = (state.mu, t(0.5 * rng.standard_normal((b, n, s))),
+          t(10.0 * np.eye(s) + 0.5 * q @ np.swapaxes(q, -1, -2)),
+          t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+          t(0.5 * (dq + np.swapaxes(dq, -1, -2))),
+          t(0.5 * rng.standard_normal((b, n - 1, s, s))),
+          t(0.9 * 0.75 ** np.arange(1, 12)))
+    return x5, fused_operands(graph)
+
+
+def _flat(out):
+    return (out[0], *out[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 5, 20, 33])
+@pytest.mark.parametrize("cost", ["sdf3d", "range"])
+def test_trials_s6_passes_match_plain(dev, cost, n, dtype):
+    """K5 at s = 6 (K1's layout over the trial chains, then a lane a
+    (trial, problem, state) item) against its plain version for both cost
+    functors (``_check_kernel``); two launches give the same bits, and each
+    counts one launch of K5 and one of each of its passes."""
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+    from gaussianvi_tpu_torch.kernels import launch_counts
+
+    x5, ops = _s6_trials(cost, n, dtype, dev)
+    keys = ("fused_trials", "trials_s6_sweep", "trials_s6_costs")
+    before = launch_counts()
+    got = _twice(lambda: _flat(ft.trial_costs_lanes(*x5, *ops)))
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in keys} == dict.fromkeys(keys, 2)
+    want = _flat(ft.trial_costs_plain(*x5, *ops))
+    ref = want if dtype == torch.float64 else _flat(ft.trial_costs_plain(
+        *(t.double() for t in x5), *_as_f64(ops)))
+    _check_kernel(got, want, ref)
+    if cost == "sdf3d" and n > 2:   # clear of the box and inside it
+        assert (want[1] == 0).any() and (want[1] > 0).any()
+
+
+@pytest.mark.parametrize("cost", ["sdf3d", "range"])
+def test_trials_s6_bfloat16_offsets_match_plain(dev, cost):
+    """K5 at s = 6 with its offsets rounded through bfloat16 (the cost
+    pass's quantised branch) against the plain version with the same
+    option, float64; the round trip changes the output."""
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    x5, ops = _s6_trials(cost, 20, torch.float64, dev)
+    bf16 = torch.bfloat16
+    got = _twice(lambda: _flat(ft.trial_costs_lanes(*x5, *ops,
+                                                    eval_dtype=bf16)))
+    want = _flat(ft.trial_costs_plain(*x5, *ops, eval_dtype=bf16))
+    _check_kernel(got, want, want)
+    plain = _flat(ft.trial_costs_lanes(*x5, *ops))
+    assert not _same_bits(got[1], plain[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_trials_s6_guards_match_plain(dev, dtype):
+    """K5's guards at s = 6 agree with the plain version's: problem 0's
+    Schur pivot D1 - B^T D0^-1 B cancels to 2 ulps (the pivot-trust log
+    det is NaN), every node at the mean with weights 1 and -1 - delta
+    (inside the nonneg band: E[phi] NaN), the anchor's constant negated
+    (a negative linear cost: NaN); problem 1 is healthy."""
+    from gaussianvi_tpu_torch.inference.engine import fused_operands
+    from gaussianvi_tpu_torch.kernels import fused_trials as ft
+
+    eps = torch.finfo(dtype).eps
+    graph, state = _flagship(2, 3, dtype, dev, count=2)
+    nl_specs, lin_specs, nl_arrays, lin_arrays = fused_operands(graph)
+    delta = 1e-4 if dtype == torch.float32 else 1e-13
+    start, nodes, weights, params = nl_arrays[0]
+    w = torch.zeros_like(weights)
+    w[0], w[1] = 1.0, -1.0 - delta
+    nl_arrays = ((start, torch.zeros_like(nodes), w, params),)
+    st, a, lam, pm, pc = lin_arrays[0]
+    lin_arrays = ((st, -a, lam, pm, -pc),) + lin_arrays[1:]
+    eye = torch.eye(6, dtype=dtype, device=dev)
+    pd = torch.stack([torch.stack([eye, (1 + 2 * eps) * eye]),
+                      torch.stack([eye, 2 * eye])])
+    po = torch.stack([eye[None], eye[None]])
+    trials = torch.tensor([0.5, 0.25], dtype=dtype, device=dev)
+    x = (state.mu, torch.zeros_like(state.mu), pd, po, torch.zeros_like(pd),
+         torch.zeros_like(po), trials)
+    ops = (nl_specs, lin_specs, nl_arrays, lin_arrays)
+    k = _twice(lambda: _flat(ft.trial_costs_lanes(*x, *ops)))
+    p = _flat(ft.trial_costs_plain(*x, *ops))
+    for ld in (k[0], p[0]):
+        assert torch.isnan(ld[:, 0]).all() and torch.isfinite(ld[:, 1]).all()
+    for out in (k, p):
+        assert torch.isnan(out[1]).all()      # the nonneg band
+        assert torch.isnan(out[2]).all()      # the negated anchor
+    for g, w_ in zip(k[3:], p[3:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(w_))
+        assert torch.isfinite(w_[:, 1]).all()
 
 
 def test_s6_models_on_kernels_match_plain(dev):

@@ -212,24 +212,23 @@ def test_cholesky_beyond_the_unroll_limit_poisons_like_jax():
 
 def test_block_plans_at_s6():
     """The arenas the s = 6 launches ask for (one warp of two chains for
-    K1 / K2; K5's trials held at once; K6's problems per block) at the
-    shapes the models give them, float32 and float64; the long chains
-    take the global scratch."""
+    K1 / K2 and K5's first pass; K6's problems per block) at the shapes
+    the models give them, float32 and float64; the long chains take the
+    global scratch."""
     k1 = tchain.gbp_warp_elems(32, 6, 4)
     assert tchain.chains_per_warp(6) == 2
     # both pivot arrays of its two chains, 32 blocks of 37 words each
     assert k1 == 2 * 2 * tchain.slot_pitch(32 * 37, 2, 4)
     assert not tchain.chain_plan(k1, 4).scratch
     assert tchain.chain_plan(tchain.gbp_warp_elems(1100, 6, 8), 8).scratch
-    # K5 holds as many trials as let its blocks per SM (four in float32,
-    # two in float64) share an SM's shared memory
-    for n, itemsize, rules, chunk in ((20, 4, 25 * 7 * 4, 7),
-                                      (20, 8, 25 * 7 * 8, 7),
-                                      (32, 4, 69 * 7 * 4, 3),
-                                      (32, 8, 69 * 7 * 8, 3)):
+    # K5's first pass lays K1's warps over every trial chain at once; the
+    # second takes the rules alone
+    for n, itemsize, rules in ((20, 4, 25 * 7 * 4), (20, 8, 25 * 7 * 8),
+                               (32, 4, 69 * 7 * 4), (32, 8, 69 * 7 * 8)):
         plan = tft.trial_plan("t", n, 6, 11, itemsize, rules)
-        assert (plan.chunk, plan.scratch) == (chunk, False)
-        assert plan.smem <= tft.trial_smem_target(6, itemsize)
+        assert (plan.warps, plan.chunk, plan.scratch) == (1, 11, False)
+        assert plan.arena == tchain.gbp_warp_elems(n, 6, itemsize)
+        assert plan.smem == plan.arena * itemsize
     assert tfg.grad_plan("g", 20, 6, 4, 700).warps == 2
     assert tfg.grad_plan("g", 32, 6, 8, 3864).warps == 1
     # every mode of K6 at s = 6, the split pair too (since the factor-
