@@ -1188,7 +1188,8 @@ def test_trials_s6_guards_match_plain(dev, dtype):
 def test_s6_models_on_kernels_match_plain(dev):
     """The three s = 6 models under the defaults on the card, against the
     plain path (float64, rtol 1e-9, the same accepted steps): the 3-D
-    point planner on K5 / K6 once per iteration (K1 and K3 phi at init)
+    point planner on K5 (its two passes) / K6 once per iteration (K1 and
+    K3 phi at init)
     and on the separate kernels; chain estimation at dim_x = 3 on K5 / K6;
     the quadrotor on K1 / K2 with the plain quadrature."""
     from dataclasses import replace
@@ -1210,8 +1211,8 @@ def test_s6_models_on_kernels_match_plain(dev):
                                BlockTridiag(
                                    qi.precision.diag.expand(3, 12, 6, 6),
                                    qi.precision.off.expand(3, 11, 6, 6)))
-    fused = {"fused_trials", "fused_gradient", "gbp_covariance_logdet",
-             "quad_phi"}
+    fused = {"fused_trials", "trials_s6_sweep", "trials_s6_costs",
+             "fused_gradient", "gbp_covariance_logdet", "quad_phi"}
     runs = [(*_point3d(f64, dev), cfg, fused),
             (*_point3d(f64, dev), replace(cfg, fused_trials="off",
                                            fused_gradient="off"),
@@ -1226,6 +1227,7 @@ def test_s6_models_on_kernels_match_plain(dev):
         assert {k for k, v in counts.items() if v} == kernels, counts
         if "fused_trials" in kernels:
             assert counts["fused_trials"] == counts["fused_gradient"] == \
+                counts["trials_s6_sweep"] == counts["trials_s6_costs"] == \
                 config.niters
         _, hp = optimize(graph, state, replace(config, chain_impl="seq",
                                                quad_impl="xla"))
